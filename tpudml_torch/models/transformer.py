@@ -1,0 +1,180 @@
+"""Decoder-only LM: the port of ``tpudml/models/transformer.py`` (serving
+subset — init, the unfused full forward, and the KV-cached decode and
+chunked prefill paths).
+
+Parameter names follow the JAX param tree: ``tok_embed``, ``pos_embed``
+(learned positions, absent with RoPE), ``block{i}.{ln1, attn.{q,k,v,out},
+ln2, fc1, fc2}``, ``ln_f``, ``head``; Dense kernels are [in, out]. The
+blocks are pre-LN with a GELU (tanh approximation, ``jax.nn.gelu``'s
+default) MLP of ratio 4. The serving paths run exactly the full
+forward's unfused math, so greedy decode is logit-exact against it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpudml_torch.device import resolve_device
+from tpudml_torch.nn.attention import MultiHeadAttention
+from tpudml_torch.nn.layers import Dense, LayerNorm
+
+MLP_RATIO = 4
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN decoder block: x + MHA(LN(x)); x + FFN(LN(x))."""
+
+    def __init__(self, embed_dim: int, num_heads: int, *,
+                 num_kv_heads: int | None = None, rope: bool = False,
+                 rope_base: float = 10000.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        d = embed_dim
+        self.ln1 = LayerNorm(d)
+        self.attn = MultiHeadAttention(
+            d, num_heads, causal=True, num_kv_heads=num_kv_heads,
+            rope=rope, rope_base=rope_base, generator=generator,
+        )
+        self.ln2 = LayerNorm(d)
+        self.fc1 = Dense(d, MLP_RATIO * d, generator=generator)
+        self.fc2 = Dense(MLP_RATIO * d, d, generator=generator)
+
+    def ffn(self, y: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(y), approximate="tanh"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        return x + self.ffn(self.ln2(x))
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only language model: token (+ learned position, unless
+    ``rope``) embeddings, ``num_layers`` pre-LN blocks, final LayerNorm,
+    vocab projection. Parameters are drawn on the CPU from ``generator``
+    (default: seeded with 0) and moved to ``device`` (default "cuda";
+    asking for the card without one raises)."""
+
+    def __init__(self, vocab_size: int, embed_dim: int = 128,
+                 num_heads: int = 4, num_layers: int = 2, max_len: int = 1024,
+                 num_kv_heads: int | None = None,
+                 rope: bool = False, rope_base: float = 10000.0, *,
+                 device: str | torch.device = "cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.vocab_size = vocab_size
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.num_layers = num_layers
+        self.max_len = max_len
+        self.num_kv_heads = num_kv_heads
+        self.rope = rope
+        self.tok_embed = nn.Parameter(
+            0.02 * torch.randn((vocab_size, embed_dim), generator=g))
+        self.pos_embed = (
+            None if rope else
+            nn.Parameter(0.02 * torch.randn((max_len, embed_dim), generator=g))
+        )
+        self.ln_f = LayerNorm(embed_dim)
+        self.head = Dense(embed_dim, vocab_size, generator=g)
+        for i in range(num_layers):
+            self.add_module(f"block{i}", TransformerBlock(
+                embed_dim, num_heads, num_kv_heads=num_kv_heads,
+                rope=rope, rope_base=rope_base, generator=g,
+            ))
+        self.to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embed.device
+
+    def blocks(self) -> list[TransformerBlock]:
+        return [getattr(self, f"block{i}") for i in range(self.num_layers)]
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Full forward: tokens [B, T] -> logits [B, T, V]."""
+        t = tokens.shape[1]
+        h = self.tok_embed[tokens]
+        if not self.rope:
+            if t > self.max_len:
+                raise ValueError(f"sequence length {t} exceeds max_len {self.max_len}")
+            h = h + self.pos_embed[:t]
+        for block in self.blocks():
+            h = block(h)
+        return self.head(self.ln_f(h))
+
+    # ----------------------------------------------------- serving paths
+
+    def init_decode_cache(self, batch: int, max_len: int | None = None,
+                          kind: str = "f32"):
+        """Per-layer KV caches for ``batch`` decode slots, on the model's
+        device: a tuple of ``num_layers`` ``KVCache``, each
+        [batch, max_len, kv_heads, head_dim]."""
+        from tpudml_torch.serve.cache import init_cache
+
+        max_len = self.max_len if max_len is None else max_len
+        if not self.rope and max_len > self.max_len:
+            raise ValueError(
+                f"cache max_len {max_len} exceeds the position table "
+                f"({self.max_len}); only RoPE models extrapolate"
+            )
+        head_dim = self.embed_dim // self.num_heads
+        kv_heads = self.num_kv_heads or self.num_heads
+        return tuple(
+            init_cache(batch, max_len, kv_heads, head_dim, kind, self.device)
+            for _ in range(self.num_layers)
+        )
+
+    def _decode_embed(self, tokens, pos):
+        """[B] tokens at per-slot positions ``pos`` [B] -> [B, 1, d]."""
+        h = self.tok_embed[tokens][:, None, :]
+        if not self.rope:
+            h = h + self.pos_embed[pos][:, None, :]
+        return h
+
+    def _serve_blocks(self, caches, h, attend):
+        """Shared block loop of both serving paths: pre-LN attention via
+        ``attend(attn_module, cache, y)`` and the dense FFN."""
+        new_caches = []
+        for block, cache in zip(self.blocks(), caches):
+            a, cache = attend(block.attn, cache, block.ln1(h))
+            h = h + a
+            h = h + block.ffn(block.ln2(h))
+            new_caches.append(cache)
+        return h, tuple(new_caches)
+
+    def apply_decode_features(self, caches, tokens, pos):
+        """One incremental decode step stopping at the post-``ln_f``
+        features: (features [B, d], caches). The input of the fused decode
+        head, which never materializes the [B, V] logits."""
+        h = self._decode_embed(tokens, pos)
+        h, caches = self._serve_blocks(
+            caches, h, lambda attn, cache, y: attn.apply_decode(cache, y, pos))
+        return self.ln_f(h)[:, 0, :], caches
+
+    def apply_decode(self, caches, tokens, pos):
+        """One incremental decode step: ``tokens`` [B] at per-slot
+        positions ``pos`` [B] -> (logits [B, V], caches). Each slot's K/V
+        land in its cache row at ``pos``."""
+        h, caches = self.apply_decode_features(caches, tokens, pos)
+        return self.head(h), caches
+
+    def apply_prefill(self, caches, chunk, slot: int, start: int):
+        """Prefill one chunk of one slot's prompt: ``chunk`` [1, C] tokens
+        at global positions [start, start+C) -> caches. No logits: the
+        engine feeds the prompt's last token through ``apply_decode``."""
+        c = chunk.shape[1]
+        h = self.tok_embed[chunk]
+        if not self.rope:
+            if start + c > self.max_len:
+                raise ValueError(
+                    f"prefill window {start + c} exceeds max_len {self.max_len}"
+                )
+            h = h + self.pos_embed[start:start + c][None]
+        _, caches = self._serve_blocks(
+            caches, h,
+            lambda attn, cache, y: attn.apply_prefill(cache, y, slot, start))
+        return caches
