@@ -7,12 +7,17 @@ the CPU). Phases, each printing its own line(s):
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN, so f32 means f32.
 2. build: every CUDA kernel source of the port, one nvcc each, together.
-3. kernel vs plain version on the card at the serving path's shapes, with
-   the tolerances stated: the flash forward (B=1, T=128, H=8, D=64:
-   causal, non-causal, odd T, k_shift=1) and the fused decode head
-   (B=8, d=512, V=32768, f32 and int8 weights); times of the kernel, the
-   plain version and a library call computing the same function.
-4. the main path: the serving engine at full width (V=32768, d=512, H=8,
+3. kernel vs plain version on the card at the main paths' shapes, with
+   the tolerances stated: the flash forward (serving: B=1, T=128, H=8,
+   D=64: causal, non-causal, odd T, k_shift=1; training: B=8, T=1024,
+   H=4, D=128, causal), the fused decode head (B=8, d=512, V=32768, f32
+   and int8 weights), the flash backward dQ and dK/dV (B=8, T=1024, H=4,
+   D=128 causal; also non-causal, T=1000 and k_shift=1 through
+   ``flash_block_grads``) and the fused add+LayerNorm forward and
+   backward (N=8192, d=512; also N=1000 and ds=None); times of the
+   kernel, the plain version and a library call computing the same
+   function, beside the bound.
+4. main path 1, serving: the serving engine at full width (V=32768, d=512, H=8,
    kv_heads=2, L=6, RoPE, f32, random weights from a seeded generator;
    8 slots, max_len 1024, prefill chunks of 128; 16 requests at qps=inf,
    prompts 64-512, 64 new tokens at most), served unfused, with the fused
@@ -22,8 +27,19 @@ the CPU). Phases, each printing its own line(s):
    checked against a teacher-forced full forward (plain attention) and
    between the fused and unfused runs; a divergence is allowed only at a
    near-tie of the plain logits (top-2 gap < 1e-5), and is printed.
-5. one JSON line of per-kernel numbers, the card's name and power limit,
-   and, last, ``{"ok": true, "device": {...}}``.
+5. main path 2, training: ``TransformerLM(impl="flash", fused_ln=True,
+   rope=True)`` at the repo's chip training config (V=32768, d=512, H=4,
+   L=6, T=1024, B=8, f32, Adam lr 1e-3; random weights from a seeded
+   generator, batches from ``synthetic_lm``) trains TRAIN_STEPS steps
+   through ``make_train_step``; the same initial state trains the same
+   steps with ``impl="full", fused_ln=False``, which launches no kernel.
+   Launch counts are zeroed just before the kernel run and read just
+   after: exactly TRAIN_STEPS × (6, 6, 6, 12, 12) for flash fwd, dQ,
+   dK/dV, add+LN fwd, add+LN bwd. Step-1 gradients and every step's loss
+   agree with the plain run within the stated tolerances.
+6. one JSON line of per-kernel numbers (launches summed over both main
+   paths), the card's name and power limit, and, last,
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -36,6 +52,20 @@ import time
 TIE_GAP = 1e-5  # plain top-2 logit gap under which a pick may differ
 FLASH_TOL = 1e-5  # max |err| of O and of lse, kernel vs plain (f32 sums in another order)
 HEAD_TOL = 1e-4  # max |err| of max logit and lse (512-term f32 dots in another order; lse ~ 10)
+# Flash dQ/dK/dV, elementwise |err| <= atol + rtol·|plain|: the JAX
+# package's own tolerance for these kernels (f32 sums over up to T keys
+# or rows, in another order than the plain version's matmuls).
+GRAD_RTOL, GRAD_ATOL = 5e-4, 1e-5
+LN_ROW_TOL = 1e-5  # max |err| of s, y, mean, rstd, dx (d-term row sums in another order; rsqrtf <= 2 ulp)
+LN_COL_RTOL = 1e-5  # max |err| of dγ, dβ over max |plain| (N-row sums, block order vs one reduction)
+# Training: step-1 gradients, per parameter, max |err| <= STEP_GRAD_RTOL ·
+# max |plain grad| (f32 sums over 8192 tokens and 1024 keys in another
+# order, ten times the CPU parity tests' 1e-5); per-step losses within
+# LOSS_TOL (Adam's first step moves every parameter by ±lr, so a gradient
+# whose sign differs under f32 rounding puts that parameter 2·lr apart;
+# 1e-3 on a loss of ~10 holds a few such flips).
+STEP_GRAD_RTOL = 1e-4
+LOSS_TOL = 1e-3
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 
@@ -43,6 +73,18 @@ SERVE_MODEL = dict(vocab_size=32768, embed_dim=512, num_heads=8,
                    num_kv_heads=2, num_layers=6, max_len=1024, rope=True)
 SERVE_CFG = dict(slots=8, max_len=1024, prefill_chunk=128)
 WORKLOAD = dict(n_requests=16, prompt_len=(64, 512), new_tokens=(16, 64))
+# The repo's chip training config (bench.py:325-326), task5 flags
+# --vocab 32768 --embed_dim 512 --num_heads 4 --num_layers 6 --seq_len 1024
+# --batch_size 8 --attn flash --fused_ln --rope.
+TRAIN_MODEL = dict(vocab_size=32768, embed_dim=512, num_heads=4, num_layers=6,
+                   max_len=1024, rope=True)
+TRAIN_BATCH = 8
+TRAIN_STEPS = 4  # the first is the warm-up; ms/step is taken over the rest
+TRAIN_LR = 1e-3
+# Launches of one training step at L=6: flash fwd, dQ, dK/dV one per layer;
+# add+LN 2L junctions per direction (the first block's ln1 stays plain).
+PER_STEP = {"flash_forward_lse": 6, "flash_dq": 6, "flash_dkdv": 6,
+            "add_layernorm_fwd": 12, "add_layernorm_bwd": 12}
 
 
 class SmokeFailure(RuntimeError):
@@ -124,9 +166,197 @@ def flash_phase(gen) -> dict:
     print(f"[kernel] flash_forward_lse B={b} T={t} H={h} D={d} causal: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
           f"bound {bnd:.5f} ms ({by})")
-    return dict(name=FLASH_FORWARD.name, route="cuda", source=FLASH_FORWARD.source,
-                replaces=FLASH_FORWARD.replaces, max_abs_err=worst, ms=ms,
-                plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+    row = dict(name=FLASH_FORWARD.name, route="cuda", source=FLASH_FORWARD.source,
+               replaces=FLASH_FORWARD.replaces, max_abs_err=worst, ms=ms,
+               plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+               shape=f"B={b} T={t} H={h} D={d} causal (serving)")
+    row["at_train_shape"] = flash_train_shape(gen)
+    return row
+
+
+def flash_train_shape(gen) -> dict:
+    """The flash forward at the training slice's shape (B=8, T=1024, H=4,
+    D=128, causal): agreement with the plain version and times."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudml_torch.ops import flash_forward_lse, flash_forward_lse_reference
+
+    b, t, h, d = 8, 1024, 4, 128
+    q, k, v = (torch.randn((b, t, h, d), generator=gen).cuda() for _ in range(3))
+    o, lse = flash_forward_lse(q, k, v, causal=True)
+    ro, rlse = flash_forward_lse_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = max((o - ro).abs().max().item(), (lse - rlse).abs().max().item())
+    check(err <= FLASH_TOL, f"flash kernel disagrees with its plain version at "
+          f"the training shape (max |err| {err:.3e})")
+    ms = cuda_ms(lambda: flash_forward_lse(q, k, v, causal=True), iters=20)
+    plain_ms = cuda_ms(lambda: flash_forward_lse_reference(q, k, v, causal=True), iters=20)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+                     iters=20)
+    pairs = b * h * t * (t + 1) // 2
+    bnd, by = bound(4 * (4 * b * t * h * d + b * h * t), 4 * d * pairs)
+    print(f"[kernel] flash_forward_lse B={b} T={t} H={h} D={d} causal: max|err| "
+          f"{err:.3e} (tol {FLASH_TOL:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"sdpa {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
+    return dict(shape=f"B={b} T={t} H={h} D={d} causal (training)", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+
+
+def _grad_err(got, want) -> float:
+    """max |got − want|, after checking |err| <= GRAD_ATOL + GRAD_RTOL·|want|
+    elementwise."""
+    diff = (got - want).abs()
+    ok = bool((diff <= GRAD_ATOL + GRAD_RTOL * want.abs()).all())
+    err = diff.max().item()
+    check(ok, f"flash backward disagrees with its plain version (max |err| {err:.3e})")
+    return err
+
+
+def flash_bwd_phase(gen) -> list[dict]:
+    """dQ (#2) and dK/dV (#3) against their plain versions: the training
+    shape (B=8, T=1024, H=4, D=128, causal), a small non-causal case, odd
+    T and k_shift=1, through ``flash_block_grads``; then each kernel timed
+    at the training shape beside its plain version, its bound and SDPA's
+    backward (forward+backward minus forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudml_torch.ops import (
+        FLASH_DKDV, FLASH_DQ, flash_block_grads, flash_block_grads_reference,
+        flash_dkdv, flash_dkdv_reference, flash_dq, flash_dq_reference,
+        flash_forward_lse_reference,
+    )
+
+    err_dq = err_dkdv = 0.0
+    main = None
+    for b, t, h, d, causal, k_shift in ((8, 1024, 4, 128, True, 0),
+                                        (2, 256, 4, 128, False, 0),
+                                        (2, 1000, 4, 128, True, 0),
+                                        (2, 256, 4, 128, True, 1)):
+        q, k, v, do = (torch.randn((b, t, h, d), generator=gen).cuda() for _ in range(4))
+        # Statistics of a k_shift=0 forward: every row has a finite lse.
+        o, lse = flash_forward_lse_reference(q, k, v, causal=causal)
+        delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        got = flash_block_grads(*args, causal=causal, k_shift=k_shift)
+        want = flash_block_grads_reference(*args, causal=causal, k_shift=k_shift)
+        torch.cuda.synchronize()
+        e = [_grad_err(g, w) for g, w in zip(got, want)]
+        print(f"[kernel] flash_block_grads B={b} T={t} H={h} D={d} causal={causal} "
+              f"k_shift={k_shift}: max|ddq|={e[0]:.3e} max|ddk|={e[1]:.3e} "
+              f"max|ddv|={e[2]:.3e} (|err| <= {GRAD_ATOL:g} + {GRAD_RTOL:g}·|plain|)")
+        err_dq, err_dkdv = max(err_dq, e[0]), max(err_dkdv, e[1], e[2])
+        if main is None:
+            main = (args, b, t, h, d)
+    del got, want
+    args, b, t, h, d = main
+    q, k, v, do = args[:4]
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    lib_ms = (cuda_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), iters=20)
+              - cuda_ms(sdpa, iters=20))
+    pairs = b * h * t * (t + 1) // 2
+    io = b * t * h * d
+    rows = []
+    for kernel, fn, ref, err, nbytes, flops in (
+        (FLASH_DQ, flash_dq, flash_dq_reference, err_dq,
+         4 * (5 * io + 2 * b * h * t), 6 * d * pairs),
+        (FLASH_DKDV, flash_dkdv, flash_dkdv_reference, err_dkdv,
+         4 * (6 * io + 2 * b * h * t), 8 * d * pairs),
+    ):
+        ms = cuda_ms(lambda: fn(*args, causal=True), iters=20)
+        plain_ms = cuda_ms(lambda: ref(*args, causal=True), iters=10)
+        bnd, by = bound(nbytes, flops)
+        print(f"[kernel] {kernel.name} B={b} T={t} H={h} D={d} causal: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa backward (dq+dk+dv) {lib_ms:.4f} ms, "
+              f"bound {bnd:.5f} ms ({by})")
+        rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
+                         replaces=kernel.replaces, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                         library_ms=lib_ms, library="sdpa fwd+bwd minus fwd (dq, dk, dv)",
+                         shape=f"B={b} T={t} H={h} D={d} causal (training)"))
+    return rows
+
+
+def add_ln_phase(gen) -> list[dict]:
+    """add+LN forward (#8) and backward (#9) against their plain versions
+    at the training shape (N = B·T = 8192, d = 512) and at N = 1000 (not a
+    multiple of a block), the backward with and without ds; then timed
+    beside the bound and ``F.layer_norm(x + r)`` (its backward: forward+
+    backward minus forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudml_torch.ops import (
+        ADD_LN_BACKWARD, ADD_LN_FORWARD, add_layernorm_backward,
+        add_layernorm_backward_reference, add_layernorm_forward,
+        add_layernorm_forward_reference,
+    )
+
+    err_f = err_b = 0.0
+    main = None
+    for n, d in ((8192, 512), (1000, 512)):
+        x, r, dy, ds = (torch.randn((n, d), generator=gen).cuda() for _ in range(4))
+        scale = (1 + 0.1 * torch.randn((d,), generator=gen)).cuda()
+        bias = (0.1 * torch.randn((d,), generator=gen)).cuda()
+        got = add_layernorm_forward(x, r, scale, bias)
+        want = add_layernorm_forward_reference(x, r, scale, bias)
+        ef = max((a - w).abs().max().item() for a, w in zip(got, want))
+        check(ef <= LN_ROW_TOL, f"add+LN forward disagrees with its plain version "
+              f"(N={n}, max |err| {ef:.3e})")
+        s, _, mean, rstd = want
+        for dsv in (ds, None):
+            gdx, gdg, gdb = add_layernorm_backward(s, scale, dy, dsv, mean, rstd)
+            wdx, wdg, wdb = add_layernorm_backward_reference(s, scale, dy, dsv, mean, rstd)
+            edx = (gdx - wdx).abs().max().item()
+            ecol = max(((a - w).abs().max() / w.abs().max()).item()
+                       for a, w in ((gdg, wdg), (gdb, wdb)))
+            print(f"[kernel] add_layernorm N={n} d={d} ds={'None' if dsv is None else 'given'}: "
+                  f"fwd max|err| {ef:.3e}, dx max|err| {edx:.3e} (tol {LN_ROW_TOL:g} each), "
+                  f"dgamma/dbeta max|err|/max|plain| {ecol:.3e} (tol {LN_COL_RTOL:g})")
+            check(edx <= LN_ROW_TOL and ecol <= LN_COL_RTOL,
+                  f"add+LN backward disagrees with its plain version (N={n})")
+            err_b = max(err_b, edx, (gdg - wdg).abs().max().item(),
+                        (gdb - wdb).abs().max().item())
+        err_f = max(err_f, ef)
+        if main is None:
+            main = (x, r, scale, bias, dy, ds, s, mean, rstd, n, d)
+    x, r, scale, bias, dy, ds, s, mean, rstd, n, d = main
+    leaves = [t.clone().requires_grad_() for t in (x, r, scale, bias)]
+
+    def lib_fwd():
+        s_ = leaves[0] + leaves[1]
+        return s_, F.layer_norm(s_, (d,), leaves[2], leaves[3], 1e-5)
+
+    lib_f = cuda_ms(lib_fwd)
+    lib_b = cuda_ms(lambda: torch.autograd.grad(lib_fwd(), leaves, (ds, dy))) - lib_f
+    rows = []
+    for kernel, fn, ref, err, nbytes, flops, lib in (
+        (ADD_LN_FORWARD, lambda: add_layernorm_forward(x, r, scale, bias),
+         lambda: add_layernorm_forward_reference(x, r, scale, bias), err_f,
+         4 * (4 * n * d + 2 * d + 2 * n), 8 * n * d, lib_f),
+        (ADD_LN_BACKWARD, lambda: add_layernorm_backward(s, scale, dy, ds, mean, rstd),
+         lambda: add_layernorm_backward_reference(s, scale, dy, ds, mean, rstd), err_b,
+         4 * (4 * n * d + 3 * d + 2 * n), 12 * n * d, lib_b),
+    ):
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(ref)
+        bnd, by = bound(nbytes, flops)
+        print(f"[kernel] {kernel.name} N={n} d={d}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, F.layer_norm(x + r) {lib:.4f} ms, bound {bnd:.5f} ms ({by})")
+        rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
+                         replaces=kernel.replaces, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib,
+                         library="F.layer_norm(x + r)" + (" fwd+bwd minus fwd"
+                                                          if kernel is ADD_LN_BACKWARD else ""),
+                         shape=f"N={n} d={d} f32 (training)"))
+    return rows
 
 
 def _top2_gap(logits):
@@ -323,6 +553,91 @@ def serve_phase(gen) -> dict[str, int]:
     return launches
 
 
+# ------------------------------------------------------------ phase 5
+
+
+def train_phase() -> dict[str, int]:
+    """Main path 2: the training slice at full width (module docstring,
+    phase 5). Returns the launch counts of the kernel run."""
+    import numpy as np
+    import torch
+
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import Adam
+    from tpudml_torch.train import TrainState, make_loss_fn, make_train_step, params_of
+
+    kernel_model = TransformerLM(**TRAIN_MODEL, impl="flash", fused_ln=True, device="cuda",
+                                 generator=torch.Generator().manual_seed(1))
+    plain_model = TransformerLM(**TRAIN_MODEL, impl="full", fused_ln=False, device="cuda",
+                                generator=torch.Generator().manual_seed(2))
+    plain_model.load_state_dict(kernel_model.state_dict())  # one initial state
+    n_params = sum(p.numel() for p in kernel_model.parameters())
+    t, v = TRAIN_MODEL["max_len"], TRAIN_MODEL["vocab_size"]
+    seqs = synthetic_lm(4 * TRAIN_BATCH, t, v, seed=0)
+    rng = np.random.default_rng(0)  # task5's row sampling
+    batches = [seqs[rng.integers(0, len(seqs), size=TRAIN_BATCH)] for _ in range(TRAIN_STEPS)]
+
+    # Step-1 gradients of both models from the initial state (before the
+    # counted run; the optimizer is not involved).
+    tokens, labels = (torch.from_numpy(x).long().cuda()
+                      for x in (batches[0][:, :-1], batches[0][:, 1:]))
+    grads = {}
+    for name, model in (("kernel", kernel_model), ("plain", plain_model)):
+        params = params_of(model)
+        loss, _ = make_loss_fn(model)(tokens, labels)
+        grads[name] = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        del loss
+    worst, worst_name = 0.0, ""
+    for name, g in grads["plain"].items():
+        rel = ((grads["kernel"][name] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"[train] step-1 gradients, kernel vs plain run: worst max|err|/max|plain| "
+          f"{worst:.3e} ({worst_name}; tol {STEP_GRAD_RTOL:g}) over {len(grads['plain'])} "
+          f"parameters, {n_params} values")
+    check(worst <= STEP_GRAD_RTOL, f"step-1 gradient {worst_name} disagrees with the plain run")
+    del grads, tokens, labels
+
+    def train(model):
+        opt = Adam(lr=TRAIN_LR)
+        ts, step = TrainState.create(model, opt), make_train_step(model, opt)
+        losses = []
+        t0 = None
+        for i, batch in enumerate(batches):
+            ts, metrics = step(ts, batch[:, :-1], batch[:, 1:])
+            losses.append(metrics["loss"])
+            if i == 0:  # warm-up step done
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
+        return [float(x) for x in losses], ms
+
+    reset_launch_counts()  # ---- main path 2 starts here
+    k_losses, k_ms = train(kernel_model)
+    launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    p_losses, p_ms = train(plain_model)
+    check({k.name: k.launches for k in KERNELS} == launches,
+          "the plain run launched a kernel")
+    for name, n in launches.items():
+        need = TRAIN_STEPS * PER_STEP.get(name, 0)
+        check(n == need, f"training launched {name} {n} times, {TRAIN_STEPS} steps need {need}")
+    tok = TRAIN_BATCH * t
+    for label, losses, ms in (("kernel (flash + fused add+LN)", k_losses, k_ms),
+                              ("plain (full attention, unfused LN)", p_losses, p_ms)):
+        print(f"[train] {label}: losses {' '.join(f'{x:.6f}' for x in losses)}; "
+              f"{ms:.2f} ms/step, {tok / ms * 1e3:.0f} tokens/s (steady state, "
+              f"{TRAIN_STEPS - 1} steps after one warm-up)")
+    check(all(np.isfinite(k_losses + p_losses)), "a training loss is not finite")
+    diffs = [abs(a - b) for a, b in zip(k_losses, p_losses)]
+    print(f"[train] per-step |loss difference| {' '.join(f'{x:.2e}' for x in diffs)} "
+          f"(tol {LOSS_TOL:g}); launches {launches} = {TRAIN_STEPS} x {PER_STEP}")
+    check(max(diffs) <= LOSS_TOL, "training losses disagree with the plain run")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -347,11 +662,17 @@ def main() -> int:
     print(f"[build] {len(KERNELS)} kernels built in {t_build:.1f} s")
 
     gen = torch.Generator().manual_seed(0)
-    rows = [flash_phase(gen), *head_phase(gen)]
-    launches = serve_phase(gen)
+    rows = [flash_phase(gen), *flash_bwd_phase(gen), *head_phase(gen), *add_ln_phase(gen)]
+    torch.cuda.empty_cache()
+    paths = {"serve": serve_phase(gen)}
+    torch.cuda.empty_cache()
+    paths["train"] = train_phase()
     for row in rows:
-        row["launches"] = launches[row["name"]]
-        check(row["launches"] > 0, f"{row['name']} never launched on the main path")
+        by_path = {path: counts[row["name"]] for path, counts in paths.items()}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+        check(row["launches"] > 0, f"{row['name']} never launched on a main path")
+    check(len(rows) == len(KERNELS), "a kernel has no row")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Parameter interop: ``tpudml`` param trees -> the port's state.
+"""Parameter and optimizer-state interop: ``tpudml`` trees -> the port's state.
 
 The JAX package draws its init from threefry keys, which no torch
 generator reproduces, so parity runs carry the JAX parameters across.
@@ -36,3 +36,20 @@ def lm_params_from_tpudml(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     if "tok_embed" not in flat or "head.kernel" not in flat:
         raise ValueError("not a TransformerLM param tree (no tok_embed/head)")
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in flat.items()}
+
+
+def adam_state_from_tpudml(opt_state: Mapping[str, Any]) -> dict:
+    """The port's ``Adam``/``AdamW`` state from a ``tpudml`` Adam state
+    ``{"m": tree, "v": tree, "t": int}`` (arrays as numpy): the moment
+    trees flatten to the same parameter names as
+    :func:`lm_params_from_tpudml`, ``t`` becomes a Python int. Move the
+    moments to the model's device before updating on it."""
+    if set(opt_state) != {"m", "v", "t"}:
+        raise ValueError(f"not an Adam state (keys {sorted(opt_state)})")
+    return {
+        "m": {k: torch.from_numpy(np.array(v, copy=True))
+              for k, v in _flatten(opt_state["m"]).items()},
+        "v": {k: torch.from_numpy(np.array(v, copy=True))
+              for k, v in _flatten(opt_state["v"]).items()},
+        "t": int(np.asarray(opt_state["t"])),
+    }

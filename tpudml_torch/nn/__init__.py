@@ -1,4 +1,4 @@
-"""Layers and attention of the port (``tpudml.nn`` serving subset)."""
+"""Layers, attention and losses of the port (``tpudml.nn`` subset)."""
 
 from tpudml_torch.nn.attention import (
     MultiHeadAttention,
@@ -8,6 +8,7 @@ from tpudml_torch.nn.attention import (
     rotary_embedding,
 )
 from tpudml_torch.nn.layers import Dense, LayerNorm
+from tpudml_torch.nn.losses import softmax_cross_entropy
 
 __all__ = [
     "Dense",
@@ -17,4 +18,5 @@ __all__ = [
     "decode_attention",
     "dot_product_attention",
     "rotary_embedding",
+    "softmax_cross_entropy",
 ]

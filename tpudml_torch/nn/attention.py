@@ -1,5 +1,6 @@
 """Attention ops and the multi-head attention module: the port of
-``tpudml/nn/attention.py`` (serving subset).
+``tpudml/nn/attention.py`` (single-device subset: full and flash
+attention, the serving paths).
 
 Layout is [B, T, H, D] throughout, as in the JAX package. Scores and
 softmax run in f32; masked entries get ``NEG_INF`` (large-finite, so a
@@ -15,7 +16,12 @@ import torch
 from torch import nn
 
 from tpudml_torch.nn.layers import Dense
-from tpudml_torch.ops.attention_kernel import NEG_INF, flash_forward_lse
+from tpudml_torch.ops.attention_kernel import (
+    NEG_INF, flash_attention, flash_forward_lse,
+)
+
+IMPLS = ("full", "flash")
+CP_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 8, context parallel)"
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
@@ -100,17 +106,23 @@ class MultiHeadAttention(nn.Module):
     """Self-attention with separate head-aligned q/k/v/out projections
     (``Dense``, [in, out] kernels). ``num_kv_heads`` < ``num_heads`` is
     GQA/MQA: K/V project to kv_heads·head_dim and are repeated per query
-    group (``repeat_interleave``, as ``jnp.repeat``) before attention.
-    ``forward`` is the JAX module's ``impl="full"``; the flash training
-    path and ring/Ulysses attention are still to port."""
+    group (``repeat_interleave``, as ``jnp.repeat``) before attention, so
+    the dK/dV of a GQA model sum through the repeat's autograd. ``impl``
+    selects the attention of ``forward``: "full" (the plain masked
+    softmax) or "flash" (:func:`flash_attention`, the flash kernels on the
+    card); "ring" and "ulysses" are context-parallel and not ported."""
 
     def __init__(self, embed_dim: int, num_heads: int, *, causal: bool = False,
-                 num_kv_heads: int | None = None,
+                 impl: str = "full", num_kv_heads: int | None = None,
                  rope: bool = False, rope_base: float = 10000.0,
                  generator: torch.Generator | None = None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} % num_heads {num_heads} != 0")
+        if impl in ("ring", "ulysses"):
+            raise NotImplementedError(f"attention impl {impl!r} {CP_NOT_PORTED}")
+        if impl not in IMPLS:
+            raise ValueError(f"unknown attention impl {impl!r}")
         kv = num_kv_heads
         if kv is not None and (kv < 1 or num_heads % kv):
             raise ValueError(f"num_kv_heads {kv} must divide num_heads {num_heads}")
@@ -121,6 +133,7 @@ class MultiHeadAttention(nn.Module):
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.causal = causal
+        self.impl = impl
         self.kv_heads = kv or num_heads
         self.head_dim = embed_dim // num_heads
         self.rope = rope
@@ -149,15 +162,19 @@ class MultiHeadAttention(nn.Module):
         return k, v
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Full forward over x [B, T, d]."""
+        """Full forward over x [B, T, d] through ``impl``'s attention."""
         b, t, _ = x.shape
         q, k, v = self._project(x)
         if self.rope:
+            # Before the GQA repeat, as the JAX module does.
             positions = torch.arange(t, device=x.device)
             q = rotary_embedding(q, positions, self.rope_base)
             k = rotary_embedding(k, positions, self.rope_base)
         k, v = self._gqa_repeat(k, v, self.num_heads)
-        o = dot_product_attention(q, k, v, causal=self.causal)
+        if self.impl == "flash":
+            o = flash_attention(q, k, v, causal=self.causal)
+        else:
+            o = dot_product_attention(q, k, v, causal=self.causal)
         return self.out(o.reshape(b, t, self.embed_dim))
 
     # ----------------------------------------------------- serving paths

@@ -7,7 +7,16 @@ once (one ``nvcc`` per source, started together).
 """
 
 from tpudml_torch.ops.attention_kernel import (
+    FLASH_DKDV,
+    FLASH_DQ,
     FLASH_FORWARD,
+    flash_attention,
+    flash_block_grads,
+    flash_block_grads_reference,
+    flash_dkdv,
+    flash_dkdv_reference,
+    flash_dq,
+    flash_dq_reference,
     flash_forward_lse,
     flash_forward_lse_reference,
 )
@@ -20,8 +29,18 @@ from tpudml_torch.ops.decode_head import (
     reference_head,
     reference_head_int8,
 )
+from tpudml_torch.ops.layernorm_kernel import (
+    ADD_LN_BACKWARD,
+    ADD_LN_FORWARD,
+    add_layernorm_backward,
+    add_layernorm_backward_reference,
+    add_layernorm_forward,
+    add_layernorm_forward_reference,
+    fused_add_layernorm,
+)
 
-KERNELS = (FLASH_FORWARD, DECODE_HEAD, DECODE_HEAD_INT8)
+KERNELS = (FLASH_FORWARD, FLASH_DQ, FLASH_DKDV, DECODE_HEAD, DECODE_HEAD_INT8,
+           ADD_LN_FORWARD, ADD_LN_BACKWARD)
 
 
 def build_kernels() -> float:
@@ -36,9 +55,21 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "add_layernorm_backward",
+    "add_layernorm_backward_reference",
+    "add_layernorm_forward",
+    "add_layernorm_forward_reference",
     "build_kernels",
+    "flash_attention",
+    "flash_block_grads",
+    "flash_block_grads_reference",
+    "flash_dkdv",
+    "flash_dkdv_reference",
+    "flash_dq",
+    "flash_dq_reference",
     "flash_forward_lse",
     "flash_forward_lse_reference",
+    "fused_add_layernorm",
     "fused_decode_head",
     "fused_decode_head_int8",
     "reference_head",

@@ -1,19 +1,29 @@
-"""Flash-attention forward with the row log-sum-exp: the port of
-``tpudml/ops/attention_kernel.py`` ``flash_forward_lse`` (Pallas
-``_fwd_kernel``).
+"""Flash attention, both directions: the port of
+``tpudml/ops/attention_kernel.py`` (Pallas ``_fwd_kernel``, ``_dq_kernel``,
+``_dkdv_kernel``).
 
-``flash_forward_lse`` launches the hand-written CUDA kernel
-(``tpudml_torch/csrc/flash_fwd.cu``) for CUDA tensors and runs the plain
-PyTorch version :func:`flash_forward_lse_reference` for CPU tensors. It
-never falls back: a CUDA input the kernel does not take (dtype, rank,
-layout, head dim) raises.
+- :func:`flash_forward_lse` — forward with the row log-sum-exp
+  (``tpudml_torch/csrc/flash_fwd.cu``);
+- :func:`flash_block_grads` — the backward with external statistics
+  (lse, Δ): :func:`flash_dq` and :func:`flash_dkdv`, one kernel each
+  (``tpudml_torch/csrc/flash_bwd.cu``);
+- :func:`flash_attention` — a ``torch.autograd.Function`` over the two:
+  its forward saves (q, k, v, o, lse), its backward takes
+  Δ = rowsum(dO ⊙ O) in plain PyTorch and launches dQ and dK/dV.
+
+Each op launches its hand-written CUDA kernel for CUDA tensors and runs
+its plain PyTorch version (``*_reference``) for CPU tensors. It never
+falls back: a CUDA input the kernel does not take (dtype, rank, layout,
+head dim) raises.
 
 Semantics match the TPU kernel: q, k, v are [B, T, H, D] with the same T;
 ``causal`` masks by LOCAL positions ``q_pos >= k_pos + k_shift`` (the
 aligned diagonal block of a window; ``k_shift=1`` makes it strict). A row
 that sees no key at all (only possible with ``k_shift > 0``) returns
 out = 0 and lse = ``NEG_INF``, so it carries zero weight when blocks are
-merged by their log-sum-exp.
+merged by their log-sum-exp. The backward gives masked entries p = 0
+whatever the lse (the TPU kernel computes exp(NEG_INF − lse), which is 0
+for any lse a forward produced for a row that sees a key).
 """
 
 from __future__ import annotations
@@ -37,20 +47,62 @@ FLASH_FORWARD = Kernel(
     "flash_forward_lse", _LIB, "flash_fwd_f32",
     replaces="tpudml/ops/attention_kernel.py:93",
 )
+_BWD_LIB = CudaLibrary("flash_bwd.cu", {
+    "flash_dq_f32": [P] * 7 + [I] * 4 + [LL] * 12 + [I, I, F, P],
+    "flash_dkdv_f32": [P] * 8 + [I] * 4 + [LL] * 12 + [I, I, F, P],
+})
+FLASH_DQ = Kernel(
+    "flash_dq", _BWD_LIB, "flash_dq_f32",
+    replaces="tpudml/ops/attention_kernel.py:177",
+)
+FLASH_DKDV = Kernel(
+    "flash_dkdv", _BWD_LIB, "flash_dkdv_f32",
+    replaces="tpudml/ops/attention_kernel.py:217",
+)
+
+
+def _visible(t: int, causal: bool, k_shift: int, device) -> torch.Tensor:
+    """[T, T] bool: query row i sees key j."""
+    pos = torch.arange(t, device=device)
+    if causal:
+        return pos[:, None] >= pos[None, :] + k_shift
+    return torch.ones(t, t, dtype=torch.bool, device=device)
+
+
+def _check_qkv(q, k, v, k_shift):
+    if not (q.shape == k.shape == v.shape):
+        raise ValueError(
+            f"q, k, v must share [B, T, H, D]; got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if k_shift < 0:
+        raise ValueError(f"k_shift must be >= 0, got {k_shift}")
+
+
+def _check_cuda_operands(named) -> None:
+    """Raise unless every (name, tensor) is what the flash kernels take:
+    f32 CUDA [B,T,H,D] with unit stride on D, a supported head dim, all
+    on one device."""
+    for name, x in named:
+        check_cuda_operand(name, x, torch.float32, 4, contiguous=False)
+    d = named[0][1].shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernel head dim must be one of {HEAD_DIMS}, got {d}")
+    if len({x.device for _, x in named}) != 1:
+        raise ValueError(f"{', '.join(n for n, _ in named)} must be on one device")
+
+
+def _strides(*xs) -> list:
+    return [LL(x.stride(i)) for x in xs for i in (0, 1, 2)]
 
 
 def flash_forward_lse_reference(q, k, v, *, causal: bool = False,
                                 k_shift: int = 0):
     """Plain PyTorch version: materialized f32 scores, same masks and
     statistics as the kernel. Returns (out [B,T,H,D], lse [B,H,T] f32)."""
-    t = q.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    pos = torch.arange(t, device=q.device)
-    if causal:
-        visible = pos[:, None] >= pos[None, :] + k_shift
-    else:
-        visible = torch.ones(t, t, dtype=torch.bool, device=q.device)
+    visible = _visible(q.shape[1], causal, k_shift, q.device)
     s = torch.where(visible, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -71,30 +123,167 @@ def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (f32, head dim in ``HEAD_DIMS``, unit stride along D; the batch, time
     and head strides are passed through, so slices of a cache window need
     no copy); CPU tensors run :func:`flash_forward_lse_reference`."""
-    if not (q.shape == k.shape == v.shape):
-        raise ValueError(
-            f"q, k, v must share [B, T, H, D]; got {tuple(q.shape)}, "
-            f"{tuple(k.shape)}, {tuple(v.shape)}"
-        )
-    if k_shift < 0:
-        raise ValueError(f"k_shift must be >= 0, got {k_shift}")
+    _check_qkv(q, k, v, k_shift)
     if not q.is_cuda:
         return flash_forward_lse_reference(q, k, v, causal=causal,
                                            k_shift=k_shift)
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        check_cuda_operand(name, x, torch.float32, 4, contiguous=False)
+    _check_cuda_operands((("q", q), ("k", k), ("v", v)))
     b, t, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel head dim must be one of {HEAD_DIMS}, got {d}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v must be on one device")
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    strides = [LL(x.stride(i)) for x in (q, k, v) for i in (0, 1, 2)]
     with torch.cuda.device(q.device):
         FLASH_FORWARD.launch(
             ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), I(b), I(t), I(h),
-            I(d), *strides, I(int(causal)), I(k_shift),
+            I(d), *_strides(q, k, v), I(int(causal)), I(k_shift),
             F(1.0 / math.sqrt(d)),
         )
     return out, lse
+
+
+# -------------------------------------------------------------- backward
+
+
+def _bwd_terms(q, k, v, do, lse, delta, causal, k_shift):
+    """f32 (p, ds) [B,H,T,T] of the plain backward: p = exp(s − lse) on
+    visible entries (0 elsewhere), ds = p ⊙ (dO·Vᵀ − Δ)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    visible = _visible(q.shape[1], causal, k_shift, q.device)
+    p = torch.where(visible, torch.exp(s - lse.float()[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta.float()[..., None])
+
+
+def _dq_from(ds, k, scale):
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+
+
+def _dkdv_from(p, ds, q, do, scale):
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dk, torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+
+
+def flash_dq_reference(q, k, v, do, lse, delta, *, causal: bool = False,
+                       k_shift: int = 0):
+    """Plain version of :func:`flash_dq`: dq = scale·ds·K."""
+    _, ds = _bwd_terms(q, k, v, do, lse, delta, causal, k_shift)
+    return _dq_from(ds, k, 1.0 / math.sqrt(q.shape[-1])).to(q.dtype)
+
+
+def flash_dkdv_reference(q, k, v, do, lse, delta, *, causal: bool = False,
+                         k_shift: int = 0):
+    """Plain version of :func:`flash_dkdv`: dk = scale·dsᵀ·Q, dv = pᵀ·dO."""
+    p, ds = _bwd_terms(q, k, v, do, lse, delta, causal, k_shift)
+    dk, dv = _dkdv_from(p, ds, q, do, 1.0 / math.sqrt(q.shape[-1]))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_block_grads_reference(q, k, v, do, lse, delta, *,
+                                causal: bool = False, k_shift: int = 0):
+    """Plain version of :func:`flash_block_grads`: materialized f32
+    scores, p = exp(s − lse) on visible entries (0 elsewhere), then
+    ds = p ⊙ (dO·Vᵀ − Δ), dq = scale·ds·K, dk = scale·dsᵀ·Q, dv = pᵀ·dO."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p, ds = _bwd_terms(q, k, v, do, lse, delta, causal, k_shift)
+    dk, dv = _dkdv_from(p, ds, q, do, scale)
+    return (_dq_from(ds, k, scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+def _check_bwd(q, k, v, do, lse, delta, k_shift) -> None:
+    _check_qkv(q, k, v, k_shift)
+    b, t, h, _ = q.shape
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} must match q {tuple(q.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b, h, t):
+            raise ValueError(f"{name} must be [B, H, T] = {(b, h, t)}, got {tuple(x.shape)}")
+    if q.is_cuda:
+        _check_cuda_operands((("q", q), ("k", k), ("v", v), ("do", do)))
+        for name, x in (("lse", lse), ("delta", delta)):
+            check_cuda_operand(name, x, torch.float32, 3)
+            if x.device != q.device:
+                raise ValueError(f"{name} must be on {q.device}")
+
+
+def _bwd_args(q, k, v, do, lse, delta, causal, k_shift):
+    b, t, h, d = q.shape
+    return ((ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta)),
+            (I(b), I(t), I(h), I(d), *_strides(q, k, v, do), I(int(causal)),
+             I(k_shift), F(1.0 / math.sqrt(d))))
+
+
+def flash_dq(q, k, v, do, lse, delta, *, causal: bool = False,
+             k_shift: int = 0) -> torch.Tensor:
+    """dq [B,T,H,D] of :func:`flash_block_grads`: the dQ kernel for CUDA
+    tensors, :func:`flash_dq_reference` for CPU tensors."""
+    _check_bwd(q, k, v, do, lse, delta, k_shift)
+    if not q.is_cuda:
+        return flash_dq_reference(q, k, v, do, lse, delta, causal=causal,
+                                  k_shift=k_shift)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    common, args = _bwd_args(q, k, v, do, lse, delta, causal, k_shift)
+    with torch.cuda.device(q.device):
+        FLASH_DQ.launch(*common, ptr(dq), *args)
+    return dq
+
+
+def flash_dkdv(q, k, v, do, lse, delta, *, causal: bool = False,
+               k_shift: int = 0):
+    """(dk, dv) [B,T,H,D] of :func:`flash_block_grads`: the dK/dV kernel
+    for CUDA tensors, :func:`flash_dkdv_reference` for CPU tensors."""
+    _check_bwd(q, k, v, do, lse, delta, k_shift)
+    if not q.is_cuda:
+        return flash_dkdv_reference(q, k, v, do, lse, delta, causal=causal,
+                                    k_shift=k_shift)
+    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    common, args = _bwd_args(q, k, v, do, lse, delta, causal, k_shift)
+    with torch.cuda.device(q.device):
+        FLASH_DKDV.launch(*common, ptr(dk), ptr(dv), *args)
+    return dk, dv
+
+
+def flash_block_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, *, causal: bool = False,
+                      k_shift: int = 0):
+    """Per-block flash backward with EXTERNAL softmax statistics: the
+    counterpart of JAX's ``flash_block_grads``.
+
+    ``lse``/``delta`` [B,H,T] f32 come from the (possibly globally merged)
+    attention, delta = rowsum(dO ⊙ O); returns (dq, dk, dv) [B,T,H,D],
+    this block's exact contributions. CUDA tensors run the dQ and dK/dV
+    kernels (f32, head dim in ``HEAD_DIMS``, unit stride along D; batch,
+    time and head strides passed through; lse/delta contiguous); CPU
+    tensors run their plain versions."""
+    dq = flash_dq(q, k, v, do, lse, delta, causal=causal, k_shift=k_shift)
+    dk, dv = flash_dkdv(q, k, v, do, lse, delta, causal=causal, k_shift=k_shift)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_forward_lse(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        # Δ = rowsum(dO ⊙ O) in f32, outside the kernels (as JAX does).
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq, dk, dv = flash_block_grads(q, k, v, do, lse, delta,
+                                       causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False) -> torch.Tensor:
+    """Differentiable flash attention over [B, T, H, D]; the same function
+    as ``dot_product_attention``. Forward: :func:`flash_forward_lse`
+    (saves q, k, v, o, lse); backward: Δ in plain PyTorch, then
+    :func:`flash_block_grads` (the dQ and dK/dV kernels on the card)."""
+    return _FlashAttention.apply(q, k, v, causal)

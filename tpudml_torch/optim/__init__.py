@@ -1,0 +1,11 @@
+"""Optimizers of the port (``tpudml.optim`` subset)."""
+
+from tpudml_torch.optim.optimizers import (
+    Adam,
+    AdamW,
+    GradientDescent,
+    Optimizer,
+    make_optimizer,
+)
+
+__all__ = ["Adam", "AdamW", "GradientDescent", "Optimizer", "make_optimizer"]
