@@ -1,5 +1,5 @@
-// Fused residual add + LayerNorm, forward and backward, f32, for Hopper
-// (sm_90a).
+// Fused residual add + LayerNorm, forward and backward, f32 and bf16 rows,
+// for Hopper (sm_90a).
 //
 // Replaces: tpudml/ops/layernorm_kernel.py `_add_ln_fwd_kernel` (forward)
 // and `_add_ln_bwd_kernel` (backward), the junction kernels of
@@ -7,7 +7,8 @@
 // direction.
 //
 // Forward, per row of x, r [N, d]: s = x + r, written in the stream dtype
-// and read back as f32 (the "post-rounding" rule; an identity in f32),
+// and read back as f32 (the "post-rounding" rule: bf16 rows round s before
+// the statistics, as the unfused bf16 model does; an identity in f32),
 // single-pass f32 statistics mean = Σs/d, var = max(Σs²/d − mean², 0),
 // rstd = rsqrt(var + eps), y = (s − mean)·rstd·γ + β; mean and rstd [N]
 // are kept for the backward.
@@ -30,10 +31,14 @@
 // sums the partials column by column in a fixed order (8 ordered segments
 // of blocks, then the segments in order). No atomics: the results are
 // bitwise the same from run to run. `ds` may be null (the
-// last junction discards s), which merges nothing.
+// last junction discards s), which merges nothing. The bf16 variant reads
+// and writes the rows (x, r, s, y; s, dy, ds, dx) in bf16 and keeps γ, β,
+// the statistics and dγ, dβ in f32.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -45,12 +50,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int VPT>
+template <typename E, int VPT>
 __global__ void __launch_bounds__(NTHREAD)
-add_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ r,
+add_ln_fwd_kernel(const E* __restrict__ x, const E* __restrict__ r,
                   const float* __restrict__ gamma,
-                  const float* __restrict__ beta, float* __restrict__ s,
-                  float* __restrict__ y, float* __restrict__ mean,
+                  const float* __restrict__ beta, E* __restrict__ s,
+                  E* __restrict__ y, float* __restrict__ mean,
                   float* __restrict__ rstd, int N, int d, float eps) {
   const int lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) * NWARP + (threadIdx.x >> 5);
@@ -63,8 +68,8 @@ add_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ r,
     const int c = lane + 32 * i;
     val[i] = 0.f;
     if (c < d) {
-      const float sv = x[off + c] + r[off + c];
-      s[off + c] = sv;
+      const float sv = round_to<E>(to_f32(x[off + c]) + to_f32(r[off + c]));
+      s[off + c] = from_f32<E>(sv);
       val[i] = sv;
       sum += sv;
       sq += sv * sv;
@@ -78,7 +83,7 @@ add_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ r,
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
     const int c = lane + 32 * i;
-    if (c < d) y[off + c] = (val[i] - m) * rs * gamma[c] + beta[c];
+    if (c < d) y[off + c] = from_f32<E>((val[i] - m) * rs * gamma[c] + beta[c]);
   }
   if (lane == 0) {
     mean[row] = m;
@@ -89,14 +94,14 @@ add_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ r,
 // Rows [blockIdx.x·rows_per_block, +rows_per_block): dx for each row, and
 // the block's dγ/dβ partial rows into part[0][blockIdx.x] and
 // part[1][blockIdx.x] (part is [2][gridDim.x][d]).
-template <int VPT>
+template <typename E, int VPT>
 __global__ void __launch_bounds__(NTHREAD)
-add_ln_bwd_rows_kernel(const float* __restrict__ s,
+add_ln_bwd_rows_kernel(const E* __restrict__ s,
                        const float* __restrict__ gamma,
-                       const float* __restrict__ dy,
-                       const float* __restrict__ ds,
+                       const E* __restrict__ dy,
+                       const E* __restrict__ ds,
                        const float* __restrict__ mean,
-                       const float* __restrict__ rstd, float* __restrict__ dx,
+                       const float* __restrict__ rstd, E* __restrict__ dx,
                        float* __restrict__ part, int N, int d,
                        int rows_per_block) {
   extern __shared__ float red[];  // [NWARP][d]
@@ -123,8 +128,8 @@ add_ln_bwd_rows_kernel(const float* __restrict__ s,
       const int c = lane + 32 * i;
       xh[i] = gy[i] = 0.f;
       if (c < d) {
-        const float dyv = dy[off + c];
-        xh[i] = (s[off + c] - m) * rs;
+        const float dyv = to_f32(dy[off + c]);
+        xh[i] = (to_f32(s[off + c]) - m) * rs;
         gy[i] = dyv * gam[i];
         sg += gy[i];
         sgx += gy[i] * xh[i];
@@ -139,8 +144,8 @@ add_ln_bwd_rows_kernel(const float* __restrict__ s,
       const int c = lane + 32 * i;
       if (c < d) {
         float v = rs * (gy[i] - mg - xh[i] * mgx);
-        if (ds != nullptr) v += ds[off + c];
-        dx[off + c] = v;
+        if (ds != nullptr) v += to_f32(ds[off + c]);
+        dx[off + c] = from_f32<E>(v);
       }
     }
   }
@@ -197,29 +202,29 @@ add_ln_bwd_cols_kernel(const float* __restrict__ part,
   }
 }
 
-template <int VPT>
-cudaError_t launch_fwd(const float* x, const float* r, const float* gamma,
-                       const float* beta, float* s, float* y, float* mean,
+template <typename E, int VPT>
+cudaError_t launch_fwd(const E* x, const E* r, const float* gamma,
+                       const float* beta, E* s, E* y, float* mean,
                        float* rstd, int N, int d, float eps,
                        cudaStream_t stream) {
   const int grid = (N + NWARP - 1) / NWARP;
-  add_ln_fwd_kernel<VPT><<<grid, NTHREAD, 0, stream>>>(
+  add_ln_fwd_kernel<E, VPT><<<grid, NTHREAD, 0, stream>>>(
       x, r, gamma, beta, s, y, mean, rstd, N, d, eps);
   return cudaGetLastError();
 }
 
-template <int VPT>
-cudaError_t launch_bwd(const float* s, const float* gamma, const float* dy,
-                       const float* ds, const float* mean, const float* rstd,
-                       float* dx, float* dgamma, float* dbeta, float* part,
+template <typename E, int VPT>
+cudaError_t launch_bwd(const E* s, const float* gamma, const E* dy,
+                       const E* ds, const float* mean, const float* rstd,
+                       E* dx, float* dgamma, float* dbeta, float* part,
                        int N, int d, int rows_per_block, cudaStream_t stream) {
   const int nblocks = (N + rows_per_block - 1) / rows_per_block;
   const size_t smem = sizeof(float) * NWARP * d;
   cudaError_t err = cudaFuncSetAttribute(
-      add_ln_bwd_rows_kernel<VPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      add_ln_bwd_rows_kernel<E, VPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  add_ln_bwd_rows_kernel<VPT><<<nblocks, NTHREAD, smem, stream>>>(
+  add_ln_bwd_rows_kernel<E, VPT><<<nblocks, NTHREAD, smem, stream>>>(
       s, gamma, dy, ds, mean, rstd, dx, part, N, d, rows_per_block);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -228,17 +233,11 @@ cudaError_t launch_bwd(const float* s, const float* gamma, const float* dy,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// All buffers contiguous: x, r, s, y [N, d]; gamma, beta [d]; mean,
-// rstd [N]. d <= 1024.
-int add_ln_fwd_f32(const float* x, const float* r, const float* gamma,
-                   const float* beta, float* s, float* y, float* mean,
-                   float* rstd, int N, int d, float eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL_FWD(V) launch_fwd<V>(x, r, gamma, beta, s, y, mean, rstd, N, d, eps, st)
+template <typename E>
+int dispatch_fwd(const E* x, const E* r, const float* gamma, const float* beta,
+                 E* s, E* y, float* mean, float* rstd, int N, int d, float eps,
+                 cudaStream_t st) {
+#define CALL_FWD(V) launch_fwd<E, V>(x, r, gamma, beta, s, y, mean, rstd, N, d, eps, st)
   if (d <= 32) return CALL_FWD(1);
   if (d <= 64) return CALL_FWD(2);
   if (d <= 128) return CALL_FWD(4);
@@ -249,14 +248,12 @@ int add_ln_fwd_f32(const float* x, const float* r, const float* gamma,
 #undef CALL_FWD
 }
 
-// s, dy, ds (or null), dx [N, d]; gamma, dgamma, dbeta [d]; mean, rstd
-// [N]; part is scratch of 2·ceil(N / rows_per_block)·d floats.
-int add_ln_bwd_f32(const float* s, const float* gamma, const float* dy,
-                   const float* ds, const float* mean, const float* rstd,
-                   float* dx, float* dgamma, float* dbeta, float* part, int N,
-                   int d, int rows_per_block, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL_BWD(V) launch_bwd<V>(s, gamma, dy, ds, mean, rstd, dx, dgamma, dbeta, part, N, d, rows_per_block, st)
+template <typename E>
+int dispatch_bwd(const E* s, const float* gamma, const E* dy, const E* ds,
+                 const float* mean, const float* rstd, E* dx, float* dgamma,
+                 float* dbeta, float* part, int N, int d, int rows_per_block,
+                 cudaStream_t st) {
+#define CALL_BWD(V) launch_bwd<E, V>(s, gamma, dy, ds, mean, rstd, dx, dgamma, dbeta, part, N, d, rows_per_block, st)
   if (d <= 32) return CALL_BWD(1);
   if (d <= 64) return CALL_BWD(2);
   if (d <= 128) return CALL_BWD(4);
@@ -265,6 +262,47 @@ int add_ln_bwd_f32(const float* s, const float* gamma, const float* dy,
   if (d <= 1024) return CALL_BWD(32);
   return cudaErrorInvalidValue;
 #undef CALL_BWD
+}
+
+}  // namespace
+
+extern "C" {
+
+// All buffers contiguous: x, r, s, y [N, d] (f32 for _f32, bf16 for
+// _bf16); gamma, beta [d] f32; mean, rstd [N] f32. d <= 1024.
+int add_ln_fwd_f32(const float* x, const float* r, const float* gamma,
+                   const float* beta, float* s, float* y, float* mean,
+                   float* rstd, int N, int d, float eps, void* stream) {
+  return dispatch_fwd(x, r, gamma, beta, s, y, mean, rstd, N, d, eps,
+                      static_cast<cudaStream_t>(stream));
+}
+
+int add_ln_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* r,
+                    const float* gamma, const float* beta, __nv_bfloat16* s,
+                    __nv_bfloat16* y, float* mean, float* rstd, int N, int d,
+                    float eps, void* stream) {
+  return dispatch_fwd(x, r, gamma, beta, s, y, mean, rstd, N, d, eps,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// s, dy, ds (or null), dx [N, d] (f32 for _f32, bf16 for _bf16); gamma,
+// dgamma, dbeta [d] f32; mean, rstd [N] f32; part is f32 scratch of
+// 2·ceil(N / rows_per_block)·d floats.
+int add_ln_bwd_f32(const float* s, const float* gamma, const float* dy,
+                   const float* ds, const float* mean, const float* rstd,
+                   float* dx, float* dgamma, float* dbeta, float* part, int N,
+                   int d, int rows_per_block, void* stream) {
+  return dispatch_bwd(s, gamma, dy, ds, mean, rstd, dx, dgamma, dbeta, part,
+                      N, d, rows_per_block, static_cast<cudaStream_t>(stream));
+}
+
+int add_ln_bwd_bf16(const __nv_bfloat16* s, const float* gamma,
+                    const __nv_bfloat16* dy, const __nv_bfloat16* ds,
+                    const float* mean, const float* rstd, __nv_bfloat16* dx,
+                    float* dgamma, float* dbeta, float* part, int N, int d,
+                    int rows_per_block, void* stream) {
+  return dispatch_bwd(s, gamma, dy, ds, mean, rstd, dx, dgamma, dbeta, part,
+                      N, d, rows_per_block, static_cast<cudaStream_t>(stream));
 }
 
 const char* add_layernorm_error_string(int err) {

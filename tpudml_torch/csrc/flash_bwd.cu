@@ -1,4 +1,4 @@
-// Flash-attention backward, f32, for Hopper (sm_90a): dQ and dK/dV.
+// Flash-attention backward, f32 and bf16, for Hopper (sm_90a): dQ and dK/dV.
 //
 // Replaces: tpudml/ops/attention_kernel.py `_dq_kernel` (dQ, K innermost)
 // and `_dkdv_kernel` (dK/dV, Q innermost), launched by `_backward_calls`
@@ -10,6 +10,10 @@
 // positions) and p = exp(s − lse) on visible entries, 0 elsewhere:
 //   dp = dO·Vᵀ,  ds = p ⊙ (dp − Δ),
 //   dQ = scale · ds·K,  dK = scale · dsᵀ·Q,  dV = pᵀ·dO.
+// The bf16 variant widens q, k, v, dO to f32 as it stages them, rounds p and
+// ds to bf16 before the products they feed (the TPU kernel's
+// `p.astype(do.dtype)`, `ds.astype(k.dtype)`, `ds.astype(q.dtype)`) and
+// stores dQ, dK, dV in bf16; lse and Δ stay f32.
 //
 // What bounds it on this card: f32 FMAs on the CUDA cores. Per visible
 // (q, k) pair dQ does 3·D FMAs (q·k, dO·v, ds·k) and dK/dV 4·D (q·k, dO·v,
@@ -33,6 +37,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -59,12 +65,12 @@ constexpr size_t dkdv_smem_bytes() {
   return sizeof(float) * (2 * BK * D + 2 * BQ * (D + 1) + 2 * BK * BQ + 2 * BQ);
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(NTHREAD)
-flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
+flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                const E* __restrict__ v, const E* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                float* __restrict__ dq, int T, int H, Strides qs, Strides ks,
+                E* __restrict__ dq, int T, int H, Strides qs, Strides ks,
                 Strides vs, Strides dos, int causal, int k_shift, float scale) {
   constexpr int NC = D / 32;  // output columns per lane
   constexpr int KP = D + 1;   // padded K/V row
@@ -85,17 +91,17 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  const float* qp = q + b * qs.b + h * qs.h;
-  const float* kp = k + b * ks.b + h * ks.h;
-  const float* vp = v + b * vs.b + h * vs.h;
-  const float* dop = dout + b * dos.b + h * dos.h;
+  const E* qp = q + b * qs.b + h * qs.h;
+  const E* kp = k + b * ks.b + h * ks.h;
+  const E* vp = v + b * vs.b + h * vs.h;
+  const E* dop = dout + b * dos.b + h * dos.h;
   const long long row0 = static_cast<long long>(bh) * T;  // [B, H, T] rows
 
   for (int i = tid; i < BQ * D; i += NTHREAD) {
     const int r = i / D, c = i % D;
     const int t = q0 + r;
-    q_s[i] = t < T ? qp[t * qs.t + c] : 0.f;
-    do_s[i] = t < T ? dop[t * dos.t + c] : 0.f;
+    q_s[i] = t < T ? to_f32(qp[t * qs.t + c]) : 0.f;
+    do_s[i] = t < T ? to_f32(dop[t * dos.t + c]) : 0.f;
   }
   for (int i = tid; i < BQ; i += NTHREAD) {
     const int t = q0 + i;
@@ -119,8 +125,8 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < BK * D; i += NTHREAD) {
       const int j = i / D, c = i % D;
       const int t = k0 + j;
-      k_s[j * KP + c] = t < T ? kp[t * ks.t + c] : 0.f;
-      v_s[j * KP + c] = t < T ? vp[t * vs.t + c] : 0.f;
+      k_s[j * KP + c] = t < T ? to_f32(kp[t * ks.t + c]) : 0.f;
+      v_s[j * KP + c] = t < T ? to_f32(vp[t * vs.t + c]) : 0.f;
     }
     __syncthreads();
 
@@ -141,7 +147,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const bool visible = q_pos < T && k_pos < T &&
                              (!causal || q_pos >= k_pos + k_shift);
         const float p = visible ? expf(sdot * scale - lse_s[r]) : 0.f;
-        ds_s[r * BK + j] = p * (pdot - del_s[r]);
+        ds_s[r * BK + j] = round_to<E>(p * (pdot - del_s[r]));
       }
       __syncwarp();
 #pragma unroll
@@ -159,18 +165,18 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int rr = 0; rr < RPW; ++rr) {
     const int t = q0 + warp * RPW + rr;
     if (t >= T) continue;
-    float* row = dq + ((static_cast<long long>(b) * T + t) * H + h) * D;
+    E* row = dq + ((static_cast<long long>(b) * T + t) * H + h) * D;
 #pragma unroll
-    for (int cc = 0; cc < NC; ++cc) row[lane + 32 * cc] = acc[rr][cc] * scale;
+    for (int cc = 0; cc < NC; ++cc) row[lane + 32 * cc] = from_f32<E>(acc[rr][cc] * scale);
   }
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(NTHREAD)
-flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
+flash_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                  const E* __restrict__ v, const E* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dk, float* __restrict__ dv, int T, int H,
+                  E* __restrict__ dk, E* __restrict__ dv, int T, int H,
                   Strides qs, Strides ks, Strides vs, Strides dos, int causal,
                   int k_shift, float scale) {
   constexpr int NC = D / 32;  // output columns per lane
@@ -193,17 +199,17 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  const float* qp = q + b * qs.b + h * qs.h;
-  const float* kp = k + b * ks.b + h * ks.h;
-  const float* vp = v + b * vs.b + h * vs.h;
-  const float* dop = dout + b * dos.b + h * dos.h;
+  const E* qp = q + b * qs.b + h * qs.h;
+  const E* kp = k + b * ks.b + h * ks.h;
+  const E* vp = v + b * vs.b + h * vs.h;
+  const E* dop = dout + b * dos.b + h * dos.h;
   const long long row0 = static_cast<long long>(bh) * T;
 
   for (int i = tid; i < BK * D; i += NTHREAD) {
     const int j = i / D, c = i % D;
     const int t = k0 + j;
-    k_s[i] = t < T ? kp[t * ks.t + c] : 0.f;
-    v_s[i] = t < T ? vp[t * vs.t + c] : 0.f;
+    k_s[i] = t < T ? to_f32(kp[t * ks.t + c]) : 0.f;
+    v_s[i] = t < T ? to_f32(vp[t * vs.t + c]) : 0.f;
   }
 
   float dk_acc[KPW][NC], dv_acc[KPW][NC];
@@ -222,8 +228,8 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < BQ * D; i += NTHREAD) {
       const int r = i / D, c = i % D;
       const int t = q0 + r;
-      q_s[r * QP + c] = t < T ? qp[t * qs.t + c] : 0.f;
-      do_s[r * QP + c] = t < T ? dop[t * dos.t + c] : 0.f;
+      q_s[r * QP + c] = t < T ? to_f32(qp[t * qs.t + c]) : 0.f;
+      do_s[r * QP + c] = t < T ? to_f32(dop[t * dos.t + c]) : 0.f;
     }
     for (int i = tid; i < BQ; i += NTHREAD) {
       const int t = q0 + i;
@@ -249,8 +255,8 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const bool visible = q_pos < T && k_pos < T &&
                              (!causal || q_pos >= k_pos + k_shift);
         const float p = visible ? expf(sdot * scale - lse_s[i]) : 0.f;
-        p_s[j * BQ + i] = p;
-        ds_s[j * BQ + i] = p * (pdot - del_s[i]);
+        p_s[j * BQ + i] = round_to<E>(p);
+        ds_s[j * BQ + i] = round_to<E>(p * (pdot - del_s[i]));
       }
     }
     __syncwarp();  // each warp reads back only the p/ds rows it wrote
@@ -281,47 +287,82 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const long long off = ((static_cast<long long>(b) * T + t) * H + h) * D;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
-      dk[off + lane + 32 * cc] = dk_acc[jj][cc] * scale;
-      dv[off + lane + 32 * cc] = dv_acc[jj][cc];
+      dk[off + lane + 32 * cc] = from_f32<E>(dk_acc[jj][cc] * scale);
+      dv[off + lane + 32 * cc] = from_f32<E>(dv_acc[jj][cc]);
     }
   }
 }
 
-template <int D>
-cudaError_t launch_dq(const float* q, const float* k, const float* v,
-                      const float* dout, const float* lse, const float* delta,
-                      float* dq, int B, int T, int H, Strides qs, Strides ks,
-                      Strides vs, Strides dos, int causal, int k_shift,
-                      float scale, cudaStream_t stream) {
+template <typename E, int D>
+cudaError_t launch_dq(const E* q, const E* k, const E* v, const E* dout,
+                      const float* lse, const float* delta, E* dq, int B,
+                      int T, int H, Strides qs, Strides ks, Strides vs,
+                      Strides dos, int causal, int k_shift, float scale,
+                      cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dq_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_dq_kernel<D><<<grid, NTHREAD, smem, stream>>>(
+  flash_dq_kernel<E, D><<<grid, NTHREAD, smem, stream>>>(
       q, k, v, dout, lse, delta, dq, T, H, qs, ks, vs, dos, causal, k_shift,
       scale);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkdv(const float* q, const float* k, const float* v,
-                        const float* dout, const float* lse,
-                        const float* delta, float* dk, float* dv, int B, int T,
-                        int H, Strides qs, Strides ks, Strides vs, Strides dos,
+template <typename E, int D>
+cudaError_t launch_dkdv(const E* q, const E* k, const E* v, const E* dout,
+                        const float* lse, const float* delta, E* dk, E* dv,
+                        int B, int T, int H, Strides qs, Strides ks,
+                        Strides vs, Strides dos,
                         int causal, int k_shift, float scale,
                         cudaStream_t stream) {
   constexpr size_t smem = dkdv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dkdv_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid((T + BK - 1) / BK, B * H);
-  flash_dkdv_kernel<D><<<grid, NTHREAD, smem, stream>>>(
+  flash_dkdv_kernel<E, D><<<grid, NTHREAD, smem, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, T, H, qs, ks, vs, dos, causal,
       k_shift, scale);
   return cudaGetLastError();
+}
+
+template <typename E>
+int dispatch_dq(const E* q, const E* k, const E* v, const E* dout,
+                const float* lse, const float* delta, E* dq, int B, int T,
+                int H, int D, Strides qs, Strides ks, Strides vs, Strides dos,
+                int causal, int k_shift, float scale, cudaStream_t s) {
+  switch (D) {
+    case 32:
+      return launch_dq<E, 32>(q, k, v, dout, lse, delta, dq, B, T, H, qs, ks, vs, dos, causal, k_shift, scale, s);
+    case 64:
+      return launch_dq<E, 64>(q, k, v, dout, lse, delta, dq, B, T, H, qs, ks, vs, dos, causal, k_shift, scale, s);
+    case 128:
+      return launch_dq<E, 128>(q, k, v, dout, lse, delta, dq, B, T, H, qs, ks, vs, dos, causal, k_shift, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename E>
+int dispatch_dkdv(const E* q, const E* k, const E* v, const E* dout,
+                  const float* lse, const float* delta, E* dk, E* dv, int B,
+                  int T, int H, int D, Strides qs, Strides ks, Strides vs,
+                  Strides dos, int causal, int k_shift, float scale,
+                  cudaStream_t s) {
+  switch (D) {
+    case 32:
+      return launch_dkdv<E, 32>(q, k, v, dout, lse, delta, dk, dv, B, T, H, qs, ks, vs, dos, causal, k_shift, scale, s);
+    case 64:
+      return launch_dkdv<E, 64>(q, k, v, dout, lse, delta, dk, dv, B, T, H, qs, ks, vs, dos, causal, k_shift, scale, s);
+    case 128:
+      return launch_dkdv<E, 128>(q, k, v, dout, lse, delta, dk, dv, B, T, H, qs, ks, vs, dos, causal, k_shift, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -329,51 +370,43 @@ cudaError_t launch_dkdv(const float* q, const float* k, const float* v,
 extern "C" {
 
 // q/k/v/dO strides are (batch, time, head) in elements; the head-dim
-// stride is 1. lse and delta are contiguous [B, H, T]; dq (dk, dv) are
-// contiguous [B, T, H, D] buffers.
-int flash_dq_f32(const float* q, const float* k, const float* v,
-                 const float* dout, const float* lse, const float* delta,
-                 float* dq, int B, int T, int H, int D, long long qsb,
-                 long long qst, long long qsh, long long ksb, long long kst,
-                 long long ksh, long long vsb, long long vst, long long vsh,
-                 long long dsb, long long dst, long long dsh, int causal,
-                 int k_shift, float scale, void* stream) {
-  const Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh},
-      dos{dsb, dst, dsh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return launch_dq<32>(q, k, v, dout, lse, delta, dq, B, T, H, qs, ks, vs, dos, causal, k_shift, scale, s);
-    case 64:
-      return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, T, H, qs, ks, vs, dos, causal, k_shift, scale, s);
-    case 128:
-      return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, T, H, qs, ks, vs, dos, causal, k_shift, scale, s);
-    default:
-      return cudaErrorInvalidValue;
+// stride is 1. lse and delta are contiguous [B, H, T] f32; dq (dk, dv) are
+// contiguous [B, T, H, D] buffers of q's dtype. The _f32 entry points take
+// f32 q/k/v/dO, the _bf16 ones bf16.
+#define DQ_ENTRY(NAME, E)                                                      \
+  int NAME(const E* q, const E* k, const E* v, const E* dout,                  \
+           const float* lse, const float* delta, E* dq, int B, int T, int H,   \
+           int D, long long qsb, long long qst, long long qsh, long long ksb,  \
+           long long kst, long long ksh, long long vsb, long long vst,         \
+           long long vsh, long long dsb, long long dst, long long dsh,         \
+           int causal, int k_shift, float scale, void* stream) {               \
+    return dispatch_dq(q, k, v, dout, lse, delta, dq, B, T, H, D,             \
+                       Strides{qsb, qst, qsh}, Strides{ksb, kst, ksh},         \
+                       Strides{vsb, vst, vsh}, Strides{dsb, dst, dsh}, causal, \
+                       k_shift, scale, static_cast<cudaStream_t>(stream));     \
   }
-}
+#define DKDV_ENTRY(NAME, E)                                                    \
+  int NAME(const E* q, const E* k, const E* v, const E* dout,                  \
+           const float* lse, const float* delta, E* dk, E* dv, int B, int T,   \
+           int H, int D, long long qsb, long long qst, long long qsh,          \
+           long long ksb, long long kst, long long ksh, long long vsb,         \
+           long long vst, long long vsh, long long dsb, long long dst,         \
+           long long dsh, int causal, int k_shift, float scale,                \
+           void* stream) {                                                     \
+    return dispatch_dkdv(q, k, v, dout, lse, delta, dk, dv, B, T, H, D,       \
+                         Strides{qsb, qst, qsh}, Strides{ksb, kst, ksh},       \
+                         Strides{vsb, vst, vsh}, Strides{dsb, dst, dsh},       \
+                         causal, k_shift, scale,                               \
+                         static_cast<cudaStream_t>(stream));                   \
+  }
 
-int flash_dkdv_f32(const float* q, const float* k, const float* v,
-                   const float* dout, const float* lse, const float* delta,
-                   float* dk, float* dv, int B, int T, int H, int D,
-                   long long qsb, long long qst, long long qsh, long long ksb,
-                   long long kst, long long ksh, long long vsb, long long vst,
-                   long long vsh, long long dsb, long long dst, long long dsh,
-                   int causal, int k_shift, float scale, void* stream) {
-  const Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh},
-      dos{dsb, dst, dsh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return launch_dkdv<32>(q, k, v, dout, lse, delta, dk, dv, B, T, H, qs, ks, vs, dos, causal, k_shift, scale, s);
-    case 64:
-      return launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, B, T, H, qs, ks, vs, dos, causal, k_shift, scale, s);
-    case 128:
-      return launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, B, T, H, qs, ks, vs, dos, causal, k_shift, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
+DQ_ENTRY(flash_dq_f32, float)
+DQ_ENTRY(flash_dq_bf16, __nv_bfloat16)
+DKDV_ENTRY(flash_dkdv_f32, float)
+DKDV_ENTRY(flash_dkdv_bf16, __nv_bfloat16)
+
+#undef DQ_ENTRY
+#undef DKDV_ENTRY
 
 const char* flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,4 +1,5 @@
-// Flash-attention forward with the row log-sum-exp, f32, for Hopper (sm_90a).
+// Flash-attention forward with the row log-sum-exp, f32 and bf16, for Hopper
+// (sm_90a).
 //
 // Replaces: tpudml/ops/attention_kernel.py `_fwd_kernel` (launched by
 // `_flash_forward`, reached through `flash_forward_lse`), the TPU kernel the
@@ -8,7 +9,10 @@
 // lse = log Σ exp(q·kᵀ·scale) per (b, h, query row), with an optional causal
 // mask `q_pos >= k_pos + k_shift` on local positions. A row that sees no key
 // at all (possible only with k_shift > 0) gets out = 0 and lse = -1e30, so
-// it carries zero weight in any log-sum-exp merge.
+// it carries zero weight in any log-sum-exp merge. The bf16 variant widens
+// q, k, v to f32 as it stages them, rounds each tile's probabilities to bf16
+// before the P·V product (as the TPU kernel's `p.astype(v.dtype)`; the
+// normalizer sums the unrounded p) and stores out in bf16; lse stays f32.
 //
 // What bounds it on this card: at the serving shapes (T = C = 128, D = 64)
 // the work is tiny (a few MFLOP per head) and the call is bound by launch
@@ -30,6 +34,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -54,10 +60,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * D + BK * (D + 1) + BK * D + BQ * BK);
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(NWARP * 32)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                 const E* __restrict__ v, E* __restrict__ o,
                  float* __restrict__ lse, int T, int H,
                  long long qsb, long long qst, long long qsh,
                  long long ksb, long long kst, long long ksh,
@@ -78,14 +84,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  const float* qp = q + b * qsb + h * qsh;
-  const float* kp = k + b * ksb + h * ksh;
-  const float* vp = v + b * vsb + h * vsh;
+  const E* qp = q + b * qsb + h * qsh;
+  const E* kp = k + b * ksb + h * ksh;
+  const E* vp = v + b * vsb + h * vsh;
 
   for (int i = tid; i < BQ * D; i += NWARP * 32) {
     const int r = i / D, c = i % D;
     const int t = q0 + r;
-    qs[i] = t < T ? qp[t * qst + c] : 0.f;
+    qs[i] = t < T ? to_f32(qp[t * qst + c]) : 0.f;
   }
 
   float m[RPW], l[RPW], acc[RPW][NC];
@@ -108,8 +114,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < BK * D; i += NWARP * 32) {
       const int j = i / D, c = i % D;
       const int t = k0 + j;
-      ks[j * (D + 1) + c] = t < T ? kp[t * kst + c] : 0.f;
-      vs[j * D + c] = t < T ? vp[t * vst + c] : 0.f;
+      ks[j * (D + 1) + c] = t < T ? to_f32(kp[t * kst + c]) : 0.f;
+      vs[j * D + c] = t < T ? to_f32(vp[t * vst + c]) : 0.f;
     }
     __syncthreads();
 
@@ -135,8 +141,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float p1 = s[1] == -INFINITY ? 0.f : expf(s[1] - m_new);
       l[rr] = l[rr] * alpha + warp_sum(p0 + p1);
       m[rr] = m_new;
-      ps[r * BK + lane] = p0;
-      ps[r * BK + lane + 32] = p1;
+      ps[r * BK + lane] = round_to<E>(p0);
+      ps[r * BK + lane + 32] = round_to<E>(p1);
       __syncwarp();
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
@@ -154,31 +160,47 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int t = q0 + warp * RPW + rr;
     if (t >= T) continue;
     const bool seen = l[rr] > 0.f;
-    float* orow = o + ((static_cast<long long>(b) * T + t) * H + h) * D;
+    E* orow = o + ((static_cast<long long>(b) * T + t) * H + h) * D;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc)
-      orow[lane + 32 * cc] = seen ? acc[rr][cc] / l[rr] : 0.f;
+      orow[lane + 32 * cc] = from_f32<E>(seen ? acc[rr][cc] / l[rr] : 0.f);
     if (lane == 0)
       lse[(static_cast<long long>(b) * H + h) * T + t] =
           seen ? m[rr] + logf(l[rr]) : NEG_INF;
   }
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   float* lse, int B, int T, int H, const long long* qs,
-                   const long long* ks, const long long* vs, int causal,
+template <typename E, int D>
+cudaError_t launch(const E* q, const E* k, const E* v, E* o, float* lse, int B,
+                   int T, int H, const long long* qs, const long long* ks, const long long* vs, int causal,
                    int k_shift, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<D><<<grid, NWARP * 32, smem, stream>>>(
+  flash_fwd_kernel<E, D><<<grid, NWARP * 32, smem, stream>>>(
       q, k, v, o, lse, T, H, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0],
       vs[1], vs[2], causal, k_shift, scale);
   return cudaGetLastError();
+}
+
+template <typename E>
+int dispatch(const E* q, const E* k, const E* v, E* o, float* lse, int B,
+             int T, int H, int D, const long long* qs, const long long* ks,
+             const long long* vs, int causal, int k_shift, float scale,
+             cudaStream_t s) {
+  switch (D) {
+    case 32:
+      return launch<E, 32>(q, k, v, o, lse, B, T, H, qs, ks, vs, causal, k_shift, scale, s);
+    case 64:
+      return launch<E, 64>(q, k, v, o, lse, B, T, H, qs, ks, vs, causal, k_shift, scale, s);
+    case 128:
+      return launch<E, 128>(q, k, v, o, lse, B, T, H, qs, ks, vs, causal, k_shift, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -186,7 +208,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 extern "C" {
 
 // q/k/v strides are (batch, time, head) in elements; the head-dim stride is
-// 1. out is a contiguous [B, T, H, D] buffer, lse a contiguous [B, H, T] one.
+// 1. out is a contiguous [B, T, H, D] buffer of q's dtype, lse a contiguous
+// [B, H, T] f32 one.
 int flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
                   float* lse, int B, int T, int H, int D, long long qsb,
                   long long qst, long long qsh, long long ksb, long long kst,
@@ -195,17 +218,21 @@ int flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
   const long long qs[3] = {qsb, qst, qsh};
   const long long ks[3] = {ksb, kst, ksh};
   const long long vs[3] = {vsb, vst, vsh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return launch<32>(q, k, v, o, lse, B, T, H, qs, ks, vs, causal, k_shift, scale, s);
-    case 64:
-      return launch<64>(q, k, v, o, lse, B, T, H, qs, ks, vs, causal, k_shift, scale, s);
-    case 128:
-      return launch<128>(q, k, v, o, lse, B, T, H, qs, ks, vs, causal, k_shift, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch(q, k, v, o, lse, B, T, H, D, qs, ks, vs, causal, k_shift,
+                  scale, static_cast<cudaStream_t>(stream));
+}
+
+int flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                   const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int B,
+                   int T, int H, int D, long long qsb, long long qst,
+                   long long qsh, long long ksb, long long kst, long long ksh,
+                   long long vsb, long long vst, long long vsh, int causal,
+                   int k_shift, float scale, void* stream) {
+  const long long qs[3] = {qsb, qst, qsh};
+  const long long ks[3] = {ksb, kst, ksh};
+  const long long vs[3] = {vsb, vst, vsh};
+  return dispatch(q, k, v, o, lse, B, T, H, D, qs, ks, vs, causal, k_shift,
+                  scale, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_fwd_error_string(int err) {

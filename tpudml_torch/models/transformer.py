@@ -1,7 +1,8 @@
 """Decoder-only LM: the port of ``tpudml/models/transformer.py``
 (single-device subset — init, the full forward with full or flash
-attention and the unfused or fused add+LayerNorm trunk, the pre-head
-features, and the KV-cached decode and chunked prefill paths).
+attention and the unfused or fused add+LayerNorm trunk, bf16 compute
+with f32 master weights, the pre-head features, and the KV-cached decode
+and chunked prefill paths).
 
 Parameter names follow the JAX param tree: ``tok_embed``, ``pos_embed``
 (learned positions, absent with RoPE), ``block{i}.{ln1, attn.{q,k,v,out},
@@ -16,6 +17,17 @@ add is deferred into the NEXT norm's fused add+LayerNorm
 (``tpudml_torch.ops.fused_add_layernorm``), so 2L of the 2L+1 norms —
 every one but the first block's ``ln1`` — and all 2L adds run as one
 kernel per direction. Same math as the unfused trunk.
+
+``compute_dtype`` (None or ``torch.bfloat16``) is the JAX model's mixed
+precision (``_cast_params``): parameters stay f32 master weights, and
+every one except the LayerNorms' (``ln1``, ``ln2``, ``ln_f``) is cast to
+the compute dtype where it is used — the Dense layers cast their kernel
+and bias, and the embeddings gather rows of the f32 tables and cast them.
+The gather-then-cast forward equals JAX's cast-then-gather; its backward
+sums the table gradient in f32, where JAX's ``embed_lookup`` rounds it to
+bf16 once (a defined difference, ROADMAP queue 3). LayerNorm statistics,
+attention scores and softmax stay f32; the logits stay in the compute
+dtype. None computes in the parameter dtype.
 """
 
 from __future__ import annotations
@@ -26,11 +38,12 @@ from torch import nn
 
 from tpudml_torch.device import resolve_device
 from tpudml_torch.nn.attention import MultiHeadAttention
-from tpudml_torch.nn.layers import Dense, LayerNorm
+from tpudml_torch.nn.layers import Dense, LayerNorm, cast
 from tpudml_torch.ops.layernorm_kernel import fused_add_layernorm
 
 MLP_RATIO = 4
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
+COMPUTE_DTYPES = (None, torch.float32, torch.bfloat16)
 
 
 class TransformerBlock(nn.Module):
@@ -39,17 +52,21 @@ class TransformerBlock(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, *, impl: str = "full",
                  num_kv_heads: int | None = None, rope: bool = False,
                  rope_base: float = 10000.0,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         d = embed_dim
         self.ln1 = LayerNorm(d)
         self.attn = MultiHeadAttention(
             d, num_heads, causal=True, impl=impl, num_kv_heads=num_kv_heads,
             rope=rope, rope_base=rope_base, generator=generator,
+            compute_dtype=compute_dtype,
         )
         self.ln2 = LayerNorm(d)
-        self.fc1 = Dense(d, MLP_RATIO * d, generator=generator)
-        self.fc2 = Dense(MLP_RATIO * d, d, generator=generator)
+        self.fc1 = Dense(d, MLP_RATIO * d, generator=generator,
+                         compute_dtype=compute_dtype)
+        self.fc2 = Dense(MLP_RATIO * d, d, generator=generator,
+                         compute_dtype=compute_dtype)
 
     def ffn(self, y: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(y), approximate="tanh"))
@@ -63,7 +80,8 @@ class TransformerLM(nn.Module):
     """Decoder-only language model: token (+ learned position, unless
     ``rope``) embeddings, ``num_layers`` pre-LN blocks, final LayerNorm,
     vocab projection. ``impl`` is the blocks' attention ("full" or
-    "flash"); ``fused_ln`` selects the deferred fused add+LN trunk.
+    "flash"); ``fused_ln`` selects the deferred fused add+LN trunk;
+    ``compute_dtype`` the mixed precision (module docstring).
     Parameters are drawn on the CPU from ``generator`` (default: seeded
     with 0) and moved to ``device`` (default "cuda"; asking for the card
     without one raises). ``dropout > 0`` and ``moe_experts`` are not
@@ -75,9 +93,13 @@ class TransformerLM(nn.Module):
                  rope: bool = False, rope_base: float = 10000.0, *,
                  impl: str = "full", fused_ln: bool = False,
                  dropout: float = 0.0, moe_experts: int = 0,
+                 compute_dtype: torch.dtype | None = None,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                             f"got {compute_dtype}")
         if dropout:
             raise NotImplementedError(f"dropout {NOT_PORTED.format('3 (Dropout)')}")
         if moe_experts:
@@ -93,6 +115,7 @@ class TransformerLM(nn.Module):
         self.rope = rope
         self.impl = impl
         self.fused_ln = fused_ln
+        self.compute_dtype = compute_dtype
         self.tok_embed = nn.Parameter(
             0.02 * torch.randn((vocab_size, embed_dim), generator=g))
         self.pos_embed = (
@@ -100,11 +123,13 @@ class TransformerLM(nn.Module):
             nn.Parameter(0.02 * torch.randn((max_len, embed_dim), generator=g))
         )
         self.ln_f = LayerNorm(embed_dim)
-        self.head = Dense(embed_dim, vocab_size, generator=g)
+        self.head = Dense(embed_dim, vocab_size, generator=g,
+                          compute_dtype=compute_dtype)
         for i in range(num_layers):
             self.add_module(f"block{i}", TransformerBlock(
                 embed_dim, num_heads, impl=impl, num_kv_heads=num_kv_heads,
                 rope=rope, rope_base=rope_base, generator=g,
+                compute_dtype=compute_dtype,
             ))
         self.to(dev)
 
@@ -116,14 +141,15 @@ class TransformerLM(nn.Module):
         return [getattr(self, f"block{i}") for i in range(self.num_layers)]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, T] -> [B, T, d]. Plain indexing: its backward sums
-        the same rows as JAX's one-hot-matmul backward, in another order."""
+        """tokens [B, T] -> [B, T, d] in the compute dtype. Plain indexing
+        of the f32 tables, then the cast: its backward sums the same rows
+        as JAX's one-hot-matmul backward, in another order and in f32."""
         t = tokens.shape[1]
-        h = self.tok_embed[tokens]
+        h = cast(self.tok_embed[tokens], self.compute_dtype)
         if not self.rope:
             if t > self.max_len:
                 raise ValueError(f"sequence length {t} exceeds max_len {self.max_len}")
-            h = h + self.pos_embed[:t]
+            h = h + cast(self.pos_embed[:t], self.compute_dtype)
         return h
 
     def _use_fused_ln(self) -> bool:
@@ -175,6 +201,10 @@ class TransformerLM(nn.Module):
     # ----------------------------------------------------- serving paths
 
     def _serve_guard(self) -> None:
+        if self.compute_dtype not in (None, torch.float32):
+            raise NotImplementedError(
+                f"serving with compute_dtype {NOT_PORTED.format('1 (serving levers)')}"
+            )
         if self._use_fused_ln():
             # The fused junction is a training throughput fusion; the
             # serving paths run the unfused math, the parity reference.

@@ -110,12 +110,15 @@ class MultiHeadAttention(nn.Module):
     the dK/dV of a GQA model sum through the repeat's autograd. ``impl``
     selects the attention of ``forward``: "full" (the plain masked
     softmax) or "flash" (:func:`flash_attention`, the flash kernels on the
-    card); "ring" and "ulysses" are context-parallel and not ported."""
+    card); "ring" and "ulysses" are context-parallel and not ported.
+    ``compute_dtype`` is the projections' (``Dense``); scores and softmax
+    run in f32 whatever it is, and RoPE rounds cos/sin to the input dtype."""
 
     def __init__(self, embed_dim: int, num_heads: int, *, causal: bool = False,
                  impl: str = "full", num_kv_heads: int | None = None,
                  rope: bool = False, rope_base: float = 10000.0,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} % num_heads {num_heads} != 0")
@@ -139,10 +142,11 @@ class MultiHeadAttention(nn.Module):
         self.rope = rope
         self.rope_base = rope_base
         kv_dim = self.kv_heads * self.head_dim
-        self.q = Dense(embed_dim, embed_dim, generator=generator)
-        self.k = Dense(embed_dim, kv_dim, generator=generator)
-        self.v = Dense(embed_dim, kv_dim, generator=generator)
-        self.out = Dense(embed_dim, embed_dim, generator=generator)
+        dense = dict(generator=generator, compute_dtype=compute_dtype)
+        self.q = Dense(embed_dim, embed_dim, **dense)
+        self.k = Dense(embed_dim, kv_dim, **dense)
+        self.v = Dense(embed_dim, kv_dim, **dense)
+        self.out = Dense(embed_dim, embed_dim, **dense)
 
     def _heads(self, x, n_heads):
         b, t, _ = x.shape

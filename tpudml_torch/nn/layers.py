@@ -1,4 +1,4 @@
-"""Dense and LayerNorm: the port of ``tpudml/nn/layers.py`` (serving subset).
+"""Dense and LayerNorm: the port of ``tpudml/nn/layers.py`` (the LM's subset).
 
 Parameters keep the JAX package's layout and names — ``Dense.kernel`` is
 [in, out] and ``y = x @ kernel + bias``; ``LayerNorm`` has ``scale`` and
@@ -6,6 +6,12 @@ Parameters keep the JAX package's layout and names — ``Dense.kernel`` is
 (``tpudml_torch.interop``). Initial values come from a ``torch.Generator``
 on the CPU; they follow the same distributions as the JAX init, not its
 numbers.
+
+Mixed precision follows ``TransformerLM._cast_params`` of the JAX package:
+a ``Dense`` built with ``compute_dtype`` keeps its f32 master parameters
+and casts them to that dtype at every use (an explicit cast where JAX
+casts, not ``torch.autocast``); ``LayerNorm`` keeps f32 parameters and
+statistics and returns its input's dtype.
 """
 
 from __future__ import annotations
@@ -22,12 +28,20 @@ def uniform_fan_in(shape, fan_in: int, generator: torch.Generator | None):
     return torch.empty(shape).uniform_(-bound, bound, generator=generator)
 
 
+def cast(p: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """``p`` at ``dtype`` (None: unchanged, compute in the parameter dtype)."""
+    return p if dtype is None else p.to(dtype)
+
+
 class Dense(nn.Module):
-    """``y = x @ kernel + bias`` with kernel [in, out]."""
+    """``y = x @ kernel + bias`` with kernel [in, out], computed in
+    ``compute_dtype`` (None: the parameters' dtype)."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.kernel = nn.Parameter(
             uniform_fan_in((in_features, out_features), in_features, generator)
         )
@@ -35,8 +49,13 @@ class Dense(nn.Module):
             uniform_fan_in((out_features,), in_features, generator)
         )
 
+    def cast_params(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(kernel, bias) cast to the compute dtype, as used."""
+        return cast(self.kernel, self.compute_dtype), cast(self.bias, self.compute_dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        kernel, bias = self.cast_params()
+        return x @ kernel + bias
 
 
 class LayerNorm(nn.Module):

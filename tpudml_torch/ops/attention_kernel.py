@@ -14,7 +14,11 @@
 Each op launches its hand-written CUDA kernel for CUDA tensors and runs
 its plain PyTorch version (``*_reference``) for CPU tensors. It never
 falls back: a CUDA input the kernel does not take (dtype, rank, layout,
-head dim) raises.
+head dim) raises. Every kernel has an f32 and a bf16 twin (its own
+``Kernel`` and launch counter, ``*_bf16``), chosen by q's dtype. As the
+TPU kernels do, the bf16 twins compute in f32, round p and ds to the
+operand dtype before the products they feed, and store O, dQ, dK, dV in
+bf16; lse and Δ stay f32. The plain versions round at the same places.
 
 Semantics match the TPU kernel: q, k, v are [B, T, H, D] with the same T;
 ``causal`` masks by LOCAL positions ``q_pos >= k_pos + k_shift`` (the
@@ -33,32 +37,35 @@ import math
 import torch
 
 from tpudml_torch.ops.cuda_lib import (
-    F, I, LL, P, CudaLibrary, Kernel, check_cuda_operand, ptr,
+    F, I, LL, P, STORAGE_DTYPES, CudaLibrary, Kernel, check_cuda_operand, ptr,
+    storage_twin,
 )
 
 NEG_INF = -1e30  # large-finite mask value: avoids inf-inf -> NaN in softmax
 
 HEAD_DIMS = (32, 64, 128)  # head dims the kernel is instantiated for
 
+_FWD_ARGS = [P] * 5 + [I] * 4 + [LL] * 9 + [I, I, F, P]
 _LIB = CudaLibrary("flash_fwd.cu", {
-    "flash_fwd_f32": [P] * 5 + [I] * 4 + [LL] * 9 + [I, I, F, P],
+    "flash_fwd_f32": _FWD_ARGS, "flash_fwd_bf16": _FWD_ARGS,
 })
-FLASH_FORWARD = Kernel(
-    "flash_forward_lse", _LIB, "flash_fwd_f32",
-    replaces="tpudml/ops/attention_kernel.py:93",
-)
+_DQ_ARGS = [P] * 7 + [I] * 4 + [LL] * 12 + [I, I, F, P]
+_DKDV_ARGS = [P] * 8 + [I] * 4 + [LL] * 12 + [I, I, F, P]
 _BWD_LIB = CudaLibrary("flash_bwd.cu", {
-    "flash_dq_f32": [P] * 7 + [I] * 4 + [LL] * 12 + [I, I, F, P],
-    "flash_dkdv_f32": [P] * 8 + [I] * 4 + [LL] * 12 + [I, I, F, P],
+    "flash_dq_f32": _DQ_ARGS, "flash_dq_bf16": _DQ_ARGS,
+    "flash_dkdv_f32": _DKDV_ARGS, "flash_dkdv_bf16": _DKDV_ARGS,
 })
-FLASH_DQ = Kernel(
-    "flash_dq", _BWD_LIB, "flash_dq_f32",
-    replaces="tpudml/ops/attention_kernel.py:177",
-)
-FLASH_DKDV = Kernel(
-    "flash_dkdv", _BWD_LIB, "flash_dkdv_f32",
-    replaces="tpudml/ops/attention_kernel.py:217",
-)
+_FWD_AT = "tpudml/ops/attention_kernel.py:93"
+_DQ_AT = "tpudml/ops/attention_kernel.py:177"
+_DKDV_AT = "tpudml/ops/attention_kernel.py:217"
+FLASH_FORWARD = Kernel("flash_forward_lse", _LIB, "flash_fwd_f32", replaces=_FWD_AT)
+FLASH_FORWARD_BF16 = Kernel("flash_forward_lse_bf16", _LIB, "flash_fwd_bf16",
+                            replaces=_FWD_AT)
+FLASH_DQ = Kernel("flash_dq", _BWD_LIB, "flash_dq_f32", replaces=_DQ_AT)
+FLASH_DQ_BF16 = Kernel("flash_dq_bf16", _BWD_LIB, "flash_dq_bf16", replaces=_DQ_AT)
+FLASH_DKDV = Kernel("flash_dkdv", _BWD_LIB, "flash_dkdv_f32", replaces=_DKDV_AT)
+FLASH_DKDV_BF16 = Kernel("flash_dkdv_bf16", _BWD_LIB, "flash_dkdv_bf16",
+                         replaces=_DKDV_AT)
 
 
 def _visible(t: int, causal: bool, k_shift: int, device) -> torch.Tensor:
@@ -81,10 +88,13 @@ def _check_qkv(q, k, v, k_shift):
 
 def _check_cuda_operands(named) -> None:
     """Raise unless every (name, tensor) is what the flash kernels take:
-    f32 CUDA [B,T,H,D] with unit stride on D, a supported head dim, all
-    on one device."""
+    CUDA [B,T,H,D] of one dtype (f32 or bf16) with unit stride on D, a
+    supported head dim, all on one device."""
+    dtype = named[0][1].dtype
+    if dtype not in STORAGE_DTYPES:
+        raise TypeError(f"flash kernels take {STORAGE_DTYPES}, got {dtype}")
     for name, x in named:
-        check_cuda_operand(name, x, torch.float32, 4, contiguous=False)
+        check_cuda_operand(name, x, dtype, 4, contiguous=False)
     d = named[0][1].shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash kernel head dim must be one of {HEAD_DIMS}, got {d}")
@@ -99,7 +109,8 @@ def _strides(*xs) -> list:
 def flash_forward_lse_reference(q, k, v, *, causal: bool = False,
                                 k_shift: int = 0):
     """Plain PyTorch version: materialized f32 scores, same masks and
-    statistics as the kernel. Returns (out [B,T,H,D], lse [B,H,T] f32)."""
+    statistics as the kernel, p rounded to v's dtype before P·V. Returns
+    (out [B,T,H,D], lse [B,H,T] f32)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     visible = _visible(q.shape[1], causal, k_shift, q.device)
@@ -107,7 +118,8 @@ def flash_forward_lse_reference(q, k, v, *, causal: bool = False,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     den = p.sum(dim=-1, keepdim=True)  # [B, H, T, 1]
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / den.transpose(1, 2)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    out = pv / den.transpose(1, 2)
     lse = (m + torch.log(den))[..., 0]
     seen = visible.any(dim=-1)  # [T]: rows with at least one visible key
     out = torch.where(seen[None, :, None, None], out, 0.0)
@@ -120,7 +132,7 @@ def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash forward that also returns the row log-sum-exp.
 
     Returns (out [B,T,H,D], lse [B,H,T] f32). CUDA tensors run the kernel
-    (f32, head dim in ``HEAD_DIMS``, unit stride along D; the batch, time
+    (f32 or bf16, head dim in ``HEAD_DIMS``, unit stride along D; the batch, time
     and head strides are passed through, so slices of a cache window need
     no copy); CPU tensors run :func:`flash_forward_lse_reference`."""
     _check_qkv(q, k, v, k_shift)
@@ -129,10 +141,10 @@ def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                            k_shift=k_shift)
     _check_cuda_operands((("q", q), ("k", k), ("v", v)))
     b, t, h, d = q.shape
-    out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        FLASH_FORWARD.launch(
+        storage_twin(q, FLASH_FORWARD, FLASH_FORWARD_BF16).launch(
             ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), I(b), I(t), I(h),
             I(d), *_strides(q, k, v), I(int(causal)), I(k_shift),
             F(1.0 / math.sqrt(d)),
@@ -154,13 +166,18 @@ def _bwd_terms(q, k, v, do, lse, delta, causal, k_shift):
     return p, p * (dp - delta.float()[..., None])
 
 
+def _rounded(p, like):
+    """f32 ``p`` rounded to ``like``'s dtype (the identity in f32)."""
+    return p.to(like.dtype).float()
+
+
 def _dq_from(ds, k, scale):
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    return torch.einsum("bhqk,bkhd->bqhd", _rounded(ds, k), k.float()) * scale
 
 
 def _dkdv_from(p, ds, q, do, scale):
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
-    return dk, torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", _rounded(ds, q), q.float()) * scale
+    return dk, torch.einsum("bhqk,bqhd->bkhd", _rounded(p, do), do.float())
 
 
 def flash_dq_reference(q, k, v, do, lse, delta, *, causal: bool = False,
@@ -220,10 +237,10 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     if not q.is_cuda:
         return flash_dq_reference(q, k, v, do, lse, delta, causal=causal,
                                   k_shift=k_shift)
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     common, args = _bwd_args(q, k, v, do, lse, delta, causal, k_shift)
     with torch.cuda.device(q.device):
-        FLASH_DQ.launch(*common, ptr(dq), *args)
+        storage_twin(q, FLASH_DQ, FLASH_DQ_BF16).launch(*common, ptr(dq), *args)
     return dq
 
 
@@ -235,11 +252,12 @@ def flash_dkdv(q, k, v, do, lse, delta, *, causal: bool = False,
     if not q.is_cuda:
         return flash_dkdv_reference(q, k, v, do, lse, delta, causal=causal,
                                     k_shift=k_shift)
-    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     common, args = _bwd_args(q, k, v, do, lse, delta, causal, k_shift)
     with torch.cuda.device(q.device):
-        FLASH_DKDV.launch(*common, ptr(dk), ptr(dv), *args)
+        storage_twin(q, FLASH_DKDV, FLASH_DKDV_BF16).launch(
+            *common, ptr(dk), ptr(dv), *args)
     return dk, dv
 
 
@@ -253,7 +271,7 @@ def flash_block_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lse``/``delta`` [B,H,T] f32 come from the (possibly globally merged)
     attention, delta = rowsum(dO ⊙ O); returns (dq, dk, dv) [B,T,H,D],
     this block's exact contributions. CUDA tensors run the dQ and dK/dV
-    kernels (f32, head dim in ``HEAD_DIMS``, unit stride along D; batch,
+    kernels (f32 or bf16, head dim in ``HEAD_DIMS``, unit stride along D; batch,
     time and head strides passed through; lse/delta contiguous); CPU
     tensors run their plain versions."""
     dq = flash_dq(q, k, v, do, lse, delta, causal=causal, k_shift=k_shift)

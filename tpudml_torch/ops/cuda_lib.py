@@ -68,8 +68,10 @@ class CudaLibrary:
         return self.source.stem
 
     def target(self) -> Path:
+        # The shared headers (csrc/*.cuh) are part of every source's key.
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.name}-{digest}.so"
 
@@ -158,6 +160,9 @@ def ptr(t: torch.Tensor) -> P:
     return P(t.data_ptr())
 
 
+STORAGE_DTYPES = (torch.float32, torch.bfloat16)  # what the f32/bf16 twins take
+
+
 def check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
                        ndim: int, contiguous: bool = True) -> None:
     """Raise unless ``t`` is what a kernel takes: a CUDA tensor of
@@ -173,3 +178,13 @@ def check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: expected a contiguous tensor")
     if not contiguous and t.stride(-1) != 1:
         raise ValueError(f"{name}: expected unit stride on the last axis")
+
+
+def storage_twin(x: torch.Tensor, f32: Kernel, bf16: Kernel) -> Kernel:
+    """The twin kernel for ``x``'s storage dtype (f32 or bf16); any other
+    dtype raises."""
+    if x.dtype == torch.float32:
+        return f32
+    if x.dtype == torch.bfloat16:
+        return bf16
+    raise TypeError(f"expected one of {STORAGE_DTYPES}, got {x.dtype}")

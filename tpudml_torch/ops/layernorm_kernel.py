@@ -21,8 +21,10 @@ downstream cotangent of ``s`` into the LayerNorm input gradient:
 
 Statistics follow the JAX package: f32, single pass, variance
 E[s²] − mean² clamped at 0, eps 1e-5; ``s`` is rounded to the stream
-dtype before the statistics (an identity in f32, the one dtype the
-kernels take).
+dtype before the statistics. Each kernel has an f32 and a bf16 twin (its
+own ``Kernel`` and launch counter, ``*_bf16``), chosen by the rows' dtype:
+the bf16 twins read and write the rows (x, r, s, y; s, dy, ds, dx) in
+bf16 and keep γ, β, the statistics and dγ, dβ in f32.
 """
 
 from __future__ import annotations
@@ -30,24 +32,26 @@ from __future__ import annotations
 import torch
 
 from tpudml_torch.ops.cuda_lib import (
-    F, I, P, CudaLibrary, Kernel, check_cuda_operand, ptr,
+    F, I, P, CudaLibrary, Kernel, check_cuda_operand, ptr, storage_twin,
 )
 
 MAX_DIM = 1024  # widest row the kernels keep in registers (32 floats a lane)
 BWD_ROWS_PER_BLOCK = 32  # backward rows per block = rows per dγ/dβ partial
 
+_FWD_ARGS = [P] * 8 + [I, I, F, P]
+_BWD_ARGS = [P] * 10 + [I, I, I, P]
 _LIB = CudaLibrary("add_layernorm.cu", {
-    "add_ln_fwd_f32": [P] * 8 + [I, I, F, P],
-    "add_ln_bwd_f32": [P] * 10 + [I, I, I, P],
+    "add_ln_fwd_f32": _FWD_ARGS, "add_ln_fwd_bf16": _FWD_ARGS,
+    "add_ln_bwd_f32": _BWD_ARGS, "add_ln_bwd_bf16": _BWD_ARGS,
 })
-ADD_LN_FORWARD = Kernel(
-    "add_layernorm_fwd", _LIB, "add_ln_fwd_f32",
-    replaces="tpudml/ops/layernorm_kernel.py:225",
-)
-ADD_LN_BACKWARD = Kernel(
-    "add_layernorm_bwd", _LIB, "add_ln_bwd_f32",
-    replaces="tpudml/ops/layernorm_kernel.py:231",
-)
+_FWD_AT = "tpudml/ops/layernorm_kernel.py:225"
+_BWD_AT = "tpudml/ops/layernorm_kernel.py:231"
+ADD_LN_FORWARD = Kernel("add_layernorm_fwd", _LIB, "add_ln_fwd_f32", replaces=_FWD_AT)
+ADD_LN_FORWARD_BF16 = Kernel("add_layernorm_fwd_bf16", _LIB, "add_ln_fwd_bf16",
+                             replaces=_FWD_AT)
+ADD_LN_BACKWARD = Kernel("add_layernorm_bwd", _LIB, "add_ln_bwd_f32", replaces=_BWD_AT)
+ADD_LN_BACKWARD_BF16 = Kernel("add_layernorm_bwd_bf16", _LIB, "add_ln_bwd_bf16",
+                              replaces=_BWD_AT)
 
 
 def add_layernorm_forward_reference(x, r, scale, bias, eps: float = 1e-5):
@@ -75,8 +79,9 @@ def add_layernorm_backward_reference(s, scale, dy, ds, mean, rstd):
 
 
 def _check_rows(named, n: int, d: int) -> None:
+    dtype = named[0][1].dtype
     for name, t in named:
-        check_cuda_operand(name, t, torch.float32, 2)
+        check_cuda_operand(name, t, dtype, 2)
         if t.shape != (n, d):
             raise ValueError(f"{name} must be [{n}, {d}], got {tuple(t.shape)}")
 
@@ -97,11 +102,12 @@ def add_layernorm_forward(x: torch.Tensor, r: torch.Tensor,
                           scale: torch.Tensor, bias: torch.Tensor,
                           eps: float = 1e-5):
     """(s, y, mean, rstd) for rows x, r [N, d]: the forward kernel for CUDA
-    tensors (f32, contiguous, d <= ``MAX_DIM``), the plain version for CPU
-    tensors."""
+    tensors (f32 or bf16 rows, f32 scale and bias, contiguous,
+    d <= ``MAX_DIM``), the plain version for CPU tensors."""
     if not x.is_cuda:
         return add_layernorm_forward_reference(x, r, scale, bias, eps)
     n, d = x.shape
+    kernel = storage_twin(x, ADD_LN_FORWARD, ADD_LN_FORWARD_BF16)
     _check_width(d)
     _check_rows((("x", x), ("r", r)), n, d)
     _check_vecs((("scale", scale), ("bias", bias)), d)
@@ -110,7 +116,7 @@ def add_layernorm_forward(x: torch.Tensor, r: torch.Tensor,
     mean = torch.empty((n,), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     with torch.cuda.device(x.device):
-        ADD_LN_FORWARD.launch(
+        kernel.launch(
             ptr(x), ptr(r), ptr(scale), ptr(bias), ptr(s), ptr(y), ptr(mean),
             ptr(rstd), I(n), I(d), F(eps),
         )
@@ -126,6 +132,7 @@ def add_layernorm_backward(s: torch.Tensor, scale: torch.Tensor,
     if not s.is_cuda:
         return add_layernorm_backward_reference(s, scale, dy, ds, mean, rstd)
     n, d = s.shape
+    kernel = storage_twin(s, ADD_LN_BACKWARD, ADD_LN_BACKWARD_BF16)
     _check_width(d)
     rows = (("s", s), ("dy", dy)) + ((("ds", ds),) if ds is not None else ())
     _check_rows(rows, n, d)
@@ -137,7 +144,7 @@ def add_layernorm_backward(s: torch.Tensor, scale: torch.Tensor,
     blocks = -(-n // BWD_ROWS_PER_BLOCK)
     part = torch.empty((2, blocks, d), dtype=torch.float32, device=s.device)
     with torch.cuda.device(s.device):
-        ADD_LN_BACKWARD.launch(
+        kernel.launch(
             ptr(s), ptr(scale), ptr(dy), P(None) if ds is None else ptr(ds),
             ptr(mean), ptr(rstd), ptr(dx), ptr(dgamma), ptr(dbeta), ptr(part),
             I(n), I(d), I(BWD_ROWS_PER_BLOCK),

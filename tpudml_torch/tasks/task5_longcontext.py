@@ -2,14 +2,17 @@
 
 Trains a decoder-only ``TransformerLM`` on deterministic synthetic
 next-token data (``synthetic_lm``) with Adam, through
-``tpudml_torch.train.make_train_step``. Same flags as
-``tasks/task5_longcontext.py`` plus ``--device`` (default ``cuda``;
-``cpu`` runs the plain versions of the kernels). Ported:
+``tpudml_torch.train.make_train_step`` (``--fused_xent``:
+``make_lm_fused_train_step``, the fused linear-cross-entropy head). Same
+flags as ``tasks/task5_longcontext.py`` plus ``--device`` (default
+``cuda``; ``cpu`` runs the plain versions of the kernels). Ported:
 ``--parallel single`` with ``--attn full|flash``, ``--fused_ln``,
-``--rope``, ``--num_kv_heads`` and ``--target_loss``. Every other
-``--parallel`` value, and ``--fused_xent*``, ``--moe_experts``,
-``--dropout``, ``--sentinel`` and ``--ckpt_dir``, raise
-``NotImplementedError`` naming their ROADMAP item.
+``--rope``, ``--num_kv_heads``, ``--target_loss``, ``--fused_xent`` and
+``--fused_xent_scores`` (validated as in JAX). ``--fused_xent_lean``, and
+``--fused_xent`` alone when its auto mode resolves to the lean backward,
+raise ``NotImplementedError`` (kernels 14 and 15); so do every other
+``--parallel`` value, ``--moe_experts``, ``--dropout``, ``--sentinel``
+and ``--ckpt_dir``, naming their ROADMAP item.
 
 Same row sampling (``np.random.default_rng(seed)`` over
 ``synthetic_lm(4·B, …)``) and steady-state clock as the JAX entry point;
@@ -33,8 +36,9 @@ from tpudml_torch.data import synthetic_lm
 from tpudml_torch.device import resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import TransformerLM
+from tpudml_torch.ops.xent_kernel import LEAN_NOT_PORTED, _auto_save_s
 from tpudml_torch.optim import make_optimizer
-from tpudml_torch.train import TrainState, make_train_step
+from tpudml_torch.train import TrainState, make_lm_fused_train_step, make_train_step
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
 PARALLEL_ITEMS = {
@@ -56,11 +60,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--fused_ln", action="store_true",
                    help="fused residual-add+LayerNorm junction kernels")
     p.add_argument("--fused_xent_scores", action="store_true",
-                   help="fused-xent head, saved-scores backward (not ported)")
+                   help="fused-xent head, saved-scores backward")
     p.add_argument("--fused_xent_lean", action="store_true",
                    help="fused-xent head, lean backward (not ported)")
     p.add_argument("--fused_xent", action="store_true",
-                   help="fused linear-cross-entropy head (not ported)")
+                   help="fused linear-cross-entropy head")
     p.add_argument("--target_loss", type=float, default=None,
                    help="stop when train loss reaches this value (checked on "
                    "--log_every steps; every 10 steps when --log_every 0)")
@@ -105,14 +109,28 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def _save_scores(args) -> bool | None:
+    """The fused head's mode flags, validated as the JAX entry point does:
+    the tristate save_scores (True / False = lean / None = auto)."""
+    scores, lean = args.fused_xent_scores, args.fused_xent_lean
+    if (scores or lean) and not args.fused_xent:
+        raise ValueError("--fused_xent_scores/--fused_xent_lean require --fused_xent")
+    if scores and lean:
+        raise ValueError("--fused_xent_scores and --fused_xent_lean are exclusive")
+    return True if scores else (False if lean else None)
+
+
 def _reject_unported(args) -> None:
     if args.parallel != "single":
         raise NotImplementedError(
             f"--parallel {args.parallel} {NOT_PORTED.format(PARALLEL_ITEMS[args.parallel])}")
+    args._save_scores = _save_scores(args)
+    if args.fused_xent and (args._save_scores is False or (
+            args._save_scores is None and not _auto_save_s(
+                args.batch_size * args.seq_len, args.vocab, 256, 2048))):
+        # linear_cross_entropy's default tiles decide the auto mode.
+        raise NotImplementedError(f"--fused_xent in its lean mode: {LEAN_NOT_PORTED}")
     for flag, on, item in (
-        ("--fused_xent", args.fused_xent, "2b (fused linear-xent)"),
-        ("--fused_xent_scores", args.fused_xent_scores, "2b (fused linear-xent)"),
-        ("--fused_xent_lean", args.fused_xent_lean, "2b (fused linear-xent)"),
         ("--moe_experts", args.moe_experts, "9 (MoE)"),
         ("--dropout", args.dropout, "3 (Dropout)"),
         ("--sentinel", args.sentinel, "6 (resilience)"),
@@ -143,15 +161,19 @@ def build_engine(args, device: torch.device):
         generator=torch.Generator().manual_seed(args.seed),
     )
     opt = make_optimizer("adam", args.lr)
-    return TrainState.create(model, opt), make_train_step(model, opt)
+    if args.fused_xent:
+        step = make_lm_fused_train_step(model, opt, save_scores=args._save_scores)
+    else:
+        step = make_train_step(model, opt)
+    return TrainState.create(model, opt), step
 
 
 def run(args) -> dict:
     if args.steps < 1:
         raise ValueError("--steps must be >= 1")
     device = resolve_device(args.device)
-    seqs = synthetic_lm(args.batch_size * 4, args.seq_len, args.vocab, seed=args.seed)
     ts, step = build_engine(args, device)
+    seqs = synthetic_lm(args.batch_size * 4, args.seq_len, args.vocab, seed=args.seed)
 
     def sync():
         if device.type == "cuda":

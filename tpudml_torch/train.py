@@ -1,5 +1,7 @@
 """Training step (the port of ``tpudml/train.py``: ``TrainState``,
-``make_loss_fn``, ``make_train_step_body``, ``make_train_step``).
+``make_loss_fn``, ``make_train_step_body``, ``make_train_step``, and the
+fused-head LM step ``make_lm_fused_loss_fn``,
+``make_lm_fused_train_step_body``, ``make_lm_fused_train_step``).
 
 The JAX package jits one XLA program per step (grad + optimizer update)
 and donates the state; the port runs the same step eagerly: the loss's
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 
 from tpudml_torch.nn.losses import softmax_cross_entropy
+from tpudml_torch.ops.xent_kernel import linear_cross_entropy
 from tpudml_torch.optim import Optimizer
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 3, the rest of train.py)"
@@ -54,13 +57,26 @@ def make_loss_fn(model: nn.Module) -> Callable:
     return loss_fn
 
 
-def make_train_step_body(model: nn.Module, optimizer: Optimizer,
-                         accum_steps: int = 1) -> Callable:
-    """(ts, tokens, labels) -> (ts, {"loss": loss}) on tensors that already
-    lie on the model's device: forward, backward, optimizer update."""
-    if accum_steps != 1:
-        raise NotImplementedError(f"accum_steps > 1 {NOT_PORTED}")
-    loss_fn = make_loss_fn(model)
+def make_lm_fused_loss_fn(model: nn.Module, save_scores: bool | None = None) -> Callable:
+    """(tokens, labels) -> (loss, None) through the fused linear-cross-entropy
+    head: ``model.apply_features`` then ``linear_cross_entropy`` on the head's
+    kernel and bias cast to the compute dtype, so the [B·T, V] logits are
+    never a tensor of the step (the second item, None, stands where
+    :func:`make_loss_fn` returns the logits). ``save_scores`` is
+    ``linear_cross_entropy``'s ``save_s``; only the saved-scores mode is
+    ported, and a value that resolves to the lean mode raises."""
+
+    def loss_fn(tokens, labels):
+        feats = model.apply_features(tokens)
+        kernel, bias = model.head.cast_params()
+        return linear_cross_entropy(feats, kernel, labels, bias, save_s=save_scores), None
+
+    return loss_fn
+
+
+def _step_body(optimizer: Optimizer, loss_fn: Callable) -> Callable:
+    """(ts, tokens, labels) -> (ts, {"loss": loss}): forward, backward and
+    optimizer update through ``loss_fn``."""
 
     def step(ts: TrainState, tokens: torch.Tensor, labels: torch.Tensor):
         params = params_of(ts.model)
@@ -74,19 +90,48 @@ def make_train_step_body(model: nn.Module, optimizer: Optimizer,
     return step
 
 
-def make_train_step(model: nn.Module, optimizer: Optimizer,
-                    accum_steps: int = 1) -> Callable:
-    """Single-device train step: :func:`make_train_step_body` taking the
-    batch as numpy arrays or tensors anywhere, moved to the model's
-    device as int64 token ids. The step's ``loss`` metric stays on the
-    device (reading it waits for the step)."""
-    body = make_train_step_body(model, optimizer, accum_steps)
+def make_train_step_body(model: nn.Module, optimizer: Optimizer,
+                         accum_steps: int = 1) -> Callable:
+    """(ts, tokens, labels) -> (ts, {"loss": loss}) on tensors that already
+    lie on the model's device: forward, backward, optimizer update."""
+    if accum_steps != 1:
+        raise NotImplementedError(f"accum_steps > 1 {NOT_PORTED}")
+    return _step_body(optimizer, make_loss_fn(model))
+
+
+def make_lm_fused_train_step_body(model: nn.Module, optimizer: Optimizer,
+                                  save_scores: bool | None = None) -> Callable:
+    """:func:`make_train_step_body` through :func:`make_lm_fused_loss_fn`:
+    the flagship LM step (``bench.py`` ``bench_transformer``). Metrics
+    carry the loss only."""
+    return _step_body(optimizer, make_lm_fused_loss_fn(model, save_scores))
+
+
+def _on_device(body: Callable) -> Callable:
+    """``body`` taking the batch as numpy arrays or tensors anywhere,
+    moved to the model's device as int64 token ids."""
 
     def step(ts: TrainState, tokens, labels):
         dev = next(ts.model.parameters()).device
         return body(ts, _ids(tokens, dev), _ids(labels, dev))
 
     return step
+
+
+def make_train_step(model: nn.Module, optimizer: Optimizer,
+                    accum_steps: int = 1) -> Callable:
+    """Single-device train step: :func:`make_train_step_body` taking the
+    batch as numpy arrays or tensors anywhere, moved to the model's
+    device as int64 token ids. The step's ``loss`` metric stays on the
+    device (reading it waits for the step)."""
+    return _on_device(make_train_step_body(model, optimizer, accum_steps))
+
+
+def make_lm_fused_train_step(model: nn.Module, optimizer: Optimizer,
+                             save_scores: bool | None = None) -> Callable:
+    """:func:`make_lm_fused_train_step_body` taking the batch as
+    :func:`make_train_step` does."""
+    return _on_device(make_lm_fused_train_step_body(model, optimizer, save_scores))
 
 
 def _ids(x, device) -> torch.Tensor:
