@@ -13,14 +13,21 @@ the CPU). Phases, each printing its own line(s):
    H=4, D=128, causal), the fused decode head (B=8, d=512, V=32768, f32
    and int8 weights), the flash backward dQ and dK/dV (B=8, T=1024, H=4,
    D=128 causal; also non-causal, T=1000 and k_shift=1 through
-   ``flash_block_grads``), the fused add+LayerNorm forward and
+   ``flash_block_grads``), the flash forward, dQ and dK/dV at the
+   long-context path's B=2, T=16384, H=4, D=128 causal (the plain
+   versions per (batch, head) slice), the fused add+LayerNorm forward and
    backward (N=8192, d=512; also N=1000 and ds=None), the bf16 twins of
    the flash and add+LN kernels at the training shapes, and the fused
    linear-xent kernels 10–13 (N=8192, d=512, V=32768 and the ragged
-   N=1000, V=1000 with labels −1 and V; f32 and bf16); times of the
-   kernel, the plain version and a library call computing the same
-   function, beside the bound (bf16 rows against the bf16 tensor-core
-   rate).
+   N=1000, V=1000 with labels −1 and V; f32 and bf16), the lean head's
+   kernels 14 and 15 with kernel 10 that feeds them lse (the same shapes,
+   and in f32 the long-context path's N=32768, BASELINE.md:46's N=131072
+   and N=2097184 at d=1024, V=256, where N·d passes 2³¹ and the offsets
+   need 64 bits; the last two against the plain versions in row chunks),
+   and the plain LayerNorm kernels 6 and 7 (N=8192 and N=1000, d=512, f32
+   and bf16); times of the kernel, the plain version and a library call
+   computing the same function, beside the bound (bf16 rows against the
+   bf16 tensor-core rate).
 4. main path 1, serving: the serving engine at full width (V=32768, d=512, H=8,
    kv_heads=2, L=6, RoPE, f32, random weights from a seeded generator;
    8 slots, max_len 1024, prefill chunks of 128; 16 requests at qps=inf,
@@ -59,7 +66,26 @@ the CPU). Phases, each printing its own line(s):
    (c) one evaluation loss under ``torch.no_grad()``, its own path with
    its own zeroed counts, launches kernel 10 and agrees with the
    materialized loss.
-7. one JSON line of per-kernel numbers (launches summed over the main
+7. main path 4, long-context training (BASELINE.md:45): task5's own
+   ``build_engine`` with ``--attn flash --seq_len 16384 --batch_size 2
+   --vocab 32768 --embed_dim 512 --num_heads 4 --num_layers 6 --rope
+   --lr 0.001 --fused_xent`` (f32, Adam, random weights from the task's
+   seed), whose auto mode must resolve to the lean head (the padded f32
+   scores would be 4 GiB). Step-1 gradients and loss through the engine's
+   loss agree with the saved-scores head's (``--fused_xent_scores``) and
+   with the materialized logits'. Then LONG_STEPS steps of
+   task5's batches: launch counts zeroed just before and read just after
+   must be exactly LONG_STEPS × LONG_PER_STEP (kernels 11–13 never); the
+   same initial state trains the same batches through
+   ``--fused_xent_scores``, losses within LOSS_TOL; the lean run's peak
+   device memory must lie at least LEAN_MEM_GAP below the saved run's (the
+   O(N) contract). No kernel-free run: full attention at T=16384 holds
+   8 GiB of scores a layer.
+8. the plain LayerNorm op path: ``fused_layernorm`` forward and backward
+   under autograd at [8192, 512] in f32 and bf16, with its own zeroed
+   launch counts (kernels 6 and 7 and their bf16 twins, once each), held
+   against ``F.layer_norm``.
+9. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -143,6 +169,27 @@ FLAGSHIP_PER_STEP = {"xent_fwd_save": 1, "xent_dx_s": 1, "xent_dw_s": 1,
                      "flash_dkdv_bf16": 6, "add_layernorm_fwd_bf16": 12,
                      "add_layernorm_bwd_bf16": 12}
 XENT_SHAPE = (8192, 512, 32768)  # N = B·T, d, V of the flagship head
+# Long-context training (BASELINE.md:45), task5 flags; --fused_xent in its
+# auto mode, which resolves to the lean head at N = B·T = 32768, V = 32768.
+LONG_TASK5 = ["--parallel", "single", "--attn", "flash", "--seq_len", "16384",
+              "--batch_size", "2", "--vocab", "32768", "--embed_dim", "512",
+              "--num_heads", "4", "--num_layers", "6", "--rope", "--steps", "30",
+              "--lr", "0.001", "--fused_xent"]
+LONG_STEPS = 3  # the first is the warm-up; ms/step is taken over the rest
+LONG_PER_STEP = {"flash_forward_lse": 6, "flash_dq": 6, "flash_dkdv": 6,
+                 "xent_fwd": 1, "xent_dx_lean": 1, "xent_dw_lean": 1}
+LEAN_MEM_GAP = 3 * 1024**3  # the saved run keeps 4 GiB of f32 scores more
+LEAN_PATH_N = 32768  # the long-context head: B·T = 2·16384
+LEAN_BIG_N = 131072  # BASELINE.md:46's batch, B=32·T=4096 (4096 row tiles of dX)
+LEAN_CHUNK = 16384  # rows per call of the plain version at LEAN_BIG_N
+# N·d > 2³¹ at the widest d the kernels take: the offsets of x and dX need
+# 64 bits (the lean kernels never index N·V), dX has 65537 row tiles (more
+# than a grid's y extent holds) and two d chunks; a narrow vocabulary keeps
+# the run short.
+LEAN_WIDE = (2_097_184, 1024, 256)
+LEAN_WIDE_CHUNK = 262144
+LONG_FLASH_SHAPE = (2, 16384, 4, 128)  # B, T, H, D of the long-context path
+LN_SHAPE = (8192, 512)  # the plain LayerNorm op at the training rows
 
 
 class SmokeFailure(RuntimeError):
@@ -269,6 +316,99 @@ def flash_train_shape(gen) -> dict:
           f"sdpa {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
     return dict(shape=f"B={b} T={t} H={h} D={d} causal (training)", max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+
+
+def _bh(x, i: int, j: int):
+    """The (batch i, head j) slice of a [B, T, H, D] tensor or of a
+    [B, H, T] statistic."""
+    return x[i:i + 1, :, j:j + 1] if x.dim() == 4 else x[i:i + 1, j:j + 1]
+
+
+def flash_long_phase(gen, fwd_row: dict, dq_row: dict, dkdv_row: dict) -> None:
+    """Kernels 1–3 at the long-context path's shape (B=2, T=16384, H=4,
+    D=128, causal), where they take most of its step: each kernel on the
+    full shape against its plain version on every (batch, head) slice (its
+    [T, T] f32 scores are 1 GiB a slice), then timed beside the plain
+    version over all slices, the bound and SDPA. Adds ``at_long_context``
+    to the three rows and folds the errors into their ``max_abs_err``."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudml_torch.ops import (
+        flash_dkdv, flash_dkdv_reference, flash_dq, flash_dq_reference, flash_forward_lse,
+        flash_forward_lse_reference,
+    )
+
+    b, t, h, d = LONG_FLASH_SHAPE
+    slices = [(i, j) for i in range(b) for j in range(h)]
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen).cuda() for _ in range(4))
+    o, lse = flash_forward_lse(q, k, v, causal=True)
+    ro, rlse = torch.empty_like(o), torch.empty_like(lse)
+    for i, j in slices:
+        so, slse = flash_forward_lse_reference(*(_bh(x, i, j) for x in (q, k, v)),
+                                               causal=True)
+        _bh(ro, i, j).copy_(so)
+        _bh(rlse, i, j).copy_(slse)
+    torch.cuda.synchronize()
+    e_fwd = max((o - ro).abs().max().item(), (lse - rlse).abs().max().item())
+    print(f"[kernel] flash_forward_lse B={b} T={t} H={h} D={d} causal (plain per (batch, "
+          f"head) slice): max|err| of O, lse {e_fwd:.3e} (tol {FLASH_TOL:g})")
+    check(e_fwd <= FLASH_TOL, "flash kernel disagrees with its plain version at the "
+          "long-context shape")
+    del o, lse
+    delta = (do * ro).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, rlse, delta)
+    dq = flash_dq(*args, causal=True)
+    dk, dv = flash_dkdv(*args, causal=True)
+    e_dq = e_dkdv = 0.0
+    for i, j in slices:
+        part = [_bh(x, i, j) for x in args]
+        e_dq = max(e_dq, _grad_err(_bh(dq, i, j), flash_dq_reference(*part, causal=True)))
+        rdk, rdv = flash_dkdv_reference(*part, causal=True)
+        e_dkdv = max(e_dkdv, _grad_err(_bh(dk, i, j), rdk), _grad_err(_bh(dv, i, j), rdv))
+        del rdk, rdv
+    print(f"[kernel] flash_dq / flash_dkdv B={b} T={t} H={h} D={d} causal (plain per "
+          f"(batch, head) slice): max|ddq| {e_dq:.3e}, max|ddk|,|ddv| {e_dkdv:.3e} "
+          f"(|err| <= {GRAD_ATOL:g} + {GRAD_RTOL:g}·|plain|)")
+    del dq, dk, dv
+    torch.cuda.empty_cache()
+
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    sdpa_f = cuda_ms(sdpa, iters=3, warmup=1)
+    sdpa_b = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), iters=3,
+                     warmup=1) - sdpa_f
+    del qh, kh, vh, doh
+    pairs = b * h * t * (t + 1) // 2
+    io = b * t * h * d
+    for row, fn, ref, ins, err, nbytes, flops, lib, lib_name in (
+        (fwd_row, flash_forward_lse, flash_forward_lse_reference, (q, k, v), e_fwd,
+         4 * (4 * io + b * h * t), 4 * d * pairs, sdpa_f, "sdpa"),
+        (dq_row, flash_dq, flash_dq_reference, args, e_dq, 4 * (5 * io + 2 * b * h * t),
+         6 * d * pairs, sdpa_b, "sdpa fwd+bwd minus fwd (dq, dk, dv)"),
+        (dkdv_row, flash_dkdv, flash_dkdv_reference, args, e_dkdv,
+         4 * (6 * io + 2 * b * h * t), 8 * d * pairs, sdpa_b,
+         "sdpa fwd+bwd minus fwd (dq, dk, dv)"),
+    ):
+        ms = cuda_ms(lambda: fn(*ins, causal=True), iters=3, warmup=1)
+        plain_ms = cuda_ms(lambda: [ref(*(_bh(x, i, j) for x in ins), causal=True)
+                                    for i, j in slices], iters=2, warmup=1)
+        torch.cuda.empty_cache()
+        bnd, by = bound(nbytes, flops)
+        print(f"[kernel] {row['name']} B={b} T={t} H={h} D={d} causal: kernel {ms:.3f} ms, "
+              f"plain (per slice, {len(slices)} calls) {plain_ms:.3f} ms, {lib_name} "
+              f"{lib:.3f} ms, bound {bnd:.5f} ms ({by})")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["at_long_context"] = dict(
+            shape=f"B={b} T={t} H={h} D={d} causal (long-context training)",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            plain=f"per (batch, head) slice, {len(slices)} calls", bound_ms=bnd,
+            bound_by=by, library_ms=lib, library=lib_name)
+    torch.cuda.empty_cache()
 
 
 def _grad_err(got, want) -> float:
@@ -585,10 +725,11 @@ def add_ln_bf16_phase(gen) -> list[dict]:
 def _xent_inputs(gen, n, d, v, dtype, bad_labels):
     import torch
 
-    x = torch.randn((n, d), generator=gen).cuda().to(dtype)
-    w = ((torch.rand((d, v), generator=gen) * 2 - 1) / d ** 0.5).cuda().to(dtype)
-    b = ((torch.rand((v,), generator=gen) * 2 - 1) / d ** 0.5).cuda().to(dtype)
-    y = torch.randint(0, v, (n,), generator=gen, dtype=torch.int32)
+    dev = gen.device  # a CUDA generator makes large inputs on the card
+    x = torch.randn((n, d), generator=gen, device=dev).cuda().to(dtype)
+    w = ((torch.rand((d, v), generator=gen, device=dev) * 2 - 1) / d ** 0.5).cuda().to(dtype)
+    b = ((torch.rand((v,), generator=gen, device=dev) * 2 - 1) / d ** 0.5).cuda().to(dtype)
+    y = torch.randint(0, v, (n,), generator=gen, dtype=torch.int32, device=dev)
     if bad_labels:
         y[0], y[-1] = -1, v
     return x, w, b, y.cuda()
@@ -728,6 +869,246 @@ def xent_phase(gen) -> list[dict]:
                          **times[torch.bfloat16][kernel.name],
                          at_f32=times[torch.float32][kernel.name]))
     torch.cuda.empty_cache()
+    return rows
+
+
+def xent_lean_check(gen, n, d, v, dtype, bad_labels, chunk=None) -> dict:
+    """Kernels 14 and 15, and kernel 10 that gives them lse, against their
+    plain versions at one shape, the plain versions applied in row chunks
+    of ``chunk`` rows when given (their [N, V] scores would not fit
+    otherwise): returns max |err| per kernel."""
+    import torch
+
+    from tpudml_torch.ops import (
+        xent_dw_lean, xent_dw_lean_reference, xent_dx_lean, xent_dx_lean_reference,
+        xent_forward, xent_forward_reference,
+    )
+
+    x, w, b, y = _xent_inputs(gen, n, d, v, dtype, bad_labels)
+    step = chunk or n
+    rows = [slice(i, i + step) for i in range(0, n, step)]
+    ref = [xent_forward_reference(x[r], w, b, y[r]) for r in rows]
+    lse, picked = (torch.cat([p[i] for p in ref]) for i in (0, 1))
+    del ref
+    klse, kpicked = xent_forward(x, w, b, y)
+    dx = xent_dx_lean(x, w, b, y, lse, 1.0 / n)
+    dw, db = xent_dw_lean(x, w, b, y, lse, 1.0 / n)
+    torch.cuda.synchronize()
+    e10 = 0.0
+    for got, want in ((klse, lse), (kpicked, picked)):
+        err = (got - want).abs()
+        check(bool((err <= XENT_ROW_TOL * (1 + want.abs())).all()),
+              f"xent_fwd disagrees with its plain version (N={n}, V={v}, {dtype})")
+        e10 = max(e10, err.max().item())
+    e_dx = m_dx = 0.0
+    rdw = rdb = 0.0
+    for r in rows:
+        rdx = xent_dx_lean_reference(x[r], w, b, y[r], lse[r], 1.0 / n).float()
+        e_dx = max(e_dx, (dx[r].float() - rdx).abs().max().item())
+        m_dx = max(m_dx, rdx.abs().max().item())
+        pw, pb = xent_dw_lean_reference(x[r], w, b, y[r], lse[r], 1.0 / n)
+        rdw, rdb = rdw + pw.float(), rdb + pb
+    del rdx, pw, pb
+    rdw = rdw.to(dtype)
+    rel = XENT_GRAD_REL if dtype == torch.float32 else BF16_REL
+    r_dx, r_dw, r_db = e_dx / max(m_dx, 1e-30), rel_to_max(dw, rdw), rel_to_max(db, rdb)
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    print(f"[kernel] xent lean N={n} d={d} V={v} {tag}{' labels -1, V' if bad_labels else ''}"
+          f"{f' (plain in {step}-row chunks)' if chunk else ''}: fwd max|dlse|,|dpicked| "
+          f"{e10:.3e} (|err| <= {XENT_ROW_TOL:g}·(1+|plain|)); dx {r_dx:.3e}, dw "
+          f"{r_dw:.3e}, db {r_db:.3e} of max (tol {rel:g}; db {XENT_GRAD_REL:g})")
+    check(dx.dtype == dw.dtype == dtype and db.dtype == torch.float32,
+          "lean xent gradients in the wrong dtype")
+    check(r_dx <= rel and r_dw <= rel and r_db <= XENT_GRAD_REL,
+          f"lean xent backward disagrees with its plain version (N={n}, V={v}, {tag})")
+    return {"xent_fwd": e10, "xent_dx_lean": e_dx,
+            "xent_dw_lean": max((dw.float() - rdw.float()).abs().max().item(),
+                                (db - rdb).abs().max().item())}
+
+
+def xent_lean_times(gen, n, dtype, iters=3, with_fwd=False) -> dict:
+    """Kernels 14 and 15 (and with ``with_fwd`` kernel 10, which runs
+    before them) at N rows of the flagship head's d and V in ``dtype``:
+    kernel, plain and library ms and the bound, by kernel name. Library:
+    the autograd of ``F.cross_entropy`` over the materialized logits minus
+    its forward (dx, dW, db together), as rows 12 and 13 use; for kernel
+    10, ``torch.logsumexp(x@W+b)`` plus the label pick. The bound counts
+    both products each backward kernel does (the recompute and the
+    gradient)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudml_torch.ops import (
+        XENT_DW_LEAN, XENT_DX_LEAN, XENT_FORWARD, xent_dw_lean, xent_dw_lean_reference,
+        xent_dx_lean, xent_dx_lean_reference, xent_forward, xent_forward_reference,
+    )
+
+    _, d, v = XENT_SHAPE
+    x, w, b, y = _xent_inputs(gen, n, d, v, dtype, bad_labels=False)
+    yl = y.long()
+    lse, _ = xent_forward_reference(x, w, b, y)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+
+    def ce():
+        return F.cross_entropy(torch.addmm(leaves[2], leaves[0], leaves[1]), yl)
+
+    def lib_fwd():
+        logits = torch.addmm(b, x, w)
+        return torch.logsumexp(logits, dim=-1), logits.gather(1, yl[:, None])
+
+    lib_b = (cuda_ms(lambda: torch.autograd.grad(ce(), leaves), iters=iters, warmup=1)
+             - cuda_ms(ce, iters=iters, warmup=1))
+    lib_f = cuda_ms(lib_fwd, iters=iters, warmup=1) if with_fwd else None
+    del leaves
+    e = x.element_size()
+    io = n * d * e + d * v * e + v * e + 8 * n  # x, W, b, labels, lse
+    mm = 4 * n * d * v  # the recompute and the gradient product
+    peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+    tag = str(dtype)[6:]
+    lib_name = "F.cross_entropy fwd+bwd minus fwd (dx, dW, db)"
+    cases = [
+        (XENT_DX_LEAN, lambda: xent_dx_lean(x, w, b, y, lse, 1.0 / n),
+         lambda: xent_dx_lean_reference(x, w, b, y, lse, 1.0 / n),
+         io + n * d * e, mm + 4 * n * v, lib_b, lib_name),
+        (XENT_DW_LEAN, lambda: xent_dw_lean(x, w, b, y, lse, 1.0 / n),
+         lambda: xent_dw_lean_reference(x, w, b, y, lse, 1.0 / n),
+         io + d * v * e + 4 * v, mm + 5 * n * v, lib_b, lib_name),
+    ]
+    if with_fwd:  # x, W, b, labels in; lse, picked out
+        cases.insert(0, (XENT_FORWARD, lambda: xent_forward(x, w, b, y),
+                         lambda: xent_forward_reference(x, w, b, y), io,
+                         mm // 2 + 4 * n * v, lib_f, "logsumexp(x@W+b) + pick"))
+    out = {}
+    for kernel, fn, ref, nbytes, flops, lib, name in cases:
+        ms = cuda_ms(fn, iters=iters, warmup=1)
+        plain_ms = cuda_ms(ref, iters=2, warmup=1)
+        bnd, by = bound(nbytes, flops, peak)
+        print(f"[kernel] {kernel.name} N={n} d={d} V={v} {tag}: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, {name} {lib:.3f} ms, bound {bnd:.5f} ms ({by})")
+        out[kernel.name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                                library_ms=lib, library=f"{name}, {tag}",
+                                shape=f"N={n} d={d} V={v} {tag}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def xent_lean_phase(gen, fwd_row: dict) -> list[dict]:
+    """The lean head's kernels 14 and 15, with kernel 10 that feeds them:
+    agreement with their plain versions at the flagship head's shape and
+    at N=V=1000 with labels −1 and V (f32 and bf16), and in f32 at the
+    long-context path's N=32768, at N=131072 and at LEAN_WIDE (N·d > 2³¹);
+    times at the path's shape in f32 (the rows of 14 and 15, kernel 10's
+    ``at_long_context``) and at the flagship's N=8192 in bf16 and f32."""
+    import torch
+
+    from tpudml_torch.ops import XENT_DW_LEAN, XENT_DX_LEAN
+
+    n, d, v = XENT_SHAPE
+    worst = {}
+    cases = [((1000, d, 1000), torch.float32, True, None),
+             ((n, d, v), torch.float32, False, None),
+             ((1000, d, 1000), torch.bfloat16, True, None),
+             ((n, d, v), torch.bfloat16, False, None),
+             ((LEAN_PATH_N, d, v), torch.float32, False, None),
+             ((LEAN_BIG_N, d, v), torch.float32, False, LEAN_CHUNK),
+             (LEAN_WIDE, torch.float32, False, LEAN_WIDE_CHUNK)]
+    for shape, dtype, bad, chunk in cases:
+        g = torch.Generator(device="cuda").manual_seed(1) if shape == LEAN_WIDE else gen
+        for name, e in xent_lean_check(g, *shape, dtype, bad, chunk).items():
+            worst[name] = max(worst.get(name, 0.0), e)
+        torch.cuda.empty_cache()
+    path = xent_lean_times(gen, LEAN_PATH_N, torch.float32, with_fwd=True)
+    fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], worst["xent_fwd"])
+    fwd_row["at_long_context"] = path["xent_fwd"]
+    fwd_row["at_long_context"]["shape"] += " (long-context head)"
+    flagship = {dt: xent_lean_times(gen, n, dt, iters=5) for dt in (torch.bfloat16,
+                                                                    torch.float32)}
+    rows = []
+    for kernel in (XENT_DX_LEAN, XENT_DW_LEAN):
+        row = dict(name=kernel.name, route="cuda", source=kernel.source,
+                   replaces=kernel.replaces, max_abs_err=worst[kernel.name],
+                   **path[kernel.name])
+        row["shape"] += " (long-context head)"
+        row["at_flagship_bf16"] = flagship[torch.bfloat16][kernel.name]
+        row["at_flagship_f32"] = flagship[torch.float32][kernel.name]
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ln_phase(gen) -> list[dict]:
+    """The plain LayerNorm forward (#6) and backward (#7) and their bf16
+    twins against their plain versions at N=8192 and N=1000, d=512; then
+    timed at N=8192 beside the bound and ``F.layer_norm`` (its backward:
+    forward+backward minus forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudml_torch.ops import (
+        LN_BACKWARD, LN_BACKWARD_BF16, LN_FORWARD, LN_FORWARD_BF16, layernorm_backward,
+        layernorm_backward_reference, layernorm_forward, layernorm_forward_reference,
+    )
+
+    rows = []
+    for dtype, fwd_k, bwd_k in ((torch.float32, LN_FORWARD, LN_BACKWARD),
+                                (torch.bfloat16, LN_FORWARD_BF16, LN_BACKWARD_BF16)):
+        tag = str(dtype)[6:]
+        bf16 = dtype == torch.bfloat16
+        err_f = err_b = 0.0
+        main = None
+        for n, d in (LN_SHAPE, (1000, LN_SHAPE[1])):
+            x, dy = (torch.randn((n, d), generator=gen).cuda().to(dtype) for _ in range(2))
+            scale = (1 + 0.1 * torch.randn((d,), generator=gen)).cuda()
+            bias = (0.1 * torch.randn((d,), generator=gen)).cuda()
+            y, mean, rstd = layernorm_forward(x, scale, bias)
+            ry, rmean, rrstd = layernorm_forward_reference(x, scale, bias)
+            dx, dg, db = layernorm_backward(x, scale, dy, rmean, rrstd)
+            rdx, rdg, rdb = layernorm_backward_reference(x, scale, dy, rmean, rrstd)
+            torch.cuda.synchronize()
+            estat = max((mean - rmean).abs().max().item(), (rstd - rrstd).abs().max().item())
+            ey = rel_to_max(y, ry) if bf16 else (y - ry).abs().max().item()
+            edx = rel_to_max(dx, rdx) if bf16 else (dx - rdx).abs().max().item()
+            ecol = max(rel_to_max(dg, rdg), rel_to_max(db, rdb))
+            row_tol = BF16_REL if bf16 else LN_ROW_TOL
+            print(f"[kernel] layernorm N={n} d={d} {tag}: y {ey:.3e}, dx {edx:.3e} "
+                  f"({'of max, ' if bf16 else ''}tol {row_tol:g}); mean/rstd {estat:.3e} "
+                  f"(tol {LN_ROW_TOL:g}); dgamma/dbeta {ecol:.3e} of max (tol {LN_COL_RTOL:g})")
+            check(y.dtype == dx.dtype == dtype and ey <= row_tol and edx <= row_tol
+                  and estat <= LN_ROW_TOL and ecol <= LN_COL_RTOL,
+                  f"LayerNorm kernels disagree with their plain versions (N={n}, {tag})")
+            err_f = max(err_f, (y.float() - ry.float()).abs().max().item(), estat)
+            err_b = max(err_b, (dx.float() - rdx.float()).abs().max().item(),
+                        (dg - rdg).abs().max().item(), (db - rdb).abs().max().item())
+            if main is None:
+                main = (x, scale, bias, dy, rmean, rrstd, n, d)
+        x, scale, bias, dy, mean, rstd, n, d = main
+        leaves = [t.clone().requires_grad_() for t in (x, scale.to(dtype), bias.to(dtype))]
+
+        def lib_fwd():  # F.layer_norm takes γ, β in the rows' dtype
+            return F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-5)
+
+        lib_f = cuda_ms(lib_fwd)
+        lib_b = cuda_ms(lambda: torch.autograd.grad(lib_fwd(), leaves, dy)) - lib_f
+        e = x.element_size()
+        peak = H100_BF16_FLOPS if bf16 else H100_F32_FLOPS
+        for kernel, fn, ref, err, nbytes, flops, lib in (
+            (fwd_k, lambda: layernorm_forward(x, scale, bias),
+             lambda: layernorm_forward_reference(x, scale, bias), err_f,
+             2 * n * d * e + 4 * (2 * d + 2 * n), 8 * n * d, lib_f),
+            (bwd_k, lambda: layernorm_backward(x, scale, dy, mean, rstd),
+             lambda: layernorm_backward_reference(x, scale, dy, mean, rstd), err_b,
+             3 * n * d * e + 4 * (3 * d + 2 * n), 12 * n * d, lib_b),
+        ):
+            ms = cuda_ms(fn)
+            plain_ms = cuda_ms(ref)
+            bnd, by = bound(nbytes, flops, peak)
+            lib_name = f"F.layer_norm {tag}" + (" fwd+bwd minus fwd" if kernel is bwd_k else "")
+            print(f"[kernel] {kernel.name} N={n} d={d}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, {lib_name} {lib:.4f} ms, bound {bnd:.5f} ms ({by})")
+            rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
+                             replaces=kernel.replaces, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib,
+                             library=lib_name, shape=f"N={n} d={d} {tag} (op path)"))
     return rows
 
 
@@ -1137,6 +1518,144 @@ def flagship_phase() -> dict[str, dict[str, int]]:
     return {"flagship": launches, "eval": eval_launches}
 
 
+# ------------------------------------------------------------ phase 7
+
+
+def long_phase() -> dict[str, int]:
+    """Main path 4: long-context training through task5's engine with the
+    lean head (module docstring, phase 7). Returns the launch counts of
+    the lean run."""
+    import numpy as np
+    import torch
+
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.ops.xent_kernel import _auto_save_s
+    from tpudml_torch.tasks import task5_longcontext as task5
+    from tpudml_torch.train import make_lm_fused_loss_fn, make_loss_fn
+
+    args = task5.parse_args(LONG_TASK5)
+    b, t, v = args.batch_size, args.seq_len, args.vocab
+    ts, step = task5.build_engine(args, torch.device("cuda"))
+    lean_auto = args._save_scores is None and not _auto_save_s(b * t, v, 256, 2048)
+    print(f"[long] task5 {' '.join(LONG_TASK5)}: N = B·T = {b * t}, V = {v}; save_scores "
+          f"{args._save_scores} resolves to {'lean' if lean_auto else 'saved scores'}")
+    check(lean_auto, "the long-context --fused_xent did not resolve to the lean head")
+    sargs = task5.parse_args(LONG_TASK5 + ["--fused_xent_scores"])
+    sts, sstep = task5.build_engine(sargs, torch.device("cuda"))
+    sts.model.load_state_dict(ts.model.state_dict())  # one initial state
+    seqs = synthetic_lm(4 * b, t, v, seed=args.seed)
+    rng = np.random.default_rng(args.seed)  # task5's row sampling
+    batches = [seqs[rng.integers(0, len(seqs), size=b)] for _ in range(LONG_STEPS)]
+
+    # Step-1 gradients from the initial state, before the counted run.
+    tokens, labels = (torch.from_numpy(x).long().cuda()
+                      for x in (batches[0][:, :-1], batches[0][:, 1:]))
+    l_lean, g_lean = _grads(make_lm_fused_loss_fn(ts.model, args._save_scores), ts.model,
+                            tokens, labels)
+    l_saved, g_saved = _grads(make_lm_fused_loss_fn(sts.model, True), sts.model,
+                              tokens, labels)
+    worst, name = _worst(g_lean, g_saved, g_saved)
+    print(f"[long] step-1 gradients, lean vs saved-scores head: worst max|err|/max|saved| "
+          f"{worst:.3e} ({name}; tol {STEP_GRAD_RTOL:g}); losses {l_lean:.6f} vs "
+          f"{l_saved:.6f}")
+    check(worst <= STEP_GRAD_RTOL, f"lean step-1 gradient {name} disagrees with saved scores")
+    check(abs(l_lean - l_saved) <= LOSS_TOL, "lean and saved-scores losses disagree")
+    del g_saved
+    torch.cuda.empty_cache()
+    l_mat, g_mat = _grads(make_loss_fn(ts.model), ts.model, tokens, labels)
+    head = [n for n in g_mat if n.startswith("head.")]
+    w_head, n_head = _worst({n: g_lean[n] for n in head}, {n: g_mat[n] for n in head}, g_mat)
+    w_all, n_all = _worst(g_lean, g_mat, g_mat)
+    print(f"[long] step-1 gradients, lean vs materialized logits: head worst "
+          f"{w_head:.3e} ({n_head}), all parameters {w_all:.3e} ({n_all}; tol "
+          f"{STEP_GRAD_RTOL:g}); losses {l_lean:.6f} vs {l_mat:.6f} (tol {LOSS_TOL:g})")
+    check(w_all <= STEP_GRAD_RTOL, f"lean step-1 gradient {n_all} disagrees with the "
+          "materialized logits")
+    check(abs(l_lean - l_mat) <= LOSS_TOL, "lean and materialized-logits losses disagree")
+    del g_lean, g_mat, tokens, labels
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()  # ---- main path 4 starts here
+    l_losses, l_ms = _train_run(ts, step, batches)
+    launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    lean_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s_losses, s_ms = _train_run(sts, sstep, batches)
+    saved_peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+        need = LONG_STEPS * LONG_PER_STEP.get(name, 0)
+        check(n == need, f"long-context training launched {name} {n} times, "
+              f"{LONG_STEPS} steps need {need}")
+    tok = b * t
+    for label, losses, ms, peak in (("lean head (kernels 10, 14, 15)", l_losses, l_ms,
+                                     lean_peak),
+                                    ("saved-scores head (kernels 11, 12, 13)", s_losses,
+                                     s_ms, saved_peak)):
+        print(f"[long] {label}: losses {' '.join(f'{x:.6f}' for x in losses)}; {ms:.2f} "
+              f"ms/step, {tok / ms * 1e3:.0f} tokens/s (steady state, {LONG_STEPS - 1} "
+              f"steps after one warm-up); peak {peak / 2**30:.3f} GiB")
+    check(all(np.isfinite(l_losses + s_losses)), "a long-context loss is not finite")
+    diffs = [abs(a - c) for a, c in zip(l_losses, s_losses)]
+    gap = saved_peak - lean_peak
+    print(f"[long] per-step |loss difference| {' '.join(f'{x:.2e}' for x in diffs)} (tol "
+          f"{LOSS_TOL:g}); peak gap {gap / 2**30:.3f} GiB (need >= "
+          f"{LEAN_MEM_GAP / 2**30:g}); launches {launches} = {LONG_STEPS} x {LONG_PER_STEP}")
+    check(max(diffs) <= LOSS_TOL, "lean and saved-scores training losses disagree")
+    check(gap >= LEAN_MEM_GAP, "the lean run's peak memory is not 3 GiB under the "
+          "saved-scores run's: the O(N) contract does not hold")
+    return launches
+
+
+# ------------------------------------------------------------ phase 8
+
+
+def ln_op_phase(gen) -> dict[str, int]:
+    """The plain LayerNorm op path (module docstring, phase 8). Returns
+    its launch counts."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudml_torch.ops import KERNELS, fused_layernorm, reset_launch_counts
+
+    n, d = LN_SHAPE
+    x, dy = (torch.randn((n, d), generator=gen).cuda() for _ in range(2))
+    scale = (1 + 0.1 * torch.randn((d,), generator=gen)).cuda()
+    bias = (0.1 * torch.randn((d,), generator=gen)).cuda()
+    got = {}
+    reset_launch_counts()  # ---- the op path starts here
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = [x.to(dtype).requires_grad_(), scale.clone().requires_grad_(),
+                  bias.clone().requires_grad_()]
+        y = fused_layernorm(*leaves)
+        got[dtype] = (y, *torch.autograd.grad(y, leaves, dy.to(dtype)))
+    launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    need = {"layernorm_fwd": 1, "layernorm_bwd": 1, "layernorm_fwd_bf16": 1,
+            "layernorm_bwd_bf16": 1}
+    check(launches == {k.name: need.get(k.name, 0) for k in KERNELS},
+          f"the LayerNorm op path launched {launches}, not {need}")
+    for dtype, (y, dx, dg, db) in got.items():
+        leaves = [x.to(dtype).float().requires_grad_(), scale.clone().requires_grad_(),
+                  bias.clone().requires_grad_()]
+        ry = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-5)
+        rdx, rdg, rdb = torch.autograd.grad(ry, leaves, dy.to(dtype).float())
+        bf16 = dtype == torch.bfloat16
+        ey, edx = ((rel_to_max(y, ry), rel_to_max(dx, rdx)) if bf16 else
+                   ((y - ry).abs().max().item(), (dx - rdx).abs().max().item()))
+        ecol = max(rel_to_max(dg, rdg), rel_to_max(db, rdb))
+        tol = BF16_REL if bf16 else LN_ROW_TOL
+        print(f"[ln_op] fused_layernorm [{n}, {d}] {str(dtype)[6:]} vs F.layer_norm: y "
+              f"{ey:.3e}, dx {edx:.3e} ({'of max, ' if bf16 else ''}tol {tol:g}); "
+              f"dgamma/dbeta {ecol:.3e} of max (tol {LN_COL_RTOL:g})")
+        check(y.dtype == dx.dtype == dtype and ey <= tol and edx <= tol
+              and ecol <= LN_COL_RTOL, f"fused_layernorm disagrees with F.layer_norm "
+              f"({dtype})")
+    print(f"[ln_op] launches {dict((k, c) for k, c in launches.items() if c)}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1161,14 +1680,22 @@ def main() -> int:
     print(f"[build] {len(KERNELS)} kernels built in {t_build:.1f} s")
 
     gen = torch.Generator().manual_seed(0)
-    rows = [flash_phase(gen), *flash_bwd_phase(gen), *head_phase(gen), *add_ln_phase(gen),
-            *flash_bf16_phase(gen), *add_ln_bf16_phase(gen), *xent_phase(gen)]
+    flash_rows = [flash_phase(gen), *flash_bwd_phase(gen)]
+    flash_long_phase(gen, *flash_rows)
+    xent_rows = xent_phase(gen)
+    rows = [*flash_rows, *head_phase(gen), *add_ln_phase(gen), *flash_bf16_phase(gen),
+            *add_ln_bf16_phase(gen), *xent_rows, *xent_lean_phase(gen, xent_rows[0]),
+            *ln_phase(gen)]
     torch.cuda.empty_cache()
     paths = {"serve": serve_phase(gen)}
     torch.cuda.empty_cache()
     paths["train"] = train_phase()
     torch.cuda.empty_cache()
     paths.update(flagship_phase())
+    torch.cuda.empty_cache()
+    paths["long"] = long_phase()
+    torch.cuda.empty_cache()
+    paths["ln_op"] = ln_op_phase(gen)
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -24,7 +24,10 @@ Tolerances, with their reasons:
 - the xent kernels: lse, picked and the saved scores rtol 1e-5 / atol
   1e-5 (d-term f32 dots in another order); dX, dW, db within 1e-4 of the
   plain output's largest magnitude in f32 (sums over V or N terms) and
-  2e-2 in bf16 (stored in bf16, dlog rounded to bf16 on both sides).
+  2e-2 in bf16 (stored in bf16, dlog rounded to bf16 on both sides); the
+  lean kernels 14 and 15 the same (their recomputed scores are d-term
+  f32 dots in another order too);
+- the plain LayerNorm kernels 6 and 7: as add+LN's (no residual, no ds).
 """
 
 import pytest
@@ -34,14 +37,18 @@ torch = pytest.importorskip("torch")
 from tpudml_torch.nn.attention import dot_product_attention  # noqa: E402
 from tpudml_torch.ops import (  # noqa: E402
     ADD_LN_BACKWARD_BF16, ADD_LN_FORWARD_BF16, FLASH_DKDV, FLASH_DKDV_BF16,
-    FLASH_DQ, FLASH_DQ_BF16, FLASH_FORWARD_BF16, XENT_DW, XENT_DX, XENT_FORWARD,
-    XENT_FORWARD_SAVE, add_layernorm_backward, add_layernorm_backward_reference,
-    add_layernorm_forward, add_layernorm_forward_reference, flash_attention,
-    flash_block_grads, flash_block_grads_reference, flash_forward_lse,
-    flash_forward_lse_reference, fused_add_layernorm, fused_decode_head,
-    fused_decode_head_int8, linear_cross_entropy, reference_head, xent_dw,
-    xent_dw_reference, xent_dx, xent_dx_reference, xent_forward,
-    xent_forward_reference, xent_forward_save, xent_forward_save_reference,
+    FLASH_DQ, FLASH_DQ_BF16, FLASH_FORWARD_BF16, LN_BACKWARD, LN_BACKWARD_BF16,
+    LN_FORWARD, LN_FORWARD_BF16, XENT_DW, XENT_DW_LEAN, XENT_DX, XENT_DX_LEAN,
+    XENT_FORWARD, XENT_FORWARD_SAVE, add_layernorm_backward,
+    add_layernorm_backward_reference, add_layernorm_forward,
+    add_layernorm_forward_reference, flash_attention, flash_block_grads,
+    flash_block_grads_reference, flash_forward_lse, flash_forward_lse_reference,
+    fused_add_layernorm, fused_decode_head, fused_decode_head_int8, fused_layernorm,
+    layernorm_backward, layernorm_backward_reference, layernorm_forward,
+    layernorm_forward_reference, linear_cross_entropy, reference_head, xent_dw,
+    xent_dw_lean, xent_dw_lean_reference, xent_dw_reference, xent_dx, xent_dx_lean,
+    xent_dx_lean_reference, xent_dx_reference, xent_forward, xent_forward_reference,
+    xent_forward_save, xent_forward_save_reference,
 )
 from tpudml_torch.serve.fleet import quant as tquant  # noqa: E402
 
@@ -329,3 +336,91 @@ def test_xent_kernels_reject_what_they_do_not_take(cuda_device):
         xent_forward(x, w.bfloat16(), b, y)
     with pytest.raises(TypeError):
         xent_forward(x, w, b, y.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,d,v", [(1000, 64, 1000), (256, 512, 4096), (37, 8, 130),
+                                   (70, 264, 300), (50, 1024, 200), (2_097_184, 8, 40)])
+def test_xent_lean_kernels_match_plain(cuda_device, dtype, n, d, v):
+    """Kernels 14 and 15 against their plain versions: ragged rows and
+    vocab, labels −1 and V, d chunks of 128, 512 and two 512s, and 65537
+    row tiles of dX (more than a grid's y extent of 65535 holds)."""
+    x, w, b, y = _xent_inputs(n, d, v, dtype, cuda_device, seed=5)
+    lse, _ = xent_forward_reference(x, w, b, y)
+    before = (XENT_DX_LEAN.launches, XENT_DW_LEAN.launches)
+    dx = xent_dx_lean(x, w, b, y, lse, 1.0 / n)
+    dw, db = xent_dw_lean(x, w, b, y, lse, 1.0 / n)
+    torch.cuda.synchronize()
+    assert (XENT_DX_LEAN.launches, XENT_DW_LEAN.launches) == (before[0] + 1, before[1] + 1)
+    assert dx.dtype == dw.dtype == dtype and db.dtype == torch.float32
+    rel = XENT_GRAD_REL[dtype]
+    _close_to_max(dx, xent_dx_lean_reference(x, w, b, y, lse, 1.0 / n), rel)
+    rdw, rdb = xent_dw_lean_reference(x, w, b, y, lse, 1.0 / n)
+    _close_to_max(dw, rdw, rel)
+    _close_to_max(db, rdb, XENT_GRAD_REL[torch.float32])
+    again = (xent_dx_lean(x, w, b, y, lse, 1.0 / n), *xent_dw_lean(x, w, b, y, lse, 1.0 / n))
+    assert all(torch.equal(a, c) for a, c in zip((dx, dw, db), again))
+
+
+@pytest.mark.cuda
+def test_linear_cross_entropy_lean_autograd_on_card(cuda_device):
+    """The lean grad path runs kernels 10, 14 and 15 (not 11–13) and
+    matches the CPU plain path."""
+    x, w, b, y = _xent_inputs(500, 64, 700, torch.float32, cuda_device, seed=6)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    kernels = (XENT_FORWARD, XENT_FORWARD_SAVE, XENT_DX, XENT_DW, XENT_DX_LEAN, XENT_DW_LEAN)
+    before = [k.launches for k in kernels]
+    loss = linear_cross_entropy(*leaves[:2], y, leaves[2], save_s=False)
+    loss.backward()
+    assert [k.launches - c for k, c in zip(kernels, before)] == [1, 0, 0, 0, 1, 1]
+    cpu = [t.detach().cpu().clone().requires_grad_() for t in (x, w, b)]
+    want = linear_cross_entropy(*cpu[:2], y.cpu(), cpu[2], save_s=False)
+    want.backward()
+    torch.testing.assert_close(loss.cpu(), want, **ROW_TOL)
+    for a, c in zip(leaves, cpu):
+        _close_to_max(a.grad.cpu(), c.grad, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,d", [(8192, 512), (1000, 512), (37, 96)])
+def test_layernorm_kernels_match_plain(cuda_device, dtype, n, d):
+    x, dy = (_randn(n, d, seed=i, device=cuda_device).to(dtype) for i in (10, 11))
+    scale = 1.0 + 0.1 * _randn(d, seed=12, device=cuda_device)
+    bias = 0.1 * _randn(d, seed=13, device=cuda_device)
+    fwd, bwd = ((LN_FORWARD, LN_BACKWARD) if dtype == torch.float32
+                else (LN_FORWARD_BF16, LN_BACKWARD_BF16))
+    before = (fwd.launches, bwd.launches)
+    y, mean, rstd = layernorm_forward(x, scale, bias)
+    ry, rmean, rrstd = layernorm_forward_reference(x, scale, bias)
+    dx, dg, db = layernorm_backward(x, scale, dy, rmean, rrstd)
+    rdx, rdg, rdb = layernorm_backward_reference(x, scale, dy, rmean, rrstd)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert y.dtype == dx.dtype == dtype and dg.dtype == torch.float32
+    torch.testing.assert_close(mean, rmean, **ROW_TOL)
+    torch.testing.assert_close(rstd, rrstd, **ROW_TOL)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ry, **ROW_TOL)
+        torch.testing.assert_close(dx, rdx, **ROW_TOL)
+    else:
+        _close_to_max(y, ry, BF16_REL)
+        _close_to_max(dx, rdx, BF16_REL)
+    torch.testing.assert_close(dg, rdg, **COL_TOL)
+    torch.testing.assert_close(db, rdb, **COL_TOL)
+    again = layernorm_backward(x, scale, dy, rmean, rrstd)
+    assert all(torch.equal(a, c) for a, c in zip((dx, dg, db), again))
+
+
+@pytest.mark.cuda
+def test_fused_layernorm_autograd_on_card(cuda_device):
+    x, w1 = (_randn(4, 33, 64, seed=i, device=cuda_device) for i in (14, 15))
+    scale = 1.0 + 0.1 * _randn(64, seed=16, device=cuda_device)
+    bias = 0.1 * _randn(64, seed=17, device=cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    (fused_layernorm(*leaves) * w1).sum().backward()
+    ref = [t.detach().clone().requires_grad_() for t in (x, scale, bias)]
+    (torch.nn.functional.layer_norm(ref[0], (64,), ref[1], ref[2], 1e-5) * w1).sum().backward()
+    for a, c in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, c.grad, **COL_TOL)

@@ -1,8 +1,8 @@
 """The port's fused linear cross-entropy (``tpudml_torch.ops.xent_kernel``)
 against ``tpudml.ops.xent_kernel.linear_cross_entropy`` run through its
-Pallas kernels in interpret mode (``interpret=True, save_s=True``), on the
-CPU, where the port runs the plain versions of kernels 10–13. Inputs come
-from numpy seeds.
+Pallas kernels in interpret mode (``interpret=True``, ``save_s`` True for
+the saved-scores mode, False for the lean one), on the CPU, where the port
+runs the plain versions of kernels 10–15. Inputs come from numpy seeds.
 
 Tolerances: f32 loss, dx, dW, db at rtol 1e-5 / atol 1e-6 (sums of d or V
 terms in another order). bf16 operands: loss at rtol 1e-5 (the f32
@@ -22,7 +22,8 @@ jnp = jax.numpy
 from tpudml.ops import xent_kernel as jxk  # noqa: E402
 from tpudml_torch.ops import xent_kernel as txk  # noqa: E402
 from tpudml_torch.ops import (  # noqa: E402
-    linear_cross_entropy, xent_dw, xent_dx, xent_forward, xent_forward_save,
+    linear_cross_entropy, xent_dw, xent_dw_lean, xent_dx, xent_dx_lean, xent_forward,
+    xent_forward_save,
 )
 
 SHAPES = [(16, 32, 64, 8, 64), (24, 16, 100, 8, 128)]
@@ -42,23 +43,23 @@ def _inputs(n, d, v, seed=0, bad_labels=False):
     return x, w, b, y
 
 
-def _jax_value_and_grads(x, w, b, y, bn, bv, bias, dtype):
+def _jax_value_and_grads(x, w, b, y, bn, bv, bias, dtype, save_s=True):
     args = [jnp.asarray(a, dtype) for a in (x, w, b)]
 
     def f(x, w, b):
         return jxk.linear_cross_entropy(x, w, jnp.asarray(y), b if bias else None,
                                         block_n=bn, block_v=bv, interpret=True,
-                                        save_s=True)
+                                        save_s=save_s)
 
     argnums = (0, 1, 2) if bias else (0, 1)
     loss, grads = jax.value_and_grad(f, argnums=argnums)(*args)
     return float(loss), [np.asarray(g.astype(jnp.float32)) for g in grads]
 
 
-def _port_value_and_grads(x, w, b, y, bias, dtype):
+def _port_value_and_grads(x, w, b, y, bias, dtype, save_s=True):
     leaves = [torch.from_numpy(a).to(dtype).requires_grad_() for a in (x, w, b)]
     loss = linear_cross_entropy(leaves[0], leaves[1], torch.from_numpy(y),
-                                leaves[2] if bias else None, save_s=True)
+                                leaves[2] if bias else None, save_s=save_s)
     loss.backward()
     used = leaves if bias else leaves[:2]
     return loss.item(), [t.grad.float().numpy() for t in used]
@@ -115,14 +116,106 @@ def test_auto_save_s_resolves_as_jax(n, v, bn, bv):
     assert txk._auto_save_s(n, v, bn, bv) == jxk._auto_save_s(n, v, bn, bv)
 
 
-def test_lean_mode_raises():
-    x, w, b, y = (torch.from_numpy(a) for a in _inputs(16, 32, 64))
-    with pytest.raises(NotImplementedError, match="kernels 14 and 15"):
-        linear_cross_entropy(x, w, y, b, save_s=False)
-    big_w = torch.zeros((8, 65536))  # N_pad·V_pad·4 = 8448·65536·4 > 2 GiB
-    with pytest.raises(NotImplementedError, match="kernels 14 and 15"):
-        linear_cross_entropy(torch.zeros((8200, 8)), big_w,
-                             torch.zeros(8200, dtype=torch.int32))
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("n,d,v,bn,bv", SHAPES, ids=SHAPE_IDS)
+def test_lean_f32_loss_and_grads_match_pallas_interpret(n, d, v, bn, bv, bias):
+    """The lean mode (kernel 10 forward, 14 and 15 backward) against JAX's
+    lean Pallas kernels in interpret mode."""
+    x, w, b, y = _inputs(n, d, v, seed=6)
+    want, wgrads = _jax_value_and_grads(x, w, b, y, bn, bv, bias, jnp.float32,
+                                        save_s=False)
+    got, grads = _port_value_and_grads(x, w, b, y, bias, torch.float32, save_s=False)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    for name, g, r in zip(("dx", "dw", "db"), grads, wgrads):
+        np.testing.assert_allclose(g, r, err_msg=name, **F32_TOL)
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("n,d,v,bn,bv", SHAPES, ids=SHAPE_IDS)
+def test_lean_bf16_loss_and_grads_match_pallas_interpret(n, d, v, bn, bv, bias):
+    x, w, b, y = _inputs(n, d, v, seed=7)
+    want, wgrads = _jax_value_and_grads(x, w, b, y, bn, bv, bias, jnp.bfloat16,
+                                        save_s=False)
+    got, grads = _port_value_and_grads(x, w, b, y, bias, torch.bfloat16, save_s=False)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for name, g, r in zip(("dx", "dw", "db"), grads, wgrads):
+        assert g.dtype == np.float32  # compared in f32, stored in bf16
+        assert np.abs(g - r).max() <= BF16_GRAD_RTOL * np.abs(r).max(), name
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+def test_lean_kernel_functions_match_jax_fused_backward(dtype):
+    """The plain versions of kernels 14 and 15, called as the card's
+    wrappers are (g = 1, 1/N inside), against JAX's ``_fused_backward``
+    (the lean Pallas kernels in interpret mode) on a ragged shape."""
+    n, d, v = 24, 16, 100
+    x, w, b, y = _inputs(n, d, v, seed=8, bad_labels=True)
+    jx, jw, jb = (jnp.asarray(a, dtype) for a in (x, w, b))
+    jlse, _ = jxk._fused_forward(jx, jw, jb, jnp.asarray(y), 8, 128, True)
+    wdx, wdw, wdb = jxk._fused_backward(jx, jw, jb, jnp.asarray(y), jlse,
+                                        jnp.float32(1.0), 8, 128, True)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    tx, tw, tb = (torch.from_numpy(a).to(tdt) for a in (x, w, b))
+    lse = torch.from_numpy(np.array(jlse))
+    dx = xent_dx_lean(tx, tw, tb, torch.from_numpy(y), lse, 1.0 / n)
+    dw, db = xent_dw_lean(tx, tw, tb, torch.from_numpy(y), lse, 1.0 / n)
+    assert dx.dtype == dw.dtype == tdt and db.dtype == torch.float32
+    # JAX's db comes back in the bias dtype; the wrapper's stays f32 (the
+    # autograd Function casts it).
+    for name, g, r in (("dx", dx, wdx), ("dw", dw, wdw), ("db", db.to(tdt), wdb)):
+        g, r = g.float().numpy(), np.asarray(r.astype(jnp.float32))
+        if dtype == jnp.float32:
+            np.testing.assert_allclose(g, r, err_msg=name, **F32_TOL)
+        else:
+            assert np.abs(g - r).max() <= BF16_GRAD_RTOL * np.abs(r).max(), name
+
+
+def test_lean_out_of_range_labels_and_padded_rows():
+    """JAX's padded-row and padded-column cases in the lean mode: 10 rows
+    (8-row tiles pad them to 16), V = 100 (padded to 128), labels in
+    [V, V_pad), beyond, and negative. Loss and gradients equal JAX's lean
+    mode and the port's saved-scores mode."""
+    n, d, v = 10, 16, 100
+    x, w, _, _ = _inputs(n, d, v, seed=9)
+    y = np.array([0, 5, 99, 100, 110, 127, 3000, -7, 1, 2], np.int32)
+    b = np.zeros(v, np.float32)
+    want, wgrads = _jax_value_and_grads(x, w, b, y, 8, 128, False, jnp.float32,
+                                        save_s=False)
+    got, grads = _port_value_and_grads(x, w, b, y, False, torch.float32, save_s=False)
+    saved, sgrads = _port_value_and_grads(x, w, b, y, False, torch.float32, save_s=True)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    np.testing.assert_allclose(got, saved, **F32_TOL)
+    for g, r, s in zip(grads, wgrads, sgrads):
+        assert np.all(np.isfinite(g))
+        np.testing.assert_allclose(g, r, **F32_TOL)
+        np.testing.assert_allclose(g, s, **F32_TOL)
+
+
+def test_auto_mode_reaches_lean(monkeypatch):
+    """save_s=None resolves to the lean backward once the padded f32 score
+    residual exceeds the auto budget: shown at a tiny shape with the budget
+    lowered (in both packages) below its 24·128·4 bytes."""
+    calls = []
+    real = txk.xent_dx_lean
+
+    def counting(*args):
+        calls.append(args[0].shape)
+        return real(*args)
+
+    monkeypatch.setattr(txk, "xent_dx_lean", counting)
+    n, d, v = 24, 16, 100
+    x, w, b, y = _inputs(n, d, v, seed=10)
+    for mod in (txk, jxk):
+        monkeypatch.setattr(mod, "SAVE_S_AUTO_MAX_BYTES", 24 * 128 * 4 - 1)
+    assert not txk._auto_save_s(n, v, 256, 2048)
+    assert jxk._auto_save_s(n, v, 256, 2048) is False
+    want, wgrads = _jax_value_and_grads(x, w, b, y, 256, 2048, True, jnp.float32,
+                                        save_s=False)
+    got, grads = _port_value_and_grads(x, w, b, y, True, torch.float32, save_s=None)
+    assert calls == [(n, d)]
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    for g, r in zip(grads, wgrads):
+        np.testing.assert_allclose(g, r, **F32_TOL)
 
 
 def test_no_grad_path_equals_grad_path():
@@ -166,3 +259,16 @@ def test_kernel_functions_on_cpu_are_the_plain_versions():
     torch.nn.functional.cross_entropy(logits, y.long()).backward()
     for got, leaf in zip((dx, dw, db), leaves):
         torch.testing.assert_close(got, leaf.grad, **F32_TOL)
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+def test_lean_and_saved_gradients_agree(bias):
+    """Within the port: the lean backward (recomputed scores) and the
+    saved-scores one give the same loss and gradients (f32 scores either
+    way; only the order of the d-term sums differs)."""
+    x, w, b, y = _inputs(40, 24, 130, seed=11)
+    lean, lgrads = _port_value_and_grads(x, w, b, y, bias, torch.float32, save_s=False)
+    saved, sgrads = _port_value_and_grads(x, w, b, y, bias, torch.float32, save_s=True)
+    assert lean == saved
+    for g, r in zip(lgrads, sgrads):
+        np.testing.assert_allclose(g, r, **F32_TOL)

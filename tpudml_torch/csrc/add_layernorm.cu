@@ -1,10 +1,15 @@
-// Fused residual add + LayerNorm, forward and backward, f32 and bf16 rows,
-// for Hopper (sm_90a).
+// Fused residual add + LayerNorm and plain LayerNorm, forward and backward,
+// f32 and bf16 rows, for Hopper (sm_90a).
 //
 // Replaces: tpudml/ops/layernorm_kernel.py `_add_ln_fwd_kernel` (forward)
 // and `_add_ln_bwd_kernel` (backward), the junction kernels of
 // `fused_add_layernorm` that the LM's fused_ln trunk runs 2L times per
-// direction.
+// direction; and `_fwd_kernel` / `_bwd_kernel`, the plain LayerNorm of
+// `fused_layernorm`, which share their bodies with the junction kernels
+// (the TPU's `_fwd_body` with no residual, `_bwd_body` with no ds). Here
+// the forward is the same template with ADD = false (no r, no s: the
+// statistics are those of x), the backward the same kernel with ds null
+// (nothing merged into dx).
 //
 // Forward, per row of x, r [N, d]: s = x + r, written in the stream dtype
 // and read back as f32 (the "post-rounding" rule: bf16 rows round s before
@@ -50,7 +55,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename E, int VPT>
+template <typename E, int VPT, bool ADD>
 __global__ void __launch_bounds__(NTHREAD)
 add_ln_fwd_kernel(const E* __restrict__ x, const E* __restrict__ r,
                   const float* __restrict__ gamma,
@@ -68,8 +73,9 @@ add_ln_fwd_kernel(const E* __restrict__ x, const E* __restrict__ r,
     const int c = lane + 32 * i;
     val[i] = 0.f;
     if (c < d) {
-      const float sv = round_to<E>(to_f32(x[off + c]) + to_f32(r[off + c]));
-      s[off + c] = from_f32<E>(sv);
+      const float sv = ADD ? round_to<E>(to_f32(x[off + c]) + to_f32(r[off + c]))
+                           : to_f32(x[off + c]);
+      if (ADD) s[off + c] = from_f32<E>(sv);
       val[i] = sv;
       sum += sv;
       sq += sv * sv;
@@ -202,13 +208,13 @@ add_ln_bwd_cols_kernel(const float* __restrict__ part,
   }
 }
 
-template <typename E, int VPT>
+template <typename E, int VPT, bool ADD>
 cudaError_t launch_fwd(const E* x, const E* r, const float* gamma,
                        const float* beta, E* s, E* y, float* mean,
                        float* rstd, int N, int d, float eps,
                        cudaStream_t stream) {
   const int grid = (N + NWARP - 1) / NWARP;
-  add_ln_fwd_kernel<E, VPT><<<grid, NTHREAD, 0, stream>>>(
+  add_ln_fwd_kernel<E, VPT, ADD><<<grid, NTHREAD, 0, stream>>>(
       x, r, gamma, beta, s, y, mean, rstd, N, d, eps);
   return cudaGetLastError();
 }
@@ -233,11 +239,11 @@ cudaError_t launch_bwd(const E* s, const float* gamma, const E* dy,
   return cudaGetLastError();
 }
 
-template <typename E>
+template <typename E, bool ADD>
 int dispatch_fwd(const E* x, const E* r, const float* gamma, const float* beta,
                  E* s, E* y, float* mean, float* rstd, int N, int d, float eps,
                  cudaStream_t st) {
-#define CALL_FWD(V) launch_fwd<E, V>(x, r, gamma, beta, s, y, mean, rstd, N, d, eps, st)
+#define CALL_FWD(V) launch_fwd<E, V, ADD>(x, r, gamma, beta, s, y, mean, rstd, N, d, eps, st)
   if (d <= 32) return CALL_FWD(1);
   if (d <= 64) return CALL_FWD(2);
   if (d <= 128) return CALL_FWD(4);
@@ -273,21 +279,38 @@ extern "C" {
 int add_ln_fwd_f32(const float* x, const float* r, const float* gamma,
                    const float* beta, float* s, float* y, float* mean,
                    float* rstd, int N, int d, float eps, void* stream) {
-  return dispatch_fwd(x, r, gamma, beta, s, y, mean, rstd, N, d, eps,
-                      static_cast<cudaStream_t>(stream));
+  return dispatch_fwd<float, true>(x, r, gamma, beta, s, y, mean, rstd, N, d, eps,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 int add_ln_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* r,
                     const float* gamma, const float* beta, __nv_bfloat16* s,
                     __nv_bfloat16* y, float* mean, float* rstd, int N, int d,
                     float eps, void* stream) {
-  return dispatch_fwd(x, r, gamma, beta, s, y, mean, rstd, N, d, eps,
-                      static_cast<cudaStream_t>(stream));
+  return dispatch_fwd<__nv_bfloat16, true>(x, r, gamma, beta, s, y, mean, rstd, N, d,
+                                           eps, static_cast<cudaStream_t>(stream));
+}
+
+// Plain LayerNorm forward: x, y [N, d]; gamma, beta [d] f32; mean, rstd [N]
+// f32.
+int ln_fwd_f32(const float* x, const float* gamma, const float* beta, float* y,
+               float* mean, float* rstd, int N, int d, float eps, void* stream) {
+  return dispatch_fwd<float, false>(x, nullptr, gamma, beta, nullptr, y, mean, rstd,
+                                    N, d, eps, static_cast<cudaStream_t>(stream));
+}
+
+int ln_fwd_bf16(const __nv_bfloat16* x, const float* gamma, const float* beta,
+                __nv_bfloat16* y, float* mean, float* rstd, int N, int d,
+                float eps, void* stream) {
+  return dispatch_fwd<__nv_bfloat16, false>(x, nullptr, gamma, beta, nullptr, y, mean,
+                                            rstd, N, d, eps,
+                                            static_cast<cudaStream_t>(stream));
 }
 
 // s, dy, ds (or null), dx [N, d] (f32 for _f32, bf16 for _bf16); gamma,
 // dgamma, dbeta [d] f32; mean, rstd [N] f32; part is f32 scratch of
-// 2·ceil(N / rows_per_block)·d floats.
+// 2·ceil(N / rows_per_block)·d floats. The plain LayerNorm backward is
+// these entries with ds null and x in place of s.
 int add_ln_bwd_f32(const float* s, const float* gamma, const float* dy,
                    const float* ds, const float* mean, const float* rstd,
                    float* dx, float* dgamma, float* dbeta, float* part, int N,

@@ -37,21 +37,36 @@ from tpudml_torch.ops.layernorm_kernel import (
     ADD_LN_BACKWARD_BF16,
     ADD_LN_FORWARD,
     ADD_LN_FORWARD_BF16,
+    LN_BACKWARD,
+    LN_BACKWARD_BF16,
+    LN_FORWARD,
+    LN_FORWARD_BF16,
     add_layernorm_backward,
     add_layernorm_backward_reference,
     add_layernorm_forward,
     add_layernorm_forward_reference,
     fused_add_layernorm,
+    fused_layernorm,
+    layernorm_backward,
+    layernorm_backward_reference,
+    layernorm_forward,
+    layernorm_forward_reference,
 )
 from tpudml_torch.ops.xent_kernel import (
     XENT_DW,
+    XENT_DW_LEAN,
     XENT_DX,
+    XENT_DX_LEAN,
     XENT_FORWARD,
     XENT_FORWARD_SAVE,
     linear_cross_entropy,
     xent_dw,
+    xent_dw_lean,
+    xent_dw_lean_reference,
     xent_dw_reference,
     xent_dx,
+    xent_dx_lean,
+    xent_dx_lean_reference,
     xent_dx_reference,
     xent_forward,
     xent_forward_reference,
@@ -63,7 +78,9 @@ KERNELS = (FLASH_FORWARD, FLASH_DQ, FLASH_DKDV, DECODE_HEAD, DECODE_HEAD_INT8,
            ADD_LN_FORWARD, ADD_LN_BACKWARD,
            FLASH_FORWARD_BF16, FLASH_DQ_BF16, FLASH_DKDV_BF16,
            ADD_LN_FORWARD_BF16, ADD_LN_BACKWARD_BF16,
-           XENT_FORWARD, XENT_FORWARD_SAVE, XENT_DX, XENT_DW)
+           XENT_FORWARD, XENT_FORWARD_SAVE, XENT_DX, XENT_DW,
+           XENT_DX_LEAN, XENT_DW_LEAN,
+           LN_FORWARD, LN_BACKWARD, LN_FORWARD_BF16, LN_BACKWARD_BF16)
 
 
 def build_kernels() -> float:
@@ -95,13 +112,22 @@ __all__ = [
     "fused_add_layernorm",
     "fused_decode_head",
     "fused_decode_head_int8",
+    "fused_layernorm",
+    "layernorm_backward",
+    "layernorm_backward_reference",
+    "layernorm_forward",
+    "layernorm_forward_reference",
     "linear_cross_entropy",
     "reference_head",
     "reference_head_int8",
     "reset_launch_counts",
     "xent_dw",
+    "xent_dw_lean",
+    "xent_dw_lean_reference",
     "xent_dw_reference",
     "xent_dx",
+    "xent_dx_lean",
+    "xent_dx_lean_reference",
     "xent_dx_reference",
     "xent_forward",
     "xent_forward_reference",

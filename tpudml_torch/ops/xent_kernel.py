@@ -1,25 +1,35 @@
 """Fused linear cross-entropy: the port of ``tpudml/ops/xent_kernel.py``
-``linear_cross_entropy`` in its saved-scores mode (Pallas ``_fwd_kernel``,
-``_fwd_kernel_save``, ``_dx_s_kernel``, ``_dw_s_kernel``).
+``linear_cross_entropy`` (Pallas ``_fwd_kernel``, ``_fwd_kernel_save``,
+``_dx_s_kernel``, ``_dw_s_kernel``, ``_dx_kernel``, ``_dw_kernel``).
 
 The LM head's ``x @ W + b`` and the mean softmax cross-entropy against
 integer labels, without the [N, V] logits ever being a tensor of the
-caller: on the card, the forward kernel writes the f32 scores once for
-the backward (1 GiB at N = 8192, V = 32768) and reduces them to per-row
-(lse, picked); the two backward kernels build dlogits from those scores
-while staging them and contract it with W (dX) and x (dW, db). CUDA
-sources: ``tpudml_torch/csrc/xent.cu``.
+caller. Two backward modes, as in JAX:
+
+- saved scores: the forward kernel writes the f32 scores once for the
+  backward (1 GiB at N = 8192, V = 32768) and reduces them to per-row
+  (lse, picked); the two backward kernels build dlogits from those scores
+  while staging them and contract it with W (dX) and x (dW, db);
+- lean: the forward keeps only lse (O(N + parameters) residuals), and the
+  two backward kernels recompute the scores tile by tile from x, W and b
+  before contracting dlogits, so nothing of size N·V exists in either
+  direction (the 131k-token regime, where the scores alone are 16 GiB).
+
+CUDA sources: ``tpudml_torch/csrc/xent.cu``.
 
 - :func:`xent_forward` / :func:`xent_forward_save` launch kernel 10 / 11
   for CUDA tensors; :func:`xent_dx` / :func:`xent_dw` launch kernels 12
-  and 13; each has a plain PyTorch version (``*_reference``), which CPU
-  tensors run. A CUDA input the kernels do not take raises: nothing falls
-  back.
+  and 13, :func:`xent_dx_lean` / :func:`xent_dw_lean` kernels 14 and 15;
+  each has a plain PyTorch version (``*_reference``), which CPU tensors
+  run. A CUDA input the kernels do not take raises: nothing falls back.
 - :func:`linear_cross_entropy` is the JAX package's entry point. When a
-  gradient is needed it runs the ``torch.autograd.Function`` (kernel 11
-  forward, saving the f32 scores; kernels 12 and 13 backward); under
-  ``torch.no_grad()``, or when no input requires grad, it runs kernel 10,
-  as JAX runs the ``custom_vjp`` primal outside differentiation.
+  gradient is needed it runs a ``torch.autograd.Function``: saved scores
+  (kernel 11 forward; kernels 12 and 13 backward) or lean (kernel 10
+  forward; kernels 14 and 15 backward), as ``save_s`` resolves (JAX's
+  ``_auto_save_s``: saved scores while the padded f32 residual fits
+  ``SAVE_S_AUTO_MAX_BYTES``, lean beyond). Under ``torch.no_grad()``, or
+  when no input requires grad, it runs kernel 10 alone, as JAX runs the
+  ``custom_vjp`` primal outside differentiation.
 
 Semantics, as in the JAX package:
 - scores are f32 whatever the operand dtype; loss = mean(lse − picked);
@@ -30,11 +40,6 @@ Semantics, as in the JAX package:
   cotangent g multiplies outside (``_scale_cotangents``);
 - dX is stored in x's dtype and dW in W's; db is summed in f32 from the
   unrounded dlog, then cast to the bias dtype.
-
-Only the saved-scores backward is ported. ``save_s`` resolves as in JAX
-(``_auto_save_s``: saved scores while the padded f32 residual fits
-``SAVE_S_AUTO_MAX_BYTES``); the lean recompute backward (kernels 14, 15)
-is not ported, and a call that resolves to it raises.
 """
 
 from __future__ import annotations
@@ -46,10 +51,6 @@ from tpudml_torch.ops.cuda_lib import (
 )
 from tpudml_torch.ops.tiling import round_up
 
-LEAN_NOT_PORTED = (
-    "the lean recompute backward of the fused linear-xent head (save_s=False) "
-    "is not ported yet: ROADMAP.md queue 2 kernels 14 and 15"
-)
 MAX_DIM = 1024  # widest d the wrappers take (bench.py's large config)
 
 _LIB = CudaLibrary("xent.cu", {
@@ -57,6 +58,8 @@ _LIB = CudaLibrary("xent.cu", {
     "xent_fwd_save": [P] * 8 + [I] * 4 + [P],
     "xent_dx_s": [P] * 5 + [I] * 3 + [F, I, P],
     "xent_dw_s": [P] * 6 + [I] * 3 + [F, I, P],
+    "xent_dx_lean": [P] * 6 + [I] * 3 + [F, I, P],
+    "xent_dw_lean": [P] * 7 + [I] * 3 + [F, I, P],
     "xent_tile_width": [],
 })
 XENT_FORWARD = Kernel("xent_fwd", _LIB, "xent_fwd",
@@ -67,6 +70,10 @@ XENT_DX = Kernel("xent_dx_s", _LIB, "xent_dx_s",
                  replaces="tpudml/ops/xent_kernel.py:175")
 XENT_DW = Kernel("xent_dw_s", _LIB, "xent_dw_s",
                  replaces="tpudml/ops/xent_kernel.py:199")
+XENT_DX_LEAN = Kernel("xent_dx_lean", _LIB, "xent_dx_lean",
+                      replaces="tpudml/ops/xent_kernel.py:327")
+XENT_DW_LEAN = Kernel("xent_dw_lean", _LIB, "xent_dw_lean",
+                      replaces="tpudml/ops/xent_kernel.py:356")
 
 # The save_s=None threshold and the tiling rule, copied from the JAX
 # package so that the same (N, V) resolves to the same mode.
@@ -143,6 +150,18 @@ def xent_dw_reference(s, x, labels, lse, inv_n: float):
     dlog = _dlog(s, labels, lse, inv_n)
     dw = x.float().T @ dlog.to(x.dtype).float()
     return dw.to(x.dtype), dlog.sum(dim=0)
+
+
+def xent_dx_lean_reference(x, w, b, labels, lse, inv_n: float):
+    """Plain version of :func:`xent_dx_lean`: the scores recomputed from
+    x, W and b, then :func:`xent_dx_reference`."""
+    return xent_dx_reference(_scores(x, w, b), w, labels, lse, inv_n)
+
+
+def xent_dw_lean_reference(x, w, b, labels, lse, inv_n: float):
+    """Plain version of :func:`xent_dw_lean`: the scores recomputed from
+    x, W and b, then :func:`xent_dw_reference`."""
+    return xent_dw_reference(_scores(x, w, b), x, labels, lse, inv_n)
 
 
 # ------------------------------------------------------------------ kernels
@@ -261,7 +280,56 @@ def xent_dw(s, x, labels, lse, inv_n: float):
     return dw, db
 
 
+def _check_lean_operands(x, w, b, labels, lse) -> None:
+    _check_forward_operands(x, w, b, labels)
+    check_cuda_operand("lse", lse, torch.float32, 1)
+    if lse.shape != labels.shape or lse.device != x.device:
+        raise ValueError(f"lse {tuple(lse.shape)} on {lse.device} does not match "
+                         f"labels {tuple(labels.shape)} on {x.device}")
+
+
+def xent_dx_lean(x, w, b, labels, lse, inv_n: float):
+    """dx [N, d] in x's dtype, recomputing the scores from x [N, d], w
+    [d, V], b [V] (one dtype) and int32 labels [N] with the forward's lse
+    [N] f32: kernel 14 for CUDA tensors, :func:`xent_dx_lean_reference`
+    for CPU ones."""
+    if not x.is_cuda:
+        return xent_dx_lean_reference(x, w, b, labels, lse, inv_n)
+    _check_lean_operands(x, w, b, labels, lse)
+    n, d = x.shape
+    dx = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        XENT_DX_LEAN.launch(ptr(x), ptr(w), ptr(b), ptr(labels), ptr(lse), ptr(dx),
+                            I(n), I(d), I(w.shape[1]), F(inv_n), _is_bf16(x))
+    return dx
+
+
+def xent_dw_lean(x, w, b, labels, lse, inv_n: float):
+    """(dw [d, V] in w's dtype, db [V] f32) from the same operands as
+    :func:`xent_dx_lean`: kernel 15 for CUDA tensors,
+    :func:`xent_dw_lean_reference` for CPU ones."""
+    if not x.is_cuda:
+        return xent_dw_lean_reference(x, w, b, labels, lse, inv_n)
+    _check_lean_operands(x, w, b, labels, lse)
+    n, d = x.shape
+    v = w.shape[1]
+    dw = torch.empty_like(w)
+    db = torch.empty((v,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        XENT_DW_LEAN.launch(ptr(x), ptr(w), ptr(b), ptr(labels), ptr(lse), ptr(dw),
+                            ptr(db), I(n), I(d), I(v), F(inv_n), _is_bf16(x))
+    return dw, db
+
+
 # ---------------------------------------------------------------- autograd
+
+
+def _scale_cotangents(g, dx, dw, db, dtypes):
+    """1/N is scaled inside the kernels; the cotangent g multiplies here,
+    each gradient cast back to its input's dtype (None stays None)."""
+    gf = g.float()
+    return tuple(None if t is None else (t.float() * gf).to(dt)
+                 for t, dt in zip((dx, dw, db), dtypes))
 
 
 class _LinearXentSaved(torch.autograd.Function):
@@ -271,7 +339,7 @@ class _LinearXentSaved(torch.autograd.Function):
     def forward(ctx, x, w, b, labels):
         lse, picked, s = xent_forward_save(x, w, b, labels)
         ctx.save_for_backward(x, w, labels, lse, s)
-        ctx.bias_dtype = b.dtype
+        ctx.dtypes = (x.dtype, w.dtype, b.dtype)
         return (lse - picked).mean()
 
     @staticmethod
@@ -283,14 +351,31 @@ class _LinearXentSaved(torch.autograd.Function):
             dx = xent_dx(s, w, labels, lse, inv_n)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dw, db = xent_dw(s, x, labels, lse, inv_n)
-        # _scale_cotangents: 1/N scaled inside the kernels, g multiplies here.
-        gf = g.float()
-        if dx is not None:
-            dx = (dx.float() * gf).to(x.dtype)
-        if dw is not None:
-            dw = (dw.float() * gf).to(w.dtype)
-            db = (db * gf).to(ctx.bias_dtype)
-        return dx, dw, db, None
+        return (*_scale_cotangents(g, dx, dw, db, ctx.dtypes), None)
+
+
+class _LinearXentLean(torch.autograd.Function):
+    """Lean mode: kernel 10 forward, saving x, W, b, labels and lse
+    (O(N + parameters)); kernels 14 and 15 recompute the scores in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, labels):
+        lse, picked = xent_forward(x, w, b, labels)
+        ctx.save_for_backward(x, w, b, labels, lse)
+        ctx.dtypes = (x.dtype, w.dtype, b.dtype)
+        return (lse - picked).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, labels, lse = ctx.saved_tensors
+        inv_n = 1.0 / x.shape[0]
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = xent_dx_lean(x, w, b, labels, lse, inv_n)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = xent_dw_lean(x, w, b, labels, lse, inv_n)
+        return (*_scale_cotangents(g, dx, dw, db, ctx.dtypes), None)
 
 
 def linear_cross_entropy(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
@@ -301,9 +386,10 @@ def linear_cross_entropy(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     ``labels`` (module docstring). ``x`` [..., d] flattens to [N, d] and
     ``labels`` [...] to [N]; ``w`` is the full [d, V] head. ``block_n`` and
     ``block_v`` are the JAX kernels' tiles: here they only decide
-    ``save_s=None`` (``_auto_save_s``), the card's kernels tile for
-    themselves. A ``save_s`` that resolves to False (the lean backward)
-    raises ``NotImplementedError``."""
+    ``save_s=None`` (``_auto_save_s``: saved scores while their padded f32
+    residual fits ``SAVE_S_AUTO_MAX_BYTES``, the lean backward beyond); the
+    card's kernels tile for themselves. ``save_s=False`` forces the lean
+    O(N) backward whatever the size."""
     d = x.shape[-1]
     v = w.shape[-1]
     xn = x.reshape(-1, d)
@@ -312,13 +398,12 @@ def linear_cross_entropy(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"{tuple(x.shape)} rows != {tuple(labels.shape)} labels")
     if save_s is None:
         save_s = _auto_save_s(xn.shape[0], v, block_n, block_v)
-    if not save_s:
-        raise NotImplementedError(LEAN_NOT_PORTED)
     b = torch.zeros((v,), dtype=w.dtype, device=w.device) if bias is None else bias
     ln = ln.to(torch.int32)
     if xn.is_cuda:
         xn, w, b, ln = (t.contiguous() for t in (xn, w, b, ln))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xn, w, b)):
-        return _LinearXentSaved.apply(xn, w, b, ln)
+        mode = _LinearXentSaved if save_s else _LinearXentLean
+        return mode.apply(xn, w, b, ln)
     lse, picked = xent_forward(xn, w, b, ln)
     return (lse - picked).mean()

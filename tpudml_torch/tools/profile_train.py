@@ -24,7 +24,15 @@ seed=1)``) every step; the kernel configuration trains through
 ``make_lm_fused_train_step(save_scores=True)`` (the fused linear-xent
 head), the plain one through ``make_train_step`` (materialized logits).
 
-Run on the card: ``python -m tpudml_torch.tools.profile_train [--flagship]``
+``--long`` profiles the long-context step instead (BASELINE.md:45: T=16384,
+B=2, the same widths, f32, Adam lr 1e-3, flash attention, RoPE, unfused
+LayerNorm, task5's batches): the lean fused head that ``--fused_xent``
+resolves to there (``save_scores=None``: kernels 10, 14, 15) against the
+saved-scores head (``save_scores=True``: kernels 11, 12, 13 and a 4 GiB
+f32 score residual). No kernel-free configuration: full attention would
+hold 8 GiB of scores a layer. Its default is 3 timed steps.
+
+Run on the card: ``python -m tpudml_torch.tools.profile_train [--flagship | --long]``
 (one JSON line at the end; ``--out FILE`` also writes it to FILE).
 """
 
@@ -42,15 +50,21 @@ from tpudml_torch.tools.profile_serve import _measure
 MODEL = dict(vocab_size=32768, embed_dim=512, num_heads=4, num_layers=6,
              max_len=1024, rope=True)
 BATCH = 8
+LONG_T, LONG_BATCH = 16384, 2  # BASELINE.md:45
 
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser()
-    p.add_argument("--iters", type=int, default=10)
-    p.add_argument("--flagship", action="store_true",
-                   help="the bf16 fused-head flagship step instead of the f32 one")
+    p.add_argument("--iters", type=int, default=None,
+                   help="timed steps (default 10; 3 with --long)")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--flagship", action="store_true",
+                      help="the bf16 fused-head flagship step instead of the f32 one")
+    mode.add_argument("--long", action="store_true",
+                      help="the T=16384 long-context step, lean vs saved-scores head")
     p.add_argument("--out", type=str, default=None)
     args = p.parse_args(argv)
+    iters = args.iters or (3 if args.long else 10)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device; this measures the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -61,28 +75,35 @@ def main(argv=None) -> dict:
     from tpudml_torch.train import TrainState, make_lm_fused_train_step, make_train_step
 
     build_kernels()
-    t = MODEL["max_len"]
+    model_cfg, batch = MODEL, BATCH
+    if args.long:
+        model_cfg, batch = dict(MODEL, max_len=LONG_T), LONG_BATCH
+    t = model_cfg["max_len"]
     if args.flagship:
         batches = itertools.repeat(synthetic_lm(BATCH, t, MODEL["vocab_size"], seed=1))
         bf16 = dict(compute_dtype=torch.bfloat16)
         configs = (("kernel", dict(impl="flash", fused_ln=True, **bf16), True),
                    ("plain", dict(impl="full", fused_ln=False, **bf16), False))
     else:
-        seqs = synthetic_lm(4 * BATCH, t, MODEL["vocab_size"], seed=0)
+        seqs = synthetic_lm(4 * batch, t, MODEL["vocab_size"], seed=0)
         rng = np.random.default_rng(0)
         batches = itertools.cycle(
-            [seqs[rng.integers(0, len(seqs), size=BATCH)] for _ in range(8)])
-        configs = (("kernel", dict(impl="flash", fused_ln=True), False),
-                   ("plain", dict(impl="full", fused_ln=False), False))
-    result = {"device": torch.cuda.get_device_name(0), "model": MODEL,
-              "batch": BATCH, "tokens_per_step": BATCH * t,
-              "step": "flagship bf16 (fused xent head, AdamW 3e-4)" if args.flagship
-              else "f32 (materialized logits, Adam 1e-3)"}
-    for name, kw, fused_head in configs:
-        model = TransformerLM(**MODEL, **kw, device="cuda",
+            [seqs[rng.integers(0, len(seqs), size=batch)] for _ in range(8)])
+        configs = ((("lean", dict(impl="flash"), None), ("saved", dict(impl="flash"), True))
+                   if args.long else
+                   (("kernel", dict(impl="flash", fused_ln=True), False),
+                    ("plain", dict(impl="full", fused_ln=False), False)))
+    step_name = ("flagship bf16 (fused xent head, AdamW 3e-4)" if args.flagship else
+                 "long-context f32 T=16384 (fused xent head, Adam 1e-3)" if args.long
+                 else "f32 (materialized logits, Adam 1e-3)")
+    result = {"device": torch.cuda.get_device_name(0), "model": model_cfg,
+              "batch": batch, "tokens_per_step": batch * t, "step": step_name}
+    for name, kw, save_scores in configs:
+        model = TransformerLM(**model_cfg, **kw, device="cuda",
                               generator=torch.Generator().manual_seed(0))
         opt = AdamW(lr=3e-4) if args.flagship else Adam(lr=1e-3)
-        step = (make_lm_fused_train_step(model, opt, save_scores=True) if fused_head
+        fused_head = args.long or save_scores
+        step = (make_lm_fused_train_step(model, opt, save_scores=save_scores) if fused_head
                 else make_train_step(model, opt))
         ts = TrainState.create(model, opt)
 
@@ -91,13 +112,13 @@ def main(argv=None) -> dict:
             step(ts, batch[:, :-1], batch[:, 1:])
 
         torch.cuda.reset_peak_memory_stats()
-        r = _measure(one_step, args.iters)
+        r = _measure(one_step, iters)
         r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        r["tokens_per_sec"] = BATCH * t / r["wall_ms"] * 1e3
+        r["tokens_per_sec"] = batch * t / r["wall_ms"] * 1e3
         result[name] = r
         del model, ts, step
         torch.cuda.empty_cache()
-    for key in ("kernel", "plain"):
+    for key, _, _ in configs:
         r = result[key]
         print(f"[profile] {result['step']} step, {key}: wall {r['wall_ms']:.3f} ms, events "
               f"{r['event_ms']:.3f} ms, {r['kernels_per_call']:.0f} kernels summing "

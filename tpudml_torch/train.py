@@ -63,8 +63,9 @@ def make_lm_fused_loss_fn(model: nn.Module, save_scores: bool | None = None) -> 
     kernel and bias cast to the compute dtype, so the [B·T, V] logits are
     never a tensor of the step (the second item, None, stands where
     :func:`make_loss_fn` returns the logits). ``save_scores`` is
-    ``linear_cross_entropy``'s ``save_s``; only the saved-scores mode is
-    ported, and a value that resolves to the lean mode raises."""
+    ``linear_cross_entropy``'s ``save_s``: True keeps the f32 scores for the
+    backward, False recomputes them there (the lean O(N) residuals), None
+    picks by the residual's size."""
 
     def loss_fn(tokens, labels):
         feats = model.apply_features(tokens)
