@@ -25,9 +25,16 @@ the CPU). Phases, each printing its own line(s):
    and N=2097184 at d=1024, V=256, where N·d passes 2³¹ and the offsets
    need 64 bits; the last two against the plain versions in row chunks),
    and the plain LayerNorm kernels 6 and 7 (N=8192 and N=1000, d=512, f32
-   and bf16); times of the kernel, the plain version and a library call
+   and bf16), and the grouped dW (kernel 16, f32 and bf16 twins) at the MoE
+   path's M=8192 rows, (k, n) = (512, 2048) and (2048, 512), E = 4 and 8,
+   on a real router's skewed top-1 groups, a set with empty groups and a
+   collapsed one, with tail rows past Σ group_sizes, bitwise equal on a
+   repeat; times of the kernel, the plain version and a library call
    computing the same function, beside the bound (bf16 rows against the
-   bf16 tensor-core rate).
+   bf16 tensor-core rate). Then the launches past the old grid-y edges:
+   kernels 10–12 at N=8,388,609 rows (d=8, V=128) and the flash forward,
+   dQ and dK/dV at B·H=65,537 (B=65,537, H=1, T=16, D=32), against their
+   plain versions in row chunks.
 4. main path 1, serving: the serving engine at full width (V=32768, d=512, H=8,
    kv_heads=2, L=6, RoPE, f32, random weights from a seeded generator;
    8 slots, max_len 1024, prefill chunks of 128; 16 requests at qps=inf,
@@ -85,7 +92,28 @@ the CPU). Phases, each printing its own line(s):
    under autograd at [8192, 512] in f32 and bf16, with its own zeroed
    launch counts (kernels 6 and 7 and their bf16 twins, once each), held
    against ``F.layer_norm``.
-9. one JSON line of per-kernel numbers (launches summed over the main
+9. main path 5, MoE training (``bench.py --moe``, ``bench_moe``): the
+   training config (V=32768, d=512, H=4, L=6, T=1024, B=8) with flash
+   attention, fused add+LN, RoPE, bf16 compute over f32 master weights,
+   AdamW lr 3e-4, top-1 MoE FFNs at capacity factor 1.25, weights from a
+   seeded generator, bench's one batch ``synthetic_lm(8, 1024, 32768,
+   seed=3)`` every step. First, at E = 4 and 8, step-1 gradients of the
+   ``ragged`` dispatch with the grouped-dW backward against the stock one
+   on the same weights (equal losses: the forward is the same code;
+   gradients within BF16_PAIR_GRAD_RTOL). Then, with the launch counts
+   zeroed just before and read just after, MOE_STEPS steps of
+   ``make_train_step_body`` for each E ∈ {4, 8} × {gather, ragged_stock,
+   ragged_grouped}: ms/step (eager, one card, no ``fori``), finite losses,
+   and launches per run: ragged_grouped exactly 2·L = 12 of kernel 16's
+   bf16 twin a step, the other two none, and every run the bf16 flash and
+   add+LN kernels of the trunk.
+10. main path 6, f32 MoE training through task5: ``build_engine`` with
+   ``--attn flash --fused_ln --rope --moe_experts 8 --moe_dispatch
+   ragged`` at the training config, Adam lr 1e-3; step-1 gradients against
+   the stock dW backward (STEP_GRAD_RTOL, equal losses), then
+   MOE_F32_STEPS steps with zeroed counts: 12 launches a step of kernel
+   16's f32 twin.
+11. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -190,6 +218,34 @@ LEAN_WIDE = (2_097_184, 1024, 256)
 LEAN_WIDE_CHUNK = 262144
 LONG_FLASH_SHAPE = (2, 16384, 4, 128)  # B, T, H, D of the long-context path
 LN_SHAPE = (8192, 512)  # the plain LayerNorm op at the training rows
+# Past the old grid-y edges: 65,537 row tiles of 128 (kernels 10–12 held
+# 8,388,480 rows) and B·H = 65,537 (the flash kernels held 65,535).
+XENT_EDGE = (8_388_609, 8, 128)
+XENT_EDGE_CHUNK = 1 << 21
+FLASH_EDGE = (65_537, 16, 1, 32)  # B, T, H, D
+# MoE (bench.py:586-661, bench_moe): the training config in bf16 with
+# top-1 MoE FFNs at capacity factor 1.25, AdamW 3e-4, bench's one batch.
+MOE_MODEL = dict(TRAIN_MODEL, impl="flash", fused_ln=True, moe_capacity_factor=1.25,
+                 moe_top_k=1)
+MOE_EXPERTS = (4, 8)
+MOE_STEPS = 4  # the first is the warm-up; ms/step is taken over the rest
+MOE_LR = 3e-4
+# Launches of one bench_moe step at L=6 whatever the variant (bf16 flash,
+# add+LN); ragged_grouped adds kernel 16's bf16 twin twice a layer.
+MOE_PER_STEP = {"flash_forward_lse_bf16": 6, "flash_dq_bf16": 6, "flash_dkdv_bf16": 6,
+                "add_layernorm_fwd_bf16": 12, "add_layernorm_bwd_bf16": 12}
+# The f32 MoE path: task5 at the training config, dropless ragged dispatch.
+MOE_F32_TASK5 = ["--parallel", "single", "--attn", "flash", "--fused_ln", "--rope",
+                 "--moe_experts", "8", "--moe_dispatch", "ragged", "--vocab", "32768",
+                 "--embed_dim", "512", "--num_heads", "4", "--num_layers", "6",
+                 "--seq_len", "1024", "--batch_size", "8", "--lr", "0.001"]
+MOE_F32_STEPS = 3
+MOE_F32_PER_STEP = {"flash_forward_lse": 6, "flash_dq": 6, "flash_dkdv": 6,
+                    "add_layernorm_fwd": 12, "add_layernorm_bwd": 12, "grouped_dw": 12}
+# Kernel 16 in phase 3: the MoE step's rows and both FFN products.
+GDW_M = 8192
+GDW_SHAPES = ((512, 2048), (2048, 512))  # (k, n) of dW1 and dW2
+GDW_TOL = 1e-5  # of max |plain|: both sum the same products in f32, in another order
 
 
 class SmokeFailure(RuntimeError):
@@ -1173,6 +1229,149 @@ def head_phase(gen) -> list[dict]:
     return rows
 
 
+def _router_groups(gen, m: int, e: int):
+    """Group sizes [E] int32 on the card: a real router's top-1 over seeded
+    features ([m, 512] @ [512, E], skewed toward expert 0 by a bias) for
+    m − 192 rows, leaving 192 tail rows; and a set with empty groups and a
+    collapsed one (every row but the tail in one expert)."""
+    import torch
+
+    used = m - 192
+    feats = torch.randn((used, 512), generator=gen).cuda()
+    router = (torch.randn((512, e), generator=gen) / 512 ** 0.5).cuda()
+    bias = torch.linspace(1.0, 0.0, e, device=feats.device)
+    top1 = torch.argmax(torch.softmax(feats @ router + bias, dim=-1), dim=-1)
+    routed = torch.bincount(top1, minlength=e).to(torch.int32)
+    empty = torch.zeros(e, dtype=torch.int32, device=feats.device)
+    empty[::2] = used // ((e + 1) // 2)
+    empty[0] += used - int(empty.sum())
+    collapsed = torch.zeros(e, dtype=torch.int32, device=feats.device)
+    collapsed[e - 1] = used
+    return {"router": routed, "empty": empty, "collapsed": collapsed}
+
+
+def grouped_dw_phase(gen) -> list[dict]:
+    """Kernel 16 and its bf16 twin against ``grouped_dw_reference`` at the
+    MoE step's shapes (module docstring, phase 3), bitwise equal on a
+    repeat; times at E = 8 and E = 4, dW1 and dW2 shapes, on the router's
+    groups, beside the bound (data-dependent: the routed rows' bytes and
+    products; the tail rows are never read), the plain version and
+    per-expert ``torch.matmul``."""
+    import torch
+
+    from tpudml_torch.ops import GROUPED_DW, GROUPED_DW_BF16, grouped_dw, grouped_dw_reference
+
+    rows = []
+    for dtype, kernel in ((torch.float32, GROUPED_DW), (torch.bfloat16, GROUPED_DW_BF16)):
+        tag = str(dtype)[6:]
+        worst, times = 0.0, {}
+        for e in MOE_EXPERTS:
+            sets = _router_groups(gen, GDW_M, e)
+            for k, n in GDW_SHAPES:
+                x = torch.randn((GDW_M, k), generator=gen).cuda().to(dtype)
+                g = (torch.randn((GDW_M, n), generator=gen) / GDW_M ** 0.5).cuda().to(dtype)
+                for name, gs in sets.items():
+                    got = grouped_dw(x, g, gs)
+                    again = grouped_dw(x, g, gs)
+                    want = grouped_dw_reference(x, g, gs)
+                    torch.cuda.synchronize()
+                    err = rel_to_max(got, want)
+                    print(f"[kernel] {kernel.name} M={GDW_M} k={k} n={n} E={e} {name} groups "
+                          f"{gs.tolist()}: max|err|/max|plain| {err:.3e} (tol {GDW_TOL:g}); "
+                          f"repeat bitwise equal: {torch.equal(got, again)}")
+                    check(err <= GDW_TOL and got.dtype == torch.float32,
+                          f"{kernel.name} disagrees with its plain version (E={e}, k={k}, "
+                          f"{name} groups)")
+                    check(torch.equal(got, again), f"{kernel.name} is not bitwise repeatable")
+                    worst = max(worst, (got - want).abs().max().item())
+                gs = sets["router"]
+                sizes = gs.tolist()
+                slabs, lo = [], 0
+                for size in sizes:
+                    slabs.append((lo, lo + size))
+                    lo += size
+                ms = cuda_ms(lambda: grouped_dw(x, g, gs), iters=20)
+                plain_ms = cuda_ms(lambda: grouped_dw_reference(x, g, gs), iters=10)
+                lib_ms = cuda_ms(lambda: [torch.matmul(x[a:b].T, g[a:b]) for a, b in slabs],
+                                 iters=10)
+                esz = x.element_size()
+                nbytes = sum(sizes) * (k + n) * esz + e * k * n * 4 + 4 * e
+                peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+                bnd, by = bound(nbytes, 2 * sum(sizes) * k * n, peak)
+                print(f"[kernel] {kernel.name} M={GDW_M} k={k} n={n} E={e} {tag} router groups: "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, per-expert torch.matmul "
+                      f"{lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
+                times[(e, k, n)] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                    library=f"per-expert torch.matmul(x[slab].T, g[slab]), {tag}",
+                    shape=f"M={GDW_M} k={k} n={n} E={e} {tag} (router groups {sizes})")
+            torch.cuda.empty_cache()
+        main = (8, *GDW_SHAPES[0])
+        row = dict(name=kernel.name, route="cuda", source=kernel.source,
+                   replaces=kernel.replaces, max_abs_err=worst, **times[main])
+        row["shape"] += " (MoE dW1)"
+        row["at"] = [t for key, t in times.items() if key != main]
+        rows.append(row)
+    return rows
+
+
+def grid_edge_phase(gen) -> None:
+    """Kernels 10–12 and the flash forward, dQ and dK/dV past the old
+    grid-y edges (module docstring, phase 3), against their plain versions
+    in row chunks (xent) or on the whole batch (flash)."""
+    import torch
+
+    from tpudml_torch.ops import (
+        flash_dkdv, flash_dkdv_reference, flash_dq, flash_dq_reference, flash_forward_lse,
+        flash_forward_lse_reference, xent_dx, xent_dx_reference, xent_forward,
+        xent_forward_save, xent_forward_save_reference,
+    )
+
+    n, d, v = XENT_EDGE
+    cgen = torch.Generator(device="cuda").manual_seed(2)
+    x, w, b, y = _xent_inputs(cgen, n, d, v, torch.float32, bad_labels=True)
+    lse0, picked0 = xent_forward(x, w, b, y)
+    lse, picked, s = xent_forward_save(x, w, b, y)
+    dx = xent_dx(s, w, y, lse, 1.0 / n)
+    torch.cuda.synchronize()
+    e_fwd = e_dx = m_dx = 0.0
+    for r in (slice(i, i + XENT_EDGE_CHUNK) for i in range(0, n, XENT_EDGE_CHUNK)):
+        rlse, rpicked, rs = xent_forward_save_reference(x[r], w, b, y[r])
+        for got, want in ((lse0[r], rlse), (lse[r], rlse), (picked0[r], rpicked),
+                          (picked[r], rpicked), (s[r], rs)):
+            err = (got - want).abs()
+            check(bool((err <= XENT_ROW_TOL * (1 + want.abs())).all()),
+                  f"xent forward disagrees with its plain version at N={n}")
+            e_fwd = max(e_fwd, err.max().item())
+        rdx = xent_dx_reference(rs, w, y[r], rlse, 1.0 / n)
+        e_dx = max(e_dx, (dx[r] - rdx).abs().max().item())
+        m_dx = max(m_dx, rdx.abs().max().item())
+    del x, s, dx
+    torch.cuda.empty_cache()
+    print(f"[kernel] xent N={n} d={d} V={v} f32 (65,537 row tiles, plain in "
+          f"{XENT_EDGE_CHUNK}-row chunks): kernels 10, 11 max|dlse|,|dpicked|,|ds| {e_fwd:.3e} "
+          f"(|err| <= {XENT_ROW_TOL:g}·(1+|plain|)); kernel 12 dx {e_dx / m_dx:.3e} of max "
+          f"(tol {XENT_GRAD_REL:g})")
+    check(e_dx <= XENT_GRAD_REL * m_dx, f"xent dx disagrees with its plain version at N={n}")
+
+    bsz, t, h, hd = FLASH_EDGE
+    q, k, v_, do = (torch.randn((bsz, t, h, hd), generator=gen).cuda() for _ in range(4))
+    o, lse = flash_forward_lse(q, k, v_, causal=True)
+    ro, rlse = flash_forward_lse_reference(q, k, v_, causal=True)
+    torch.cuda.synchronize()
+    e_f = max((o - ro).abs().max().item(), (lse - rlse).abs().max().item())
+    check(e_f <= FLASH_TOL, f"flash forward disagrees with its plain version at B·H={bsz * h}")
+    delta = (do * ro).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v_, do, rlse, delta)
+    e_dq = _grad_err(flash_dq(*args, causal=True), flash_dq_reference(*args, causal=True))
+    e_kv = max(_grad_err(a, c) for a, c in zip(flash_dkdv(*args, causal=True),
+                                               flash_dkdv_reference(*args, causal=True)))
+    print(f"[kernel] flash B={bsz} T={t} H={h} D={hd} causal (B·H = {bsz * h}): fwd max|err| "
+          f"{e_f:.3e} (tol {FLASH_TOL:g}); dq {e_dq:.3e}, dk/dv {e_kv:.3e} (|err| <= "
+          f"{GRAD_ATOL:g} + {GRAD_RTOL:g}·|plain|)")
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -1656,6 +1855,130 @@ def ln_op_phase(gen) -> dict[str, int]:
     return launches
 
 
+# ------------------------------------------------------------ phase 9
+
+
+def _set_ragged_dw(model, ragged_dw: str) -> None:
+    for block in model.blocks():
+        block.moe.ragged_dw = ragged_dw
+
+
+def moe_phase() -> dict[str, int]:
+    """Main path 5: bench_moe's six rows (module docstring, phase 9).
+    Returns the launch counts of the six runs together."""
+    import numpy as np
+    import torch
+
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import AdamW
+    from tpudml_torch.tools.profile_train import MOE_VARIANTS
+    from tpudml_torch.train import TrainState, make_loss_fn, make_train_step_body
+
+    t, v = TRAIN_MODEL["max_len"], TRAIN_MODEL["vocab_size"]
+    batch = torch.from_numpy(synthetic_lm(TRAIN_BATCH, t, v, seed=3)).long().cuda()  # bench.py:604
+    tokens, labels = batch[:, :-1], batch[:, 1:]
+
+    def model(e, **kw):
+        return TransformerLM(**MOE_MODEL, moe_experts=e, **kw, compute_dtype=torch.bfloat16,
+                             device="cuda", generator=torch.Generator().manual_seed(6))
+
+    # Step-1 gradients: grouped-dW backward vs the stock one, same weights.
+    for e in MOE_EXPERTS:
+        m = model(e, moe_dispatch="ragged")
+        lg, gg = _grads(make_loss_fn(m), m, tokens, labels)
+        _set_ragged_dw(m, "stock")
+        ls, gs = _grads(make_loss_fn(m), m, tokens, labels)
+        worst, name = _worst(gg, gs, gs)
+        dw = [n for n in gg if ".moe.experts.w" in n]
+        wdw, ndw = _worst({n: gg[n] for n in dw}, {n: gs[n] for n in dw}, gs)
+        print(f"[moe] E={e} step-1, ragged grouped-dW vs stock backward: losses {lg:.6f} vs "
+              f"{ls:.6f}; gradients worst max|err|/max|stock| {worst:.3e} ({name}; tol "
+              f"{BF16_PAIR_GRAD_RTOL:g}), of dW1/dW2 {wdw:.3e} ({ndw})")
+        check(lg == ls, "grouped and stock ragged losses differ: the forward is the same code")
+        check(worst <= BF16_PAIR_GRAD_RTOL, f"grouped-dW gradient {name} disagrees with stock")
+        del m, gg, gs
+        torch.cuda.empty_cache()
+
+    reset_launch_counts()  # ---- main path 5 starts here
+    per_run, results = {}, {}
+    for e in MOE_EXPERTS:
+        for variant, kw in MOE_VARIANTS.items():
+            m = model(e, **kw)
+            opt = AdamW(lr=MOE_LR)
+            step = make_train_step_body(m, opt)
+            before = {k.name: k.launches for k in KERNELS}
+            results[(e, variant)] = _train_run(TrainState.create(m, opt), step,
+                                               [batch] * MOE_STEPS)
+            per_run[(e, variant)] = {k.name: k.launches - before[k.name] for k in KERNELS}
+            del m, opt, step
+            torch.cuda.empty_cache()
+    launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    tok = TRAIN_BATCH * t
+    for (e, variant), (losses, ms) in results.items():
+        got = per_run[(e, variant)]
+        per_step = dict(MOE_PER_STEP)
+        if variant == "ragged_grouped":  # dW1 and dW2 of every layer
+            per_step["grouped_dw_bf16"] = 2 * TRAIN_MODEL["num_layers"]
+        need = {name: MOE_STEPS * n for name, n in per_step.items()}
+        print(f"[moe] E={e} {variant}: losses {' '.join(f'{x:.6f}' for x in losses)}; "
+              f"{ms:.2f} ms/step, {tok / ms * 1e3:.0f} tokens/s (eager, one card, no fori; "
+              f"{MOE_STEPS - 1} steps after one warm-up); launches "
+              f"{dict((k, c) for k, c in got.items() if c)}")
+        check(all(np.isfinite(losses)), f"a MoE loss is not finite (E={e}, {variant})")
+        check(got == {k.name: need.get(k.name, 0) for k in KERNELS},
+              f"MoE E={e} {variant} launched {got}, {MOE_STEPS} steps need {need}")
+    return launches
+
+
+# ------------------------------------------------------------ phase 10
+
+
+def moe_f32_phase() -> dict[str, int]:
+    """Main path 6: f32 MoE training through task5 (module docstring,
+    phase 10). Returns its launch counts."""
+    import numpy as np
+    import torch
+
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.tasks import task5_longcontext as task5
+    from tpudml_torch.train import make_loss_fn
+
+    args = task5.parse_args(MOE_F32_TASK5)
+    b, t, v = args.batch_size, args.seq_len, args.vocab
+    ts, step = task5.build_engine(args, torch.device("cuda"))
+    seqs = synthetic_lm(4 * b, t, v, seed=args.seed)
+    rng = np.random.default_rng(args.seed)  # task5's row sampling
+    batches = [seqs[rng.integers(0, len(seqs), size=b)] for _ in range(MOE_F32_STEPS)]
+    tokens, labels = (torch.from_numpy(x).long().cuda()
+                      for x in (batches[0][:, :-1], batches[0][:, 1:]))
+    lg, gg = _grads(make_loss_fn(ts.model), ts.model, tokens, labels)
+    _set_ragged_dw(ts.model, "stock")
+    ls, gs = _grads(make_loss_fn(ts.model), ts.model, tokens, labels)
+    _set_ragged_dw(ts.model, "grouped")
+    worst, name = _worst(gg, gs, gs)
+    print(f"[moe_f32] task5 {' '.join(MOE_F32_TASK5)}: step-1 grouped-dW vs stock backward: "
+          f"losses {lg:.6f} vs {ls:.6f}; gradients worst max|err|/max|stock| {worst:.3e} "
+          f"({name}; tol {STEP_GRAD_RTOL:g})")
+    check(lg == ls, "f32 grouped and stock ragged losses differ")
+    check(worst <= STEP_GRAD_RTOL, f"f32 grouped-dW gradient {name} disagrees with stock")
+    del gg, gs, tokens, labels
+    torch.cuda.empty_cache()
+
+    reset_launch_counts()  # ---- main path 6 starts here
+    losses, ms = _train_run(ts, step, batches)
+    launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    need = {k.name: MOE_F32_STEPS * MOE_F32_PER_STEP.get(k.name, 0) for k in KERNELS}
+    print(f"[moe_f32] losses {' '.join(f'{x:.6f}' for x in losses)}; {ms:.2f} ms/step, "
+          f"{b * t / ms * 1e3:.0f} tokens/s (eager, one card; {MOE_F32_STEPS - 1} steps after "
+          f"one warm-up); launches {dict((k, c) for k, c in launches.items() if c)}")
+    check(all(np.isfinite(losses)), "an f32 MoE loss is not finite")
+    check(launches == need, f"the f32 MoE path launched {launches}, not {need}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1685,7 +2008,8 @@ def main() -> int:
     xent_rows = xent_phase(gen)
     rows = [*flash_rows, *head_phase(gen), *add_ln_phase(gen), *flash_bf16_phase(gen),
             *add_ln_bf16_phase(gen), *xent_rows, *xent_lean_phase(gen, xent_rows[0]),
-            *ln_phase(gen)]
+            *ln_phase(gen), *grouped_dw_phase(gen)]
+    grid_edge_phase(gen)
     torch.cuda.empty_cache()
     paths = {"serve": serve_phase(gen)}
     torch.cuda.empty_cache()
@@ -1696,6 +2020,10 @@ def main() -> int:
     paths["long"] = long_phase()
     torch.cuda.empty_cache()
     paths["ln_op"] = ln_op_phase(gen)
+    torch.cuda.empty_cache()
+    paths["moe"] = moe_phase()
+    torch.cuda.empty_cache()
+    paths["moe_f32"] = moe_f32_phase()
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

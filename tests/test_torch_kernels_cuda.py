@@ -27,7 +27,13 @@ Tolerances, with their reasons:
   2e-2 in bf16 (stored in bf16, dlog rounded to bf16 on both sides); the
   lean kernels 14 and 15 the same (their recomputed scores are d-term
   f32 dots in another order too);
-- the plain LayerNorm kernels 6 and 7: as add+LN's (no residual, no ds).
+- the plain LayerNorm kernels 6 and 7: as add+LN's (no residual, no ds);
+- the grouped dW (kernel 16), f32 and bf16 inputs: within 1e-5 of the
+  plain output's largest magnitude (both accumulate the same products in
+  f32, over up to M rows in another order), and bitwise equal on a repeat.
+Past the old grid-y edges (8,388,480 rows of kernels 10–12; B·H = 65535 of
+the flash kernels) the tolerances are those above, the plain versions
+taken in row or batch chunks.
 """
 
 import pytest
@@ -44,6 +50,8 @@ from tpudml_torch.ops import (  # noqa: E402
     add_layernorm_forward_reference, flash_attention, flash_block_grads,
     flash_block_grads_reference, flash_forward_lse, flash_forward_lse_reference,
     fused_add_layernorm, fused_decode_head, fused_decode_head_int8, fused_layernorm,
+    GROUPED_DW, GROUPED_DW_BF16, flash_dkdv, flash_dkdv_reference, flash_dq,
+    flash_dq_reference, grouped_dw, grouped_dw_reference, ragged_ffn,
     layernorm_backward, layernorm_backward_reference, layernorm_forward,
     layernorm_forward_reference, linear_cross_entropy, reference_head, xent_dw,
     xent_dw_lean, xent_dw_lean_reference, xent_dw_reference, xent_dx, xent_dx_lean,
@@ -341,11 +349,13 @@ def test_xent_kernels_reject_what_they_do_not_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n,d,v", [(1000, 64, 1000), (256, 512, 4096), (37, 8, 130),
-                                   (70, 264, 300), (50, 1024, 200), (2_097_184, 8, 40)])
+                                   (70, 264, 300), (50, 1024, 200), (2_097_184, 8, 40),
+                                   (140_000, 64, 100)])
 def test_xent_lean_kernels_match_plain(cuda_device, dtype, n, d, v):
     """Kernels 14 and 15 against their plain versions: ragged rows and
-    vocab, labels −1 and V, d chunks of 128, 512 and two 512s, and 65537
-    row tiles of dX (more than a grid's y extent of 65535 holds)."""
+    vocab, labels −1 and V, d chunks of 128, 512 and two 512s, 65537 row
+    tiles of dX (more than a grid's y extent of 65535 holds), and dW's row
+    ranges of 65536 (33 of them; 3 with a ragged last one)."""
     x, w, b, y = _xent_inputs(n, d, v, dtype, cuda_device, seed=5)
     lse, _ = xent_forward_reference(x, w, b, y)
     before = (XENT_DX_LEAN.launches, XENT_DW_LEAN.launches)
@@ -424,3 +434,160 @@ def test_fused_layernorm_autograd_on_card(cuda_device):
     (torch.nn.functional.layer_norm(ref[0], (64,), ref[1], ref[2], 1e-5) * w1).sum().backward()
     for a, c in zip(leaves, ref):
         torch.testing.assert_close(a.grad, c.grad, **COL_TOL)
+
+
+@pytest.mark.cuda
+def test_xent_kernels_10_to_12_past_the_grid_y_edge(cuda_device):
+    """Kernels 10, 11 and 12 at N = 8,388,609 rows (65,537 row tiles of 128,
+    past the 8,388,480 that grid y held): against their plain versions in
+    row chunks (d = 8, V = 128 keep x at 268 MB and the scores at 4.3 GB)."""
+    n, d, v = 8_388_609, 8, 128
+    x, w, b, y = _xent_inputs(n, d, v, torch.float32, cuda_device, seed=21)
+    lse0, picked0 = xent_forward(x, w, b, y)
+    lse, picked, s = xent_forward_save(x, w, b, y)
+    dx = xent_dx(s, w, y, lse, 1.0 / n)
+    torch.cuda.synchronize()
+    step = 1 << 21
+    for r in (slice(i, i + step) for i in range(0, n, step)):
+        rlse, rpicked, rs = xent_forward_save_reference(x[r], w, b, y[r])
+        for got in (lse0[r], lse[r]):
+            torch.testing.assert_close(got, rlse, **ROW_TOL)
+        for got in (picked0[r], picked[r]):
+            torch.testing.assert_close(got, rpicked, **ROW_TOL)
+        torch.testing.assert_close(s[r], rs, **ROW_TOL)
+        _close_to_max(dx[r], xent_dx_reference(rs, w, y[r], rlse, 1.0 / n), 1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_past_the_grid_y_edge(cuda_device):
+    """The flash forward, dQ and dK/dV at B·H = 65,537 (past the 65,535
+    that grid y held): B = 65,537, H = 1, T = 16, D = 32, causal, against
+    their plain versions."""
+    b, t, h, d = 65_537, 16, 1, 32
+    q, k, v, do = (_randn(b, t, h, d, seed=30 + i, device=cuda_device) for i in range(4))
+    o, lse = flash_forward_lse(q, k, v, causal=True)
+    ro, rlse = flash_forward_lse_reference(q, k, v, causal=True)
+    torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    delta = (do * ro).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, rlse, delta)
+    torch.testing.assert_close(flash_dq(*args, causal=True),
+                               flash_dq_reference(*args, causal=True), **GRAD_TOL)
+    for got, want in zip(flash_dkdv(*args, causal=True),
+                         flash_dkdv_reference(*args, causal=True)):
+        torch.testing.assert_close(got, want, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_xent_lean_dw_at_two_million_rows_d1024(cuda_device):
+    """Kernel 15 at N = 2,097,184, d = 1024, V = 256 (33 row ranges, N·d >
+    2³¹): dW and db within 1e-4 of max of the plain version summed over row
+    chunks."""
+    n, d, v = 2_097_184, 1024, 256
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((n, d), generator=gen, device=cuda_device)
+    w = (torch.rand((d, v), generator=gen, device=cuda_device) * 2 - 1) / d ** 0.5
+    b = (torch.rand((v,), generator=gen, device=cuda_device) * 2 - 1) / d ** 0.5
+    y = torch.randint(0, v, (n,), generator=gen, dtype=torch.int32, device=cuda_device)
+    step = 262_144
+    rows = [slice(i, i + step) for i in range(0, n, step)]
+    lse = torch.cat([xent_forward_reference(x[r], w, b, y[r])[0] for r in rows])
+    dw, db = xent_dw_lean(x, w, b, y, lse, 1.0 / n)
+    rdw = torch.zeros_like(dw)
+    rdb = torch.zeros_like(db)
+    for r in rows:
+        pw, pb = xent_dw_lean_reference(x[r], w, b, y[r], lse[r], 1.0 / n)
+        rdw += pw
+        rdb += pb
+    _close_to_max(dw, rdw, 1e-4)
+    _close_to_max(db, rdb, 1e-4)
+
+
+GROUP_SETS = {  # sizes of 8 groups over M = 300 rows (the rest: tail rows)
+    "uneven": [3, 41, 2, 77, 29, 5, 52, 15],
+    "empty": [60, 0, 30, 0, 84, 0, 60, 0],
+    "collapsed": [280, 0, 0, 0, 0, 0, 0, 0],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("groups", sorted(GROUP_SETS))
+@pytest.mark.parametrize("k,n", [(64, 96), (130, 257)])
+def test_grouped_dw_kernel_matches_plain(cuda_device, dtype, groups, k, n):
+    """Kernel 16 against its plain version: uneven, empty and collapsed
+    groups, tail rows past Σ group_sizes, tile edges in k and n; bitwise
+    equal on a repeat; the twin of x's dtype launches once."""
+    m = 300
+    x = _randn(m, k, seed=40, device=cuda_device).to(dtype)
+    g = _randn(m, n, seed=41, device=cuda_device).to(dtype)
+    gs = torch.tensor(GROUP_SETS[groups], dtype=torch.int32, device=cuda_device)
+    kernel = GROUPED_DW if dtype == torch.float32 else GROUPED_DW_BF16
+    before = kernel.launches
+    dw = grouped_dw(x, g, gs)
+    again = grouped_dw(x, g, gs)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert dw.dtype == torch.float32 and dw.shape == (8, k, n)
+    assert torch.equal(dw, again)
+    want = grouped_dw_reference(x, g, gs)
+    _close_to_max(dw, want, 1e-5)
+    for e, size in enumerate(GROUP_SETS[groups]):
+        if size == 0:
+            assert not dw[e].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grouped_dw_kernel_at_the_moe_step_shape(cuda_device, dtype):
+    """M = 8192 rows, k = 512, n = 2048, E = 8 with int64 sizes that skew
+    toward one expert and leave 100 tail rows."""
+    m, k, n = 8192, 512, 2048
+    x = _randn(m, k, seed=42, device=cuda_device).to(dtype)
+    g = _randn(m, n, seed=43, device=cuda_device).to(dtype)
+    gs = torch.tensor([4000, 1500, 0, 900, 700, 500, 392, 400], device=cuda_device)
+    dw = grouped_dw(x, g, gs)
+    _close_to_max(dw, grouped_dw_reference(x, g, gs), 1e-5)
+    assert torch.equal(dw, grouped_dw(x, g, gs))
+
+
+@pytest.mark.cuda
+def test_grouped_dw_rejects_what_it_does_not_take(cuda_device):
+    x = _randn(16, 8, seed=44, device=cuda_device)
+    g = _randn(16, 4, seed=45, device=cuda_device)
+    gs = torch.tensor([8, 8], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="row-aligned"):
+        grouped_dw(x, g[:15], gs)
+    with pytest.raises(ValueError, match="integer"):
+        grouped_dw(x, g, gs.float())
+    with pytest.raises(TypeError):
+        grouped_dw(x, g.bfloat16(), gs)
+    with pytest.raises(TypeError):
+        grouped_dw(x.double(), g.double(), gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_dw(x.t().contiguous().t(), g, gs)
+    with pytest.raises(ValueError, match="one device"):
+        grouped_dw(x, g, gs.cpu())
+
+
+@pytest.mark.cuda
+def test_ragged_ffn_autograd_on_card(cuda_device):
+    """ragged_ffn's backward launches kernel 16 twice (dW1, dW2) and
+    matches the CPU plain path."""
+    p, d, h, e = 200, 32, 64, 4
+    gs = torch.tensor([70, 0, 90, 40], dtype=torch.int32)
+    eids = torch.repeat_interleave(torch.arange(e), gs)
+    onehot = torch.nn.functional.one_hot(eids, e).float()
+    leaves = [_randn(*s, seed=50 + i, device="cpu") for i, s in
+              enumerate(((p, d), (e, d, h), (e, h), (e, h, d), (e, d)))]
+    dout = _randn(p, d, seed=56, device="cpu")
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        ins = [t.to(dev).requires_grad_() for t in leaves]
+        before = GROUPED_DW.launches
+        out = ragged_ffn(*ins, onehot.to(dev), gs.to(dev))
+        grads[str(dev)] = (out, *torch.autograd.grad(out, ins, dout.to(dev)))
+        if dev != "cpu":
+            assert GROUPED_DW.launches == before + 2
+    for a, c in zip(grads["cpu"], grads[str(cuda_device)]):
+        _close_to_max(c.cpu(), a, 1e-5)

@@ -47,6 +47,14 @@ def test_imports_with_jax_blocked_and_no_tpudml():
     assert out.stdout.startswith("ok")
 
 
+@pytest.mark.parametrize("module", ["tpudml_torch.nn.moe", "tpudml_torch.ops.moe_kernel"])
+def test_moe_modules_are_among_the_checked(module):
+    """The MoE layer and the grouped-dW wrapper are among the modules the
+    jax-blocked import and the AST scan cover."""
+    assert module in list(_modules())
+    assert REPO / (module.replace(".", "/") + ".py") in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_tpudml_import(path):
     tree = ast.parse(path.read_text())

@@ -197,8 +197,8 @@ def test_accum_steps_and_unported_model_options_raise():
         make_train_step_body(tm, Adam(), accum_steps=2)
     with pytest.raises(NotImplementedError, match="item 3"):
         TransformerLM(**CFG, dropout=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TransformerLM(**CFG, moe_experts=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5"):  # expert parallelism
+        TransformerLM(**CFG, moe_experts=4, moe_axis="expert", device="cpu")
     for impl in ("ring", "ulysses"):
         with pytest.raises(NotImplementedError, match="item 8"):
             TransformerLM(**CFG, impl=impl, device="cpu")

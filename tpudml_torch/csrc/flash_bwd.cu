@@ -33,12 +33,14 @@
 // the 32 lanes read in parallel is padded by one float per row (no bank
 // conflicts); the other is read as a broadcast. Keys past T are masked and
 // rows past T are never written, so any T works. q/k/v/dO are indexed
-// through their (batch, time, head) strides; outputs are contiguous.
+// through their (batch, time, head) strides; outputs are contiguous. B·H
+// lies on grid y and continues on grid z past 65535 (grid.cuh).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "dtype.cuh"
+#include "grid.cuh"
 
 namespace {
 
@@ -70,7 +72,7 @@ __global__ void __launch_bounds__(NTHREAD)
 flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
                 const E* __restrict__ v, const E* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                E* __restrict__ dq, int T, int H, Strides qs, Strides ks,
+                E* __restrict__ dq, int BH, int T, int H, Strides qs, Strides ks,
                 Strides vs, Strides dos, int causal, int k_shift, float scale) {
   constexpr int NC = D / 32;  // output columns per lane
   constexpr int KP = D + 1;   // padded K/V row
@@ -83,7 +85,8 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
   float* lse_s = ds_s + BQ * BK;   // [BQ]
   float* del_s = lse_s + BQ;       // [BQ]
 
-  const int bh = blockIdx.y;
+  const int bh = grid_y_index();
+  if (bh >= BH) return;  // past B·H in the last z slice
   const int b = bh / H;
   const int h = bh % H;
   const int q0 = blockIdx.x * BQ;
@@ -176,7 +179,7 @@ __global__ void __launch_bounds__(NTHREAD)
 flash_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
                   const E* __restrict__ v, const E* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
-                  E* __restrict__ dk, E* __restrict__ dv, int T, int H,
+                  E* __restrict__ dk, E* __restrict__ dv, int BH, int T, int H,
                   Strides qs, Strides ks, Strides vs, Strides dos, int causal,
                   int k_shift, float scale) {
   constexpr int NC = D / 32;  // output columns per lane
@@ -191,7 +194,8 @@ flash_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
   float* lse_s = ds_s + BK * BQ;   // [BQ]
   float* del_s = lse_s + BQ;       // [BQ]
 
-  const int bh = blockIdx.y;
+  const int bh = grid_y_index();
+  if (bh >= BH) return;  // past B·H in the last z slice
   const int b = bh / H;
   const int h = bh % H;
   const int k0 = blockIdx.x * BK;
@@ -304,9 +308,9 @@ cudaError_t launch_dq(const E* q, const E* k, const E* v, const E* dout,
       flash_dq_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((T + BQ - 1) / BQ, B * H);
+  const dim3 grid = grid_xyz((T + BQ - 1) / BQ, static_cast<long long>(B) * H);
   flash_dq_kernel<E, D><<<grid, NTHREAD, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, T, H, qs, ks, vs, dos, causal, k_shift,
+      q, k, v, dout, lse, delta, dq, B * H, T, H, qs, ks, vs, dos, causal, k_shift,
       scale);
   return cudaGetLastError();
 }
@@ -323,9 +327,9 @@ cudaError_t launch_dkdv(const E* q, const E* k, const E* v, const E* dout,
       flash_dkdv_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((T + BK - 1) / BK, B * H);
+  const dim3 grid = grid_xyz((T + BK - 1) / BK, static_cast<long long>(B) * H);
   flash_dkdv_kernel<E, D><<<grid, NTHREAD, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, T, H, qs, ks, vs, dos, causal,
+      q, k, v, dout, lse, delta, dk, dv, B * H, T, H, qs, ks, vs, dos, causal,
       k_shift, scale);
   return cudaGetLastError();
 }

@@ -30,12 +30,14 @@
 // so the 32 lanes of a warp read 32 different banks). K tiles entirely above
 // the shifted diagonal are skipped by ending the loop; keys past T are never
 // loaded and Q rows past T are never written. [B, T, H, D] is indexed through
-// the caller's strides: no folding or padding copies.
+// the caller's strides: no folding or padding copies. B·H lies on grid y
+// and continues on grid z past 65535 (grid.cuh).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "dtype.cuh"
+#include "grid.cuh"
 
 namespace {
 
@@ -64,7 +66,7 @@ template <typename E, int D>
 __global__ void __launch_bounds__(NWARP * 32)
 flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
                  const E* __restrict__ v, E* __restrict__ o,
-                 float* __restrict__ lse, int T, int H,
+                 float* __restrict__ lse, int BH, int T, int H,
                  long long qsb, long long qst, long long qsh,
                  long long ksb, long long kst, long long ksh,
                  long long vsb, long long vst, long long vsh,
@@ -76,7 +78,8 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
   float* vs = ks + BK * (D + 1);    // [BK][D]
   float* ps = vs + BK * D;          // [BQ][BK]
 
-  const int bh = blockIdx.y;
+  const int bh = grid_y_index();
+  if (bh >= BH) return;  // past B·H in the last z slice
   const int b = bh / H;
   const int h = bh % H;
   const int q0 = blockIdx.x * BQ;
@@ -179,9 +182,9 @@ cudaError_t launch(const E* q, const E* k, const E* v, E* o, float* lse, int B,
       flash_fwd_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((T + BQ - 1) / BQ, B * H);
+  const dim3 grid = grid_xyz((T + BQ - 1) / BQ, static_cast<long long>(B) * H);
   flash_fwd_kernel<E, D><<<grid, NWARP * 32, smem, stream>>>(
-      q, k, v, o, lse, T, H, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0],
+      q, k, v, o, lse, B * H, T, H, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0],
       vs[1], vs[2], causal, k_shift, scale);
   return cudaGetLastError();
 }

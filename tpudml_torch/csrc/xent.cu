@@ -35,8 +35,8 @@
 // 67 TFLOP/s, not the tensor cores' 989 TFLOP/s in bf16: the mma/wgmma
 // redesign is later work.
 //
-// Design, saved-scores kernels: one register-tiled product shared by all
-// three. A block of 256 threads owns a 128×128 output tile; each thread
+// Design, saved-scores kernels: one register-tiled product (tile.cuh) shared
+// by all three. A block of 256 threads owns a 128×128 output tile; each thread
 // keeps 8×8 f32 accumulators (rows ty + 16·i, columns tx + 16·j) and walks
 // the contraction axis 8 deep at a time through two shared-memory stages,
 // loading each operand in the order that keeps its global reads contiguous
@@ -45,11 +45,14 @@
 // built (exp, one-hot, 1/N, rounding) while staging, so it never exists in
 // device memory.
 // - Forward: the TPU kernel carries (m, l, picked) across a sequential vocab
-//   grid axis. Here a 2-D grid of (vocab tile, row tile) blocks each writes
+//   grid axis. Here a grid of (vocab tile, row tile) blocks each writes
 //   its tile's scores (save mode) and per-row partial (max, Σ exp(s − max),
 //   picked); a second small kernel merges the partials of each row in vocab
 //   tile order: max, rescaled sum, sum. Enough blocks to fill the SMs and a
 //   fixed merge order.
+//   The row tiles of the forward and of dX lie on grid y and continue on
+//   grid z past 65535 tiles (grid.cuh): grid y alone ended launches at
+//   8,388,480 rows.
 // - dX: one block per (row tile, d tile) loops over all vocab columns; dW:
 //   one block per (d tile, vocab tile) loops over all rows, and the blocks
 //   of d tile 0 also reduce db (each thread sums a fixed set of rows, then
@@ -70,47 +73,25 @@
 // other operand streams through 8-deep shared-memory slices. d above 512
 // takes more chunks, each recomputing the scores. Still no atomics: a dX
 // block owns its output rows and loops over V, a dW block owns its
-// (d chunk, vocab tile) and loops over N (its chunk-0 blocks also write db,
-// reduced in a fixed order), so results are bitwise repeatable. The lean
-// kernels never index anything of size N·V; the offsets of x, W, dX and dW
-// are 64-bit, since N·d passes 2³¹ beyond 4,194,304 rows at d = 512. Row
-// tiles (dX) and vocab tiles (dW) lie on grid x, whose limit is 2³¹ − 1
-// blocks, so neither N nor V meets the 65535 of grid y.
+// (d chunk, vocab tile, row range) and loops over the range's rows (its
+// chunk-0 blocks also write db, reduced in a fixed order); rows come in
+// ranges of 65536, whose f32 partials a second pass adds up in range order,
+// so no accumulator sums more than 65536 rows in one f32 chain (its error
+// grew as √N when one chain ran over all N) and results are bitwise
+// repeatable. The lean kernels never index anything of size N·V; the
+// offsets of x, W, dX and dW are 64-bit, since N·d passes 2³¹ beyond
+// 4,194,304 rows at d = 512. Row tiles (dX) and vocab tiles (dW) lie on grid
+// x, whose limit is 2³¹ − 1 blocks, so neither N nor V meets the 65535 of
+// grid y; the dW row ranges on grid z stay under 32768 for any int N.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "dtype.cuh"
+#include "grid.cuh"
+#include "tile.cuh"
 
 namespace {
-
-constexpr int BM = 128;       // output tile rows
-constexpr int BN = 128;       // output tile columns (the forward's vocab tile)
-constexpr int BK = 8;         // contraction depth of one shared-memory stage
-constexpr int TM = 8;         // accumulator rows per thread
-constexpr int TN = 8;         // accumulator columns per thread
-constexpr int NT = 256;       // threads per block: 16 × 16
-constexpr int LDA = BM + 4;   // padded stage rows
-constexpr int LDB = BN + 4;
-constexpr int PER = BK * BM / NT;  // staged elements per thread and operand
-
-// acc[i][j] += Σ_kk As[kk][ty + 16·i] · Bs[kk][tx + 16·j]
-__device__ __forceinline__ void mma_stage(const float* __restrict__ As,
-                                          const float* __restrict__ Bs, int ty,
-                                          int tx, float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    float a[TM], b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = As[kk * LDA + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) b[j] = Bs[kk * LDB + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
 
 // Sum / max over the 16 lanes that share a row (tx = 0..15: half a warp).
 __device__ __forceinline__ float row_max(float v) {
@@ -128,9 +109,9 @@ __device__ __forceinline__ float dlog_of(float s, float lse, int col, int label,
   return (expf(s - lse) - (col == label ? 1.f : 0.f)) * inv_n;
 }
 
-// Forward tile: block (vocab tile blockIdx.x, row tile blockIdx.y). Writes
-// the tile's partials part[0|1|2][tile][row] = (max, Σ exp(s − max), picked)
-// and, with SAVE, the tile's scores into s_out [N, V].
+// Forward tile: block (vocab tile blockIdx.x, row tile grid_y_index()).
+// Writes the tile's partials part[0|1|2][tile][row] = (max, Σ exp(s − max),
+// picked) and, with SAVE, the tile's scores into s_out [N, V].
 template <typename T, bool SAVE>
 __global__ void __launch_bounds__(NT)
 xent_fwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -142,7 +123,7 @@ xent_fwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int c0 = blockIdx.x * BN;
-  const int r0 = blockIdx.y * BM;
+  const int r0 = grid_y_index() * BM;  // rows >= N (last z slice) are masked
 
   float acc[TM][TN];
 #pragma unroll
@@ -231,8 +212,11 @@ __global__ void xent_merge_kernel(const float* __restrict__ part, int N,
   picked[row] = z;
 }
 
-// dX tile: block (d tile blockIdx.x, row tile blockIdx.y), contraction over V.
-template <typename T>
+// dX tile: block (d tile blockIdx.x, row tile grid_y_index()), contraction
+// over V. SPILL = false, for launches whose row tiles fit grid y, reads the
+// row tile from blockIdx.y alone: with the spilled index this kernel ran
+// ~4% slower at the flagship's shape, where grid z is 1.
+template <typename T, bool SPILL>
 __global__ void __launch_bounds__(NT)
 xent_dx_kernel(const float* __restrict__ s, const T* __restrict__ w,
                const int* __restrict__ labels, const float* __restrict__ lse,
@@ -244,7 +228,8 @@ xent_dx_kernel(const float* __restrict__ s, const T* __restrict__ w,
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int j0 = blockIdx.x * BN;
-  const int r0 = blockIdx.y * BM;
+  // rows >= N (last z slice) are masked
+  const int r0 = (SPILL ? grid_y_index() : blockIdx.y) * BM;
   for (int i = tid; i < BM; i += NT) {
     const int row = r0 + i;
     lse_s[i] = row < N ? lse[row] : 0.f;
@@ -362,13 +347,13 @@ template <typename T, bool SAVE>
 cudaError_t launch_fwd(const void* x, const void* w, const void* b,
                        const int* labels, float* s, float* part, float* lse,
                        float* picked, int N, int d, int V, cudaStream_t st) {
-  const dim3 grid(n_vocab_tiles(V), (N + BM - 1) / BM);
+  const dim3 grid = grid_xyz(n_vocab_tiles(V), (N + BM - 1) / BM);
   xent_fwd_tile_kernel<T, SAVE><<<grid, NT, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(b), labels, s, part, N, d, V);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  xent_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(part, N, n_vocab_tiles(V), lse, picked);
+  xent_merge_kernel<<<static_cast<unsigned>((N + 255LL) / 256), 256, 0, st>>>(part, N, n_vocab_tiles(V), lse, picked);
   return cudaGetLastError();
 }
 
@@ -376,9 +361,10 @@ template <typename T>
 cudaError_t launch_dx(const float* s, const void* w, const int* labels,
                       const float* lse, void* dx, int N, int d, int V,
                       float inv_n, cudaStream_t st) {
-  const dim3 grid((d + BN - 1) / BN, (N + BM - 1) / BM);
-  xent_dx_kernel<T><<<grid, NT, 0, st>>>(s, static_cast<const T*>(w), labels,
-                                         lse, static_cast<T*>(dx), N, d, V, inv_n);
+  const dim3 grid = grid_xyz((d + BN - 1) / BN, (N + BM - 1) / BM);
+  const auto kernel = grid.z > 1 ? xent_dx_kernel<T, true> : xent_dx_kernel<T, false>;
+  kernel<<<grid, NT, 0, st>>>(s, static_cast<const T*>(w), labels, lse,
+                              static_cast<T*>(dx), N, d, V, inv_n);
   return cudaGetLastError();
 }
 
@@ -403,6 +389,7 @@ constexpr int XR = 32;       // dX lean: rows per block
 constexpr int XV = 64;       // dX lean: vocab columns per step
 constexpr int WC = 32;       // dW lean: vocab columns per block
 constexpr int WR = 64;       // dW lean: rows per step
+constexpr int LR = 65536;    // dW lean: rows of one range (a multiple of WR)
 
 __host__ __device__ constexpr int lean_dpad(int d) { return (d + LK - 1) / LK * LK; }
 
@@ -526,18 +513,27 @@ xent_dx_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// dW lean: block (vocab tile blockIdx.x, d chunk blockIdx.y) owns dW
-// [j0, j0 + DCH) × [v0, v0 + WC), and for d chunk 0 also db[v0, v0 + WC).
-// Per step of WR rows: S[WR][WC] recomputed (thread: rows ty + 16·i;
-// columns tx, tx + 16), dlog summed into db unrounded and rounded to x's
-// dtype into Ps, then acc += xᵀ·Ps (thread: d columns j0 + lane + 32·jj;
-// vocab columns wp + 8·i).
-template <typename T>
+// dW lean: block (vocab tile blockIdx.x, d chunk blockIdx.y, row range
+// blockIdx.z) owns dW [j0, j0 + DCH) × [v0, v0 + WC) over the rows
+// [z·LR, min(N, (z + 1)·LR)), and for d chunk 0 also db[v0, v0 + WC). Per
+// step of WR rows: S[WR][WC] recomputed (thread: rows ty + 16·i; columns tx,
+// tx + 16), dlog summed into db unrounded and rounded to x's dtype into Ps,
+// then acc += xᵀ·Ps (thread: d columns j0 + lane + 32·jj; vocab columns
+// wp + 8·i). With one range (N <= LR) the block stores dW in T and db; with
+// more, it stores its range's f32 partials into part [ranges, d, V] and
+// db_part [ranges, V], which xent_dw_lean_sum_kernel adds up in range order.
+// Each accumulator thus sums at most LR rows in one f32 chain: the rounding
+// error stays that of LR rows however large N grows. N < 2³¹ keeps the
+// ranges (grid z) under 32768. RANGED = false (one range) keeps the loop
+// bounds and stores of the single-chain kernel: the ranged body ran ~2%
+// slower at N = 32768.
+template <typename T, bool RANGED>
 __global__ void __launch_bounds__(NT, 2)
 xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const T* __restrict__ b, const int* __restrict__ labels,
                     const float* __restrict__ lse, T* __restrict__ dw,
-                    float* __restrict__ db, int N, int d, int V, float inv_n) {
+                    float* __restrict__ db, float* __restrict__ part,
+                    float* __restrict__ db_part, int N, int d, int V, float inv_n) {
   extern __shared__ float smem[];
   const int dpad = lean_dpad(d);
   float* Wr = smem;                       // [dpad][WC + 1]: W columns resident
@@ -548,6 +544,8 @@ xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tid = threadIdx.x;
   const int v0 = blockIdx.x * WC;
   const int j0 = blockIdx.y * DCH;
+  const int n_begin = RANGED ? blockIdx.z * LR : 0;
+  const int n_end = RANGED ? n_begin + min(LR, N - n_begin) : N;
   for (int e = tid; e < dpad * WC; e += NT) {
     const int k = e / WC, c = e % WC;
     const int col = v0 + c;
@@ -569,7 +567,7 @@ xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
   float db_acc[2] = {0.f, 0.f};
 
-  for (int n0 = 0; n0 < N; n0 += WR) {
+  for (int n0 = n_begin; n0 < n_end; n0 += WR) {
     float s[4][2];
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
@@ -581,7 +579,7 @@ xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
         const int kk = e % LK, m = e / LK;
         const int row = n0 + m, k = k0 + kk;
         Xs[kk * (WR + 1) + m] =
-            (row < N && k < d) ? to_f32(x[static_cast<long long>(row) * d + k]) : 0.f;
+            (row < n_end && k < d) ? to_f32(x[static_cast<long long>(row) * d + k]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -600,7 +598,7 @@ xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = 0; i < 4; ++i) {
       const int m = ty + 16 * i;
       const int row = n0 + m;
-      const bool row_ok = row < N;
+      const bool row_ok = row < n_end;
       const float l = row_ok ? lse[row] : 0.f;
       const int label = row_ok ? labels[row] : -1;
 #pragma unroll
@@ -621,7 +619,7 @@ xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
         const int r = e / DCH, dd = e % DCH;
         const int row = n0 + rb + r, j = j0 + dd;
         Xr[r * (DCH + 4) + dd] =
-            (row < N && j < d) ? to_f32(x[static_cast<long long>(row) * d + j]) : 0.f;
+            (row < n_end && j < d) ? to_f32(x[static_cast<long long>(row) * d + j]) : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -645,7 +643,12 @@ xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) {
       const int j = j0 + lane + 32 * jj;
-      if (j < d) dw[static_cast<long long>(j) * V + col] = from_f32<T>(acc[i][jj]);
+      if (j >= d) continue;
+      const long long at = static_cast<long long>(j) * V + col;
+      if (RANGED)
+        part[static_cast<long long>(blockIdx.z) * d * V + at] = acc[i][jj];
+      else
+        dw[at] = from_f32<T>(acc[i][jj]);
     }
   }
   if (blockIdx.y == 0) {  // db: the 16 row groups of each column, in order
@@ -655,8 +658,33 @@ xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
     if (tid < WC && v0 + tid < V) {
       float t = 0.f;
       for (int g = 0; g < 16; ++g) t += red[g][tid];
-      db[v0 + tid] = t;
+      if (RANGED)
+        db_part[static_cast<long long>(blockIdx.z) * V + v0 + tid] = t;
+      else
+        db[v0 + tid] = t;
     }
+  }
+}
+
+// dW [d, V] in T and db [V] from the ranges' f32 partials, each element
+// summed over the ranges in order (one thread per element: bitwise
+// repeatable).
+template <typename T>
+__global__ void xent_dw_lean_sum_kernel(const float* __restrict__ part,
+                                        const float* __restrict__ db_part,
+                                        T* __restrict__ dw, float* __restrict__ db,
+                                        int ranges, int d, int V) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long plane = static_cast<long long>(d) * V;
+  if (i < plane) {
+    float t = 0.f;
+    for (int r = 0; r < ranges; ++r) t += part[r * plane + i];
+    dw[i] = from_f32<T>(t);
+  }
+  if (i < V) {
+    float t = 0.f;
+    for (int r = 0; r < ranges; ++r) t += db_part[static_cast<long long>(r) * V + i];
+    db[i] = t;
   }
 }
 
@@ -686,19 +714,30 @@ cudaError_t launch_dx_lean(const void* x, const void* w, const void* b,
   return cudaGetLastError();
 }
 
+int lean_ranges(int N) { return static_cast<int>((N + static_cast<long long>(LR) - 1) / LR); }
+
 template <typename T>
 cudaError_t launch_dw_lean(const void* x, const void* w, const void* b,
                            const int* labels, const float* lse, void* dw, float* db,
-                           int N, int d, int V, float inv_n, cudaStream_t st) {
+                           float* part, float* db_part, int N, int d, int V,
+                           float inv_n, cudaStream_t st) {
+  const int ranges = lean_ranges(N);
+  if (ranges > 1 && (part == nullptr || db_part == nullptr)) return cudaErrorInvalidValue;
+  const auto kernel = ranges > 1 ? xent_dw_lean_kernel<T, true> : xent_dw_lean_kernel<T, false>;
   const size_t smem = dw_lean_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(xent_dw_lean_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((V + WC - 1) / WC, (d + DCH - 1) / DCH);
-  xent_dw_lean_kernel<T><<<grid, NT, smem, st>>>(
+  const dim3 grid((V + WC - 1) / WC, (d + DCH - 1) / DCH, ranges);
+  kernel<<<grid, NT, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      labels, lse, static_cast<T*>(dw), db, N, d, V, inv_n);
+      labels, lse, static_cast<T*>(dw), db, part, db_part, N, d, V, inv_n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || ranges == 1) return err;
+  const long long elems = static_cast<long long>(d) * V;
+  xent_dw_lean_sum_kernel<T><<<static_cast<unsigned>((elems + 255) / 256), 256, 0, st>>>(
+      part, db_part, static_cast<T*>(dw), db, ranges, d, V);
   return cudaGetLastError();
 }
 
@@ -766,14 +805,19 @@ int xent_dx_lean(const void* x, const void* w, const void* b, const int* labels,
               : launch_dx_lean<float>(x, w, b, labels, lse, dx, N, d, V, inv_n, st);
 }
 
-// Lean dW [d, V] in W's dtype and db [V] f32, from the same operands.
+// Rows of one range of the lean dW: with N above it, the caller passes f32
+// scratch part [ceil(N / rows), d, V] and db_part [ceil(N / rows), V].
+int xent_dw_lean_range_rows() { return LR; }
+
+// Lean dW [d, V] in W's dtype and db [V] f32, from the same operands; part
+// and db_part as above (null when N <= xent_dw_lean_range_rows()).
 int xent_dw_lean(const void* x, const void* w, const void* b, const int* labels,
-                 const float* lse, void* dw, float* db, int N, int d, int V,
-                 float inv_n, int bf16, void* stream) {
+                 const float* lse, void* dw, float* db, float* part, float* db_part,
+                 int N, int d, int V, float inv_n, int bf16, void* stream) {
   if (!shape_ok(N, d, V)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_dw_lean<__nv_bfloat16>(x, w, b, labels, lse, dw, db, N, d, V, inv_n, st)
-              : launch_dw_lean<float>(x, w, b, labels, lse, dw, db, N, d, V, inv_n, st);
+  return bf16 ? launch_dw_lean<__nv_bfloat16>(x, w, b, labels, lse, dw, db, part, db_part, N, d, V, inv_n, st)
+              : launch_dw_lean<float>(x, w, b, labels, lse, dw, db, part, db_part, N, d, V, inv_n, st);
 }
 
 const char* xent_error_string(int err) {

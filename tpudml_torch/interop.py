@@ -28,10 +28,13 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]
 def lm_params_from_tpudml(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """``TransformerLM`` state dict from a ``tpudml.models.TransformerLM``
     param tree: ``tok_embed``, ``pos_embed`` (learned positions only),
-    ``block{i}.{ln1, attn.{q,k,v,out}, ln2, fc1, fc2}``, ``ln_f``,
-    ``head``. Dense kernels keep their [in, out] layout (the port's
-    ``Dense`` stores them so); every array becomes a CPU tensor of its
-    own dtype. Load with ``model.load_state_dict(state)``."""
+    ``block{i}.{ln1, attn.{q,k,v,out}, ln2, fc1, fc2}`` or, in a MoE
+    model, ``block{i}.moe.{router.kernel, experts.{w1, b1, w2, b2}}`` in
+    place of fc1, fc2, ``ln_f``, ``head``. Dense kernels keep their [in,
+    out] layout (the port's ``Dense`` stores them so) and the experts'
+    tensors theirs ([E, d, h], [E, h], [E, h, d], [E, d], as the port's
+    ``MoELayer`` does); every array becomes a CPU tensor of its own
+    dtype. Load with ``model.load_state_dict(state)``."""
     flat = _flatten(tree)
     if "tok_embed" not in flat or "head.kernel" not in flat:
         raise ValueError("not a TransformerLM param tree (no tok_embed/head)")

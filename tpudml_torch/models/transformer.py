@@ -1,16 +1,23 @@
 """Decoder-only LM: the port of ``tpudml/models/transformer.py``
 (single-device subset — init, the full forward with full or flash
-attention and the unfused or fused add+LayerNorm trunk, bf16 compute
-with f32 master weights, the pre-head features, and the KV-cached decode
-and chunked prefill paths).
+attention and the unfused or fused add+LayerNorm trunk, dense or MoE FFN
+branches, bf16 compute with f32 master weights, the pre-head features,
+and the KV-cached decode and chunked prefill paths).
 
 Parameter names follow the JAX param tree: ``tok_embed``, ``pos_embed``
 (learned positions, absent with RoPE), ``block{i}.{ln1, attn.{q,k,v,out},
-ln2, fc1, fc2}``, ``ln_f``, ``head``; Dense kernels are [in, out]. The
-blocks are pre-LN with a GELU (tanh approximation, ``jax.nn.gelu``'s
-default) MLP of ratio 4. The serving paths run exactly the full
-forward's unfused math, so greedy decode is logit-exact against it; a
-``fused_ln=True`` model refuses them, as the JAX package's does.
+ln2, fc1, fc2}`` (with ``moe_experts``: ``block{i}.moe.{router.kernel,
+experts.{w1, b1, w2, b2}}`` in place of fc1, fc2), ``ln_f``, ``head``;
+Dense kernels are [in, out]. The blocks are pre-LN with a GELU (tanh
+approximation, ``jax.nn.gelu``'s default) MLP of ratio 4, or the MoE layer
+of ``tpudml_torch.nn.moe`` (relu experts of the same ratio). The serving
+paths run exactly the full forward's unfused math, so greedy decode is
+logit-exact against it; a ``fused_ln=True`` or MoE model refuses them, as
+the JAX package's does.
+
+A MoE model records the sum of its layers' Switch load-balancing terms
+of the last forward in ``aux_loss`` (differentiable to the routers; None
+for a dense model); ``tpudml_torch.train`` adds it to the objective.
 
 ``fused_ln=True`` runs the deferred trunk: each block's closing residual
 add is deferred into the NEXT norm's fused add+LayerNorm
@@ -20,8 +27,8 @@ kernel per direction. Same math as the unfused trunk.
 
 ``compute_dtype`` (None or ``torch.bfloat16``) is the JAX model's mixed
 precision (``_cast_params``): parameters stay f32 master weights, and
-every one except the LayerNorms' (``ln1``, ``ln2``, ``ln_f``) is cast to
-the compute dtype where it is used — the Dense layers cast their kernel
+every one except the LayerNorms' (``ln1``, ``ln2``, ``ln_f``) and the MoE
+routers' is cast to the compute dtype where it is used — the Dense layers cast their kernel
 and bias, and the embeddings gather rows of the f32 tables and cast them.
 The gather-then-cast forward equals JAX's cast-then-gather; its backward
 sums the table gradient in f32, where JAX's ``embed_lookup`` rounds it to
@@ -39,6 +46,7 @@ from torch import nn
 from tpudml_torch.device import resolve_device
 from tpudml_torch.nn.attention import MultiHeadAttention
 from tpudml_torch.nn.layers import Dense, LayerNorm, cast
+from tpudml_torch.nn.moe import MoELayer
 from tpudml_torch.ops.layernorm_kernel import fused_add_layernorm
 
 MLP_RATIO = 4
@@ -47,11 +55,15 @@ COMPUTE_DTYPES = (None, torch.float32, torch.bfloat16)
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN decoder block: x + MHA(LN(x)); x + FFN(LN(x))."""
+    """Pre-LN decoder block: x + MHA(LN(x)); x + FFN(LN(x)), the FFN dense
+    or, with ``moe_experts``, a ``MoELayer``."""
 
     def __init__(self, embed_dim: int, num_heads: int, *, impl: str = "full",
                  num_kv_heads: int | None = None, rope: bool = False,
-                 rope_base: float = 10000.0,
+                 rope_base: float = 10000.0, moe_experts: int = 0,
+                 moe_axis: str | None = None, moe_capacity_factor: float = 2.0,
+                 moe_top_k: int = 1, moe_dispatch: str = "gather",
+                 moe_ragged_dw: str = "grouped",
                  generator: torch.Generator | None = None,
                  compute_dtype: torch.dtype | None = None):
         super().__init__()
@@ -63,17 +75,30 @@ class TransformerBlock(nn.Module):
             compute_dtype=compute_dtype,
         )
         self.ln2 = LayerNorm(d)
-        self.fc1 = Dense(d, MLP_RATIO * d, generator=generator,
-                         compute_dtype=compute_dtype)
-        self.fc2 = Dense(MLP_RATIO * d, d, generator=generator,
-                         compute_dtype=compute_dtype)
+        self.moe = None
+        if moe_experts:
+            self.moe = MoELayer(d, moe_experts, MLP_RATIO, moe_capacity_factor,
+                                moe_top_k, moe_axis, dispatch=moe_dispatch,
+                                ragged_dw=moe_ragged_dw, compute_dtype=compute_dtype,
+                                generator=generator)
+        else:
+            self.fc1 = Dense(d, MLP_RATIO * d, generator=generator,
+                             compute_dtype=compute_dtype)
+            self.fc2 = Dense(MLP_RATIO * d, d, generator=generator,
+                             compute_dtype=compute_dtype)
 
-    def ffn(self, y: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(y), approximate="tanh"))
+    def ffn(self, y: torch.Tensor):
+        """The post-norm FFN branch (JAX's ``_ffn_branch``): (h, the MoE
+        layer's aux term, or None for the dense MLP)."""
+        if self.moe is not None:
+            return self.moe(y)
+        return self.fc2(F.gelu(self.fc1(y), approximate="tanh")), None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
+        """(x + both branches, the FFN's aux term or None)."""
         x = x + self.attn(self.ln1(x))
-        return x + self.ffn(self.ln2(x))
+        h, aux = self.ffn(self.ln2(x))
+        return x + h, aux
 
 
 class TransformerLM(nn.Module):
@@ -81,11 +106,13 @@ class TransformerLM(nn.Module):
     ``rope``) embeddings, ``num_layers`` pre-LN blocks, final LayerNorm,
     vocab projection. ``impl`` is the blocks' attention ("full" or
     "flash"); ``fused_ln`` selects the deferred fused add+LN trunk;
-    ``compute_dtype`` the mixed precision (module docstring).
+    ``compute_dtype`` the mixed precision (module docstring);
+    ``moe_experts > 0`` swaps each block's FFN for a ``MoELayer`` with the
+    ``moe_*`` settings (capacity factor, top-k, dispatch, ragged dW;
+    ``moe_axis``, expert parallelism, is not ported and raises).
     Parameters are drawn on the CPU from ``generator`` (default: seeded
     with 0) and moved to ``device`` (default "cuda"; asking for the card
-    without one raises). ``dropout > 0`` and ``moe_experts`` are not
-    ported and raise."""
+    without one raises). ``dropout > 0`` is not ported and raises."""
 
     def __init__(self, vocab_size: int, embed_dim: int = 128,
                  num_heads: int = 4, num_layers: int = 2, max_len: int = 1024,
@@ -93,6 +120,9 @@ class TransformerLM(nn.Module):
                  rope: bool = False, rope_base: float = 10000.0, *,
                  impl: str = "full", fused_ln: bool = False,
                  dropout: float = 0.0, moe_experts: int = 0,
+                 moe_axis: str | None = None, moe_capacity_factor: float = 2.0,
+                 moe_top_k: int = 1, moe_dispatch: str = "gather",
+                 moe_ragged_dw: str = "grouped",
                  compute_dtype: torch.dtype | None = None,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
@@ -102,8 +132,6 @@ class TransformerLM(nn.Module):
                              f"got {compute_dtype}")
         if dropout:
             raise NotImplementedError(f"dropout {NOT_PORTED.format('3 (Dropout)')}")
-        if moe_experts:
-            raise NotImplementedError(f"moe_experts {NOT_PORTED.format('9 (MoE)')}")
         dev = resolve_device(device)
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         self.vocab_size = vocab_size
@@ -116,6 +144,8 @@ class TransformerLM(nn.Module):
         self.impl = impl
         self.fused_ln = fused_ln
         self.compute_dtype = compute_dtype
+        self.moe_experts = moe_experts
+        self.aux_loss = None  # the last forward's summed MoE aux terms
         self.tok_embed = nn.Parameter(
             0.02 * torch.randn((vocab_size, embed_dim), generator=g))
         self.pos_embed = (
@@ -128,8 +158,11 @@ class TransformerLM(nn.Module):
         for i in range(num_layers):
             self.add_module(f"block{i}", TransformerBlock(
                 embed_dim, num_heads, impl=impl, num_kv_heads=num_kv_heads,
-                rope=rope, rope_base=rope_base, generator=g,
-                compute_dtype=compute_dtype,
+                rope=rope, rope_base=rope_base, moe_experts=moe_experts,
+                moe_axis=moe_axis, moe_capacity_factor=moe_capacity_factor,
+                moe_top_k=moe_top_k,
+                moe_dispatch=moe_dispatch, moe_ragged_dw=moe_ragged_dw,
+                generator=g, compute_dtype=compute_dtype,
             ))
         self.to(dev)
 
@@ -156,20 +189,25 @@ class TransformerLM(nn.Module):
         # num_layers=0 leaves no junction to fuse.
         return self.fused_ln and self.num_layers > 0
 
-    def _trunk(self, tokens: torch.Tensor) -> torch.Tensor:
-        """embed -> blocks (unfused); no final norm or head."""
+    def _trunk(self, tokens: torch.Tensor):
+        """embed -> blocks (unfused); no final norm or head. Returns (h,
+        the blocks' aux terms)."""
         h = self._embed(tokens)
+        aux = []
         for block in self.blocks():
-            h = block(h)
-        return h
+            h, a = block(h)
+            aux.append(a)
+        return h, aux
 
     def _trunk_deferred(self, tokens: torch.Tensor):
         """Fused-junction trunk: embed -> blocks with each residual add
-        deferred into the next norm's fused add+LN. Returns ``(s, pend)``:
-        the residual stream and the last block's still-unadded FFN branch,
-        so the caller closes the last junction inside the final norm."""
+        deferred into the next norm's fused add+LN. Returns ``(s, pend,
+        aux)``: the residual stream, the last block's still-unadded FFN
+        branch (so the caller closes the last junction inside the final
+        norm) and the blocks' aux terms."""
         s = self._embed(tokens)
         pend = None
+        aux = []
         for block in self.blocks():
             if pend is None:
                 y = block.ln1(s)
@@ -177,22 +215,24 @@ class TransformerLM(nn.Module):
                 s, y = fused_add_layernorm(s, pend, block.ln1.scale, block.ln1.bias)
             s, y2 = fused_add_layernorm(s, block.attn(y), block.ln2.scale,
                                         block.ln2.bias)
-            pend = block.ffn(y2)
-        return s, pend
-
-    def _features_deferred(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Deferred trunk closed through the final norm: the last block's
-        residual add fuses into ln_f."""
-        s, pend = self._trunk_deferred(tokens)
-        _, y = fused_add_layernorm(s, pend, self.ln_f.scale, self.ln_f.bias)
-        return y
+            pend, a = block.ffn(y2)
+            aux.append(a)
+        return s, pend, aux
 
     def apply_features(self, tokens: torch.Tensor) -> torch.Tensor:
         """Pre-head features [B, T, d]: embed -> blocks -> final LayerNorm,
-        without the vocab projection."""
+        without the vocab projection. Records ``aux_loss`` (module
+        docstring)."""
         if self._use_fused_ln():
-            return self._features_deferred(tokens)
-        return self.ln_f(self._trunk(tokens))
+            # The last block's residual add fuses into ln_f.
+            s, pend, aux = self._trunk_deferred(tokens)
+            _, y = fused_add_layernorm(s, pend, self.ln_f.scale, self.ln_f.bias)
+        else:
+            h, aux = self._trunk(tokens)
+            y = self.ln_f(h)
+        terms = [a for a in aux if a is not None]
+        self.aux_loss = torch.stack(terms).sum() if terms else None
+        return y
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full forward: tokens [B, T] -> logits [B, T, V]."""
@@ -201,6 +241,8 @@ class TransformerLM(nn.Module):
     # ----------------------------------------------------- serving paths
 
     def _serve_guard(self) -> None:
+        if self.moe_experts:
+            raise NotImplementedError("serve decode does not compose with MoE blocks yet")
         if self.compute_dtype not in (None, torch.float32):
             raise NotImplementedError(
                 f"serving with compute_dtype {NOT_PORTED.format('1 (serving levers)')}"
@@ -248,7 +290,7 @@ class TransformerLM(nn.Module):
         for block, cache in zip(self.blocks(), caches):
             a, cache = attend(block.attn, cache, block.ln1(h))
             h = h + a
-            h = h + block.ffn(block.ln2(h))
+            h = h + block.ffn(block.ln2(h))[0]
             new_caches.append(cache)
         return h, tuple(new_caches)
 

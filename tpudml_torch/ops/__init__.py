@@ -52,6 +52,14 @@ from tpudml_torch.ops.layernorm_kernel import (
     layernorm_forward,
     layernorm_forward_reference,
 )
+from tpudml_torch.ops.moe_kernel import (
+    GROUPED_DW,
+    GROUPED_DW_BF16,
+    grouped_dw,
+    grouped_dw_reference,
+    ragged_ffn,
+    ragged_matmul,
+)
 from tpudml_torch.ops.xent_kernel import (
     XENT_DW,
     XENT_DW_LEAN,
@@ -80,7 +88,8 @@ KERNELS = (FLASH_FORWARD, FLASH_DQ, FLASH_DKDV, DECODE_HEAD, DECODE_HEAD_INT8,
            ADD_LN_FORWARD_BF16, ADD_LN_BACKWARD_BF16,
            XENT_FORWARD, XENT_FORWARD_SAVE, XENT_DX, XENT_DW,
            XENT_DX_LEAN, XENT_DW_LEAN,
-           LN_FORWARD, LN_BACKWARD, LN_FORWARD_BF16, LN_BACKWARD_BF16)
+           LN_FORWARD, LN_BACKWARD, LN_FORWARD_BF16, LN_BACKWARD_BF16,
+           GROUPED_DW, GROUPED_DW_BF16)
 
 
 def build_kernels() -> float:
@@ -113,11 +122,15 @@ __all__ = [
     "fused_decode_head",
     "fused_decode_head_int8",
     "fused_layernorm",
+    "grouped_dw",
+    "grouped_dw_reference",
     "layernorm_backward",
     "layernorm_backward_reference",
     "layernorm_forward",
     "layernorm_forward_reference",
     "linear_cross_entropy",
+    "ragged_ffn",
+    "ragged_matmul",
     "reference_head",
     "reference_head_int8",
     "reset_launch_counts",

@@ -1,0 +1,164 @@
+"""Grouped weight gradient of the dropless MoE FFN: the port of
+``tpudml/ops/moe_kernel.py`` (Pallas ``_grouped_dw_kernel``, ``grouped_dw``,
+``ragged_ffn``).
+
+Rows are sorted by expert, so expert ``e`` owns the contiguous row slab
+``[offsets[e], offsets[e+1])`` with ``offsets = [0, cumsum(group_sizes)]``.
+
+- :func:`grouped_dw` is ``dW[e] = x[slab e]ᵀ · g[slab e]`` in f32: kernel 16
+  (``tpudml_torch/csrc/grouped_dw.cu``, f32 and bf16 twins) for CUDA
+  tensors, :func:`grouped_dw_reference` (one matmul per slab) for CPU
+  tensors. The kernel reads ``group_sizes`` on the device; the wrapper never
+  copies them to the host. A CUDA input the kernel does not take raises:
+  nothing falls back.
+- :func:`ragged_matmul` is the counterpart of ``lax.ragged_dot``
+  (``out[slab e] = x[slab e] @ w[e]``, zero rows past the last slab). JAX
+  has no Pallas kernel for it, so it is plain PyTorch: one ``torch.matmul``
+  per slab, which needs the slab lengths on the host.
+- :func:`ragged_ffn` is the expert FFN ``relu(x @ w1[e] + b1[e]) @ w2[e] +
+  b2[e]`` over the sorted rows as a ``torch.autograd.Function`` whose
+  backward takes dW1 and dW2 from :func:`grouped_dw`, db from ``onehotᵀ @
+  cotangent`` in f32, and dh and dx from :func:`ragged_matmul` on the
+  transposed weights. Its forward copies ``group_sizes`` to the host once
+  (the slab lengths :func:`ragged_matmul` needs) and keeps them for the
+  backward: one device-to-host copy per MoE layer and step.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from tpudml_torch.ops.cuda_lib import (
+    I, P, STORAGE_DTYPES, CudaLibrary, Kernel, check_cuda_operand, ptr, storage_twin,
+)
+
+_LIB = CudaLibrary("grouped_dw.cu", {
+    "grouped_dw_f32": [P] * 4 + [I] * 4 + [P],
+    "grouped_dw_bf16": [P] * 4 + [I] * 4 + [P],
+})
+GROUPED_DW = Kernel("grouped_dw", _LIB, "grouped_dw_f32",
+                    replaces="tpudml/ops/moe_kernel.py:105")
+GROUPED_DW_BF16 = Kernel("grouped_dw_bf16", _LIB, "grouped_dw_bf16",
+                         replaces="tpudml/ops/moe_kernel.py:105")
+
+
+def _check_operands(x, g, group_sizes) -> None:
+    """The JAX wrapper's checks (``tpudml/ops/moe_kernel.py:212-220``)."""
+    if x.dim() != 2 or g.dim() != 2 or x.shape[0] != g.shape[0]:
+        raise ValueError(
+            f"grouped_dw wants row-aligned 2-D operands, got {tuple(x.shape)} "
+            f"and {tuple(g.shape)}")
+    if group_sizes.dim() != 1 or group_sizes.dtype.is_floating_point or \
+            group_sizes.dtype.is_complex or group_sizes.dtype == torch.bool:
+        raise ValueError(
+            f"group_sizes must be a 1-D integer array, got "
+            f"{tuple(group_sizes.shape)} {group_sizes.dtype}")
+
+
+def _slabs(sizes: Sequence[int], m: int) -> list[tuple[int, int]]:
+    """(start, end) row range of each group, clamped to [0, m]."""
+    out, start = [], 0
+    for s in sizes:
+        end = start + int(s)
+        lo = min(max(start, 0), m)
+        out.append((lo, min(max(end, lo), m)))
+        start = end
+    return out
+
+
+def grouped_dw_reference(x, g, group_sizes):
+    """Plain version of :func:`grouped_dw`: per group ``x[slab].float().T @
+    g[slab].float()``, zeros for an empty group; [E, k, n] f32."""
+    _check_operands(x, g, group_sizes)
+    m, k = x.shape
+    n = g.shape[1]
+    dw = torch.zeros((group_sizes.shape[0], k, n), dtype=torch.float32, device=x.device)
+    for e, (lo, hi) in enumerate(_slabs(group_sizes.tolist(), m)):
+        if hi > lo:
+            dw[e] = x[lo:hi].float().T @ g[lo:hi].float()
+    return dw
+
+
+def grouped_dw(x, g, group_sizes):
+    """Per-group ``x[slab]ᵀ @ g[slab]`` over contiguous row slabs.
+
+    ``x [m, k]`` and ``g [m, n]`` hold rows sorted by group; ``group_sizes
+    [E]`` (int) gives each group's slab length (rows beyond
+    ``sum(group_sizes)`` are ignored). Returns ``dW [E, k, n]`` in f32 with
+    f32 accumulation: kernel 16 (the f32 or bf16 twin, by x's dtype) for
+    CUDA tensors, :func:`grouped_dw_reference` for CPU tensors."""
+    _check_operands(x, g, group_sizes)
+    if not x.is_cuda:
+        return grouped_dw_reference(x, g, group_sizes)
+    if x.dtype not in STORAGE_DTYPES:
+        raise TypeError(f"grouped_dw takes {STORAGE_DTYPES}, got {x.dtype}")
+    kernel = storage_twin(x, GROUPED_DW, GROUPED_DW_BF16)
+    check_cuda_operand("x", x, x.dtype, 2)
+    check_cuda_operand("g", g, x.dtype, 2)
+    if len({t.device for t in (x, g, group_sizes)}) != 1:
+        raise ValueError("x, g, group_sizes must be on one device")
+    m, k = x.shape
+    n = g.shape[1]
+    e = group_sizes.shape[0]
+    dw = torch.empty((e, k, n), dtype=torch.float32, device=x.device)
+    if dw.numel() == 0:
+        return dw
+    sizes = group_sizes.to(torch.int32).contiguous()  # on the device: no host copy
+    with torch.cuda.device(x.device):
+        kernel.launch(ptr(x), ptr(g), ptr(sizes), ptr(dw), I(m), I(k), I(n), I(e))
+    return dw
+
+
+def ragged_matmul(x, w, sizes: Sequence[int]):
+    """``lax.ragged_dot``: ``out[slab e] = x[slab e] @ w[e]`` for x [m, k]
+    sorted by group, w [E, k, n] and the groups' slab lengths ``sizes`` on
+    the host; rows past the last slab are zero. Differentiable through
+    autograd (the stock A/B arm)."""
+    m = x.shape[0]
+    slabs = _slabs(sizes, m)
+    parts = [x[lo:hi] @ w[e] for e, (lo, hi) in enumerate(slabs)]
+    tail = m - (slabs[-1][1] if slabs else 0)
+    if tail:
+        parts.append(x.new_zeros((tail, w.shape[-1])))
+    return torch.cat(parts)
+
+
+def _ffn_forward(x, w1, b1, w2, b2, onehot, sizes):
+    hidden = F.relu(ragged_matmul(x, w1, sizes) + onehot @ b1)
+    return ragged_matmul(hidden, w2, sizes) + onehot @ b2, hidden
+
+
+class _RaggedFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, onehot, group_sizes):
+        sizes = group_sizes.tolist()  # the one host copy of the layer
+        out, hidden = _ffn_forward(x, w1, b1, w2, b2, onehot, sizes)
+        ctx.save_for_backward(x, w1, w2, onehot, group_sizes, hidden)
+        ctx.sizes = sizes
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w1, w2, onehot, group_sizes, hidden = ctx.saved_tensors
+        sizes, ct = ctx.sizes, dout.dtype
+        dout = dout.contiguous()
+        dw2 = grouped_dw(hidden, dout, group_sizes).to(w2.dtype)
+        db2 = (onehot.T.float() @ dout.float()).to(ct)
+        dh = ragged_matmul(dout, w2.transpose(1, 2), sizes)
+        dpre = dh * (hidden > 0).to(ct)
+        dw1 = grouped_dw(x, dpre, group_sizes).to(w1.dtype)
+        db1 = (onehot.T.float() @ dpre.float()).to(ct)
+        dx = ragged_matmul(dpre, w1.transpose(1, 2), sizes)
+        return (dx.to(x.dtype), dw1, db1.to(w1.dtype), dw2, db2.to(w2.dtype),
+                None, None)
+
+
+def ragged_ffn(x, w1, b1, w2, b2, onehot, group_sizes):
+    """Expert FFN ``relu(x @ w1[e] + b1[e]) @ w2[e] + b2[e]`` over rows
+    sorted by expert (module docstring). ``onehot [P, E]`` is the sorted
+    rows' expert one-hot (it carries the biases); it and ``group_sizes``
+    get no gradient."""
+    return _RaggedFFN.apply(x, w1, b1, w2, b2, onehot, group_sizes)

@@ -59,8 +59,9 @@ _LIB = CudaLibrary("xent.cu", {
     "xent_dx_s": [P] * 5 + [I] * 3 + [F, I, P],
     "xent_dw_s": [P] * 6 + [I] * 3 + [F, I, P],
     "xent_dx_lean": [P] * 6 + [I] * 3 + [F, I, P],
-    "xent_dw_lean": [P] * 7 + [I] * 3 + [F, I, P],
+    "xent_dw_lean": [P] * 9 + [I] * 3 + [F, I, P],
     "xent_tile_width": [],
+    "xent_dw_lean_range_rows": [],
 })
 XENT_FORWARD = Kernel("xent_fwd", _LIB, "xent_fwd",
                       replaces="tpudml/ops/xent_kernel.py:105")
@@ -191,6 +192,10 @@ def _check_dims(n: int, d: int, v: int) -> None:
         raise ValueError(f"xent kernels need N, V >= 1, got N={n}, V={v}")
 
 
+def _ptr_or_null(t) -> P:
+    return P(None) if t is None else ptr(t)
+
+
 def _is_bf16(x) -> I:
     return I(int(x.dtype == torch.bfloat16))
 
@@ -315,9 +320,17 @@ def xent_dw_lean(x, w, b, labels, lse, inv_n: float):
     v = w.shape[1]
     dw = torch.empty_like(w)
     db = torch.empty((v,), dtype=torch.float32, device=x.device)
+    # Rows come in fixed ranges; beyond one, each range's f32 partials go to
+    # scratch that a second pass sums in range order.
+    ranges = -(-n // XENT_DW_LEAN.library.load().xent_dw_lean_range_rows())
+    part = db_part = None
+    if ranges > 1:
+        part = torch.empty((ranges, d, v), dtype=torch.float32, device=x.device)
+        db_part = torch.empty((ranges, v), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         XENT_DW_LEAN.launch(ptr(x), ptr(w), ptr(b), ptr(labels), ptr(lse), ptr(dw),
-                            ptr(db), I(n), I(d), I(v), F(inv_n), _is_bf16(x))
+                            ptr(db), _ptr_or_null(part), _ptr_or_null(db_part), I(n),
+                            I(d), I(v), F(inv_n), _is_bf16(x))
     return dw, db
 
 

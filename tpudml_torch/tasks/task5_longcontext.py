@@ -11,9 +11,12 @@ flags as ``tasks/task5_longcontext.py`` plus ``--device`` (default
 ``--fused_xent_scores`` and ``--fused_xent_lean`` (validated as in JAX;
 ``--fused_xent`` alone takes the saved-scores backward while its f32
 score residual fits 2 GiB and the lean O(N) one beyond, as at the
-long-context recording T=16384, B=2, V=32768). Every other ``--parallel``
-value, ``--moe_experts``, ``--dropout``, ``--sentinel`` and
-``--ckpt_dir`` raise ``NotImplementedError``, naming their ROADMAP item.
+long-context recording T=16384, B=2, V=32768), and ``--moe_experts``
+with ``--moe_top_k`` and ``--moe_dispatch`` (MoE FFN blocks; the step
+adds the Switch aux term at α = 0.01, as JAX's does). Every other
+``--parallel`` value (``ep`` among them), ``--dropout``, ``--sentinel``
+and ``--ckpt_dir`` raise ``NotImplementedError``, naming their ROADMAP
+item.
 
 Same row sampling (``np.random.default_rng(seed)`` over
 ``synthetic_lm(4·B, …)``) and steady-state clock as the JAX entry point;
@@ -24,7 +27,8 @@ JAX's threefry keys, so the numbers differ from the JAX run's.
 Run: ``python -m tpudml_torch.tasks.task5_longcontext --attn flash --fused_ln --rope``;
 long context on the lean head: ``--attn flash --seq_len 16384 --batch_size 2
 --vocab 32768 --embed_dim 512 --num_heads 4 --num_layers 6 --rope --steps 30
---lr 0.001 --fused_xent``
+--lr 0.001 --fused_xent``; MoE with the grouped-dW kernel: add
+``--moe_experts 8 --moe_dispatch ragged``
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ PARALLEL_ITEMS = {
     "tp": "7 (sharded training engines)",
     "pp": "7 (sharded training engines)",
     "cp": "8 (context parallel)",
-    "ep": "9 (MoE)",
+    "ep": "5 (data parallel), then EP",
 }
 
 
@@ -129,7 +133,6 @@ def _reject_unported(args) -> None:
             f"--parallel {args.parallel} {NOT_PORTED.format(PARALLEL_ITEMS[args.parallel])}")
     args._save_scores = _save_scores(args)
     for flag, on, item in (
-        ("--moe_experts", args.moe_experts, "9 (MoE)"),
         ("--dropout", args.dropout, "3 (Dropout)"),
         ("--sentinel", args.sentinel, "6 (resilience)"),
         ("--ckpt_dir", args.ckpt_dir, "6 (checkpoint)"),
@@ -155,6 +158,9 @@ def build_engine(args, device: torch.device):
         rope=args.rope,
         impl=args.attn or "full",
         fused_ln=args.fused_ln,
+        moe_experts=args.moe_experts,
+        moe_top_k=args.moe_top_k,
+        moe_dispatch=args.moe_dispatch,
         device=device,
         generator=torch.Generator().manual_seed(args.seed),
     )

@@ -32,8 +32,17 @@ saved-scores head (``save_scores=True``: kernels 11, 12, 13 and a 4 GiB
 f32 score residual). No kernel-free configuration: full attention would
 hold 8 GiB of scores a layer. Its default is 3 timed steps.
 
-Run on the card: ``python -m tpudml_torch.tools.profile_train [--flagship | --long]``
-(one JSON line at the end; ``--out FILE`` also writes it to FILE).
+``--moe E --moe_variant {gather, ragged_stock, ragged_grouped}`` profiles
+one step of ``bench.py --moe`` (``bench_moe``) instead: the training
+config in bf16 compute over f32 master weights with flash attention,
+fused add+LN, RoPE, top-1 MoE FFNs of E experts at capacity factor 1.25
+(the variant's dispatch and dW backward), AdamW lr 3e-4, bench's one batch
+(``synthetic_lm(8, 1024, 32768, seed=3)``) every step, through
+``make_train_step`` (materialized logits). One configuration, "moe".
+
+Run on the card: ``python -m tpudml_torch.tools.profile_train [--flagship | --long |
+--moe 8 --moe_variant ragged_grouped]`` (one JSON line at the end; ``--out FILE``
+also writes it to FILE).
 """
 
 from __future__ import annotations
@@ -51,6 +60,10 @@ MODEL = dict(vocab_size=32768, embed_dim=512, num_heads=4, num_layers=6,
              max_len=1024, rope=True)
 BATCH = 8
 LONG_T, LONG_BATCH = 16384, 2  # BASELINE.md:45
+# bench_moe's variants (bench.py:586-661), also driven by chip_smoke.py.
+MOE_VARIANTS = {"gather": dict(moe_dispatch="gather"),
+                "ragged_stock": dict(moe_dispatch="ragged", moe_ragged_dw="stock"),
+                "ragged_grouped": dict(moe_dispatch="ragged", moe_ragged_dw="grouped")}
 
 
 def main(argv=None) -> dict:
@@ -62,6 +75,9 @@ def main(argv=None) -> dict:
                       help="the bf16 fused-head flagship step instead of the f32 one")
     mode.add_argument("--long", action="store_true",
                       help="the T=16384 long-context step, lean vs saved-scores head")
+    mode.add_argument("--moe", type=int, default=0, metavar="E",
+                      help="one bench_moe step with E experts (bf16, top-1, capacity 1.25)")
+    p.add_argument("--moe_variant", choices=sorted(MOE_VARIANTS), default="ragged_grouped")
     p.add_argument("--out", type=str, default=None)
     args = p.parse_args(argv)
     iters = args.iters or (3 if args.long else 10)
@@ -79,11 +95,15 @@ def main(argv=None) -> dict:
     if args.long:
         model_cfg, batch = dict(MODEL, max_len=LONG_T), LONG_BATCH
     t = model_cfg["max_len"]
-    if args.flagship:
-        batches = itertools.repeat(synthetic_lm(BATCH, t, MODEL["vocab_size"], seed=1))
+    if args.flagship or args.moe:
+        seed = 3 if args.moe else 1  # bench.py:604 / :351
+        batches = itertools.repeat(synthetic_lm(BATCH, t, MODEL["vocab_size"], seed=seed))
         bf16 = dict(compute_dtype=torch.bfloat16)
-        configs = (("kernel", dict(impl="flash", fused_ln=True, **bf16), True),
-                   ("plain", dict(impl="full", fused_ln=False, **bf16), False))
+        configs = ((("moe", dict(impl="flash", fused_ln=True, moe_experts=args.moe,
+                                 moe_capacity_factor=1.25, **MOE_VARIANTS[args.moe_variant],
+                                 **bf16), False),) if args.moe else
+                   (("kernel", dict(impl="flash", fused_ln=True, **bf16), True),
+                    ("plain", dict(impl="full", fused_ln=False, **bf16), False)))
     else:
         seqs = synthetic_lm(4 * batch, t, MODEL["vocab_size"], seed=0)
         rng = np.random.default_rng(0)
@@ -93,7 +113,8 @@ def main(argv=None) -> dict:
                    if args.long else
                    (("kernel", dict(impl="flash", fused_ln=True), False),
                     ("plain", dict(impl="full", fused_ln=False), False)))
-    step_name = ("flagship bf16 (fused xent head, AdamW 3e-4)" if args.flagship else
+    step_name = (f"MoE E={args.moe} {args.moe_variant} bf16 (AdamW 3e-4)" if args.moe else
+                 "flagship bf16 (fused xent head, AdamW 3e-4)" if args.flagship else
                  "long-context f32 T=16384 (fused xent head, Adam 1e-3)" if args.long
                  else "f32 (materialized logits, Adam 1e-3)")
     result = {"device": torch.cuda.get_device_name(0), "model": model_cfg,
@@ -101,7 +122,7 @@ def main(argv=None) -> dict:
     for name, kw, save_scores in configs:
         model = TransformerLM(**model_cfg, **kw, device="cuda",
                               generator=torch.Generator().manual_seed(0))
-        opt = AdamW(lr=3e-4) if args.flagship else Adam(lr=1e-3)
+        opt = AdamW(lr=3e-4) if args.flagship or args.moe else Adam(lr=1e-3)
         fused_head = args.long or save_scores
         step = (make_lm_fused_train_step(model, opt, save_scores=save_scores) if fused_head
                 else make_train_step(model, opt))

@@ -1,7 +1,13 @@
 """Training step (the port of ``tpudml/train.py``: ``TrainState``,
-``make_loss_fn``, ``make_train_step_body``, ``make_train_step``, and the
+``make_loss_fn``, ``make_train_step_body``, ``make_train_step``, the
 fused-head LM step ``make_lm_fused_loss_fn``,
-``make_lm_fused_train_step_body``, ``make_lm_fused_train_step``).
+``make_lm_fused_train_step_body``, ``make_lm_fused_train_step``, and the
+MoE aux-loss plumbing ``collect_aux_losses``, ``model_has_moe``,
+``resolve_aux_loss_weight``).
+
+A MoE model's objective adds α·Σ(its layers' Switch load-balancing terms)
+to the cross-entropy, as in JAX: ``aux_loss_weight=None`` means α =
+``DEFAULT_MOE_AUX_WEIGHT`` for a model with MoE layers and 0 otherwise.
 
 The JAX package jits one XLA program per step (grad + optimizer update)
 and donates the state; the port runs the same step eagerly: the loss's
@@ -21,6 +27,7 @@ import torch
 from torch import nn
 
 from tpudml_torch.nn.losses import softmax_cross_entropy
+from tpudml_torch.nn.moe import MoELayer
 from tpudml_torch.ops.xent_kernel import linear_cross_entropy
 from tpudml_torch.optim import Optimizer
 
@@ -46,18 +53,51 @@ def params_of(model: nn.Module) -> dict[str, torch.Tensor]:
     return dict(model.named_parameters())
 
 
-def make_loss_fn(model: nn.Module) -> Callable:
+DEFAULT_MOE_AUX_WEIGHT = 1e-2  # the canonical Switch load-balancing α
+
+
+def collect_aux_losses(model: nn.Module) -> torch.Tensor:
+    """Sum of the aux terms (the Switch load-balancing terms of its MoE
+    layers) that ``model`` recorded in its last forward, f32; 0 for a
+    model that recorded none."""
+    aux = getattr(model, "aux_loss", None)
+    if aux is None:
+        return torch.zeros((), dtype=torch.float32)
+    return aux.float()
+
+
+def model_has_moe(model: nn.Module) -> bool:
+    """Whether ``model`` holds MoE layers (so the aux pressure defaults on:
+    without it a top-1 router collapses onto one expert)."""
+    return any(isinstance(m, MoELayer) for m in model.modules())
+
+
+def resolve_aux_loss_weight(model: nn.Module, aux_loss_weight: float | None) -> float:
+    """None -> the canonical α for MoE-bearing models, 0 otherwise."""
+    if aux_loss_weight is not None:
+        return aux_loss_weight
+    return DEFAULT_MOE_AUX_WEIGHT if model_has_moe(model) else 0.0
+
+
+def _with_aux(model: nn.Module, loss: torch.Tensor, aux_w: float) -> torch.Tensor:
+    return loss + aux_w * collect_aux_losses(model).to(loss.device) if aux_w else loss
+
+
+def make_loss_fn(model: nn.Module, aux_loss_weight: float | None = None) -> Callable:
     """(tokens, labels) -> (loss, logits): ``model``'s forward and the
-    mean softmax cross-entropy over the materialized logits."""
+    mean softmax cross-entropy over the materialized logits, plus α·aux
+    (module docstring)."""
+    aux_w = resolve_aux_loss_weight(model, aux_loss_weight)
 
     def loss_fn(tokens, labels):
         logits = model(tokens)
-        return softmax_cross_entropy(logits, labels), logits
+        return _with_aux(model, softmax_cross_entropy(logits, labels), aux_w), logits
 
     return loss_fn
 
 
-def make_lm_fused_loss_fn(model: nn.Module, save_scores: bool | None = None) -> Callable:
+def make_lm_fused_loss_fn(model: nn.Module, save_scores: bool | None = None,
+                          aux_loss_weight: float | None = None) -> Callable:
     """(tokens, labels) -> (loss, None) through the fused linear-cross-entropy
     head: ``model.apply_features`` then ``linear_cross_entropy`` on the head's
     kernel and bias cast to the compute dtype, so the [B·T, V] logits are
@@ -65,12 +105,14 @@ def make_lm_fused_loss_fn(model: nn.Module, save_scores: bool | None = None) -> 
     :func:`make_loss_fn` returns the logits). ``save_scores`` is
     ``linear_cross_entropy``'s ``save_s``: True keeps the f32 scores for the
     backward, False recomputes them there (the lean O(N) residuals), None
-    picks by the residual's size."""
+    picks by the residual's size. Plus α·aux (module docstring)."""
+    aux_w = resolve_aux_loss_weight(model, aux_loss_weight)
 
     def loss_fn(tokens, labels):
         feats = model.apply_features(tokens)
         kernel, bias = model.head.cast_params()
-        return linear_cross_entropy(feats, kernel, labels, bias, save_s=save_scores), None
+        loss = linear_cross_entropy(feats, kernel, labels, bias, save_s=save_scores)
+        return _with_aux(model, loss, aux_w), None
 
     return loss_fn
 
@@ -92,20 +134,22 @@ def _step_body(optimizer: Optimizer, loss_fn: Callable) -> Callable:
 
 
 def make_train_step_body(model: nn.Module, optimizer: Optimizer,
-                         accum_steps: int = 1) -> Callable:
+                         accum_steps: int = 1,
+                         aux_loss_weight: float | None = None) -> Callable:
     """(ts, tokens, labels) -> (ts, {"loss": loss}) on tensors that already
     lie on the model's device: forward, backward, optimizer update."""
     if accum_steps != 1:
         raise NotImplementedError(f"accum_steps > 1 {NOT_PORTED}")
-    return _step_body(optimizer, make_loss_fn(model))
+    return _step_body(optimizer, make_loss_fn(model, aux_loss_weight))
 
 
 def make_lm_fused_train_step_body(model: nn.Module, optimizer: Optimizer,
-                                  save_scores: bool | None = None) -> Callable:
+                                  save_scores: bool | None = None,
+                                  aux_loss_weight: float | None = None) -> Callable:
     """:func:`make_train_step_body` through :func:`make_lm_fused_loss_fn`:
     the flagship LM step (``bench.py`` ``bench_transformer``). Metrics
     carry the loss only."""
-    return _step_body(optimizer, make_lm_fused_loss_fn(model, save_scores))
+    return _step_body(optimizer, make_lm_fused_loss_fn(model, save_scores, aux_loss_weight))
 
 
 def _on_device(body: Callable) -> Callable:
@@ -120,19 +164,22 @@ def _on_device(body: Callable) -> Callable:
 
 
 def make_train_step(model: nn.Module, optimizer: Optimizer,
-                    accum_steps: int = 1) -> Callable:
+                    accum_steps: int = 1,
+                    aux_loss_weight: float | None = None) -> Callable:
     """Single-device train step: :func:`make_train_step_body` taking the
     batch as numpy arrays or tensors anywhere, moved to the model's
     device as int64 token ids. The step's ``loss`` metric stays on the
     device (reading it waits for the step)."""
-    return _on_device(make_train_step_body(model, optimizer, accum_steps))
+    return _on_device(make_train_step_body(model, optimizer, accum_steps, aux_loss_weight))
 
 
 def make_lm_fused_train_step(model: nn.Module, optimizer: Optimizer,
-                             save_scores: bool | None = None) -> Callable:
+                             save_scores: bool | None = None,
+                             aux_loss_weight: float | None = None) -> Callable:
     """:func:`make_lm_fused_train_step_body` taking the batch as
     :func:`make_train_step` does."""
-    return _on_device(make_lm_fused_train_step_body(model, optimizer, save_scores))
+    return _on_device(make_lm_fused_train_step_body(model, optimizer, save_scores,
+                                                    aux_loss_weight))
 
 
 def _ids(x, device) -> torch.Tensor:
