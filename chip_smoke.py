@@ -6,7 +6,12 @@ the CPU). Phases, each printing its own line(s):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN, so f32 means f32.
-2. build: every CUDA kernel source of the port, one nvcc each, together.
+2. build: every CUDA kernel source of the port, one nvcc each, together;
+   then, for each instance of the flash forward (kernel 1) and dK/dV
+   (kernel 3), its ptxas registers and spills and its SASS count of
+   bf16 tensor-core products, TF32 instructions and f32 FMAs. It fails
+   unless every bf16 instance holds ``HMMA.16816.F32.BF16``, none holds
+   TF32 and none spills.
 3. kernel vs plain version on the card at the main paths' shapes, with
    the tolerances stated: the flash forward (serving: B=1, T=128, H=8,
    D=64: causal, non-causal, odd T, k_shift=1; training: B=8, T=1024,
@@ -31,7 +36,11 @@ the CPU). Phases, each printing its own line(s):
    collapsed one, with tail rows past Σ group_sizes, bitwise equal on a
    repeat; times of the kernel, the plain version and a library call
    computing the same function, beside the bound (bf16 rows against the
-   bf16 tensor-core rate). Then the launches past the old grid-y edges:
+   bf16 tensor-core rate), and for the flash kernels their rate in TFLOP/s.
+   Then the flash forward (f32 and bf16) at head dims between its compiled
+   widths, D = 48, 80 and 256, and dQ and dK/dV at D = 48 and 80 (causal
+   T=200 and non-causal T=77), with the same tolerances. Then the launches
+   past the old grid-y edges:
    kernels 10–12 at N=8,388,609 rows (d=8, V=128) and the flash forward,
    dQ and dK/dV at B·H=65,537 (B=65,537, H=1, T=16, D=32), against their
    plain versions in row chunks.
@@ -121,9 +130,11 @@ the CPU). Phases, each printing its own line(s):
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 TIE_GAP = 1e-5  # plain top-2 logit gap under which a pick may differ
 FLASH_TOL = 1e-5  # max |err| of O and of lse, kernel vs plain (f32 sums in another order)
@@ -292,6 +303,11 @@ def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOPS) -> tuple[fl
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tflops(flops: float, ms: float) -> float:
+    """The rate of ``flops`` operations done in ``ms`` milliseconds."""
+    return flops / ms / 1e9
+
+
 def rel_to_max(got, want) -> float:
     """max |got − want| / max |want|, in f32."""
     return ((got.float() - want.float()).abs().max()
@@ -367,11 +383,13 @@ def flash_train_shape(gen) -> dict:
                      iters=20)
     pairs = b * h * t * (t + 1) // 2
     bnd, by = bound(4 * (4 * b * t * h * d + b * h * t), 4 * d * pairs)
+    rate = tflops(4 * d * pairs, ms)
     print(f"[kernel] flash_forward_lse B={b} T={t} H={h} D={d} causal: max|err| "
-          f"{err:.3e} (tol {FLASH_TOL:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
+          f"{err:.3e} (tol {FLASH_TOL:g}); kernel {ms:.4f} ms ({rate:.1f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
     return dict(shape=f"B={b} T={t} H={h} D={d} causal (training)", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+                ms=ms, tflops=rate, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=lib_ms)
 
 
 def _bh(x, i: int, j: int):
@@ -455,13 +473,14 @@ def flash_long_phase(gen, fwd_row: dict, dq_row: dict, dkdv_row: dict) -> None:
                                     for i, j in slices], iters=2, warmup=1)
         torch.cuda.empty_cache()
         bnd, by = bound(nbytes, flops)
-        print(f"[kernel] {row['name']} B={b} T={t} H={h} D={d} causal: kernel {ms:.3f} ms, "
-              f"plain (per slice, {len(slices)} calls) {plain_ms:.3f} ms, {lib_name} "
-              f"{lib:.3f} ms, bound {bnd:.5f} ms ({by})")
+        rate = tflops(flops, ms)
+        print(f"[kernel] {row['name']} B={b} T={t} H={h} D={d} causal: kernel {ms:.3f} ms "
+              f"({rate:.1f} TFLOP/s), plain (per slice, {len(slices)} calls) {plain_ms:.3f} "
+              f"ms, {lib_name} {lib:.3f} ms, bound {bnd:.5f} ms ({by})")
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["at_long_context"] = dict(
             shape=f"B={b} T={t} H={h} D={d} causal (long-context training)",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            max_abs_err=err, ms=ms, tflops=rate, plain_ms=plain_ms,
             plain=f"per (batch, head) slice, {len(slices)} calls", bound_ms=bnd,
             bound_by=by, library_ms=lib, library=lib_name)
     torch.cuda.empty_cache()
@@ -536,11 +555,12 @@ def flash_bwd_phase(gen) -> list[dict]:
         ms = cuda_ms(lambda: fn(*args, causal=True), iters=20)
         plain_ms = cuda_ms(lambda: ref(*args, causal=True), iters=10)
         bnd, by = bound(nbytes, flops)
-        print(f"[kernel] {kernel.name} B={b} T={t} H={h} D={d} causal: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa backward (dq+dk+dv) {lib_ms:.4f} ms, "
-              f"bound {bnd:.5f} ms ({by})")
+        rate = tflops(flops, ms)
+        print(f"[kernel] {kernel.name} B={b} T={t} H={h} D={d} causal: kernel {ms:.4f} ms "
+              f"({rate:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa backward (dq+dk+dv) "
+              f"{lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
         rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
-                         replaces=kernel.replaces, max_abs_err=err, ms=ms,
+                         replaces=kernel.replaces, max_abs_err=err, ms=ms, tflops=rate,
                          plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                          library_ms=lib_ms, library="sdpa fwd+bwd minus fwd (dq, dk, dv)",
                          shape=f"B={b} T={t} H={h} D={d} causal (training)"))
@@ -694,14 +714,81 @@ def flash_bf16_phase(gen) -> list[dict]:
         ms = cuda_ms(fn, iters=20)
         plain_ms = cuda_ms(ref, iters=10)
         bnd, by = bound(nbytes, flops, H100_BF16_FLOPS)
-        print(f"[kernel] {kernel.name} B={b} T={t} H={h} D={d} causal: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, {lib_name} {lib:.4f} ms, bound {bnd:.5f} ms ({by})")
+        rate = tflops(flops, ms)
+        print(f"[kernel] {kernel.name} B={b} T={t} H={h} D={d} causal: kernel {ms:.4f} ms "
+              f"({rate:.1f} TFLOP/s), plain {plain_ms:.4f} ms, {lib_name} {lib:.4f} ms, "
+              f"bound {bnd:.5f} ms ({by})")
         rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
-                         replaces=kernel.replaces, max_abs_err=err, ms=ms,
+                         replaces=kernel.replaces, max_abs_err=err, ms=ms, tflops=rate,
                          plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib,
                          library=lib_name, shape=f"B={b} T={t} H={h} D={d} causal bf16 "
                          "(flagship)"))
     return rows
+
+
+def flash_head_dim_phase(gen, rows: dict) -> None:
+    """Kernels 1 and 3 (f32 and bf16) at head dims between their compiled
+    widths (forward D = 48, 80, 256; dK/dV and dQ, through its zero-padding
+    wrapper, D = 48, 80) at small T: causal T=200 (not a multiple of a
+    tile) and non-causal T=77, against their plain versions with the
+    tolerances above. Adds ``at_head_dims`` to the rows and folds the errors
+    into their ``max_abs_err``."""
+    import torch
+
+    from tpudml_torch.ops import (
+        flash_dkdv, flash_dkdv_reference, flash_dq, flash_dq_reference, flash_forward_lse,
+        flash_forward_lse_reference,
+    )
+
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        errs = {"flash_forward_lse": {}, "flash_dkdv": {}, "flash_dq": {}}
+        for d in (48, 80, 256):
+            for b, t, h, causal in ((2, 200, 3, True), (1, 77, 2, False)):
+                q, k, v, do = (torch.randn((b, t, h, d), generator=gen).cuda().to(dtype)
+                               for _ in range(4))
+                o, lse = flash_forward_lse(q, k, v, causal=causal)
+                ro, rlse = flash_forward_lse_reference(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                el = (lse - rlse).abs().max().item()
+                if dtype == torch.float32:
+                    eo = (o - ro).abs().max().item()
+                    ok = eo <= FLASH_TOL and el <= FLASH_TOL
+                else:
+                    eo = rel_to_max(o, ro)
+                    ok = o.dtype == dtype and eo <= BF16_REL and el <= FLASH_TOL
+                check(ok, f"flash forward disagrees with its plain version at D={d} "
+                      f"({dtype}, T={t}, causal={causal})")
+                fe = errs["flash_forward_lse"]
+                fe[d] = max(fe.get(d, 0.0), (o.float() - ro.float()).abs().max().item(), el)
+                msg = f"O {eo:.3e}, lse {el:.3e}"
+                if d <= 128:
+                    delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
+                    args = (q, k, v, do, rlse, delta)
+                    got = (flash_dq(*args, causal=causal), *flash_dkdv(*args, causal=causal))
+                    want = (flash_dq_reference(*args, causal=causal),
+                            *flash_dkdv_reference(*args, causal=causal))
+                    torch.cuda.synchronize()
+                    if dtype == torch.float32:
+                        e = [_grad_err(g_, w) for g_, w in zip(got, want)]
+                    else:
+                        e = [rel_to_max(g_, w) for g_, w in zip(got, want)]
+                        check(max(e) <= BF16_REL and all(g_.dtype == dtype for g_ in got),
+                              f"bf16 flash backward disagrees with its plain version at D={d}")
+                    for name, gs in (("flash_dq", got[:1]), ("flash_dkdv", got[1:])):
+                        ws = want[:1] if name == "flash_dq" else want[1:]
+                        errs[name][d] = max(errs[name].get(d, 0.0), *(
+                            (g_.float() - w.float()).abs().max().item() for g_, w in zip(gs, ws)))
+                    msg += f"; dq/dk/dv {e[0]:.3e}/{e[1]:.3e}/{e[2]:.3e}"
+                tol = (f"tol {FLASH_TOL:g}" + (f"; grads |err| <= {GRAD_ATOL:g} + "
+                                                f"{GRAD_RTOL:g}·|plain|" if d <= 128 else "")
+                       if dtype == torch.float32 else f"tol {BF16_REL:g} of max; lse {FLASH_TOL:g}")
+                print(f"[kernel] flash head dim D={d} {str(dtype)[6:]} B={b} T={t} H={h} "
+                      f"causal={causal}: {msg} ({tol})")
+        for name, by_d in errs.items():
+            row = rows[name + suffix]
+            row["at_head_dims"] = {f"D={d}": e for d, e in by_d.items()}
+            row["max_abs_err"] = max(row["max_abs_err"], *by_d.values())
+    torch.cuda.empty_cache()
 
 
 def add_ln_bf16_phase(gen) -> list[dict]:
@@ -1979,21 +2066,63 @@ def moe_f32_phase() -> dict[str, int]:
     return launches
 
 
-def main() -> int:
-    import torch
+def ptxas_usage(log: str) -> dict[str, dict]:
+    """{mangled entry function: {registers, spill}} from a ``-Xptxas -v``
+    build log (spill: bytes stored plus bytes loaded)."""
+    usage: dict[str, dict] = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = usage.setdefault(m.group(1), {"registers": None, "spill": None})
+        elif entry is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                entry["spill"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = int(m.group(1))
+    return usage
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False); "
-              "this script runs only on the card", file=sys.stderr)
-        return 1
-    from tpudml_torch.ops import KERNELS, build_kernels
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = nvidia_smi()
-    print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s); "
-          f"nvidia-smi: {smi}")
+def sass_opcodes(lib_path) -> dict[str, dict[str, int]]:
+    """{mangled kernel: {opcode: count}} of the tensor-core (``HMMA``, by
+    full opcode, so a TF32 product shows as ``...TF32``) and f32 FMA
+    (``FFMA``) instructions in a built library, from ``cuobjdump -sass``."""
+    from tpudml_torch.ops.cuda_lib import find_nvcc
+
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = counts.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"\b(HMMA\.[\w.]+|FFMA)\b", line)
+        if cur is not None and m:
+            cur[m.group(1)] = cur.get(m.group(1), 0) + 1
+    return counts
+
+
+# Instances of the redesigned flash kernels: (source, kernel, head-dim widths).
+FLASH_INSTANCES = (
+    ("flash_fwd.cu", "flash_fwd_bf16_kernel", (32, 64, 128, 256)),
+    ("flash_fwd.cu", "flash_fwd_f32_kernel", (32, 64, 128, 256)),
+    ("flash_dkdv.cu", "flash_dkdv_bf16_kernel", (32, 64, 128)),
+    ("flash_dkdv.cu", "flash_dkdv_f32_kernel", (32, 64, 128)),
+)
+BF16_MMA = "HMMA.16816.F32.BF16"  # mma.sync m16n8k16, bf16 in, f32 sums
+
+
+def build_phase() -> None:
+    """Build every kernel source (one nvcc each, all started together) and
+    print what ptxas reports. Hold kernels 1 and 3 to their design in every
+    instance: the bf16 twins on the tensor cores (``HMMA.16816.F32.BF16`` in
+    their SASS), no TF32 instruction in any twin, and no spills."""
+    from tpudml_torch.ops import FLASH_DKDV, FLASH_FORWARD, KERNELS, build_kernels
 
     t_build = build_kernels()
     for lib in dict.fromkeys(k.library for k in KERNELS):
@@ -2002,6 +2131,48 @@ def main() -> int:
         print(f"[build] {lib.source.name}: {' | '.join(usage) or 'cached'}")
     print(f"[build] {len(KERNELS)} kernels built in {t_build:.1f} s")
 
+    for lib in (FLASH_FORWARD.library, FLASH_DKDV.library):
+        usage = ptxas_usage(lib.ptxas_log())
+        sass = sass_opcodes(lib.target())
+        for source, kernel, widths in FLASH_INSTANCES:
+            if source != lib.source.name:
+                continue
+            for dp in widths:
+                pat = re.compile(rf"{kernel}ILi{dp}E")
+                names = [n for n in sass if pat.search(n)]
+                check(len(names) == 1, f"{source}: no single {kernel}<{dp}> in the SASS")
+                ops, use = sass[names[0]], usage.get(names[0])
+                check(use is not None, f"no ptxas -v report of {kernel}<{dp}>: the library "
+                      f"was built without its log; empty tpudml_torch/_build and rerun")
+                mma = ops.get(BF16_MMA, 0)
+                tf32 = sum(c for op, c in ops.items() if "TF32" in op)
+                print(f"[build] {source} {kernel}<{dp}>: {use.get('registers')} registers, "
+                      f"spill {use.get('spill')} B, {BF16_MMA} {mma}, TF32 {tf32}, "
+                      f"FFMA {ops.get('FFMA', 0)}")
+                check(use.get("spill") == 0, f"{kernel}<{dp}> spills ({use})")
+                check(tf32 == 0, f"{kernel}<{dp}> holds TF32 instructions ({ops})")
+                if "bf16" in kernel:
+                    check(mma > 0, f"{kernel}<{dp}> runs no bf16 mma on the tensor cores")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False); "
+              "this script runs only on the card", file=sys.stderr)
+        return 1
+    from tpudml_torch.ops import KERNELS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s); "
+          f"nvidia-smi: {smi}")
+
+    build_phase()
+
     gen = torch.Generator().manual_seed(0)
     flash_rows = [flash_phase(gen), *flash_bwd_phase(gen)]
     flash_long_phase(gen, *flash_rows)
@@ -2009,6 +2180,7 @@ def main() -> int:
     rows = [*flash_rows, *head_phase(gen), *add_ln_phase(gen), *flash_bf16_phase(gen),
             *add_ln_bf16_phase(gen), *xent_rows, *xent_lean_phase(gen, xent_rows[0]),
             *ln_phase(gen), *grouped_dw_phase(gen)]
+    flash_head_dim_phase(gen, {row["name"]: row for row in rows})
     grid_edge_phase(gen)
     torch.cuda.empty_cache()
     paths = {"serve": serve_phase(gen)}

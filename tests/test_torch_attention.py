@@ -17,7 +17,7 @@ jnp = jax.numpy
 from tpudml.nn import attention as jatt  # noqa: E402
 from tpudml.ops.attention_kernel import flash_forward_lse as jax_flash  # noqa: E402
 from tpudml_torch.nn import attention as tatt  # noqa: E402
-from tpudml_torch.ops import flash_forward_lse  # noqa: E402
+from tpudml_torch.ops import flash_forward_lse, flash_head_dim_ok  # noqa: E402
 from tpudml_torch.ops.attention_kernel import NEG_INF  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -65,16 +65,25 @@ def test_decode_attention_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("t", [16, 13], ids=["T16", "T13"])
-@pytest.mark.parametrize("causal,k_shift", [(False, 0), (True, 0), (True, 1)])
-def test_flash_forward_lse_plain_matches_pallas(t, causal, k_shift):
+_MASKS = [(False, 0), (True, 0), (True, 1)]
+# Head dim 8 (the first six cases, named as before) and, outside the
+# kernels' compiled widths, 48, 80 and 256 (the forward takes 1 to 256).
+_FWD_CASES = [(t, causal, k_shift, d) for d in (8, 48, 80, 256)
+              for causal, k_shift in _MASKS for t in (16, 13)]
+
+
+@pytest.mark.parametrize(
+    "t,causal,k_shift,d", _FWD_CASES,
+    ids=[f"{causal}-{k_shift}-T{t}" + ("" if d == 8 else f"-d{d}")
+         for t, causal, k_shift, d in _FWD_CASES])
+def test_flash_forward_lse_plain_matches_pallas(t, causal, k_shift, d):
     """Plain version vs the Pallas kernel run in interpret mode with 8-row
     tiles (several Q and K tiles, a padded tail when T=13). A row that
     sees no key (row 0 at k_shift=1) has lse -1e30 in both; its output is
     the port's defined 0 where the TPU kernel leaves an average over the
     masked tile, which no merge ever weighs, so outputs are compared on
     rows that see a key."""
-    q, k, v = _qkv(t=t)
+    q, k, v = _qkv(t=t, d=d)
     ro, rl = jax_flash(*map(jnp.asarray, (q, k, v)), causal=causal,
                        k_shift=k_shift, block_q=8, block_k=8, interpret=True)
     o, lse = flash_forward_lse(*_t(q, k, v), causal=causal, k_shift=k_shift)
@@ -84,6 +93,16 @@ def test_flash_forward_lse_plain_matches_pallas(t, causal, k_shift):
     if causal and k_shift:
         assert (lse.numpy()[..., 0] == NEG_INF).all()
         assert (o.numpy()[:, 0] == 0).all()
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_flash_head_dim_ok(backward):
+    """The flash kernels' head-dim domain: 1 to 256 forward, 1 to 128 when
+    the backward runs too (the dQ kernel's redesign brings 256)."""
+    top = 128 if backward else 256
+    assert all(flash_head_dim_ok(d, backward) for d in range(1, top + 1))
+    for d in (0, -1, 257, 512) + ((129, 136, 256) if backward else ()):
+        assert not flash_head_dim_ok(d, backward)
 
 
 @pytest.mark.parametrize("start", [0, 8, 24], ids=["start0", "startC", "start3C"])

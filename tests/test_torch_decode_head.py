@@ -18,6 +18,7 @@ jnp = jax.numpy
 from tpudml.ops import decode_head as jhead  # noqa: E402
 from tpudml.serve.fleet import quant as jquant  # noqa: E402
 from tpudml_torch.ops import fused_decode_head, fused_decode_head_int8  # noqa: E402
+from tpudml_torch.ops.decode_head import row_groups  # noqa: E402
 from tpudml_torch.serve.fleet import quant as tquant  # noqa: E402
 
 BLOCKS = dict(block_n=8, block_v=32, interpret=True)
@@ -55,6 +56,25 @@ def test_fused_decode_head_int8_matches_pallas(v):
     tq, ts = tquant._quant_kernel(torch.from_numpy(w))
     got = fused_decode_head_int8(torch.from_numpy(x), tq, ts, torch.from_numpy(b))
     _check(got, ref)
+
+
+@pytest.mark.parametrize("n,d", [(8, 512), (96, 512), (97, 512), (200, 512), (1, 6400),
+                                 (100, 6400), (1000, 33), (0, 64)])
+def test_row_groups_cover_the_batch_and_fit(n, d):
+    """The kernel's x stage holds 200 KiB (rows padded to 8): the groups
+    cover [0, n) in order, each fits, and only the last is short of the
+    most that fit."""
+    groups = row_groups(n, d)
+    fit = (200 * 1024) // (d * 4) // 8 * 8
+    assert [i for g in groups for i in range(*g)] == list(range(n))
+    assert all(-(-(stop - start) // 8) * 8 * d * 4 <= 200 * 1024 for start, stop in groups)
+    assert all(stop - start == fit for start, stop in groups[:-1])
+    assert len(groups) == -(-n // fit)
+
+
+def test_row_groups_refuse_a_width_no_group_fits():
+    with pytest.raises(ValueError, match="6400"):
+        row_groups(1, 6401)
 
 
 @pytest.mark.parametrize("case", ["within_tile", "across_tiles", "all_equal"])

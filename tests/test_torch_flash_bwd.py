@@ -35,21 +35,30 @@ VAL_TOL = dict(rtol=2e-5, atol=2e-6)
 GRAD_TOL = dict(rtol=5e-4, atol=1e-5)
 
 
-def _arrays(t, n=4, seed=11):
+def _arrays(t, n=4, seed=11, d=D):
     rng = np.random.default_rng(seed)
-    return [rng.normal(size=(B, t, H, D)).astype(np.float32) for _ in range(n)]
+    return [rng.normal(size=(B, t, H, d)).astype(np.float32) for _ in range(n)]
 
 
 def _t(*xs):
     return [torch.from_numpy(np.array(x)) for x in xs]
 
 
-@pytest.mark.parametrize("t,causal,k_shift,block_q,block_k", [
+_BWD_TILINGS = [
     (32, False, 0, 8, 8), (32, True, 0, 16, 4), (32, True, 1, 8, 8),
     (27, False, 0, 16, 4), (27, True, 0, 8, 8), (27, True, 1, 16, 4),
-])
-def test_flash_block_grads_matches_pallas(t, causal, k_shift, block_q, block_k):
-    q, k, v, do = _arrays(t)
+]
+# Head dim 8 (the first six cases, named as before) and 48, 80: outside the
+# dQ kernel's compiled widths (the backward takes 1 to 128).
+_BWD_CASES = [(*c, d) for d in (D, 48, 80) for c in _BWD_TILINGS]
+
+
+@pytest.mark.parametrize(
+    "t,causal,k_shift,block_q,block_k,d", _BWD_CASES,
+    ids=["-".join(map(str, c[:5])) + ("" if c[5] == D else f"-d{c[5]}")
+         for c in _BWD_CASES])
+def test_flash_block_grads_matches_pallas(t, causal, k_shift, block_q, block_k, d):
+    q, k, v, do = _arrays(t, d=d)
     _, lse = jfa.flash_forward_lse(*map(jnp.asarray, (q, k, v)), causal=causal,
                                    block_q=8, block_k=8, interpret=True)
     delta = np.random.default_rng(3).normal(size=(B, H, t)).astype(np.float32)

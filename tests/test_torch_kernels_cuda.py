@@ -28,6 +28,9 @@ Tolerances, with their reasons:
   lean kernels 14 and 15 the same (their recomputed scores are d-term
   f32 dots in another order too);
 - the plain LayerNorm kernels 6 and 7: as add+LN's (no residual, no ds);
+- the flash forward and dK/dV at any head dim (and dQ through its
+  zero-padding wrapper): the tolerances above, f32 or bf16; a repeat call
+  bitwise equal;
 - the grouped dW (kernel 16), f32 and bf16 inputs: within 1e-5 of the
   plain output's largest magnitude (both accumulate the same products in
   f32, over up to M rows in another order), and bitwise equal on a repeat.
@@ -50,7 +53,7 @@ from tpudml_torch.ops import (  # noqa: E402
     add_layernorm_forward_reference, flash_attention, flash_block_grads,
     flash_block_grads_reference, flash_forward_lse, flash_forward_lse_reference,
     fused_add_layernorm, fused_decode_head, fused_decode_head_int8, fused_layernorm,
-    GROUPED_DW, GROUPED_DW_BF16, flash_dkdv, flash_dkdv_reference, flash_dq,
+    DECODE_HEAD, FLASH_FORWARD, GROUPED_DW, GROUPED_DW_BF16, flash_dkdv, flash_dkdv_reference, flash_dq,
     flash_dq_reference, grouped_dw, grouped_dw_reference, ragged_ffn,
     layernorm_backward, layernorm_backward_reference, layernorm_forward,
     layernorm_forward_reference, linear_cross_entropy, reference_head, xent_dw,
@@ -211,7 +214,10 @@ def test_fused_add_layernorm_autograd_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(cuda_device):
-    q = _randn(1, 8, 1, 48, seed=0, device=cuda_device)  # head dim 48
+    q = _randn(1, 8, 1, 264, seed=0, device=cuda_device)  # past the forward's 256
+    with pytest.raises(ValueError, match="head dim"):
+        flash_forward_lse(q, q, q)
+    q = _randn(1, 8, 1, 136, seed=0, device=cuda_device)  # past the backward's 128
     lse = torch.zeros(1, 1, 8, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash_block_grads(q, q, q, q, lse, lse)
@@ -591,3 +597,100 @@ def test_ragged_ffn_autograd_on_card(cuda_device):
             assert GROUPED_DW.launches == before + 2
     for a, c in zip(grads["cpu"], grads[str(cuda_device)]):
         _close_to_max(c.cpu(), a, 1e-5)
+
+
+# Head dims inside and between the kernels' compiled widths (32, 64, 128,
+# 256 forward; 32, 64, 128 dK/dV): the next larger instance runs with the
+# columns past D zero. Cases: causal with T not a multiple of the 64-row
+# tile, non-causal at odd T, k_shift = 1 (row 0 sees no key), and q, k, v
+# (and dO) sliced one element into a wider buffer, which no 16-byte copy
+# can stage (the kernels' scalar loads).
+_FLASH_SHAPES = [(2, 200, 3, True, 0, False), (1, 77, 2, False, 0, False),
+                 (1, 130, 2, True, 1, False), (2, 100, 2, True, 0, True)]
+
+
+def _flash_operands(b, t, h, d, n, dtype, sliced, device, seed=0):
+    xs = []
+    for i in range(n):
+        x = _randn(b, t, h, d + 1, seed=seed + i, device=device).to(dtype)
+        xs.append(x[..., 1:] if sliced else x[..., :d].contiguous())
+    return xs
+
+
+def _check_stored(got, want, dtype, tol):
+    if dtype == torch.bfloat16:
+        assert got.dtype == torch.bfloat16
+        _close_to_max(got, want, BF16_REL)
+    else:
+        torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 48, 64, 80, 128, 256])
+def test_flash_forward_any_head_dim(cuda_device, dtype, d):
+    kernel = FLASH_FORWARD if dtype == torch.float32 else FLASH_FORWARD_BF16
+    for b, t, h, causal, k_shift, sliced in _FLASH_SHAPES:
+        q, k, v = _flash_operands(b, t, h, d, 3, dtype, sliced, cuda_device)
+        before = kernel.launches
+        o, lse = flash_forward_lse(q, k, v, causal=causal, k_shift=k_shift)
+        o2, lse2 = flash_forward_lse(q, k, v, causal=causal, k_shift=k_shift)
+        ro, rlse = flash_forward_lse_reference(q, k, v, causal=causal, k_shift=k_shift)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        _check_stored(o, ro, dtype, ROW_TOL)
+        torch.testing.assert_close(lse, rlse, **ROW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 48, 64, 80, 128])
+def test_flash_backward_any_head_dim(cuda_device, dtype, d):
+    """dK/dV (kernel 3) and dQ (kernel 2 through its zero-padding wrapper)."""
+    kernel = FLASH_DKDV if dtype == torch.float32 else FLASH_DKDV_BF16
+    for b, t, h, causal, k_shift, sliced in _FLASH_SHAPES:
+        q, k, v, do = _flash_operands(b, t, h, d, 4, dtype, sliced, cuda_device, seed=4)
+        o, lse = flash_forward_lse_reference(q, k, v, causal=causal)  # finite lse
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        before = kernel.launches
+        dk, dv = flash_dkdv(*args, causal=causal, k_shift=k_shift)
+        dk2, dv2 = flash_dkdv(*args, causal=causal, k_shift=k_shift)
+        rdk, rdv = flash_dkdv_reference(*args, causal=causal, k_shift=k_shift)
+        dq = flash_dq(*args, causal=causal, k_shift=k_shift)
+        rdq = flash_dq_reference(*args, causal=causal, k_shift=k_shift)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        for got, want in ((dk, rdk), (dv, rdv), (dq, rdq)):
+            assert got.shape == want.shape
+            _check_stored(got, want, dtype, GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_backward_past_its_head_dims_names_the_roadmap(cuda_device):
+    q = _randn(1, 8, 1, 256, seed=0, device=cuda_device)
+    lse = torch.zeros(1, 1, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="ROADMAP queue 2"):
+        flash_block_grads(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="ROADMAP queue 2"):
+        flash_attention(q, q, q, causal=True)
+    flash_forward_lse(q, q, q, causal=True)  # the forward alone takes 256
+
+
+@pytest.mark.cuda
+def test_decode_head_splits_a_batch_past_its_stage(cuda_device):
+    """200 slots at d = 512 (the stage holds 96 rows): three launches, each
+    row as the plain version gives it."""
+    x = _randn(200, 512, seed=12, device=cuda_device)
+    w = _randn(512, 1000, seed=13, device=cuda_device)
+    b = _randn(1000, seed=14, device=cuda_device)
+    before = DECODE_HEAD.launches
+    tok, mx, lse = fused_decode_head(x, w, b)
+    rt, rm, rl = reference_head(x, w, b)
+    torch.cuda.synchronize()
+    assert DECODE_HEAD.launches == before + 3
+    assert torch.equal(tok, rt)
+    torch.testing.assert_close(mx, rm, **ROW_TOL)
+    torch.testing.assert_close(lse, rl, **ROW_TOL)

@@ -22,6 +22,7 @@ from tpudml_torch.ops.attention_kernel import (
     flash_dq_reference,
     flash_forward_lse,
     flash_forward_lse_reference,
+    flash_head_dim_ok,
 )
 from tpudml_torch.ops.cuda_lib import build_all
 from tpudml_torch.ops.decode_head import (
@@ -118,6 +119,7 @@ __all__ = [
     "flash_dq_reference",
     "flash_forward_lse",
     "flash_forward_lse_reference",
+    "flash_head_dim_ok",
     "fused_add_layernorm",
     "fused_decode_head",
     "fused_decode_head_int8",

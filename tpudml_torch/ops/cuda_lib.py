@@ -98,6 +98,13 @@ class CudaLibrary:
                 f"{self.build_log}"
             )
         os.replace(tmp, self.target())
+        self.target().with_suffix(".log").write_text(self.build_log)
+
+    def ptxas_log(self) -> str:
+        """The ``nvcc``/``ptxas -v`` output of this source's build, kept
+        beside the library (empty if the library was built elsewhere)."""
+        log = self.target().with_suffix(".log")
+        return self.build_log or (log.read_text() if log.exists() else "")
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:

@@ -9,6 +9,11 @@ tensors both launch the two-pass CUDA kernel in
 to device memory; for CPU tensors they run the plain version
 :func:`reference_head` (materialized logits, ``torch.argmax``'s
 first-occurrence pick). A CUDA input the kernel does not take raises.
+
+The kernel stages x in shared memory, so a batch whose rows do not fit
+at once is split into row groups that do (:func:`row_groups`), one launch
+each. That is exact: a row's token, max and lse depend on that row alone.
+Only a width whose one 8-row group does not fit (d > 6400) is refused.
 """
 
 from __future__ import annotations
@@ -18,7 +23,6 @@ import torch
 from tpudml_torch.ops.cuda_lib import (
     I, P, CudaLibrary, Kernel, check_cuda_operand, ptr,
 )
-from tpudml_torch.ops.tiling import round_up
 
 _ROWS = [I, I, I] + [P] * 7  # B, d, V, scratch x3, outputs x3, stream
 _LIB = CudaLibrary("decode_head.cu", {
@@ -37,6 +41,18 @@ DECODE_HEAD_INT8 = Kernel(
 
 # x is staged in shared memory, rows padded to the kernel's 8-row group.
 _MAX_X_SMEM = 200 * 1024
+_GROUP = 8  # rows the kernel accumulates per pass over W
+
+
+def row_groups(n: int, d: int) -> list[tuple[int, int]]:
+    """[start, stop) row ranges covering [0, n) in order, each as many rows
+    as fit x's shared-memory stage (``round_up(rows, 8)·d·4`` bytes) and all
+    but the last full. Raises if one 8-row group does not fit."""
+    per = _MAX_X_SMEM // (d * 4) // _GROUP * _GROUP
+    if per == 0:
+        raise ValueError(f"decode head kernel takes d up to {_MAX_X_SMEM // (_GROUP * 4)}, "
+                         f"got d={d}")
+    return [(i, min(i + per, n)) for i in range(0, n, per)]
 
 
 def reference_head(x, w, b):
@@ -55,24 +71,28 @@ def reference_head_int8(x, wq, scale, b):
 
 def _launch(kernel, x, weights, b, v):
     n, d = x.shape
-    if round_up(n, 8) * d * 4 > _MAX_X_SMEM:
-        raise ValueError(f"decode head kernel takes B·d up to {_MAX_X_SMEM} bytes "
-                         f"of x; got B={n}, d={d}")
+    groups = row_groups(n, d)
     tile = kernel.library.load().decode_head_tile_width()
     n_tiles = -(-v // tile)
     dev = x.device
-    tile_max = torch.empty((n_tiles, n), dtype=torch.float32, device=dev)
-    tile_idx = torch.empty((n_tiles, n), dtype=torch.int32, device=dev)
-    tile_sum = torch.empty((n_tiles, n), dtype=torch.float32, device=dev)
+    rows = groups[0][1] - groups[0][0] if groups else 0
+    tile_max = torch.empty((n_tiles, rows), dtype=torch.float32, device=dev)
+    tile_idx = torch.empty((n_tiles, rows), dtype=torch.int32, device=dev)
+    tile_sum = torch.empty((n_tiles, rows), dtype=torch.float32, device=dev)
     tok = torch.empty(n, dtype=torch.int32, device=dev)
     mx = torch.empty(n, dtype=torch.float32, device=dev)
     lse = torch.empty(n, dtype=torch.float32, device=dev)
+    # Row groups are addressed by byte offset (x contiguous; every operand
+    # 4 bytes an element): no slice is made, one group or many.
+    x_p, tok_p, mx_p, lse_p = (t.data_ptr() for t in (x, tok, mx, lse))
     with torch.cuda.device(dev):
-        kernel.launch(
-            ptr(x), *(ptr(w) for w in weights), ptr(b), I(n), I(d), I(v),
-            ptr(tile_max), ptr(tile_idx), ptr(tile_sum), ptr(tok), ptr(mx),
-            ptr(lse),
-        )
+        for start, stop in groups:
+            kernel.launch(
+                P(x_p + 4 * d * start), *(ptr(w) for w in weights), ptr(b),
+                I(stop - start), I(d), I(v), ptr(tile_max), ptr(tile_idx),
+                ptr(tile_sum), P(tok_p + 4 * start), P(mx_p + 4 * start),
+                P(lse_p + 4 * start),
+            )
     return tok, mx, lse
 
 
