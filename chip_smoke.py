@@ -7,11 +7,11 @@ the CPU). Phases, each printing its own line(s):
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN, so f32 means f32.
 2. build: every CUDA kernel source of the port, one nvcc each, together;
-   then, for each instance of the flash forward (kernel 1) and dK/dV
-   (kernel 3), its ptxas registers and spills and its SASS count of
-   bf16 tensor-core products, TF32 instructions and f32 FMAs. It fails
-   unless every bf16 instance holds ``HMMA.16816.F32.BF16``, none holds
-   TF32 and none spills.
+   then, for each instance (head dims 32, 64, 128, 256) of the flash
+   forward (kernel 1), dQ (kernel 2) and dK/dV (kernel 3), its ptxas
+   registers and spills and its SASS count of bf16 tensor-core products,
+   TF32 instructions and f32 FMAs. It fails unless every bf16 instance
+   holds ``HMMA.16816.F32.BF16``, none holds TF32 and none spills.
 3. kernel vs plain version on the card at the main paths' shapes, with
    the tolerances stated: the flash forward (serving: B=1, T=128, H=8,
    D=64: causal, non-causal, odd T, k_shift=1; training: B=8, T=1024,
@@ -36,10 +36,22 @@ the CPU). Phases, each printing its own line(s):
    collapsed one, with tail rows past Σ group_sizes, bitwise equal on a
    repeat; times of the kernel, the plain version and a library call
    computing the same function, beside the bound (bf16 rows against the
-   bf16 tensor-core rate), and for the flash kernels their rate in TFLOP/s.
-   Then the flash forward (f32 and bf16) at head dims between its compiled
-   widths, D = 48, 80 and 256, and dQ and dK/dV at D = 48 and 80 (causal
-   T=200 and non-causal T=77), with the same tolerances. Then the launches
+   bf16 tensor-core rate), and for the flash kernels their rate in TFLOP/s;
+   for the kernels under ~0.13 ms (1 at serving's shape, the bf16 twins
+   of 1–3, 4, 5, 6–9) also their device time and the library call's, from
+   ``torch.profiler`` over 200 calls. dQ is held bitwise equal on a repeat
+   call at the training, flagship and long-context shapes.
+   Then the flash forward, dQ and dK/dV (f32 and bf16) at head dims between
+   their compiled widths and at the widest, D = 48, 80, 200 and 256
+   (causal T=200 and non-causal T=77), with the same tolerances, and dQ and
+   dK/dV timed at D = 256 (B=8, T=1024, H=4, causal) beside SDPA's
+   backward. Then the widths past the narrow instances, with the
+   tolerances of the main shapes: kernels 6–9 (f32 and bf16) at d = 1100
+   and 4096 (timed at N=8192, d=4096, beside ``F.layer_norm``'s forward
+   and backward), kernels 10–15 at d = 12, 1032 and
+   2048 (N = V = 1000, labels −1 and V; timed in f32 at N=4096, d=2048,
+   V=8192, and 10, 11 at the flagship's N and V with d = 12), kernels 4
+   and 5 at d = 8192 (B=8, V=32768, one launch). Then the launches
    past the old grid-y edges:
    kernels 10–12 at N=8,388,609 rows (d=8, V=128) and the flash forward,
    dQ and dK/dV at B·H=65,537 (B=65,537, H=1, T=16, D=32), against their
@@ -232,6 +244,15 @@ LN_SHAPE = (8192, 512)  # the plain LayerNorm op at the training rows
 # Past the old grid-y edges: 65,537 row tiles of 128 (kernels 10–12 held
 # 8,388,480 rows) and B·H = 65,537 (the flash kernels held 65,535).
 XENT_EDGE = (8_388_609, 8, 128)
+# Widths past the narrow instances (phase 3): LayerNorm rows past the 1024
+# columns a warp holds in registers, (N, d), timed at the last; xent d no
+# multiple of 8 and past the lean kernels' resident 1024, timed at
+# XENT_WIDE_TIMED (N, d, V); the decode head past one 8-row group's stage.
+LN_WIDE = ((1000, 1100), (8192, 4096))
+XENT_WIDE = (12, 1032, 2048)
+XENT_WIDE_TIMED = (4096, 2048, 8192)
+HEAD_WIDE = (8, 8192, 32768)
+FLASH_D256_SHAPE = (8, 1024, 4, 256)  # B, T, H, D: the training shape at the widest D
 XENT_EDGE_CHUNK = 1 << 21
 FLASH_EDGE = (65_537, 16, 1, 32)  # B, T, H, D
 # MoE (bench.py:586-661, bench_moe): the training config in bf16 with
@@ -294,6 +315,36 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, calls: int = 200) -> float:
+    """Summed device durations of the kernels that ``calls`` back-to-back
+    calls of ``fn`` launch, over ``calls``, from ``torch.profiler``: a
+    kernel under ~0.13 ms is paced by the host through its Python wrapper,
+    so its CUDA-event time moves with the host and this is its own time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "the profiler recorded no device time")
+    return us / 1e3 / calls
+
+
+def timed(fn, ref, nbytes: float, flops: float, peak: float = H100_F32_FLOPS, lib=None,
+          iters: int = 10) -> dict:
+    """Kernel, plain and (where given) library ms of one call, and the bound."""
+    ms = cuda_ms(fn, iters=iters, warmup=2)
+    plain_ms = cuda_ms(ref, iters=max(iters // 2, 2), warmup=1)
+    lib_ms = None if lib is None else cuda_ms(lib, iters=iters, warmup=2)
+    bnd, by = bound(nbytes, flops, peak)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+
+
 def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes over
     the memory rate and the operations over ``peak`` (f32 by default; the
@@ -345,17 +396,22 @@ def flash_phase(gen) -> dict:
     q, k, v, t = timed
     ms = cuda_ms(lambda: flash_forward_lse(q, k, v, causal=True))
     plain_ms = cuda_ms(lambda: flash_forward_lse_reference(q, k, v, causal=True))
+    dev = device_ms(lambda: flash_forward_lse(q, k, v, causal=True))
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    lib_ms, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
     pairs = t * (t + 1) // 2
     bnd, by = bound(4 * (4 * b * t * h * d + b * h * t), 4 * d * pairs * b * h)
     print(f"[kernel] flash_forward_lse B={b} T={t} H={h} D={d} causal: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-          f"bound {bnd:.5f} ms ({by})")
+          f"kernel {ms:.4f} ms (device {dev:.5f}), plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms (device {lib_dev:.5f}), bound {bnd:.5f} ms ({by})")
     row = dict(name=FLASH_FORWARD.name, route="cuda", source=FLASH_FORWARD.source,
-               replaces=FLASH_FORWARD.replaces, max_abs_err=worst, ms=ms,
+               replaces=FLASH_FORWARD.replaces, max_abs_err=worst, ms=ms, device_ms=dev,
                plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-               shape=f"B={b} T={t} H={h} D={d} causal (serving)")
+               library_device_ms=lib_dev, shape=f"B={b} T={t} H={h} D={d} causal (serving)")
     row["at_train_shape"] = flash_train_shape(gen)
     return row
 
@@ -433,6 +489,8 @@ def flash_long_phase(gen, fwd_row: dict, dq_row: dict, dkdv_row: dict) -> None:
     delta = (do * ro).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, rlse, delta)
     dq = flash_dq(*args, causal=True)
+    check(torch.equal(dq, flash_dq(*args, causal=True)),
+          "flash dQ is not bitwise repeatable at the long-context shape")
     dk, dv = flash_dkdv(*args, causal=True)
     e_dq = e_dkdv = 0.0
     for i, j in slices:
@@ -443,7 +501,7 @@ def flash_long_phase(gen, fwd_row: dict, dq_row: dict, dkdv_row: dict) -> None:
         del rdk, rdv
     print(f"[kernel] flash_dq / flash_dkdv B={b} T={t} H={h} D={d} causal (plain per "
           f"(batch, head) slice): max|ddq| {e_dq:.3e}, max|ddk|,|ddv| {e_dkdv:.3e} "
-          f"(|err| <= {GRAD_ATOL:g} + {GRAD_RTOL:g}·|plain|)")
+          f"(|err| <= {GRAD_ATOL:g} + {GRAD_RTOL:g}·|plain|); dq repeat bitwise equal")
     del dq, dk, dv
     torch.cuda.empty_cache()
 
@@ -534,6 +592,13 @@ def flash_bwd_phase(gen) -> list[dict]:
             main = (args, b, t, h, d)
     del got, want
     args, b, t, h, d = main
+    dq = flash_dq(*args, causal=True)
+    e = _grad_err(dq, flash_dq_reference(*args, causal=True))
+    same = torch.equal(dq, flash_dq(*args, causal=True))
+    print(f"[kernel] flash_dq B={b} T={t} H={h} D={d} causal: max|err| {e:.3e} (|err| <= "
+          f"{GRAD_ATOL:g} + {GRAD_RTOL:g}·|plain|); repeat call bitwise equal: {same}")
+    check(same, "flash dQ is not bitwise repeatable")
+    del dq
     q, k, v, do = args[:4]
     qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     doh = do.transpose(1, 2).contiguous()
@@ -619,22 +684,27 @@ def add_ln_phase(gen) -> list[dict]:
 
     lib_f = cuda_ms(lib_fwd)
     lib_b = cuda_ms(lambda: torch.autograd.grad(lib_fwd(), leaves, (ds, dy))) - lib_f
+    dev_f = device_ms(lib_fwd)
+    dev_b = device_ms(lambda: torch.autograd.grad(lib_fwd(), leaves, (ds, dy))) - dev_f
     rows = []
-    for kernel, fn, ref, err, nbytes, flops, lib in (
+    for kernel, fn, ref, err, nbytes, flops, lib, lib_dev in (
         (ADD_LN_FORWARD, lambda: add_layernorm_forward(x, r, scale, bias),
          lambda: add_layernorm_forward_reference(x, r, scale, bias), err_f,
-         4 * (4 * n * d + 2 * d + 2 * n), 8 * n * d, lib_f),
+         4 * (4 * n * d + 2 * d + 2 * n), 8 * n * d, lib_f, dev_f),
         (ADD_LN_BACKWARD, lambda: add_layernorm_backward(s, scale, dy, ds, mean, rstd),
          lambda: add_layernorm_backward_reference(s, scale, dy, ds, mean, rstd), err_b,
-         4 * (4 * n * d + 3 * d + 2 * n), 12 * n * d, lib_b),
+         4 * (4 * n * d + 3 * d + 2 * n), 12 * n * d, lib_b, dev_b),
     ):
         ms = cuda_ms(fn)
+        dev = device_ms(fn)
         plain_ms = cuda_ms(ref)
         bnd, by = bound(nbytes, flops)
-        print(f"[kernel] {kernel.name} N={n} d={d}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, F.layer_norm(x + r) {lib:.4f} ms, bound {bnd:.5f} ms ({by})")
+        print(f"[kernel] {kernel.name} N={n} d={d}: kernel {ms:.4f} ms (device {dev:.4f}), "
+              f"plain {plain_ms:.4f} ms, F.layer_norm(x + r) {lib:.4f} ms (device "
+              f"{lib_dev:.4f}), bound {bnd:.5f} ms ({by})")
         rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
-                         replaces=kernel.replaces, max_abs_err=err, ms=ms,
+                         replaces=kernel.replaces, max_abs_err=err, ms=ms, device_ms=dev,
+                         library_device_ms=lib_dev,
                          plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib,
                          library="F.layer_norm(x + r)" + (" fwd+bwd minus fwd"
                                                           if kernel is ADD_LN_BACKWARD else ""),
@@ -686,6 +756,10 @@ def flash_bf16_phase(gen) -> list[dict]:
             main = (args, b, t, h, d)
         del got, want
     args, b, t, h, d = main
+    same = torch.equal(flash_dq(*args, causal=True), flash_dq(*args, causal=True))
+    print(f"[kernel] flash_dq_bf16 B={b} T={t} H={h} D={d} causal: repeat call bitwise "
+          f"equal: {same}")
+    check(same, "bf16 flash dQ is not bitwise repeatable")
     q, k, v, do = args[:4]
     qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     doh = do.transpose(1, 2).contiguous()
@@ -693,46 +767,52 @@ def flash_bf16_phase(gen) -> list[dict]:
     def sdpa():
         return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
 
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa(), (qh, kh, vh), doh)
+
     lib_f = cuda_ms(sdpa, iters=20)
-    lib_b = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), iters=20) - lib_f
+    lib_b = cuda_ms(sdpa_bwd, iters=20) - lib_f
+    dev_f = device_ms(sdpa)
+    dev_b = device_ms(sdpa_bwd) - dev_f
     pairs = b * h * t * (t + 1) // 2
     io = b * t * h * d
     rows = []
-    for kernel, fn, ref, err, nbytes, flops, lib, lib_name in (
+    for kernel, fn, ref, err, nbytes, flops, lib, lib_dev, lib_name in (
         (FLASH_FORWARD_BF16, lambda: flash_forward_lse(q, k, v, causal=True),
          lambda: flash_forward_lse_reference(q, k, v, causal=True), errs["fwd"],
-         2 * 4 * io + 4 * b * h * t, 4 * d * pairs, lib_f, "sdpa bf16 forward"),
+         2 * 4 * io + 4 * b * h * t, 4 * d * pairs, lib_f, dev_f, "sdpa bf16 forward"),
         (FLASH_DQ_BF16, lambda: flash_dq(*args, causal=True),
          lambda: flash_dq_reference(*args, causal=True), errs["dq"],
-         2 * 5 * io + 8 * b * h * t, 6 * d * pairs, lib_b,
+         2 * 5 * io + 8 * b * h * t, 6 * d * pairs, lib_b, dev_b,
          "sdpa bf16 fwd+bwd minus fwd (dq, dk, dv)"),
         (FLASH_DKDV_BF16, lambda: flash_dkdv(*args, causal=True),
          lambda: flash_dkdv_reference(*args, causal=True), errs["dkdv"],
-         2 * 6 * io + 8 * b * h * t, 8 * d * pairs, lib_b,
+         2 * 6 * io + 8 * b * h * t, 8 * d * pairs, lib_b, dev_b,
          "sdpa bf16 fwd+bwd minus fwd (dq, dk, dv)"),
     ):
         ms = cuda_ms(fn, iters=20)
+        dev = device_ms(fn)
         plain_ms = cuda_ms(ref, iters=10)
         bnd, by = bound(nbytes, flops, H100_BF16_FLOPS)
         rate = tflops(flops, ms)
         print(f"[kernel] {kernel.name} B={b} T={t} H={h} D={d} causal: kernel {ms:.4f} ms "
-              f"({rate:.1f} TFLOP/s), plain {plain_ms:.4f} ms, {lib_name} {lib:.4f} ms, "
-              f"bound {bnd:.5f} ms ({by})")
+              f"({rate:.1f} TFLOP/s; device {dev:.4f}), plain {plain_ms:.4f} ms, {lib_name} "
+              f"{lib:.4f} ms (device {lib_dev:.4f}), bound {bnd:.5f} ms ({by})")
         rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
                          replaces=kernel.replaces, max_abs_err=err, ms=ms, tflops=rate,
-                         plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib,
-                         library=lib_name, shape=f"B={b} T={t} H={h} D={d} causal bf16 "
-                         "(flagship)"))
+                         device_ms=dev, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                         library_ms=lib, library_device_ms=lib_dev, library=lib_name,
+                         shape=f"B={b} T={t} H={h} D={d} causal bf16 (flagship)"))
     return rows
 
 
 def flash_head_dim_phase(gen, rows: dict) -> None:
-    """Kernels 1 and 3 (f32 and bf16) at head dims between their compiled
-    widths (forward D = 48, 80, 256; dK/dV and dQ, through its zero-padding
-    wrapper, D = 48, 80) at small T: causal T=200 (not a multiple of a
-    tile) and non-causal T=77, against their plain versions with the
-    tolerances above. Adds ``at_head_dims`` to the rows and folds the errors
-    into their ``max_abs_err``."""
+    """Kernels 1–3 (f32 and bf16) at head dims between their compiled widths
+    and at the widest, D = 48, 80, 200 and 256, at small T: causal T=200
+    (not a multiple of a tile) and non-causal T=77, against their plain
+    versions with the tolerances above. Adds ``at_head_dims`` to the rows
+    and folds the errors into their ``max_abs_err``; then times dQ and
+    dK/dV at D = 256 (``at_d256``)."""
     import torch
 
     from tpudml_torch.ops import (
@@ -742,7 +822,7 @@ def flash_head_dim_phase(gen, rows: dict) -> None:
 
     for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         errs = {"flash_forward_lse": {}, "flash_dkdv": {}, "flash_dq": {}}
-        for d in (48, 80, 256):
+        for d in (48, 80, 200, 256):
             for b, t, h, causal in ((2, 200, 3, True), (1, 77, 2, False)):
                 q, k, v, do = (torch.randn((b, t, h, d), generator=gen).cuda().to(dtype)
                                for _ in range(4))
@@ -760,35 +840,81 @@ def flash_head_dim_phase(gen, rows: dict) -> None:
                       f"({dtype}, T={t}, causal={causal})")
                 fe = errs["flash_forward_lse"]
                 fe[d] = max(fe.get(d, 0.0), (o.float() - ro.float()).abs().max().item(), el)
-                msg = f"O {eo:.3e}, lse {el:.3e}"
-                if d <= 128:
-                    delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
-                    args = (q, k, v, do, rlse, delta)
-                    got = (flash_dq(*args, causal=causal), *flash_dkdv(*args, causal=causal))
-                    want = (flash_dq_reference(*args, causal=causal),
-                            *flash_dkdv_reference(*args, causal=causal))
-                    torch.cuda.synchronize()
-                    if dtype == torch.float32:
-                        e = [_grad_err(g_, w) for g_, w in zip(got, want)]
-                    else:
-                        e = [rel_to_max(g_, w) for g_, w in zip(got, want)]
-                        check(max(e) <= BF16_REL and all(g_.dtype == dtype for g_ in got),
-                              f"bf16 flash backward disagrees with its plain version at D={d}")
-                    for name, gs in (("flash_dq", got[:1]), ("flash_dkdv", got[1:])):
-                        ws = want[:1] if name == "flash_dq" else want[1:]
-                        errs[name][d] = max(errs[name].get(d, 0.0), *(
-                            (g_.float() - w.float()).abs().max().item() for g_, w in zip(gs, ws)))
-                    msg += f"; dq/dk/dv {e[0]:.3e}/{e[1]:.3e}/{e[2]:.3e}"
-                tol = (f"tol {FLASH_TOL:g}" + (f"; grads |err| <= {GRAD_ATOL:g} + "
-                                                f"{GRAD_RTOL:g}·|plain|" if d <= 128 else "")
-                       if dtype == torch.float32 else f"tol {BF16_REL:g} of max; lse {FLASH_TOL:g}")
+                delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
+                args = (q, k, v, do, rlse, delta)
+                got = (flash_dq(*args, causal=causal), *flash_dkdv(*args, causal=causal))
+                want = (flash_dq_reference(*args, causal=causal),
+                        *flash_dkdv_reference(*args, causal=causal))
+                torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    e = [_grad_err(g_, w) for g_, w in zip(got, want)]
+                    tol = (f"tol {FLASH_TOL:g}; grads |err| <= {GRAD_ATOL:g} + "
+                           f"{GRAD_RTOL:g}·|plain|")
+                else:
+                    e = [rel_to_max(g_, w) for g_, w in zip(got, want)]
+                    check(max(e) <= BF16_REL and all(g_.dtype == dtype for g_ in got),
+                          f"bf16 flash backward disagrees with its plain version at D={d}")
+                    tol = f"tol {BF16_REL:g} of max; lse {FLASH_TOL:g}"
+                for name, gs, ws in (("flash_dq", got[:1], want[:1]),
+                                     ("flash_dkdv", got[1:], want[1:])):
+                    errs[name][d] = max(errs[name].get(d, 0.0), *(
+                        (g_.float() - w.float()).abs().max().item() for g_, w in zip(gs, ws)))
                 print(f"[kernel] flash head dim D={d} {str(dtype)[6:]} B={b} T={t} H={h} "
-                      f"causal={causal}: {msg} ({tol})")
+                      f"causal={causal}: O {eo:.3e}, lse {el:.3e}; dq/dk/dv "
+                      f"{e[0]:.3e}/{e[1]:.3e}/{e[2]:.3e} ({tol})")
         for name, by_d in errs.items():
             row = rows[name + suffix]
             row["at_head_dims"] = {f"D={d}": e for d, e in by_d.items()}
             row["max_abs_err"] = max(row["max_abs_err"], *by_d.values())
+        flash_d256_times(gen, dtype, rows["flash_dq" + suffix], rows["flash_dkdv" + suffix])
     torch.cuda.empty_cache()
+
+
+def flash_d256_times(gen, dtype, dq_row: dict, dkdv_row: dict) -> None:
+    """dQ and dK/dV at the training shape with D = 256 (B=8, T=1024, H=4,
+    causal): kernel, plain and SDPA-backward ms, the bound and the rate,
+    into ``at_d256`` of the two rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudml_torch.ops import (
+        flash_dkdv, flash_dkdv_reference, flash_dq, flash_dq_reference,
+        flash_forward_lse_reference,
+    )
+
+    b, t, h, d = FLASH_D256_SHAPE
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen).cuda().to(dtype)
+                   for _ in range(4))
+    o, lse = flash_forward_lse_reference(q, k, v, causal=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    lib_b = (cuda_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), iters=10)
+             - cuda_ms(sdpa, iters=10))
+    bf16 = dtype == torch.bfloat16
+    e, peak = (2, H100_BF16_FLOPS) if bf16 else (4, H100_F32_FLOPS)
+    pairs = b * h * t * (t + 1) // 2
+    io = b * t * h * d
+    for row, fn, ref, nbytes, flops in (
+        (dq_row, flash_dq, flash_dq_reference, e * 5 * io + 8 * b * h * t, 6 * d * pairs),
+        (dkdv_row, flash_dkdv, flash_dkdv_reference, e * 6 * io + 8 * b * h * t,
+         8 * d * pairs),
+    ):
+        r = timed(lambda: fn(*args, causal=True), lambda: ref(*args, causal=True),
+                  nbytes, flops, peak, iters=10)
+        r.update(library_ms=lib_b, library="sdpa fwd+bwd minus fwd (dq, dk, dv)",
+                 tflops=tflops(flops, r["ms"]),
+                 shape=f"B={b} T={t} H={h} D={d} causal {str(dtype)[6:]}")
+        print(f"[kernel] {row['name']} B={b} T={t} H={h} D={d} causal: kernel {r['ms']:.4f} "
+              f"ms ({r['tflops']:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, sdpa backward "
+              f"{lib_b:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        row["at_d256"] = r
+    del qh, kh, vh, doh
 
 
 def add_ln_bf16_phase(gen) -> list[dict]:
@@ -841,23 +967,28 @@ def add_ln_bf16_phase(gen) -> list[dict]:
 
     lib_f = cuda_ms(lib_fwd)
     lib_b = cuda_ms(lambda: torch.autograd.grad(lib_fwd(), leaves, (ds, dy))) - lib_f
+    dev_f = device_ms(lib_fwd)
+    dev_b = device_ms(lambda: torch.autograd.grad(lib_fwd(), leaves, (ds, dy))) - dev_f
     rows = []
-    for kernel, fn, ref, err, nbytes, lib in (
+    for kernel, fn, ref, err, nbytes, lib, lib_dev in (
         (ADD_LN_FORWARD_BF16, lambda: add_layernorm_forward(x, r, scale, bias),
          lambda: add_layernorm_forward_reference(x, r, scale, bias), err_f,
-         2 * 4 * n * d + 4 * (2 * d + 2 * n), lib_f),
+         2 * 4 * n * d + 4 * (2 * d + 2 * n), lib_f, dev_f),
         (ADD_LN_BACKWARD_BF16, lambda: add_layernorm_backward(s, scale, dy, ds, mean, rstd),
          lambda: add_layernorm_backward_reference(s, scale, dy, ds, mean, rstd), err_b,
-         2 * 4 * n * d + 4 * (3 * d + 2 * n), lib_b),
+         2 * 4 * n * d + 4 * (3 * d + 2 * n), lib_b, dev_b),
     ):
         ms = cuda_ms(fn)
+        dev = device_ms(fn)
         plain_ms = cuda_ms(ref)
         flops = (8 if kernel is ADD_LN_FORWARD_BF16 else 12) * n * d
         bnd, by = bound(nbytes, flops, H100_BF16_FLOPS)
-        print(f"[kernel] {kernel.name} N={n} d={d}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, F.layer_norm(x + r) bf16 {lib:.4f} ms, bound {bnd:.5f} ms ({by})")
+        print(f"[kernel] {kernel.name} N={n} d={d}: kernel {ms:.4f} ms (device {dev:.4f}), "
+              f"plain {plain_ms:.4f} ms, F.layer_norm(x + r) bf16 {lib:.4f} ms (device "
+              f"{lib_dev:.4f}), bound {bnd:.5f} ms ({by})")
         rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
-                         replaces=kernel.replaces, max_abs_err=err, ms=ms,
+                         replaces=kernel.replaces, max_abs_err=err, ms=ms, device_ms=dev,
+                         library_device_ms=lib_dev,
                          plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib,
                          library="F.layer_norm(x + r) bf16" + (
                              " fwd+bwd minus fwd" if kernel is ADD_LN_BACKWARD_BF16 else ""),
@@ -926,9 +1057,10 @@ def xent_check(gen, n, d, v, dtype, bad_labels) -> dict:
                              (db - rdb).abs().max().item())}
 
 
-def xent_times(gen, dtype) -> dict:
-    """Kernels 10–13 at the flagship head's shape in ``dtype``: kernel,
-    plain and library ms and the bound, by kernel name. Library: the
+def xent_times(gen, dtype, shape=XENT_SHAPE, label="flagship head") -> dict:
+    """Kernels 10–13 at ``shape`` (N, d, V; the flagship head's by default)
+    in ``dtype``: kernel, plain and library ms and the bound, by kernel
+    name. Library: the
     forward is ``torch.logsumexp(x@W+b)`` plus the label pick; the
     backward the autograd of ``F.cross_entropy`` over the materialized
     logits minus its forward (dx, dW, db together)."""
@@ -941,7 +1073,7 @@ def xent_times(gen, dtype) -> dict:
         xent_forward_save, xent_forward_save_reference,
     )
 
-    n, d, v = XENT_SHAPE
+    n, d, v = shape
     x, w, b, y = _xent_inputs(gen, n, d, v, dtype, bad_labels=False)
     yl = y.long()
     lse, _, s = xent_forward_save(x, w, b, y)
@@ -984,7 +1116,7 @@ def xent_times(gen, dtype) -> dict:
               f"plain {plain_ms:.3f} ms, {lib_name} {lib:.3f} ms, bound {bnd:.5f} ms ({by})")
         out[kernel.name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                                 library_ms=lib, library=f"{lib_name}, {str(dtype)[6:]}",
-                                shape=f"N={n} d={d} V={v} {str(dtype)[6:]} (flagship head)")
+                                shape=f"N={n} d={d} V={v} {str(dtype)[6:]} ({label})")
     return out
 
 
@@ -1069,9 +1201,10 @@ def xent_lean_check(gen, n, d, v, dtype, bad_labels, chunk=None) -> dict:
                                 (db - rdb).abs().max().item())}
 
 
-def xent_lean_times(gen, n, dtype, iters=3, with_fwd=False) -> dict:
+def xent_lean_times(gen, n, dtype, iters=3, with_fwd=False, dv=XENT_SHAPE[1:]) -> dict:
     """Kernels 14 and 15 (and with ``with_fwd`` kernel 10, which runs
-    before them) at N rows of the flagship head's d and V in ``dtype``:
+    before them) at N rows of width d and vocabulary V (``dv``, the
+    flagship head's by default) in ``dtype``:
     kernel, plain and library ms and the bound, by kernel name. Library:
     the autograd of ``F.cross_entropy`` over the materialized logits minus
     its forward (dx, dW, db together), as rows 12 and 13 use; for kernel
@@ -1086,7 +1219,7 @@ def xent_lean_times(gen, n, dtype, iters=3, with_fwd=False) -> dict:
         xent_dx_lean, xent_dx_lean_reference, xent_forward, xent_forward_reference,
     )
 
-    _, d, v = XENT_SHAPE
+    d, v = dv
     x, w, b, y = _xent_inputs(gen, n, d, v, dtype, bad_labels=False)
     yl = y.long()
     lse, _ = xent_forward_reference(x, w, b, y)
@@ -1232,24 +1365,29 @@ def ln_phase(gen) -> list[dict]:
 
         lib_f = cuda_ms(lib_fwd)
         lib_b = cuda_ms(lambda: torch.autograd.grad(lib_fwd(), leaves, dy)) - lib_f
+        dev_f = device_ms(lib_fwd)
+        dev_b = device_ms(lambda: torch.autograd.grad(lib_fwd(), leaves, dy)) - dev_f
         e = x.element_size()
         peak = H100_BF16_FLOPS if bf16 else H100_F32_FLOPS
-        for kernel, fn, ref, err, nbytes, flops, lib in (
+        for kernel, fn, ref, err, nbytes, flops, lib, lib_dev in (
             (fwd_k, lambda: layernorm_forward(x, scale, bias),
              lambda: layernorm_forward_reference(x, scale, bias), err_f,
-             2 * n * d * e + 4 * (2 * d + 2 * n), 8 * n * d, lib_f),
+             2 * n * d * e + 4 * (2 * d + 2 * n), 8 * n * d, lib_f, dev_f),
             (bwd_k, lambda: layernorm_backward(x, scale, dy, mean, rstd),
              lambda: layernorm_backward_reference(x, scale, dy, mean, rstd), err_b,
-             3 * n * d * e + 4 * (3 * d + 2 * n), 12 * n * d, lib_b),
+             3 * n * d * e + 4 * (3 * d + 2 * n), 12 * n * d, lib_b, dev_b),
         ):
             ms = cuda_ms(fn)
+            dev = device_ms(fn)
             plain_ms = cuda_ms(ref)
             bnd, by = bound(nbytes, flops, peak)
             lib_name = f"F.layer_norm {tag}" + (" fwd+bwd minus fwd" if kernel is bwd_k else "")
-            print(f"[kernel] {kernel.name} N={n} d={d}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, {lib_name} {lib:.4f} ms, bound {bnd:.5f} ms ({by})")
+            print(f"[kernel] {kernel.name} N={n} d={d}: kernel {ms:.4f} ms (device {dev:.4f}), "
+                  f"plain {plain_ms:.4f} ms, {lib_name} {lib:.4f} ms (device {lib_dev:.4f}), "
+                  f"bound {bnd:.5f} ms ({by})")
             rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
-                             replaces=kernel.replaces, max_abs_err=err, ms=ms,
+                             replaces=kernel.replaces, max_abs_err=err, ms=ms, device_ms=dev,
+                             library_device_ms=lib_dev,
                              plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib,
                              library=lib_name, shape=f"N={n} d={d} {tag} (op path)"))
     return rows
@@ -1306,13 +1444,16 @@ def head_phase(gen) -> list[dict]:
             return torch.argmax(logits, dim=-1), torch.logsumexp(logits, dim=-1)
 
         lib_ms = cuda_ms(library)
+        dev = device_ms(lambda: fn(x, *weights, bias))
+        lib_dev = device_ms(library)
         bnd, by = bound(wbytes + 4 * (b * d + v) + 12 * b, 2 * b * d * v + b * v)
-        print(f"[kernel] {kernel.name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"addmm+argmax+logsumexp {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
+        print(f"[kernel] {kernel.name}: kernel {ms:.4f} ms (device {dev:.4f}), plain "
+              f"{plain_ms:.4f} ms, addmm+argmax+logsumexp {lib_ms:.4f} ms (device "
+              f"{lib_dev:.4f}), bound {bnd:.5f} ms ({by})")
         rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
                          replaces=kernel.replaces, max_abs_err=max(em, el), ms=ms,
-                         plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                         library_ms=lib_ms))
+                         device_ms=dev, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                         library_ms=lib_ms, library_device_ms=lib_dev))
     return rows
 
 
@@ -1400,6 +1541,217 @@ def grouped_dw_phase(gen) -> list[dict]:
         row["at"] = [t for key, t in times.items() if key != main]
         rows.append(row)
     return rows
+
+
+def _fold_width(row: dict, key: str, err: float, times: dict | None = None) -> None:
+    """Record a wide instance's error (and times) under ``at_widths[key]``
+    of ``row`` and fold the error into its ``max_abs_err``."""
+    at = row.setdefault("at_widths", {}).setdefault(key, {"max_abs_err": 0.0})
+    at["max_abs_err"] = max(at["max_abs_err"], err)
+    if times:
+        at.update(times)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+
+
+def ln_wide_phase(gen, rows: dict) -> None:
+    """Kernels 6–9 and their bf16 twins at widths past the 1024 columns a
+    warp holds in registers (their looped instance): add+LN forward and
+    backward (ds given and None) and the plain LayerNorm at each of
+    LN_WIDE against the plain versions, with the tolerances of the main
+    shapes; timed at the last, beside the bound and ``F.layer_norm``
+    (forward, and forward+backward minus forward), with device times."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudml_torch.ops import (
+        add_layernorm_backward, add_layernorm_backward_reference, add_layernorm_forward,
+        add_layernorm_forward_reference, layernorm_backward, layernorm_backward_reference,
+        layernorm_forward, layernorm_forward_reference,
+    )
+
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        sfx, tag = ("_bf16", "bf16") if bf16 else ("", "f32")
+        row_tol = BF16_REL if bf16 else LN_ROW_TOL
+
+        def err_of(got, want):  # stored in the rows' dtype: of max in bf16
+            return rel_to_max(got, want) if bf16 else (got - want).abs().max().item()
+
+        for n, d in LN_WIDE:
+            x, r, dy, ds = (torch.randn((n, d), generator=gen).cuda().to(dtype)
+                            for _ in range(4))
+            scale = (1 + 0.1 * torch.randn((d,), generator=gen)).cuda()
+            bias = (0.1 * torch.randn((d,), generator=gen)).cuda()
+            s, y, mean, rstd = add_layernorm_forward(x, r, scale, bias)
+            rs, ry, rmean, rrstd = add_layernorm_forward_reference(x, r, scale, bias)
+            estat = max((mean - rmean).abs().max().item(), (rstd - rrstd).abs().max().item())
+            ef = max(err_of(s, rs), err_of(y, ry))
+            check(ef <= row_tol and estat <= LN_ROW_TOL,
+                  f"add+LN forward disagrees with its plain version at d={d} ({tag})")
+            eb = 0.0
+            for dsv in (ds, None):
+                dx, dg, db = add_layernorm_backward(rs, scale, dy, dsv, rmean, rrstd)
+                rdx, rdg, rdb = add_layernorm_backward_reference(rs, scale, dy, dsv, rmean,
+                                                                 rrstd)
+                ecol = max(rel_to_max(dg, rdg), rel_to_max(db, rdb))
+                check(err_of(dx, rdx) <= row_tol and ecol <= LN_COL_RTOL,
+                      f"add+LN backward disagrees with its plain version at d={d} ({tag})")
+                eb = max(eb, err_of(dx, rdx), ecol)
+            ly, lmean, lrstd = layernorm_forward(x, scale, bias)
+            rly, _, _ = layernorm_forward_reference(x, scale, bias)
+            lx, lg, lb = layernorm_backward(x, scale, dy, lmean, lrstd)
+            rlx, rlg, rlb = layernorm_backward_reference(x, scale, dy, lmean, lrstd)
+            el = err_of(ly, rly)
+            elb = max(err_of(lx, rlx), rel_to_max(lg, rlg), rel_to_max(lb, rlb))
+            check(el <= row_tol and err_of(lx, rlx) <= row_tol
+                  and max(rel_to_max(lg, rlg), rel_to_max(lb, rlb)) <= LN_COL_RTOL,
+                  f"LayerNorm kernels disagree with their plain versions at d={d} ({tag})")
+            print(f"[kernel] wide LayerNorm N={n} d={d} {tag}: add+LN s, y {ef:.3e}, "
+                  f"mean/rstd {estat:.3e}, dx and dgamma/dbeta {eb:.3e}; LN y {el:.3e}, "
+                  f"dx and dgamma/dbeta {elb:.3e} (rows tol {row_tol:g}"
+                  f"{' of max' if bf16 else ''}, stats {LN_ROW_TOL:g}, columns "
+                  f"{LN_COL_RTOL:g} of max)")
+            for name, e in (("add_layernorm_fwd", max(ef, estat)), ("add_layernorm_bwd", eb),
+                            ("layernorm_fwd", el), ("layernorm_bwd", elb)):
+                _fold_width(rows[name + sfx], f"d={d}", e)
+        # Timed at the last width (x, r, dy, ds of that shape are still bound),
+        # beside F.layer_norm with γ, β in the rows' dtype (its backward:
+        # forward+backward minus forward, as at the main shapes).
+        e = x.element_size()
+        peak = H100_BF16_FLOPS if bf16 else H100_F32_FLOPS
+        leaves = [t.clone().requires_grad_() for t in (x, r, scale.to(dtype), bias.to(dtype))]
+        ln_leaves = [leaves[0], leaves[2], leaves[3]]
+
+        def lib_add():
+            s_ = leaves[0] + leaves[1]
+            return s_, F.layer_norm(s_, (d,), leaves[2], leaves[3], 1e-5)
+
+        def lib_ln():
+            return F.layer_norm(ln_leaves[0], (d,), ln_leaves[1], ln_leaves[2], 1e-5)
+
+        lib = {}
+        for name, lib_fwd, lib_grad in (
+            ("add_layernorm", lib_add,
+             lambda: torch.autograd.grad(lib_add(), leaves, (ds, dy))),
+            ("layernorm", lib_ln, lambda: torch.autograd.grad(lib_ln(), ln_leaves, dy)),
+        ):
+            f_ms, f_dev = cuda_ms(lib_fwd, iters=20), device_ms(lib_fwd)
+            lib[name + "_fwd"] = (f_ms, f_dev)
+            lib[name + "_bwd"] = (cuda_ms(lib_grad, iters=20) - f_ms,
+                                  device_ms(lib_grad) - f_dev)
+        cases = (
+            ("add_layernorm_fwd", lambda: add_layernorm_forward(x, r, scale, bias),
+             lambda: add_layernorm_forward_reference(x, r, scale, bias),
+             4 * n * d * e + 4 * (2 * d + 2 * n), 8 * n * d),
+            ("add_layernorm_bwd", lambda: add_layernorm_backward(rs, scale, dy, ds, rmean, rrstd),
+             lambda: add_layernorm_backward_reference(rs, scale, dy, ds, rmean, rrstd),
+             4 * n * d * e + 4 * (3 * d + 2 * n), 12 * n * d),
+            ("layernorm_fwd", lambda: layernorm_forward(x, scale, bias),
+             lambda: layernorm_forward_reference(x, scale, bias),
+             2 * n * d * e + 4 * (2 * d + 2 * n), 8 * n * d),
+            ("layernorm_bwd", lambda: layernorm_backward(x, scale, dy, lmean, lrstd),
+             lambda: layernorm_backward_reference(x, scale, dy, lmean, lrstd),
+             3 * n * d * e + 4 * (3 * d + 2 * n), 12 * n * d),
+        )
+        for name, fn, ref, nbytes, flops in cases:
+            lib_name = ("F.layer_norm(x + r)" if name.startswith("add") else "F.layer_norm") + (
+                " fwd+bwd minus fwd" if name.endswith("bwd") else "")
+            t = timed(fn, ref, nbytes, flops, peak, iters=20)
+            t.update(device_ms=device_ms(fn), library_ms=lib[name][0],
+                     library_device_ms=lib[name][1], library=f"{lib_name} {tag}",
+                     shape=f"N={n} d={d} {tag}")
+            print(f"[kernel] {name}{sfx} N={n} d={d}: kernel {t['ms']:.4f} ms (device "
+                  f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, {lib_name} "
+                  f"{t['library_ms']:.4f} ms (device {t['library_device_ms']:.4f}), bound "
+                  f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
+            _fold_width(rows[name + sfx], f"d={d}", 0.0, t)
+        del leaves, ln_leaves
+        del x, r, dy, ds, s, y, rs, ry, ly, lx, dx
+        torch.cuda.empty_cache()
+
+
+def xent_wide_phase(gen, rows: dict) -> None:
+    """Kernels 10–15 at widths no multiple of the forward's 8-deep stage and
+    past the 1024 columns the lean kernels keep resident (XENT_WIDE), f32
+    and bf16, N = V = 1000 with labels −1 and V, against their plain
+    versions with the tolerances of the main shapes; then timed in f32 at
+    XENT_WIDE_TIMED (all six) and at d = 12 (the forward's ragged
+    instance)."""
+    import torch
+
+    for d in XENT_WIDE:
+        for dtype in (torch.float32, torch.bfloat16):
+            errs = xent_check(gen, 1000, d, 1000, dtype, True)
+            for name, e in xent_lean_check(gen, 1000, d, 1000, dtype, True).items():
+                errs[name] = max(errs.get(name, 0.0), e)
+            for name, e in errs.items():
+                _fold_width(rows[name], f"d={d}", e)
+        torch.cuda.empty_cache()
+    n, d, v = XENT_WIDE_TIMED
+    times = xent_times(gen, torch.float32, (n, d, v), "wide head")
+    times.update(xent_lean_times(gen, n, torch.float32, dv=(d, v)))
+    for name, t in times.items():
+        _fold_width(rows[name], f"d={d}", 0.0, t)
+    n, _, v = XENT_SHAPE
+    for name, t in xent_times(gen, torch.float32, (n, XENT_WIDE[0], v), "ragged d").items():
+        if name in ("xent_fwd", "xent_fwd_save"):
+            _fold_width(rows[name], f"d={XENT_WIDE[0]}", 0.0, t)
+    torch.cuda.empty_cache()
+
+
+def head_wide_phase(gen, rows: dict) -> None:
+    """Kernels 4 and 5 at d = 8192 (HEAD_WIDE), past the 6400 columns one
+    8-row group fits in the x stage (the chunked instance), against the
+    plain version and timed beside the bound and the library call."""
+    import torch
+
+    from tpudml_torch.ops import (
+        DECODE_HEAD, DECODE_HEAD_INT8, fused_decode_head, fused_decode_head_int8,
+        reference_head, reference_head_int8,
+    )
+    from tpudml_torch.serve.fleet.quant import _dequant_kernel, _quant_kernel
+
+    b, d, v = HEAD_WIDE
+    x = torch.randn((b, d), generator=gen).cuda()
+    w = ((torch.rand((d, v), generator=gen) * 2 - 1) / d ** 0.5).cuda()
+    bias = ((torch.rand((v,), generator=gen) * 2 - 1) / d ** 0.5).cuda()
+    wq, scale = _quant_kernel(w)
+    for kernel, fn, ref, weights, wbytes in (
+        (DECODE_HEAD, fused_decode_head, reference_head, (w,), 4 * d * v),
+        (DECODE_HEAD_INT8, fused_decode_head_int8, reference_head_int8,
+         (wq, scale), d * v + 4 * v),
+    ):
+        before = kernel.launches
+        tok, mx, lse = fn(x, *weights, bias)
+        rt, rm, rl = ref(x, *weights, bias)
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1, f"{kernel.name} at d={d}: not one launch")
+        wf = weights[0] if len(weights) == 1 else _dequant_kernel(*weights)
+        gap = _top2_gap(x @ wf + bias)
+        diff = (tok != rt).nonzero().flatten().tolist()
+        for i in diff:
+            check(gap[i].item() < TIE_GAP, f"{kernel.name}: token differs off a near-tie at d={d}")
+        em, el = (mx - rm).abs().max().item(), (lse - rl).abs().max().item()
+        check(em <= HEAD_TOL and el <= HEAD_TOL,
+              f"{kernel.name} statistics disagree with the plain version at d={d}")
+
+        def library(wf=wf):
+            logits = torch.addmm(bias, x, wf)
+            return torch.argmax(logits, dim=-1), torch.logsumexp(logits, dim=-1)
+
+        t = timed(lambda: fn(x, *weights, bias), lambda: ref(x, *weights, bias),
+                  wbytes + 4 * (b * d + v) + 12 * b, 2 * b * d * v + b * v, lib=library,
+                  iters=20)
+        t.update(shape=f"B={b} d={d} V={v}", library="addmm+argmax+logsumexp")
+        print(f"[kernel] {kernel.name} B={b} d={d} V={v} (chunked x stage): tokens "
+              f"{b - len(diff)}/{b} equal, max|dmax| {em:.3e}, max|dlse| {el:.3e} (tol "
+              f"{HEAD_TOL:g}); kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"addmm+argmax+logsumexp {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} "
+              f"ms ({t['bound_by']})")
+        _fold_width(rows[kernel.name], f"d={d}", max(em, el), t)
+        del wf
+    del x, w, wq
+    torch.cuda.empty_cache()
 
 
 def grid_edge_phase(gen) -> None:
@@ -2111,18 +2463,20 @@ def sass_opcodes(lib_path) -> dict[str, dict[str, int]]:
 FLASH_INSTANCES = (
     ("flash_fwd.cu", "flash_fwd_bf16_kernel", (32, 64, 128, 256)),
     ("flash_fwd.cu", "flash_fwd_f32_kernel", (32, 64, 128, 256)),
-    ("flash_dkdv.cu", "flash_dkdv_bf16_kernel", (32, 64, 128)),
-    ("flash_dkdv.cu", "flash_dkdv_f32_kernel", (32, 64, 128)),
+    ("flash_bwd.cu", "flash_dq_bf16_kernel", (32, 64, 128, 256)),
+    ("flash_bwd.cu", "flash_dq_f32_kernel", (32, 64, 128, 256)),
+    ("flash_dkdv.cu", "flash_dkdv_bf16_kernel", (32, 64, 128, 256)),
+    ("flash_dkdv.cu", "flash_dkdv_f32_kernel", (32, 64, 128, 256)),
 )
 BF16_MMA = "HMMA.16816.F32.BF16"  # mma.sync m16n8k16, bf16 in, f32 sums
 
 
 def build_phase() -> None:
     """Build every kernel source (one nvcc each, all started together) and
-    print what ptxas reports. Hold kernels 1 and 3 to their design in every
+    print what ptxas reports. Hold kernels 1–3 to their design in every
     instance: the bf16 twins on the tensor cores (``HMMA.16816.F32.BF16`` in
     their SASS), no TF32 instruction in any twin, and no spills."""
-    from tpudml_torch.ops import FLASH_DKDV, FLASH_FORWARD, KERNELS, build_kernels
+    from tpudml_torch.ops import FLASH_DKDV, FLASH_DQ, FLASH_FORWARD, KERNELS, build_kernels
 
     t_build = build_kernels()
     for lib in dict.fromkeys(k.library for k in KERNELS):
@@ -2131,7 +2485,7 @@ def build_phase() -> None:
         print(f"[build] {lib.source.name}: {' | '.join(usage) or 'cached'}")
     print(f"[build] {len(KERNELS)} kernels built in {t_build:.1f} s")
 
-    for lib in (FLASH_FORWARD.library, FLASH_DKDV.library):
+    for lib in (FLASH_FORWARD.library, FLASH_DQ.library, FLASH_DKDV.library):
         usage = ptxas_usage(lib.ptxas_log())
         sass = sass_opcodes(lib.target())
         for source, kernel, widths in FLASH_INSTANCES:
@@ -2180,7 +2534,11 @@ def main() -> int:
     rows = [*flash_rows, *head_phase(gen), *add_ln_phase(gen), *flash_bf16_phase(gen),
             *add_ln_bf16_phase(gen), *xent_rows, *xent_lean_phase(gen, xent_rows[0]),
             *ln_phase(gen), *grouped_dw_phase(gen)]
-    flash_head_dim_phase(gen, {row["name"]: row for row in rows})
+    by_name = {row["name"]: row for row in rows}
+    flash_head_dim_phase(gen, by_name)
+    ln_wide_phase(gen, by_name)
+    xent_wide_phase(gen, by_name)
+    head_wide_phase(gen, by_name)
     grid_edge_phase(gen)
     torch.cuda.empty_cache()
     paths = {"serve": serve_phase(gen)}

@@ -95,14 +95,11 @@ def test_flash_forward_lse_plain_matches_pallas(t, causal, k_shift, d):
         assert (o.numpy()[:, 0] == 0).all()
 
 
-@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
-def test_flash_head_dim_ok(backward):
-    """The flash kernels' head-dim domain: 1 to 256 forward, 1 to 128 when
-    the backward runs too (the dQ kernel's redesign brings 256)."""
-    top = 128 if backward else 256
-    assert all(flash_head_dim_ok(d, backward) for d in range(1, top + 1))
-    for d in (0, -1, 257, 512) + ((129, 136, 256) if backward else ()):
-        assert not flash_head_dim_ok(d, backward)
+@pytest.mark.parametrize("dims, ok", [(range(1, 257), True), ((0, -1, 257, 512), False)],
+                         ids=["inside", "outside"])
+def test_flash_head_dim_ok(dims, ok):
+    """The flash kernels' head-dim domain, forward and backward: 1 to 256."""
+    assert all(flash_head_dim_ok(d) is ok for d in dims)
 
 
 @pytest.mark.parametrize("start", [0, 8, 24], ids=["start0", "startC", "start3C"])

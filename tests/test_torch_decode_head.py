@@ -40,9 +40,11 @@ def _check(got, ref):
     np.testing.assert_allclose(lse, rl, rtol=1e-6)
 
 
-@pytest.mark.parametrize("v", [64, 70])  # 70: padded vocab tail
-def test_fused_decode_head_matches_pallas(v):
-    x, w, b = _operands(v=v)
+# 70: padded vocab tail; d = 6408: one 8-row group of x is wider than the
+# card kernel's stage, which then walks d in chunks.
+@pytest.mark.parametrize("v,d", [(64, 8), (70, 8), (40, 6408)], ids=["64", "70", "40-d6408"])
+def test_fused_decode_head_matches_pallas(v, d):
+    x, w, b = _operands(d=d, v=v)
     ref = jhead.fused_decode_head(*map(jnp.asarray, (x, w, b)), **BLOCKS)
     _check(fused_decode_head(*map(torch.from_numpy, (x, w, b))), ref)
 
@@ -73,8 +75,12 @@ def test_row_groups_cover_the_batch_and_fit(n, d):
 
 
 def test_row_groups_refuse_a_width_no_group_fits():
-    with pytest.raises(ValueError, match="6400"):
-        row_groups(1, 6401)
+    """Past d = 6400 no 8-row group fits the stage: the kernel walks d in
+    chunks, so the whole batch, any number of rows, is one launch."""
+    for n in (1, 8, 9, 300):
+        assert row_groups(n, 6401) == [(0, n)]
+        assert row_groups(n, 8192) == [(0, n)]
+    assert row_groups(0, 8192) == []
 
 
 @pytest.mark.parametrize("case", ["within_tile", "across_tiles", "all_equal"])

@@ -48,9 +48,10 @@ _BWD_TILINGS = [
     (32, False, 0, 8, 8), (32, True, 0, 16, 4), (32, True, 1, 8, 8),
     (27, False, 0, 16, 4), (27, True, 0, 8, 8), (27, True, 1, 16, 4),
 ]
-# Head dim 8 (the first six cases, named as before) and 48, 80: outside the
-# dQ kernel's compiled widths (the backward takes 1 to 128).
-_BWD_CASES = [(*c, d) for d in (D, 48, 80) for c in _BWD_TILINGS]
+# Head dim 8 (the first six cases, named as before); 48, 80 and 200, between
+# the card kernels' compiled widths; 256, the widest (the backward takes 1
+# to 256).
+_BWD_CASES = [(*c, d) for d in (D, 48, 80, 200, 256) for c in _BWD_TILINGS]
 
 
 @pytest.mark.parametrize(

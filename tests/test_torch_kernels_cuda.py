@@ -28,9 +28,11 @@ Tolerances, with their reasons:
   lean kernels 14 and 15 the same (their recomputed scores are d-term
   f32 dots in another order too);
 - the plain LayerNorm kernels 6 and 7: as add+LN's (no residual, no ds);
-- the flash forward and dK/dV at any head dim (and dQ through its
-  zero-padding wrapper): the tolerances above, f32 or bf16; a repeat call
-  bitwise equal;
+- the flash forward, dQ and dK/dV at any head dim from 1 to 256: the
+  tolerances above, f32 or bf16; a repeat call bitwise equal;
+- the widths past the register and shared-memory instances (LayerNorm
+  d = 1100, 4096; xent d = 12, 1032, 2048; the decode head d = 8192): the
+  tolerances above;
 - the grouped dW (kernel 16), f32 and bf16 inputs: within 1e-5 of the
   plain output's largest magnitude (both accumulate the same products in
   f32, over up to M rows in another order), and bitwise equal on a repeat.
@@ -172,8 +174,10 @@ def test_flash_attention_autograd_matches_plain(cuda_device):
         torch.testing.assert_close(a.grad, b.grad, **GRAD_TOL)
 
 
+# d = 1100 and 4096: past the 1024 columns a warp holds in registers (the
+# kernels' looped instance).
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(8192, 512), (1000, 512), (37, 96)])
+@pytest.mark.parametrize("n,d", [(8192, 512), (1000, 512), (37, 96), (300, 1100), (77, 4096)])
 def test_add_layernorm_kernels_match_plain(cuda_device, n, d):
     x, r, dy, ds = (_randn(n, d, seed=i, device=cuda_device) for i in range(4))
     scale = 1.0 + 0.1 * _randn(d, seed=7, device=cuda_device)
@@ -217,14 +221,16 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     q = _randn(1, 8, 1, 264, seed=0, device=cuda_device)  # past the forward's 256
     with pytest.raises(ValueError, match="head dim"):
         flash_forward_lse(q, q, q)
-    q = _randn(1, 8, 1, 136, seed=0, device=cuda_device)  # past the backward's 128
+    q = _randn(1, 8, 1, 264, seed=0, device=cuda_device)  # past the backward's 256
     lse = torch.zeros(1, 1, 8, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash_block_grads(q, q, q, q, lse, lse)
-    x = _randn(4, 2048, seed=0, device=cuda_device)
-    g = torch.ones(2048, device=cuda_device)
+    x = _randn(4, 2048, seed=0, device=cuda_device)[:, :0]  # no columns
+    g = torch.ones(0, device=cuda_device)
     with pytest.raises(ValueError, match="width"):
         add_layernorm_forward(x, x, g, g)
+    x = _randn(4, 2048, seed=0, device=cuda_device)
+    g = torch.ones(2048, device=cuda_device)
     with pytest.raises(TypeError):
         add_layernorm_forward(x.double()[:, :8], x.double()[:, :8], g[:8], g[:8])
 
@@ -253,7 +259,7 @@ def test_bf16_flash_kernels_match_plain(cuda_device, b, t, h, d, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(8192, 512), (1000, 512), (37, 96)])
+@pytest.mark.parametrize("n,d", [(8192, 512), (1000, 512), (37, 96), (300, 1100), (77, 4096)])
 def test_bf16_add_layernorm_kernels_match_plain(cuda_device, n, d):
     x, r, dy, ds = (_randn(n, d, seed=i, device=cuda_device).bfloat16() for i in range(4))
     scale = 1.0 + 0.1 * _randn(d, seed=7, device=cuda_device)
@@ -286,9 +292,15 @@ def _xent_inputs(n, d, v, dtype, device, seed=0):
     return x, w, b, y.to(device)
 
 
+# d = 12: a ragged edge of the forward's 8-deep contraction stage; 1032 and
+# 2048: past the 1024 columns the lean kernels keep resident.
+_XENT_WIDE = [(300, 12, 700), (256, 1032, 1000), (96, 2048, 500)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n,d,v", [(1000, 64, 1000), (256, 512, 4096), (37, 8, 130)])
+@pytest.mark.parametrize("n,d,v", [(1000, 64, 1000), (256, 512, 4096), (37, 8, 130),
+                                   *_XENT_WIDE])
 def test_xent_kernels_match_plain(cuda_device, dtype, n, d, v):
     x, w, b, y = _xent_inputs(n, d, v, dtype, cuda_device)
     before = [k.launches for k in (XENT_FORWARD, XENT_FORWARD_SAVE, XENT_DX, XENT_DW)]
@@ -340,9 +352,11 @@ def test_linear_cross_entropy_autograd_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_xent_kernels_reject_what_they_do_not_take(cuda_device):
+    """A width that is no multiple of 8 runs (the ragged edge is masked in
+    the kernel); a dtype the kernels do not take raises."""
     x, w, b, y = _xent_inputs(16, 12, 64, torch.float32, cuda_device)  # d % 8 != 0
-    with pytest.raises(ValueError, match="multiple of 8"):
-        xent_forward(x, w, b, y)
+    for got, want in zip(xent_forward(x, w, b, y), xent_forward_reference(x, w, b, y)):
+        torch.testing.assert_close(got, want, **ROW_TOL)
     x, w, b, y = _xent_inputs(16, 16, 64, torch.float32, cuda_device)
     with pytest.raises(TypeError):
         xent_forward(x.double(), w.double(), b.double(), y)
@@ -356,7 +370,7 @@ def test_xent_kernels_reject_what_they_do_not_take(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n,d,v", [(1000, 64, 1000), (256, 512, 4096), (37, 8, 130),
                                    (70, 264, 300), (50, 1024, 200), (2_097_184, 8, 40),
-                                   (140_000, 64, 100)])
+                                   (140_000, 64, 100), *_XENT_WIDE])
 def test_xent_lean_kernels_match_plain(cuda_device, dtype, n, d, v):
     """Kernels 14 and 15 against their plain versions: ragged rows and
     vocab, labels −1 and V, d chunks of 128, 512 and two 512s, 65537 row
@@ -400,7 +414,7 @@ def test_linear_cross_entropy_lean_autograd_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n,d", [(8192, 512), (1000, 512), (37, 96)])
+@pytest.mark.parametrize("n,d", [(8192, 512), (1000, 512), (37, 96), (300, 1100), (77, 4096)])
 def test_layernorm_kernels_match_plain(cuda_device, dtype, n, d):
     x, dy = (_randn(n, d, seed=i, device=cuda_device).to(dtype) for i in (10, 11))
     scale = 1.0 + 0.1 * _randn(d, seed=12, device=cuda_device)
@@ -645,24 +659,27 @@ def test_flash_forward_any_head_dim(cuda_device, dtype, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("d", [16, 48, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 48, 64, 80, 128, 200, 256])
 def test_flash_backward_any_head_dim(cuda_device, dtype, d):
-    """dK/dV (kernel 3) and dQ (kernel 2 through its zero-padding wrapper)."""
+    """dK/dV (kernel 3) and dQ (kernel 2), each launched twice: bitwise
+    equal, and against its plain version."""
     kernel = FLASH_DKDV if dtype == torch.float32 else FLASH_DKDV_BF16
+    dq_kernel = FLASH_DQ if dtype == torch.float32 else FLASH_DQ_BF16
     for b, t, h, causal, k_shift, sliced in _FLASH_SHAPES:
         q, k, v, do = _flash_operands(b, t, h, d, 4, dtype, sliced, cuda_device, seed=4)
         o, lse = flash_forward_lse_reference(q, k, v, causal=causal)  # finite lse
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         args = (q, k, v, do, lse, delta)
-        before = kernel.launches
+        before = kernel.launches, dq_kernel.launches
         dk, dv = flash_dkdv(*args, causal=causal, k_shift=k_shift)
         dk2, dv2 = flash_dkdv(*args, causal=causal, k_shift=k_shift)
         rdk, rdv = flash_dkdv_reference(*args, causal=causal, k_shift=k_shift)
         dq = flash_dq(*args, causal=causal, k_shift=k_shift)
+        dq2 = flash_dq(*args, causal=causal, k_shift=k_shift)
         rdq = flash_dq_reference(*args, causal=causal, k_shift=k_shift)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 2
-        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        assert (kernel.launches, dq_kernel.launches) == (before[0] + 2, before[1] + 2)
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, dq2)
         for got, want in ((dk, rdk), (dv, rdv), (dq, rdq)):
             assert got.shape == want.shape
             _check_stored(got, want, dtype, GRAD_TOL)
@@ -670,13 +687,49 @@ def test_flash_backward_any_head_dim(cuda_device, dtype, d):
 
 @pytest.mark.cuda
 def test_flash_backward_past_its_head_dims_names_the_roadmap(cuda_device):
+    """D = 256 runs in both directions, through flash_block_grads and the
+    autograd Function; D = 257 is refused in both, naming the domain."""
     q = _randn(1, 8, 1, 256, seed=0, device=cuda_device)
-    lse = torch.zeros(1, 1, 8, device=cuda_device)
-    with pytest.raises(ValueError, match="ROADMAP queue 2"):
+    _, lse = flash_forward_lse(q, q, q, causal=True)
+    for got, want in zip(flash_block_grads(q, q, q, q, lse, lse),
+                         flash_block_grads_reference(q, q, q, q, lse, lse)):
+        torch.testing.assert_close(got, want, **GRAD_TOL)
+    leaf = q.clone().requires_grad_()
+    flash_attention(leaf, leaf, leaf, causal=True).sum().backward()
+    ref = q.clone().requires_grad_()
+    dot_product_attention(ref, ref, ref, causal=True).sum().backward()
+    torch.testing.assert_close(leaf.grad, ref.grad, **GRAD_TOL)
+    q = _randn(1, 8, 1, 257, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match="1 to 256"):
         flash_block_grads(q, q, q, q, lse, lse)
-    with pytest.raises(ValueError, match="ROADMAP queue 2"):
+    with pytest.raises(ValueError, match="1 to 256"):
         flash_attention(q, q, q, causal=True)
-    flash_forward_lse(q, q, q, causal=True)  # the forward alone takes 256
+    with pytest.raises(ValueError, match="1 to 256"):
+        flash_forward_lse(q, q, q, causal=True)
+
+
+@pytest.mark.cuda
+def test_decode_head_walks_a_wide_row_in_chunks(cuda_device):
+    """d = 8192, past the 6400 columns one 8-row group fits in the x stage:
+    one launch of the chunked instance for 20 rows (three groups), f32 and
+    int8 weights, each row as the plain version gives it."""
+    x = _randn(20, 8192, seed=15, device=cuda_device)
+    w = 0.05 * _randn(8192, 1000, seed=16, device=cuda_device)
+    b = _randn(1000, seed=17, device=cuda_device)
+    before = DECODE_HEAD.launches
+    tok, mx, lse = fused_decode_head(x, w, b)
+    rt, rm, rl = reference_head(x, w, b)
+    torch.cuda.synchronize()
+    assert DECODE_HEAD.launches == before + 1
+    assert torch.equal(tok, rt)
+    torch.testing.assert_close(mx, rm, **ROW_TOL)
+    torch.testing.assert_close(lse, rl, **ROW_TOL)
+    wq, scale = tquant._quant_kernel(w)
+    tok8, mx8, lse8 = fused_decode_head_int8(x, wq, scale, b)
+    rt8, rm8, rl8 = reference_head(x, tquant._dequant_kernel(wq, scale), b)
+    assert torch.equal(tok8, rt8)
+    torch.testing.assert_close(mx8, rm8, **ROW_TOL)
+    torch.testing.assert_close(lse8, rl8, **ROW_TOL)
 
 
 @pytest.mark.cuda

@@ -7,7 +7,7 @@ package's Pallas kernels in interpret mode
 Covers s, y and the gradients of x, r, γ, β, with and without a
 downstream use of s (without one, the autograd Function gets no ds and
 merges nothing), for N a multiple and not a multiple of the JAX tile of
-8 rows. Tolerances: rtol 1e-5 / atol 1e-6 on s, y and dx (the JAX
+8 rows, and at d = 1100, wider than the card's register instances. Tolerances: rtol 1e-5 / atol 1e-6 on s, y and dx (the JAX
 package's f32 parity tolerance); rtol 1e-5 / atol 1e-5 on dγ/dβ, which
 sum over all N rows in another order. bf16 rows (``fused_layernorm``):
 y and dx, which both sides round to bf16 after f32 arithmetic in another
@@ -43,10 +43,12 @@ def _inputs(lead, d=48, seed=0):
     return x, r, scale, bias, w1, w2
 
 
-@pytest.mark.parametrize("lead", [(2, 8), (3, 7)], ids=["N16", "N21"])
+# d = 1100: past the 1024 columns the card's kernels hold in registers.
+@pytest.mark.parametrize("lead,d", [((2, 8), 48), ((3, 7), 48), ((3,), 1100)],
+                         ids=["N16", "N21", "N3-d1100"])
 @pytest.mark.parametrize("use_s", [True, False], ids=["s_used", "s_unused"])
-def test_fused_add_layernorm_matches_pallas(lead, use_s):
-    x, r, scale, bias, w1, w2 = _inputs(lead)
+def test_fused_add_layernorm_matches_pallas(lead, d, use_s):
+    x, r, scale, bias, w1, w2 = _inputs(lead, d=d)
 
     def jloss(x, r, g, b):
         s, y = jax_add_ln(x, r, g, b, interpret=True, block_n=8)
@@ -94,13 +96,14 @@ def test_fused_add_layernorm_checks_shapes():
         fused_add_layernorm(x, r, scale[:4], bias)
 
 
-@pytest.mark.parametrize("lead", [(2, 8), (3, 7), (5,)], ids=["N16", "N21", "N5"])
+@pytest.mark.parametrize("lead,d", [((2, 8), 48), ((3, 7), 48), ((5,), 48), ((3,), 1100)],
+                         ids=["N16", "N21", "N5", "N3-d1100"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_fused_layernorm_matches_pallas(lead, dtype):
+def test_fused_layernorm_matches_pallas(lead, d, dtype):
     """y and the gradients of x, γ, β through the plain LayerNorm op, over
-    leading shapes and row dtypes (γ, β f32)."""
+    leading shapes, widths and row dtypes (γ, β f32)."""
     jdt, tdt = DTYPES[dtype]
-    x, _, scale, bias, w1, _ = _inputs(lead, seed=5)
+    x, _, scale, bias, w1, _ = _inputs(lead, d=d, seed=5)
 
     def jloss(x, g, b):
         y = jax_ln(x, g, b, interpret=True, block_n=8)

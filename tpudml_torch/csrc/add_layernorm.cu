@@ -26,9 +26,18 @@
 // the backward moves s, dy, ds in and dx out (the same 67 MB). The
 // arithmetic is a few operations per element.
 //
-// Design: one warp per row; a row of up to 32·VPT floats stays in
+// Design: one warp per row; a row of up to 32·VPT = 1024 floats stays in
 // registers (VPT values per lane, chosen at launch from d), so every
-// element is read and written once, coalesced across the warp. The TPU
+// element is read and written once, coalesced across the warp. A wider row
+// takes the looped instance (`*_wide_*`): still a warp per row, walking the
+// row in strides of 32 columns twice, a first pass for the sums (Σs, Σs²;
+// in the backward Σg, Σg·ŝ) and a second for the outputs, which reads the
+// row again (L2-resident; in the forward the stored s, so bf16 rows are
+// normalized from the rounded s as above). Its backward keeps no dγ/dβ row
+// in registers or shared memory: each warp accumulates its rows' terms in
+// its own partial row of `part` in device memory (read and written by the
+// one lane that owns the column), and the column-sum kernel below adds the
+// warps' partial rows in order. The TPU
 // kernel accumulates dγ/dβ in VMEM across its sequential grid of row
 // tiles; Hopper blocks cannot carry a sum between them, so each block of
 // the backward reduces its rows' dγ/dβ to one partial row (its warps
@@ -91,6 +100,40 @@ add_ln_fwd_kernel(const E* __restrict__ x, const E* __restrict__ r,
     const int c = lane + 32 * i;
     if (c < d) y[off + c] = from_f32<E>((val[i] - m) * rs * gamma[c] + beta[c]);
   }
+  if (lane == 0) {
+    mean[row] = m;
+    rstd[row] = rs;
+  }
+}
+
+// Forward of rows wider than the register instances: one warp per row, two
+// passes over the row (module note).
+template <typename E, bool ADD>
+__global__ void __launch_bounds__(NTHREAD)
+add_ln_fwd_wide_kernel(const E* __restrict__ x, const E* __restrict__ r,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       E* __restrict__ s, E* __restrict__ y, float* __restrict__ mean,
+                       float* __restrict__ rstd, int N, int d, float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * NWARP + (threadIdx.x >> 5);
+  if (row >= N) return;
+  const long long off = row * d;
+  float sum = 0.f, sq = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float sv = ADD ? round_to<E>(to_f32(x[off + c]) + to_f32(r[off + c]))
+                         : to_f32(x[off + c]);
+    if (ADD) s[off + c] = from_f32<E>(sv);
+    sum += sv;
+    sq += sv * sv;
+  }
+  sum = warp_sum(sum);
+  sq = warp_sum(sq);
+  const float m = sum / d;
+  const float var = fmaxf(sq / d - m * m, 0.f);
+  const float rs = rsqrtf(var + eps);
+  const E* src = ADD ? s : x;  // this lane's own stores of s, read back
+  for (int c = lane; c < d; c += 32)
+    y[off + c] = from_f32<E>((to_f32(src[off + c]) - m) * rs * gamma[c] + beta[c]);
   if (lane == 0) {
     mean[row] = m;
     rstd[row] = rs;
@@ -174,6 +217,53 @@ add_ln_bwd_rows_kernel(const E* __restrict__ s,
   }
 }
 
+// Backward of rows wider than the register instances: dx for each row as
+// add_ln_bwd_rows_kernel does, in two passes over the row; the dγ/dβ terms
+// of warp w's rows go to partial row blockIdx.x·NWARP + w of part
+// ([2][gridDim.x·NWARP][d]), zeros for a warp that has no row.
+template <typename E>
+__global__ void __launch_bounds__(NTHREAD)
+add_ln_bwd_rows_wide_kernel(const E* __restrict__ s, const float* __restrict__ gamma,
+                            const E* __restrict__ dy, const E* __restrict__ ds,
+                            const float* __restrict__ mean, const float* __restrict__ rstd,
+                            E* __restrict__ dx, float* __restrict__ part, int N, int d,
+                            int rows_per_block) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long prow = static_cast<long long>(blockIdx.x) * NWARP + warp;
+  float* pg = part + prow * d;
+  float* pb = part + (static_cast<long long>(gridDim.x) * NWARP + prow) * d;
+  const long long first = static_cast<long long>(blockIdx.x) * rows_per_block;
+  bool none = true;  // no row of this warp yet: its partial row is unwritten
+  for (int rr = warp; rr < rows_per_block; rr += NWARP) {
+    const long long row = first + rr;
+    if (row >= N) break;
+    const long long off = row * d;
+    const float m = mean[row];
+    const float rs = rstd[row];
+    float sg = 0.f, sgx = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const float gy = to_f32(dy[off + c]) * gamma[c];
+      sg += gy;
+      sgx += gy * ((to_f32(s[off + c]) - m) * rs);
+    }
+    const float mg = warp_sum(sg) / d;
+    const float mgx = warp_sum(sgx) / d;
+    for (int c = lane; c < d; c += 32) {
+      const float dyv = to_f32(dy[off + c]);
+      const float xh = (to_f32(s[off + c]) - m) * rs;
+      float v = rs * (dyv * gamma[c] - mg - xh * mgx);
+      if (ds != nullptr) v += to_f32(ds[off + c]);
+      dx[off + c] = from_f32<E>(v);
+      pg[c] = none ? dyv * xh : pg[c] + dyv * xh;
+      pb[c] = none ? dyv : pb[c] + dyv;
+    }
+    none = false;
+  }
+  if (none)
+    for (int c = lane; c < d; c += 32) pg[c] = pb[c] = 0.f;
+}
+
 constexpr int COLS = 32;  // column-sum kernel: columns per block
 constexpr int SEGS = 8;   // column-sum kernel: ordered row segments
 
@@ -219,6 +309,32 @@ cudaError_t launch_fwd(const E* x, const E* r, const float* gamma,
   return cudaGetLastError();
 }
 
+constexpr int REG_DIM = 1024;  // widest row the register instances hold
+
+template <typename E, bool ADD>
+cudaError_t launch_fwd_wide(const E* x, const E* r, const float* gamma,
+                            const float* beta, E* s, E* y, float* mean, float* rstd,
+                            int N, int d, float eps, cudaStream_t stream) {
+  add_ln_fwd_wide_kernel<E, ADD><<<(N + NWARP - 1) / NWARP, NTHREAD, 0, stream>>>(
+      x, r, gamma, beta, s, y, mean, rstd, N, d, eps);
+  return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t launch_bwd_wide(const E* s, const float* gamma, const E* dy, const E* ds,
+                            const float* mean, const float* rstd, E* dx, float* dgamma,
+                            float* dbeta, float* part, int N, int d, int rows_per_block,
+                            cudaStream_t stream) {
+  const int nblocks = (N + rows_per_block - 1) / rows_per_block;
+  add_ln_bwd_rows_wide_kernel<E><<<nblocks, NTHREAD, 0, stream>>>(
+      s, gamma, dy, ds, mean, rstd, dx, part, N, d, rows_per_block);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  add_ln_bwd_cols_kernel<<<(2 * d + COLS - 1) / COLS, COLS * SEGS, 0, stream>>>(
+      part, dgamma, dbeta, nblocks * NWARP, d);
+  return cudaGetLastError();
+}
+
 template <typename E, int VPT>
 cudaError_t launch_bwd(const E* s, const float* gamma, const E* dy,
                        const E* ds, const float* mean, const float* rstd,
@@ -249,7 +365,8 @@ int dispatch_fwd(const E* x, const E* r, const float* gamma, const float* beta,
   if (d <= 128) return CALL_FWD(4);
   if (d <= 256) return CALL_FWD(8);
   if (d <= 512) return CALL_FWD(16);
-  if (d <= 1024) return CALL_FWD(32);
+  if (d <= REG_DIM) return CALL_FWD(32);
+  if (d >= 1) return launch_fwd_wide<E, ADD>(x, r, gamma, beta, s, y, mean, rstd, N, d, eps, st);
   return cudaErrorInvalidValue;
 #undef CALL_FWD
 }
@@ -265,7 +382,10 @@ int dispatch_bwd(const E* s, const float* gamma, const E* dy, const E* ds,
   if (d <= 128) return CALL_BWD(4);
   if (d <= 256) return CALL_BWD(8);
   if (d <= 512) return CALL_BWD(16);
-  if (d <= 1024) return CALL_BWD(32);
+  if (d <= REG_DIM) return CALL_BWD(32);
+  if (d >= 1)
+    return launch_bwd_wide(s, gamma, dy, ds, mean, rstd, dx, dgamma, dbeta, part, N, d,
+                           rows_per_block, st);
   return cudaErrorInvalidValue;
 #undef CALL_BWD
 }
@@ -275,7 +395,7 @@ int dispatch_bwd(const E* s, const float* gamma, const E* dy, const E* ds,
 extern "C" {
 
 // All buffers contiguous: x, r, s, y [N, d] (f32 for _f32, bf16 for
-// _bf16); gamma, beta [d] f32; mean, rstd [N] f32. d <= 1024.
+// _bf16); gamma, beta [d] f32; mean, rstd [N] f32; any d >= 1.
 int add_ln_fwd_f32(const float* x, const float* r, const float* gamma,
                    const float* beta, float* s, float* y, float* mean,
                    float* rstd, int N, int d, float eps, void* stream) {
@@ -309,8 +429,9 @@ int ln_fwd_bf16(const __nv_bfloat16* x, const float* gamma, const float* beta,
 
 // s, dy, ds (or null), dx [N, d] (f32 for _f32, bf16 for _bf16); gamma,
 // dgamma, dbeta [d] f32; mean, rstd [N] f32; part is f32 scratch of
-// 2·ceil(N / rows_per_block)·d floats. The plain LayerNorm backward is
-// these entries with ds null and x in place of s.
+// 2·P·d floats, P = ceil(N / rows_per_block) partial rows up to REG_DIM and
+// NWARP times that past it. The plain LayerNorm backward is these entries
+// with ds null and x in place of s.
 int add_ln_bwd_f32(const float* s, const float* gamma, const float* dy,
                    const float* ds, const float* mean, const float* rstd,
                    float* dx, float* dgamma, float* dbeta, float* part, int N,

@@ -25,7 +25,12 @@
 //           `>`, which reproduces jnp.argmax's first-occurrence rule exactly
 //           (an equal later tile never steals the pick), then
 //           lse = M + log Σ_j l_j·exp(m_j − M).
-// x sits in shared memory (rows padded with zeros to the group size).
+// x sits in shared memory (rows padded with zeros to the group size). Where
+// one 8-row group does not fit the X_STAGE_BYTES stage (d > 6400), the
+// CHUNKED instance stages each group XC columns of d at a time and keeps the
+// group's dot products in registers across the chunks: the same products
+// summed in the same order, so the same result; the caller then passes the
+// whole batch in one launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,6 +41,8 @@ namespace {
 constexpr int TV = 256;          // vocab columns per block (one per thread)
 constexpr int NWARP = TV / 32;
 constexpr int GROUP = 8;         // rows accumulated in registers per pass over W
+constexpr int X_STAGE_BYTES = 200 * 1024;  // x's shared-memory stage
+constexpr int XC = 1024;         // CHUNKED: columns of d staged at a time
 
 struct ArgMax {
   float v;
@@ -74,13 +81,13 @@ __device__ __forceinline__ float load_w<int8_t>(const int8_t* w, long long idx, 
   return static_cast<float>(w[idx]) * scale;
 }
 
-template <typename W>
+template <typename W, bool CHUNKED>
 __global__ void __launch_bounds__(TV)
 head_tile_kernel(const float* __restrict__ x, const W* __restrict__ w,
                  const float* __restrict__ scale, const float* __restrict__ bias,
                  int B, int d, int V, float* __restrict__ tile_max,
                  int* __restrict__ tile_idx, float* __restrict__ tile_sum) {
-  extern __shared__ float xs[];  // [round_up(B, GROUP)][d]
+  extern __shared__ float xs[];  // [round_up(B, GROUP)][d], CHUNKED [GROUP][XC]
   __shared__ float red_v[NWARP];
   __shared__ int red_i[NWARP];
   __shared__ float red_s[NWARP];
@@ -89,9 +96,11 @@ head_tile_kernel(const float* __restrict__ x, const W* __restrict__ w,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int b_pad = (B + GROUP - 1) / GROUP * GROUP;
-  for (int i = tid; i < b_pad * d; i += TV) xs[i] = i < B * d ? x[i] : 0.f;
-  __syncthreads();
+  if (!CHUNKED) {
+    const int b_pad = (B + GROUP - 1) / GROUP * GROUP;
+    for (int i = tid; i < b_pad * d; i += TV) xs[i] = i < B * d ? x[i] : 0.f;
+    __syncthreads();
+  }
 
   const int col = blockIdx.x * TV + tid;
   const bool valid = col < V;
@@ -102,7 +111,26 @@ head_tile_kernel(const float* __restrict__ x, const W* __restrict__ w,
     float acc[GROUP];
 #pragma unroll
     for (int r = 0; r < GROUP; ++r) acc[r] = 0.f;
-    if (valid) {
+    if (CHUNKED) {
+      for (int k0 = 0; k0 < d; k0 += XC) {
+        const int n = min(XC, d - k0);
+        __syncthreads();  // the previous chunk is consumed
+        for (int i = tid; i < GROUP * XC; i += TV) {
+          const int r = i / XC, kk = i % XC;
+          xs[i] = b0 + r < B && kk < n
+                      ? x[static_cast<long long>(b0 + r) * d + k0 + kk] : 0.f;
+        }
+        __syncthreads();
+        if (valid) {
+#pragma unroll 4
+          for (int kk = 0; kk < n; ++kk) {
+            const float wv = load_w<W>(w, static_cast<long long>(k0 + kk) * V + col, sc);
+#pragma unroll
+            for (int r = 0; r < GROUP; ++r) acc[r] += xs[r * XC + kk] * wv;
+          }
+        }
+      }
+    } else if (valid) {
       const float* xg = xs + b0 * d;
 #pragma unroll 4
       for (int kk = 0; kk < d; ++kk) {
@@ -172,18 +200,24 @@ size_t x_smem_bytes(int B, int d) {
   return sizeof(float) * static_cast<size_t>((B + GROUP - 1) / GROUP * GROUP) * d;
 }
 
+// Whether one 8-row group of x misses the stage, so that the CHUNKED
+// instance walks d.
+bool chunked(int d) { return x_smem_bytes(GROUP, d) > X_STAGE_BYTES; }
+
 template <typename W>
 cudaError_t launch(const float* x, const W* w, const float* scale,
                    const float* bias, int B, int d, int V, float* tile_max,
                    int* tile_idx, float* tile_sum, int* tok, float* max_logit,
                    float* lse, cudaStream_t stream) {
-  const size_t smem = x_smem_bytes(B, d);
+  const bool chunk = chunked(d);
+  if (!chunk && x_smem_bytes(B, d) > X_STAGE_BYTES) return cudaErrorInvalidValue;
+  const size_t smem = chunk ? sizeof(float) * GROUP * XC : x_smem_bytes(B, d);
+  const auto kernel = chunk ? head_tile_kernel<W, true> : head_tile_kernel<W, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      head_tile_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int n_tiles = (V + TV - 1) / TV;
-  head_tile_kernel<W><<<n_tiles, TV, smem, stream>>>(
+  kernel<<<n_tiles, TV, smem, stream>>>(
       x, w, scale, bias, B, d, V, tile_max, tile_idx, tile_sum);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -200,7 +234,9 @@ extern "C" {
 int decode_head_tile_width() { return TV; }
 
 // x [B, d], w [d, V], bias [V]; scratch tile_* [ceil(V / TV), B]; outputs
-// tok, max_logit, lse [B]. All contiguous, all on the current device.
+// tok, max_logit, lse [B]. All contiguous, all on the current device. Up to
+// d = 6400 the B rows must fit the x stage (round_up(B, 8)·d·4 bytes <=
+// 200 KiB; the caller splits a larger batch); beyond, any B.
 int decode_head_f32(const float* x, const float* w, const float* bias, int B,
                     int d, int V, float* tile_max, int* tile_idx,
                     float* tile_sum, int* tok, float* max_logit, float* lse,

@@ -1,6 +1,7 @@
-// What the flash forward (flash_fwd.cu, kernel 1) and the flash dK/dV
-// (flash_dkdv.cu, kernel 3) share: their launch arguments, the causal mask,
-// the test for 16-byte copies, and the ladder of head-dim instances.
+// What the flash forward (flash_fwd.cu, kernel 1), dQ (flash_bwd.cu,
+// kernel 2) and dK/dV (flash_dkdv.cu, kernel 3) share: their launch
+// arguments, the causal mask and tile walk, the test for 16-byte copies,
+// and the ladder of head-dim instances.
 
 #pragma once
 
@@ -49,6 +50,16 @@ __device__ __forceinline__ bool visible(const Args& a, int q_pos, int k_pos) {
 // does not see its last key.
 __device__ __forceinline__ bool needs_mask(const Args& a, int q0, int bq, int k0, int bk) {
   return q0 + bq > a.T || k0 + bk > a.T || (a.causal && k0 + bk - 1 + a.k_shift > q0);
+}
+
+// K tiles of width bk that the Q tile [q0, q0 + bq) visits: all of them, or
+// up to the one that holds the last key its last row sees (none if that
+// row sees no key).
+__device__ __forceinline__ int visited_k_tiles(const Args& a, int q0, int bq, int bk) {
+  const int n = (a.T + bk - 1) / bk;
+  if (!a.causal) return n;
+  const int last_key = min(q0 + bq, a.T) - 1 - a.k_shift;
+  return last_key < 0 ? 0 : min(n, last_key / bk + 1);
 }
 
 // launch(std::integral_constant<int, DP>) for the instance width DP (32, 64,

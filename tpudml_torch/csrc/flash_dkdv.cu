@@ -5,7 +5,7 @@
 // launched by `_backward_calls` from the flash custom-vjp backward and from
 // `flash_block_grads`.
 //
-// Computes, for q, k, v, dO [B, T, H, D] (any D from 1 to 128) and the row
+// Computes, for q, k, v, dO [B, T, H, D] (any D from 1 to 256) and the row
 // statistics lse, Δ [B, H, T] (Δ = rowsum(dO ⊙ O), taken outside the
 // kernel), with s = q·kᵀ·scale masked causally (`q_pos >= k_pos + k_shift`,
 // local positions) and p = exp(s − lse) on visible entries, 0 elsewhere:
@@ -29,16 +29,22 @@
 // shared memory for the whole walk; the Q and dO tiles with their lse and Δ
 // stream through a two-stage cp.async ring (tile i+1 loads while tile i
 // computes). Only Q tiles that cross the diagonal or the end of T are masked
-// elementwise. Columns past D run in the next larger instance (32/64/128),
-// zero-filled on load and never stored; rows past T are zero-filled, masked
-// (queries) and never stored (keys).
+// elementwise. Columns past D run in the next larger instance
+// (32/64/128/256), zero-filled on load and never stored; rows past T are
+// zero-filled, masked (queries) and never stored (keys). At D = 256 the dK
+// and dV columns are split between two blocks (neighbours on grid x), each
+// recomputing Sᵀ and dPᵀ over the full D and accumulating only its 128
+// columns: that keeps the accumulators at the D = 128 instance's count (the
+// whole row would need 256 registers a thread in bf16, and the f32 tiles
+// ~300 KB of shared memory), for twice the Sᵀ/dPᵀ work of one block. The
+// f32 twin there also takes its Q/dO tiles one stage deep.
 //   bf16: 4 warps, each owning 16 keys. Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ run as
 //   mma.sync m16n8k16 into f32 fragments, K and V read by ldmatrix from
 //   swizzled shared memory at every step (not held in registers: the dK and
 //   dV accumulators alone take 128 registers a thread at D = 128). Pᵀ and
 //   dSᵀ are formed in registers, packed to bf16 and used directly as the A
 //   fragments of dV += Pᵀ·dO and dK += dSᵀ·Q, with dO and Q read by
-//   ldmatrix.trans. The Q tile is 32 rows at D = 128 and 64 below, which keeps
+//   ldmatrix.trans. The Q tile is 32 rows from D = 128 and 64 below, which keeps
 //   the thread under 255 registers without spills.
 //   f32: 256 threads as 16×16; each thread owns 4 keys × 2 queries of Sᵀ and
 //   dPᵀ (keys 4·ty.., queries tx, tx + 16) and 4 keys × D/16 columns of dK
@@ -81,9 +87,17 @@ __device__ __forceinline__ void load_stats(float* l_s, float* d_s, const float* 
 
 // ------------------------------------------------------------------ bf16
 
+// dK/dV columns a block accumulates (all of them up to D = 128, half at
+// 256) and the blocks that share a key tile.
+template <int DP>
+struct Split {
+  static constexpr int OC = DP > 128 ? 128 : DP;
+  static constexpr int N = DP / OC;
+};
+
 template <int DP>
 struct Bf16Cfg {
-  static constexpr int BQ = DP == 128 ? 32 : 64;  // Q tile rows
+  static constexpr int BQ = DP >= 128 ? 32 : 64;  // Q tile rows
   static constexpr size_t smem =
       sizeof(bf16) * (2 * BK * DP + 2 * 2 * BQ * DP) + sizeof(float) * 2 * 2 * BQ;
 };
@@ -99,7 +113,8 @@ flash_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KD = DP / 16;  // k-steps of Sᵀ, dPᵀ (over D)
   constexpr int NS = BQ / 8;   // n-tiles of Sᵀ, dPᵀ (over queries)
   constexpr int KQ = BQ / 16;  // k-steps of dV, dK (over queries)
-  constexpr int NO = DP / 8;   // n-tiles of dK, dV
+  constexpr int NSPLIT = Split<DP>::N;
+  constexpr int NO = Split<DP>::OC / 8;  // n-tiles of dK, dV
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [BK][DP]
   bf16* v_s = k_s + BK * DP;                      // [BK][DP]
@@ -111,7 +126,8 @@ flash_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = grid_y_index();
   if (bh >= a.BH) return;  // past B·H in the last z slice
   const int b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = (blockIdx.x / NSPLIT) * BK;
+  const int col0 = (blockIdx.x % NSPLIT) * Split<DP>::OC;  // first dK/dV column
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, c = lane & 3;
   const bool vec = a.vec;
@@ -215,8 +231,8 @@ flash_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int np = 0; np < NO / 2; ++np) {
         uint32_t db[4], qb[4];
-        ldmatrix_x4_trans(db, dt + swz<NCH>(kq * 16 + t_row, 2 * np + t_ch));
-        ldmatrix_x4_trans(qb, qt + swz<NCH>(kq * 16 + t_row, 2 * np + t_ch));
+        ldmatrix_x4_trans(db, dt + swz<NCH>(kq * 16 + t_row, col0 / 8 + 2 * np + t_ch));
+        ldmatrix_x4_trans(qb, qt + swz<NCH>(kq * 16 + t_row, col0 / 8 + 2 * np + t_ch));
         mma_bf16(dv_acc[2 * np], pa, db[0], db[1]);
         mma_bf16(dv_acc[2 * np + 1], pa, db[2], db[3]);
         mma_bf16(dk_acc[2 * np], sa, qb[0], qb[1]);
@@ -234,7 +250,7 @@ flash_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const long long off = ((static_cast<long long>(b) * a.T + t) * a.H + h) * a.D;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const int col = n * 8 + 2 * c;
+      const int col = col0 + n * 8 + 2 * c;
       const float gk0 = dk_acc[n][2 * i] * a.scale, gk1 = dk_acc[n][2 * i + 1] * a.scale;
       const float gv0 = dv_acc[n][2 * i], gv1 = dv_acc[n][2 * i + 1];
       if (col + 1 < a.D && (a.D & 1) == 0) {
@@ -255,12 +271,14 @@ constexpr int F32_BQ = 32;  // Q tile rows
 
 template <int DP>
 struct F32Cfg {
-  static constexpr int LD = DP + 4;             // padded tile row
-  static constexpr int LDP = F32_BQ + 4;        // padded Pᵀ / dSᵀ row
-  static constexpr int VW = DP >= 64 ? 4 : 2;   // dK/dV column vector width
-  static constexpr int NCG = DP / (16 * VW);    // column groups a thread
+  static constexpr int LD = DP + 4;                 // padded tile row
+  static constexpr int LDP = F32_BQ + 4;            // padded Pᵀ / dSᵀ row
+  static constexpr int STAGES = DP <= 128 ? 2 : 1;  // Q/dO ring depth
+  static constexpr int OC = Split<DP>::OC;          // dK/dV columns a block
+  static constexpr int VW = OC >= 64 ? 4 : 2;       // dK/dV column vector width
+  static constexpr int NCG = OC / (16 * VW);        // column groups a thread
   static constexpr size_t smem = sizeof(float) *
-      ((2 * BK + 2 * 2 * F32_BQ) * LD + 2 * BK * LDP + 2 * 2 * F32_BQ);
+      ((2 * BK + 2 * STAGES * F32_BQ) * LD + 2 * BK * LDP + 2 * STAGES * F32_BQ);
 };
 
 template <int DP>
@@ -271,20 +289,22 @@ flash_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float* __restrict__ dk, float* __restrict__ dv, Args a) {
   using C = F32Cfg<DP>;
   constexpr int BQ = F32_BQ, LD = C::LD, LDP = C::LDP, VW = C::VW, NCG = C::NCG;
+  constexpr int STAGES = C::STAGES, NSPLIT = Split<DP>::N;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* k_s = reinterpret_cast<float*>(smem_raw);  // [BK][LD]
   float* v_s = k_s + BK * LD;                        // [BK][LD]
-  float* q_s = v_s + BK * LD;                        // [2][BQ][LD]
-  float* do_s = q_s + 2 * BQ * LD;                   // [2][BQ][LD]
-  float* p_s = do_s + 2 * BQ * LD;                   // Pᵀ [BK][LDP]
+  float* q_s = v_s + BK * LD;                        // [STAGES][BQ][LD]
+  float* do_s = q_s + STAGES * BQ * LD;              // [STAGES][BQ][LD]
+  float* p_s = do_s + STAGES * BQ * LD;              // Pᵀ [BK][LDP]
   float* ds_s = p_s + BK * LDP;                      // dSᵀ [BK][LDP]
-  float* l_s = ds_s + BK * LDP;                      // [2][BQ]
-  float* d_s = l_s + 2 * BQ;                         // [2][BQ]
+  float* l_s = ds_s + BK * LDP;                      // [STAGES][BQ]
+  float* d_s = l_s + STAGES * BQ;                    // [STAGES][BQ]
 
   const int bh = grid_y_index();
   if (bh >= a.BH) return;  // past B·H in the last z slice
   const int b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = (blockIdx.x / NSPLIT) * BK;
+  const int col0 = (blockIdx.x % NSPLIT) * C::OC;  // first dK/dV column
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const bool vec = a.vec;
 
@@ -314,15 +334,19 @@ flash_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NCG * VW; ++n) dk_acc[i][n] = dv_acc[i][n] = 0.f;
 
   for (int it = qt0; it < n_qt; ++it) {
-    const int cur = (it - qt0) & 1, nxt = cur ^ 1;
-    if (it + 1 < n_qt) {
-      const int t1 = (it + 1) * BQ;
-      load_tile<DP, BQ, 256>(q_s + nxt * BQ * LD, qp, a.qs.t, t1, a.T, a.D, vec);
-      load_tile<DP, BQ, 256>(do_s + nxt * BQ * LD, dop, a.dos.t, t1, a.T, a.D, vec);
-      load_stats<256>(l_s + nxt * BQ, d_s + nxt * BQ, lp, dp, t1, BQ, a.T);
+    const int cur = STAGES == 2 ? (it - qt0) & 1 : 0, nxt = cur ^ 1;
+    if (STAGES == 2) {
+      if (it + 1 < n_qt) {
+        const int t1 = (it + 1) * BQ;
+        load_tile<DP, BQ, 256>(q_s + nxt * BQ * LD, qp, a.qs.t, t1, a.T, a.D, vec);
+        load_tile<DP, BQ, 256>(do_s + nxt * BQ * LD, dop, a.dos.t, t1, a.T, a.D, vec);
+        load_stats<256>(l_s + nxt * BQ, d_s + nxt * BQ, lp, dp, t1, BQ, a.T);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    cp_async_commit();
-    cp_async_wait<1>();
     __syncthreads();
 
     const float* qt = q_s + cur * BQ * LD;
@@ -386,8 +410,8 @@ flash_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int cg = 0; cg < NCG; ++cg) {
           float ov[VW], xv[VW];
-          load_vec(ov, dt + (qq + e) * LD + cg * 16 * VW + tx * VW);
-          load_vec(xv, qt + (qq + e) * LD + cg * 16 * VW + tx * VW);
+          load_vec(ov, dt + (qq + e) * LD + col0 + cg * 16 * VW + tx * VW);
+          load_vec(xv, qt + (qq + e) * LD + col0 + cg * 16 * VW + tx * VW);
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -399,6 +423,13 @@ flash_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();  // stage `cur`, Pᵀ and dSᵀ are refilled next iteration
+    if (STAGES == 1 && it + 1 < n_qt) {
+      const int t1 = (it + 1) * BQ;
+      load_tile<DP, BQ, 256>(q_s, qp, a.qs.t, t1, a.T, a.D, vec);
+      load_tile<DP, BQ, 256>(do_s, dop, a.dos.t, t1, a.T, a.D, vec);
+      load_stats<256>(l_s, d_s, lp, dp, t1, BQ, a.T);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();
 
@@ -409,7 +440,7 @@ flash_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const long long off = ((static_cast<long long>(b) * a.T + t) * a.H + h) * a.D;
 #pragma unroll
     for (int cg = 0; cg < NCG; ++cg) {
-      const int col = cg * 16 * VW + tx * VW;
+      const int col = col0 + cg * 16 * VW + tx * VW;
 #pragma unroll
       for (int w = 0; w < VW; ++w) {
         if (col + w < a.D) {
@@ -427,7 +458,8 @@ template <typename E, int DP>
 cudaError_t launch(const E* q, const E* k, const E* v, const E* dout, const float* lse,
                    const float* delta, E* dk, E* dv, int B, const Args& a,
                    cudaStream_t stream) {
-  const dim3 grid = grid_xyz((a.T + BK - 1) / BK, static_cast<long long>(B) * a.H);
+  const dim3 grid = grid_xyz((a.T + BK - 1) / BK * Split<DP>::N,
+                             static_cast<long long>(B) * a.H);
   if constexpr (sizeof(E) == 2) {
     constexpr size_t smem = Bf16Cfg<DP>::smem;
     cudaError_t err = set_smem_once<flash_dkdv_bf16_kernel<DP>>(static_cast<int>(smem));
@@ -452,7 +484,7 @@ int dispatch(const E* q, const E* k, const E* v, const E* dout, const float* lse
   const bool vec = vec_ok<E>(D, {q, k, v, dout}, {qs, ks, vs, dos});
   const Args a{B * H, T, H, D, causal, k_shift, vec ? 1 : 0, scale, scale * LOG2E,
                qs, ks, vs, dos};
-  return by_head_dim<128>(D, [&](auto dp) {
+  return by_head_dim<256>(D, [&](auto dp) {
     return launch<E, decltype(dp)::value>(q, k, v, dout, lse, delta, dk, dv, B, a, s);
   });
 }

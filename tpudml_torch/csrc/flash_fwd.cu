@@ -70,15 +70,6 @@ constexpr int BK = 64;  // keys per K tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// K tiles this Q tile visits: all of them, or up to the one that holds the
-// last key its last row sees (none if that row sees no key).
-__device__ __forceinline__ int visited_k_tiles(const Args& a, int q0, int bq) {
-  const int n = (a.T + BK - 1) / BK;
-  if (!a.causal) return n;
-  const int last_key = min(q0 + bq, a.T) - 1 - a.k_shift;
-  return last_key < 0 ? 0 : min(n, last_key / BK + 1);
-}
-
 // ------------------------------------------------------------------ bf16
 
 template <int DP>
@@ -113,7 +104,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qp = q + b * a.qs.b + h * a.qs.h;
   const bf16* kp = k + b * a.ks.b + h * a.ks.h;
   const bf16* vp = v + b * a.vs.b + h * a.vs.h;
-  const int n_kt = visited_k_tiles(a, q0, BQ);
+  const int n_kt = visited_k_tiles(a, q0, BQ, BK);
 
   load_tile<DP, BQ, NT>(q_s, qp, a.qs.t, q0, a.T, a.D, vec);
   if (n_kt > 0) {
@@ -297,7 +288,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qp = q + b * a.qs.b + h * a.qs.h;
   const float* kp = k + b * a.ks.b + h * a.ks.h;
   const float* vp = v + b * a.vs.b + h * a.vs.h;
-  const int n_kt = visited_k_tiles(a, q0, BQ);
+  const int n_kt = visited_k_tiles(a, q0, BQ, BK);
 
   load_tile<DP, BQ, 256>(q_s, qp, a.qs.t, q0, a.T, a.D, vec);
   if (n_kt > 0) {

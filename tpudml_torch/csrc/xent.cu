@@ -23,7 +23,16 @@
 //             from the unrounded dlog).
 // The saved scores are the unpadded [N, V] f32 buffer (the TPU kernel pads
 // it to its tiles; here ragged rows and vocab columns are masked in every
-// kernel instead). The lean kernels keep nothing of size N·V: their
+// kernel instead). Any width d >= 1: a d that is not a multiple of the
+// forward's 8-deep contraction stage is masked at that ragged edge inside
+// the forward (its RAGGED instance; W is never padded or copied). The
+// saved-scores backward kernels need nothing more: they contract over V
+// (dX) and N (dW), both masked already, and d is their output axis, masked
+// on load and store; tile.cuh holds no d-sized state. The lean kernels
+// mask k < d in their recompute and keep the fixed operand resident over
+// all of d only up to LEAN_RESIDENT_D (168 KB of shared memory at 1024);
+// beyond, their STREAM instance stages it LK deep with the other operand,
+// in the same order of sums. The lean kernels keep nothing of size N·V: their
 // residuals are x, W, b, labels and lse, O(N + parameters).
 //
 // What bounds it on this card: operations. Each product is 2·N·d·V FLOP
@@ -68,7 +77,8 @@
 // 512 and keeps that chunk's accumulators in registers: 32 rows × 512 (dX)
 // or 512 × 32 columns (dW) = 64 f32 per thread. Each step recomputes one
 // score tile into registers (the operand that stays fixed for the block, x
-// rows or W columns, is resident in shared memory over all of d), turns it
+// rows or W columns, is resident in shared memory over all of d up to
+// LEAN_RESIDENT_D, and staged with the other operand beyond), turns it
 // into dlog in shared memory, then folds it into the accumulators while the
 // other operand streams through 8-deep shared-memory slices. d above 512
 // takes more chunks, each recomputing the scores. Still no atomics: a dX
@@ -112,7 +122,7 @@ __device__ __forceinline__ float dlog_of(float s, float lse, int col, int label,
 // Forward tile: block (vocab tile blockIdx.x, row tile grid_y_index()).
 // Writes the tile's partials part[0|1|2][tile][row] = (max, Σ exp(s − max),
 // picked) and, with SAVE, the tile's scores into s_out [N, V].
-template <typename T, bool SAVE>
+template <typename T, bool SAVE, bool RAGGED>
 __global__ void __launch_bounds__(NT)
 xent_fwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const T* __restrict__ b, const int* __restrict__ labels,
@@ -131,20 +141,23 @@ xent_fwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < d; k0 += BK) {  // d % BK == 0 (checked by the caller)
+  // d % BK == 0 unless RAGGED, whose last stage masks k >= d.
+  for (int k0 = 0; k0 < d; k0 += BK) {
 #pragma unroll
     for (int q = 0; q < PER; ++q) {  // x[r0 + m][k0 + kk], k fastest
       const int e = tid + q * NT;
       const int kk = e % BK, m = e / BK;
       const int row = r0 + m;
-      As[kk * LDA + m] = row < N ? to_f32(x[static_cast<long long>(row) * d + k0 + kk]) : 0.f;
+      const bool ok = row < N && (!RAGGED || k0 + kk < d);
+      As[kk * LDA + m] = ok ? to_f32(x[static_cast<long long>(row) * d + k0 + kk]) : 0.f;
     }
 #pragma unroll
     for (int q = 0; q < PER; ++q) {  // W[k0 + kk][c0 + n], n fastest
       const int e = tid + q * NT;
       const int kk = e / BN, n = e % BN;
       const int col = c0 + n;
-      Bs[kk * LDB + n] = col < V ? to_f32(w[static_cast<long long>(k0 + kk) * V + col]) : 0.f;
+      const bool ok = col < V && (!RAGGED || k0 + kk < d);
+      Bs[kk * LDB + n] = ok ? to_f32(w[static_cast<long long>(k0 + kk) * V + col]) : 0.f;
     }
     __syncthreads();
     mma_stage(As, Bs, ty, tx, acc);
@@ -348,9 +361,10 @@ cudaError_t launch_fwd(const void* x, const void* w, const void* b,
                        const int* labels, float* s, float* part, float* lse,
                        float* picked, int N, int d, int V, cudaStream_t st) {
   const dim3 grid = grid_xyz(n_vocab_tiles(V), (N + BM - 1) / BM);
-  xent_fwd_tile_kernel<T, SAVE><<<grid, NT, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(b), labels, s, part, N, d, V);
+  const auto kernel = d % BK ? xent_fwd_tile_kernel<T, SAVE, true>
+                             : xent_fwd_tile_kernel<T, SAVE, false>;
+  kernel<<<grid, NT, 0, st>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                              static_cast<const T*>(b), labels, s, part, N, d, V);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   xent_merge_kernel<<<static_cast<unsigned>((N + 255LL) / 256), 256, 0, st>>>(part, N, n_vocab_tiles(V), lse, picked);
@@ -390,6 +404,7 @@ constexpr int XV = 64;       // dX lean: vocab columns per step
 constexpr int WC = 32;       // dW lean: vocab columns per block
 constexpr int WR = 64;       // dW lean: rows per step
 constexpr int LR = 65536;    // dW lean: rows of one range (a multiple of WR)
+constexpr int LEAN_RESIDENT_D = 1024;  // widest d whose fixed operand stays resident
 
 __host__ __device__ constexpr int lean_dpad(int d) { return (d + LK - 1) / LK * LK; }
 
@@ -397,8 +412,10 @@ __host__ __device__ constexpr int lean_dpad(int d) { return (d + LK - 1) / LK * 
 // [r0, r0 + XR) × columns [j0, j0 + DCH). Per step of XV vocab columns:
 // S[XR][XV] = x·W + b recomputed (thread: rows ty, ty + 16; columns
 // tx + 16·j), dlog rounded to W's dtype into Ps, then acc += Ps·Wᵀ (thread:
-// rows ry + 8·i; columns j0 + lane + 32·jj).
-template <typename T>
+// rows ry + 8·i; columns j0 + lane + 32·jj). STREAM (d past
+// LEAN_RESIDENT_D) stages the x rows LK deep beside each W stage instead of
+// keeping them resident.
+template <typename T, bool STREAM>
 __global__ void __launch_bounds__(NT, 2)
 xent_dx_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const T* __restrict__ b, const int* __restrict__ labels,
@@ -406,8 +423,8 @@ xent_dx_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     int d, int V, float inv_n) {
   extern __shared__ float smem[];
   const int dpad = lean_dpad(d);
-  float* Xs = smem;                       // [dpad][XR + 1]: xᵀ, rows resident
-  float* Ws = Xs + dpad * (XR + 1);       // [LK][XV]: W stage of the recompute
+  float* Xs = smem;  // xᵀ: [dpad][XR + 1] resident, or the stage [LK][XR + 1]
+  float* Ws = Xs + (STREAM ? LK : dpad) * (XR + 1);  // [LK][XV]: W stage of the recompute
   float* Ps = Ws + LK * XV;               // [XR][XV + 1]: dlog tile
   float* Wt = Ps + XR * (XV + 1);         // [LKB][DCH + 4]: Wᵀ stage
   __shared__ float lse_s[XR];
@@ -415,11 +432,13 @@ xent_dx_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tid = threadIdx.x;
   const int r0 = blockIdx.x * XR;
   const int j0 = blockIdx.y * DCH;
-  for (int e = tid; e < XR * dpad; e += NT) {
-    const int m = e / dpad, k = e % dpad;
-    const int row = r0 + m;
-    Xs[k * (XR + 1) + m] =
-        (row < N && k < d) ? to_f32(x[static_cast<long long>(row) * d + k]) : 0.f;
+  if (!STREAM) {
+    for (int e = tid; e < XR * dpad; e += NT) {
+      const int m = e / dpad, k = e % dpad;
+      const int row = r0 + m;
+      Xs[k * (XR + 1) + m] =
+          (row < N && k < d) ? to_f32(x[static_cast<long long>(row) * d + k]) : 0.f;
+    }
   }
   for (int i = tid; i < XR; i += NT) {
     const int row = r0 + i;
@@ -450,11 +469,21 @@ xent_dx_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
         Ws[kk * XV + n] =
             (k < d && col < V) ? to_f32(w[static_cast<long long>(k) * V + col]) : 0.f;
       }
+      if (STREAM) {
+#pragma unroll
+        for (int q = 0; q < LK * XR / NT; ++q) {  // x[r0 + m][k0 + kk], k fastest
+          const int e = tid + q * NT;
+          const int kk = e % LK, m = e / LK;
+          const int row = r0 + m, k = k0 + kk;
+          Xs[kk * (XR + 1) + m] =
+              (row < N && k < d) ? to_f32(x[static_cast<long long>(row) * d + k]) : 0.f;
+        }
+      }
       __syncthreads();
 #pragma unroll 8
       for (int kk = 0; kk < LK; ++kk) {
-        const float a0 = Xs[(k0 + kk) * (XR + 1) + ty];
-        const float a1 = Xs[(k0 + kk) * (XR + 1) + ty + 16];
+        const float a0 = Xs[(STREAM ? kk : k0 + kk) * (XR + 1) + ty];
+        const float a1 = Xs[(STREAM ? kk : k0 + kk) * (XR + 1) + ty + 16];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float bw = Ws[kk * XV + tx + 16 * j];
@@ -526,8 +555,9 @@ xent_dx_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // error stays that of LR rows however large N grows. N < 2³¹ keeps the
 // ranges (grid z) under 32768. RANGED = false (one range) keeps the loop
 // bounds and stores of the single-chain kernel: the ranged body ran ~2%
-// slower at N = 32768.
-template <typename T, bool RANGED>
+// slower at N = 32768. STREAM (d past LEAN_RESIDENT_D) stages the W
+// columns LK deep beside each x stage instead of keeping them resident.
+template <typename T, bool RANGED, bool STREAM>
 __global__ void __launch_bounds__(NT, 2)
 xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const T* __restrict__ b, const int* __restrict__ labels,
@@ -536,8 +566,8 @@ xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     float* __restrict__ db_part, int N, int d, int V, float inv_n) {
   extern __shared__ float smem[];
   const int dpad = lean_dpad(d);
-  float* Wr = smem;                       // [dpad][WC + 1]: W columns resident
-  float* Xs = Wr + dpad * (WC + 1);       // [LK][WR + 1]: xᵀ stage of the recompute
+  float* Wr = smem;  // W columns: [dpad][WC + 1] resident, or the stage [LK][WC + 1]
+  float* Xs = Wr + (STREAM ? LK : dpad) * (WC + 1);  // [LK][WR + 1]: xᵀ stage of the recompute
   float* Ps = Xs + LK * (WR + 1);         // [WR][WC + 1]: dlog tile
   float* Xr = Ps + WR * (WC + 1);         // [LKB][DCH + 4]: x rows stage
   __shared__ float red[16][WC];
@@ -546,11 +576,13 @@ xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int j0 = blockIdx.y * DCH;
   const int n_begin = RANGED ? blockIdx.z * LR : 0;
   const int n_end = RANGED ? n_begin + min(LR, N - n_begin) : N;
-  for (int e = tid; e < dpad * WC; e += NT) {
-    const int k = e / WC, c = e % WC;
-    const int col = v0 + c;
-    Wr[k * (WC + 1) + c] =
-        (k < d && col < V) ? to_f32(w[static_cast<long long>(k) * V + col]) : 0.f;
+  if (!STREAM) {
+    for (int e = tid; e < dpad * WC; e += NT) {
+      const int k = e / WC, c = e % WC;
+      const int col = v0 + c;
+      Wr[k * (WC + 1) + c] =
+          (k < d && col < V) ? to_f32(w[static_cast<long long>(k) * V + col]) : 0.f;
+    }
   }
   const int tx = tid % 16, ty = tid / 16;
   const int lane = tid % 32, wp = tid / 32;
@@ -581,11 +613,21 @@ xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
         Xs[kk * (WR + 1) + m] =
             (row < n_end && k < d) ? to_f32(x[static_cast<long long>(row) * d + k]) : 0.f;
       }
+      if (STREAM) {
+#pragma unroll
+        for (int q = 0; q < LK * WC / NT; ++q) {  // W[k0 + kk][v0 + c], c fastest
+          const int e = tid + q * NT;
+          const int kk = e / WC, c = e % WC;
+          const int k = k0 + kk, col = v0 + c;
+          Wr[kk * (WC + 1) + c] =
+              (k < d && col < V) ? to_f32(w[static_cast<long long>(k) * V + col]) : 0.f;
+        }
+      }
       __syncthreads();
 #pragma unroll 8
       for (int kk = 0; kk < LK; ++kk) {
-        const float b0 = Wr[(k0 + kk) * (WC + 1) + tx];
-        const float b1 = Wr[(k0 + kk) * (WC + 1) + tx + 16];
+        const float b0 = Wr[(STREAM ? kk : k0 + kk) * (WC + 1) + tx];
+        const float b1 = Wr[(STREAM ? kk : k0 + kk) * (WC + 1) + tx + 16];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float a = Xs[kk * (WR + 1) + ty + 16 * i];
@@ -688,14 +730,16 @@ __global__ void xent_dw_lean_sum_kernel(const float* __restrict__ part,
   }
 }
 
-// Shared memory of the lean kernels, in bytes.
+// Whether the lean kernels stage their fixed operand instead of keeping it
+// resident, and their shared memory in bytes.
+bool lean_stream(int d) { return d > LEAN_RESIDENT_D; }
 size_t dx_lean_smem(int d) {
-  return sizeof(float) * (static_cast<size_t>(lean_dpad(d)) * (XR + 1) + LK * XV +
-                          XR * (XV + 1) + LKB * (DCH + 4));
+  const size_t xs = lean_stream(d) ? LK : lean_dpad(d);
+  return sizeof(float) * (xs * (XR + 1) + LK * XV + XR * (XV + 1) + LKB * (DCH + 4));
 }
 size_t dw_lean_smem(int d) {
-  return sizeof(float) * (static_cast<size_t>(lean_dpad(d)) * (WC + 1) + LK * (WR + 1) +
-                          WR * (WC + 1) + LKB * (DCH + 4));
+  const size_t wr = lean_stream(d) ? LK : lean_dpad(d);
+  return sizeof(float) * (wr * (WC + 1) + LK * (WR + 1) + WR * (WC + 1) + LKB * (DCH + 4));
 }
 
 template <typename T>
@@ -703,12 +747,14 @@ cudaError_t launch_dx_lean(const void* x, const void* w, const void* b,
                            const int* labels, const float* lse, void* dx, int N,
                            int d, int V, float inv_n, cudaStream_t st) {
   const size_t smem = dx_lean_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(xent_dx_lean_kernel<T>,
+  const auto kernel =
+      lean_stream(d) ? xent_dx_lean_kernel<T, true> : xent_dx_lean_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + XR - 1) / XR, (d + DCH - 1) / DCH);
-  xent_dx_lean_kernel<T><<<grid, NT, smem, st>>>(
+  kernel<<<grid, NT, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
       labels, lse, static_cast<T*>(dx), N, d, V, inv_n);
   return cudaGetLastError();
@@ -723,7 +769,11 @@ cudaError_t launch_dw_lean(const void* x, const void* w, const void* b,
                            float inv_n, cudaStream_t st) {
   const int ranges = lean_ranges(N);
   if (ranges > 1 && (part == nullptr || db_part == nullptr)) return cudaErrorInvalidValue;
-  const auto kernel = ranges > 1 ? xent_dw_lean_kernel<T, true> : xent_dw_lean_kernel<T, false>;
+  const bool stream = lean_stream(d);
+  const auto kernel = ranges > 1 ? (stream ? xent_dw_lean_kernel<T, true, true>
+                                           : xent_dw_lean_kernel<T, true, false>)
+                                 : (stream ? xent_dw_lean_kernel<T, false, true>
+                                           : xent_dw_lean_kernel<T, false, false>);
   const size_t smem = dw_lean_smem(d);
   cudaError_t err = cudaFuncSetAttribute(kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -741,9 +791,7 @@ cudaError_t launch_dw_lean(const void* x, const void* w, const void* b,
   return cudaGetLastError();
 }
 
-bool shape_ok(int N, int d, int V) {
-  return N > 0 && V > 0 && d > 0 && d % BK == 0;
-}
+bool shape_ok(int N, int d, int V) { return N > 0 && V > 0 && d > 0; }
 
 }  // namespace
 

@@ -19,16 +19,14 @@ head dim) raises. Every kernel has an f32 and a bf16 twin (its own
 ``Kernel`` and launch counter, ``*_bf16``), chosen by q's dtype. As the
 TPU kernels do, the bf16 twins sum in f32, round p and ds to the operand
 dtype before the products they feed, and store O, dQ, dK, dV in bf16; lse
-and Δ stay f32. The plain versions round at the same places. The forward
-and dK/dV kernels run the bf16 products on the tensor cores and the f32
-ones register-tiled on the CUDA cores (no TF32).
+and Δ stay f32. The plain versions round at the same places. All three
+kernels run the bf16 products on the tensor cores and the f32 ones
+register-tiled on the CUDA cores (no TF32).
 
-Head dims (:func:`flash_head_dim_ok`): the forward takes any D from 1 to
-256, the backward any D from 1 to 128. The forward and dK/dV kernels run
-the next larger of their compiled widths with the columns past D zero;
-the dQ kernel, compiled for D in {32, 64, 128} only, gets q, k, v, dO
-zero-padded along D by its wrapper (exact: zero columns add nothing to
-q·k or dO·v) and its dQ sliced back. The softmax scale is 1/√D of the
+Head dims (:func:`flash_head_dim_ok`): every kernel takes any D from 1 to
+256. Each runs the next larger of its compiled widths (32, 64, 128, 256)
+with the columns past D zero-filled on load and never stored; nothing is
+padded or copied outside the kernels. The softmax scale is 1/√D of the
 true D everywhere.
 
 Semantics match the TPU kernel: q, k, v are [B, T, H, D] with the same T;
@@ -55,9 +53,7 @@ from tpudml_torch.ops.cuda_lib import (
 
 NEG_INF = -1e30  # large-finite mask value: avoids inf-inf -> NaN in softmax
 
-MAX_HEAD_DIM = 256  # the forward's widest compiled instance
-MAX_HEAD_DIM_BWD = 128  # the backward's (dQ's and dK/dV's) widest instance
-_DQ_WIDTHS = (32, 64, 128)  # head dims the dQ kernel is compiled for
+MAX_HEAD_DIM = 256  # the widest compiled instance of every flash kernel
 _FWD_ARGS = [P] * 5 + [I] * 4 + [LL] * 9 + [I, I, F, P]
 _LIB = CudaLibrary("flash_fwd.cu", {
     "flash_fwd_f32": _FWD_ARGS, "flash_fwd_bf16": _FWD_ARGS,
@@ -83,20 +79,15 @@ FLASH_DKDV_BF16 = Kernel("flash_dkdv_bf16", _DKDV_LIB, "flash_dkdv_bf16",
                          replaces=_DKDV_AT)
 
 
-def flash_head_dim_ok(d: int, backward: bool) -> bool:
-    """Whether the flash kernels take head dim ``d``: 1 to 256 for the
-    forward, 1 to 128 when the backward runs too."""
-    return 1 <= d <= (MAX_HEAD_DIM_BWD if backward else MAX_HEAD_DIM)
+def flash_head_dim_ok(d: int) -> bool:
+    """Whether the flash kernels (forward and backward) take head dim
+    ``d``: 1 to 256."""
+    return 1 <= d <= MAX_HEAD_DIM
 
 
-def _check_head_dim(d: int, backward: bool) -> None:
-    if flash_head_dim_ok(d, backward):
-        return
-    if backward and flash_head_dim_ok(d, False):
-        raise ValueError(
-            f"flash backward kernels take head dim 1 to {MAX_HEAD_DIM_BWD}, got {d}: "
-            "D up to 256 comes with the dQ kernel's redesign (ROADMAP queue 2)")
-    raise ValueError(f"flash kernel head dim must be 1 to {MAX_HEAD_DIM}, got {d}")
+def _check_head_dim(d: int) -> None:
+    if not flash_head_dim_ok(d):
+        raise ValueError(f"flash kernel head dim must be 1 to {MAX_HEAD_DIM}, got {d}")
 
 
 def _visible(t: int, causal: bool, k_shift: int, device) -> torch.Tensor:
@@ -117,17 +108,17 @@ def _check_qkv(q, k, v, k_shift):
         raise ValueError(f"k_shift must be >= 0, got {k_shift}")
 
 
-def _check_cuda_operands(named, backward: bool) -> None:
+def _check_cuda_operands(named) -> None:
     """Raise unless every (name, tensor) is what the flash kernels take:
     CUDA [B,T,H,D] of one dtype (f32 or bf16) with unit stride on D, a
-    head dim the direction takes (:func:`flash_head_dim_ok`), all on one
+    head dim the kernels take (:func:`flash_head_dim_ok`), all on one
     device."""
     dtype = named[0][1].dtype
     if dtype not in STORAGE_DTYPES:
         raise TypeError(f"flash kernels take {STORAGE_DTYPES}, got {dtype}")
     for name, x in named:
         check_cuda_operand(name, x, dtype, 4, contiguous=False)
-    _check_head_dim(named[0][1].shape[-1], backward)
+    _check_head_dim(named[0][1].shape[-1])
     if len({x.device for _, x in named}) != 1:
         raise ValueError(f"{', '.join(n for n, _ in named)} must be on one device")
 
@@ -177,7 +168,7 @@ def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.is_cuda:
         return flash_forward_lse_reference(q, k, v, causal=causal,
                                            k_shift=k_shift)
-    _check_cuda_operands((("q", q), ("k", k), ("v", v)), backward=False)
+    _check_cuda_operands((("q", q), ("k", k), ("v", v)))
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -253,7 +244,7 @@ def _check_bwd(q, k, v, do, lse, delta, k_shift) -> None:
         if x.shape != (b, h, t):
             raise ValueError(f"{name} must be [B, H, T] = {(b, h, t)}, got {tuple(x.shape)}")
     if q.is_cuda:
-        _check_cuda_operands((("q", q), ("k", k), ("v", v), ("do", do)), backward=True)
+        _check_cuda_operands((("q", q), ("k", k), ("v", v), ("do", do)))
         for name, x in (("lse", lse), ("delta", delta)):
             check_cuda_operand(name, x, torch.float32, 3)
             if x.device != q.device:
@@ -267,13 +258,6 @@ def _bwd_args(q, k, v, do, lse, delta, causal, k_shift, scale):
              I(k_shift), F(scale)))
 
 
-def _pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
-    """``x`` [B,T,H,D] zero-padded along D to ``width`` (``x`` itself if
-    it is that wide)."""
-    d = x.shape[-1]
-    return x if d == width else torch.nn.functional.pad(x, (0, width - d))
-
-
 def flash_dq(q, k, v, do, lse, delta, *, causal: bool = False,
              k_shift: int = 0) -> torch.Tensor:
     """dq [B,T,H,D] of :func:`flash_block_grads`: the dQ kernel for CUDA
@@ -282,15 +266,12 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     if not q.is_cuda:
         return flash_dq_reference(q, k, v, do, lse, delta, causal=causal,
                                   k_shift=k_shift)
-    d = q.shape[-1]
-    width = next(w for w in _DQ_WIDTHS if w >= d)
-    q, k, v, do = (_pad_head_dim(x, width) for x in (q, k, v, do))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     common, args = _bwd_args(q, k, v, do, lse, delta, causal, k_shift,
-                             1.0 / math.sqrt(d))
+                             1.0 / math.sqrt(q.shape[-1]))
     with _on(q.device):
         storage_twin(q, FLASH_DQ, FLASH_DQ_BF16).launch(*common, ptr(dq), *args)
-    return dq[..., :d]
+    return dq
 
 
 def flash_dkdv(q, k, v, do, lse, delta, *, causal: bool = False,
@@ -321,7 +302,7 @@ def flash_block_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lse``/``delta`` [B,H,T] f32 come from the (possibly globally merged)
     attention, delta = rowsum(dO ⊙ O); returns (dq, dk, dv) [B,T,H,D],
     this block's exact contributions. CUDA tensors run the dQ and dK/dV
-    kernels (f32 or bf16, head dim 1 to 128, unit stride along D; batch,
+    kernels (f32 or bf16, head dim 1 to 256, unit stride along D; batch,
     time and head strides passed through; lse/delta contiguous); CPU
     tensors run their plain versions."""
     dq = flash_dq(q, k, v, do, lse, delta, causal=causal, k_shift=k_shift)
@@ -354,7 +335,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     as ``dot_product_attention``. Forward: :func:`flash_forward_lse`
     (saves q, k, v, o, lse); backward: Δ in plain PyTorch, then
     :func:`flash_block_grads` (the dQ and dK/dV kernels on the card). On
-    the card the head dim is 1 to 128, the backward's domain."""
-    if q.is_cuda:
-        _check_head_dim(q.shape[-1], backward=True)
+    the card the head dim is 1 to 256 in both directions."""
     return _FlashAttention.apply(q, k, v, causal)

@@ -13,7 +13,10 @@ first-occurrence pick). A CUDA input the kernel does not take raises.
 The kernel stages x in shared memory, so a batch whose rows do not fit
 at once is split into row groups that do (:func:`row_groups`), one launch
 each. That is exact: a row's token, max and lse depend on that row alone.
-Only a width whose one 8-row group does not fit (d > 6400) is refused.
+A width whose one 8-row group does not fit (d > 6400) takes the whole
+batch in one launch: the kernel then stages each 8-row group in chunks of
+d and keeps its dot products in registers across them (the same sums in
+the same order). Any d >= 1.
 """
 
 from __future__ import annotations
@@ -45,13 +48,14 @@ _GROUP = 8  # rows the kernel accumulates per pass over W
 
 
 def row_groups(n: int, d: int) -> list[tuple[int, int]]:
-    """[start, stop) row ranges covering [0, n) in order, each as many rows
-    as fit x's shared-memory stage (``round_up(rows, 8)·d·4`` bytes) and all
-    but the last full. Raises if one 8-row group does not fit."""
+    """[start, stop) row ranges covering [0, n) in order, one launch each.
+    Each holds as many rows as fit x's shared-memory stage
+    (``round_up(rows, 8)·d·4`` bytes), all but the last full. Where one
+    8-row group does not fit, the kernel walks d in chunks instead and the
+    whole batch is one range."""
     per = _MAX_X_SMEM // (d * 4) // _GROUP * _GROUP
-    if per == 0:
-        raise ValueError(f"decode head kernel takes d up to {_MAX_X_SMEM // (_GROUP * 4)}, "
-                         f"got d={d}")
+    if per == 0:  # the kernel's chunked instance: any number of rows
+        per = max(n, 1)
     return [(i, min(i + per, n)) for i in range(0, n, per)]
 
 

@@ -28,10 +28,18 @@ CUDA templates). Like JAX's, it is an op of its own that no model calls.
 
 Statistics follow the JAX package: f32, single pass, variance
 E[s²] − mean² clamped at 0, eps 1e-5; ``s`` is rounded to the stream
-dtype before the statistics. Each kernel has an f32 and a bf16 twin (its
-own ``Kernel`` and launch counter, ``*_bf16``), chosen by the rows' dtype:
-the bf16 twins read and write the rows (x, r, s, y; s, dy, ds, dx) in
-bf16 and keep γ, β, the statistics and dγ, dβ in f32.
+dtype before the statistics. Any width d >= 1: rows up to 1024 wide stay
+in registers (one warp a row), wider ones take the kernels' looped
+instance (two passes over the row; its backward sums dγ/dβ through one
+partial row per warp in device memory), with the same statistics. The
+backward's f32 ``part`` scratch holds 2·d floats a partial row: one
+partial per block of 32 rows up to 1024 columns, one per warp (8 a
+block) past them, so N·d/2 floats for a wide backward, half the bytes of
+f32 rows and as many as bf16 rows. Each
+kernel has an f32 and a bf16 twin (its own ``Kernel`` and launch counter,
+``*_bf16``), chosen by the rows' dtype: the bf16 twins read and write the
+rows (x, r, s, y; s, dy, ds, dx) in bf16 and keep γ, β, the statistics
+and dγ, dβ in f32.
 """
 
 from __future__ import annotations
@@ -42,8 +50,10 @@ from tpudml_torch.ops.cuda_lib import (
     F, I, P, CudaLibrary, Kernel, check_cuda_operand, ptr, storage_twin,
 )
 
-MAX_DIM = 1024  # widest row the kernels keep in registers (32 floats a lane)
-BWD_ROWS_PER_BLOCK = 32  # backward rows per block = rows per dγ/dβ partial
+# As csrc/add_layernorm.cu: REG_DIM, NWARP.
+REGISTER_DIM = 1024  # widest row the register instances hold (32 floats a lane)
+BWD_ROWS_PER_BLOCK = 32  # backward rows per block: one dγ/dβ partial row up to REGISTER_DIM
+BWD_WARPS = 8  # warps a block: one dγ/dβ partial row each past REGISTER_DIM
 
 _FWD_ARGS = [P] * 8 + [I, I, F, P]
 _BWD_ARGS = [P] * 10 + [I, I, I, P]
@@ -123,16 +133,16 @@ def _check_vecs(named, length: int) -> None:
 
 
 def _check_width(d: int) -> None:
-    if not 1 <= d <= MAX_DIM:
-        raise ValueError(f"LayerNorm kernel width must be in [1, {MAX_DIM}], got {d}")
+    if d < 1:
+        raise ValueError(f"LayerNorm kernel width must be >= 1, got {d}")
 
 
 def add_layernorm_forward(x: torch.Tensor, r: torch.Tensor,
                           scale: torch.Tensor, bias: torch.Tensor,
                           eps: float = 1e-5):
     """(s, y, mean, rstd) for rows x, r [N, d]: the forward kernel for CUDA
-    tensors (f32 or bf16 rows, f32 scale and bias, contiguous,
-    d <= ``MAX_DIM``), the plain version for CPU tensors."""
+    tensors (f32 or bf16 rows, f32 scale and bias, contiguous, any
+    d >= 1), the plain version for CPU tensors."""
     if not x.is_cuda:
         return add_layernorm_forward_reference(x, r, scale, bias, eps)
     n, d = x.shape
@@ -164,8 +174,8 @@ def _backward_launch(kernel: Kernel, s, scale, dy, ds, mean, rstd):
     dx = torch.empty_like(s)
     dgamma = torch.empty((d,), dtype=torch.float32, device=s.device)
     dbeta = torch.empty_like(dgamma)
-    blocks = -(-n // BWD_ROWS_PER_BLOCK)
-    part = torch.empty((2, blocks, d), dtype=torch.float32, device=s.device)
+    partials = -(-n // BWD_ROWS_PER_BLOCK) * (1 if d <= REGISTER_DIM else BWD_WARPS)
+    part = torch.empty((2, partials, d), dtype=torch.float32, device=s.device)
     with torch.cuda.device(s.device):
         kernel.launch(
             ptr(s), ptr(scale), ptr(dy), P(None) if ds is None else ptr(ds),
@@ -190,8 +200,8 @@ def add_layernorm_backward(s: torch.Tensor, scale: torch.Tensor,
 def layernorm_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                       eps: float = 1e-5):
     """(y, mean, rstd) for rows x [N, d]: the plain-LN forward kernel for
-    CUDA tensors (f32 or bf16 rows, f32 scale and bias, contiguous,
-    d <= ``MAX_DIM``), the plain version for CPU tensors."""
+    CUDA tensors (f32 or bf16 rows, f32 scale and bias, contiguous, any
+    d >= 1), the plain version for CPU tensors."""
     if not x.is_cuda:
         return layernorm_forward_reference(x, scale, bias, eps)
     n, d = x.shape

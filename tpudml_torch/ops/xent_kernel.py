@@ -15,7 +15,10 @@ caller. Two backward modes, as in JAX:
   before contracting dlogits, so nothing of size N·V exists in either
   direction (the 131k-token regime, where the scores alone are 16 GiB).
 
-CUDA sources: ``tpudml_torch/csrc/xent.cu``.
+CUDA sources: ``tpudml_torch/csrc/xent.cu``. The kernels take any width
+d >= 1: a ragged contraction edge is masked inside them (W is never
+padded), and past d = 1024 the lean kernels stage their fixed operand
+instead of keeping it resident in shared memory.
 
 - :func:`xent_forward` / :func:`xent_forward_save` launch kernel 10 / 11
   for CUDA tensors; :func:`xent_dx` / :func:`xent_dw` launch kernels 12
@@ -50,8 +53,6 @@ from tpudml_torch.ops.cuda_lib import (
     F, I, P, STORAGE_DTYPES, CudaLibrary, Kernel, check_cuda_operand, ptr,
 )
 from tpudml_torch.ops.tiling import round_up
-
-MAX_DIM = 1024  # widest d the wrappers take (bench.py's large config)
 
 _LIB = CudaLibrary("xent.cu", {
     "xent_fwd": [P] * 7 + [I] * 4 + [P],
@@ -186,10 +187,8 @@ def _check_forward_operands(x, w, b, labels) -> None:
 
 
 def _check_dims(n: int, d: int, v: int) -> None:
-    if d % 8 or not 8 <= d <= MAX_DIM:
-        raise ValueError(f"xent kernels take d a multiple of 8 up to {MAX_DIM}, got {d}")
-    if n < 1 or v < 1:
-        raise ValueError(f"xent kernels need N, V >= 1, got N={n}, V={v}")
+    if n < 1 or d < 1 or v < 1:
+        raise ValueError(f"xent kernels need N, d, V >= 1, got N={n}, d={d}, V={v}")
 
 
 def _ptr_or_null(t) -> P:
