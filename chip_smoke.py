@@ -11,7 +11,9 @@ the CPU). Phases, each printing its own line(s):
    forward (kernel 1), dQ (kernel 2) and dK/dV (kernel 3), its ptxas
    registers and spills and its SASS count of bf16 tensor-core products,
    TF32 instructions and f32 FMAs. It fails unless every bf16 instance
-   holds ``HMMA.16816.F32.BF16``, none holds TF32 and none spills.
+   holds ``HMMA.16816.F32.BF16``, none holds TF32 and none spills. Then
+   each instance of the LayerNorm kernels 6–9 with its registers and
+   spills; it fails if a wide instance (past d = 1024) spills.
 3. kernel vs plain version on the card at the main paths' shapes, with
    the tolerances stated: the flash forward (serving: B=1, T=128, H=8,
    D=64: causal, non-causal, odd T, k_shift=1; training: B=8, T=1024,
@@ -46,9 +48,12 @@ the CPU). Phases, each printing its own line(s):
    (causal T=200 and non-causal T=77), with the same tolerances, and dQ and
    dK/dV timed at D = 256 (B=8, T=1024, H=4, causal) beside SDPA's
    backward. Then the widths past the narrow instances, with the
-   tolerances of the main shapes: kernels 6–9 (f32 and bf16) at d = 1100
-   and 4096 (timed at N=8192, d=4096, beside ``F.layer_norm``'s forward
-   and backward), kernels 10–15 at d = 12, 1032 and
+   tolerances of the main shapes: kernels 6–9 (f32 and bf16) at d = 1536,
+   2048, 4096, 8192 and 16384 with N·d = 2²⁵, each timed beside its bound
+   and ``F.layer_norm``'s forward and backward, with device times, and at
+   LN_CHECKS (N = 1, N below the backward's block count, ragged and
+   misaligned rows, the looped instances; each backward bitwise equal on
+   a repeat), kernels 10–15 at d = 12, 1032 and
    2048 (N = V = 1000, labels −1 and V; timed in f32 at N=4096, d=2048,
    V=8192, and 10, 11 at the flagship's N and V with d = 12), kernels 4
    and 5 at d = 8192 (B=8, V=32768, one launch). Then the launches
@@ -76,6 +81,11 @@ the CPU). Phases, each printing its own line(s):
    after: exactly TRAIN_STEPS × (6, 6, 6, 12, 12) for flash fwd, dQ,
    dK/dV, add+LN fwd, add+LN bwd. Step-1 gradients and every step's loss
    agree with the plain run within the stated tolerances.
+   5b. the wide trunk, ``train_wide``: phase 5 on task5's ``--embed_dim
+   2048 --num_heads 16 --num_layers 2`` (V=32768, T=1024, B=8, f32, head
+   dim 128), the width of a GPT-3 1.3B trunk at two layers, whose add+LN
+   rows take the wide instances (it fails unless d > 1024): the same
+   checks and tolerances, launches exactly TRAIN_STEPS × (2, 2, 2, 4, 4).
 6. main path 3, the flagship step (``bench.py`` ``bench_transformer``):
    (a) on an f32 ``impl="flash", fused_ln=True`` model, step-1 gradients
    of ``make_lm_fused_loss_fn(save_scores=True)`` (the fused head's
@@ -210,6 +220,15 @@ TRAIN_LR = 1e-3
 # add+LN 2L junctions per direction (the first block's ln1 stays plain).
 PER_STEP = {"flash_forward_lse": 6, "flash_dq": 6, "flash_dkdv": 6,
             "add_layernorm_fwd": 12, "add_layernorm_bwd": 12}
+# The wide trunk (phase 5b, train_wide): task5's --embed_dim 2048
+# --num_heads 16 --num_layers 2 --seq_len 1024 --batch_size 8 --attn flash
+# --fused_ln --rope (head dim 128, materialized logits), the width of a
+# GPT-3 1.3B trunk at the depth the time limit allows; its add+LN rows
+# take the wide instances of kernels 8 and 9.
+WIDE_MODEL = dict(vocab_size=32768, embed_dim=2048, num_heads=16, num_layers=2,
+                  max_len=1024, rope=True)
+WIDE_PER_STEP = {"flash_forward_lse": 2, "flash_dq": 2, "flash_dkdv": 2,
+                 "add_layernorm_fwd": 4, "add_layernorm_bwd": 4}
 # The flagship (bench.py:320-358): the training config in bf16 compute with
 # f32 master weights, AdamW lr 3e-4, the fused head in saved-scores mode,
 # bench's one batch synthetic_lm(8, 1024, 32768, seed=1) every step.
@@ -244,11 +263,19 @@ LN_SHAPE = (8192, 512)  # the plain LayerNorm op at the training rows
 # Past the old grid-y edges: 65,537 row tiles of 128 (kernels 10–12 held
 # 8,388,480 rows) and B·H = 65,537 (the flash kernels held 65,535).
 XENT_EDGE = (8_388_609, 8, 128)
-# Widths past the narrow instances (phase 3): LayerNorm rows past the 1024
-# columns a warp holds in registers, (N, d), timed at the last; xent d no
-# multiple of 8 and past the lean kernels' resident 1024, timed at
-# XENT_WIDE_TIMED (N, d, V); the decode head past one 8-row group's stage.
-LN_WIDE = ((1000, 1100), (8192, 4096))
+# Widths past the narrow instances (phase 3). LayerNorm rows past the 1024
+# columns a warp holds in registers: the timed sweep LN_SWEEP at N·d =
+# LN_SWEEP_ELEMS (each width checked there too), then LN_CHECKS (N, d, the
+# rows' base offset in elements): N = 1, N below the backward's block
+# count, ragged bf16 widths (1025, 1100, 4100), a base 4 or 2 bytes off 16,
+# and widths that take the looped instances (12000 staged, 20000 shared,
+# 40000 device for the backward). xent d no multiple of 8 and past the
+# lean kernels' resident 1024, timed at XENT_WIDE_TIMED (N, d, V); the
+# decode head past one 8-row group's stage.
+LN_SWEEP = (1536, 2048, 4096, 8192, 16384)
+LN_SWEEP_ELEMS = 1 << 25
+LN_CHECKS = ((1, 4096, 0), (100, 2048, 0), (300, 1025, 0), (300, 1100, 0), (300, 4100, 0),
+             (300, 8192, 0), (300, 4096, 1), (40, 12000, 0), (20, 20000, 0), (10, 40000, 0))
 XENT_WIDE = (12, 1032, 2048)
 XENT_WIDE_TIMED = (4096, 2048, 8192)
 HEAD_WIDE = (8, 8192, 32768)
@@ -1553,13 +1580,83 @@ def _fold_width(row: dict, key: str, err: float, times: dict | None = None) -> N
     row["max_abs_err"] = max(row["max_abs_err"], err)
 
 
+def _ln_wide_check(gen, n: int, d: int, dtype, offset: int = 0) -> tuple:
+    """Kernels 6–9 (the twin of ``dtype``) at rows [n, d] whose base lies
+    ``offset`` elements into their buffers, against their plain versions
+    with the tolerances of the main shapes; the backward (ds given and
+    None) bitwise equal on a repeat. Returns (errors by kernel name, the
+    rows, the forward and backward plans)."""
+    import torch
+
+    from tpudml_torch.ops import (
+        add_layernorm_backward, add_layernorm_backward_reference, add_layernorm_forward,
+        add_layernorm_forward_reference, layernorm_backward, layernorm_backward_reference,
+        layernorm_forward, layernorm_forward_reference,
+    )
+    from tpudml_torch.ops.layernorm_kernel import plan_for
+
+    bf16 = dtype == torch.bfloat16
+    row_tol = BF16_REL if bf16 else LN_ROW_TOL
+    tag = f"N={n} d={d} {'bf16' if bf16 else 'f32'}" + (f" base+{offset}" if offset else "")
+
+    def err_of(got, want):  # stored in the rows' dtype: of max in bf16
+        return rel_to_max(got, want) if bf16 else (got - want).abs().max().item()
+
+    def rows_():
+        buf = torch.randn((n * d + offset,), generator=gen).to(dtype).cuda()
+        return buf[offset:].view(n, d)
+
+    x, r, dy, ds = rows_(), rows_(), rows_(), rows_()
+    scale = (1 + 0.1 * torch.randn((d,), generator=gen)).cuda()
+    bias = (0.1 * torch.randn((d,), generator=gen)).cuda()
+    s, y, mean, rstd = add_layernorm_forward(x, r, scale, bias)
+    rs, ry, rmean, rrstd = add_layernorm_forward_reference(x, r, scale, bias)
+    estat = max((mean - rmean).abs().max().item(), (rstd - rrstd).abs().max().item())
+    ef = max(err_of(s, rs), err_of(y, ry))
+    check(ef <= row_tol and estat <= LN_ROW_TOL,
+          f"add+LN forward disagrees with its plain version at {tag}")
+    eb = 0.0
+    for dsv in (ds, None):
+        got = add_layernorm_backward(rs, scale, dy, dsv, rmean, rrstd)
+        again = add_layernorm_backward(rs, scale, dy, dsv, rmean, rrstd)
+        rdx, rdg, rdb = add_layernorm_backward_reference(rs, scale, dy, dsv, rmean, rrstd)
+        ecol = max(rel_to_max(got[1], rdg), rel_to_max(got[2], rdb))
+        check(err_of(got[0], rdx) <= row_tol and ecol <= LN_COL_RTOL,
+              f"add+LN backward disagrees with its plain version at {tag}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"add+LN backward is not bitwise equal on a repeat at {tag}")
+        eb = max(eb, err_of(got[0], rdx), ecol)
+    ly, lmean, lrstd = layernorm_forward(x, scale, bias)
+    rly, _, _ = layernorm_forward_reference(x, scale, bias)
+    lx, lg, lb = layernorm_backward(x, scale, dy, lmean, lrstd)
+    rlx, rlg, rlb = layernorm_backward_reference(x, scale, dy, lmean, lrstd)
+    el = err_of(ly, rly)
+    elcol = max(rel_to_max(lg, rlg), rel_to_max(lb, rlb))
+    check(el <= row_tol and err_of(lx, rlx) <= row_tol and elcol <= LN_COL_RTOL,
+          f"LayerNorm kernels disagree with their plain versions at {tag}")
+    fplan, bplan = plan_for(x, r, scale, bias, backward=False), plan_for(x, scale, dy, ds,
+                                                                         backward=True)
+    print(f"[kernel] wide LayerNorm {tag}: forward {fplan.instance}"
+          f"{'' if fplan.vector else ' scalar'} ({fplan.threads} threads), backward "
+          f"{bplan.instance}{'' if bplan.vector else ' scalar'} ({bplan.threads} threads, "
+          f"G={bplan.blocks}, {bplan.rows_per_block} rows a block); add+LN s, y {ef:.3e}, "
+          f"mean/rstd {estat:.3e}, dx and dgamma/dbeta {eb:.3e}; LN y {el:.3e}, dx and "
+          f"dgamma/dbeta {max(err_of(lx, rlx), elcol):.3e} (rows tol {row_tol:g}"
+          f"{' of max' if bf16 else ''}, stats {LN_ROW_TOL:g}, columns {LN_COL_RTOL:g} of "
+          f"max); backward bitwise equal on a repeat")
+    errs = {"add_layernorm_fwd": max(ef, estat), "add_layernorm_bwd": eb,
+            "layernorm_fwd": el, "layernorm_bwd": max(err_of(lx, rlx), elcol)}
+    return errs, (x, r, dy, ds, scale, bias, rs, rmean, rrstd, lmean, lrstd), fplan, bplan
+
+
 def ln_wide_phase(gen, rows: dict) -> None:
     """Kernels 6–9 and their bf16 twins at widths past the 1024 columns a
-    warp holds in registers (their looped instance): add+LN forward and
-    backward (ds given and None) and the plain LayerNorm at each of
-    LN_WIDE against the plain versions, with the tolerances of the main
-    shapes; timed at the last, beside the bound and ``F.layer_norm``
-    (forward, and forward+backward minus forward), with device times."""
+    warp holds in registers (their wide instances): at each width of
+    LN_SWEEP, N·d = LN_SWEEP_ELEMS, add+LN forward and backward (ds given
+    and None) and the plain LayerNorm against the plain versions, then
+    timed beside the bound and ``F.layer_norm`` (forward, and
+    forward+backward minus forward), with device times; then at each of
+    LN_CHECKS against the plain versions only."""
     import torch
     import torch.nn.functional as F
 
@@ -1572,101 +1669,74 @@ def ln_wide_phase(gen, rows: dict) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         sfx, tag = ("_bf16", "bf16") if bf16 else ("", "f32")
-        row_tol = BF16_REL if bf16 else LN_ROW_TOL
-
-        def err_of(got, want):  # stored in the rows' dtype: of max in bf16
-            return rel_to_max(got, want) if bf16 else (got - want).abs().max().item()
-
-        for n, d in LN_WIDE:
-            x, r, dy, ds = (torch.randn((n, d), generator=gen).cuda().to(dtype)
-                            for _ in range(4))
-            scale = (1 + 0.1 * torch.randn((d,), generator=gen)).cuda()
-            bias = (0.1 * torch.randn((d,), generator=gen)).cuda()
-            s, y, mean, rstd = add_layernorm_forward(x, r, scale, bias)
-            rs, ry, rmean, rrstd = add_layernorm_forward_reference(x, r, scale, bias)
-            estat = max((mean - rmean).abs().max().item(), (rstd - rrstd).abs().max().item())
-            ef = max(err_of(s, rs), err_of(y, ry))
-            check(ef <= row_tol and estat <= LN_ROW_TOL,
-                  f"add+LN forward disagrees with its plain version at d={d} ({tag})")
-            eb = 0.0
-            for dsv in (ds, None):
-                dx, dg, db = add_layernorm_backward(rs, scale, dy, dsv, rmean, rrstd)
-                rdx, rdg, rdb = add_layernorm_backward_reference(rs, scale, dy, dsv, rmean,
-                                                                 rrstd)
-                ecol = max(rel_to_max(dg, rdg), rel_to_max(db, rdb))
-                check(err_of(dx, rdx) <= row_tol and ecol <= LN_COL_RTOL,
-                      f"add+LN backward disagrees with its plain version at d={d} ({tag})")
-                eb = max(eb, err_of(dx, rdx), ecol)
-            ly, lmean, lrstd = layernorm_forward(x, scale, bias)
-            rly, _, _ = layernorm_forward_reference(x, scale, bias)
-            lx, lg, lb = layernorm_backward(x, scale, dy, lmean, lrstd)
-            rlx, rlg, rlb = layernorm_backward_reference(x, scale, dy, lmean, lrstd)
-            el = err_of(ly, rly)
-            elb = max(err_of(lx, rlx), rel_to_max(lg, rlg), rel_to_max(lb, rlb))
-            check(el <= row_tol and err_of(lx, rlx) <= row_tol
-                  and max(rel_to_max(lg, rlg), rel_to_max(lb, rlb)) <= LN_COL_RTOL,
-                  f"LayerNorm kernels disagree with their plain versions at d={d} ({tag})")
-            print(f"[kernel] wide LayerNorm N={n} d={d} {tag}: add+LN s, y {ef:.3e}, "
-                  f"mean/rstd {estat:.3e}, dx and dgamma/dbeta {eb:.3e}; LN y {el:.3e}, "
-                  f"dx and dgamma/dbeta {elb:.3e} (rows tol {row_tol:g}"
-                  f"{' of max' if bf16 else ''}, stats {LN_ROW_TOL:g}, columns "
-                  f"{LN_COL_RTOL:g} of max)")
-            for name, e in (("add_layernorm_fwd", max(ef, estat)), ("add_layernorm_bwd", eb),
-                            ("layernorm_fwd", el), ("layernorm_bwd", elb)):
-                _fold_width(rows[name + sfx], f"d={d}", e)
-        # Timed at the last width (x, r, dy, ds of that shape are still bound),
-        # beside F.layer_norm with γ, β in the rows' dtype (its backward:
-        # forward+backward minus forward, as at the main shapes).
-        e = x.element_size()
+        e = 2 if bf16 else 4
         peak = H100_BF16_FLOPS if bf16 else H100_F32_FLOPS
-        leaves = [t.clone().requires_grad_() for t in (x, r, scale.to(dtype), bias.to(dtype))]
-        ln_leaves = [leaves[0], leaves[2], leaves[3]]
+        for d in LN_SWEEP:
+            n = LN_SWEEP_ELEMS // d
+            errs, held, fplan, bplan = _ln_wide_check(gen, n, d, dtype)
+            x, r, dy, ds, scale, bias, rs, rmean, rrstd, lmean, lrstd = held
+            # F.layer_norm with γ, β in the rows' dtype; its backward is
+            # forward+backward minus forward, as at the main shapes.
+            leaves = [t.clone().requires_grad_() for t in (x, r, scale.to(dtype),
+                                                           bias.to(dtype))]
+            ln_leaves = [leaves[0], leaves[2], leaves[3]]
 
-        def lib_add():
-            s_ = leaves[0] + leaves[1]
-            return s_, F.layer_norm(s_, (d,), leaves[2], leaves[3], 1e-5)
+            def lib_add():
+                s_ = leaves[0] + leaves[1]
+                return s_, F.layer_norm(s_, (d,), leaves[2], leaves[3], 1e-5)
 
-        def lib_ln():
-            return F.layer_norm(ln_leaves[0], (d,), ln_leaves[1], ln_leaves[2], 1e-5)
+            def lib_ln():
+                return F.layer_norm(ln_leaves[0], (d,), ln_leaves[1], ln_leaves[2], 1e-5)
 
-        lib = {}
-        for name, lib_fwd, lib_grad in (
-            ("add_layernorm", lib_add,
-             lambda: torch.autograd.grad(lib_add(), leaves, (ds, dy))),
-            ("layernorm", lib_ln, lambda: torch.autograd.grad(lib_ln(), ln_leaves, dy)),
-        ):
-            f_ms, f_dev = cuda_ms(lib_fwd, iters=20), device_ms(lib_fwd)
-            lib[name + "_fwd"] = (f_ms, f_dev)
-            lib[name + "_bwd"] = (cuda_ms(lib_grad, iters=20) - f_ms,
-                                  device_ms(lib_grad) - f_dev)
-        cases = (
-            ("add_layernorm_fwd", lambda: add_layernorm_forward(x, r, scale, bias),
-             lambda: add_layernorm_forward_reference(x, r, scale, bias),
-             4 * n * d * e + 4 * (2 * d + 2 * n), 8 * n * d),
-            ("add_layernorm_bwd", lambda: add_layernorm_backward(rs, scale, dy, ds, rmean, rrstd),
-             lambda: add_layernorm_backward_reference(rs, scale, dy, ds, rmean, rrstd),
-             4 * n * d * e + 4 * (3 * d + 2 * n), 12 * n * d),
-            ("layernorm_fwd", lambda: layernorm_forward(x, scale, bias),
-             lambda: layernorm_forward_reference(x, scale, bias),
-             2 * n * d * e + 4 * (2 * d + 2 * n), 8 * n * d),
-            ("layernorm_bwd", lambda: layernorm_backward(x, scale, dy, lmean, lrstd),
-             lambda: layernorm_backward_reference(x, scale, dy, lmean, lrstd),
-             3 * n * d * e + 4 * (3 * d + 2 * n), 12 * n * d),
-        )
-        for name, fn, ref, nbytes, flops in cases:
-            lib_name = ("F.layer_norm(x + r)" if name.startswith("add") else "F.layer_norm") + (
-                " fwd+bwd minus fwd" if name.endswith("bwd") else "")
-            t = timed(fn, ref, nbytes, flops, peak, iters=20)
-            t.update(device_ms=device_ms(fn), library_ms=lib[name][0],
-                     library_device_ms=lib[name][1], library=f"{lib_name} {tag}",
-                     shape=f"N={n} d={d} {tag}")
-            print(f"[kernel] {name}{sfx} N={n} d={d}: kernel {t['ms']:.4f} ms (device "
-                  f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, {lib_name} "
-                  f"{t['library_ms']:.4f} ms (device {t['library_device_ms']:.4f}), bound "
-                  f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
-            _fold_width(rows[name + sfx], f"d={d}", 0.0, t)
-        del leaves, ln_leaves
-        del x, r, dy, ds, s, y, rs, ry, ly, lx, dx
+            lib = {}
+            for name, lib_fwd, lib_grad in (
+                ("add_layernorm", lib_add,
+                 lambda: torch.autograd.grad(lib_add(), leaves, (ds, dy))),
+                ("layernorm", lib_ln, lambda: torch.autograd.grad(lib_ln(), ln_leaves, dy)),
+            ):
+                f_ms, f_dev = cuda_ms(lib_fwd, iters=20), device_ms(lib_fwd)
+                lib[name + "_fwd"] = (f_ms, f_dev)
+                lib[name + "_bwd"] = (cuda_ms(lib_grad, iters=20) - f_ms,
+                                      device_ms(lib_grad) - f_dev)
+            cases = (
+                ("add_layernorm_fwd", lambda: add_layernorm_forward(x, r, scale, bias),
+                 lambda: add_layernorm_forward_reference(x, r, scale, bias),
+                 4 * n * d * e + 4 * (2 * d + 2 * n), 8 * n * d),
+                ("add_layernorm_bwd",
+                 lambda: add_layernorm_backward(rs, scale, dy, ds, rmean, rrstd),
+                 lambda: add_layernorm_backward_reference(rs, scale, dy, ds, rmean, rrstd),
+                 4 * n * d * e + 4 * (3 * d + 2 * n), 12 * n * d),
+                ("layernorm_fwd", lambda: layernorm_forward(x, scale, bias),
+                 lambda: layernorm_forward_reference(x, scale, bias),
+                 2 * n * d * e + 4 * (2 * d + 2 * n), 8 * n * d),
+                ("layernorm_bwd", lambda: layernorm_backward(x, scale, dy, lmean, lrstd),
+                 lambda: layernorm_backward_reference(x, scale, dy, lmean, lrstd),
+                 3 * n * d * e + 4 * (3 * d + 2 * n), 12 * n * d),
+            )
+            for name, fn, ref, nbytes, flops in cases:
+                lib_name = ("F.layer_norm(x + r)" if name.startswith("add") else
+                            "F.layer_norm") + (" fwd+bwd minus fwd" if name.endswith("bwd")
+                                               else "")
+                plan = bplan if name.endswith("bwd") else fplan
+                t = timed(fn, ref, nbytes, flops, peak, iters=20)
+                t.update(device_ms=device_ms(fn), library_ms=lib[name][0],
+                         library_device_ms=lib[name][1], library=f"{lib_name} {tag}",
+                         shape=f"N={n} d={d} {tag}",
+                         instance=plan.instance + ("" if plan.vector else " scalar"))
+                print(f"[kernel] {name}{sfx} N={n} d={d} ({t['instance']}): kernel "
+                      f"{t['ms']:.4f} ms (device {t['device_ms']:.5f}, "
+                      f"{t['bound_ms'] / t['device_ms']:.0%} of the bound), plain "
+                      f"{t['plain_ms']:.4f} ms, {lib_name} {t['library_ms']:.4f} ms (device "
+                      f"{t['library_device_ms']:.5f}), bound {t['bound_ms']:.5f} ms "
+                      f"({t['bound_by']})")
+                _fold_width(rows[name + sfx], f"d={d}", errs[name], t)
+            del leaves, ln_leaves, held, x, r, dy, ds, rs
+            torch.cuda.empty_cache()
+        for n, d, offset in LN_CHECKS:
+            errs, *_ = _ln_wide_check(gen, n, d, dtype, offset)
+            key = f"d={d}" + (f" base+{offset}" if offset else "")
+            for name, err in errs.items():
+                _fold_width(rows[name + sfx], key, err)
         torch.cuda.empty_cache()
 
 
@@ -1982,9 +2052,12 @@ def _train_run(ts, step, batches):
     return [float(x) for x in losses], ms
 
 
-def train_phase() -> dict[str, int]:
+def train_phase(config: dict = TRAIN_MODEL, per_step: dict = PER_STEP,
+                tag: str = "train") -> dict[str, int]:
     """Main path 2: the training slice at full width (module docstring,
-    phase 5). Returns the launch counts of the kernel run."""
+    phase 5), or the same path on another ``config`` with its launches
+    ``per_step`` (phase 5b, the wide trunk). Returns the launch counts of
+    the kernel run."""
     import numpy as np
     import torch
 
@@ -1994,13 +2067,13 @@ def train_phase() -> dict[str, int]:
     from tpudml_torch.optim import Adam
     from tpudml_torch.train import TrainState, make_loss_fn, make_train_step
 
-    kernel_model = TransformerLM(**TRAIN_MODEL, impl="flash", fused_ln=True, device="cuda",
+    kernel_model = TransformerLM(**config, impl="flash", fused_ln=True, device="cuda",
                                  generator=torch.Generator().manual_seed(1))
-    plain_model = TransformerLM(**TRAIN_MODEL, impl="full", fused_ln=False, device="cuda",
+    plain_model = TransformerLM(**config, impl="full", fused_ln=False, device="cuda",
                                 generator=torch.Generator().manual_seed(2))
     plain_model.load_state_dict(kernel_model.state_dict())  # one initial state
     n_params = sum(p.numel() for p in kernel_model.parameters())
-    t, v = TRAIN_MODEL["max_len"], TRAIN_MODEL["vocab_size"]
+    t, v = config["max_len"], config["vocab_size"]
     seqs = synthetic_lm(4 * TRAIN_BATCH, t, v, seed=0)
     rng = np.random.default_rng(0)  # task5's row sampling
     batches = [seqs[rng.integers(0, len(seqs), size=TRAIN_BATCH)] for _ in range(TRAIN_STEPS)]
@@ -2012,7 +2085,7 @@ def train_phase() -> dict[str, int]:
     grads = {name: _grads(make_loss_fn(model), model, tokens, labels)[1]
              for name, model in (("kernel", kernel_model), ("plain", plain_model))}
     worst, worst_name = _worst(grads["kernel"], grads["plain"], grads["plain"])
-    print(f"[train] step-1 gradients, kernel vs plain run: worst max|err|/max|plain| "
+    print(f"[{tag}] step-1 gradients, kernel vs plain run: worst max|err|/max|plain| "
           f"{worst:.3e} ({worst_name}; tol {STEP_GRAD_RTOL:g}) over {len(grads['plain'])} "
           f"parameters, {n_params} values")
     check(worst <= STEP_GRAD_RTOL, f"step-1 gradient {worst_name} disagrees with the plain run")
@@ -2022,27 +2095,43 @@ def train_phase() -> dict[str, int]:
         opt = Adam(lr=TRAIN_LR)
         return _train_run(TrainState.create(model, opt), make_train_step(model, opt), batches)
 
-    reset_launch_counts()  # ---- main path 2 starts here
+    reset_launch_counts()  # ---- the main path starts here
     k_losses, k_ms = train(kernel_model)
     launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
     p_losses, p_ms = train(plain_model)
     check({k.name: k.launches for k in KERNELS} == launches,
           "the plain run launched a kernel")
     for name, n in launches.items():
-        need = TRAIN_STEPS * PER_STEP.get(name, 0)
-        check(n == need, f"training launched {name} {n} times, {TRAIN_STEPS} steps need {need}")
+        need = TRAIN_STEPS * per_step.get(name, 0)
+        check(n == need, f"{tag} launched {name} {n} times, {TRAIN_STEPS} steps need {need}")
     tok = TRAIN_BATCH * t
     for label, losses, ms in (("kernel (flash + fused add+LN)", k_losses, k_ms),
                               ("plain (full attention, unfused LN)", p_losses, p_ms)):
-        print(f"[train] {label}: losses {' '.join(f'{x:.6f}' for x in losses)}; "
+        print(f"[{tag}] {label}: losses {' '.join(f'{x:.6f}' for x in losses)}; "
               f"{ms:.2f} ms/step, {tok / ms * 1e3:.0f} tokens/s (steady state, "
               f"{TRAIN_STEPS - 1} steps after one warm-up)")
     check(all(np.isfinite(k_losses + p_losses)), "a training loss is not finite")
     diffs = [abs(a - b) for a, b in zip(k_losses, p_losses)]
-    print(f"[train] per-step |loss difference| {' '.join(f'{x:.2e}' for x in diffs)} "
-          f"(tol {LOSS_TOL:g}); launches {launches} = {TRAIN_STEPS} x {PER_STEP}")
+    print(f"[{tag}] per-step |loss difference| {' '.join(f'{x:.2e}' for x in diffs)} "
+          f"(tol {LOSS_TOL:g}); launches {launches} = {TRAIN_STEPS} x {per_step}")
     check(max(diffs) <= LOSS_TOL, "training losses disagree with the plain run")
     return launches
+
+
+def train_wide_phase() -> dict[str, int]:
+    """Phase 5b: phase 5's path on the wide trunk (WIDE_MODEL), whose
+    add+LN rows are wider than the narrow instances hold."""
+    import torch
+
+    from tpudml_torch.ops.layernorm_kernel import REGISTER_DIM, layernorm_plan
+
+    d, tokens = WIDE_MODEL["embed_dim"], TRAIN_BATCH * WIDE_MODEL["max_len"]
+    check(d > REGISTER_DIM, f"the wide trunk's d={d} takes the narrow LayerNorm instances")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = layernorm_plan(tokens, d, 4, True, sms, backward=True)
+    print(f"[train_wide] d={d} > {REGISTER_DIM}: add+LN rows [{tokens}, {d}] take the "
+          f"{plan.instance} instances (backward G={plan.blocks} on {sms} SMs)")
+    return train_phase(WIDE_MODEL, WIDE_PER_STEP, "train_wide")
 
 
 # ------------------------------------------------------------ phase 6
@@ -2471,12 +2560,35 @@ FLASH_INSTANCES = (
 BF16_MMA = "HMMA.16816.F32.BF16"  # mma.sync m16n8k16, bf16 in, f32 sums
 
 
+def ln_instances(lib) -> None:
+    """Print each LayerNorm kernel instance's registers and spills (ptxas)
+    and hold the wide ones (``*_wide_*``, ``*_loop_*``) to no spills."""
+    usage = ptxas_usage(lib.ptxas_log())
+    check(bool(usage), "no ptxas -v report of add_layernorm.cu: empty tpudml_torch/_build "
+          "and rerun")
+    for name, use in sorted(usage.items()):
+        m = re.search(r"(add_ln_[a-z_]+?_kernel)(I\w+?EE)?(?:Ev|E)", name)
+        if not m:
+            continue
+        args = m.group(2) or ""
+        inst = (m.group(1) + "<" + ", ".join(
+            a for a in re.findall(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|If)", args)
+            for a in a if a).replace("13__nv_bfloat16", "bf16").replace("If", "f32") + ">")
+        print(f"[build] add_layernorm.cu {inst}: {use['registers']} registers, "
+              f"spill {use['spill']} B")
+        if "_wide_" in name or "_loop_" in name:
+            check(use["spill"] == 0, f"{inst} spills ({use})")
+
+
 def build_phase() -> None:
     """Build every kernel source (one nvcc each, all started together) and
     print what ptxas reports. Hold kernels 1–3 to their design in every
     instance: the bf16 twins on the tensor cores (``HMMA.16816.F32.BF16`` in
-    their SASS), no TF32 instruction in any twin, and no spills."""
-    from tpudml_torch.ops import FLASH_DKDV, FLASH_DQ, FLASH_FORWARD, KERNELS, build_kernels
+    their SASS), no TF32 instruction in any twin, and no spills; and the
+    wide instances of the LayerNorm kernels 6–9 to no spills."""
+    from tpudml_torch.ops import (
+        ADD_LN_FORWARD, FLASH_DKDV, FLASH_DQ, FLASH_FORWARD, KERNELS, build_kernels,
+    )
 
     t_build = build_kernels()
     for lib in dict.fromkeys(k.library for k in KERNELS):
@@ -2507,6 +2619,7 @@ def build_phase() -> None:
                 check(tf32 == 0, f"{kernel}<{dp}> holds TF32 instructions ({ops})")
                 if "bf16" in kernel:
                     check(mma > 0, f"{kernel}<{dp}> runs no bf16 mma on the tensor cores")
+    ln_instances(ADD_LN_FORWARD.library)
 
 
 def main() -> int:
@@ -2544,6 +2657,8 @@ def main() -> int:
     paths = {"serve": serve_phase(gen)}
     torch.cuda.empty_cache()
     paths["train"] = train_phase()
+    torch.cuda.empty_cache()
+    paths["train_wide"] = train_wide_phase()
     torch.cuda.empty_cache()
     paths.update(flagship_phase())
     torch.cuda.empty_cache()

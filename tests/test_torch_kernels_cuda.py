@@ -31,8 +31,9 @@ Tolerances, with their reasons:
 - the flash forward, dQ and dK/dV at any head dim from 1 to 256: the
   tolerances above, f32 or bf16; a repeat call bitwise equal;
 - the widths past the register and shared-memory instances (LayerNorm
-  d = 1100, 4096; xent d = 12, 1032, 2048; the decode head d = 8192): the
-  tolerances above;
+  d = 1025 to 40000, f32 and bf16, every wide instance, N = 1, a
+  misaligned base, a bitwise repeat; xent d = 12, 1032, 2048; the decode
+  head d = 8192): the tolerances above;
 - the grouped dW (kernel 16), f32 and bf16 inputs: within 1e-5 of the
   plain output's largest magnitude (both accumulate the same products in
   f32, over up to M rows in another order), and bitwise equal on a repeat.
@@ -40,6 +41,8 @@ Past the old grid-y edges (8,388,480 rows of kernels 10–12; B·H = 65535 of
 the flash kernels) the tolerances are those above, the plain versions
 taken in row or batch chunks.
 """
+
+import ctypes
 
 import pytest
 
@@ -175,7 +178,7 @@ def test_flash_attention_autograd_matches_plain(cuda_device):
 
 
 # d = 1100 and 4096: past the 1024 columns a warp holds in registers (the
-# kernels' looped instance).
+# kernels' wide instances).
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d", [(8192, 512), (1000, 512), (37, 96), (300, 1100), (77, 4096)])
 def test_add_layernorm_kernels_match_plain(cuda_device, n, d):
@@ -441,6 +444,87 @@ def test_layernorm_kernels_match_plain(cuda_device, dtype, n, d):
     torch.testing.assert_close(db, rdb, **COL_TOL)
     again = layernorm_backward(x, scale, dy, rmean, rrstd)
     assert all(torch.equal(a, c) for a, c in zip((dx, dg, db), again))
+
+
+# Past the narrow instances: the register instances (vector, and scalar for
+# a ragged width or a base 4 or 2 bytes off 16), N = 1 and N below the
+# backward's block count, and the looped ones (d = 12000 staged, 20000
+# shared, 40000 device for the backward).
+WIDE_LN_CASES = [(1, 1025, 0), (100, 2048, 0), (300, 1025, 0), (300, 1100, 0),
+                 (300, 2048, 0), (300, 4100, 0), (300, 8192, 0), (300, 4096, 1),
+                 (40, 12000, 0), (20, 20000, 0), (10, 40000, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,d,offset", WIDE_LN_CASES,
+                         ids=[f"N{n}-d{d}" + (f"-base+{o}" if o else "")
+                              for n, d, o in WIDE_LN_CASES])
+def test_wide_layernorm_kernels_match_plain(cuda_device, dtype, n, d, offset):
+    """Kernels 6–9 at widths past 1024, f32 and bf16 rows, with and without
+    ds, against their plain versions; each backward bitwise equal on a
+    repeat (no atomics, a fixed block count for the shape)."""
+    def rows(seed):
+        buf = _randn(n * d + offset, seed=seed, device=cuda_device).to(dtype)
+        return buf[offset:].view(n, d)
+
+    x, r, dy, ds = (rows(i) for i in range(4))
+    scale = 1.0 + 0.1 * _randn(d, seed=7, device=cuda_device)
+    bias = 0.1 * _randn(d, seed=8, device=cuda_device)
+
+    def close(got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, **ROW_TOL)
+        else:
+            _close_to_max(got, want, BF16_REL)
+
+    s, y, mean, rstd = add_layernorm_forward(x, r, scale, bias)
+    rs, ry, rmean, rrstd = add_layernorm_forward_reference(x, r, scale, bias)
+    assert torch.equal(s, rs)  # one rounding of the same f32 sum
+    close(y, ry)
+    torch.testing.assert_close(mean, rmean, **ROW_TOL)
+    torch.testing.assert_close(rstd, rrstd, **ROW_TOL)
+    for dsv in (ds, None):
+        got = add_layernorm_backward(rs, scale, dy, dsv, rmean, rrstd)
+        rdx, rdg, rdb = add_layernorm_backward_reference(rs, scale, dy, dsv, rmean, rrstd)
+        close(got[0], rdx)
+        torch.testing.assert_close(got[1], rdg, **COL_TOL)
+        torch.testing.assert_close(got[2], rdb, **COL_TOL)
+        again = add_layernorm_backward(rs, scale, dy, dsv, rmean, rrstd)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ly, lmean, lrstd = layernorm_forward(x, scale, bias)
+    rly, _, _ = layernorm_forward_reference(x, scale, bias)
+    close(ly, rly)
+    got = layernorm_backward(x, scale, dy, lmean, lrstd)
+    rlx, rlg, rlb = layernorm_backward_reference(x, scale, dy, lmean, lrstd)
+    close(got[0], rlx)
+    torch.testing.assert_close(got[1], rlg, **COL_TOL)
+    torch.testing.assert_close(got[2], rlb, **COL_TOL)
+    again = layernorm_backward(x, scale, dy, lmean, lrstd)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_layernorm_plan_is_the_kernels_choice(cuda_device):
+    """The wrapper's launch plan names the instance and block that the
+    kernels' own dispatch picks, for every width class, dtype and
+    alignment."""
+    from tpudml_torch.ops import layernorm_kernel as lk
+
+    lib = lk._LIB.load()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for backward in (False, True):
+        for d in (1025, 1536, 4096, 4100, 8192, 8200, 12000, 16384, 16400, 20000, 28928,
+                  28929, 40000, 57856, 57857, 120000):
+            for itemsize in (2, 4):
+                for aligned in (False, True):
+                    threads = ctypes.c_int(0)
+                    kind = lib.add_ln_wide_plan(int(backward), d, itemsize,
+                                                int(aligned and d % (16 // itemsize) == 0),
+                                                ctypes.byref(threads))
+                    plan = lk.layernorm_plan(1000, d, itemsize, aligned, sms, backward)
+                    assert (lk._WIDE_KINDS[kind], threads.value) == (
+                        plan.instance, plan.threads), (backward, d, itemsize, aligned)
 
 
 @pytest.mark.cuda

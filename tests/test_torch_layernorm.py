@@ -12,7 +12,8 @@ package's f32 parity tolerance); rtol 1e-5 / atol 1e-5 on dγ/dβ, which
 sum over all N rows in another order. bf16 rows (``fused_layernorm``):
 y and dx, which both sides round to bf16 after f32 arithmetic in another
 order, within 1e-2 of their largest magnitude (a value may land one bf16
-step, 2^-8 relative, away); dγ/dβ stay f32 (COL_TOL).
+step, 2^-8 relative, away); dγ/dβ stay f32 (COL_TOL). The card kernels'
+launch plan (``layernorm_plan``, a pure function) is checked here too.
 """
 
 import numpy as np
@@ -28,6 +29,7 @@ from tpudml_torch.ops import (  # noqa: E402
     add_layernorm_backward_reference, add_layernorm_forward, fused_add_layernorm,
     fused_layernorm, layernorm_backward, layernorm_forward,
 )
+from tpudml_torch.ops.layernorm_kernel import layernorm_plan  # noqa: E402
 
 ROW_TOL = dict(rtol=1e-5, atol=1e-6)
 COL_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -43,7 +45,7 @@ def _inputs(lead, d=48, seed=0):
     return x, r, scale, bias, w1, w2
 
 
-# d = 1100: past the 1024 columns the card's kernels hold in registers.
+# d = 1100: past the 1024 columns the card's narrow instances hold.
 @pytest.mark.parametrize("lead,d", [((2, 8), 48), ((3, 7), 48), ((3,), 1100)],
                          ids=["N16", "N21", "N3-d1100"])
 @pytest.mark.parametrize("use_s", [True, False], ids=["s_used", "s_unused"])
@@ -149,3 +151,46 @@ def test_fused_layernorm_checks_shapes():
         fused_layernorm(x, scale[:4], bias)
     with pytest.raises(ValueError, match="scale/bias"):
         fused_layernorm(x, scale, bias[None])
+
+
+# (n, d, itemsize, aligned, backward) -> (instance, vector, threads, blocks,
+# rows per block) on a card of 132 SMs, the H100's.
+PLAN_CASES = {
+    "narrow": ((8192, 512, 4, True, True), ("narrow", False, 256, 256, 32)),
+    "N1": ((1, 4096, 2, True, True), ("registers", True, 256, 1, 1)),
+    "N-below-G": ((100, 2048, 4, True, True), ("registers", True, 128, 100, 1)),
+    "d1025-f32": ((300, 1025, 4, True, True), ("registers", False, 96, 150, 2)),
+    "d1025-bf16": ((300, 1025, 2, True, True), ("registers", False, 96, 150, 2)),
+    "d4100-f32": ((8192, 4100, 4, True, True), ("registers", True, 288, 131, 63)),
+    # Ragged in bf16: scalar, whose register instance holds 4096 columns.
+    "d4100-bf16-ragged": ((8192, 4100, 2, True, True), ("staged", False, 512, 131, 63)),
+    "d4096-vector": ((8192, 4096, 2, True, True), ("registers", True, 256, 256, 32)),
+    "d4096-unaligned": ((8192, 4096, 2, False, True), ("registers", False, 256, 131, 63)),
+    "d8192-f32": ((4096, 8192, 4, True, True), ("registers", True, 512, 128, 32)),
+    "past-registers-staged": ((2048, 12000, 4, True, True), ("staged", True, 512, 128, 16)),
+    "past-registers-shared": ((2048, 20000, 4, True, True), ("shared", True, 512, 128, 16)),
+    "past-shared-device": ((2048, 40000, 2, True, True), ("device", True, 512, 128, 16)),
+    "fwd-d4096": ((8192, 4096, 4, True, False), ("registers", True, 256, 8192, 1)),
+    "fwd-d16384": ((2048, 16384, 2, True, False), ("registers", True, 512, 2048, 1)),
+    "fwd-past-registers": ((64, 16400, 4, True, False), ("staged", True, 512, 64, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES), ids=list(PLAN_CASES))
+def test_layernorm_plan(case):
+    """The launch plan of the card's kernels, from (N, d, dtype, alignment,
+    SM count) alone: the instance, its block, G and the rows of each block;
+    the backward's scratch is one partial row a block, 2·G·d floats."""
+    (n, d, itemsize, aligned, backward), want = PLAN_CASES[case]
+    plan = layernorm_plan(n, d, itemsize, aligned, 132, backward)
+    assert (plan.instance, plan.vector, plan.threads, plan.blocks,
+            plan.rows_per_block) == want
+    assert plan.blocks == -(-n // plan.rows_per_block)  # every row in one block, none empty
+    # Scratch: 2·partials·d floats = 2·G·d; past 1024 columns G is at most
+    # a small multiple of the SM count.
+    assert plan.partials == (plan.blocks if backward else 0)
+    if backward and d > 1024:
+        assert plan.blocks <= 132 * 8
+    assert plan.smem <= 232448 - 1024
+    # Pure: the same arguments give the same plan.
+    assert plan == layernorm_plan(n, d, itemsize, aligned, 132, backward)

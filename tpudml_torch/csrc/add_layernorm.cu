@@ -11,10 +11,10 @@
 // statistics are those of x), the backward the same kernel with ds null
 // (nothing merged into dx).
 //
-// Forward, per row of x, r [N, d]: s = x + r, written in the stream dtype
-// and read back as f32 (the "post-rounding" rule: bf16 rows round s before
-// the statistics, as the unfused bf16 model does; an identity in f32),
-// single-pass f32 statistics mean = Σs/d, var = max(Σs²/d − mean², 0),
+// Forward, per row of x, r [N, d]: s = x + r, rounded to the stream dtype
+// before the statistics (the "post-rounding" rule: bf16 rows round s as
+// the unfused bf16 model does; an identity in f32), single-pass f32
+// statistics mean = Σs/d, var = max(Σs²/d − mean², 0),
 // rstd = rsqrt(var + eps), y = (s − mean)·rstd·γ + β; mean and rstd [N]
 // are kept for the backward.
 // Backward, per row, with ŝ = (s − mean)·rstd and g = dy·γ:
@@ -26,31 +26,52 @@
 // the backward moves s, dy, ds in and dx out (the same 67 MB). The
 // arithmetic is a few operations per element.
 //
-// Design: one warp per row; a row of up to 32·VPT = 1024 floats stays in
+// Narrow rows (d <= REG_DIM = 1024): one warp per row; the row stays in
 // registers (VPT values per lane, chosen at launch from d), so every
-// element is read and written once, coalesced across the warp. A wider row
-// takes the looped instance (`*_wide_*`): still a warp per row, walking the
-// row in strides of 32 columns twice, a first pass for the sums (Σs, Σs²;
-// in the backward Σg, Σg·ŝ) and a second for the outputs, which reads the
-// row again (L2-resident; in the forward the stored s, so bf16 rows are
-// normalized from the rounded s as above). Its backward keeps no dγ/dβ row
-// in registers or shared memory: each warp accumulates its rows' terms in
-// its own partial row of `part` in device memory (read and written by the
-// one lane that owns the column), and the column-sum kernel below adds the
-// warps' partial rows in order. The TPU
-// kernel accumulates dγ/dβ in VMEM across its sequential grid of row
-// tiles; Hopper blocks cannot carry a sum between them, so each block of
-// the backward reduces its rows' dγ/dβ to one partial row (its warps
-// summed in warp order through shared memory), and a second small kernel
+// element is read and written once, coalesced across the warp; a block of
+// the backward owns 32 rows and reduces their dγ/dβ to one partial row
+// (its warps summed in warp order through shared memory).
+//
+// Wide rows (d > REG_DIM): a block owns whole rows and each thread a fixed
+// set of columns, 16 bytes at a time (4 f32 or 8 bf16 values; one value
+// at a time, the scalar instance, where d is no multiple of that or a
+// pointer is not 16-byte aligned), round-robin over the block. Per row a
+// thread loads its columns once into registers, the row's two sums
+// (forward Σs, Σs²; backward Σg, Σg·ŝ) go across the block by warp
+// shuffles and then shared memory (one __syncthreads a row: two buffers
+// alternate), and the outputs are written from the same registers. The
+// forward is one row a block of up to 512 threads, WIDE_K = 16 columns a
+// thread (32 past d = 8192, so d <= 16384). The backward is persistent: G
+// blocks (a small multiple of the SM count, from the wrapper), each owning
+// one contiguous range of rows, 16 columns a thread (d <= 8192 at 512
+// threads; the scalar instance at most 256 threads, so d <= 4096);
+// each thread keeps its columns' γ and its dγ/dβ sums in registers across
+// all of the block's rows, and the block writes one partial row of each at
+// the end (scratch 2·G·d floats). Past those widths the looped instances
+// take the row VEC columns at a time in two passes, staging it in shared
+// memory between them where it fits (else reading it again, from L2); the
+// backward keeps its dγ/dβ sums in shared memory while 2·d floats fit
+// there, else in its partial row in device memory (each column read and
+// written by the one thread that owns it). The instance is picked at
+// launch from d, the dtype and the pointers (`wide_plan`, mirrored by the
+// wrapper's `layernorm_plan`).
+//
+// The TPU kernel accumulates dγ/dβ in VMEM across its sequential grid of
+// row tiles; Hopper blocks cannot carry a sum between them, so each block
+// reduces its rows' dγ/dβ to one partial row and a second small kernel
 // sums the partials column by column in a fixed order (8 ordered segments
-// of blocks, then the segments in order). No atomics: the results are
-// bitwise the same from run to run. `ds` may be null (the
-// last junction discards s), which merges nothing. The bf16 variant reads
-// and writes the rows (x, r, s, y; s, dy, ds, dx) in bf16 and keeps γ, β,
-// the statistics and dγ, dβ in f32.
+// of blocks, then the segments in order). No atomics: for a given card and
+// shape the results are bitwise the same from run to run. `ds` may be null
+// (the last junction discards s), which merges nothing. The bf16 variant
+// reads and writes the rows (x, r, s, y; s, dy, ds, dx) in bf16 and keeps
+// γ, β, the statistics and dγ, dβ in f32.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
 
 #include "dtype.cuh"
 
@@ -100,40 +121,6 @@ add_ln_fwd_kernel(const E* __restrict__ x, const E* __restrict__ r,
     const int c = lane + 32 * i;
     if (c < d) y[off + c] = from_f32<E>((val[i] - m) * rs * gamma[c] + beta[c]);
   }
-  if (lane == 0) {
-    mean[row] = m;
-    rstd[row] = rs;
-  }
-}
-
-// Forward of rows wider than the register instances: one warp per row, two
-// passes over the row (module note).
-template <typename E, bool ADD>
-__global__ void __launch_bounds__(NTHREAD)
-add_ln_fwd_wide_kernel(const E* __restrict__ x, const E* __restrict__ r,
-                       const float* __restrict__ gamma, const float* __restrict__ beta,
-                       E* __restrict__ s, E* __restrict__ y, float* __restrict__ mean,
-                       float* __restrict__ rstd, int N, int d, float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * NWARP + (threadIdx.x >> 5);
-  if (row >= N) return;
-  const long long off = row * d;
-  float sum = 0.f, sq = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float sv = ADD ? round_to<E>(to_f32(x[off + c]) + to_f32(r[off + c]))
-                         : to_f32(x[off + c]);
-    if (ADD) s[off + c] = from_f32<E>(sv);
-    sum += sv;
-    sq += sv * sv;
-  }
-  sum = warp_sum(sum);
-  sq = warp_sum(sq);
-  const float m = sum / d;
-  const float var = fmaxf(sq / d - m * m, 0.f);
-  const float rs = rsqrtf(var + eps);
-  const E* src = ADD ? s : x;  // this lane's own stores of s, read back
-  for (int c = lane; c < d; c += 32)
-    y[off + c] = from_f32<E>((to_f32(src[off + c]) - m) * rs * gamma[c] + beta[c]);
   if (lane == 0) {
     mean[row] = m;
     rstd[row] = rs;
@@ -217,53 +204,6 @@ add_ln_bwd_rows_kernel(const E* __restrict__ s,
   }
 }
 
-// Backward of rows wider than the register instances: dx for each row as
-// add_ln_bwd_rows_kernel does, in two passes over the row; the dγ/dβ terms
-// of warp w's rows go to partial row blockIdx.x·NWARP + w of part
-// ([2][gridDim.x·NWARP][d]), zeros for a warp that has no row.
-template <typename E>
-__global__ void __launch_bounds__(NTHREAD)
-add_ln_bwd_rows_wide_kernel(const E* __restrict__ s, const float* __restrict__ gamma,
-                            const E* __restrict__ dy, const E* __restrict__ ds,
-                            const float* __restrict__ mean, const float* __restrict__ rstd,
-                            E* __restrict__ dx, float* __restrict__ part, int N, int d,
-                            int rows_per_block) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long prow = static_cast<long long>(blockIdx.x) * NWARP + warp;
-  float* pg = part + prow * d;
-  float* pb = part + (static_cast<long long>(gridDim.x) * NWARP + prow) * d;
-  const long long first = static_cast<long long>(blockIdx.x) * rows_per_block;
-  bool none = true;  // no row of this warp yet: its partial row is unwritten
-  for (int rr = warp; rr < rows_per_block; rr += NWARP) {
-    const long long row = first + rr;
-    if (row >= N) break;
-    const long long off = row * d;
-    const float m = mean[row];
-    const float rs = rstd[row];
-    float sg = 0.f, sgx = 0.f;
-    for (int c = lane; c < d; c += 32) {
-      const float gy = to_f32(dy[off + c]) * gamma[c];
-      sg += gy;
-      sgx += gy * ((to_f32(s[off + c]) - m) * rs);
-    }
-    const float mg = warp_sum(sg) / d;
-    const float mgx = warp_sum(sgx) / d;
-    for (int c = lane; c < d; c += 32) {
-      const float dyv = to_f32(dy[off + c]);
-      const float xh = (to_f32(s[off + c]) - m) * rs;
-      float v = rs * (dyv * gamma[c] - mg - xh * mgx);
-      if (ds != nullptr) v += to_f32(ds[off + c]);
-      dx[off + c] = from_f32<E>(v);
-      pg[c] = none ? dyv * xh : pg[c] + dyv * xh;
-      pb[c] = none ? dyv : pb[c] + dyv;
-    }
-    none = false;
-  }
-  if (none)
-    for (int c = lane; c < d; c += 32) pg[c] = pb[c] = 0.f;
-}
-
 constexpr int COLS = 32;  // column-sum kernel: columns per block
 constexpr int SEGS = 8;   // column-sum kernel: ordered row segments
 
@@ -298,6 +238,422 @@ add_ln_bwd_cols_kernel(const float* __restrict__ part,
   }
 }
 
+// ------------------------------------------------------------ wide rows
+// Rows wider than REG_DIM (module note). Thread t's i-th vector of a row
+// starts at column (t + i·blockDim.x)·VEC.
+
+constexpr int WIDE_K = 16;               // columns a thread holds in the wide register instances
+constexpr int FWD_ROWS_THREADS = 512;    // widest block of the forward's: d <= 16384 (2·WIDE_K a thread past 8192)
+constexpr int BWD_ROWS_THREADS = 512;    // and of the backward's: d <= 8192 (scalar: half the threads)
+constexpr int LOOP_THREADS = 512;        // block of the looped instances past them
+constexpr int SMEM_OPTIN = 232448 - 1024;  // dynamic shared memory a looped block takes at most
+
+// A thread's VEC values of a row as loaded: 16 raw bytes (the pointer
+// 16-byte aligned), or one element for VEC = 1.
+template <typename E, int VEC>
+using raw_t = std::conditional_t<VEC == 1, E, uint4>;
+
+template <typename E, int VEC>
+__device__ __forceinline__ raw_t<E, VEC> load_raw(const E* p) {
+  return *reinterpret_cast<const raw_t<E, VEC>*>(p);
+}
+
+// The VEC values of a raw load, widened to f32.
+__device__ __forceinline__ void unpack(float e, float* v) { v[0] = e; }
+__device__ __forceinline__ void unpack(__nv_bfloat16 e, float* v) { v[0] = __bfloat162float(e); }
+
+template <typename E>
+__device__ __forceinline__ void unpack(const uint4& q, float* v) {
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (sizeof(E) == 4) {
+      v[j] = __uint_as_float(w[j]);
+    } else {  // bf16 to f32: the 16 bits shifted up, exact
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  }
+}
+
+template <typename E, int VEC>
+__device__ __forceinline__ void unpack_raw(const raw_t<E, VEC>& q, float* v) {
+  if constexpr (VEC == 1) {
+    unpack(q, v);
+  } else {
+    static_assert(VEC * sizeof(E) == 16, "a vector is 16 bytes");
+    unpack<E>(q, v);
+  }
+}
+
+// VEC values of a row at p widened to f32 (γ and β: VEC/4 loads of 16 bytes).
+template <int VEC, typename E>
+__device__ __forceinline__ void load_vec(const E* p, float* v) {
+  if constexpr (sizeof(E) == 4 && VEC > 4) {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4) unpack_raw<E, 4>(load_raw<E, 4>(p + j), v + j);
+  } else {
+    unpack_raw<E, VEC>(load_raw<E, VEC>(p), v);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (VEC == 1) {
+    *p = v[0];
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4)
+      *reinterpret_cast<float4*>(p + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  }
+}
+
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+         static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16;
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+  if constexpr (VEC == 1) {
+    *p = __float2bfloat16(v[0]);
+  } else {
+    static_assert(VEC == 8, "a 16-byte bf16 vector holds 8 values");
+    *reinterpret_cast<uint4*>(p) = make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
+                                              bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
+  }
+}
+
+// The block-wide sums of v[0..NS) (blockDim.x a multiple of 32), the same
+// in every thread: each warp's butterfly sum, then the warps' sums added in
+// warp order through red. One __syncthreads: a caller that sums again
+// passes the other of two red buffers, so no warp overwrites sums that
+// another is still reading.
+template <int NS>
+__device__ __forceinline__ void block_sum(float* v, float (*red)[32]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    v[j] = warp_sum(v[j]);
+    if (lane == 0) red[j][warp] = v[j];
+  }
+  __syncthreads();
+  const int nwarp = blockDim.x >> 5;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    float a = 0.f;
+    for (int w = 0; w < nwarp; ++w) a += red[j][w];
+    v[j] = a;
+  }
+}
+
+// Forward, one row (blockIdx.x) a block, each thread's K columns in
+// registers: x (and r) read once, s (post-rounded) and y written once.
+template <typename E, int VEC, bool ADD, int K>
+__global__ void __launch_bounds__(FWD_ROWS_THREADS, VEC == 1 ? 1 : 2)
+add_ln_fwd_wide_kernel(const E* __restrict__ x, const E* __restrict__ r,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       E* __restrict__ s, E* __restrict__ y, float* __restrict__ mean,
+                       float* __restrict__ rstd, int d, float eps) {
+  constexpr int NV = K / VEC;
+  __shared__ float red[2][32];
+  const long long off = static_cast<long long>(blockIdx.x) * d;
+  float val[NV][VEC];
+  float st[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = (threadIdx.x + i * blockDim.x) * VEC;
+    if (c < d) {
+      load_vec<VEC>(x + off + c, val[i]);
+      if (ADD) {
+        float rv[VEC];
+        load_vec<VEC>(r + off + c, rv);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) val[i][j] = round_to<E>(val[i][j] + rv[j]);
+        store_vec<VEC>(s + off + c, val[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        st[0] += val[i][j];
+        st[1] += val[i][j] * val[i][j];
+      }
+    }
+  }
+  block_sum<2>(st, red);
+  const float m = st[0] / d;
+  const float var = fmaxf(st[1] / d - m * m, 0.f);
+  const float rs = rsqrtf(var + eps);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = (threadIdx.x + i * blockDim.x) * VEC;
+    if (c < d) {
+      float g[VEC], b[VEC];
+      load_vec<VEC>(gamma + c, g);
+      load_vec<VEC>(beta + c, b);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) val[i][j] = (val[i][j] - m) * rs * g[j] + b[j];
+      store_vec<VEC>(y + off + c, val[i]);
+    }
+  }
+  if (threadIdx.x == 0) {
+    mean[blockIdx.x] = m;
+    rstd[blockIdx.x] = rs;
+  }
+}
+
+// Forward past the register instance: one row a block in two passes, the
+// row (s for ADD, else x) staged in shared memory between them where it
+// fits, else read again (x, or this thread's own stores of s).
+template <typename E, int VEC, bool ADD>
+__global__ void __launch_bounds__(LOOP_THREADS)
+add_ln_fwd_loop_kernel(const E* __restrict__ x, const E* __restrict__ r,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       E* __restrict__ s, E* __restrict__ y, float* __restrict__ mean,
+                       float* __restrict__ rstd, int d, float eps, int staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[2][32];
+  E* stage = staged ? reinterpret_cast<E*>(smem) : nullptr;
+  const long long off = static_cast<long long>(blockIdx.x) * d;
+  const long long step = static_cast<long long>(blockDim.x) * VEC;
+  float st[2] = {0.f, 0.f};
+#pragma unroll 4
+  for (long long c = threadIdx.x * VEC; c < d; c += step) {
+    float v[VEC];
+    load_vec<VEC>(x + off + c, v);
+    if (ADD) {
+      float rv[VEC];
+      load_vec<VEC>(r + off + c, rv);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) v[j] = round_to<E>(v[j] + rv[j]);
+      store_vec<VEC>(s + off + c, v);
+    }
+    if (stage) store_vec<VEC>(stage + c, v);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      st[0] += v[j];
+      st[1] += v[j] * v[j];
+    }
+  }
+  block_sum<2>(st, red);
+  const float m = st[0] / d;
+  const float var = fmaxf(st[1] / d - m * m, 0.f);
+  const float rs = rsqrtf(var + eps);
+  const E* src = stage ? stage : (ADD ? s : x) + off;
+#pragma unroll 4
+  for (long long c = threadIdx.x * VEC; c < d; c += step) {
+    float v[VEC], g[VEC], b[VEC];
+    load_vec<VEC>(src + c, v);
+    load_vec<VEC>(gamma + c, g);
+    load_vec<VEC>(beta + c, b);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = (v[j] - m) * rs * g[j] + b[j];
+    store_vec<VEC>(y + off + c, v);
+  }
+  if (threadIdx.x == 0) {
+    mean[blockIdx.x] = m;
+    rstd[blockIdx.x] = rs;
+  }
+}
+
+// Backward, persistent: block b owns rows [b·rows_per_block, +rows_per_block)
+// and takes them one at a time (one __syncthreads a row). Each thread reads
+// its WIDE_K columns of s and dy once, as raw 16-byte words that stay in
+// registers through both uses (the sums, then dx), starts its ds loads
+// before the row's sums cross the block, and writes dx once. γ and the
+// dγ/dβ sums stay in registers across the block's rows, and the block
+// writes one partial row of each: part[0][b] and part[1][b] (part is
+// [2][gridDim.x][d]). The scalar instance holds 16 separate columns, so it
+// takes at most half the threads, with twice the registers.
+template <typename E, int VEC>
+__global__ void __launch_bounds__(VEC == 1 ? BWD_ROWS_THREADS / 2 : BWD_ROWS_THREADS, 1)
+add_ln_bwd_wide_kernel(const E* __restrict__ s, const float* __restrict__ gamma,
+                       const E* __restrict__ dy, const E* __restrict__ ds,
+                       const float* __restrict__ mean, const float* __restrict__ rstd,
+                       E* __restrict__ dx, float* __restrict__ part, int N, int d,
+                       int rows_per_block) {
+  constexpr int NV = WIDE_K / VEC;
+  using R = raw_t<E, VEC>;
+  __shared__ float red[2][2][32];
+  float gam[NV][VEC], dg[NV][VEC], db[NV][VEC];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = (threadIdx.x + i * blockDim.x) * VEC;
+    if (c < d) load_vec<VEC>(gamma + c, gam[i]);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) dg[i][j] = db[i][j] = 0.f;
+  }
+  const long long first = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long last = min(first + rows_per_block, static_cast<long long>(N));
+  R raw_s[NV], raw_dy[NV];  // this row's s and dy as loaded
+  float m = 0.f, rs = 0.f;
+  auto load_row = [&](long long row, R* qs, R* qdy, float& qm, float& qr) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = (threadIdx.x + i * blockDim.x) * VEC;
+      if (c < d) {
+        qs[i] = load_raw<E, VEC>(s + row * d + c);
+        qdy[i] = load_raw<E, VEC>(dy + row * d + c);
+      }
+    }
+    qm = mean[row];
+    qr = rstd[row];
+  };
+  if (first < last) load_row(first, raw_s, raw_dy, m, rs);
+  int parity = 0;
+  for (long long row = first; row < last; ++row, parity ^= 1) {
+    R raw_ds[NV];
+    float st[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = (threadIdx.x + i * blockDim.x) * VEC;
+      if (c < d) {
+        if (ds != nullptr) raw_ds[i] = load_raw<E, VEC>(ds + row * d + c);
+        float sv[VEC], dyv[VEC];
+        unpack_raw<E, VEC>(raw_s[i], sv);
+        unpack_raw<E, VEC>(raw_dy[i], dyv);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xh = (sv[j] - m) * rs;
+          const float gy = dyv[j] * gam[i][j];
+          st[0] += gy;
+          st[1] += gy * xh;
+          dg[i][j] += dyv[j] * xh;
+          db[i][j] += dyv[j];
+        }
+      }
+    }
+    block_sum<2>(st, red[parity]);
+    const float mg = st[0] / d;
+    const float mgx = st[1] / d;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = (threadIdx.x + i * blockDim.x) * VEC;
+      if (c < d) {
+        float sv[VEC], dyv[VEC], v[VEC];
+        unpack_raw<E, VEC>(raw_s[i], sv);
+        unpack_raw<E, VEC>(raw_dy[i], dyv);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xh = (sv[j] - m) * rs;
+          v[j] = rs * (dyv[j] * gam[i][j] - mg - xh * mgx);
+        }
+        if (ds != nullptr) {
+          float dsv[VEC];
+          unpack_raw<E, VEC>(raw_ds[i], dsv);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) v[j] += dsv[j];
+        }
+        store_vec<VEC>(dx + row * d + c, v);
+      }
+    }
+    if (row + 1 < last) load_row(row + 1, raw_s, raw_dy, m, rs);
+  }
+  float* out_g = part + static_cast<long long>(blockIdx.x) * d;
+  float* out_b = part + (static_cast<long long>(gridDim.x) + blockIdx.x) * d;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = (threadIdx.x + i * blockDim.x) * VEC;
+    if (c < d) {
+      store_vec<VEC>(out_g + c, dg[i]);
+      store_vec<VEC>(out_b + c, db[i]);
+    }
+  }
+}
+
+// Backward past the register instance: persistent like it, each row in two
+// passes (sums, then dx), s and dy staged in shared memory between them
+// where they fit (`staged`), else read again; the dγ/dβ sums in shared
+// memory (`acc_shared`: 2·d floats) or else in the block's partial rows of
+// part, read and written by the thread that owns the column.
+template <typename E, int VEC>
+__global__ void __launch_bounds__(LOOP_THREADS, 1)
+add_ln_bwd_loop_kernel(const E* __restrict__ s, const float* __restrict__ gamma,
+                       const E* __restrict__ dy, const E* __restrict__ ds,
+                       const float* __restrict__ mean, const float* __restrict__ rstd,
+                       E* __restrict__ dx, float* __restrict__ part, int N, int d,
+                       int rows_per_block, int acc_shared, int staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[2][2][32];
+  float* out_g = part + static_cast<long long>(blockIdx.x) * d;
+  float* out_b = part + (static_cast<long long>(gridDim.x) + blockIdx.x) * d;
+  float* acc_g = acc_shared ? reinterpret_cast<float*>(smem) : out_g;
+  float* acc_b = acc_shared ? reinterpret_cast<float*>(smem) + d : out_b;
+  E* stage_s = staged ? reinterpret_cast<E*>(reinterpret_cast<float*>(smem) + 2 * d) : nullptr;
+  E* stage_dy = staged ? stage_s + d : nullptr;
+  const long long step = static_cast<long long>(blockDim.x) * VEC;
+  const float zero[VEC] = {};
+  for (long long c = threadIdx.x * VEC; c < d; c += step) {
+    store_vec<VEC>(acc_g + c, zero);
+    store_vec<VEC>(acc_b + c, zero);
+  }
+  const long long first = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long last = min(first + rows_per_block, static_cast<long long>(N));
+  int parity = 0;
+  for (long long row = first; row < last; ++row, parity ^= 1) {
+    const long long off = row * d;
+    const float m = mean[row];
+    const float rs = rstd[row];
+    float st[2] = {0.f, 0.f};
+#pragma unroll 2
+    for (long long c = threadIdx.x * VEC; c < d; c += step) {
+      float sv[VEC], dyv[VEC], g[VEC], ag[VEC], ab[VEC];
+      load_vec<VEC>(s + off + c, sv);
+      load_vec<VEC>(dy + off + c, dyv);
+      load_vec<VEC>(gamma + c, g);
+      load_vec<VEC>(acc_g + c, ag);
+      load_vec<VEC>(acc_b + c, ab);
+      if (stage_s) {
+        store_vec<VEC>(stage_s + c, sv);
+        store_vec<VEC>(stage_dy + c, dyv);
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float xh = (sv[j] - m) * rs;
+        const float gy = dyv[j] * g[j];
+        st[0] += gy;
+        st[1] += gy * xh;
+        ag[j] += dyv[j] * xh;
+        ab[j] += dyv[j];
+      }
+      store_vec<VEC>(acc_g + c, ag);
+      store_vec<VEC>(acc_b + c, ab);
+    }
+    block_sum<2>(st, red[parity]);
+    const float mg = st[0] / d;
+    const float mgx = st[1] / d;
+    const E* src_s = stage_s ? stage_s : s + off;
+    const E* src_dy = stage_dy ? stage_dy : dy + off;
+#pragma unroll 4
+    for (long long c = threadIdx.x * VEC; c < d; c += step) {
+      float sv[VEC], dyv[VEC], g[VEC], v[VEC];
+      load_vec<VEC>(src_s + c, sv);
+      load_vec<VEC>(src_dy + c, dyv);
+      load_vec<VEC>(gamma + c, g);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) v[j] = rs * (dyv[j] * g[j] - mg - (sv[j] - m) * rs * mgx);
+      if (ds != nullptr) {
+        float dsv[VEC];
+        load_vec<VEC>(ds + off + c, dsv);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) v[j] += dsv[j];
+      }
+      store_vec<VEC>(dx + off + c, v);
+    }
+  }
+  if (acc_shared) {
+    for (long long c = threadIdx.x * VEC; c < d; c += step) {
+      float a[VEC];
+      load_vec<VEC>(acc_g + c, a);
+      store_vec<VEC>(out_g + c, a);
+      load_vec<VEC>(acc_b + c, a);
+      store_vec<VEC>(out_b + c, a);
+    }
+  }
+}
+
+// ------------------------------------------------------------ launches
+
 template <typename E, int VPT, bool ADD>
 cudaError_t launch_fwd(const E* x, const E* r, const float* gamma,
                        const float* beta, E* s, E* y, float* mean,
@@ -311,12 +667,59 @@ cudaError_t launch_fwd(const E* x, const E* r, const float* gamma,
 
 constexpr int REG_DIM = 1024;  // widest row the register instances hold
 
+// The wide instance of a launch (mirrored by the wrapper's layernorm_plan).
+enum WideKind { WIDE_REGISTERS = 1, WIDE_STAGED = 2, WIDE_SHARED = 3, WIDE_DEVICE = 4 };
+struct WidePlan {
+  int kind;     // registers: the row (and dγ/dβ) in registers; staged: the row
+                // (and dγ/dβ) in shared memory; shared: dγ/dβ only; device: neither
+  int threads;  // a block
+  int smem;     // dynamic shared memory, bytes
+};
+
+inline WidePlan wide_plan(bool backward, int d, int esize, bool vec) {
+  const int k = !backward && d > FWD_ROWS_THREADS * WIDE_K ? 2 * WIDE_K : WIDE_K;
+  const long long t = ((d + k - 1LL) / k + 31) / 32 * 32;
+  if (t <= (backward ? BWD_ROWS_THREADS / (vec ? 1 : 2) : FWD_ROWS_THREADS))
+    return {WIDE_REGISTERS, static_cast<int>(t), 0};
+  const long long acc = backward ? 8LL * d : 0;  // dγ, dβ in f32
+  const long long row = static_cast<long long>(esize) * d * (backward ? 2 : 1);  // s, dy / x or s
+  if (acc + row <= SMEM_OPTIN) return {WIDE_STAGED, LOOP_THREADS, static_cast<int>(acc + row)};
+  if (backward && acc <= SMEM_OPTIN) return {WIDE_SHARED, LOOP_THREADS, static_cast<int>(acc)};
+  return {WIDE_DEVICE, LOOP_THREADS, 0};
+}
+
+// 16-byte vectors take every width that is a multiple of one and pointers
+// (null or) 16-byte aligned.
+template <typename E>
+bool vector_ok(int d, std::initializer_list<const void*> ptrs) {
+  if (d % (16 / sizeof(E)) != 0) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
 template <typename E, bool ADD>
 cudaError_t launch_fwd_wide(const E* x, const E* r, const float* gamma,
                             const float* beta, E* s, E* y, float* mean, float* rstd,
                             int N, int d, float eps, cudaStream_t stream) {
-  add_ln_fwd_wide_kernel<E, ADD><<<(N + NWARP - 1) / NWARP, NTHREAD, 0, stream>>>(
-      x, r, gamma, beta, s, y, mean, rstd, N, d, eps);
+  constexpr int V = 16 / sizeof(E);
+  const bool vec = vector_ok<E>(d, {x, r, gamma, beta, s, y});
+  const WidePlan p = wide_plan(false, d, sizeof(E), vec);
+  if (p.kind == WIDE_REGISTERS) {
+    const bool k2 = d > FWD_ROWS_THREADS * WIDE_K;
+    auto kernel = vec ? (k2 ? add_ln_fwd_wide_kernel<E, V, ADD, 2 * WIDE_K>
+                            : add_ln_fwd_wide_kernel<E, V, ADD, WIDE_K>)
+                      : (k2 ? add_ln_fwd_wide_kernel<E, 1, ADD, 2 * WIDE_K>
+                            : add_ln_fwd_wide_kernel<E, 1, ADD, WIDE_K>);
+    kernel<<<N, p.threads, 0, stream>>>(x, r, gamma, beta, s, y, mean, rstd, d, eps);
+    return cudaGetLastError();
+  }
+  auto kernel = vec ? add_ln_fwd_loop_kernel<E, V, ADD> : add_ln_fwd_loop_kernel<E, 1, ADD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<N, p.threads, p.smem, stream>>>(x, r, gamma, beta, s, y, mean, rstd, d, eps,
+                                           p.kind == WIDE_STAGED);
   return cudaGetLastError();
 }
 
@@ -325,15 +728,30 @@ cudaError_t launch_bwd_wide(const E* s, const float* gamma, const E* dy, const E
                             const float* mean, const float* rstd, E* dx, float* dgamma,
                             float* dbeta, float* part, int N, int d, int rows_per_block,
                             cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(E);
   const int nblocks = (N + rows_per_block - 1) / rows_per_block;
-  add_ln_bwd_rows_wide_kernel<E><<<nblocks, NTHREAD, 0, stream>>>(
-      s, gamma, dy, ds, mean, rstd, dx, part, N, d, rows_per_block);
+  const bool vec = vector_ok<E>(d, {s, gamma, dy, ds, dx, part});
+  const WidePlan p = wide_plan(true, d, sizeof(E), vec);
+  if (p.kind == WIDE_REGISTERS) {
+    auto kernel = vec ? add_ln_bwd_wide_kernel<E, V> : add_ln_bwd_wide_kernel<E, 1>;
+    kernel<<<nblocks, p.threads, 0, stream>>>(s, gamma, dy, ds, mean, rstd, dx, part, N, d,
+                                              rows_per_block);
+  } else {
+    auto kernel = vec ? add_ln_bwd_loop_kernel<E, V> : add_ln_bwd_loop_kernel<E, 1>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<nblocks, p.threads, p.smem, stream>>>(s, gamma, dy, ds, mean, rstd, dx, part, N,
+                                                   d, rows_per_block, p.kind != WIDE_DEVICE,
+                                                   p.kind == WIDE_STAGED);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   add_ln_bwd_cols_kernel<<<(2 * d + COLS - 1) / COLS, COLS * SEGS, 0, stream>>>(
-      part, dgamma, dbeta, nblocks * NWARP, d);
+      part, dgamma, dbeta, nblocks, d);
   return cudaGetLastError();
 }
+
 
 template <typename E, int VPT>
 cudaError_t launch_bwd(const E* s, const float* gamma, const E* dy,
@@ -429,9 +847,10 @@ int ln_fwd_bf16(const __nv_bfloat16* x, const float* gamma, const float* beta,
 
 // s, dy, ds (or null), dx [N, d] (f32 for _f32, bf16 for _bf16); gamma,
 // dgamma, dbeta [d] f32; mean, rstd [N] f32; part is f32 scratch of
-// 2·P·d floats, P = ceil(N / rows_per_block) partial rows up to REG_DIM and
-// NWARP times that past it. The plain LayerNorm backward is these entries
-// with ds null and x in place of s.
+// 2·P·d floats, P = ceil(N / rows_per_block) partial rows (one a block; the
+// wrapper sets rows_per_block to 32 up to REG_DIM, past it to fill G
+// persistent blocks). The plain LayerNorm backward is these entries with
+// ds null and x in place of s.
 int add_ln_bwd_f32(const float* s, const float* gamma, const float* dy,
                    const float* ds, const float* mean, const float* rstd,
                    float* dx, float* dgamma, float* dbeta, float* part, int N,
@@ -447,6 +866,16 @@ int add_ln_bwd_bf16(const __nv_bfloat16* s, const float* gamma,
                     int rows_per_block, void* stream) {
   return dispatch_bwd(s, gamma, dy, ds, mean, rstd, dx, dgamma, dbeta, part,
                       N, d, rows_per_block, static_cast<cudaStream_t>(stream));
+}
+
+// The wide instance (WideKind: 1 registers, 2 staged, 3 shared, 4 device)
+// that a launch of width d > REG_DIM takes with rows of esize bytes, in 16-
+// byte vectors (vec) or not, and its block size in *threads: what the
+// wrapper's layernorm_plan mirrors.
+int add_ln_wide_plan(int backward, int d, int esize, int vec, int* threads) {
+  const WidePlan p = wide_plan(backward != 0, d, esize, vec != 0);
+  *threads = p.threads;
+  return p.kind;
 }
 
 const char* add_layernorm_error_string(int err) {

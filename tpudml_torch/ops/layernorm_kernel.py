@@ -28,14 +28,19 @@ CUDA templates). Like JAX's, it is an op of its own that no model calls.
 
 Statistics follow the JAX package: f32, single pass, variance
 E[s²] − mean² clamped at 0, eps 1e-5; ``s`` is rounded to the stream
-dtype before the statistics. Any width d >= 1: rows up to 1024 wide stay
-in registers (one warp a row), wider ones take the kernels' looped
-instance (two passes over the row; its backward sums dγ/dβ through one
-partial row per warp in device memory), with the same statistics. The
-backward's f32 ``part`` scratch holds 2·d floats a partial row: one
-partial per block of 32 rows up to 1024 columns, one per warp (8 a
-block) past them, so N·d/2 floats for a wide backward, half the bytes of
-f32 rows and as many as bf16 rows. Each
+dtype before the statistics. Any width d >= 1. Rows up to 1024 wide stay
+in registers, one warp a row. Wider rows are owned by a block whose
+threads each own a fixed set of columns, read 16 bytes at a time (one
+value at a time where d is no multiple of a vector or a pointer is not
+16-byte aligned): the forward is one row a block, the backward G
+persistent blocks (a small multiple of the SM count), each summing its
+rows' dγ/dβ in registers and writing one partial row of each; past the
+widths registers hold, the looped instances stage the row and the sums
+in shared memory where they fit. :func:`layernorm_plan` is the launch
+geometry (the kernels' own choice, mirrored): instance, block size, G,
+rows per block and the partial rows of the backward's f32 ``part``
+scratch, 2·d floats each — one per block of 32 rows up to 1024 columns,
+G past them. Each
 kernel has an f32 and a bf16 twin (its own ``Kernel`` and launch counter,
 ``*_bf16``), chosen by the rows' dtype: the bf16 twins read and write the
 rows (x, r, s, y; s, dy, ds, dx) in bf16 and keep γ, β, the statistics
@@ -44,16 +49,27 @@ and dγ, dβ in f32.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from tpudml_torch.ops.cuda_lib import (
     F, I, P, CudaLibrary, Kernel, check_cuda_operand, ptr, storage_twin,
 )
 
-# As csrc/add_layernorm.cu: REG_DIM, NWARP.
-REGISTER_DIM = 1024  # widest row the register instances hold (32 floats a lane)
-BWD_ROWS_PER_BLOCK = 32  # backward rows per block: one dγ/dβ partial row up to REGISTER_DIM
-BWD_WARPS = 8  # warps a block: one dγ/dβ partial row each past REGISTER_DIM
+# As csrc/add_layernorm.cu: REG_DIM, WIDE_K, *_THREADS, SMEM_OPTIN.
+REGISTER_DIM = 1024  # widest row the narrow instances hold (32 floats a lane)
+BWD_ROWS_PER_BLOCK = 32  # narrow backward rows per block: one dγ/dβ partial row each
+WIDE_COLS = 16  # columns a thread holds in the wide register instances
+FWD_ROWS_THREADS = 512  # largest block of the forward's: d <= 16384 (2·WIDE_COLS a thread past 8192)
+BWD_ROWS_THREADS = 512  # and of the backward's (<= 128 registers a thread): d <= 8192;
+# its scalar instance takes half the threads (<= 255 registers): d <= 4096
+LOOP_THREADS = 512  # block of the looped instances past them (<= 128 registers a thread)
+SMEM_OPTIN = 232448 - 1024  # dynamic shared memory a looped block takes at most
+SM_SHARED = 233472  # shared memory of one SM; each resident block reserves 1 KB more
+SM_REGISTERS = 65536
+_WIDE_KINDS = {1: "registers", 2: "staged", 3: "shared", 4: "device"}  # csrc WideKind
 
 _FWD_ARGS = [P] * 8 + [I, I, F, P]
 _BWD_ARGS = [P] * 10 + [I, I, I, P]
@@ -62,6 +78,7 @@ _LIB = CudaLibrary("add_layernorm.cu", {
     "add_ln_fwd_f32": _FWD_ARGS, "add_ln_fwd_bf16": _FWD_ARGS,
     "add_ln_bwd_f32": _BWD_ARGS, "add_ln_bwd_bf16": _BWD_ARGS,
     "ln_fwd_f32": _LN_FWD_ARGS, "ln_fwd_bf16": _LN_FWD_ARGS,
+    "add_ln_wide_plan": [I, I, I, I, P],
 })
 _FWD_AT = "tpudml/ops/layernorm_kernel.py:225"
 _BWD_AT = "tpudml/ops/layernorm_kernel.py:231"
@@ -80,6 +97,86 @@ LN_FORWARD_BF16 = Kernel("layernorm_fwd_bf16", _LIB, "ln_fwd_bf16", replaces=_LN
 LN_BACKWARD = Kernel("layernorm_bwd", _LIB, "add_ln_bwd_f32", replaces=_LN_BWD_AT)
 LN_BACKWARD_BF16 = Kernel("layernorm_bwd_bf16", _LIB, "add_ln_bwd_bf16",
                           replaces=_LN_BWD_AT)
+
+
+class LayerNormPlan(NamedTuple):
+    """How a LayerNorm kernel launches for rows [N, d]."""
+
+    instance: str  # narrow | registers | staged | shared | device (module docstring)
+    vector: bool  # 16-byte loads and stores (else one value at a time)
+    threads: int  # a block
+    blocks: int  # the grid; in a wide backward G, one dγ/dβ partial row each
+    rows_per_block: int
+    partials: int  # partial rows of the backward's scratch (0 for the forward)
+    smem: int  # dynamic shared memory a block of a looped instance, bytes
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def layernorm_plan(n: int, d: int, itemsize: int, aligned: bool, sm_count: int,
+                   backward: bool) -> LayerNormPlan:
+    """The launch of the forward (``backward`` False) or backward kernel for
+    rows [n, d] of ``itemsize``-byte values, whose pointers are all 16-byte
+    aligned or not, on a card of ``sm_count`` SMs: a pure function of its
+    arguments, so the backward's block count and row ranges, and with them
+    the order of its dγ/dβ sums, are fixed for a given card and shape.
+
+    Up to REGISTER_DIM a warp a row (narrow). Past it, a block of
+    ``threads`` owns whole rows: the register instance while a thread's
+    WIDE_COLS columns cover the row (forward up to FWD_ROWS_THREADS,
+    backward up to BWD_ROWS_THREADS threads), then the looped one, which
+    stages the row (and the backward's dγ/dβ sums) in shared memory where
+    they fit ("staged"), else only the sums ("shared") or neither
+    ("device"). The wide backward's grid fills each SM with as many blocks
+    as its registers or shared memory hold, G = sm_count × that, fewer when
+    n is small; each block owns ceil(n / G) contiguous rows."""
+    if d <= REGISTER_DIM:
+        rows = BWD_ROWS_PER_BLOCK if backward else 8
+        blocks = -(-n // rows)
+        return LayerNormPlan("narrow", False, 256, blocks, rows, blocks if backward else 0, 0)
+    vector = aligned and d % (16 // itemsize) == 0
+    k = 2 * WIDE_COLS if not backward and d > FWD_ROWS_THREADS * WIDE_COLS else WIDE_COLS
+    threads = _round_up(-(-d // k), 32)
+    smem = 0
+    if threads <= (BWD_ROWS_THREADS // (1 if vector else 2) if backward else FWD_ROWS_THREADS):
+        instance = "registers"
+        per_sm = SM_REGISTERS // (threads * (128 if vector else 255))  # registers a thread
+    else:
+        threads = LOOP_THREADS
+        acc = 8 * d if backward else 0  # dγ, dβ in f32
+        row = itemsize * d * (2 if backward else 1)  # s, dy / x or s
+        if acc + row <= SMEM_OPTIN:
+            instance, smem = "staged", acc + row
+        elif backward and acc <= SMEM_OPTIN:
+            instance, smem = "shared", acc
+        else:
+            instance = "device"
+        per_sm = min(SM_REGISTERS // (threads * 128), SM_SHARED // (smem + 1024))
+    if not backward:
+        return LayerNormPlan(instance, vector, threads, n, 1, 0, smem)
+    rows = max(1, -(-n // max(1, min(n, sm_count * max(per_sm, 1)))))
+    blocks = -(-n // rows)
+    return LayerNormPlan(instance, vector, threads, blocks, rows, blocks, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _aligned(*tensors) -> bool:
+    """Whether every given tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
+def plan_for(rows: torch.Tensor, *others, backward: bool) -> LayerNormPlan:
+    """:func:`layernorm_plan` for a launch on CUDA ``rows`` [N, d] (and the
+    other tensors it reads or writes)."""
+    n, d = rows.shape
+    return layernorm_plan(n, d, rows.element_size(), _aligned(rows, *others),
+                          _sm_count(rows.device.index), backward)
 
 
 def layernorm_forward_reference(x, scale, bias, eps: float = 1e-5):
@@ -174,13 +271,13 @@ def _backward_launch(kernel: Kernel, s, scale, dy, ds, mean, rstd):
     dx = torch.empty_like(s)
     dgamma = torch.empty((d,), dtype=torch.float32, device=s.device)
     dbeta = torch.empty_like(dgamma)
-    partials = -(-n // BWD_ROWS_PER_BLOCK) * (1 if d <= REGISTER_DIM else BWD_WARPS)
-    part = torch.empty((2, partials, d), dtype=torch.float32, device=s.device)
+    plan = plan_for(s, scale, dy, ds, backward=True)  # dx, part: fresh, aligned
+    part = torch.empty((2, plan.partials, d), dtype=torch.float32, device=s.device)
     with torch.cuda.device(s.device):
         kernel.launch(
             ptr(s), ptr(scale), ptr(dy), P(None) if ds is None else ptr(ds),
             ptr(mean), ptr(rstd), ptr(dx), ptr(dgamma), ptr(dbeta), ptr(part),
-            I(n), I(d), I(BWD_ROWS_PER_BLOCK),
+            I(n), I(d), I(plan.rows_per_block),
         )
     return dx, dgamma, dbeta
 

@@ -32,6 +32,10 @@ saved-scores head (``save_scores=True``: kernels 11, 12, 13 and a 4 GiB
 f32 score residual). No kernel-free configuration: full attention would
 hold 8 GiB of scores a layer. Its default is 3 timed steps.
 
+``--wide`` profiles the same f32 step on the wide trunk of
+``chip_smoke.py``'s ``train_wide`` phase (d=2048, H=16, L=2: the width of
+a GPT-3 1.3B trunk, whose add+LN rows take the wide LayerNorm instances).
+
 ``--moe E --moe_variant {gather, ragged_stock, ragged_grouped}`` profiles
 one step of ``bench.py --moe`` (``bench_moe``) instead: the training
 config in bf16 compute over f32 master weights with flash attention,
@@ -41,7 +45,7 @@ fused add+LN, RoPE, top-1 MoE FFNs of E experts at capacity factor 1.25
 ``make_train_step`` (materialized logits). One configuration, "moe".
 
 Run on the card: ``python -m tpudml_torch.tools.profile_train [--flagship | --long |
---moe 8 --moe_variant ragged_grouped]`` (one JSON line at the end; ``--out FILE``
+--wide | --moe 8 --moe_variant ragged_grouped]`` (one JSON line at the end; ``--out FILE``
 also writes it to FILE).
 """
 
@@ -58,6 +62,7 @@ from tpudml_torch.tools.profile_serve import _measure
 
 MODEL = dict(vocab_size=32768, embed_dim=512, num_heads=4, num_layers=6,
              max_len=1024, rope=True)
+WIDE = dict(embed_dim=2048, num_heads=16, num_layers=2)  # chip_smoke.py's WIDE_MODEL
 BATCH = 8
 LONG_T, LONG_BATCH = 16384, 2  # BASELINE.md:45
 # bench_moe's variants (bench.py:586-661), also driven by chip_smoke.py.
@@ -75,6 +80,8 @@ def main(argv=None) -> dict:
                       help="the bf16 fused-head flagship step instead of the f32 one")
     mode.add_argument("--long", action="store_true",
                       help="the T=16384 long-context step, lean vs saved-scores head")
+    mode.add_argument("--wide", action="store_true",
+                      help="the f32 step on the wide trunk (d=2048, H=16, L=2)")
     mode.add_argument("--moe", type=int, default=0, metavar="E",
                       help="one bench_moe step with E experts (bf16, top-1, capacity 1.25)")
     p.add_argument("--moe_variant", choices=sorted(MOE_VARIANTS), default="ragged_grouped")
@@ -94,6 +101,8 @@ def main(argv=None) -> dict:
     model_cfg, batch = MODEL, BATCH
     if args.long:
         model_cfg, batch = dict(MODEL, max_len=LONG_T), LONG_BATCH
+    if args.wide:
+        model_cfg = dict(MODEL, **WIDE)
     t = model_cfg["max_len"]
     if args.flagship or args.moe:
         seed = 3 if args.moe else 1  # bench.py:604 / :351
@@ -116,6 +125,7 @@ def main(argv=None) -> dict:
     step_name = (f"MoE E={args.moe} {args.moe_variant} bf16 (AdamW 3e-4)" if args.moe else
                  "flagship bf16 (fused xent head, AdamW 3e-4)" if args.flagship else
                  "long-context f32 T=16384 (fused xent head, Adam 1e-3)" if args.long
+                 else "wide-trunk f32 d=2048 (materialized logits, Adam 1e-3)" if args.wide
                  else "f32 (materialized logits, Adam 1e-3)")
     result = {"device": torch.cuda.get_device_name(0), "model": model_cfg,
               "batch": batch, "tokens_per_step": batch * t, "step": step_name}
