@@ -13,7 +13,14 @@ the CPU). Phases, each printing its own line(s):
    TF32 instructions and f32 FMAs. It fails unless every bf16 instance
    holds ``HMMA.16816.F32.BF16``, none holds TF32 and none spills. Then
    each instance of the LayerNorm kernels 6–9 with its registers and
-   spills; it fails if a wide instance (past d = 1024) spills.
+   spills; it fails if a wide instance (past d = 1024) spills. Then each
+   instance of the lean head's kernels 14 and 15 and their range sum
+   (``xent_lean.cu``, f32 and bf16) with its registers, spills, stack frame
+   and SASS counts; it fails if one spills or keeps a stack frame, holds
+   TF32, or a bf16 twin of 14 or 15 holds no ``HMMA.16816.F32.BF16``; and
+   the cut of d the built kernels choose (columns a block, blocks a
+   cluster, score computations a tile) at d = 512 to 8192, against
+   ``lean_plan``.
 3. kernel vs plain version on the card at the main paths' shapes, with
    the tolerances stated: the flash forward (serving: B=1, T=128, H=8,
    D=64: causal, non-causal, odd T, k_shift=1; training: B=8, T=1024,
@@ -30,7 +37,9 @@ the CPU). Phases, each printing its own line(s):
    kernels 14 and 15 with kernel 10 that feeds them lse (the same shapes,
    and in f32 the long-context path's N=32768, BASELINE.md:46's N=131072
    and N=2097184 at d=1024, V=256, where N·d passes 2³¹ and the offsets
-   need 64 bits; the last two against the plain versions in row chunks),
+   need 64 bits; the last two against the plain versions in row chunks;
+   timed with TFLOP/s at 4·N·d·V, at the path's shape and at the
+   flagship's N=8192 in bf16 and f32),
    and the plain LayerNorm kernels 6 and 7 (N=8192 and N=1000, d=512, f32
    and bf16), and the grouped dW (kernel 16, f32 and bf16 twins) at the MoE
    path's M=8192 rows, (k, n) = (512, 2048) and (2048, 512), E = 4 and 8,
@@ -270,8 +279,8 @@ XENT_EDGE = (8_388_609, 8, 128)
 # count, ragged bf16 widths (1025, 1100, 4100), a base 4 or 2 bytes off 16,
 # and widths that take the looped instances (12000 staged, 20000 shared,
 # 40000 device for the backward). xent d no multiple of 8 and past the
-# lean kernels' resident 1024, timed at XENT_WIDE_TIMED (N, d, V); the
-# decode head past one 8-row group's stage.
+# lean kernels' 512-column chunk (clusters of blocks), timed at
+# XENT_WIDE_TIMED (N, d, V); the decode head past one 8-row group's stage.
 LN_SWEEP = (1536, 2048, 4096, 8192, 16384)
 LN_SWEEP_ELEMS = 1 << 25
 LN_CHECKS = ((1, 4096, 0), (100, 2048, 0), (300, 1025, 0), (300, 1100, 0), (300, 4100, 0),
@@ -342,6 +351,13 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+# A torch.profiler session on the H100 now and then records no device
+# activity, although the calls it profiles launch kernels every time
+# (F.layer_norm's bf16 backward, once in four runs of this script): such a
+# session is taken again, up to PROFILE_TRIES times.
+PROFILE_TRIES = 3
+
+
 def device_ms(fn, calls: int = 200) -> float:
     """Summed device durations of the kernels that ``calls`` back-to-back
     calls of ``fn`` launch, over ``calls``, from ``torch.profiler``: a
@@ -352,14 +368,16 @@ def device_ms(fn, calls: int = 200) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "the profiler recorded no device time")
-    return us / 1e3 / calls
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / calls
+    check(False, f"the profiler recorded no device time in {PROFILE_TRIES} tries")
 
 
 def timed(fn, ref, nbytes: float, flops: float, peak: float = H100_F32_FLOPS, lib=None,
@@ -1286,10 +1304,12 @@ def xent_lean_times(gen, n, dtype, iters=3, with_fwd=False, dv=XENT_SHAPE[1:]) -
         ms = cuda_ms(fn, iters=iters, warmup=1)
         plain_ms = cuda_ms(ref, iters=2, warmup=1)
         bnd, by = bound(nbytes, flops, peak)
-        print(f"[kernel] {kernel.name} N={n} d={d} V={v} {tag}: kernel {ms:.3f} ms, plain "
+        rate = tflops(mm if kernel is not XENT_FORWARD else mm // 2, ms)
+        print(f"[kernel] {kernel.name} N={n} d={d} V={v} {tag}: kernel {ms:.3f} ms "
+              f"({rate:.1f} TFLOP/s at {'2' if kernel is XENT_FORWARD else '4'}·N·d·V), plain "
               f"{plain_ms:.3f} ms, {name} {lib:.3f} ms, bound {bnd:.5f} ms ({by})")
         out[kernel.name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                                library_ms=lib, library=f"{name}, {tag}",
+                                library_ms=lib, library=f"{name}, {tag}", tflops=rate,
                                 shape=f"N={n} d={d} V={v} {tag}")
         torch.cuda.empty_cache()
     return out
@@ -1742,7 +1762,7 @@ def ln_wide_phase(gen, rows: dict) -> None:
 
 def xent_wide_phase(gen, rows: dict) -> None:
     """Kernels 10–15 at widths no multiple of the forward's 8-deep stage and
-    past the 1024 columns the lean kernels keep resident (XENT_WIDE), f32
+    past the lean kernels' 512-column chunk (XENT_WIDE), f32
     and bf16, N = V = 1000 with labels −1 and V, against their plain
     versions with the tolerances of the main shapes; then timed in f32 at
     XENT_WIDE_TIMED (all six) and at d = 12 (the forward's ragged
@@ -2508,18 +2528,23 @@ def moe_f32_phase() -> dict[str, int]:
 
 
 def ptxas_usage(log: str) -> dict[str, dict]:
-    """{mangled entry function: {registers, spill}} from a ``-Xptxas -v``
-    build log (spill: bytes stored plus bytes loaded)."""
+    """{mangled entry function: {registers, spill, stack}} from a ``-Xptxas
+    -v`` build log (spill: bytes stored plus bytes loaded; stack: the
+    frame's bytes, where arrays the registers do not hold live)."""
     usage: dict[str, dict] = {}
     entry = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            entry = usage.setdefault(m.group(1), {"registers": None, "spill": None})
+            entry = usage.setdefault(m.group(1), {"registers": None, "spill": None,
+                                                  "stack": None})
         elif entry is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
                 entry["spill"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"(\d+) bytes stack frame", line)
+            if m:
+                entry["stack"] = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 entry["registers"] = int(m.group(1))
@@ -2558,6 +2583,51 @@ FLASH_INSTANCES = (
     ("flash_dkdv.cu", "flash_dkdv_f32_kernel", (32, 64, 128, 256)),
 )
 BF16_MMA = "HMMA.16816.F32.BF16"  # mma.sync m16n8k16, bf16 in, f32 sums
+# Kernels of xent_lean.cu (the lean head's 14 and 15, and their range sum)
+# with whether their bf16 twin must run on the tensor cores; LEAN_TWINS: the
+# twins' template arguments in the mangled names.
+LEAN_INSTANCES = (
+    ("xent_dx_lean_kernel", True),
+    ("xent_dw_lean_kernel", True),
+    ("xent_dw_lean_sum_kernel", False),
+)
+LEAN_TWINS = (("f32", "If"), ("bf16", "I13__nv_bfloat16"))
+LEAN_PLAN_WIDTHS = (512, 1024, 2048, 4096, 8192)
+
+
+def lean_instances(lib) -> None:
+    """Hold every instance of the lean kernels (xent_lean.cu) to its design:
+    no spill and no stack frame (its f32 tiles live in registers), no TF32
+    instruction, and ``HMMA.16816.F32.BF16`` in each bf16 twin of kernels
+    14 and 15; print registers and SASS counts. Then the cut of d the
+    built kernels choose (chunk, cluster, S passes) against
+    ``lean_plan``."""
+    from tpudml_torch.ops import lean_plan, lean_plan_built
+
+    usage = ptxas_usage(lib.ptxas_log())
+    sass = sass_opcodes(lib.target())
+    for kernel, mma_twin in LEAN_INSTANCES:
+        for tag, arg in LEAN_TWINS:
+            names = [n for n in sass if re.search(rf"\d{kernel}{arg}E", n)]
+            check(len(names) == 1, f"xent_lean.cu: no single {kernel}<{tag}> in the SASS")
+            ops, use = sass[names[0]], usage.get(names[0])
+            check(use is not None, f"no ptxas -v report of {kernel}<{tag}>: the library was "
+                  f"built without its log; empty tpudml_torch/_build and rerun")
+            mma = ops.get(BF16_MMA, 0)
+            tf32 = sum(c for op, c in ops.items() if "TF32" in op)
+            print(f"[build] xent_lean.cu {kernel}<{tag}>: {use.get('registers')} registers, "
+                  f"spill {use.get('spill')} B, stack {use.get('stack')} B, {BF16_MMA} {mma}, "
+                  f"TF32 {tf32}, FFMA {ops.get('FFMA', 0)}")
+            check(use.get("spill") == 0 and use.get("stack") == 0,
+                  f"{kernel}<{tag}> spills or keeps a stack frame ({use})")
+            check(tf32 == 0, f"{kernel}<{tag}> holds TF32 instructions ({ops})")
+            if mma_twin and tag == "bf16":
+                check(mma > 0, f"{kernel}<bf16> runs no bf16 mma on the tensor cores")
+    for d in LEAN_PLAN_WIDTHS:
+        plan = lean_plan_built(d)
+        print(f"[build] lean kernels at d={d}: {plan['cluster']} block(s) of {plan['chunk']} "
+              f"columns a cluster, scores computed {plan['s_passes']}x a tile")
+        check(plan == lean_plan(d), f"lean_plan({d}) {lean_plan(d)} is not the kernels' {plan}")
 
 
 def ln_instances(lib) -> None:
@@ -2584,10 +2654,12 @@ def build_phase() -> None:
     """Build every kernel source (one nvcc each, all started together) and
     print what ptxas reports. Hold kernels 1–3 to their design in every
     instance: the bf16 twins on the tensor cores (``HMMA.16816.F32.BF16`` in
-    their SASS), no TF32 instruction in any twin, and no spills; and the
-    wide instances of the LayerNorm kernels 6–9 to no spills."""
+    their SASS), no TF32 instruction in any twin, and no spills; the wide
+    instances of the LayerNorm kernels 6–9 to no spills; and the lean
+    kernels 14, 15 as ``lean_instances`` says."""
     from tpudml_torch.ops import (
-        ADD_LN_FORWARD, FLASH_DKDV, FLASH_DQ, FLASH_FORWARD, KERNELS, build_kernels,
+        ADD_LN_FORWARD, FLASH_DKDV, FLASH_DQ, FLASH_FORWARD, KERNELS, XENT_DX_LEAN,
+        build_kernels,
     )
 
     t_build = build_kernels()
@@ -2620,6 +2692,7 @@ def build_phase() -> None:
                 if "bf16" in kernel:
                     check(mma > 0, f"{kernel}<{dp}> runs no bf16 mma on the tensor cores")
     ln_instances(ADD_LN_FORWARD.library)
+    lean_instances(XENT_DX_LEAN.library)
 
 
 def main() -> int:

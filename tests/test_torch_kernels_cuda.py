@@ -61,7 +61,8 @@ from tpudml_torch.ops import (  # noqa: E402
     DECODE_HEAD, FLASH_FORWARD, GROUPED_DW, GROUPED_DW_BF16, flash_dkdv, flash_dkdv_reference, flash_dq,
     flash_dq_reference, grouped_dw, grouped_dw_reference, ragged_ffn,
     layernorm_backward, layernorm_backward_reference, layernorm_forward,
-    layernorm_forward_reference, linear_cross_entropy, reference_head, xent_dw,
+    layernorm_forward_reference, lean_plan, lean_plan_built, linear_cross_entropy,
+    reference_head, xent_dw,
     xent_dw_lean, xent_dw_lean_reference, xent_dw_reference, xent_dx, xent_dx_lean,
     xent_dx_lean_reference, xent_dx_reference, xent_forward, xent_forward_reference,
     xent_forward_save, xent_forward_save_reference,
@@ -296,7 +297,7 @@ def _xent_inputs(n, d, v, dtype, device, seed=0):
 
 
 # d = 12: a ragged edge of the forward's 8-deep contraction stage; 1032 and
-# 2048: past the 1024 columns the lean kernels keep resident.
+# 2048: past one 512-column chunk of the lean kernels (clusters of 3, 4).
 _XENT_WIDE = [(300, 12, 700), (256, 1032, 1000), (96, 2048, 500)]
 
 
@@ -369,16 +370,24 @@ def test_xent_kernels_reject_what_they_do_not_take(cuda_device):
         xent_forward(x, w, b, y.long())
 
 
+# The lean kernels' cut of d (lean_plan): one 512-column chunk (12, 512),
+# clusters of 2, 3 and 4 blocks (1024, 1025, 2048), two score passes past
+# 4096 (4100); V % 4 != 0 (1001: W rows copied by scalar loads; d = 1025
+# does the same for x rows); N just past 65536 (dW's two row ranges).
+_LEAN_WIDTHS = [(1000, 12, 1000), (1000, 512, 1000), (1000, 1024, 1000), (1000, 1025, 1000),
+                (1000, 2048, 1000), (64, 4100, 300), (1000, 512, 1001), (65_600, 64, 100)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n,d,v", [(1000, 64, 1000), (256, 512, 4096), (37, 8, 130),
                                    (70, 264, 300), (50, 1024, 200), (2_097_184, 8, 40),
-                                   (140_000, 64, 100), *_XENT_WIDE])
+                                   (140_000, 64, 100), *_XENT_WIDE, *_LEAN_WIDTHS])
 def test_xent_lean_kernels_match_plain(cuda_device, dtype, n, d, v):
     """Kernels 14 and 15 against their plain versions: ragged rows and
-    vocab, labels −1 and V, d chunks of 128, 512 and two 512s, 65537 row
-    tiles of dX (more than a grid's y extent of 65535 holds), and dW's row
-    ranges of 65536 (33 of them; 3 with a ragged last one)."""
+    vocab, labels −1 and V, every kind of cut of d (_LEAN_WIDTHS), 65537
+    row tiles of dX (more than a grid's y extent of 65535 holds), and dW's
+    row ranges of 65536 (2, 3 and 33 of them); a repeat is bitwise equal."""
     x, w, b, y = _xent_inputs(n, d, v, dtype, cuda_device, seed=5)
     lse, _ = xent_forward_reference(x, w, b, y)
     before = (XENT_DX_LEAN.launches, XENT_DW_LEAN.launches)
@@ -394,6 +403,13 @@ def test_xent_lean_kernels_match_plain(cuda_device, dtype, n, d, v):
     _close_to_max(db, rdb, XENT_GRAD_REL[torch.float32])
     again = (xent_dx_lean(x, w, b, y, lse, 1.0 / n), *xent_dw_lean(x, w, b, y, lse, 1.0 / n))
     assert all(torch.equal(a, c) for a, c in zip((dx, dw, db), again))
+
+
+@pytest.mark.cuda
+def test_lean_plan_is_the_kernels_choice(cuda_device):
+    """The host's ``lean_plan`` is the cut of d the built kernels make."""
+    for d in (1, 12, 512, 513, 1024, 1025, 2048, 4096, 4097, 8192, 40000):
+        assert lean_plan_built(d) == lean_plan(d), d
 
 
 @pytest.mark.cuda

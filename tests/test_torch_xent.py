@@ -27,7 +27,7 @@ from tpudml_torch.ops import (  # noqa: E402
 )
 
 # d = 12: not a multiple of the card's 8-deep contraction stage; d = 1032:
-# past the 1024 columns the lean kernels keep resident in shared memory.
+# past one 512-column chunk of the card's lean kernels (a cluster of 3).
 SHAPES = [(16, 32, 64, 8, 64), (24, 16, 100, 8, 128), (16, 12, 64, 8, 64),
           (8, 1032, 64, 8, 64)]
 SHAPE_IDS = ["n16-d32-v64", "n24-d16-v100-ragged", "n16-d12-v64", "n8-d1032-v64"]
@@ -275,3 +275,26 @@ def test_lean_and_saved_gradients_agree(bias):
     assert lean == saved
     for g, r in zip(lgrads, sgrads):
         np.testing.assert_allclose(g, r, **F32_TOL)
+
+
+@pytest.mark.parametrize("d,cluster,s_passes", [
+    (1, 1, 1), (12, 1, 1), (512, 1, 1), (513, 2, 1), (1024, 2, 1), (1025, 3, 1),
+    (2048, 4, 1), (4096, 8, 1), (4097, 8, 2), (8192, 8, 2), (40000, 8, 10),
+])
+def test_lean_plan_computes_the_scores_once_up_to_4096(d, cluster, s_passes):
+    """The lean kernels' cut of d (``lean_plan``, the host's mirror of
+    csrc/xent_lean.cu ``lean_chunks``; a card-only test holds the two
+    equal): one 512-column chunk a block, the chunks of a tile in one
+    cluster of up to 8 blocks, so the scores of a tile are computed once
+    for every d up to 4096 and once per 4096 columns beyond; the clusters
+    cover every column of d and no cluster is empty."""
+    plan = txk.lean_plan(d)
+    assert plan == {"chunk": 512, "cluster": cluster, "s_passes": s_passes}
+    chunks = -(-d // plan["chunk"])
+    assert plan["cluster"] * plan["s_passes"] >= chunks
+    assert plan["cluster"] * (plan["s_passes"] - 1) < chunks
+
+
+def test_lean_plan_rejects_an_empty_width():
+    with pytest.raises(ValueError):
+        txk.lean_plan(0)

@@ -68,6 +68,8 @@ from tpudml_torch.ops.xent_kernel import (
     XENT_DX_LEAN,
     XENT_FORWARD,
     XENT_FORWARD_SAVE,
+    lean_plan,
+    lean_plan_built,
     linear_cross_entropy,
     xent_dw,
     xent_dw_lean,
@@ -130,6 +132,8 @@ __all__ = [
     "layernorm_backward_reference",
     "layernorm_forward",
     "layernorm_forward_reference",
+    "lean_plan",
+    "lean_plan_built",
     "linear_cross_entropy",
     "ragged_ffn",
     "ragged_matmul",

@@ -15,10 +15,11 @@ caller. Two backward modes, as in JAX:
   before contracting dlogits, so nothing of size N·V exists in either
   direction (the 131k-token regime, where the scores alone are 16 GiB).
 
-CUDA sources: ``tpudml_torch/csrc/xent.cu``. The kernels take any width
-d >= 1: a ragged contraction edge is masked inside them (W is never
-padded), and past d = 1024 the lean kernels stage their fixed operand
-instead of keeping it resident in shared memory.
+CUDA sources: ``tpudml_torch/csrc/xent.cu`` (kernels 10–13) and
+``tpudml_torch/csrc/xent_lean.cu`` (the lean kernels 14, 15). The kernels
+take any width d >= 1: a ragged contraction edge is masked inside them (W
+is never padded); the lean kernels give each 512-column chunk of d a block
+of one thread-block cluster (:func:`lean_plan`).
 
 - :func:`xent_forward` / :func:`xent_forward_save` launch kernel 10 / 11
   for CUDA tensors; :func:`xent_dx` / :func:`xent_dw` launch kernels 12
@@ -47,6 +48,8 @@ Semantics, as in the JAX package:
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from tpudml_torch.ops.cuda_lib import (
@@ -59,10 +62,13 @@ _LIB = CudaLibrary("xent.cu", {
     "xent_fwd_save": [P] * 8 + [I] * 4 + [P],
     "xent_dx_s": [P] * 5 + [I] * 3 + [F, I, P],
     "xent_dw_s": [P] * 6 + [I] * 3 + [F, I, P],
+    "xent_tile_width": [],
+})
+_LEAN_LIB = CudaLibrary("xent_lean.cu", {
     "xent_dx_lean": [P] * 6 + [I] * 3 + [F, I, P],
     "xent_dw_lean": [P] * 9 + [I] * 3 + [F, I, P],
-    "xent_tile_width": [],
     "xent_dw_lean_range_rows": [],
+    "xent_lean_plan": [I, P],
 })
 XENT_FORWARD = Kernel("xent_fwd", _LIB, "xent_fwd",
                       replaces="tpudml/ops/xent_kernel.py:105")
@@ -72,14 +78,40 @@ XENT_DX = Kernel("xent_dx_s", _LIB, "xent_dx_s",
                  replaces="tpudml/ops/xent_kernel.py:175")
 XENT_DW = Kernel("xent_dw_s", _LIB, "xent_dw_s",
                  replaces="tpudml/ops/xent_kernel.py:199")
-XENT_DX_LEAN = Kernel("xent_dx_lean", _LIB, "xent_dx_lean",
+XENT_DX_LEAN = Kernel("xent_dx_lean", _LEAN_LIB, "xent_dx_lean",
                       replaces="tpudml/ops/xent_kernel.py:327")
-XENT_DW_LEAN = Kernel("xent_dw_lean", _LIB, "xent_dw_lean",
+XENT_DW_LEAN = Kernel("xent_dw_lean", _LEAN_LIB, "xent_dw_lean",
                       replaces="tpudml/ops/xent_kernel.py:356")
 
 # The save_s=None threshold and the tiling rule, copied from the JAX
 # package so that the same (N, V) resolves to the same mode.
 SAVE_S_AUTO_MAX_BYTES = 2 * 1024**3
+
+# How kernels 14 and 15 cut a width d (csrc/xent_lean.cu `lean_chunks`): a
+# block owns LEAN_CHUNK columns of d; the chunks of one row (dX) or
+# vocabulary (dW) tile form a thread-block cluster of up to LEAN_CLUSTER_MAX
+# blocks that compute the scores once between them.
+LEAN_CHUNK = 512
+LEAN_CLUSTER_MAX = 8
+
+
+def lean_plan(d: int) -> dict:
+    """The lean kernels' cut of width ``d``: ``chunk`` columns a block,
+    ``cluster`` blocks a cluster, and ``s_passes``, how many times the
+    scores of one tile are computed (1 up to 8 chunks, d <= 4096)."""
+    if d < 1:
+        raise ValueError(f"d must be >= 1, got {d}")
+    chunks = -(-d // LEAN_CHUNK)
+    cluster = min(chunks, LEAN_CLUSTER_MAX)
+    return {"chunk": LEAN_CHUNK, "cluster": cluster, "s_passes": -(-chunks // cluster)}
+
+
+def lean_plan_built(d: int) -> dict:
+    """:func:`lean_plan` as the built kernels decide it (``xent_lean_plan``
+    of csrc/xent_lean.cu; needs nvcc: a card-only test holds the two equal)."""
+    out = (ctypes.c_int * 3)()
+    _LEAN_LIB.call("xent_lean_plan", I(d), ctypes.cast(out, P))
+    return {"chunk": out[0], "cluster": out[1], "s_passes": out[2]}
 
 
 def _padded_dims(n: int, v: int, block_n: int, block_v: int):
