@@ -14,13 +14,16 @@ the CPU). Phases, each printing its own line(s):
    holds ``HMMA.16816.F32.BF16``, none holds TF32 and none spills. Then
    each instance of the LayerNorm kernels 6–9 with its registers and
    spills; it fails if a wide instance (past d = 1024) spills. Then each
-   instance of the lean head's kernels 14 and 15 and their range sum
-   (``xent_lean.cu``, f32 and bf16) with its registers, spills, stack frame
+   instance of the saved-scores kernels 12 and 13 and their range sum
+   (``xent_saved.cu``) and of the lean head's kernels 14 and 15 and theirs
+   (``xent_lean.cu``), f32 and bf16, with its registers, spills, stack frame
    and SASS counts; it fails if one spills or keeps a stack frame, holds
-   TF32, or a bf16 twin of 14 or 15 holds no ``HMMA.16816.F32.BF16``; and
-   the cut of d the built kernels choose (columns a block, blocks a
-   cluster, score computations a tile) at d = 512 to 8192, against
-   ``lean_plan``.
+   TF32, or a bf16 twin of 12–15 holds no ``HMMA.16816.F32.BF16``; then
+   the cut the built saved-scores kernels make (rows or columns a block,
+   reads of s, dW's row ranges, blocks) at SAVED_PLAN_SHAPES against
+   ``saved_plan``, and the cut of d the built lean kernels choose (columns
+   a block, blocks a cluster, score computations a tile) at d = 512 to
+   8192, against ``lean_plan``.
 3. kernel vs plain version on the card at the main paths' shapes, with
    the tolerances stated: the flash forward (serving: B=1, T=128, H=8,
    D=64: causal, non-causal, odd T, k_shift=1; training: B=8, T=1024,
@@ -33,7 +36,10 @@ the CPU). Phases, each printing its own line(s):
    backward (N=8192, d=512; also N=1000 and ds=None), the bf16 twins of
    the flash and add+LN kernels at the training shapes, and the fused
    linear-xent kernels 10–13 (N=8192, d=512, V=32768 and the ragged
-   N=1000, V=1000 with labels −1 and V; f32 and bf16), the lean head's
+   N=1000, V=1000 with labels −1 and V; f32 and bf16; 12 and 13 timed
+   with TFLOP/s at 2·N·d·V beside a yardstick that is not their function,
+   cuBLAS's product alone on a dlog materialized in the operand dtype, and
+   in f32 also at the long context's N=32768), the lean head's
    kernels 14 and 15 with kernel 10 that feeds them lse (the same shapes,
    and in f32 the long-context path's N=32768, BASELINE.md:46's N=131072
    and N=2097184 at d=1024, V=256, where N·d passes 2³¹ and the offsets
@@ -67,7 +73,8 @@ the CPU). Phases, each printing its own line(s):
    V=8192, and 10, 11 at the flagship's N and V with d = 12), kernels 4
    and 5 at d = 8192 (B=8, V=32768, one launch). Then the launches
    past the old grid-y edges:
-   kernels 10–12 at N=8,388,609 rows (d=8, V=128) and the flash forward,
+   kernels 10–13 at N=8,388,609 rows (d=8, V=128; dW in 129 row ranges)
+   and the flash forward,
    dQ and dK/dV at B·H=65,537 (B=65,537, H=1, T=16, D=32), against their
    plain versions in row chunks.
 4. main path 1, serving: the serving engine at full width (V=32768, d=512, H=8,
@@ -1102,13 +1109,20 @@ def xent_check(gen, n, d, v, dtype, bad_labels) -> dict:
                              (db - rdb).abs().max().item())}
 
 
-def xent_times(gen, dtype, shape=XENT_SHAPE, label="flagship head") -> dict:
-    """Kernels 10–13 at ``shape`` (N, d, V; the flagship head's by default)
-    in ``dtype``: kernel, plain and library ms and the bound, by kernel
-    name. Library: the
-    forward is ``torch.logsumexp(x@W+b)`` plus the label pick; the
-    backward the autograd of ``F.cross_entropy`` over the materialized
-    logits minus its forward (dx, dW, db together)."""
+PRODUCT_NAME = "cuBLAS product alone on a dlog materialized in the operand dtype"
+
+
+def xent_times(gen, dtype, shape=XENT_SHAPE, label="flagship head", only=None) -> dict:
+    """Kernels 10–13 (or the names in ``only``) at ``shape`` (N, d, V; the
+    flagship head's by default) in ``dtype``: kernel, plain and library ms
+    and the bound, by kernel name. Library: the forward is
+    ``torch.logsumexp(x@W+b)`` plus the label pick; the backward the
+    autograd of ``F.cross_entropy`` over the materialized logits minus its
+    forward (dx, dW, db together: the whole head's backward, not one
+    kernel). Rows 12 and 13 also give their rate at 2·N·d·V and, as a
+    yardstick of their product that is not their function (the port never
+    calls it), ``product_ms``: cuBLAS's dlog·Wᵀ or xᵀ·dlog on a dlog that
+    is already materialized in the operand dtype."""
     import torch
     import torch.nn.functional as F
 
@@ -1117,12 +1131,15 @@ def xent_times(gen, dtype, shape=XENT_SHAPE, label="flagship head") -> dict:
         xent_dx, xent_dx_reference, xent_forward, xent_forward_reference,
         xent_forward_save, xent_forward_save_reference,
     )
+    from tpudml_torch.ops.xent_kernel import _dlog
 
     n, d, v = shape
     x, w, b, y = _xent_inputs(gen, n, d, v, dtype, bad_labels=False)
     yl = y.long()
     lse, _, s = xent_forward_save(x, w, b, y)
     leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    dlog = _dlog(s, y, lse, 1.0 / n).to(dtype)
+    product = {XENT_DX: lambda: dlog @ w.T, XENT_DW: lambda: x.T @ dlog}
 
     def lib_fwd():
         logits = torch.addmm(b, x, w)
@@ -1138,7 +1155,7 @@ def xent_times(gen, dtype, shape=XENT_SHAPE, label="flagship head") -> dict:
     mm = 2 * n * d * v
     peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
     out = {}
-    for kernel, fn, ref, nbytes, flops, lib, lib_name in (
+    cases = (
         (XENT_FORWARD, lambda: xent_forward(x, w, b, y),
          lambda: xent_forward_reference(x, w, b, y), io + 8 * n, mm + 4 * n * v,
          lib_f, "logsumexp(x@W+b) + pick"),
@@ -1153,15 +1170,28 @@ def xent_times(gen, dtype, shape=XENT_SHAPE, label="flagship head") -> dict:
          lambda: xent_dw_reference(s, x, y, lse, 1.0 / n),
          4 * n * v + n * d * e + 8 * n + d * v * e + 4 * v, mm + 5 * n * v, lib_b,
          "F.cross_entropy fwd+bwd minus fwd (dx, dW, db)"),
-    ):
+    )
+    tag = str(dtype)[6:]
+    for kernel, fn, ref, nbytes, flops, lib, lib_name in cases:
+        if only is not None and kernel.name not in only:
+            continue
         ms = cuda_ms(fn, iters=10, warmup=2)
         plain_ms = cuda_ms(ref, iters=5, warmup=1)
         bnd, by = bound(nbytes, flops, peak)
-        print(f"[kernel] {kernel.name} N={n} d={d} V={v} {str(dtype)[6:]}: kernel {ms:.3f} ms, "
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib,
+                   library=f"{lib_name}, {tag}", shape=f"N={n} d={d} V={v} {tag} ({label})")
+        extra = ""
+        if kernel in product:
+            row.update(tflops=tflops(mm, ms), product_ms=cuda_ms(product[kernel], iters=10,
+                                                                 warmup=2),
+                       product=f"{PRODUCT_NAME} (a yardstick, not this kernel's function)")
+            extra = (f" ({row['tflops']:.1f} TFLOP/s at 2·N·d·V); yardstick {PRODUCT_NAME}: "
+                     f"{row['product_ms']:.3f} ms")
+        print(f"[kernel] {kernel.name} N={n} d={d} V={v} {tag}: kernel {ms:.3f} ms{extra}, "
               f"plain {plain_ms:.3f} ms, {lib_name} {lib:.3f} ms, bound {bnd:.5f} ms ({by})")
-        out[kernel.name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                                library_ms=lib, library=f"{lib_name}, {str(dtype)[6:]}",
-                                shape=f"N={n} d={d} V={v} {str(dtype)[6:]} ({label})")
+        out[kernel.name] = row
+    del s, dlog
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1169,7 +1199,8 @@ def xent_phase(gen) -> list[dict]:
     """The fused linear-xent kernels 10–13: agreement with their plain
     versions at the flagship head's shape and at N=V=1000 with labels −1
     and V, in f32 and bf16; times at the flagship shape in bf16 (the
-    row) and f32 (``at_f32``)."""
+    row) and f32 (``at_f32``), and for 12 and 13 in f32 at the long
+    context's N=32768 with saved scores (``at_long_context``)."""
     import torch
 
     from tpudml_torch.ops import XENT_DW, XENT_DX, XENT_FORWARD, XENT_FORWARD_SAVE
@@ -1182,12 +1213,16 @@ def xent_phase(gen) -> list[dict]:
                 worst[name] = max(worst.get(name, 0.0), e)
             torch.cuda.empty_cache()
     times = {dt: xent_times(gen, dt) for dt in (torch.bfloat16, torch.float32)}
+    long = xent_times(gen, torch.float32, (LEAN_PATH_N, d, v), "long context, saved scores",
+                      only=(XENT_DX.name, XENT_DW.name))
     rows = []
     for kernel in (XENT_FORWARD, XENT_FORWARD_SAVE, XENT_DX, XENT_DW):
         rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
                          replaces=kernel.replaces, max_abs_err=worst[kernel.name],
                          **times[torch.bfloat16][kernel.name],
                          at_f32=times[torch.float32][kernel.name]))
+        if kernel.name in long:
+            rows[-1]["at_long_context"] = long[kernel.name]
     torch.cuda.empty_cache()
     return rows
 
@@ -1845,15 +1880,16 @@ def head_wide_phase(gen, rows: dict) -> None:
 
 
 def grid_edge_phase(gen) -> None:
-    """Kernels 10–12 and the flash forward, dQ and dK/dV past the old
+    """Kernels 10–13 and the flash forward, dQ and dK/dV past the old
     grid-y edges (module docstring, phase 3), against their plain versions
-    in row chunks (xent) or on the whole batch (flash)."""
+    in row chunks (xent; kernel 13's plain dW and db summed over the
+    chunks) or on the whole batch (flash)."""
     import torch
 
     from tpudml_torch.ops import (
         flash_dkdv, flash_dkdv_reference, flash_dq, flash_dq_reference, flash_forward_lse,
-        flash_forward_lse_reference, xent_dx, xent_dx_reference, xent_forward,
-        xent_forward_save, xent_forward_save_reference,
+        flash_forward_lse_reference, xent_dw, xent_dw_reference, xent_dx, xent_dx_reference,
+        xent_forward, xent_forward_save, xent_forward_save_reference,
     )
 
     n, d, v = XENT_EDGE
@@ -1862,8 +1898,10 @@ def grid_edge_phase(gen) -> None:
     lse0, picked0 = xent_forward(x, w, b, y)
     lse, picked, s = xent_forward_save(x, w, b, y)
     dx = xent_dx(s, w, y, lse, 1.0 / n)
+    dw, db = xent_dw(s, x, y, lse, 1.0 / n)
     torch.cuda.synchronize()
     e_fwd = e_dx = m_dx = 0.0
+    rdw = rdb = 0.0
     for r in (slice(i, i + XENT_EDGE_CHUNK) for i in range(0, n, XENT_EDGE_CHUNK)):
         rlse, rpicked, rs = xent_forward_save_reference(x[r], w, b, y[r])
         for got, want in ((lse0[r], rlse), (lse[r], rlse), (picked0[r], rpicked),
@@ -1875,13 +1913,19 @@ def grid_edge_phase(gen) -> None:
         rdx = xent_dx_reference(rs, w, y[r], rlse, 1.0 / n)
         e_dx = max(e_dx, (dx[r] - rdx).abs().max().item())
         m_dx = max(m_dx, rdx.abs().max().item())
+        pw, pb = xent_dw_reference(rs, x[r], y[r], rlse, 1.0 / n)
+        rdw, rdb = rdw + pw, rdb + pb
     del x, s, dx
     torch.cuda.empty_cache()
+    r_dw, r_db = rel_to_max(dw, rdw), rel_to_max(db, rdb)
     print(f"[kernel] xent N={n} d={d} V={v} f32 (65,537 row tiles, plain in "
           f"{XENT_EDGE_CHUNK}-row chunks): kernels 10, 11 max|dlse|,|dpicked|,|ds| {e_fwd:.3e} "
-          f"(|err| <= {XENT_ROW_TOL:g}·(1+|plain|)); kernel 12 dx {e_dx / m_dx:.3e} of max "
-          f"(tol {XENT_GRAD_REL:g})")
+          f"(|err| <= {XENT_ROW_TOL:g}·(1+|plain|)); kernel 12 dx {e_dx / m_dx:.3e}, kernel 13 "
+          f"dw {r_dw:.3e}, db {r_db:.3e} of max (tol {XENT_GRAD_REL:g}; plain dW, db summed "
+          f"over the chunks)")
     check(e_dx <= XENT_GRAD_REL * m_dx, f"xent dx disagrees with its plain version at N={n}")
+    check(r_dw <= XENT_GRAD_REL and r_db <= XENT_GRAD_REL,
+          f"xent dw/db disagree with their plain version at N={n}")
 
     bsz, t, h, hd = FLASH_EDGE
     q, k, v_, do = (torch.randn((bsz, t, h, hd), generator=gen).cuda() for _ in range(4))
@@ -2583,39 +2627,42 @@ FLASH_INSTANCES = (
     ("flash_dkdv.cu", "flash_dkdv_f32_kernel", (32, 64, 128, 256)),
 )
 BF16_MMA = "HMMA.16816.F32.BF16"  # mma.sync m16n8k16, bf16 in, f32 sums
-# Kernels of xent_lean.cu (the lean head's 14 and 15, and their range sum)
-# with whether their bf16 twin must run on the tensor cores; LEAN_TWINS: the
-# twins' template arguments in the mangled names.
+# Kernels of xent_lean.cu (the lean head's 14 and 15) and xent_saved.cu (the
+# saved-scores 12 and 13), each with its range sum, with whether their bf16
+# twin must run on the tensor cores; XENT_TWINS: the twins' template
+# arguments in the mangled names.
 LEAN_INSTANCES = (
     ("xent_dx_lean_kernel", True),
     ("xent_dw_lean_kernel", True),
-    ("xent_dw_lean_sum_kernel", False),
+    ("xent_dw_range_sum_kernel", False),
 )
-LEAN_TWINS = (("f32", "If"), ("bf16", "I13__nv_bfloat16"))
+SAVED_INSTANCES = (
+    ("xent_dx_saved_kernel", True),
+    ("xent_dw_saved_kernel", True),
+    ("xent_dw_range_sum_kernel", False),
+)
+XENT_TWINS = (("f32", "If"), ("bf16", "I13__nv_bfloat16"))
 LEAN_PLAN_WIDTHS = (512, 1024, 2048, 4096, 8192)
 
 
-def lean_instances(lib) -> None:
-    """Hold every instance of the lean kernels (xent_lean.cu) to its design:
-    no spill and no stack frame (its f32 tiles live in registers), no TF32
-    instruction, and ``HMMA.16816.F32.BF16`` in each bf16 twin of kernels
-    14 and 15; print registers and SASS counts. Then the cut of d the
-    built kernels choose (chunk, cluster, S passes) against
-    ``lean_plan``."""
-    from tpudml_torch.ops import lean_plan, lean_plan_built
-
+def xent_instances(lib, instances) -> None:
+    """Hold every instance of one backward pair of the fused head (with its
+    range sum) to its design: no spill and no stack frame (its f32 tiles
+    live in registers), no TF32 instruction, and ``HMMA.16816.F32.BF16`` in
+    each bf16 twin of the pair; print registers and SASS counts."""
     usage = ptxas_usage(lib.ptxas_log())
     sass = sass_opcodes(lib.target())
-    for kernel, mma_twin in LEAN_INSTANCES:
-        for tag, arg in LEAN_TWINS:
+    source = lib.source.name
+    for kernel, mma_twin in instances:
+        for tag, arg in XENT_TWINS:
             names = [n for n in sass if re.search(rf"\d{kernel}{arg}E", n)]
-            check(len(names) == 1, f"xent_lean.cu: no single {kernel}<{tag}> in the SASS")
+            check(len(names) == 1, f"{source}: no single {kernel}<{tag}> in the SASS")
             ops, use = sass[names[0]], usage.get(names[0])
             check(use is not None, f"no ptxas -v report of {kernel}<{tag}>: the library was "
                   f"built without its log; empty tpudml_torch/_build and rerun")
             mma = ops.get(BF16_MMA, 0)
             tf32 = sum(c for op, c in ops.items() if "TF32" in op)
-            print(f"[build] xent_lean.cu {kernel}<{tag}>: {use.get('registers')} registers, "
+            print(f"[build] {source} {kernel}<{tag}>: {use.get('registers')} registers, "
                   f"spill {use.get('spill')} B, stack {use.get('stack')} B, {BF16_MMA} {mma}, "
                   f"TF32 {tf32}, FFMA {ops.get('FFMA', 0)}")
             check(use.get("spill") == 0 and use.get("stack") == 0,
@@ -2623,11 +2670,49 @@ def lean_instances(lib) -> None:
             check(tf32 == 0, f"{kernel}<{tag}> holds TF32 instructions ({ops})")
             if mma_twin and tag == "bf16":
                 check(mma > 0, f"{kernel}<bf16> runs no bf16 mma on the tensor cores")
+
+
+def lean_instances(lib) -> None:
+    """The lean kernels 14, 15 (xent_lean.cu) as ``xent_instances`` holds
+    them; then the cut of d the built kernels choose (chunk, cluster, S
+    passes) against ``lean_plan``."""
+    from tpudml_torch.ops import lean_plan, lean_plan_built
+
+    xent_instances(lib, LEAN_INSTANCES)
     for d in LEAN_PLAN_WIDTHS:
         plan = lean_plan_built(d)
         print(f"[build] lean kernels at d={d}: {plan['cluster']} block(s) of {plan['chunk']} "
               f"columns a cluster, scores computed {plan['s_passes']}x a tile")
         check(plan == lean_plan(d), f"lean_plan({d}) {lean_plan(d)} is not the kernels' {plan}")
+
+
+# (N, d, V) at which phase 2 holds the saved-scores kernels' cut against
+# ``saved_plan``: the flagship head, the long-context saved config, the
+# wide timed head, and dW's ranges at the grid-edge check.
+SAVED_PLAN_SHAPES = ((8192, 512, 32768), (32768, 512, 32768), (4096, 2048, 8192),
+                     (8_388_609, 8, 128))
+
+
+def saved_instances(lib) -> None:
+    """The saved-scores kernels 12, 13 (xent_saved.cu) as ``xent_instances``
+    holds them; then, in f32 and bf16, the cut the built kernels make
+    (rows or columns a block, reads of s, ranges, blocks) at
+    SAVED_PLAN_SHAPES against ``saved_plan``."""
+    import torch
+
+    from tpudml_torch.ops import saved_plan, saved_plan_built
+
+    xent_instances(lib, SAVED_INSTANCES)
+    for shape in SAVED_PLAN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = saved_plan_built(*shape, dtype)
+            print(f"[build] saved-scores kernels at N={shape[0]} d={shape[1]} V={shape[2]} "
+                  f"{str(dtype)[6:]}: dX {plan['dx_blocks']} blocks of {plan['dx_rows']} rows, "
+                  f"dW {plan['dw_blocks']} blocks of {plan['dw_cols']} columns "
+                  f"({plan['ranges']} range(s) of {plan['range_rows']} rows), s read "
+                  f"{plan['s_reads']}x ({plan['chunk']}-column chunks of d)")
+            check(plan == saved_plan(*shape, dtype),
+                  f"saved_plan{shape} {saved_plan(*shape, dtype)} is not the kernels' {plan}")
 
 
 def ln_instances(lib) -> None:
@@ -2655,10 +2740,11 @@ def build_phase() -> None:
     print what ptxas reports. Hold kernels 1–3 to their design in every
     instance: the bf16 twins on the tensor cores (``HMMA.16816.F32.BF16`` in
     their SASS), no TF32 instruction in any twin, and no spills; the wide
-    instances of the LayerNorm kernels 6–9 to no spills; and the lean
-    kernels 14, 15 as ``lean_instances`` says."""
+    instances of the LayerNorm kernels 6–9 to no spills; and the
+    saved-scores kernels 12, 13 and the lean kernels 14, 15 as
+    ``saved_instances`` and ``lean_instances`` say."""
     from tpudml_torch.ops import (
-        ADD_LN_FORWARD, FLASH_DKDV, FLASH_DQ, FLASH_FORWARD, KERNELS, XENT_DX_LEAN,
+        ADD_LN_FORWARD, FLASH_DKDV, FLASH_DQ, FLASH_FORWARD, KERNELS, XENT_DX, XENT_DX_LEAN,
         build_kernels,
     )
 
@@ -2692,6 +2778,7 @@ def build_phase() -> None:
                 if "bf16" in kernel:
                     check(mma > 0, f"{kernel}<{dp}> runs no bf16 mma on the tensor cores")
     ln_instances(ADD_LN_FORWARD.library)
+    saved_instances(XENT_DX.library)
     lean_instances(XENT_DX_LEAN.library)
 
 

@@ -37,9 +37,10 @@ Tolerances, with their reasons:
 - the grouped dW (kernel 16), f32 and bf16 inputs: within 1e-5 of the
   plain output's largest magnitude (both accumulate the same products in
   f32, over up to M rows in another order), and bitwise equal on a repeat.
-Past the old grid-y edges (8,388,480 rows of kernels 10–12; B·H = 65535 of
-the flash kernels) the tolerances are those above, the plain versions
-taken in row or batch chunks.
+Past the old grid-y edges (8,388,480 rows of kernels 10–12, and kernel 13
+with 129 row ranges there; B·H = 65535 of the flash kernels) the
+tolerances are those above, the plain versions taken in row or batch
+chunks.
 """
 
 import ctypes
@@ -62,7 +63,7 @@ from tpudml_torch.ops import (  # noqa: E402
     flash_dq_reference, grouped_dw, grouped_dw_reference, ragged_ffn,
     layernorm_backward, layernorm_backward_reference, layernorm_forward,
     layernorm_forward_reference, lean_plan, lean_plan_built, linear_cross_entropy,
-    reference_head, xent_dw,
+    reference_head, saved_plan, saved_plan_built, xent_dw,
     xent_dw_lean, xent_dw_lean_reference, xent_dw_reference, xent_dx, xent_dx_lean,
     xent_dx_lean_reference, xent_dx_reference, xent_forward, xent_forward_reference,
     xent_forward_save, xent_forward_save_reference,
@@ -299,13 +300,24 @@ def _xent_inputs(n, d, v, dtype, device, seed=0):
 # d = 12: a ragged edge of the forward's 8-deep contraction stage; 1032 and
 # 2048: past one 512-column chunk of the lean kernels (clusters of 3, 4).
 _XENT_WIDE = [(300, 12, 700), (256, 1032, 1000), (96, 2048, 500)]
+# The saved-scores kernels' cut (saved_plan): one 512-column chunk of d
+# (12, 512), 3 and 4 chunks (1025, 2048; s read once per chunk); V % 4 != 0
+# (1001: s rows by scalar loads) and V % 8 == 2 (1002: bf16 W rows by scalar
+# loads); N just past 65536 and past 131072 (dW's two and three row ranges).
+_SAVED_SHAPES = [(1000, 12, 1000), (1000, 512, 1000), (1000, 1025, 1000), (1000, 2048, 1000),
+                 (1000, 512, 1001), (1000, 512, 1002), (65_600, 64, 100), (140_000, 64, 100)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n,d,v", [(1000, 64, 1000), (256, 512, 4096), (37, 8, 130),
-                                   *_XENT_WIDE])
+                                   *_XENT_WIDE, *_SAVED_SHAPES])
 def test_xent_kernels_match_plain(cuda_device, dtype, n, d, v):
+    """Kernels 10–13 against their plain versions (12 and 13 on the plain
+    forward's scores): labels −1 and V, ragged rows and vocabulary, every
+    cut of d of the backward kernels, misaligned vocabulary rows, dW's row
+    ranges; each launches once, and a repeat of 12 and 13 is bitwise
+    equal."""
     x, w, b, y = _xent_inputs(n, d, v, dtype, cuda_device)
     before = [k.launches for k in (XENT_FORWARD, XENT_FORWARD_SAVE, XENT_DX, XENT_DW)]
     lse0, picked0 = xent_forward(x, w, b, y)
@@ -330,6 +342,16 @@ def test_xent_kernels_match_plain(cuda_device, dtype, n, d, v):
     assert dx.dtype == dw.dtype == dtype and db.dtype == torch.float32
     again = (xent_dx(rs, w, y, rlse, 1.0 / n), *xent_dw(rs, x, y, rlse, 1.0 / n))
     assert all(torch.equal(a, c) for a, c in zip((dx, dw, db), again))
+
+
+@pytest.mark.cuda
+def test_saved_plan_is_the_kernels_choice(cuda_device):
+    """The host's ``saved_plan`` is the cut the built kernels 12 and 13
+    make, in both dtypes."""
+    for n, d, v in [(1, 1, 1), (1000, 12, 1000), (8192, 512, 32768), (32768, 513, 100),
+                    (65_537, 2048, 8192), (8_388_609, 8, 128), (4096, 40000, 7)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert saved_plan_built(n, d, v, dtype) == saved_plan(n, d, v, dtype), (n, d, v)
 
 
 @pytest.mark.cuda
@@ -559,14 +581,19 @@ def test_fused_layernorm_autograd_on_card(cuda_device):
 @pytest.mark.cuda
 def test_xent_kernels_10_to_12_past_the_grid_y_edge(cuda_device):
     """Kernels 10, 11 and 12 at N = 8,388,609 rows (65,537 row tiles of 128,
-    past the 8,388,480 that grid y held): against their plain versions in
-    row chunks (d = 8, V = 128 keep x at 268 MB and the scores at 4.3 GB)."""
+    past the 8,388,480 that grid y held), and kernel 13 there (129 row
+    ranges of dW): against their plain versions in row chunks, the plain
+    dW and db summed over the chunks (d = 8, V = 128 keep x at 268 MB and
+    the scores at 4.3 GB)."""
     n, d, v = 8_388_609, 8, 128
     x, w, b, y = _xent_inputs(n, d, v, torch.float32, cuda_device, seed=21)
     lse0, picked0 = xent_forward(x, w, b, y)
     lse, picked, s = xent_forward_save(x, w, b, y)
     dx = xent_dx(s, w, y, lse, 1.0 / n)
+    dw, db = xent_dw(s, x, y, lse, 1.0 / n)
     torch.cuda.synchronize()
+    rdw = torch.zeros_like(dw)
+    rdb = torch.zeros_like(db)
     step = 1 << 21
     for r in (slice(i, i + step) for i in range(0, n, step)):
         rlse, rpicked, rs = xent_forward_save_reference(x[r], w, b, y[r])
@@ -576,6 +603,11 @@ def test_xent_kernels_10_to_12_past_the_grid_y_edge(cuda_device):
             torch.testing.assert_close(got, rpicked, **ROW_TOL)
         torch.testing.assert_close(s[r], rs, **ROW_TOL)
         _close_to_max(dx[r], xent_dx_reference(rs, w, y[r], rlse, 1.0 / n), 1e-4)
+        pw, pb = xent_dw_reference(rs, x[r], y[r], rlse, 1.0 / n)
+        rdw += pw
+        rdb += pb
+    _close_to_max(dw, rdw, 1e-4)
+    _close_to_max(db, rdb, 1e-4)
 
 
 @pytest.mark.cuda

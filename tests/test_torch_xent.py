@@ -173,6 +173,70 @@ def test_lean_kernel_functions_match_jax_fused_backward(dtype):
             assert np.abs(g - r).max() <= BF16_GRAD_RTOL * np.abs(r).max(), name
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+def test_saved_kernel_functions_match_jax_fused_backward_saved(dtype):
+    """The plain versions of kernels 12 and 13, called as the card's
+    wrappers are (g = 1, 1/N inside), against JAX's
+    ``_fused_backward_saved`` (the saved-scores Pallas kernels in interpret
+    mode) on a ragged shape with labels −1 and V; the saved scores are
+    JAX's ``_fused_forward(save_s=True)``, sliced to [N, V]."""
+    n, d, v = 24, 16, 100
+    x, w, b, y = _inputs(n, d, v, seed=12, bad_labels=True)
+    jx, jw, jb = (jnp.asarray(a, dtype) for a in (x, w, b))
+    jy = jnp.asarray(y)
+    jlse, _, js = jxk._fused_forward(jx, jw, jb, jy, 8, 128, True, save_s=True)
+    wdx, wdw, wdb = jxk._fused_backward_saved(jx, jw, jb, jy, jlse, js, jnp.float32(1.0),
+                                              8, 128, True)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    tx, tw = (torch.from_numpy(a).to(tdt) for a in (x, w))
+    s = torch.from_numpy(np.array(js)[:n, :v])
+    lse = torch.from_numpy(np.array(jlse))
+    dx = xent_dx(s, tw, torch.from_numpy(y), lse, 1.0 / n)
+    dw, db = xent_dw(s, tx, torch.from_numpy(y), lse, 1.0 / n)
+    assert dx.dtype == dw.dtype == tdt and db.dtype == torch.float32
+    # JAX's db comes back in the bias dtype; the wrapper's stays f32 (the
+    # autograd Function casts it).
+    for name, g, r in (("dx", dx, wdx), ("dw", dw, wdw), ("db", db.to(tdt), wdb)):
+        g, r = g.float().numpy(), np.asarray(r.astype(jnp.float32))
+        if dtype == jnp.float32:
+            np.testing.assert_allclose(g, r, err_msg=name, **F32_TOL)
+        else:
+            assert np.abs(g - r).max() <= BF16_GRAD_RTOL * np.abs(r).max(), name
+
+
+@pytest.mark.parametrize("n,d,v,dtype,dx_rows,s_reads,ranges", [
+    (8192, 512, 32768, torch.bfloat16, 64, 1, 1),      # the flagship head
+    (8192, 512, 32768, torch.float32, 32, 1, 1),
+    (32768, 512, 32768, torch.float32, 32, 1, 1),      # long context, saved scores
+    (4096, 2048, 8192, torch.float32, 32, 4, 1),       # the wide timed head
+    (1000, 513, 1000, torch.bfloat16, 64, 2, 1),
+    (65_536, 12, 100, torch.float32, 32, 1, 1),        # one full range of dW
+    (65_537, 12, 100, torch.bfloat16, 64, 1, 2),
+    (8_388_609, 8, 128, torch.float32, 32, 1, 129),    # the grid-edge check
+])
+def test_saved_plan_reads_the_scores_once_per_chunk(n, d, v, dtype, dx_rows, s_reads, ranges):
+    """The saved-scores kernels' cut (``saved_plan``, the host's mirror of
+    csrc/xent_saved.cu; a card-only test holds the two equal): a block owns
+    a 512-column chunk of d, so each kernel reads the scores once per chunk
+    (once up to d = 512); 32 (f32) or 64 (bf16) rows a dX block and
+    vocabulary columns a dW block; dW's rows in ranges of 65536. The blocks
+    cover every row, column and chunk."""
+    plan = txk.saved_plan(n, d, v, dtype)
+    assert (plan["dx_rows"], plan["s_reads"], plan["ranges"]) == (dx_rows, s_reads, ranges)
+    assert plan["dw_cols"] == dx_rows and plan["chunk"] == 512
+    assert plan["range_rows"] == 65536
+    assert plan["dx_blocks"] * plan["dx_rows"] >= n * plan["s_reads"]
+    assert (plan["dx_blocks"] // plan["s_reads"] - 1) * plan["dx_rows"] < n
+    tiles = plan["dw_blocks"] // (plan["s_reads"] * plan["ranges"])
+    assert tiles * plan["dw_cols"] >= v > (tiles - 1) * plan["dw_cols"]
+    assert plan["ranges"] * plan["range_rows"] >= n > (plan["ranges"] - 1) * plan["range_rows"]
+
+
+def test_saved_plan_rejects_an_empty_shape():
+    with pytest.raises(ValueError):
+        txk.saved_plan(0, 512, 100, torch.float32)
+
+
 def test_lean_out_of_range_labels_and_padded_rows():
     """JAX's padded-row and padded-column cases in the lean mode: 10 rows
     (8-row tiles pad them to 16), V = 100 (padded to 128), labels in

@@ -1,5 +1,5 @@
-// The register-tiled product on the CUDA cores shared by the port's
-// saved-scores xent kernels (xent.cu) and the grouped dW (grouped_dw.cu): a
+// The register-tiled product on the CUDA cores shared by the port's xent
+// forward (xent.cu, kernels 10 and 11) and the grouped dW (grouped_dw.cu): a
 // block of 256 threads owns a 128×128 f32 output tile; each thread keeps 8×8
 // accumulators (rows ty + 16·i, columns tx + 16·j, tx = tid % 16,
 // ty = tid / 16) and the contraction axis is walked BK deep at a time

@@ -88,7 +88,7 @@
 //   and the outputs are never padded or copied.
 // - dW's rows come in ranges of LR = 65536 (grid y): with more than one,
 //   each range's f32 partials go to scratch (part, db_part) that
-//   xent_dw_lean_sum_kernel adds in range order, so no accumulator sums
+//   xent_dw_range_sum_kernel (xent_grad.cuh) adds in range order, so no accumulator sums
 //   more than LR rows in one f32 chain. No atomics anywhere: every output
 //   is written once after a fixed-order loop, and a block's rows, columns,
 //   chunk and range come from (N, d, V, dtype) alone, so a repeat is
@@ -96,23 +96,14 @@
 //   lie on grid x (2³¹ − 1 blocks).
 
 #include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
 
-#include "dtype.cuh"
-#include "mma.cuh"
+#include "xent_grad.cuh"
 
 namespace cgrp = cooperative_groups;
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int NT = 256;     // threads a block
-constexpr int CW = 512;     // d columns a block owns (a chunk)
-constexpr int CMAX = 8;     // blocks a cluster (portable): chunks one S pass covers
-constexpr int LR = 65536;   // dW: rows of one range
+constexpr int CMAX = 8;  // blocks a cluster (portable): chunks one S pass covers
 
 // How a width d is cut: nch chunks of CW, C blocks a cluster, G clusters
 // (S passes) for the chunks of one row (dX) or vocabulary (dW) tile.
@@ -145,10 +136,34 @@ __device__ inline Share share_of(int q, int s, const Chunks& c) {
   return sh;
 }
 
-// Valid width of chunk m.
-__device__ __forceinline__ int chunk_width(int d, int m) {
-  const int w = d - m * CW;
-  return w < CW ? w : CW;
+// The f32 W tile [CW][32] (wsw), zeros past the valid rows and columns.
+__device__ __forceinline__ void load_w_f32(float* s, const float* g, long long st,
+                                           int rows, int cols, bool vec) {
+  for (int i = threadIdx.x; i < CW * 8; i += NT) {
+    const int r = i >> 3, c = i & 7;
+    float* dst = s + wsw(r, c);
+    const bool row_ok = r < rows;
+    const float* src = g + (row_ok ? r * st : 0) + 4 * c;
+    if (vec) {
+      const bool ok = row_ok && 4 * c < cols;
+      cp_async_16(dst, ok ? src : g, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = row_ok && 4 * c + e < cols ? src[e] : 0.f;
+    }
+  }
+}
+
+// Staging of the W tile [CW][COLS] of chunk m from column v0 (zeros past
+// the valid rows and columns).
+template <typename T, int COLS>
+__device__ __forceinline__ void stage_w(T* s, const T* w, int v0, int d, int V, int m,
+                                        bool vec) {
+  const T* g = w + static_cast<long long>(m) * CW * V + v0;
+  if constexpr (sizeof(T) == 4)
+    load_w_f32(s, g, V, d - m * CW, V - v0, vec);
+  else
+    load_tile<COLS, CW, NT>(s, g, V, 0, d - m * CW, V - v0, vec);
 }
 
 // ---------------------------------------------------------------- configs
@@ -165,7 +180,7 @@ struct Cfg;
 // reduced across lanes (KG = 0), P is [BR][LDS] f32.
 template <bool DX>
 struct Cfg<float, DX> {
-  static constexpr int BR = 32, BV = 32, KG = 0, LDS = BV + 4;
+  static constexpr int BR = F_BR, BV = F_BV, KG = 0, LDS = F_LDS;
   static constexpr int RES = DX ? BR * (CW + 4) : CW * BV;
   static constexpr int STAGE = DX ? CW * BV : BR * (CW + 4);
   static constexpr int P_OFF = (KG + 2) * BR * LDS;  // floats past the partials
@@ -191,50 +206,7 @@ struct Cfg<bf16, false> {
       sizeof(bf16) * (RES + 2 * STAGE + BR * BV) + sizeof(float) * P_OFF;
 };
 
-// The f32 W tile [CW][32]: the 16-byte chunk c of row k lies at chunk
-// c ^ ((k >> 2) & 7), so that 8 lanes reading rows 4 apart (the score
-// product) or 8 rows that differ in (k >> 2) & 7 (the dX gradient) at one
-// chunk hit 8 different bank groups. Zeros past the valid rows and columns.
-__device__ __forceinline__ int wsw(int k, int c) { return k * 32 + 4 * (c ^ ((k >> 2) & 7)); }
-
-__device__ __forceinline__ void load_w_f32(float* s, const float* g, long long st,
-                                           int rows, int cols, bool vec) {
-  for (int i = threadIdx.x; i < CW * 8; i += NT) {
-    const int r = i >> 3, c = i & 7;
-    float* dst = s + wsw(r, c);
-    const bool row_ok = r < rows;
-    const float* src = g + (row_ok ? r * st : 0) + 4 * c;
-    if (vec) {
-      const bool ok = row_ok && 4 * c < cols;
-      cp_async_16(dst, ok ? src : g, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[e] = row_ok && 4 * c + e < cols ? src[e] : 0.f;
-    }
-  }
-}
-
-// Staging (zero-filled past the valid rows and columns): the x rows
-// [BR][CW] of chunk m from row r0 (load_tile, mma.cuh: f32 row-padded,
-// bf16 swizzled), and the W tile [CW][COLS] of chunk m from column v0.
-template <typename T, int BR>
-__device__ __forceinline__ void stage_x(T* s, const T* x, int r0, int rows, int d, int m,
-                                        bool vec) {
-  load_tile<CW, BR, NT>(s, x + m * CW, d, r0, rows, d - m * CW, vec);
-}
-template <typename T, int COLS>
-__device__ __forceinline__ void stage_w(T* s, const T* w, int v0, int d, int V, int m,
-                                        bool vec) {
-  const T* g = w + static_cast<long long>(m) * CW * V + v0;
-  if constexpr (sizeof(T) == 4)
-    load_w_f32(s, g, V, d - m * CW, V - v0, vec);
-  else
-    load_tile<COLS, CW, NT>(s, g, V, 0, d - m * CW, V - v0, vec);
-}
-
 // ------------------------------------------------------------- f32 products
-
-constexpr int F_LDX = CW + 4;  // x tile row
 
 // This lane's place in the f32 score product: k group kg (lane % 8) of
 // the 4×8 S tile (rows 4·tr.., columns 8·tc..), four tiles a warp.
@@ -297,80 +269,7 @@ __device__ __forceinline__ void reduce_k8(float (&s)[32]) {
   butterfly<4, 1>(s);
 }
 
-// dX += P·Wᵀ on the 8×8 tile a thread: rows rg + 4i, chunk columns
-// 64·warp + 4·cg + (jj & 3) + 32·(jj >> 2) (lane = 8·rg + cg), so that the
-// 8 lanes of a quarter warp read W rows that differ in (j >> 2) & 7. Warps
-// past the chunk's width hw idle.
-__device__ __forceinline__ int dx_col(int warp, int cg, int jj) {
-  return 64 * warp + 4 * cg + (jj & 3) + 32 * (jj >> 2);
-}
-__device__ __forceinline__ void grad_dx_f32(const float* p, const float* ws, int hw,
-                                            float (&acc)[64]) {
-  constexpr int LDS = Cfg<float, true>::LDS, BV = Cfg<float, true>::BV;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = lane >> 3, cg = lane & 7;
-  if (warp * 64 >= hw) return;
-#pragma unroll 2
-  for (int c = 0; c < BV; c += 4) {
-    float pv[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) load_vec(pv[i], p + (rg + 4 * i) * LDS + c);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      float wv[4];
-      load_vec(wv, ws + wsw(dx_col(warp, cg, jj), c >> 2));
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[8 * i + jj] = fmaf(pv[i][e], wv[e], acc[8 * i + jj]);
-    }
-  }
-}
-
-// dW += xᵀ·P on the 8×8 tile a thread: chunk rows 4jg + e + 256h (acc row
-// 4h + e), vocabulary columns 4cg + f + 16g (acc column 4g + f); tid =
-// 4jg + cg. Rows past the chunk's width hw are skipped.
-__device__ __forceinline__ void grad_dw_f32(const float* p, const float* xs, int hw,
-                                            float (&acc)[64]) {
-  constexpr int LDS = Cfg<float, false>::LDS, BR = Cfg<float, false>::BR;
-  const int cg = threadIdx.x & 3, jg = threadIdx.x >> 2;
-  const bool hi = 256 + 4 * jg < hw;
-  if (4 * jg >= hw) return;
-#pragma unroll 4
-  for (int r = 0; r < BR; ++r) {
-    float xv[2][4], pv[2][4];
-    load_vec(xv[0], xs + r * F_LDX + 4 * jg);
-    load_vec(pv[0], p + r * LDS + 4 * cg);
-    load_vec(pv[1], p + r * LDS + 16 + 4 * cg);
-    if (hi) {
-      load_vec(xv[1], xs + r * F_LDX + 256 + 4 * jg);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) xv[1][e] = 0.f;
-    }
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        acc[8 * a + c] = fmaf(xv[a >> 2][a & 3], pv[c >> 2][c & 3], acc[8 * a + c]);
-  }
-}
-
 // ------------------------------------------------------------ bf16 products
-
-// ldmatrix row/chunk of this lane: A (rows of a row-major M×K tile), B (rows
-// of an N×K tile), B transposed (rows of a K×N tile); A transposed (rows of
-// a K×M tile) uses the B pattern.
-struct Lanes {
-  int a_row, a_ch, b_row, b_ch, t_row, t_ch, g, c;
-  __device__ Lanes() {
-    const int lane = threadIdx.x & 31;
-    a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_ch = lane >> 4;
-    b_row = (lane & 7) + (lane >> 4) * 8, b_ch = (lane >> 3) & 1;
-    t_row = (lane & 7) + ((lane >> 3) & 1) * 8, t_ch = lane >> 4;
-    g = lane >> 2, c = lane & 3;
-  }
-};
 
 // Partial S of a warp: rows 16·rg.. of the x tile [BR][CW] (A), all NB·8
 // columns of the W tile [CW][NB·8] (B through ldmatrix.trans), over the
@@ -505,10 +404,6 @@ __device__ __forceinline__ void step_scores(float (&s)[NS], float* sx, float* sb
     for (int i = 0; i < D::RP; ++i) D::block_sum(sx, i, v[i]);
   }
   if (C > 1) cluster_sum<D::RP, D::LDS>(v, sb, rows, D::col(), C);
-}
-
-__device__ __forceinline__ float dlog_of(float s, float lse, int col, int label, float inv_n) {
-  return (expf(s - lse) - (col == label ? 1.f : 0.f)) * inv_n;
 }
 
 // ---------------------------------------------------------------- kernel 14
@@ -893,28 +788,6 @@ xent_dw_lean_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// dW [d, V] in T and db [V] from the ranges' f32 partials, each element
-// summed over the ranges in order (one thread per element: bitwise
-// repeatable).
-template <typename T>
-__global__ void xent_dw_lean_sum_kernel(const float* __restrict__ part,
-                                        const float* __restrict__ db_part,
-                                        T* __restrict__ dw, float* __restrict__ db,
-                                        int ranges, int d, int V) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long plane = static_cast<long long>(d) * V;
-  if (i < plane) {
-    float t = 0.f;
-    for (int r = 0; r < ranges; ++r) t += part[r * plane + i];
-    dw[i] = from_f32<T>(t);
-  }
-  if (i < V) {
-    float t = 0.f;
-    for (int r = 0; r < ranges; ++r) t += db_part[static_cast<long long>(r) * V + i];
-    db[i] = t;
-  }
-}
-
 // ------------------------------------------------------------------ launch
 
 // A launch of `grid` blocks of NT threads in clusters of C along x.
@@ -937,11 +810,6 @@ cudaError_t launch_clustered(void (*kernel)(K...), dim3 grid, int C, size_t smem
 }
 
 template <typename T>
-bool vec_rows(const void* p, long long stride) {
-  return aligned16(p) && stride % (16 / sizeof(T)) == 0;
-}
-
-template <typename T>
 cudaError_t launch_dx_lean(const void* x, const void* w, const void* b, const int* labels,
                            const float* lse, void* dx, int N, int d, int V, float inv_n,
                            cudaStream_t st) {
@@ -957,13 +825,11 @@ cudaError_t launch_dx_lean(const void* x, const void* w, const void* b, const in
                           int(vec_rows<T>(w, V)));
 }
 
-int lean_ranges(int N) { return static_cast<int>((N + static_cast<long long>(LR) - 1) / LR); }
-
 template <typename T>
 cudaError_t launch_dw_lean(const void* x, const void* w, const void* b, const int* labels,
                            const float* lse, void* dw, float* db, float* part,
                            float* db_part, int N, int d, int V, float inv_n, cudaStream_t st) {
-  const int ranges = lean_ranges(N);
+  const int ranges = n_ranges(N);
   if (ranges > 1 && (part == nullptr || db_part == nullptr)) return cudaErrorInvalidValue;
   constexpr size_t smem = Cfg<T, false>::smem;
   cudaError_t err = set_smem_once<xent_dw_lean_kernel<T>>(static_cast<int>(smem));
@@ -976,13 +842,8 @@ cudaError_t launch_dw_lean(const void* x, const void* w, const void* b, const in
                          static_cast<T*>(dw), db, part, db_part, N, d, V, inv_n,
                          int(vec_rows<T>(x, d)), int(vec_rows<T>(w, V)));
   if (err != cudaSuccess || ranges == 1) return err;
-  const long long elems = static_cast<long long>(d) * V;
-  xent_dw_lean_sum_kernel<T><<<static_cast<unsigned>((elems + 255) / 256), 256, 0, st>>>(
-      part, db_part, static_cast<T*>(dw), db, ranges, d, V);
-  return cudaGetLastError();
+  return launch_range_sum<T>(part, db_part, dw, db, ranges, d, V, st);
 }
-
-bool shape_ok(int N, int d, int V) { return N > 0 && V > 0 && d > 0; }
 
 }  // namespace
 

@@ -71,6 +71,8 @@ from tpudml_torch.ops.xent_kernel import (
     lean_plan,
     lean_plan_built,
     linear_cross_entropy,
+    saved_plan,
+    saved_plan_built,
     xent_dw,
     xent_dw_lean,
     xent_dw_lean_reference,
@@ -140,6 +142,8 @@ __all__ = [
     "reference_head",
     "reference_head_int8",
     "reset_launch_counts",
+    "saved_plan",
+    "saved_plan_built",
     "xent_dw",
     "xent_dw_lean",
     "xent_dw_lean_reference",

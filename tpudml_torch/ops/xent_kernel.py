@@ -8,18 +8,21 @@ caller. Two backward modes, as in JAX:
 
 - saved scores: the forward kernel writes the f32 scores once for the
   backward (1 GiB at N = 8192, V = 32768) and reduces them to per-row
-  (lse, picked); the two backward kernels build dlogits from those scores
-  while staging them and contract it with W (dX) and x (dW, db);
+  (lse, picked); the two backward kernels read each score once per
+  512-column chunk of d, turn it into dlogits and contract it with W (dX)
+  and x (dW, db) (:func:`saved_plan`);
 - lean: the forward keeps only lse (O(N + parameters) residuals), and the
   two backward kernels recompute the scores tile by tile from x, W and b
   before contracting dlogits, so nothing of size N·V exists in either
   direction (the 131k-token regime, where the scores alone are 16 GiB).
 
-CUDA sources: ``tpudml_torch/csrc/xent.cu`` (kernels 10–13) and
-``tpudml_torch/csrc/xent_lean.cu`` (the lean kernels 14, 15). The kernels
-take any width d >= 1: a ragged contraction edge is masked inside them (W
-is never padded); the lean kernels give each 512-column chunk of d a block
-of one thread-block cluster (:func:`lean_plan`).
+CUDA sources: ``tpudml_torch/csrc/xent.cu`` (the forward kernels 10, 11),
+``tpudml_torch/csrc/xent_saved.cu`` (the saved-scores backward 12, 13) and
+``tpudml_torch/csrc/xent_lean.cu`` (the lean backward 14, 15); the two
+backward pairs share ``csrc/xent_grad.cuh``. The kernels take any width
+d >= 1: a ragged contraction edge is masked inside them (W is never
+padded); the backward kernels give each 512-column chunk of d a block, the
+lean ones in one thread-block cluster (:func:`lean_plan`).
 
 - :func:`xent_forward` / :func:`xent_forward_save` launch kernel 10 / 11
   for CUDA tensors; :func:`xent_dx` / :func:`xent_dw` launch kernels 12
@@ -60,9 +63,12 @@ from tpudml_torch.ops.tiling import round_up
 _LIB = CudaLibrary("xent.cu", {
     "xent_fwd": [P] * 7 + [I] * 4 + [P],
     "xent_fwd_save": [P] * 8 + [I] * 4 + [P],
-    "xent_dx_s": [P] * 5 + [I] * 3 + [F, I, P],
-    "xent_dw_s": [P] * 6 + [I] * 3 + [F, I, P],
     "xent_tile_width": [],
+})
+_SAVED_LIB = CudaLibrary("xent_saved.cu", {
+    "xent_dx_s": [P] * 5 + [I] * 3 + [F, I, P],
+    "xent_dw_s": [P] * 8 + [I] * 3 + [F, I, P],
+    "xent_saved_plan": [I] * 4 + [P],
 })
 _LEAN_LIB = CudaLibrary("xent_lean.cu", {
     "xent_dx_lean": [P] * 6 + [I] * 3 + [F, I, P],
@@ -74,9 +80,9 @@ XENT_FORWARD = Kernel("xent_fwd", _LIB, "xent_fwd",
                       replaces="tpudml/ops/xent_kernel.py:105")
 XENT_FORWARD_SAVE = Kernel("xent_fwd_save", _LIB, "xent_fwd_save",
                            replaces="tpudml/ops/xent_kernel.py:111")
-XENT_DX = Kernel("xent_dx_s", _LIB, "xent_dx_s",
+XENT_DX = Kernel("xent_dx_s", _SAVED_LIB, "xent_dx_s",
                  replaces="tpudml/ops/xent_kernel.py:175")
-XENT_DW = Kernel("xent_dw_s", _LIB, "xent_dw_s",
+XENT_DW = Kernel("xent_dw_s", _SAVED_LIB, "xent_dw_s",
                  replaces="tpudml/ops/xent_kernel.py:199")
 XENT_DX_LEAN = Kernel("xent_dx_lean", _LEAN_LIB, "xent_dx_lean",
                       replaces="tpudml/ops/xent_kernel.py:327")
@@ -112,6 +118,42 @@ def lean_plan_built(d: int) -> dict:
     out = (ctypes.c_int * 3)()
     _LEAN_LIB.call("xent_lean_plan", I(d), ctypes.cast(out, P))
     return {"chunk": out[0], "cluster": out[1], "s_passes": out[2]}
+
+
+# How kernels 12 and 13 cut their work (csrc/xent_saved.cu `Saved`): rows a
+# dX block and vocabulary columns a dW block, by dtype; a block owns one
+# SAVED_CHUNK-column chunk of d; dW sums its rows in ranges of SAVED_RANGE.
+SAVED_TILE = {torch.float32: 32, torch.bfloat16: 64}
+SAVED_CHUNK = 512
+SAVED_RANGE = 65536
+
+
+def saved_plan(n: int, d: int, v: int, dtype: torch.dtype) -> dict:
+    """The saved-scores kernels' cut of (N, d, V) in ``dtype``: ``dx_rows``
+    rows a dX block, ``dw_cols`` vocabulary columns a dW block, ``chunk``
+    columns of d a block, ``s_reads`` (chunks of d: how many times each
+    kernel reads the scores), ``range_rows`` and ``ranges`` of dW's row
+    sum, and the block counts ``dx_blocks``, ``dw_blocks``."""
+    if n < 1 or d < 1 or v < 1:
+        raise ValueError(f"N, d, V must be >= 1, got {n}, {d}, {v}")
+    tile = SAVED_TILE[dtype]
+    chunks = -(-d // SAVED_CHUNK)
+    ranges = -(-n // SAVED_RANGE)
+    return {"dx_rows": tile, "dw_cols": tile, "chunk": SAVED_CHUNK, "s_reads": chunks,
+            "range_rows": SAVED_RANGE, "ranges": ranges, "dx_blocks": -(-n // tile) * chunks,
+            "dw_blocks": -(-v // tile) * chunks * ranges}
+
+
+def saved_plan_built(n: int, d: int, v: int, dtype: torch.dtype) -> dict:
+    """:func:`saved_plan` as the built kernels decide it (``xent_saved_plan``
+    of csrc/xent_saved.cu; needs nvcc: a card-only test holds the two
+    equal). :func:`xent_dw` sizes its range scratch with it."""
+    out = (ctypes.c_longlong * 8)()
+    _SAVED_LIB.call("xent_saved_plan", I(n), I(d), I(v), I(int(dtype == torch.bfloat16)),
+                    ctypes.cast(out, P))
+    keys = ("dx_rows", "dw_cols", "chunk", "s_reads", "range_rows", "ranges", "dx_blocks",
+            "dw_blocks")
+    return dict(zip(keys, out))
 
 
 def _padded_dims(n: int, v: int, block_n: int, block_v: int):
@@ -231,6 +273,16 @@ def _is_bf16(x) -> I:
     return I(int(x.dtype == torch.bfloat16))
 
 
+def _range_scratch(ranges: int, d: int, v: int, device):
+    """dW's rows come in fixed ranges; beyond one, each range's f32
+    partials of dW and db go to this scratch ([ranges, d, V], [ranges,
+    V]), which a second pass sums in range order; (None, None) otherwise."""
+    if ranges == 1:
+        return None, None
+    return (torch.empty((ranges, d, v), dtype=torch.float32, device=device),
+            torch.empty((ranges, v), dtype=torch.float32, device=device))
+
+
 def _forward_launch(kernel: Kernel, x, w, b, labels, s=None):
     n, d = x.shape
     v = w.shape[1]
@@ -285,8 +337,9 @@ def _check_backward_operands(s, operand, labels, lse, rows: bool) -> None:
 
 
 def xent_dx(s, w, labels, lse, inv_n: float):
-    """dx [N, d] = dlog·Wᵀ in w's dtype from the saved f32 scores s [N, V]:
-    kernel 12 for CUDA tensors, :func:`xent_dx_reference` for CPU ones."""
+    """dx [N, d] = dlog·Wᵀ in w's dtype from the saved f32 scores s [N, V]
+    (contiguous, unpadded): kernel 12 for CUDA tensors,
+    :func:`xent_dx_reference` for CPU ones."""
     if not s.is_cuda:
         return xent_dx_reference(s, w, labels, lse, inv_n)
     _check_backward_operands(s, w, labels, lse, rows=False)
@@ -310,9 +363,12 @@ def xent_dw(s, x, labels, lse, inv_n: float):
     d = x.shape[1]
     dw = torch.empty((d, v), dtype=x.dtype, device=s.device)
     db = torch.empty((v,), dtype=torch.float32, device=s.device)
+    part, db_part = _range_scratch(saved_plan_built(n, d, v, x.dtype)["ranges"], d, v,
+                                   s.device)
     with torch.cuda.device(s.device):
         XENT_DW.launch(ptr(s), ptr(x), ptr(labels), ptr(lse), ptr(dw), ptr(db),
-                       I(n), I(d), I(v), F(inv_n), _is_bf16(x))
+                       _ptr_or_null(part), _ptr_or_null(db_part), I(n), I(d), I(v),
+                       F(inv_n), _is_bf16(x))
     return dw, db
 
 
@@ -351,13 +407,8 @@ def xent_dw_lean(x, w, b, labels, lse, inv_n: float):
     v = w.shape[1]
     dw = torch.empty_like(w)
     db = torch.empty((v,), dtype=torch.float32, device=x.device)
-    # Rows come in fixed ranges; beyond one, each range's f32 partials go to
-    # scratch that a second pass sums in range order.
     ranges = -(-n // XENT_DW_LEAN.library.load().xent_dw_lean_range_rows())
-    part = db_part = None
-    if ranges > 1:
-        part = torch.empty((ranges, d, v), dtype=torch.float32, device=x.device)
-        db_part = torch.empty((ranges, v), dtype=torch.float32, device=x.device)
+    part, db_part = _range_scratch(ranges, d, v, x.device)
     with torch.cuda.device(x.device):
         XENT_DW_LEAN.launch(ptr(x), ptr(w), ptr(b), ptr(labels), ptr(lse), ptr(dw),
                             ptr(db), _ptr_or_null(part), _ptr_or_null(db_part), I(n),
