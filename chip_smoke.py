@@ -14,12 +14,17 @@ the CPU). Phases, each printing its own line(s):
    holds ``HMMA.16816.F32.BF16``, none holds TF32 and none spills. Then
    each instance of the LayerNorm kernels 6–9 with its registers and
    spills; it fails if a wide instance (past d = 1024) spills. Then each
-   instance of the saved-scores kernels 12 and 13 and their range sum
+   instance of the forward kernels 10 and 11 (``xent.cu``: f32 and bf16,
+   with and without the score store, ragged d or not), of the saved-scores
+   kernels 12 and
+   13 and their range sum
    (``xent_saved.cu``) and of the lean head's kernels 14 and 15 and theirs
    (``xent_lean.cu``), f32 and bf16, with its registers, spills, stack frame
    and SASS counts; it fails if one spills or keeps a stack frame, holds
-   TF32, or a bf16 twin of 12–15 holds no ``HMMA.16816.F32.BF16``; then
-   the cut the built saved-scores kernels make (rows or columns a block,
+   TF32, or a bf16 twin of 10–15 holds no ``HMMA.16816.F32.BF16``; then
+   the cut the built forward kernels make (rows a block, vocabulary slices,
+   blocks) at FWD_PLAN_SHAPES against ``fwd_plan``, the cut the built
+   saved-scores kernels make (rows or columns a block,
    reads of s, dW's row ranges, blocks) at SAVED_PLAN_SHAPES against
    ``saved_plan``, and the cut of d the built lean kernels choose (columns
    a block, blocks a cluster, score computations a tile) at d = 512 to
@@ -35,11 +40,12 @@ the CPU). Phases, each printing its own line(s):
    versions per (batch, head) slice), the fused add+LayerNorm forward and
    backward (N=8192, d=512; also N=1000 and ds=None), the bf16 twins of
    the flash and add+LN kernels at the training shapes, and the fused
-   linear-xent kernels 10–13 (N=8192, d=512, V=32768 and the ragged
-   N=1000, V=1000 with labels −1 and V; f32 and bf16; 12 and 13 timed
-   with TFLOP/s at 2·N·d·V beside a yardstick that is not their function,
-   cuBLAS's product alone on a dlog materialized in the operand dtype, and
-   in f32 also at the long context's N=32768), the lean head's
+   linear-xent kernels 10–13 (N=8192, d=512, V=32768, the ragged
+   N=1000, V=1000 and the forward's tile and slice edges XENT_FWD_EDGES,
+   with labels −1 and V; f32 and bf16; timed with TFLOP/s at 2·N·d·V, 12
+   and 13 beside a yardstick that is not their function, cuBLAS's product
+   alone on a dlog materialized in the operand dtype, and 11–13 in f32
+   also at the long context's N=32768), the lean head's
    kernels 14 and 15 with kernel 10 that feeds them lse (the same shapes,
    and in f32 the long-context path's N=32768, BASELINE.md:46's N=131072
    and N=2097184 at d=1024, V=256, where N·d passes 2³¹ and the offsets
@@ -293,6 +299,11 @@ LN_SWEEP_ELEMS = 1 << 25
 LN_CHECKS = ((1, 4096, 0), (100, 2048, 0), (300, 1025, 0), (300, 1100, 0), (300, 4100, 0),
              (300, 8192, 0), (300, 4096, 1), (40, 12000, 0), (20, 20000, 0), (10, 40000, 0))
 XENT_WIDE = (12, 1032, 2048)
+# The forward's tile and slice edges (N, d, V), phase 3: one row and one
+# column; a ragged bf16 x row (d = 520) past one 128-row tile and one
+# 128-column f32 step; 64 row tiles and a row, d past two 512-wide chunks,
+# V short of a step; one column past 32768 at d = 4096.
+XENT_FWD_EDGES = ((1, 1, 1), (65, 520, 129), (8193, 1032, 127), (256, 4096, 32769))
 XENT_WIDE_TIMED = (4096, 2048, 8192)
 HEAD_WIDE = (8, 8192, 32768)
 FLASH_D256_SHAPE = (8, 1024, 4, 256)  # B, T, H, D: the training shape at the widest D
@@ -1119,7 +1130,7 @@ def xent_times(gen, dtype, shape=XENT_SHAPE, label="flagship head", only=None) -
     ``torch.logsumexp(x@W+b)`` plus the label pick; the backward the
     autograd of ``F.cross_entropy`` over the materialized logits minus its
     forward (dx, dW, db together: the whole head's backward, not one
-    kernel). Rows 12 and 13 also give their rate at 2·N·d·V and, as a
+    kernel). Every row gives its rate at 2·N·d·V, and rows 12 and 13, as a
     yardstick of their product that is not their function (the port never
     calls it), ``product_ms``: cuBLAS's dlog·Wᵀ or xᵀ·dlog on a dlog that
     is already materialized in the operand dtype."""
@@ -1180,13 +1191,12 @@ def xent_times(gen, dtype, shape=XENT_SHAPE, label="flagship head", only=None) -
         bnd, by = bound(nbytes, flops, peak)
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib,
                    library=f"{lib_name}, {tag}", shape=f"N={n} d={d} V={v} {tag} ({label})")
-        extra = ""
+        row["tflops"] = tflops(mm, ms)
+        extra = f" ({row['tflops']:.1f} TFLOP/s at 2·N·d·V)"
         if kernel in product:
-            row.update(tflops=tflops(mm, ms), product_ms=cuda_ms(product[kernel], iters=10,
-                                                                 warmup=2),
+            row.update(product_ms=cuda_ms(product[kernel], iters=10, warmup=2),
                        product=f"{PRODUCT_NAME} (a yardstick, not this kernel's function)")
-            extra = (f" ({row['tflops']:.1f} TFLOP/s at 2·N·d·V); yardstick {PRODUCT_NAME}: "
-                     f"{row['product_ms']:.3f} ms")
+            extra += f"; yardstick {PRODUCT_NAME}: {row['product_ms']:.3f} ms"
         print(f"[kernel] {kernel.name} N={n} d={d} V={v} {tag}: kernel {ms:.3f} ms{extra}, "
               f"plain {plain_ms:.3f} ms, {lib_name} {lib:.3f} ms, bound {bnd:.5f} ms ({by})")
         out[kernel.name] = row
@@ -1197,10 +1207,11 @@ def xent_times(gen, dtype, shape=XENT_SHAPE, label="flagship head", only=None) -
 
 def xent_phase(gen) -> list[dict]:
     """The fused linear-xent kernels 10–13: agreement with their plain
-    versions at the flagship head's shape and at N=V=1000 with labels −1
-    and V, in f32 and bf16; times at the flagship shape in bf16 (the
-    row) and f32 (``at_f32``), and for 12 and 13 in f32 at the long
-    context's N=32768 with saved scores (``at_long_context``)."""
+    versions at the flagship head's shape, at N=V=1000 and at
+    XENT_FWD_EDGES with labels −1 and V, in f32 and bf16; times at the
+    flagship shape in bf16 (the row) and f32 (``at_f32``), and for 11–13
+    in f32 at the long context's N=32768 with saved scores
+    (``at_long_context``)."""
     import torch
 
     from tpudml_torch.ops import XENT_DW, XENT_DX, XENT_FORWARD, XENT_FORWARD_SAVE
@@ -1208,13 +1219,14 @@ def xent_phase(gen) -> list[dict]:
     n, d, v = XENT_SHAPE
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape, bad in (((1000, d, 1000), True), ((n, d, v), False)):
+        for shape, bad in (((1000, d, 1000), True), ((n, d, v), False),
+                           *((edge, True) for edge in XENT_FWD_EDGES)):
             for name, e in xent_check(gen, *shape, dtype, bad).items():
                 worst[name] = max(worst.get(name, 0.0), e)
             torch.cuda.empty_cache()
     times = {dt: xent_times(gen, dt) for dt in (torch.bfloat16, torch.float32)}
     long = xent_times(gen, torch.float32, (LEAN_PATH_N, d, v), "long context, saved scores",
-                      only=(XENT_DX.name, XENT_DW.name))
+                      only=(XENT_FORWARD_SAVE.name, XENT_DX.name, XENT_DW.name))
     rows = []
     for kernel in (XENT_FORWARD, XENT_FORWARD_SAVE, XENT_DX, XENT_DW):
         rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
@@ -2645,16 +2657,30 @@ XENT_TWINS = (("f32", "If"), ("bf16", "I13__nv_bfloat16"))
 LEAN_PLAN_WIDTHS = (512, 1024, 2048, 4096, 8192)
 
 
-def xent_instances(lib, instances) -> None:
-    """Hold every instance of one backward pair of the fused head (with its
-    range sum) to its design: no spill and no stack frame (its f32 tiles
-    live in registers), no TF32 instruction, and ``HMMA.16816.F32.BF16`` in
-    each bf16 twin of the pair; print registers and SASS counts."""
+# The forward kernels 10, 11 (xent.cu): f32 and bf16, without and with the
+# score store (SAVE), for a d that is a multiple of the stage depth and not
+# (RAGGED), as (label, mangled template arguments).
+FWD_TWINS = tuple((f"{tag}{', save' if save else ''}{', ragged' if ragged else ''}",
+                   f"{arg}Lb{save}ELb{ragged}E")
+                  for tag, arg in (("f32", "If"), ("bf16", "I13__nv_bfloat16"))
+                  for save in (0, 1) for ragged in (0, 1))
+# (N, d, V) at which phase 2 holds the forward's cut against ``fwd_plan``:
+# the flagship head, the long context, the wide timed head, the grid edge.
+FWD_PLAN_SHAPES = ((8192, 512, 32768), (32768, 512, 32768), (4096, 2048, 8192),
+                   (8_388_609, 8, 128))
+
+
+def xent_instances(lib, instances, twins=XENT_TWINS) -> None:
+    """Hold every instance of one pair of the fused head's kernels (with
+    its range sum) to its design: no spill and no stack frame (its f32
+    tiles live in registers), no TF32 instruction, and
+    ``HMMA.16816.F32.BF16`` in each bf16 twin of the pair; print registers
+    and SASS counts."""
     usage = ptxas_usage(lib.ptxas_log())
     sass = sass_opcodes(lib.target())
     source = lib.source.name
     for kernel, mma_twin in instances:
-        for tag, arg in XENT_TWINS:
+        for tag, arg in twins:
             names = [n for n in sass if re.search(rf"\d{kernel}{arg}E", n)]
             check(len(names) == 1, f"{source}: no single {kernel}<{tag}> in the SASS")
             ops, use = sass[names[0]], usage.get(names[0])
@@ -2668,8 +2694,29 @@ def xent_instances(lib, instances) -> None:
             check(use.get("spill") == 0 and use.get("stack") == 0,
                   f"{kernel}<{tag}> spills or keeps a stack frame ({use})")
             check(tf32 == 0, f"{kernel}<{tag}> holds TF32 instructions ({ops})")
-            if mma_twin and tag == "bf16":
+            if mma_twin and tag.startswith("bf16"):
                 check(mma > 0, f"{kernel}<bf16> runs no bf16 mma on the tensor cores")
+
+
+def fwd_instances(lib) -> None:
+    """The forward kernels 10, 11 (xent.cu) as ``xent_instances`` holds
+    them, every instance of FWD_TWINS; then, in f32 and bf16, the cut the
+    built kernels make (rows a block, vocabulary slices, blocks) at
+    FWD_PLAN_SHAPES against ``fwd_plan``."""
+    import torch
+
+    from tpudml_torch.ops import fwd_plan, fwd_plan_built
+
+    xent_instances(lib, (("xent_fwd_kernel", True),), FWD_TWINS)
+    for shape in FWD_PLAN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = fwd_plan_built(*shape, dtype)
+            print(f"[build] forward kernels at N={shape[0]} d={shape[1]} V={shape[2]} "
+                  f"{str(dtype)[6:]}: {plan['blocks']} blocks of {plan['rows']} rows, "
+                  f"{plan['slices']} slice(s) of {plan['slice_steps']} steps of {plan['cols']} "
+                  f"columns, partials {plan['partials']}")
+            check(plan == fwd_plan(*shape, dtype),
+                  f"fwd_plan{shape} {fwd_plan(*shape, dtype)} is not the kernels' {plan}")
 
 
 def lean_instances(lib) -> None:
@@ -2741,11 +2788,12 @@ def build_phase() -> None:
     instance: the bf16 twins on the tensor cores (``HMMA.16816.F32.BF16`` in
     their SASS), no TF32 instruction in any twin, and no spills; the wide
     instances of the LayerNorm kernels 6–9 to no spills; and the
-    saved-scores kernels 12, 13 and the lean kernels 14, 15 as
-    ``saved_instances`` and ``lean_instances`` say."""
+    forward kernels 10, 11, the saved-scores kernels 12, 13 and the lean
+    kernels 14, 15 as ``fwd_instances``, ``saved_instances`` and
+    ``lean_instances`` say."""
     from tpudml_torch.ops import (
         ADD_LN_FORWARD, FLASH_DKDV, FLASH_DQ, FLASH_FORWARD, KERNELS, XENT_DX, XENT_DX_LEAN,
-        build_kernels,
+        XENT_FORWARD, build_kernels,
     )
 
     t_build = build_kernels()
@@ -2778,6 +2826,7 @@ def build_phase() -> None:
                 if "bf16" in kernel:
                     check(mma > 0, f"{kernel}<{dp}> runs no bf16 mma on the tensor cores")
     ln_instances(ADD_LN_FORWARD.library)
+    fwd_instances(XENT_FORWARD.library)
     saved_instances(XENT_DX.library)
     lean_instances(XENT_DX_LEAN.library)
 

@@ -34,6 +34,9 @@ Tolerances, with their reasons:
   d = 1025 to 40000, f32 and bf16, every wide instance, N = 1, a
   misaligned base, a bitwise repeat; xent d = 12, 1032, 2048; the decode
   head d = 8192): the tolerances above;
+- the xent forward (kernels 10, 11) at its tile and slice edges (N = 1,
+  65, 8193; V = 1 to 32769; d = 1 to 4096): the xent tolerances above,
+  and a repeat bitwise equal;
 - the grouped dW (kernel 16), f32 and bf16 inputs: within 1e-5 of the
   plain output's largest magnitude (both accumulate the same products in
   f32, over up to M rows in another order), and bitwise equal on a repeat.
@@ -62,6 +65,7 @@ from tpudml_torch.ops import (  # noqa: E402
     DECODE_HEAD, FLASH_FORWARD, GROUPED_DW, GROUPED_DW_BF16, flash_dkdv, flash_dkdv_reference, flash_dq,
     flash_dq_reference, grouped_dw, grouped_dw_reference, ragged_ffn,
     layernorm_backward, layernorm_backward_reference, layernorm_forward,
+    fwd_plan, fwd_plan_built,
     layernorm_forward_reference, lean_plan, lean_plan_built, linear_cross_entropy,
     reference_head, saved_plan, saved_plan_built, xent_dw,
     xent_dw_lean, xent_dw_lean_reference, xent_dw_reference, xent_dx, xent_dx_lean,
@@ -342,6 +346,55 @@ def test_xent_kernels_match_plain(cuda_device, dtype, n, d, v):
     assert dx.dtype == dw.dtype == dtype and db.dtype == torch.float32
     again = (xent_dx(rs, w, y, rlse, 1.0 / n), *xent_dw(rs, x, y, rlse, 1.0 / n))
     assert all(torch.equal(a, c) for a, c in zip((dx, dw, db), again))
+
+
+# The forward's tile and slice edges (fwd_plan): one row, 65 rows and one
+# row past 64 row tiles; V = 1, one column short of and past a 128-column
+# f32 step (127 and 129: ragged, scalar score stores and W rows), one
+# column past 32768 (a last step of one column); d = 1, 12 (under one
+# contraction stage), 520 (past the bf16 x row's 16-byte rows: ragged
+# stage), 1032, 2048, 4096 (many stages a step).
+_FWD_ROWS = [1, 65, 8193]
+_FWD_VOCAB = [1, 127, 129, 32769]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [1, 12, 520, 1032, 2048, 4096])
+def test_xent_forward_kernels_at_tile_and_slice_edges(cuda_device, dtype, d):
+    """Kernels 10 and 11 against their plain versions at every (N, V) of
+    _FWD_ROWS × _FWD_VOCAB, labels −1 and V: lse, picked and the saved
+    scores at ROW_TOL, an out-of-range label picks nothing, and a second
+    call on the same input is bitwise equal. W is drawn at an LM head's
+    scale, 1/√d, so that the scores stay O(1) at every d (at the other
+    tests' 0.05 and d = 4096 they reach |s| ≈ 13, and two f32 sums of 4096
+    terms in different orders differ by more than atol 1e-5 where s is
+    near 0, in either dtype)."""
+    for n in _FWD_ROWS:
+        for v in _FWD_VOCAB:
+            x, w, b, y = _xent_inputs(n, d, v, dtype, cuda_device, seed=n + v)
+            w = (w.float() * (20 / d ** 0.5)).to(dtype)  # 0.05 · 20 = 1: W ~ N(0, 1/d)
+            got = xent_forward(x, w, b, y)
+            saved = xent_forward_save(x, w, b, y)
+            rlse, rpicked, rs = xent_forward_save_reference(x, w, b, y)
+            for lse, picked in (got, saved[:2]):
+                torch.testing.assert_close(lse, rlse, **ROW_TOL, msg=f"lse {n} {v}")
+                torch.testing.assert_close(picked, rpicked, **ROW_TOL, msg=f"picked {n} {v}")
+                assert picked[0].item() == picked[-1].item() == 0.0
+            torch.testing.assert_close(saved[2], rs, **ROW_TOL, msg=f"scores {n} {v}")
+            for a, c in zip((*got, *saved), (*xent_forward(x, w, b, y),
+                                              *xent_forward_save(x, w, b, y))):
+                assert torch.equal(a, c), (n, v)
+
+
+@pytest.mark.cuda
+def test_fwd_plan_is_the_kernels_choice(cuda_device):
+    """The host's ``fwd_plan`` is the cut the built kernels 10 and 11 make
+    (and size their partials with), in both dtypes."""
+    for n in (1, 65, 1000, 8192, 8193, 32768, 4096, 8_388_609):
+        for v in (1, 127, 129, 1000, 8192, 32768, 32769, 1_000_000):
+            for dtype in (torch.float32, torch.bfloat16):
+                assert fwd_plan_built(n, 512, v, dtype) == fwd_plan(n, 512, v, dtype), (n, v)
 
 
 @pytest.mark.cuda

@@ -237,6 +237,76 @@ def test_saved_plan_rejects_an_empty_shape():
         txk.saved_plan(0, 512, 100, torch.float32)
 
 
+@pytest.mark.parametrize("n,d,v,dtype,slices,blocks", [
+    (8192, 512, 32768, torch.bfloat16, 2, 128),      # the flagship head: 64 row tiles
+    (8192, 512, 32768, torch.float32, 2, 128),
+    (32768, 512, 32768, torch.float32, 1, 256),      # long context: 256 row tiles
+    (4096, 2048, 8192, torch.float32, 4, 128),       # the wide timed head
+    (8_388_609, 8, 128, torch.float32, 1, 65_537),   # the grid-edge check
+    (1, 1, 1, torch.float32, 1, 1),
+    (1, 512, 32768, torch.bfloat16, 128, 128),       # one row: the slices fill the card
+    (1000, 512, 1000, torch.bfloat16, 4, 32),
+    (65, 12, 32769, torch.float32, 129, 129),        # a last step of one column
+])
+def test_fwd_plan_fills_the_card_and_covers_the_vocabulary(n, d, v, dtype, slices, blocks):
+    """The forward kernels' cut (``fwd_plan``, the host's mirror of
+    csrc/xent.cu; a card-only test holds the two equal): 128 rows a block,
+    128 (f32) or 256 (bf16) vocabulary columns a step, the steps in equal
+    slices that cover [0, V) once, none empty; the partials scratch is
+    [3, slices, N]."""
+    plan = txk.fwd_plan(n, d, v, dtype)
+    assert (plan["slices"], plan["blocks"]) == (slices, blocks)
+    assert plan["rows"] == 128 and plan["cols"] == (256 if dtype == torch.bfloat16 else 128)
+    assert plan["steps"] * plan["cols"] >= v > (plan["steps"] - 1) * plan["cols"]
+    per = plan["slice_steps"]
+    assert plan["slices"] * per >= plan["steps"] > (plan["slices"] - 1) * per
+    assert plan["blocks"] == -(-n // plan["rows"]) * plan["slices"]
+    assert plan["partials"] == (3, plan["slices"], n)
+
+
+def test_fwd_plan_rejects_an_empty_shape():
+    with pytest.raises(ValueError):
+        txk.fwd_plan(1, 0, 100, torch.float32)
+
+
+def _slice_partials_merged(s, labels, plan):
+    """The forward kernels' arithmetic on plain scores s [N, V]: per slice
+    of ``plan`` the (max, Σ exp(s − max), picked) partial of each row, then
+    the partials merged in slice order, as xent_merge_kernel does."""
+    n, v = s.shape
+    width = plan["slice_steps"] * plan["cols"]
+    m = torch.full((n,), -torch.inf)
+    parts = []
+    for k in range(plan["slices"]):
+        cols = slice(k * width, min(v, (k + 1) * width))
+        mk = s[:, cols].amax(dim=1)
+        lk = torch.exp(s[:, cols] - mk[:, None]).sum(dim=1)
+        inside = (labels >= cols.start) & (labels < cols.stop)
+        zk = torch.where(inside, s.gather(1, labels.clamp(0, v - 1)[:, None])[:, 0], 0.0)
+        parts.append((mk, lk, zk))
+        m = torch.maximum(m, mk)
+    l = sum(lk * torch.exp(mk - m) for mk, lk, _ in parts)
+    return m + torch.log(l), sum(zk for _, _, zk in parts)
+
+
+@pytest.mark.parametrize("plan_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,d,v", [(37, 16, 300), (200, 12, 1000), (129, 32, 517)])
+def test_slice_partials_merge_to_jax_fused_forward(n, d, v, plan_dtype):
+    """Merging per-slice partials of the plain f32 scores in ``fwd_plan``'s
+    slice order gives JAX's ``_fused_forward`` lse and picked (its Pallas
+    forward in interpret mode) at rtol 1e-5: ragged N and V, labels −1 and
+    V, several slices."""
+    x, w, b, y = _inputs(n, d, v, seed=n + v, bad_labels=True)
+    plan = txk.fwd_plan(n, d, v, plan_dtype)
+    assert plan["slices"] > 1
+    jlse, jpicked = jxk._fused_forward(*(jnp.asarray(a) for a in (x, w, b, y)), 8, 128, True)
+    s = torch.from_numpy(x) @ torch.from_numpy(w) + torch.from_numpy(b)
+    lse, picked = _slice_partials_merged(s, torch.from_numpy(y).long(), plan)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **F32_TOL)
+    np.testing.assert_allclose(picked.numpy(), np.asarray(jpicked), **F32_TOL)
+    assert picked[0].item() == picked[1].item() == 0.0
+
+
 def test_lean_out_of_range_labels_and_padded_rows():
     """JAX's padded-row and padded-column cases in the lean mode: 10 rows
     (8-row tiles pad them to 16), V = 100 (padded to 128), labels in

@@ -1,10 +1,10 @@
-// The register-tiled product on the CUDA cores shared by the port's xent
-// forward (xent.cu, kernels 10 and 11) and the grouped dW (grouped_dw.cu): a
-// block of 256 threads owns a 128×128 f32 output tile; each thread keeps 8×8
-// accumulators (rows ty + 16·i, columns tx + 16·j, tx = tid % 16,
-// ty = tid / 16) and the contraction axis is walked BK deep at a time
-// through shared-memory stages As [BK][LDA] and Bs [BK][LDB] (rows padded by
-// 4 floats so transposed stores do not collide in a bank).
+// The register-tiled product on the CUDA cores of the grouped dW
+// (grouped_dw.cu, kernel 16): a block of 256 threads owns a 128×128 f32
+// output tile; each thread keeps 8×8 accumulators (rows ty + 16·i, columns
+// tx + 16·j, tx = tid % 16, ty = tid / 16) and the contraction axis is
+// walked BK deep at a time through shared-memory stages As [BK][LDA] and Bs
+// [BK][LDB] (rows padded by 4 floats so transposed stores do not collide in
+// a bank).
 
 #pragma once
 

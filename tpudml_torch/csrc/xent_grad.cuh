@@ -1,8 +1,9 @@
 // Device code shared by the two backward pairs of the fused linear
 // cross-entropy on Hopper (sm_90a): the lean kernels 14, 15 (xent_lean.cu),
 // which recompute the scores, and the saved-scores kernels 12, 13
-// (xent_saved.cu), which read them. Both contract dlog with W (dX) or x
-// (dW) over a 512-column chunk of d a block:
+// (xent_saved.cu), which read them; the forward (xent.cu) takes its block
+// size, Lanes and the host checks from here. Both pairs contract dlog with
+// W (dX) or x (dW) over a 512-column chunk of d a block:
 // - the shared-memory layouts of the chunk's operand tiles (f32 x
 //   row-padded to F_LDX, f32 W swizzled by wsw, bf16 both by swz) and the
 //   staging of the x rows (stage_x);

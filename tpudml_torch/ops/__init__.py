@@ -68,6 +68,8 @@ from tpudml_torch.ops.xent_kernel import (
     XENT_DX_LEAN,
     XENT_FORWARD,
     XENT_FORWARD_SAVE,
+    fwd_plan,
+    fwd_plan_built,
     lean_plan,
     lean_plan_built,
     linear_cross_entropy,
@@ -134,6 +136,8 @@ __all__ = [
     "layernorm_backward_reference",
     "layernorm_forward",
     "layernorm_forward_reference",
+    "fwd_plan",
+    "fwd_plan_built",
     "lean_plan",
     "lean_plan_built",
     "linear_cross_entropy",

@@ -16,7 +16,8 @@ caller. Two backward modes, as in JAX:
   before contracting dlogits, so nothing of size N·V exists in either
   direction (the 131k-token regime, where the scores alone are 16 GiB).
 
-CUDA sources: ``tpudml_torch/csrc/xent.cu`` (the forward kernels 10, 11),
+CUDA sources: ``tpudml_torch/csrc/xent.cu`` (the forward kernels 10, 11,
+which cut the vocabulary into slices: :func:`fwd_plan`),
 ``tpudml_torch/csrc/xent_saved.cu`` (the saved-scores backward 12, 13) and
 ``tpudml_torch/csrc/xent_lean.cu`` (the lean backward 14, 15); the two
 backward pairs share ``csrc/xent_grad.cuh``. The kernels take any width
@@ -63,7 +64,7 @@ from tpudml_torch.ops.tiling import round_up
 _LIB = CudaLibrary("xent.cu", {
     "xent_fwd": [P] * 7 + [I] * 4 + [P],
     "xent_fwd_save": [P] * 8 + [I] * 4 + [P],
-    "xent_tile_width": [],
+    "xent_fwd_plan": [I] * 4 + [P],
 })
 _SAVED_LIB = CudaLibrary("xent_saved.cu", {
     "xent_dx_s": [P] * 5 + [I] * 3 + [F, I, P],
@@ -118,6 +119,55 @@ def lean_plan_built(d: int) -> dict:
     out = (ctypes.c_int * 3)()
     _LEAN_LIB.call("xent_lean_plan", I(d), ctypes.cast(out, P))
     return {"chunk": out[0], "cluster": out[1], "s_passes": out[2]}
+
+
+# How kernels 10 and 11 cut their work (csrc/xent.cu `plan_fwd`): a block
+# owns FWD_ROWS rows and walks a slice of the vocabulary FWD_COLS columns a
+# step; the steps are cut into equal slices so that the grid fills
+# FWD_FILL_SMS SMs (the H100's), one block an SM.
+FWD_ROWS = 128
+FWD_COLS = {torch.float32: 128, torch.bfloat16: 256}
+FWD_FILL_SMS = 132
+FWD_MAX_SLICES = 1024
+
+
+def fwd_plan(n: int, d: int, v: int, dtype: torch.dtype) -> dict:
+    """The forward kernels' cut of (N, d, V) in ``dtype``: ``rows`` a
+    block, ``cols`` vocabulary columns a step, ``steps`` of them, cut into
+    ``slices`` of ``slice_steps`` steps (the last may hold fewer), and
+    ``blocks`` = row tiles × slices; the partials scratch is ``partials``
+    = (3, slices, N) f32. The slice count takes the fewest step times over
+    the grid's waves, a step added for each block's ring fill and merge,
+    and the fewest slices among equals (at N = 8192: 2 slices, 128
+    blocks). d does not enter the cut: every step contracts all of d."""
+    if n < 1 or d < 1 or v < 1:
+        raise ValueError(f"N, d, V must be >= 1, got {n}, {d}, {v}")
+    cols = FWD_COLS[dtype]
+    row_tiles, steps = -(-n // FWD_ROWS), -(-v // cols)
+    best = None
+    for s in range(1, min(steps, FWD_MAX_SLICES) + 1):
+        per = -(-steps // s)
+        if -(-steps // per) != s:  # no equal cut into s slices
+            continue
+        cost = -(-row_tiles * s // FWD_FILL_SMS) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, s, per)
+    _, slices, per = best
+    return {"rows": FWD_ROWS, "cols": cols, "steps": steps, "slices": slices,
+            "slice_steps": per, "blocks": row_tiles * slices, "partials": (3, slices, n)}
+
+
+def fwd_plan_built(n: int, d: int, v: int, dtype: torch.dtype) -> dict:
+    """:func:`fwd_plan` as the built kernels decide it (``xent_fwd_plan``
+    of csrc/xent.cu; needs nvcc: a card-only test holds the two equal).
+    The forward wrappers size their partials scratch with it."""
+    out = (ctypes.c_longlong * 6)()
+    _LIB.call("xent_fwd_plan", I(n), I(d), I(v), I(int(dtype == torch.bfloat16)),
+              ctypes.cast(out, P))
+    keys = ("rows", "cols", "steps", "slices", "slice_steps", "blocks")
+    plan = dict(zip(keys, out))
+    plan["partials"] = (3, plan["slices"], n)
+    return plan
 
 
 # How kernels 12 and 13 cut their work (csrc/xent_saved.cu `Saved`): rows a
@@ -286,8 +336,8 @@ def _range_scratch(ranges: int, d: int, v: int, device):
 def _forward_launch(kernel: Kernel, x, w, b, labels, s=None):
     n, d = x.shape
     v = w.shape[1]
-    tiles = -(-v // kernel.library.load().xent_tile_width())
-    part = torch.empty((3, tiles, n), dtype=torch.float32, device=x.device)
+    part = torch.empty(fwd_plan_built(n, d, v, x.dtype)["partials"], dtype=torch.float32,
+                       device=x.device)
     lse = torch.empty((n,), dtype=torch.float32, device=x.device)
     picked = torch.empty_like(lse)
     saved = () if s is None else (ptr(s),)
