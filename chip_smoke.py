@@ -28,7 +28,13 @@ the CPU). Phases, each printing its own line(s):
    reads of s, dW's row ranges, blocks) at SAVED_PLAN_SHAPES against
    ``saved_plan``, and the cut of d the built lean kernels choose (columns
    a block, blocks a cluster, score computations a tile) at d = 512 to
-   8192, against ``lean_plan``.
+   8192, against ``lean_plan``. Then each instance of the grouped dW
+   (kernel 16, ``grouped_dw.cu``: f32 and bf16, with and without 16-byte
+   row copies) with its registers, spills, stack frame and SASS counts; it
+   fails if one spills or keeps a stack frame, holds TF32, a bf16 twin
+   holds no wgmma (``HGMMA.*.F32.BF16``) or ptxas serialized its wgmma;
+   then its cut (chunk rows R, list slots, blocks, workspace) at
+   GDW_PLAN_SHAPES against ``grouped_dw_plan``.
 3. kernel vs plain version on the card at the main paths' shapes, with
    the tolerances stated: the flash forward (serving: B=1, T=128, H=8,
    D=64: causal, non-causal, odd T, k_shift=1; training: B=8, T=1024,
@@ -57,7 +63,11 @@ the CPU). Phases, each printing its own line(s):
    path's M=8192 rows, (k, n) = (512, 2048) and (2048, 512), E = 4 and 8,
    on a real router's skewed top-1 groups, a set with empty groups and a
    collapsed one, with tail rows past Σ group_sizes, bitwise equal on a
-   repeat; times of the kernel, the plain version and a library call
+   repeat, timed on the router's groups and on the collapsed set (its
+   ratio to the router's time) beside per-expert ``torch.matmul`` and the
+   one call ``torch._grouped_mm`` (bf16 output), the bf16 twin also on
+   the device, and one slab of 60000 rows past the bf16 twin's 2048-row
+   chunk cap; times of the kernel, the plain version and a library call
    computing the same function, beside the bound (bf16 rows against the
    bf16 tensor-core rate), and for the flash kernels their rate in TFLOP/s;
    for the kernels under ~0.13 ms (1 at serving's shape, the bf16 twins
@@ -332,6 +342,7 @@ MOE_F32_PER_STEP = {"flash_forward_lse": 6, "flash_dq": 6, "flash_dkdv": 6,
 GDW_M = 8192
 GDW_SHAPES = ((512, 2048), (2048, 512))  # (k, n) of dW1 and dW2
 GDW_TOL = 1e-5  # of max |plain|: both sum the same products in f32, in another order
+GDW_LONG = (65536, 512, 2048)  # M, k, n of phase 3's long slab (past the bf16 chunk cap)
 
 
 class SmokeFailure(RuntimeError):
@@ -1572,16 +1583,39 @@ def _router_groups(gen, m: int, e: int):
     return {"router": routed, "empty": empty, "collapsed": collapsed}
 
 
+def _grouped_mm(x, g, gs, want):
+    """``torch._grouped_mm(xᵀ, g, offs=cumsum(sizes))``, the one PyTorch call
+    that computes the grouped dW: (call, output dtype, max|err|/max|plain|),
+    or (None, why the card's torch refused it, None). A yardstick the port
+    never calls; its output is in the operand dtype."""
+    import torch
+
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+    try:
+        got = torch._grouped_mm(x.t(), g, offs=offs)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, AttributeError, NotImplementedError) as err:
+        return None, f"{type(err).__name__}: {str(err).splitlines()[0][:160]}", None
+    return (lambda: torch._grouped_mm(x.t(), g, offs=offs)), str(got.dtype)[6:], \
+        rel_to_max(got, want)
+
+
 def grouped_dw_phase(gen) -> list[dict]:
     """Kernel 16 and its bf16 twin against ``grouped_dw_reference`` at the
     MoE step's shapes (module docstring, phase 3), bitwise equal on a
     repeat; times at E = 8 and E = 4, dW1 and dW2 shapes, on the router's
-    groups, beside the bound (data-dependent: the routed rows' bytes and
-    products; the tail rows are never read), the plain version and
-    per-expert ``torch.matmul``."""
+    groups and on the collapsed set (every routed row in one expert: the
+    case the row split is for; its ratio to the router's time), beside the
+    bound (data-dependent: the routed rows' bytes and products; the tail
+    rows are never read), the plain version, per-expert ``torch.matmul``
+    and ``torch._grouped_mm`` (``library_ms`` where the card's torch takes
+    it, else the per-expert chain); then one slab of 60000 rows (GDW_LONG),
+    past the bf16 twin's 2048-row chunk cap."""
     import torch
 
-    from tpudml_torch.ops import GROUPED_DW, GROUPED_DW_BF16, grouped_dw, grouped_dw_reference
+    from tpudml_torch.ops import (
+        GROUPED_DW, GROUPED_DW_BF16, grouped_dw, grouped_dw_plan, grouped_dw_reference,
+    )
 
     rows = []
     for dtype, kernel in ((torch.float32, GROUPED_DW), (torch.bfloat16, GROUPED_DW_BF16)):
@@ -1613,21 +1647,60 @@ def grouped_dw_phase(gen) -> list[dict]:
                     slabs.append((lo, lo + size))
                     lo += size
                 ms = cuda_ms(lambda: grouped_dw(x, g, gs), iters=20)
+                collapsed = sets["collapsed"]
+                collapsed_ms = cuda_ms(lambda: grouped_dw(x, g, collapsed), iters=20)
                 plain_ms = cuda_ms(lambda: grouped_dw_reference(x, g, gs), iters=10)
-                lib_ms = cuda_ms(lambda: [torch.matmul(x[a:b].T, g[a:b]) for a, b in slabs],
-                                 iters=10)
+                chain_ms = cuda_ms(lambda: [torch.matmul(x[a:b].T, g[a:b]) for a, b in slabs],
+                                   iters=10)
+                gmm, gmm_dtype, gmm_err = _grouped_mm(x, g, gs, grouped_dw_reference(x, g, gs))
+                gmm_ms = None if gmm is None else cuda_ms(gmm, iters=20)
                 esz = x.element_size()
                 nbytes = sum(sizes) * (k + n) * esz + e * k * n * 4 + 4 * e
+                flops = 2 * sum(sizes) * k * n
                 peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
-                bnd, by = bound(nbytes, 2 * sum(sizes) * k * n, peak)
+                bnd, by = bound(nbytes, flops, peak)
+                gmm_text = (f"torch._grouped_mm {gmm_ms:.4f} ms ({gmm_dtype} out, max|err|/max "
+                            f"{gmm_err:.2e})" if gmm is not None else
+                            f"torch._grouped_mm refused ({gmm_dtype})")
                 print(f"[kernel] {kernel.name} M={GDW_M} k={k} n={n} E={e} {tag} router groups: "
-                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, per-expert torch.matmul "
-                      f"{lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
-                times[(e, k, n)] = dict(
-                    ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                    library=f"per-expert torch.matmul(x[slab].T, g[slab]), {tag}",
+                      f"kernel {ms:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), collapsed "
+                      f"{collapsed_ms:.4f} ms ({collapsed_ms / ms:.3f}x router), plain "
+                      f"{plain_ms:.4f} ms, per-expert torch.matmul {chain_ms:.4f} ms, "
+                      f"{gmm_text}, bound {bnd:.5f} ms ({by})")
+                row = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                    library_ms=chain_ms if gmm is None else gmm_ms,
+                    library=(f"per-expert torch.matmul(x[slab].T, g[slab]), {tag} "
+                             f"(torch._grouped_mm refused: {gmm_dtype})" if gmm is None else
+                             f"torch._grouped_mm(x.T, g, offs), {gmm_dtype} out"),
+                    chain_ms=chain_ms, collapsed_ms=collapsed_ms,
                     shape=f"M={GDW_M} k={k} n={n} E={e} {tag} (router groups {sizes})")
+                if dtype == torch.bfloat16:  # near 0.1 ms: the device's own time too
+                    row["device_ms"] = device_ms(lambda: grouped_dw(x, g, gs))
+                    row["collapsed_device_ms"] = device_ms(lambda: grouped_dw(x, g, collapsed))
+                    if gmm is not None:
+                        row["library_device_ms"] = device_ms(gmm)
+                    print(f"[kernel] {kernel.name} M={GDW_M} k={k} n={n} E={e} {tag} device: "
+                          f"router {row['device_ms']:.4f} ms, collapsed "
+                          f"{row['collapsed_device_ms']:.4f} ms, torch._grouped_mm "
+                          f"{row.get('library_device_ms')}")
+                times[(e, k, n)] = row
             torch.cuda.empty_cache()
+        # A slab past the bf16 twin's chunk cap: R = 2048 rows in bf16 (one
+        # wgmma chain a chunk), 8000 in f32.
+        m, k, n = GDW_LONG
+        x = torch.randn((m, k), generator=gen).cuda().to(dtype)
+        g = torch.randn((m, n), generator=gen).cuda().to(dtype)
+        gs = torch.tensor([0, m - 5536, 0, 0], dtype=torch.int32).cuda()
+        got, want = grouped_dw(x, g, gs), grouped_dw_reference(x, g, gs)
+        err = rel_to_max(got, want)
+        rows_r = grouped_dw_plan(m, k, n, 4, dtype)["rows"]
+        print(f"[kernel] {kernel.name} M={m} k={k} n={n} one slab of {m - 5536} rows in "
+              f"chunks of <= {rows_r}: max|err|/max|plain| {err:.3e} (tol {GDW_TOL:g})")
+        check(err <= GDW_TOL and torch.equal(got, grouped_dw(x, g, gs)),
+              f"{kernel.name} disagrees with its plain version on a long slab")
+        del x, g, got, want
+        torch.cuda.empty_cache()
         main = (8, *GDW_SHAPES[0])
         row = dict(name=kernel.name, route="cuda", source=kernel.source,
                    replaces=kernel.replaces, max_abs_err=worst, **times[main])
@@ -2608,9 +2681,10 @@ def ptxas_usage(log: str) -> dict[str, dict]:
 
 
 def sass_opcodes(lib_path) -> dict[str, dict[str, int]]:
-    """{mangled kernel: {opcode: count}} of the tensor-core (``HMMA``, by
-    full opcode, so a TF32 product shows as ``...TF32``) and f32 FMA
-    (``FFMA``) instructions in a built library, from ``cuobjdump -sass``."""
+    """{mangled kernel: {opcode: count}} of the tensor-core (``HMMA`` from
+    mma.sync, ``HGMMA`` from wgmma, by full opcode, so a TF32 product shows
+    as ``...TF32``) and f32 FMA (``FFMA``) instructions in a built library,
+    from ``cuobjdump -sass``."""
     from tpudml_torch.ops.cuda_lib import find_nvcc
 
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
@@ -2623,7 +2697,7 @@ def sass_opcodes(lib_path) -> dict[str, dict[str, int]]:
         if m:
             cur = counts.setdefault(m.group(1), {})
             continue
-        m = re.search(r"\b(HMMA\.[\w.]+|FFMA)\b", line)
+        m = re.search(r"\b(HGMMA\.[\w.]+|HMMA\.[\w.]+|FFMA)\b", line)
         if cur is not None and m:
             cur[m.group(1)] = cur.get(m.group(1), 0) + 1
     return counts
@@ -2762,6 +2836,65 @@ def saved_instances(lib) -> None:
                   f"saved_plan{shape} {saved_plan(*shape, dtype)} is not the kernels' {plan}")
 
 
+# Kernel 16 (grouped_dw.cu): f32 and bf16, with 16-byte row copies (VEC) and
+# without (a k or n that is no multiple of 16 bytes), as (label, mangled
+# template arguments); (M, k, n, E) at which phase 2 holds its cut against
+# ``grouped_dw_plan``: the MoE step's dW1 and dW2 at E = 4 and 8, the card
+# tests' multi-chunk, long-chunk and many-expert cases, M = 0, a wide k·n.
+GDW_TWINS = tuple((f"{tag}{'' if vec else ', ragged'}", f"{arg}Lb{vec}E")
+                  for tag, arg in (("f32", "If"), ("bf16", "I13__nv_bfloat16"))
+                  for vec in (1, 0))
+GDW_PLAN_SHAPES = ((8192, 512, 2048, 8), (8192, 2048, 512, 8), (8192, 512, 2048, 4),
+                   (8192, 2048, 512, 4), (5000, 64, 96, 4), (20000, 512, 1024, 2),
+                   (300, 130, 257, 64), (0, 12, 1, 3), (65536, 4096, 4096, 8))
+
+
+WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"  # ptxas's warning
+
+
+def gdw_instances(lib) -> None:
+    """Hold every instance of kernel 16 (grouped_dw.cu, GDW_TWINS) to its
+    design: no spill and no stack frame, no TF32 instruction, the bf16
+    twins' products on wgmma (``HGMMA.*.F32.BF16`` in their SASS, never
+    serialized by ptxas); print registers and SASS counts. Then the cut the
+    built kernel makes (R, slots, blocks, workspace) at GDW_PLAN_SHAPES
+    against ``grouped_dw_plan``."""
+    import torch
+
+    from tpudml_torch.ops import grouped_dw_plan, grouped_dw_plan_built
+
+    log = lib.ptxas_log()
+    usage = ptxas_usage(log)
+    sass = sass_opcodes(lib.target())
+    check(WGMMA_SERIALIZED not in log, f"ptxas serialized kernel 16's wgmma: {log[-2000:]}")
+    for tag, arg in GDW_TWINS:
+        names = [n for n in sass if re.search(rf"\dgrouped_dw_kernel{arg}E", n)]
+        check(len(names) == 1, f"grouped_dw.cu: no single grouped_dw_kernel<{tag}> in the SASS")
+        ops, use = sass[names[0]], usage.get(names[0])
+        check(use is not None, "no ptxas -v report of grouped_dw.cu: the library was built "
+              "without its log; empty tpudml_torch/_build and rerun")
+        wgmma = sum(c for op, c in ops.items() if op.startswith("HGMMA") and op.endswith("BF16"))
+        tf32 = sum(c for op, c in ops.items() if "TF32" in op)
+        print(f"[build] grouped_dw.cu grouped_dw_kernel<{tag}>: {use.get('registers')} "
+              f"registers, spill {use.get('spill')} B, stack {use.get('stack')} B, "
+              f"{', '.join(f'{op} {c}' for op, c in sorted(ops.items()))}")
+        check(use.get("spill") == 0 and use.get("stack") == 0,
+              f"grouped_dw_kernel<{tag}> spills or keeps a stack frame ({use})")
+        check(tf32 == 0, f"grouped_dw_kernel<{tag}> holds TF32 instructions ({ops})")
+        if tag.startswith("bf16"):
+            check(wgmma > 0, f"grouped_dw_kernel<{tag}> runs no bf16 wgmma")
+    for shape in GDW_PLAN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = grouped_dw_plan_built(*shape, dtype)
+            print(f"[build] grouped dW at M={shape[0]} k={shape[1]} n={shape[2]} E={shape[3]} "
+                  f"{str(dtype)[6:]}: chunks of <= {plan['rows']} rows, {plan['slots']} slots, "
+                  f"{plan['blocks']} blocks of {plan['tile']}, {plan['stage_rows']} rows a "
+                  f"stage, workspace {plan['workspace_bytes']} B")
+            check(plan == grouped_dw_plan(*shape, dtype),
+                  f"grouped_dw_plan{shape} {grouped_dw_plan(*shape, dtype)} is not the "
+                  f"kernel's {plan}")
+
+
 def ln_instances(lib) -> None:
     """Print each LayerNorm kernel instance's registers and spills (ptxas)
     and hold the wide ones (``*_wide_*``, ``*_loop_*``) to no spills."""
@@ -2790,10 +2923,10 @@ def build_phase() -> None:
     instances of the LayerNorm kernels 6–9 to no spills; and the
     forward kernels 10, 11, the saved-scores kernels 12, 13 and the lean
     kernels 14, 15 as ``fwd_instances``, ``saved_instances`` and
-    ``lean_instances`` say."""
+    ``lean_instances`` say, and the grouped dW 16 as ``gdw_instances``."""
     from tpudml_torch.ops import (
-        ADD_LN_FORWARD, FLASH_DKDV, FLASH_DQ, FLASH_FORWARD, KERNELS, XENT_DX, XENT_DX_LEAN,
-        XENT_FORWARD, build_kernels,
+        ADD_LN_FORWARD, FLASH_DKDV, FLASH_DQ, FLASH_FORWARD, GROUPED_DW, KERNELS, XENT_DX,
+        XENT_DX_LEAN, XENT_FORWARD, build_kernels,
     )
 
     t_build = build_kernels()
@@ -2829,6 +2962,7 @@ def build_phase() -> None:
     fwd_instances(XENT_FORWARD.library)
     saved_instances(XENT_DX.library)
     lean_instances(XENT_DX_LEAN.library)
+    gdw_instances(GROUPED_DW.library)
 
 
 def main() -> int:

@@ -39,7 +39,8 @@ Tolerances, with their reasons:
   and a repeat bitwise equal;
 - the grouped dW (kernel 16), f32 and bf16 inputs: within 1e-5 of the
   plain output's largest magnitude (both accumulate the same products in
-  f32, over up to M rows in another order), and bitwise equal on a repeat.
+  f32, over up to M rows in another order; a slab cut into chunks sums
+  their partials in chunk order), and bitwise equal on a repeat.
 Past the old grid-y edges (8,388,480 rows of kernels 10–12, and kernel 13
 with 129 row ranges there; B·H = 65535 of the flash kernels) the
 tolerances are those above, the plain versions taken in row or batch
@@ -63,7 +64,8 @@ from tpudml_torch.ops import (  # noqa: E402
     flash_block_grads_reference, flash_forward_lse, flash_forward_lse_reference,
     fused_add_layernorm, fused_decode_head, fused_decode_head_int8, fused_layernorm,
     DECODE_HEAD, FLASH_FORWARD, GROUPED_DW, GROUPED_DW_BF16, flash_dkdv, flash_dkdv_reference, flash_dq,
-    flash_dq_reference, grouped_dw, grouped_dw_reference, ragged_ffn,
+    flash_dq_reference, grouped_dw, grouped_dw_plan, grouped_dw_plan_built,
+    grouped_dw_reference, ragged_ffn,
     layernorm_backward, layernorm_backward_reference, layernorm_forward,
     fwd_plan, fwd_plan_built,
     layernorm_forward_reference, lean_plan, lean_plan_built, linear_cross_entropy,
@@ -718,11 +720,12 @@ GROUP_SETS = {  # sizes of 8 groups over M = 300 rows (the rest: tail rows)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("groups", sorted(GROUP_SETS))
-@pytest.mark.parametrize("k,n", [(64, 96), (130, 257)])
+@pytest.mark.parametrize("k,n", [(64, 96), (130, 257), (1, 12), (12, 130)])
 def test_grouped_dw_kernel_matches_plain(cuda_device, dtype, groups, k, n):
     """Kernel 16 against its plain version: uneven, empty and collapsed
-    groups, tail rows past Σ group_sizes, tile edges in k and n; bitwise
-    equal on a repeat; the twin of x's dtype launches once."""
+    groups, tail rows past Σ group_sizes, tile edges in k and n (k or n no
+    multiple of 8: the instance without 16-byte copies); bitwise equal on a
+    repeat; the twin of x's dtype launches once."""
     m = 300
     x = _randn(m, k, seed=40, device=cuda_device).to(dtype)
     g = _randn(m, n, seed=41, device=cuda_device).to(dtype)
@@ -754,6 +757,86 @@ def test_grouped_dw_kernel_at_the_moe_step_shape(cuda_device, dtype):
     dw = grouped_dw(x, g, gs)
     _close_to_max(dw, grouped_dw_reference(x, g, gs), 1e-5)
     assert torch.equal(dw, grouped_dw(x, g, gs))
+
+
+def _sizes_e64():
+    sizes = [0] * 64
+    sizes[3], sizes[17], sizes[40], sizes[63] = 1000, 700, 1200, 50
+    return sizes
+
+
+# (M, k, n, group sizes, sizes dtype) of the row split's cases: a slab of
+# several chunks (R = 256 there: 4000 rows in 16 chunks of 250, edges
+# mid-slab) beside short ones; the same without 16-byte copies; chunks
+# longer than 1024 rows (R = 1216: 19000 rows in 16 chunks of 1187); R at
+# the bf16 cap (M = 65536: 2048 rows, 60000 in 30 chunks; f32's R 8000);
+# M = 0; E = 64, mostly empty; sizes summing past M (clamped); int64
+# sizes; negative sizes, whose slabs overlap (R doubles until the list
+# fits).
+SPLIT_CASES = {
+    "multi_chunk": (5000, 64, 96, [4000, 3, 0, 900], torch.int32),
+    "multi_chunk_ragged": (3000, 130, 257, [2900, 50], torch.int32),
+    "long_chunks": (20000, 512, 1024, [19000, 1000], torch.int32),
+    "capped_rows": (65536, 512, 2048, [0, 60000, 0, 0], torch.int32),
+    "m0": (0, 64, 96, [0, 0, 0], torch.int32),
+    "e64_mostly_empty": (3000, 64, 96, _sizes_e64(), torch.int32),
+    "past_m": (2000, 64, 96, [1500, 800, 400], torch.int32),
+    "int64": (2500, 64, 96, [1300, 0, 1100], torch.int64),
+    "negative": (2000, 64, 96, [2000, -2000, 2000], torch.int32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_grouped_dw_row_split(cuda_device, dtype, case):
+    """Kernel 16's row split: slabs cut into chunks whose partials the last
+    block to arrive sums in chunk order. Against the plain version within
+    1e-5 of max, zeros for empty groups, bitwise equal on a repeat."""
+    m, k, n, sizes, size_dtype = SPLIT_CASES[case]
+    x = _randn(m, k, seed=46, device=cuda_device).to(dtype)
+    g = _randn(m, n, seed=47, device=cuda_device).to(dtype)
+    gs = torch.tensor(sizes, dtype=size_dtype, device=cuda_device)
+    kernel = GROUPED_DW if dtype == torch.float32 else GROUPED_DW_BF16
+    before = kernel.launches
+    dw = grouped_dw(x, g, gs)
+    again = grouped_dw(x, g, gs)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(dw, again)
+    want = grouped_dw_reference(x, g, gs)
+    if want.abs().max() > 0:
+        _close_to_max(dw, want, 1e-5)
+    for e in range(len(sizes)):
+        if not want[e].any():
+            assert not dw[e].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grouped_dw_collapsed_slab_at_the_moe_step_shape(cuda_device, dtype):
+    """Every routed row in one expert: 8000 rows at k = 512, n = 2048, E = 8
+    (the chunks of one slab summed in order, the tensor cores' sums folded
+    once a stage in bf16), within 1e-5 of max; bitwise equal on a repeat."""
+    m, k, n = 8192, 512, 2048
+    x = _randn(m, k, seed=48, device=cuda_device).to(dtype)
+    g = _randn(m, n, seed=49, device=cuda_device).to(dtype)
+    gs = torch.tensor([0, 0, 0, 8000, 0, 0, 0, 0], dtype=torch.int32, device=cuda_device)
+    dw = grouped_dw(x, g, gs)
+    _close_to_max(dw, grouped_dw_reference(x, g, gs), 1e-5)
+    assert torch.equal(dw, grouped_dw(x, g, gs))
+
+
+@pytest.mark.cuda
+def test_grouped_dw_plan_is_the_kernels_choice(cuda_device):
+    """``grouped_dw_plan`` (which the CPU tests check) is the cut the built
+    kernel makes, at the MoE step's shapes and the card tests' cases."""
+    shapes = [(8192, 512, 2048, 8), (8192, 2048, 512, 4), (300, 64, 96, 8),
+              (65536, 4096, 4096, 8)]
+    shapes += [(m, k, n, len(sizes)) for m, k, n, sizes, _ in SPLIT_CASES.values()]
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert grouped_dw_plan_built(*shape, dtype) == grouped_dw_plan(*shape, dtype), shape
 
 
 @pytest.mark.cuda

@@ -14,10 +14,18 @@ products in another order). The operands are at a training step's scale
 so the results are O(1): with unit operands throughout, sums of 64
 products reach ~30, whose f32 ulp (2e-6) already exceeds the atol where a
 sum cancels to near zero.
+
+``grouped_dw_plan`` (kernel 16's cut of its work) and the chunk list it
+implies (``grouped_dw_chunks``, the kernel's walk of the sizes mirrored in
+Python) are checked by hypothesis over sizes, M and E: every routed row in
+exactly one chunk, each chunk inside one slab and at most R rows, at most
+⌈M / R⌉ + E chunks, a grid that fits grid x, a bounded workspace.
 """
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
@@ -36,6 +44,7 @@ GROUPS = {
     "collapsed": [64, 0, 0, 0, 0, 0, 0, 0],
 }
 TAIL = 7  # rows past Σ group_sizes, which every version ignores
+GRID_X_MAX = 2**31 - 1  # blocks a CUDA grid holds along x
 
 
 def _operands(m, k, n, seed=0):
@@ -149,3 +158,100 @@ def test_ragged_ffn_backward_takes_dw_from_grouped_dw(monkeypatch):
     assert calls == []
     out.backward(_t(dout))
     assert calls == [(64, 32), (64, 16)]  # hidden for dW2, then x for dW1
+
+
+def _chunk_checks(sizes, m, plan):
+    """The chunk list of ``sizes`` over m rows: each chunk inside its
+    expert's slab, in expert order, every expert present; the list fits the
+    plan's slots and ⌈M / R⌉ + E. Returns the list and the slabs."""
+    chunks = tmk.grouped_dw_chunks(sizes, m, plan)
+    slabs = tmk._slabs(sizes, m)
+    assert len(chunks) <= plan["slots"] <= -(-m // plan["rows"]) + len(sizes)
+    assert [c[0] for c in chunks] == sorted(c[0] for c in chunks)
+    assert {c[0] for c in chunks} == set(range(len(sizes)))
+    for e, lo, hi in chunks:
+        assert slabs[e][0] <= lo <= hi <= slabs[e][1]
+    return chunks, slabs
+
+
+@settings(max_examples=300, deadline=None)
+@given(sizes=st.lists(st.integers(0, 4000), min_size=1, max_size=70),
+       m=st.integers(0, 20000), k=st.integers(1, 3000), n=st.integers(1, 3000),
+       bf16=st.booleans())
+def test_grouped_dw_chunks_cover_each_routed_row_once(sizes, m, k, n, bf16):
+    """Sizes >= 0 (disjoint slabs, possibly summing past M): every row of
+    [0, off[E]) clamped to M lies in exactly one chunk, no tail row in
+    any; no chunk exceeds R rows (R is never grown); an empty slab has one
+    empty chunk."""
+    plan = tmk.grouped_dw_plan(m, k, n, len(sizes), torch.bfloat16 if bf16 else torch.float32)
+    chunks, slabs = _chunk_checks(sizes, m, plan)
+    cover = np.zeros(m, np.int64)
+    for e, lo, hi in chunks:
+        assert hi - lo <= plan["rows"]
+        cover[lo:hi] += 1
+        if slabs[e][1] == slabs[e][0]:
+            assert [c for c in chunks if c[0] == e] == [(e, lo, lo)]
+    routed = slabs[-1][1]
+    assert (cover[:routed] == 1).all() and not cover[routed:].any()
+
+
+@settings(max_examples=200, deadline=None)
+@given(sizes=st.lists(st.integers(-3000, 3000), min_size=1, max_size=20),
+       m=st.integers(0, 6000))
+def test_grouped_dw_chunks_of_overlapping_slabs(sizes, m):
+    """Negative sizes overlap the clamped slabs (their lengths may sum past
+    M): the chunk length doubles until the list fits the slots, and each
+    slab's rows still lie in exactly one of its own chunks."""
+    plan = tmk.grouped_dw_plan(m, 64, 96, len(sizes), torch.float32)
+    chunks, slabs = _chunk_checks(sizes, m, plan)
+    for e, (lo, hi) in enumerate(slabs):
+        cover = np.zeros(m, np.int64)
+        for _, a, b in (c for c in chunks if c[0] == e):
+            cover[a:b] += 1
+        assert (cover[lo:hi] == 1).all() and cover.sum() == hi - lo
+
+
+@settings(max_examples=300, deadline=None)
+@given(m=st.integers(0, 2**31 - 1), k=st.integers(1, 16384), n=st.integers(1, 16384),
+       e=st.integers(1, 256), bf16=st.booleans())
+def test_grouped_dw_plan_grid_and_workspace(m, k, n, e, bf16):
+    """The grid (slots × tiles) fits grid x; R is a multiple of the row
+    unit, at least the minimum, at most the bf16 cap, and otherwise the
+    shortest that keeps ⌊M / R⌋ chunks over every tile within
+    GDW_FILL_ELEMS elements of dW work, so that until the cap the workspace
+    (a partial tile for each slot and tile) stays within that plus E tiles
+    of dW[e], whatever M."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    plan = tmk.grouped_dw_plan(m, k, n, e, dtype)
+    tj, tc = tmk.GDW_TILE[dtype]
+    tiles = -(-k // tj) * -(-n // tc)
+    work = tiles * tj * tc  # dW elements of one chunk over every tile
+    rows = plan["rows"]
+    assert plan["tile"] == (tj, tc) and plan["stage_rows"] == tmk.GDW_STAGE_ROWS
+    cap = tmk.GDW_MAX_ROWS[dtype]
+    assert rows % tmk.GDW_ROW_UNIT == 0 and rows >= tmk.GDW_MIN_ROWS
+    assert cap is None or rows <= cap
+    assert plan["slots"] == m // rows + e and plan["blocks"] == plan["slots"] * tiles
+    assert plan["workspace_bytes"] == 4 * (plan["slots"] * work + e * tiles)
+    if rows != cap:
+        assert plan["blocks"] <= GRID_X_MAX
+        assert (m // rows) * work <= tmk.GDW_FILL_ELEMS
+    if tmk.GDW_MIN_ROWS < rows != cap:  # the fill rule set R: one row unit less cuts finer
+        assert -(-m // (rows - tmk.GDW_ROW_UNIT)) * work > tmk.GDW_FILL_ELEMS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("e", [4, 8])
+@pytest.mark.parametrize("k,n", [(512, 2048), (2048, 512)])
+def test_grouped_dw_plan_at_the_moe_step(e, k, n, dtype):
+    """At the MoE step (M = 8192, dW1 and dW2): R = 1024 in both dtypes, so
+    a balanced slab of E = 8 (1024 rows) stays one chunk, while a collapsed
+    routing (8000 rows in one expert) is cut into 8 chunks: 8 × tiles
+    blocks of work, more than the card's 132 SMs."""
+    plan = tmk.grouped_dw_plan(8192, k, n, e, dtype)
+    assert plan["rows"] == 1024 and plan["slots"] == 8 + e
+    balanced = tmk.grouped_dw_chunks([8192 // e] * e, 8192, plan)
+    assert len(balanced) == e * (8192 // e // 1024)
+    collapsed = tmk.grouped_dw_chunks([0] * (e - 1) + [8000], 8192, plan)
+    assert sum(1 for c in collapsed if c[1] < c[2]) == 8
+    assert 8 * plan["blocks"] // plan["slots"] > 132

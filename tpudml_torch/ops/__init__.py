@@ -57,6 +57,9 @@ from tpudml_torch.ops.moe_kernel import (
     GROUPED_DW,
     GROUPED_DW_BF16,
     grouped_dw,
+    grouped_dw_chunks,
+    grouped_dw_plan,
+    grouped_dw_plan_built,
     grouped_dw_reference,
     ragged_ffn,
     ragged_matmul,
@@ -131,6 +134,9 @@ __all__ = [
     "fused_decode_head_int8",
     "fused_layernorm",
     "grouped_dw",
+    "grouped_dw_chunks",
+    "grouped_dw_plan",
+    "grouped_dw_plan_built",
     "grouped_dw_reference",
     "layernorm_backward",
     "layernorm_backward_reference",
