@@ -34,7 +34,12 @@ the CPU). Phases, each printing its own line(s):
    fails if one spills or keeps a stack frame, holds TF32, a bf16 twin
    holds no wgmma (``HGMMA.*.F32.BF16``) or ptxas serialized its wgmma;
    then its cut (chunk rows R, list slots, blocks, workspace) at
-   GDW_PLAN_SHAPES against ``grouped_dw_plan``.
+   GDW_PLAN_SHAPES against ``grouped_dw_plan``. Then the four instances of
+   the decode head (kernels 4 and 5, ``decode_head.cu``: f32 and int8
+   weights, 16-byte loads or one scalar load a column) with their
+   registers, spills, stack frame and SASS counts; it fails if one spills,
+   keeps a stack frame or holds TF32; then its cut (tiles, slices of d,
+   x chunks, buffer) at HEAD_PLAN_SHAPES against ``head_plan``.
 3. kernel vs plain version on the card at the main paths' shapes, with
    the tolerances stated: the flash forward (serving: B=1, T=128, H=8,
    D=64: causal, non-causal, odd T, k_shift=1; training: B=8, T=1024,
@@ -72,8 +77,11 @@ the CPU). Phases, each printing its own line(s):
    bf16 tensor-core rate), and for the flash kernels their rate in TFLOP/s;
    for the kernels under ~0.13 ms (1 at serving's shape, the bf16 twins
    of 1–3, 4, 5, 6–9) also their device time and the library call's, from
-   ``torch.profiler`` over 200 calls. dQ is held bitwise equal on a repeat
-   call at the training, flagship and long-context shapes.
+   ``torch.profiler`` over 200 calls; kernels 4 and 5 also their device
+   kernels a call (at most one) and their time with a cold L2 (a 256 MiB
+   write between calls, CUDA events around each of 50 calls). dQ is held
+   bitwise equal on a repeat call at the training, flagship and
+   long-context shapes.
    Then the flash forward, dQ and dK/dV (f32 and bf16) at head dims between
    their compiled widths and at the widest, D = 48, 80, 200 and 256
    (causal T=200 and non-causal T=77), with the same tolerances, and dQ and
@@ -87,7 +95,8 @@ the CPU). Phases, each printing its own line(s):
    a repeat), kernels 10–15 at d = 12, 1032 and
    2048 (N = V = 1000, labels −1 and V; timed in f32 at N=4096, d=2048,
    V=8192, and 10, 11 at the flagship's N and V with d = 12), kernels 4
-   and 5 at d = 8192 (B=8, V=32768, one launch). Then the launches
+   and 5 at d = 8192 (B=8, V=32768, one launch and at most one device
+   kernel a call; wrapper and device times). Then the launches
    past the old grid-y edges:
    kernels 10–13 at N=8,388,609 rows (d=8, V=128; dW in 129 row ranges)
    and the flash forward,
@@ -387,11 +396,12 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 PROFILE_TRIES = 3
 
 
-def device_ms(fn, calls: int = 200) -> float:
-    """Summed device durations of the kernels that ``calls`` back-to-back
-    calls of ``fn`` launch, over ``calls``, from ``torch.profiler``: a
-    kernel under ~0.13 ms is paced by the host through its Python wrapper,
-    so its CUDA-event time moves with the host and this is its own time."""
+def device_profile(fn, calls: int = 200) -> tuple[float, float]:
+    """(ms, kernels) a call: the summed device durations of what ``calls``
+    back-to-back calls of ``fn`` launch, and how many device operations
+    they launch, over ``calls``, from ``torch.profiler``: a kernel under
+    ~0.13 ms is paced by the host through its Python wrapper, so its
+    CUDA-event time moves with the host and this is its own time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -402,11 +412,49 @@ def device_ms(fn, calls: int = 200) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        events = [ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(ev.time_range.elapsed_us() for ev in events)
         if us > 0:
-            return us / 1e3 / calls
+            return us / 1e3 / calls, len(events) / calls
     check(False, f"the profiler recorded no device time in {PROFILE_TRIES} tries")
+
+
+def device_ms(fn, calls: int = 200) -> float:
+    """The device ms a call of ``device_profile``."""
+    return device_profile(fn, calls)[0]
+
+
+def one_a_call(per_call: float) -> bool:
+    """Whether ``device_profile``'s operations a call show one kernel a call:
+    never more than one (a second kernel or a memset a call would make it
+    two), and the profiler now and then drops an event of a session (199 of
+    200 and 48 of 50 seen on the H100), so a count under one passes."""
+    return 0.5 < per_call <= 1.0
+
+
+COLD_FLUSH_BYTES = 256 << 20  # written between calls: five times the 50 MB L2
+
+
+def cold_ms(fn, calls: int = 50) -> float:
+    """Mean device time of one call of ``fn`` that finds the L2 cold: a
+    COLD_FLUSH_BYTES write before each call, CUDA events around the call
+    alone (the write keeps the card busy while the host enqueues it)."""
+    import torch
+
+    flush = torch.empty(COLD_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    pairs = []
+    for _ in range(calls):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / calls
 
 
 def timed(fn, ref, nbytes: float, flops: float, peak: float = H100_F32_FLOPS, lib=None,
@@ -1549,16 +1597,20 @@ def head_phase(gen) -> list[dict]:
             return torch.argmax(logits, dim=-1), torch.logsumexp(logits, dim=-1)
 
         lib_ms = cuda_ms(library)
-        dev = device_ms(lambda: fn(x, *weights, bias))
+        dev, per_call = device_profile(lambda: fn(x, *weights, bias))
+        check(one_a_call(per_call), f"{kernel.name}: {per_call} device operations a call")
         lib_dev = device_ms(library)
+        cold = cold_ms(lambda: fn(x, *weights, bias))
         bnd, by = bound(wbytes + 4 * (b * d + v) + 12 * b, 2 * b * d * v + b * v)
-        print(f"[kernel] {kernel.name}: kernel {ms:.4f} ms (device {dev:.4f}), plain "
+        print(f"[kernel] {kernel.name}: kernel {ms:.4f} ms (device {dev:.4f}, "
+              f"{per_call:g} device kernel a call; cold L2 {cold:.4f}), plain "
               f"{plain_ms:.4f} ms, addmm+argmax+logsumexp {lib_ms:.4f} ms (device "
-              f"{lib_dev:.4f}), bound {bnd:.5f} ms ({by})")
+              f"{lib_dev:.4f}), bound {bnd:.5f} ms ({by}; {bnd / cold:.0%} of it cold, "
+              f"{bnd / dev:.0%} warm)")
         rows.append(dict(name=kernel.name, route="cuda", source=kernel.source,
                          replaces=kernel.replaces, max_abs_err=max(em, el), ms=ms,
-                         device_ms=dev, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                         library_ms=lib_ms, library_device_ms=lib_dev))
+                         device_ms=dev, cold_ms=cold, plain_ms=plain_ms, bound_ms=bnd,
+                         bound_by=by, library_ms=lib_ms, library_device_ms=lib_dev))
     return rows
 
 
@@ -1910,9 +1962,10 @@ def xent_wide_phase(gen, rows: dict) -> None:
 
 
 def head_wide_phase(gen, rows: dict) -> None:
-    """Kernels 4 and 5 at d = 8192 (HEAD_WIDE), past the 6400 columns one
-    8-row group fits in the x stage (the chunked instance), against the
-    plain version and timed beside the bound and the library call."""
+    """Kernels 4 and 5 at d = 8192 (HEAD_WIDE), where each warp stages its
+    1024 (f32) or 2048 (int8) rows of x in chunks of 128 or 256, against
+    the plain version, one launch and one device kernel a call, timed
+    (wrapper and device) beside the bound and the library call."""
     import torch
 
     from tpudml_torch.ops import (
@@ -1952,12 +2005,16 @@ def head_wide_phase(gen, rows: dict) -> None:
         t = timed(lambda: fn(x, *weights, bias), lambda: ref(x, *weights, bias),
                   wbytes + 4 * (b * d + v) + 12 * b, 2 * b * d * v + b * v, lib=library,
                   iters=20)
-        t.update(shape=f"B={b} d={d} V={v}", library="addmm+argmax+logsumexp")
-        print(f"[kernel] {kernel.name} B={b} d={d} V={v} (chunked x stage): tokens "
+        dev, per_call = device_profile(lambda: fn(x, *weights, bias), calls=50)
+        check(one_a_call(per_call), f"{kernel.name} at d={d}: {per_call} device operations a call")
+        t.update(shape=f"B={b} d={d} V={v}", library="addmm+argmax+logsumexp",
+                 device_ms=dev, library_device_ms=device_ms(library, calls=50))
+        print(f"[kernel] {kernel.name} B={b} d={d} V={v} (x staged in chunks): tokens "
               f"{b - len(diff)}/{b} equal, max|dmax| {em:.3e}, max|dlse| {el:.3e} (tol "
-              f"{HEAD_TOL:g}); kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"addmm+argmax+logsumexp {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} "
-              f"ms ({t['bound_by']})")
+              f"{HEAD_TOL:g}); kernel {t['ms']:.4f} ms (device {dev:.4f}, {per_call:g} "
+              f"device kernel a call), plain {t['plain_ms']:.4f} ms, addmm+argmax+logsumexp "
+              f"{t['library_ms']:.4f} ms (device {t['library_device_ms']:.4f}), bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {t['bound_ms'] / dev:.0%} of it)")
         _fold_width(rows[kernel.name], f"d={d}", max(em, el), t)
         del wf
     del x, w, wq
@@ -2680,11 +2737,15 @@ def ptxas_usage(log: str) -> dict[str, dict]:
     return usage
 
 
-def sass_opcodes(lib_path) -> dict[str, dict[str, int]]:
-    """{mangled kernel: {opcode: count}} of the tensor-core (``HMMA`` from
-    mma.sync, ``HGMMA`` from wgmma, by full opcode, so a TF32 product shows
-    as ``...TF32``) and f32 FMA (``FFMA``) instructions in a built library,
-    from ``cuobjdump -sass``."""
+SASS_OPS = r"\b(HGMMA\.[\w.]+|HMMA\.[\w.]+|FFMA)\b"
+
+
+def sass_opcodes(lib_path, ops: str = SASS_OPS) -> dict[str, dict[str, int]]:
+    """{mangled kernel: {opcode: count}} of the instructions ``ops`` matches
+    in a built library, from ``cuobjdump -sass``; by default the
+    tensor-core (``HMMA`` from mma.sync, ``HGMMA`` from wgmma, by full
+    opcode, so a TF32 product shows as ``...TF32``) and f32 FMA (``FFMA``)
+    instructions."""
     from tpudml_torch.ops.cuda_lib import find_nvcc
 
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
@@ -2697,7 +2758,7 @@ def sass_opcodes(lib_path) -> dict[str, dict[str, int]]:
         if m:
             cur = counts.setdefault(m.group(1), {})
             continue
-        m = re.search(r"\b(HGMMA\.[\w.]+|HMMA\.[\w.]+|FFMA)\b", line)
+        m = re.search(ops, line)
         if cur is not None and m:
             cur[m.group(1)] = cur.get(m.group(1), 0) + 1
     return counts
@@ -2895,6 +2956,52 @@ def gdw_instances(lib) -> None:
                   f"kernel's {plan}")
 
 
+# The decode head (decode_head.cu, kernels 4 and 5): f32 and int8 weights,
+# with 16-byte loads or one scalar load a column, as (label, mangled template
+# arguments); (B, d, V) at which phase 2 holds its cut against ``head_plan``:
+# serving, HEAD_WIDE, the card tests' 200 slots, a chunked ragged d and V,
+# and one of everything.
+HEAD_TWINS = (("f32", "IfLb1E"), ("f32, unaligned", "IfLb0E"), ("int8", "IaLb1E"),
+              ("int8, unaligned", "IaLb0E"))
+HEAD_PLAN_SHAPES = ((8, 512, 32768), (8, 8192, 32768), (200, 512, 1000), (9, 6401, 32773),
+                    (1, 1, 1))
+HEAD_OPS = r"\b(HGMMA\.[\w.]+|HMMA\.[\w.]+|FFMA|FMUL|FADD|PRMT|I2F[\w.]*|LDG[\w.]*)\b"
+
+
+def head_instances(lib) -> None:
+    """Hold the decode head's instances (HEAD_TWINS) to no spill, no stack
+    frame and no TF32 instruction; print registers and SASS counts (int8:
+    PRMT and FADD convert the codes, no I2F). Then the cut the built kernel
+    makes at HEAD_PLAN_SHAPES against ``head_plan``."""
+    from tpudml_torch.ops import head_plan, head_plan_built
+
+    usage = ptxas_usage(lib.ptxas_log())
+    sass = sass_opcodes(lib.target(), HEAD_OPS)
+    for tag, arg in HEAD_TWINS:
+        names = [n for n in sass if re.search(rf"\dhead_kernel{arg}E", n)]
+        check(len(names) == 1, f"decode_head.cu: no single head_kernel<{tag}> in the SASS")
+        ops, use = sass[names[0]], usage.get(names[0])
+        check(use is not None, "no ptxas -v report of decode_head.cu: the library was built "
+              "without its log; empty tpudml_torch/_build and rerun")
+        tf32 = sum(c for op, c in ops.items() if "TF32" in op)
+        print(f"[build] decode_head.cu head_kernel<{tag}>: {use.get('registers')} registers, "
+              f"spill {use.get('spill')} B, stack {use.get('stack')} B, TF32 {tf32}, "
+              f"{', '.join(f'{op} {c}' for op, c in sorted(ops.items()))}")
+        check(use.get("spill") == 0 and use.get("stack") == 0,
+              f"head_kernel<{tag}> spills or keeps a stack frame ({use})")
+        check(tf32 == 0, f"head_kernel<{tag}> holds TF32 instructions ({ops})")
+    for shape in HEAD_PLAN_SHAPES:
+        for int8 in (False, True):
+            plan = head_plan_built(*shape, int8)
+            print(f"[build] decode head at B={shape[0]} d={shape[1]} V={shape[2]} "
+                  f"{'int8' if int8 else 'f32'}: {plan.tiles} blocks of {plan.warps} warps, "
+                  f"{'16-byte' if plan.aligned else 'scalar'} loads, {plan.slice} rows of d a "
+                  f"warp in chunks of {plan.chunk}, {plan.smem_bytes} B shared, "
+                  f"{plan.groups} row group(s), buffer {4 * plan.scratch} B")
+            check(plan == head_plan(*shape, int8),
+                  f"head_plan{shape} {head_plan(*shape, int8)} is not the kernel's {plan}")
+
+
 def ln_instances(lib) -> None:
     """Print each LayerNorm kernel instance's registers and spills (ptxas)
     and hold the wide ones (``*_wide_*``, ``*_loop_*``) to no spills."""
@@ -2923,10 +3030,11 @@ def build_phase() -> None:
     instances of the LayerNorm kernels 6–9 to no spills; and the
     forward kernels 10, 11, the saved-scores kernels 12, 13 and the lean
     kernels 14, 15 as ``fwd_instances``, ``saved_instances`` and
-    ``lean_instances`` say, and the grouped dW 16 as ``gdw_instances``."""
+    ``lean_instances`` say, the grouped dW 16 as ``gdw_instances`` and the
+    decode head 4, 5 as ``head_instances``."""
     from tpudml_torch.ops import (
-        ADD_LN_FORWARD, FLASH_DKDV, FLASH_DQ, FLASH_FORWARD, GROUPED_DW, KERNELS, XENT_DX,
-        XENT_DX_LEAN, XENT_FORWARD, build_kernels,
+        ADD_LN_FORWARD, DECODE_HEAD, FLASH_DKDV, FLASH_DQ, FLASH_FORWARD, GROUPED_DW,
+        KERNELS, XENT_DX, XENT_DX_LEAN, XENT_FORWARD, build_kernels,
     )
 
     t_build = build_kernels()
@@ -2963,6 +3071,7 @@ def build_phase() -> None:
     saved_instances(XENT_DX.library)
     lean_instances(XENT_DX_LEAN.library)
     gdw_instances(GROUPED_DW.library)
+    head_instances(DECODE_HEAD.library)
 
 
 def main() -> int:

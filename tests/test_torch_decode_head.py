@@ -18,7 +18,9 @@ jnp = jax.numpy
 from tpudml.ops import decode_head as jhead  # noqa: E402
 from tpudml.serve.fleet import quant as jquant  # noqa: E402
 from tpudml_torch.ops import fused_decode_head, fused_decode_head_int8  # noqa: E402
-from tpudml_torch.ops.decode_head import row_groups  # noqa: E402
+from tpudml_torch.ops.decode_head import (  # noqa: E402
+    GROUP, LAYOUT, RING_STEPS, STEP_LOADS, TILE, head_plan,
+)
 from tpudml_torch.serve.fleet import quant as tquant  # noqa: E402
 
 BLOCKS = dict(block_n=8, block_v=32, interpret=True)
@@ -60,27 +62,65 @@ def test_fused_decode_head_int8_matches_pallas(v):
     _check(got, ref)
 
 
-@pytest.mark.parametrize("n,d", [(8, 512), (96, 512), (97, 512), (200, 512), (1, 6400),
-                                 (100, 6400), (1000, 33), (0, 64)])
-def test_row_groups_cover_the_batch_and_fit(n, d):
-    """The kernel's x stage holds 200 KiB (rows padded to 8): the groups
-    cover [0, n) in order, each fits, and only the last is short of the
-    most that fit."""
-    groups = row_groups(n, d)
-    fit = (200 * 1024) // (d * 4) // 8 * 8
-    assert [i for g in groups for i in range(*g)] == list(range(n))
-    assert all(-(-(stop - start) // 8) * 8 * d * 4 <= 200 * 1024 for start, stop in groups)
-    assert all(stop - start == fit for start, stop in groups[:-1])
-    assert len(groups) == -(-n // fit)
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("v", [1, 3, 127, 128, 129, 1000, 1001, 32773])
+def test_head_plan_covers_every_column_once(v, int8):
+    """The kernel's blocks (one a 128-column tile) and each lane's 16-byte
+    copy (4 f32 or 16 int8 columns) cover every vocab column exactly once;
+    where the plan is aligned, a copy's columns lie all in the row or all
+    past it, so no 16-byte copy reads past a row's end."""
+    plan = head_plan(8, 512, v, int8)
+    vec = LAYOUT[int8][0]
+    seen = np.zeros(v, np.int64)
+    for tile in range(plan.tiles):
+        for lane in range(TILE // vec):  # the column groups of a row
+            col = tile * TILE + lane * vec
+            inside = [c for c in range(col, col + vec) if c < v]
+            if plan.aligned:
+                assert len(inside) in (0, vec)
+            seen[inside] += 1
+    assert (seen == 1).all()
+    assert plan.tiles == -(-v // TILE)
 
 
-def test_row_groups_refuse_a_width_no_group_fits():
-    """Past d = 6400 no 8-row group fits the stage: the kernel walks d in
-    chunks, so the whole batch, any number of rows, is one launch."""
-    for n in (1, 8, 9, 300):
-        assert row_groups(n, 6401) == [(0, n)]
-        assert row_groups(n, 8192) == [(0, n)]
-    assert row_groups(0, 8192) == []
+@pytest.mark.parametrize("v", [1000, 1001, 1024, 32768, 32773])
+def test_head_plan_picks_the_instance(v):
+    """16-byte loads where V keeps every W row on 16 bytes: a multiple of 4
+    columns in f32, of 16 in int8 (V = 1000 is aligned in f32 only)."""
+    assert head_plan(8, 512, v).aligned == (v % 4 == 0)
+    assert head_plan(8, 512, v, True).aligned == (v % 16 == 0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("d", [1, 3, 512, 6400, 6401, 8192, 100000])
+def test_head_plan_stage_fits(d, int8):
+    """x's stage and the threads' rings of W copies (which the warps'
+    partial sums overlay) fit two blocks an SM at any d: the warps' slices
+    cover d once, each walked in chunks of at most 128 (f32) or 256 (int8)
+    rows, a whole number of steps each."""
+    plan = head_plan(9, d, 32768, int8)
+    vec, warps, chunk_max = LAYOUT[int8]
+    step = 32 // (TILE // vec) * STEP_LOADS
+    assert plan.warps == warps and plan.slice * warps >= d > (plan.slice - 1) * warps
+    rows = [k for w in range(warps) for k in range(min(w * plan.slice, d),
+                                                    min((w + 1) * plan.slice, d))]
+    assert rows == list(range(d))
+    assert plan.chunk % step == 0 and plan.chunk <= chunk_max
+    assert plan.chunk >= min(plan.slice, chunk_max)
+    ring = 16 * RING_STEPS * STEP_LOADS * 32 * warps
+    assert ring >= 4 * warps * GROUP * TILE  # the partial sums fit over the ring
+    assert plan.smem_bytes == ring + 4 * warps * GROUP * plan.chunk
+    assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024  # two blocks an SM
+
+
+@pytest.mark.parametrize("b", [1, 8, 9, 200])
+def test_head_plan_scratch(b):
+    """One int32 buffer a call: tokens, max, lse, then each tile's (max,
+    column, Σexp) for each row; the batch in 8-row groups in one launch."""
+    for int8 in (False, True):
+        plan = head_plan(b, 512, 1001, int8)
+        assert plan.tiles == 8 and plan.groups == -(-b // 8)
+        assert plan.scratch == 3 * b + 3 * b * plan.tiles
 
 
 @pytest.mark.parametrize("case", ["within_tile", "across_tiles", "all_equal"])

@@ -63,7 +63,7 @@ from tpudml_torch.ops import (  # noqa: E402
     add_layernorm_forward_reference, flash_attention, flash_block_grads,
     flash_block_grads_reference, flash_forward_lse, flash_forward_lse_reference,
     fused_add_layernorm, fused_decode_head, fused_decode_head_int8, fused_layernorm,
-    DECODE_HEAD, FLASH_FORWARD, GROUPED_DW, GROUPED_DW_BF16, flash_dkdv, flash_dkdv_reference, flash_dq,
+    DECODE_HEAD, DECODE_HEAD_INT8, FLASH_FORWARD, GROUPED_DW, GROUPED_DW_BF16, flash_dkdv, flash_dkdv_reference, flash_dq,
     flash_dq_reference, grouped_dw, grouped_dw_plan, grouped_dw_plan_built,
     grouped_dw_reference, ragged_ffn,
     layernorm_backward, layernorm_backward_reference, layernorm_forward,
@@ -1002,8 +1002,8 @@ def test_decode_head_walks_a_wide_row_in_chunks(cuda_device):
 
 @pytest.mark.cuda
 def test_decode_head_splits_a_batch_past_its_stage(cuda_device):
-    """200 slots at d = 512 (the stage holds 96 rows): three launches, each
-    row as the plain version gives it."""
+    """200 slots at d = 512: one launch, the kernel walking 25 8-row groups,
+    each row as the plain version gives it."""
     x = _randn(200, 512, seed=12, device=cuda_device)
     w = _randn(512, 1000, seed=13, device=cuda_device)
     b = _randn(1000, seed=14, device=cuda_device)
@@ -1011,7 +1011,104 @@ def test_decode_head_splits_a_batch_past_its_stage(cuda_device):
     tok, mx, lse = fused_decode_head(x, w, b)
     rt, rm, rl = reference_head(x, w, b)
     torch.cuda.synchronize()
-    assert DECODE_HEAD.launches == before + 3
+    assert DECODE_HEAD.launches == before + 1
     assert torch.equal(tok, rt)
     torch.testing.assert_close(mx, rm, **ROW_TOL)
     torch.testing.assert_close(lse, rl, **ROW_TOL)
+
+
+TIE_GAP = 1e-5  # plain top-2 logit gap under which the kernel's pick may differ
+
+
+def _head_case(b, d, v, seed, device):
+    x = _randn(b, d, seed=seed, device=device)
+    w = _randn(d, v, seed=seed + 1, device=device) / d ** 0.5
+    bias = 0.1 * _randn(v, seed=seed + 2, device=device)
+    return x, w, bias
+
+
+def _check_head(got, x, wf, bias):
+    """Tokens equal to the plain version's but at a plain top-2 gap under
+    TIE_GAP; max and lse at ROW_TOL."""
+    tok, mx, lse = got
+    rt, rm, rl = reference_head(x, wf, bias)
+    logits = x @ wf + bias
+    gap = (torch.topk(logits, 2, dim=-1).values if wf.shape[1] > 1
+           else torch.full((x.shape[0], 2), float("inf"), device=x.device))
+    differ = tok != rt
+    assert bool(((gap[:, 0] - gap[:, 1]) < TIE_GAP)[differ].all()), (tok[differ], rt[differ])
+    torch.testing.assert_close(mx, rm, **ROW_TOL)
+    torch.testing.assert_close(lse, rl, **ROW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,v", [(b, 512, v) for b in (1, 8, 9, 200)
+                                   for v in (1, 3, 1000, 1001, 32768 + 5)]
+                         + [(9, d, v) for d in (1, 3, 6401, 8192) for v in (1001, 32768 + 5)])
+def test_decode_head_edges(cuda_device, b, d, v):
+    """Kernels 4 and 5 at the edges of their plan: V = 1 and 3 (under one
+    tile), 1000 (int8's unaligned instance; f32 aligned), 1001 and 32773
+    (both unaligned, a ragged last tile), B = 1 to 200 (25 row groups in
+    one launch), d = 1 and 3 (warps with no rows), 6401 and 8192 (x staged
+    in chunks). One launch a call, and a second call bitwise equal."""
+    x, w, bias = _head_case(b, d, v, seed=b + d + v, device=cuda_device)
+    wq, scale = tquant._quant_kernel(w)
+    for kernel, fn, weights, wf in (
+        (DECODE_HEAD, fused_decode_head, (w,), w),
+        (DECODE_HEAD_INT8, fused_decode_head_int8, (wq, scale),
+         tquant._dequant_kernel(wq, scale)),
+    ):
+        before = kernel.launches
+        got = fn(x, *weights, bias)
+        again = fn(x, *weights, bias)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        _check_head(got, x, wf, bias)
+        for a, b_ in zip(got, again):
+            assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("case", ["one_thread", "one_tile", "across_tiles", "flat"])
+def test_decode_head_ties_pick_first_occurrence(cuda_device, case, int8):
+    """Exact ties at d = 512 (every column's sum split over the block's
+    warps): two columns of one thread's 16-byte load (1 and 2 in f32, 3 and
+    12 in int8), two of one tile held by different lanes (5, 100), of
+    different tiles (7, 300, 32770), and a flat row. The tied columns are
+    copies of one column, lifted by +20 in the bias over every other logit
+    of each row; equal columns give equal sums in the kernel (same products,
+    same order), so the first occurrence wins in every row, as
+    ``torch.argmax`` decides."""
+    b, d, v = 9, 512, 32773
+    x, w, bias = _head_case(b, d, v, seed=40, device=cuda_device)
+    cols = {"one_thread": (12, 3) if int8 else (2, 1), "one_tile": (100, 5),
+            "across_tiles": (32770, 300, 7), "flat": ()}[case]
+    if case == "flat":
+        w.zero_()
+        bias.fill_(0.25)
+    else:
+        w[:, list(cols)] = w[:, cols[0]][:, None]
+        bias[list(cols)] = bias[cols[0]] + 20.0
+    wq, scale = tquant._quant_kernel(w)
+    fn, weights = ((fused_decode_head_int8, (wq, scale)) if int8
+                   else (fused_decode_head, (w,)))
+    tok, mx, lse = fn(x, *weights, bias)
+    wf = tquant._dequant_kernel(wq, scale) if int8 else w
+    _, rm, rl = reference_head(x, wf, bias)
+    assert tok.tolist() == [min(cols) if cols else 0] * b
+    torch.testing.assert_close(mx, rm, **ROW_TOL)
+    torch.testing.assert_close(lse, rl, **ROW_TOL)
+
+
+@pytest.mark.cuda
+def test_head_plan_is_the_kernels_choice(cuda_device):
+    """``head_plan`` (the wrapper's buffer size) against the built kernel's
+    ``decode_head_plan`` at every shape the edge tests take."""
+    from tpudml_torch.ops import head_plan, head_plan_built
+
+    for b in (1, 8, 9, 200):
+        for d in (1, 3, 512, 6401, 8192):
+            for v in (1, 3, 1000, 1001, 32768, 32773):
+                for int8 in (False, True):
+                    assert head_plan_built(b, d, v, int8) == head_plan(b, d, v, int8)

@@ -30,6 +30,8 @@ from tpudml_torch.ops.decode_head import (
     DECODE_HEAD_INT8,
     fused_decode_head,
     fused_decode_head_int8,
+    head_plan,
+    head_plan_built,
     reference_head,
     reference_head_int8,
 )
@@ -138,6 +140,8 @@ __all__ = [
     "grouped_dw_plan",
     "grouped_dw_plan_built",
     "grouped_dw_reference",
+    "head_plan",
+    "head_plan_built",
     "layernorm_backward",
     "layernorm_backward_reference",
     "layernorm_forward",

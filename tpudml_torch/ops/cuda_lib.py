@@ -143,8 +143,12 @@ class Kernel:
     def source(self) -> str:
         return str(self.library.source.relative_to(PKG_DIR.parent))
 
-    def launch(self, *args) -> None:
-        self.library.call(self.fn, *args, P(torch.cuda.current_stream().cuda_stream))
+    def launch(self, *args, stream: int | None = None) -> None:
+        """Launch on ``stream`` (a ``cudaStream_t`` as an int), by default
+        PyTorch's current stream."""
+        if stream is None:
+            stream = torch.cuda.current_stream().cuda_stream
+        self.library.call(self.fn, *args, P(stream))
         self.launches += 1
 
 

@@ -4,22 +4,26 @@
 ``x @ w + bias`` — (tokens [B] int32, max_logit [B] f32, lse [B] f32) —
 and ``fused_decode_head_int8`` the same over int8 codes [d, V] with f32
 per-output-channel scales [V] (``serve/fleet/quant.py`` layout). For CUDA
-tensors both launch the two-pass CUDA kernel in
-``tpudml_torch/csrc/decode_head.cu``, which never writes the [B, V] logits
-to device memory; for CPU tensors they run the plain version
-:func:`reference_head` (materialized logits, ``torch.argmax``'s
-first-occurrence pick). A CUDA input the kernel does not take raises.
+tensors both launch the CUDA kernel in ``tpudml_torch/csrc/decode_head.cu``
+once a call: it never writes the [B, V] logits to device memory, and its
+last block to finish merges the vocabulary tiles' statistics. For CPU
+tensors they run the plain version :func:`reference_head` (materialized
+logits, ``torch.argmax``'s first-occurrence pick). A CUDA input the kernel
+does not take raises.
 
-The kernel stages x in shared memory, so a batch whose rows do not fit
-at once is split into row groups that do (:func:`row_groups`), one launch
-each. That is exact: a row's token, max and lse depend on that row alone.
-A width whose one 8-row group does not fit (d > 6400) takes the whole
-batch in one launch: the kernel then stages each 8-row group in chunks of
-d and keeps its dot products in registers across them (the same sums in
-the same order). Any d >= 1.
+Any B, d >= 1 and V >= 1 run in that one launch: the kernel stages x in
+shared memory a chunk of d at a time, streams W through a ring of
+``cp.async`` copies, and walks the batch in 8-row groups itself
+(:func:`head_plan` gives its cut). A call allocates one int32
+buffer (tokens, max, lse, then the tiles' statistics) and reuses one
+arrival counter a stream, which every launch leaves at 0.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -27,11 +31,11 @@ from tpudml_torch.ops.cuda_lib import (
     I, P, CudaLibrary, Kernel, check_cuda_operand, ptr,
 )
 
-_ROWS = [I, I, I] + [P] * 7  # B, d, V, scratch x3, outputs x3, stream
+_ROWS = [I, I, I, P, P]  # B, d, V, out buffer, arrival counter (then the stream)
 _LIB = CudaLibrary("decode_head.cu", {
-    "decode_head_f32": [P, P, P] + _ROWS,
-    "decode_head_int8": [P, P, P, P] + _ROWS,
-    "decode_head_tile_width": [],
+    "decode_head_f32": [P, P, P] + _ROWS + [P],
+    "decode_head_int8": [P, P, P, P] + _ROWS + [P],
+    "decode_head_plan": [I, I, I, I, P],
 })
 DECODE_HEAD = Kernel(
     "fused_decode_head", _LIB, "decode_head_f32",
@@ -42,21 +46,48 @@ DECODE_HEAD_INT8 = Kernel(
     replaces="tpudml/ops/decode_head.py:99",
 )
 
-# x is staged in shared memory, rows padded to the kernel's 8-row group.
-_MAX_X_SMEM = 200 * 1024
-_GROUP = 8  # rows the kernel accumulates per pass over W
+TILE = 128  # vocab columns a block
+GROUP = 8  # rows of x a pass over W serves
+STEP_LOADS = 4  # 16-byte copies a thread a step
+RING_STEPS = 4  # steps in a thread's ring of W copies in shared memory
+# (columns a 16-byte copy holds, warps a block, most rows of d a warp
+# stages at a time), f32 and int8. A warp copies 32 / (TILE / columns) rows
+# of W at once: one in f32, four in int8.
+LAYOUT = {False: (4, 8, 128), True: (16, 4, 256)}
 
 
-def row_groups(n: int, d: int) -> list[tuple[int, int]]:
-    """[start, stop) row ranges covering [0, n) in order, one launch each.
-    Each holds as many rows as fit x's shared-memory stage
-    (``round_up(rows, 8)·d·4`` bytes), all but the last full. Where one
-    8-row group does not fit, the kernel walks d in chunks instead and the
-    whole batch is one range."""
-    per = _MAX_X_SMEM // (d * 4) // _GROUP * _GROUP
-    if per == 0:  # the kernel's chunked instance: any number of rows
-        per = max(n, 1)
-    return [(i, min(i + per, n)) for i in range(0, n, per)]
+class HeadPlan(NamedTuple):
+    tiles: int  # blocks, one a vocab tile of TILE columns
+    aligned: bool  # V a multiple of the load's columns: 16-byte loads
+    warps: int  # warps a block, each owning a slice of d
+    slice: int  # rows of d a warp owns
+    chunk: int  # rows of d a warp stages at a time
+    smem_bytes: int  # a block's rings of W copies and x chunks
+    groups: int  # 8-row groups of x the kernel walks
+    scratch: int  # int32 words of a call's buffer
+
+
+@functools.lru_cache(maxsize=256)
+def head_plan(b: int, d: int, v: int, int8: bool = False) -> HeadPlan:
+    """How the kernel cuts (B, d, V) (``decode_head.cu`` ``plan_of``; a
+    card-only check holds the two equal). A W that does not start on 16
+    bytes also takes the unaligned instance, whatever ``aligned`` says."""
+    vec, warps, chunk_max = LAYOUT[int8]
+    step = 32 // (TILE // vec) * STEP_LOADS
+    tiles = -(-v // TILE)
+    slice_ = -(-d // warps)
+    chunk = min(-(-slice_ // step) * step, chunk_max)
+    ring = 16 * RING_STEPS * STEP_LOADS * 32 * warps
+    return HeadPlan(tiles=tiles, aligned=v % vec == 0, warps=warps, slice=slice_,
+                    chunk=chunk, smem_bytes=ring + 4 * warps * GROUP * chunk,
+                    groups=-(-b // GROUP), scratch=3 * b * (tiles + 1))
+
+
+def head_plan_built(b: int, d: int, v: int, int8: bool = False) -> HeadPlan:
+    """:func:`head_plan` as the built kernel decides it (needs nvcc)."""
+    out = (ctypes.c_int * 8)()
+    _LIB.call("decode_head_plan", I(b), I(d), I(v), I(int(int8)), ctypes.cast(out, P))
+    return HeadPlan(out[0], bool(out[1]), *out[2:])
 
 
 def reference_head(x, w, b):
@@ -73,31 +104,34 @@ def reference_head_int8(x, wq, scale, b):
     return reference_head(x, _dequant_kernel(wq, scale), b)
 
 
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _counter(dev: torch.device, stream: int) -> torch.Tensor:
+    """The arrival counter of ``stream``: zeroed once, left at 0 by every
+    launch (launches on one stream never overlap)."""
+    c = _COUNTERS.get((dev.index, stream))
+    if c is None:
+        c = _COUNTERS[dev.index, stream] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return c
+
+
 def _launch(kernel, x, weights, b, v):
     n, d = x.shape
-    groups = row_groups(n, d)
-    tile = kernel.library.load().decode_head_tile_width()
-    n_tiles = -(-v // tile)
     dev = x.device
-    rows = groups[0][1] - groups[0][0] if groups else 0
-    tile_max = torch.empty((n_tiles, rows), dtype=torch.float32, device=dev)
-    tile_idx = torch.empty((n_tiles, rows), dtype=torch.int32, device=dev)
-    tile_sum = torch.empty((n_tiles, rows), dtype=torch.float32, device=dev)
-    tok = torch.empty(n, dtype=torch.int32, device=dev)
-    mx = torch.empty(n, dtype=torch.float32, device=dev)
-    lse = torch.empty(n, dtype=torch.float32, device=dev)
-    # Row groups are addressed by byte offset (x contiguous; every operand
-    # 4 bytes an element): no slice is made, one group or many.
-    x_p, tok_p, mx_p, lse_p = (t.data_ptr() for t in (x, tok, mx, lse))
-    with torch.cuda.device(dev):
-        for start, stop in groups:
-            kernel.launch(
-                P(x_p + 4 * d * start), *(ptr(w) for w in weights), ptr(b),
-                I(stop - start), I(d), I(v), ptr(tile_max), ptr(tile_idx),
-                ptr(tile_sum), P(tok_p + 4 * start), P(mx_p + 4 * start),
-                P(lse_p + 4 * start),
-            )
-    return tok, mx, lse
+    if n == 0:
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                torch.empty(0, device=dev), torch.empty(0, device=dev))
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(kernel, x, weights, b, v)
+    plan = head_plan(n, d, v, kernel is DECODE_HEAD_INT8)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(plan.scratch, dtype=torch.int32, device=dev)
+    kernel.launch(ptr(x), *(ptr(w) for w in weights), ptr(b), I(n), I(d), I(v),
+                  ptr(out), ptr(_counter(dev, stream)), stream=stream)
+    stats = out[n:3 * n].view(torch.float32)
+    return out[:n], stats[:n], stats[n:]
 
 
 def _check_rows(x, b, d, v):

@@ -2,8 +2,9 @@
 
 Builds the full-width serving model of ``chip_smoke.py`` (V=32768, d=512,
 H=8, kv_heads=2, L=6, RoPE, f32; 8 slots, max_len 1024) and measures, for
-the unfused and the fused-head decode step and for one 128-token prefill
-chunk at a 512-token window:
+the unfused decode step, the fused-head one with f32 and with int8 head
+weights (``weight_quant="int8"``), and one 128-token prefill chunk at a
+512-token window:
 
 - wall ms per call (host clock around N back-to-back calls ending in a
   synchronize) and the CUDA-event span per call;
@@ -99,9 +100,11 @@ def main(argv=None) -> dict:
     pos = torch.full((slots,), 511, device="cuda")  # every slot 512 tokens deep
     result = {"device": torch.cuda.get_device_name(0), "model": MODEL,
               "slots": slots, "decode_pos": 511}
-    for name, fused in (("decode_unfused", False), ("decode_fused_head", True)):
-        eng = ServingEngine(model, ServeConfig(slots=slots, max_len=1024,
-                                               prefill_chunk=128, fused_head=fused),
+    for name, fused, quant in (("decode_unfused", False, None),
+                               ("decode_fused_head", True, None),
+                               ("decode_fused_head_int8", True, "int8")):
+        eng = ServingEngine(model, ServeConfig(slots=slots, max_len=1024, prefill_chunk=128,
+                                               fused_head=fused, weight_quant=quant),
                             device="cuda")
         step = lambda eng=eng: eng._decode(eng.caches, tokens, pos)  # noqa: E731
         result[name] = _measure(step, args.iters)
@@ -114,7 +117,8 @@ def main(argv=None) -> dict:
         model.apply_prefill(eng.caches, chunk, 0, 384)  # window of 512 rows
 
     result["prefill_chunk_start384"] = _measure(prefill, args.iters)
-    for key in ("decode_unfused", "decode_fused_head", "prefill_chunk_start384"):
+    for key in ("decode_unfused", "decode_fused_head", "decode_fused_head_int8",
+                "prefill_chunk_start384"):
         r = result[key]
         print(f"[profile] {key}: wall {r['wall_ms']:.3f} ms, events {r['event_ms']:.3f} ms, "
               f"{r['kernels_per_call']:.0f} kernels summing {r['kernel_ms_per_call']:.3f} ms "
