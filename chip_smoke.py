@@ -145,6 +145,27 @@ the CPU). Phases, each printing its own line(s):
    (c) one evaluation loss under ``torch.no_grad()``, its own path with
    its own zeroed counts, launches kernel 10 and agrees with the
    materialized loss.
+   6b. main path 3b, the flagship data-parallel at world 1: a one-rank
+   NCCL group (``tpudml_torch.core.process_group`` over a file store in a
+   temporary directory, destroyed at the end). The single-card flagship
+   step of (b) runs twice from one seed: does it repeat itself bitwise?
+   Then ``DataParallel(fused_xent=True, save_scores=True,
+   flash_attn=True)`` trains FLAGSHIP_STEPS steps from the same weights
+   and batch, with the launch counts zeroed just before and read just
+   after: exactly FLAGSHIP_STEPS × FLAGSHIP_PER_STEP, and losses and
+   parameters bitwise equal to the single-card run's where that run
+   repeats itself (else within DP_GAP_MULT times the gap between the two
+   single-card runs).
+   Each aggregator (allreduce, allgather, reducescatter) alone on the
+   flagship's gradients, by CUDA events and on the device (NCCL kernels
+   against the copies), and the DP and single-card ms/step. The split
+   step (``measure_comm=True``, f32, materialized logits, flash, fused
+   add+LN) trains DP_SPLIT_STEPS steps of phase 5's batches with its own
+   zeroed counts (DP_SPLIT_STEPS × PER_STEP): one positive comm span a
+   step, losses and parameters bitwise equal to the fused DP step's
+   (the same f32 math on the same batches). Then task5
+   ``--parallel dp`` (DP_TASK5: 1 device, its loss falls) and
+   ``tpudml_torch.comm.bench`` at world 1, every aggregator.
 7. main path 4, long-context training (BASELINE.md:45): task5's own
    ``build_engine`` with ``--attn flash --seq_len 16384 --batch_size 2
    --vocab 32768 --embed_dim 512 --num_heads 4 --num_layers 6 --rope
@@ -2451,6 +2472,203 @@ def flagship_phase() -> dict[str, dict[str, int]]:
     return {"flagship": launches, "eval": eval_launches}
 
 
+# ------------------------------------------------------------ phase 6b
+
+
+DP_SPLIT_STEPS = 3  # the split step's run; every step's comm span is checked
+DP_TASK5 = ["--parallel", "dp", "--n_devices", "1", "--vocab", "32768", "--embed_dim", "512",
+            "--num_heads", "4", "--num_layers", "6", "--seq_len", "1024", "--batch_size", "8",
+            "--attn", "flash", "--fused_ln", "--rope", "--fused_xent", "--steps", "8",
+            "--log_every", "1", "--lr", "1e-3"]
+DP_BENCH = ["--device", "cuda", "--iters", "20"]
+# Where the single-card step does not repeat itself, the world-1 DP run
+# may differ from it by at most this many times the gap between two
+# single-card runs (in losses and in parameters).
+DP_GAP_MULT = 4
+
+
+def _params(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def _bitwise(a: dict, b: dict) -> bool:
+    import torch
+
+    return all(torch.equal(a[n], b[n]) for n in a)
+
+
+def dp_phase() -> dict[str, dict[str, int]]:
+    """Main path 3b: the flagship step data-parallel at world 1 over NCCL
+    (module docstring, phase 6b). Returns the launch counts of the DP
+    flagship run ("dp") and of the split step ("dp_split")."""
+    import contextlib
+    import io
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudml_torch.comm import AGGREGATORS, bench
+    from tpudml_torch.core import DistributedConfig, process_count, process_group
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import Adam, AdamW
+    from tpudml_torch.parallel import DataParallel
+    from tpudml_torch.tasks import task5_longcontext as task5
+    from tpudml_torch.tools.profile_train import collective_breakdown, describe_aggregation
+    from tpudml_torch.train import TrainState, make_lm_fused_train_step
+
+    t, v = TRAIN_MODEL["max_len"], TRAIN_MODEL["vocab_size"]
+    batch = synthetic_lm(TRAIN_BATCH, t, v, seed=1)  # the flagship phase's
+    bf16 = dict(compute_dtype=torch.bfloat16)
+
+    def model(seed, **kw):
+        return TransformerLM(**TRAIN_MODEL, **kw, device="cuda",
+                             generator=torch.Generator().manual_seed(seed))
+
+    with tempfile.TemporaryDirectory() as tmp, process_group(
+            DistributedConfig(coordinator_address=f"file://{tmp}/store", num_processes=1),
+            device="cuda") as group:
+        check(torch.distributed.get_backend(group) == "nccl", "the DP group is not NCCL's")
+        check(process_count(group) == 1, "the DP group is not one rank")
+        print(f"[dp] world 1: a one-rank NCCL group (torch.distributed, file store); "
+              f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}")
+
+        # (1) Does the single-card flagship step repeat itself bitwise?
+        def single():
+            m = model(3, impl="flash", fused_ln=True, **bf16)
+            opt = AdamW(lr=FLAGSHIP_LR)
+            losses, ms = _train_run(TrainState.create(m, opt),
+                                    make_lm_fused_train_step(m, opt, save_scores=True),
+                                    [batch] * FLAGSHIP_STEPS)
+            return losses, ms, _params(m)
+
+        s1_losses, s1_ms, s1_params = single()
+        s2_losses, s2_ms, s2_params = single()
+        repeats = s1_losses == s2_losses and _bitwise(s1_params, s2_params)
+        print(f"[dp] single-card flagship step repeats itself bitwise over {FLAGSHIP_STEPS} "
+              f"steps: {repeats}")
+        torch.cuda.empty_cache()
+
+        # (2) The DP flagship: the launches of its run are the path's.
+        dp_model = model(3, impl="full", fused_ln=True, **bf16)
+        check(_bitwise(_params(dp_model), _params(model(3, impl="flash", fused_ln=True, **bf16))),
+              "the DP and single-card models start apart")
+        dp = DataParallel(dp_model, AdamW(lr=FLAGSHIP_LR), group, fused_xent=True,
+                          save_scores=True, flash_attn=True)
+        check(dp_model.impl == "flash", "flash_attn did not swap the trunk")
+        ts = dp.create_state()
+        reset_launch_counts()  # ---- main path 3b starts here
+        d_losses, d_ms = _train_run(ts, dp.make_train_step(), [batch] * FLAGSHIP_STEPS)
+        launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+        d_params = _params(dp_model)
+        for name, n in launches.items():
+            need = FLAGSHIP_STEPS * FLAGSHIP_PER_STEP.get(name, 0)
+            check(n == need, f"the DP flagship launched {name} {n} times, {FLAGSHIP_STEPS} "
+                  f"steps need {need}")
+        print(f"[dp] DP flagship losses {' '.join(f'{x:.6f}' for x in d_losses)}; single-card "
+              f"{' '.join(f'{x:.6f}' for x in s1_losses)}; launches {launches} = "
+              f"{FLAGSHIP_STEPS} x {FLAGSHIP_PER_STEP}")
+        if repeats:
+            check(d_losses == s1_losses, "world-1 DP losses differ from the single-card step's")
+            check(_bitwise(d_params, s1_params), "world-1 DP parameters differ from the "
+                  "single-card step's")
+            print("[dp] world-1 DP step equals the single-card step bitwise (losses and all "
+                  f"{len(d_params)} parameters)")
+        else:
+            def gaps(losses, params):
+                return (max(abs(a - b) for a, b in zip(losses, s1_losses)),
+                        max((params[n] - s1_params[n]).abs().max().item() for n in params))
+
+            (ldiff, worst), (lgap, pgap) = gaps(d_losses, d_params), gaps(s2_losses, s2_params)
+            print(f"[dp] the single-card step is not deterministic (two runs differ by "
+                  f"|loss| {lgap:.2e}, |param| {pgap:.2e}): world-1 DP vs single |loss diff| "
+                  f"{ldiff:.2e}, max |param diff| {worst:.2e} (tol {DP_GAP_MULT} x the gap)")
+            check(ldiff <= DP_GAP_MULT * lgap and worst <= DP_GAP_MULT * pgap,
+                  "world-1 DP disagrees with the single-card step")
+        check(all(np.isfinite(d_losses)), "a DP flagship loss is not finite")
+
+        # The collective alone on the flagship's gradients (52.5M f32).
+        grads, _ = dp.local_grads(ts, batch[:, :-1], batch[:, 1:])
+        nbytes = sum(g.numel() * g.element_size() for g in grads.values())
+        for name, aggregator in AGGREGATORS.items():
+            agg = lambda aggregator=aggregator: aggregator(grads, group)  # noqa: E731
+            wall = cuda_ms(agg, iters=20, warmup=3)
+            p = collective_breakdown(agg, 20)
+            print(f"[dp] world 1 {name} of the flagship gradients ({len(grads)} tensors, "
+                  f"{nbytes / 1e6:.1f} MB f32): {wall:.4f} ms a call (CUDA events); "
+                  f"{describe_aggregation(p)}")
+            check(p["dispatched"] >= 1, f"the world-1 {name} dispatched no collective")
+        print(f"[dp] world 1 flagship step: DP {d_ms:.2f} ms/step vs single-card "
+              f"{s1_ms:.2f}, {s2_ms:.2f} ms/step (steady state, {FLAGSHIP_STEPS - 1} steps)")
+        del dp, dp_model, ts, grads, s1_params, s2_params, d_params
+        torch.cuda.empty_cache()
+
+        # (3) The split step (measure_comm, materialized logits, f32) against
+        # the fused one on the training phase's config and batches.
+        seqs = synthetic_lm(4 * TRAIN_BATCH, t, v, seed=0)
+        rng = np.random.default_rng(0)
+        batches = [seqs[rng.integers(0, len(seqs), size=TRAIN_BATCH)]
+                   for _ in range(DP_SPLIT_STEPS)]
+
+        def dp_run(measure_comm):
+            m = model(1, impl="full", fused_ln=True)
+            eng = DataParallel(m, Adam(lr=TRAIN_LR), group, measure_comm=measure_comm,
+                               flash_attn=True)
+            losses, ms = _train_run(eng.create_state(), eng.make_train_step(), batches)
+            return losses, ms, eng.comm_stats, _params(m)
+
+        reset_launch_counts()  # ---- the split step's path starts here
+        sp_losses, sp_ms, stats, sp_params = dp_run(True)
+        split_launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+        fu_losses, fu_ms, _, fu_params = dp_run(False)
+        for name, n in split_launches.items():
+            need = DP_SPLIT_STEPS * PER_STEP.get(name, 0)
+            check(n == need, f"the split step launched {name} {n} times, need {need}")
+        print(f"[dp] split step (measure_comm, f32, flash, fused add+LN): losses "
+              f"{' '.join(f'{x:.6f}' for x in sp_losses)} vs fused DP step "
+              f"{' '.join(f'{x:.6f}' for x in fu_losses)}; {stats.calls} comm spans "
+              f"{' '.join(f'{x * 1e3:.3f}' for x in stats.per_call_s)} ms; {sp_ms:.2f} vs "
+              f"{fu_ms:.2f} ms/step; {stats.report()}")
+        check(stats.calls == DP_SPLIT_STEPS, "the split step did not record a span a step")
+        check(all(x > 0 for x in stats.per_call_s), "a comm span is not positive")
+        check(sp_losses == fu_losses, "split-step losses differ from the fused step's")
+        check(_bitwise(sp_params, fu_params), "split-step parameters differ from the fused "
+              "step's")
+        print(f"[dp] split step equals the fused DP step bitwise (losses and all "
+              f"{len(sp_params)} parameters)")
+        del sp_params, fu_params
+        torch.cuda.empty_cache()
+
+        # (4) task5 --parallel dp at world 1.
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = task5.main(DP_TASK5 + ["--log_dir", f"{tmp}/logs"])
+        steps = [float(line.split()[-1]) for line in out.getvalue().splitlines()
+                 if line.startswith("step ")]
+        print(f"[dp] task5 --parallel dp: {out.getvalue().splitlines()[-1]}; losses "
+              f"{' '.join(f'{x:.4f}' for x in steps)}")
+        check(res["devices"] == 1, "task5 --parallel dp did not report one device")
+        check(len(steps) == 8 and steps[-1] < steps[0] and math.isfinite(steps[-1]),
+              "task5 --parallel dp did not learn")
+        torch.cuda.empty_cache()
+
+        # (5) comm.bench at world 1, every aggregator.
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            recs = bench.main(DP_BENCH)
+        for rec in recs:
+            print(f"[dp] comm.bench world {rec['world']} {rec['strategy']} "
+                  f"{rec['elements']} f32: {rec['mean_ms']:.4f} ms")
+        check({r["strategy"] for r in recs} == {"allreduce", "allgather", "reducescatter"}
+              and all(r["world"] == 1 and r["mean_ms"] > 0 for r in recs),
+              "comm.bench did not time every aggregator at world 1")
+    check(not torch.distributed.is_initialized(), "the DP group outlived its phase")
+    return {"dp": launches, "dp_split": split_launches}
+
+
 # ------------------------------------------------------------ phase 7
 
 
@@ -3113,6 +3331,8 @@ def main() -> int:
     paths["train_wide"] = train_wide_phase()
     torch.cuda.empty_cache()
     paths.update(flagship_phase())
+    torch.cuda.empty_cache()
+    paths.update(dp_phase())
     torch.cuda.empty_cache()
     paths["long"] = long_phase()
     torch.cuda.empty_cache()

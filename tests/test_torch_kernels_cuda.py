@@ -41,6 +41,9 @@ Tolerances, with their reasons:
   plain output's largest magnitude (both accumulate the same products in
   f32, over up to M rows in another order; a slab cut into chunks sums
   their partials in chunk order), and bitwise equal on a repeat.
+The flagship step through ``DataParallel`` on a one-rank NCCL group
+equals the single-card step bitwise where that step repeats itself
+bitwise (else the flagship's bf16 loss tolerance and AdamW's ±lr a step).
 Past the old grid-y edges (8,388,480 rows of kernels 10–12, and kernel 13
 with 129 row ranges there; B·H = 65535 of the flash kernels) the
 tolerances are those above, the plain versions taken in row or batch
@@ -1112,3 +1115,59 @@ def test_head_plan_is_the_kernels_choice(cuda_device):
             for v in (1, 3, 1000, 1001, 32768, 32773):
                 for int8 in (False, True):
                     assert head_plan_built(b, d, v, int8) == head_plan(b, d, v, int8)
+
+
+@pytest.mark.cuda
+def test_dp_world1_nccl_step_equals_the_single_card_step(cuda_device, tmp_path):
+    """The flagship step (bench.py's config: V=32768, d=512, H=4, L=6,
+    T=1024, B=8, bf16 over f32 masters, the fused head with saved scores,
+    flash attention, fused add+LN) through ``DataParallel`` on a one-rank
+    NCCL group, against the single-card step from the same weights:
+    bitwise equal where the single-card step repeats itself bitwise (at
+    world 1 the mean over one rank is exact), else within 4 times the gap
+    between two single-card runs, in losses and in parameters."""
+    from tpudml_torch.core import DistributedConfig, process_group
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.optim import AdamW
+    from tpudml_torch.parallel import DataParallel
+    from tpudml_torch.train import TrainState, make_lm_fused_train_step
+
+    cfg = dict(vocab_size=32768, embed_dim=512, num_heads=4, num_layers=6, max_len=1024,
+               rope=True, fused_ln=True, compute_dtype=torch.bfloat16, device=cuda_device)
+    batch = synthetic_lm(8, 1024, 32768, seed=1)
+    steps, lr = 2, 3e-4
+
+    def model(impl):
+        return TransformerLM(**cfg, impl=impl, generator=torch.Generator().manual_seed(3))
+
+    def run(m, step, ts):
+        losses = [step(ts, batch[:, :-1], batch[:, 1:])[1]["loss"].item() for _ in range(steps)]
+        return losses, {n: p.detach().clone() for n, p in m.named_parameters()}
+
+    singles = []
+    for _ in range(2):
+        m = model("flash")
+        opt = AdamW(lr=lr)
+        singles.append(run(m, make_lm_fused_train_step(m, opt, save_scores=True),
+                           TrainState.create(m, opt)))
+        del m
+    (want, want_p), (again, again_p) = singles
+    repeats = want == again and all(torch.equal(want_p[n], again_p[n]) for n in want_p)
+    with process_group(DistributedConfig(coordinator_address=f"file://{tmp_path}/store"),
+                       device="cuda"):
+        assert torch.distributed.get_backend() == "nccl"
+        m = model("full")
+        dp = DataParallel(m, AdamW(lr=lr), fused_xent=True, save_scores=True, flash_attn=True)
+        got, got_p = run(m, dp.make_train_step(), dp.create_state())
+    if repeats:
+        assert got == want
+        for n in want_p:
+            assert torch.equal(got_p[n], want_p[n]), n
+    else:
+        def gaps(losses, params):
+            return (max(abs(a - b) for a, b in zip(losses, want)),
+                    max((params[n] - want_p[n]).abs().max().item() for n in params))
+
+        (ldiff, worst), (lgap, pgap) = gaps(got, got_p), gaps(again, again_p)
+        assert ldiff <= 4 * lgap and worst <= 4 * pgap, (ldiff, worst, lgap, pgap)

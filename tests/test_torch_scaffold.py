@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port ``tpudml_torch``.
 
 - It imports with jax blocked, and loads nothing of ``tpudml`` (neither
-  does ``chip_smoke.py``); an AST scan finds no such import anywhere.
+  does ``chip_smoke.py``); an AST scan finds no such import anywhere, nor
+  in ``tests/torch_dist_worker.py``, the multi-process tests' rank script.
 - Entry points asked for the card on a machine without one raise, and
   ``chip_smoke.py`` exits non-zero without one, also when it is the only
   file of the repository present.
@@ -20,7 +21,9 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "tpudml_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# The multi-process tests' rank script runs without jax too.
+SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                       REPO / "tests" / "torch_dist_worker.py"]
 
 
 def _modules():
@@ -50,6 +53,18 @@ def test_imports_with_jax_blocked_and_no_tpudml():
 @pytest.mark.parametrize("module", ["tpudml_torch.nn.moe", "tpudml_torch.ops.moe_kernel"])
 def test_moe_modules_are_among_the_checked(module):
     """The MoE layer and the grouped-dW wrapper are among the modules the
+    jax-blocked import and the AST scan cover."""
+    assert module in list(_modules())
+    assert REPO / (module.replace(".", "/") + ".py") in SOURCES
+
+
+@pytest.mark.parametrize("module", [
+    "tpudml_torch.capabilities", "tpudml_torch.core.config", "tpudml_torch.core.dist",
+    "tpudml_torch.comm.collectives", "tpudml_torch.comm.timing", "tpudml_torch.comm.bench",
+    "tpudml_torch.data.sampler", "tpudml_torch.data.loader", "tpudml_torch.parallel.dp",
+    "tpudml_torch.ops.junction_kernel"])
+def test_dp_slice_modules_are_among_the_checked(module):
+    """The data-parallel slice's modules are among the modules the
     jax-blocked import and the AST scan cover."""
     assert module in list(_modules())
     assert REPO / (module.replace(".", "/") + ".py") in SOURCES

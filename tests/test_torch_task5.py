@@ -2,7 +2,9 @@
 on the CPU: a few steps at a tiny size, the fused linear-xent head in its
 saved-scores, lean and auto modes and its flag validation, the flags that
 are not ported, and the card being required unless the caller asks for
-the CPU. (The lean step against JAX's task5 engine:
+the CPU. ``--parallel dp`` at world 1 in this process (equal to
+``--parallel single``) and at world 2 over gloo
+(``tests/torch_dist_worker.py``: both ranks end at the same loss). (The lean step against JAX's task5 engine:
 ``tests/test_torch_longcontext.py``.) Also the MoE LM (``--moe_experts``):
 its loss and every gradient, the Switch aux term at α = 0.01 included,
 against ``tpudml``'s training step on the same parameters, in f32 (loss
@@ -94,7 +96,7 @@ def test_card_is_the_default_device(no_card, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--parallel", "dp"], "item 5"),
+    (["--parallel", "ep", "--moe_experts", "4"], "item 5"),
     (["--parallel", "fsdp"], "item 7"),
     (["--parallel", "tp"], "item 7"),
     (["--parallel", "pp"], "item 7"),
@@ -108,6 +110,32 @@ def test_unported_flags_raise(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         task5.main(TINY + flags + ["--device", "cpu", "--steps", "1",
                                    "--log_dir", str(tmp_path)])
+
+
+def test_dp_at_world_one_equals_single(tmp_path, capsys):
+    """``--parallel dp`` alone builds a one-rank gloo group; its run equals
+    ``--parallel single``'s (the mean over one rank is exact)."""
+    common = TINY + ["--device", "cpu", "--steps", "6", "--log_every", "3", "--attn",
+                     "flash", "--fused_ln", "--rope", "--log_dir", str(tmp_path)]
+    single = task5.main(common)
+    dp = task5.main(common + ["--parallel", "dp", "--n_devices", "1"])
+    assert "[dp/flash/cpu] 1 device(s)" in capsys.readouterr().out
+    assert dp["devices"] == 1 and dp["final_loss"] == single["final_loss"]
+    with pytest.raises(ValueError, match="--n_devices 2 != the 1 processes"):
+        task5.main(common + ["--parallel", "dp", "--n_devices", "2"])
+
+
+def test_dp_at_world_two_over_gloo(tmp_path):
+    """Two processes (tests/torch_dist_worker.py, suite task5) run
+    ``--parallel dp --fused_xent`` on one global batch stream: both report
+    the same final loss, and it learns."""
+    import torch_dist_worker
+
+    ranks = torch_dist_worker.spawn("task5", tmp_path / "job")
+    assert [r["devices"] for r in ranks] == [2, 2]
+    assert ranks[0]["final_loss"] == ranks[1]["final_loss"] < 3.4
+    assert list((tmp_path / "job" / "logs0").rglob("metrics.jsonl"))
+    assert not (tmp_path / "job" / "logs1").exists()  # only rank 0 writes
 
 
 @pytest.mark.parametrize("flags", [["--attn", "ring"], ["--cp_layout", "striped"]])

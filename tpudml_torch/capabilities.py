@@ -1,0 +1,139 @@
+"""The port's copy of the engine-composition rejections that its engines
+raise (the rows of ``tpudml/capabilities.py`` that ``DataParallel``
+checks, with the JAX wording; the planner's full table is ROADMAP.md
+queue 1 item 10).
+
+Guard sites call :func:`reject` with an entry's key instead of writing
+the message; each entry keeps its ``when`` predicate over a flat
+candidate dict, as in the JAX table. Stdlib only.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+
+class CompositionError(ValueError):
+    """An engine/knob combination that is rejected by design.
+
+    Subclasses ``ValueError`` so every pre-existing ``pytest.raises``
+    and caller-side ``except ValueError`` keeps working.
+    """
+
+
+# Engine families the predicates reason over. ``zero1`` is the DP
+# engine with zero1=True.
+_DP_FAMILY = ("dp", "zero1")
+
+
+def _g(c: dict, key: str, default=None):
+    return c.get(key, default)
+
+
+@dataclass(frozen=True)
+class Capability:
+    """One composition rejection: where it is enforced, the exact
+    message the runtime raises, and (when statically decidable) the
+    predicate the planner prunes with."""
+
+    key: str
+    owner: str  # module(s) whose constructor raises it
+    message: str
+    when: Optional[Callable[[dict], bool]] = None
+
+
+_ENTRIES = (
+    Capability(
+        key="save_scores_needs_fused_xent",
+        owner="tpudml_torch.parallel.dp",
+        message="save_scores requires fused_xent=True",
+        when=lambda c: bool(_g(c, "save_scores")) and not _g(c, "fused_xent"),
+    ),
+    Capability(
+        key="dp_fused_xent_split_step",
+        owner="tpudml_torch.parallel.dp",
+        message=(
+            "fused_xent composes with the fused step and the "
+            "built-in cross-entropy only (measure_comm=False, "
+            "default loss)"
+        ),
+        when=lambda c: _g(c, "engine") in _DP_FAMILY
+        and bool(_g(c, "fused_xent"))
+        and bool(_g(c, "measure_comm") or _g(c, "custom_loss")),
+    ),
+    Capability(
+        key="zero1_overlap_needs_zero1",
+        owner="tpudml_torch.parallel.dp",
+        message="zero1_overlap requires zero1=True",
+        when=lambda c: bool(_g(c, "zero1_overlap")) and not _g(c, "zero1"),
+    ),
+    Capability(
+        key="zero1_replaces_aggregation",
+        owner="tpudml_torch.parallel.dp",
+        message=(
+            "zero1=True replaces gradient aggregation with its own "
+            "reduce-scatter; leave aggregation='allreduce' (the default)"
+        ),
+        when=lambda c: bool(_g(c, "zero1"))
+        and _g(c, "aggregation", "allreduce") != "allreduce",
+    ),
+    Capability(
+        key="zero1_overlap_needs_accum",
+        owner="tpudml_torch.parallel.dp",
+        message=(
+            "zero1_overlap needs accum_steps >= 2: the overlap hides "
+            "the param all_gather behind the micro-batch scan"
+        ),
+        when=lambda c: bool(_g(c, "zero1_overlap"))
+        and bool(_g(c, "zero1"))
+        and _g(c, "accum_steps", 1) < 2,
+    ),
+    Capability(
+        key="zero1_overlap_measure_comm",
+        owner="tpudml_torch.parallel.dp",
+        message=(
+            "measure_comm is unsupported with zero1_overlap (the "
+            "split bracketing assumes the gather-at-end step layout); "
+            "use overlap_report() for exposed/hidden attribution"
+        ),
+        when=lambda c: bool(_g(c, "zero1_overlap"))
+        and bool(_g(c, "zero1"))
+        and bool(_g(c, "measure_comm")),
+    ),
+    Capability(
+        key="zero1_optimizer_needs_zero1",
+        owner="tpudml_torch.parallel.dp",
+        message=(
+            "a ZeRO1-wrapped optimizer needs zero1=True (the "
+            "engine must shard the optimizer state it creates)"
+        ),
+        when=None,  # constructor invariant: the planner never pre-wraps
+    ),
+    Capability(
+        key="train_flash_attn_dense",
+        owner="tpudml_torch.parallel.dp",
+        message=(
+            "flash_attn swaps the dense causal trunk onto the Pallas "
+            "flash kernel; it requires impl='full' (ring/ulysses trunks "
+            "already run fused sequence-sharded attention) and "
+            "seq_sharded=False"
+        ),
+        when=lambda c: bool(_g(c, "flash_attn"))
+        and (
+            _g(c, "impl", "full") != "full" or bool(_g(c, "seq_sharded"))
+        ),
+    ),
+)
+
+TABLE: dict[str, Capability] = {e.key: e for e in _ENTRIES}
+assert len(TABLE) == len(_ENTRIES), "duplicate capability keys"
+
+
+def reject(key: str, exc: type = CompositionError):
+    """Raise the capability table's rejection for ``key``.
+
+    Guard sites call this instead of inlining the message; ``exc`` lets
+    a site raise a subclass of :class:`CompositionError`.
+    """
+    raise exc(TABLE[key].message)

@@ -1,5 +1,5 @@
-"""Softmax cross-entropy (the port of ``tpudml/nn/losses.py``
-``softmax_cross_entropy``). Plain PyTorch: the JAX package computes it
+"""Softmax cross-entropy and top-1 accuracy (the port of
+``tpudml/nn/losses.py`` ``softmax_cross_entropy``, ``accuracy``). Plain PyTorch: the JAX package computes it
 with XLA, not with a Pallas kernel.
 
 Semantics follow the JAX function exactly: the mean over rows of
@@ -46,3 +46,8 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.T
             f"{tuple(logits.shape[:-1])}"
         )
     return _SoftmaxCrossEntropy.apply(logits, labels)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Top-1 accuracy: the f32 mean of ``argmax(logits) == labels``."""
+    return (logits.argmax(dim=-1) == labels).float().mean()

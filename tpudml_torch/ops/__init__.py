@@ -35,6 +35,7 @@ from tpudml_torch.ops.decode_head import (
     reference_head,
     reference_head_int8,
 )
+from tpudml_torch.ops.junction_kernel import fused_attn_junction, reference_attn_junction
 from tpudml_torch.ops.layernorm_kernel import (
     ADD_LN_BACKWARD,
     ADD_LN_BACKWARD_BF16,
@@ -132,6 +133,7 @@ __all__ = [
     "flash_forward_lse_reference",
     "flash_head_dim_ok",
     "fused_add_layernorm",
+    "fused_attn_junction",
     "fused_decode_head",
     "fused_decode_head_int8",
     "fused_layernorm",
@@ -153,6 +155,7 @@ __all__ = [
     "linear_cross_entropy",
     "ragged_ffn",
     "ragged_matmul",
+    "reference_attn_junction",
     "reference_head",
     "reference_head_int8",
     "reset_launch_counts",

@@ -13,10 +13,15 @@ flags as ``tasks/task5_longcontext.py`` plus ``--device`` (default
 score residual fits 2 GiB and the lean O(N) one beyond, as at the
 long-context recording T=16384, B=2, V=32768), and ``--moe_experts``
 with ``--moe_top_k`` and ``--moe_dispatch`` (MoE FFN blocks; the step
-adds the Switch aux term at α = 0.01, as JAX's does). Every other
-``--parallel`` value (``ep`` among them), ``--dropout``, ``--sentinel``
-and ``--ckpt_dir`` raise ``NotImplementedError``, naming their ROADMAP
-item.
+adds the Switch aux term at α = 0.01, as JAX's does), and ``--parallel
+dp``: ``tpudml_torch.parallel.DataParallel`` over the process group, one
+process per replica (``torchrun --nproc_per_node N``; a process started
+alone builds a one-rank group), world = the process count
+(``--n_devices``, if given, must equal it). Every rank draws the same
+global batch from the same ``rng`` and trains on its rows; only rank 0
+prints and writes metrics. Every other ``--parallel`` value (``ep``
+among them), ``--dropout``, ``--sentinel`` and ``--ckpt_dir`` raise
+``NotImplementedError``, naming their ROADMAP item.
 
 Same row sampling (``np.random.default_rng(seed)`` over
 ``synthetic_lm(4·B, …)``) and steady-state clock as the JAX entry point;
@@ -28,7 +33,9 @@ Run: ``python -m tpudml_torch.tasks.task5_longcontext --attn flash --fused_ln --
 long context on the lean head: ``--attn flash --seq_len 16384 --batch_size 2
 --vocab 32768 --embed_dim 512 --num_heads 4 --num_layers 6 --rope --steps 30
 --lr 0.001 --fused_xent``; MoE with the grouped-dW kernel: add
-``--moe_experts 8 --moe_dispatch ragged``
+``--moe_experts 8 --moe_dispatch ragged``; data parallel over gloo on the
+CPU: ``torchrun --nproc_per_node 2 -m tpudml_torch.tasks.task5_longcontext
+--parallel dp --device cpu``
 """
 
 from __future__ import annotations
@@ -40,21 +47,22 @@ import time
 import numpy as np
 import torch
 
+from tpudml_torch.core import assert_same_program, process_count, process_group, process_index
 from tpudml_torch.data import synthetic_lm
 from tpudml_torch.device import resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import TransformerLM
 from tpudml_torch.optim import make_optimizer
+from tpudml_torch.parallel import DataParallel
 from tpudml_torch.train import TrainState, make_lm_fused_train_step, make_train_step
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
 PARALLEL_ITEMS = {
-    "dp": "5 (data parallel)",
     "fsdp": "7 (sharded training engines)",
     "tp": "7 (sharded training engines)",
     "pp": "7 (sharded training engines)",
     "cp": "8 (context parallel)",
-    "ep": "5 (data parallel), then EP",
+    "ep": "5 (EP, the next slice)",
 }
 
 
@@ -128,7 +136,7 @@ def _save_scores(args) -> bool | None:
 
 
 def _reject_unported(args) -> None:
-    if args.parallel != "single":
+    if args.parallel not in ("single", "dp"):
         raise NotImplementedError(
             f"--parallel {args.parallel} {NOT_PORTED.format(PARALLEL_ITEMS[args.parallel])}")
     args._save_scores = _save_scores(args)
@@ -146,7 +154,8 @@ def _reject_unported(args) -> None:
 
 
 def build_engine(args, device: torch.device):
-    """(train_state, step_fn) for ``--parallel single``."""
+    """(train_state, step_fn) for ``--parallel single`` or ``dp`` (the
+    latter inside a process group)."""
     _reject_unported(args)
     model = TransformerLM(
         vocab_size=args.vocab,
@@ -165,6 +174,11 @@ def build_engine(args, device: torch.device):
         generator=torch.Generator().manual_seed(args.seed),
     )
     opt = make_optimizer("adam", args.lr)
+    if args.parallel == "dp":
+        # [B, T] token batches are never the stacked-loader form.
+        engine = DataParallel(model, opt, stacked_batches=False,
+                              fused_xent=args.fused_xent, save_scores=args._save_scores)
+        return engine.create_state(), engine.make_train_step()
     if args.fused_xent:
         step = make_lm_fused_train_step(model, opt, save_scores=args._save_scores)
     else:
@@ -176,6 +190,24 @@ def run(args) -> dict:
     if args.steps < 1:
         raise ValueError("--steps must be >= 1")
     device = resolve_device(args.device)
+    _reject_unported(args)
+    if args.parallel != "dp":
+        return _train(args, device)
+    with process_group(device=device) as group:
+        world = process_count(group)
+        if args.n_devices and args.n_devices != world:
+            raise ValueError(f"--n_devices {args.n_devices} != the {world} processes of "
+                             "the group (one device each)")
+        # All ranks must agree on argv (minus host-local paths).
+        rank_invariant = {k: v for k, v in vars(args).items()
+                          if k not in ("log_dir", "ckpt_dir")}
+        assert_same_program(repr(sorted(rank_invariant.items())), "task5 args", group)
+        return _train(args, device, world, lead=process_index(group) == 0)
+
+
+def _train(args, device: torch.device, world: int = 1, lead: bool = True) -> dict:
+    """The training loop; in a DP run every rank runs it on the same global
+    batches, and rank 0 (``lead``) prints and writes the metrics."""
     ts, step = build_engine(args, device)
     seqs = synthetic_lm(args.batch_size * 4, args.seq_len, args.vocab, seed=args.seed)
 
@@ -183,7 +215,7 @@ def run(args) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    writer = MetricsWriter(args.log_dir, run_name=f"task5-{args.parallel}-torch")
+    writer = MetricsWriter(args.log_dir, run_name=f"task5-{args.parallel}-torch") if lead else None
     rng = np.random.default_rng(args.seed)
     t0 = None
     loss = float("nan")
@@ -204,8 +236,9 @@ def run(args) -> dict:
         logged = args.log_every and i % args.log_every == 0
         if logged:
             loss = float(metrics["loss"])
-            writer.add_scalar("Train Loss", loss, i)
-            print(f"step {i}: loss {loss:.4f}")
+            if lead:
+                writer.add_scalar("Train Loss", loss, i)
+                print(f"step {i}: loss {loss:.4f}")
         if args.target_loss is not None and t0 is not None and (logged or (
             not args.log_every and i % 10 == 0
         )):
@@ -213,8 +246,9 @@ def run(args) -> dict:
             if checked <= args.target_loss:
                 hit_target, final_step = i, i
                 time_to_target = time.time() - t0
-                print(f"target loss {args.target_loss} reached at step {i} "
-                      f"({time_to_target:.1f}s after steady-state step {steady_from})")
+                if lead:
+                    print(f"target loss {args.target_loss} reached at step {i} "
+                          f"({time_to_target:.1f}s after steady-state step {steady_from})")
                 break
     sync()
     loss = float(metrics["loss"])
@@ -224,19 +258,20 @@ def run(args) -> dict:
         tokens / elapsed if tokens > 0 and elapsed and elapsed > 0 else float("nan")
     )
     ppl = math.exp(min(loss, 700.0))
-    print(
-        f"[{args.parallel}/{args.attn or 'default'}/{device.type}] 1 device(s), "
-        f"T={args.seq_len}: {tok_per_s:,.0f} tokens/sec, final loss {loss:.4f} "
-        f"(ppl {ppl:.2f})"
-    )
-    writer.add_scalar("Tokens Per Sec", tok_per_s, final_step)
-    writer.add_scalar("Perplexity", ppl, final_step)
-    writer.close()
+    if lead:
+        print(
+            f"[{args.parallel}/{args.attn or 'default'}/{device.type}] {world} device(s), "
+            f"T={args.seq_len}: {tok_per_s:,.0f} tokens/sec, final loss {loss:.4f} "
+            f"(ppl {ppl:.2f})"
+        )
+        writer.add_scalar("Tokens Per Sec", tok_per_s, final_step)
+        writer.add_scalar("Perplexity", ppl, final_step)
+        writer.close()
     return {
         "tokens_per_sec": tok_per_s,
         "final_loss": loss,
         "perplexity": ppl,
-        "devices": 1,
+        "devices": world,
         "device": str(device),
         "steps_run": final_step,
         "target_reached_at": hit_target,

@@ -44,16 +44,27 @@ fused add+LN, RoPE, top-1 MoE FFNs of E experts at capacity factor 1.25
 (``synthetic_lm(8, 1024, 32768, seed=3)``) every step, through
 ``make_train_step`` (materialized logits). One configuration, "moe".
 
+``--dp`` profiles the flagship step under ``tpudml_torch.parallel.DataParallel``
+at world 1 (a one-rank NCCL group over a file store in a temporary
+directory; ``fused_xent=True, save_scores=True, flash_attn=True`` on the
+same model) against the single-card flagship step, interleaved in one
+process: single_1, dp_1, dp_2, single_2. Each DP row adds the device ms a
+call of the gradient aggregation alone (the all-reduce of the flat
+gradients, on the step's own gradients): its NCCL kernels and the copies
+around them (the flat buffer's cat, the ÷ world), from ``torch.profiler``.
+
 Run on the card: ``python -m tpudml_torch.tools.profile_train [--flagship | --long |
---wide | --moe 8 --moe_variant ragged_grouped]`` (one JSON line at the end; ``--out FILE``
-also writes it to FILE).
+--wide | --dp | --moe 8 --moe_variant ragged_grouped]`` (one JSON line at the end;
+``--out FILE`` also writes it to FILE).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
+import tempfile
 
 import numpy as np
 import torch
@@ -71,6 +82,45 @@ MOE_VARIANTS = {"gather": dict(moe_dispatch="gather"),
                 "ragged_grouped": dict(moe_dispatch="ragged", moe_ragged_dw="grouped")}
 
 
+def collective_breakdown(fn, calls: int = 10) -> dict:
+    """What a call of ``fn`` (an aggregation) does, from ``torch.profiler``
+    over ``calls`` calls: the collectives dispatched to the process group
+    (the CPU ranges ``c10d::*``) and those NCCL took (``nccl:*``, recorded
+    by ProcessGroupNCCL), NCCL's device kernels and their ms, and the other
+    device work (the flat buffer's cat, the ÷ world, a copy) and its ms. At
+    one rank NCCL may launch no kernel: the CPU ranges show that the
+    collective ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cpu = [ev.name for ev in events if ev.device_type == torch.autograd.DeviceType.CPU]
+    dev = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = [ev for ev in dev if "nccl" in ev.name.lower()]
+    other = [ev for ev in dev if "nccl" not in ev.name.lower()]
+    us = lambda evs: sum(ev.time_range.elapsed_us() for ev in evs)  # noqa: E731
+    names = lambda prefix: [n for n in cpu if n.startswith(prefix)]  # noqa: E731
+    return {"dispatched": len(names("c10d::")) / calls,
+            "dispatched_names": sorted(set(names("c10d::"))),
+            "issued": len(names("nccl:")) / calls, "issued_names": sorted(set(names("nccl:"))),
+            "nccl_kernels": len(nccl) / calls, "nccl_ms": us(nccl) / 1e3 / calls,
+            "other_kernels": len(other) / calls, "other_ms": us(other) / 1e3 / calls,
+            "other_names": sorted({ev.name[:40] for ev in other})}
+
+
+def describe_aggregation(p: dict) -> str:
+    """One line of :func:`collective_breakdown`'s numbers."""
+    return (f"a call dispatches {p['dispatched']:g} collective(s) {p['dispatched_names']}, "
+            f"NCCL takes {p['issued']:g} {p['issued_names']}; device: NCCL "
+            f"{p['nccl_ms']:.4f} ms in {p['nccl_kernels']:g} kernel(s), other "
+            f"{p['other_ms']:.4f} ms in {p['other_kernels']:g} {p['other_names']}")
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser()
     p.add_argument("--iters", type=int, default=None,
@@ -82,6 +132,9 @@ def main(argv=None) -> dict:
                       help="the T=16384 long-context step, lean vs saved-scores head")
     mode.add_argument("--wide", action="store_true",
                       help="the f32 step on the wide trunk (d=2048, H=16, L=2)")
+    mode.add_argument("--dp", action="store_true",
+                      help="the flagship step under DataParallel at world 1 (NCCL) against "
+                      "the single-card one, interleaved")
     mode.add_argument("--moe", type=int, default=0, metavar="E",
                       help="one bench_moe step with E experts (bf16, top-1, capacity 1.25)")
     p.add_argument("--moe_variant", choices=sorted(MOE_VARIANTS), default="ragged_grouped")
@@ -94,7 +147,9 @@ def main(argv=None) -> dict:
     from tpudml_torch.data import synthetic_lm
     from tpudml_torch.models import TransformerLM
     from tpudml_torch.ops import build_kernels
+    from tpudml_torch.core import DistributedConfig, process_group
     from tpudml_torch.optim import Adam, AdamW
+    from tpudml_torch.parallel import DataParallel
     from tpudml_torch.train import TrainState, make_lm_fused_train_step, make_train_step
 
     build_kernels()
@@ -104,14 +159,17 @@ def main(argv=None) -> dict:
     if args.wide:
         model_cfg = dict(MODEL, **WIDE)
     t = model_cfg["max_len"]
-    if args.flagship or args.moe:
+    if args.flagship or args.moe or args.dp:
         seed = 3 if args.moe else 1  # bench.py:604 / :351
         batches = itertools.repeat(synthetic_lm(BATCH, t, MODEL["vocab_size"], seed=seed))
         bf16 = dict(compute_dtype=torch.bfloat16)
+        flagship = dict(impl="flash", fused_ln=True, **bf16)
         configs = ((("moe", dict(impl="flash", fused_ln=True, moe_experts=args.moe,
                                  moe_capacity_factor=1.25, **MOE_VARIANTS[args.moe_variant],
                                  **bf16), False),) if args.moe else
-                   (("kernel", dict(impl="flash", fused_ln=True, **bf16), True),
+                   tuple((name, flagship, True)
+                         for name in ("single_1", "dp_1", "dp_2", "single_2")) if args.dp else
+                   (("kernel", flagship, True),
                     ("plain", dict(impl="full", fused_ln=False, **bf16), False)))
     else:
         seqs = synthetic_lm(4 * batch, t, MODEL["vocab_size"], seed=0)
@@ -124,19 +182,32 @@ def main(argv=None) -> dict:
                     ("plain", dict(impl="full", fused_ln=False), False)))
     step_name = (f"MoE E={args.moe} {args.moe_variant} bf16 (AdamW 3e-4)" if args.moe else
                  "flagship bf16 (fused xent head, AdamW 3e-4)" if args.flagship else
+                 "flagship bf16, single card vs DataParallel world 1 (NCCL)" if args.dp else
                  "long-context f32 T=16384 (fused xent head, Adam 1e-3)" if args.long
                  else "wide-trunk f32 d=2048 (materialized logits, Adam 1e-3)" if args.wide
                  else "f32 (materialized logits, Adam 1e-3)")
     result = {"device": torch.cuda.get_device_name(0), "model": model_cfg,
               "batch": batch, "tokens_per_step": batch * t, "step": step_name}
+    tmp = stack = None
+    if args.dp:
+        stack = contextlib.ExitStack()
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        stack.enter_context(process_group(
+            DistributedConfig(coordinator_address=f"file://{tmp}/store"), device="cuda"))
     for name, kw, save_scores in configs:
-        model = TransformerLM(**model_cfg, **kw, device="cuda",
-                              generator=torch.Generator().manual_seed(0))
-        opt = AdamW(lr=3e-4) if args.flagship or args.moe else Adam(lr=1e-3)
+        dp = name.startswith("dp")
+        model = TransformerLM(**model_cfg, **dict(kw, impl="full") if dp else kw,
+                              device="cuda", generator=torch.Generator().manual_seed(0))
+        opt = AdamW(lr=3e-4) if args.flagship or args.moe or args.dp else Adam(lr=1e-3)
         fused_head = args.long or save_scores
-        step = (make_lm_fused_train_step(model, opt, save_scores=save_scores) if fused_head
-                else make_train_step(model, opt))
-        ts = TrainState.create(model, opt)
+        if dp:
+            engine = DataParallel(model, opt, fused_xent=True, save_scores=True,
+                                  flash_attn=True)
+            step, ts = engine.make_train_step(), engine.create_state()
+        else:
+            step = (make_lm_fused_train_step(model, opt, save_scores=save_scores) if fused_head
+                    else make_train_step(model, opt))
+            ts = TrainState.create(model, opt)
 
         def one_step(ts=ts, step=step):
             batch = next(batches)
@@ -146,15 +217,24 @@ def main(argv=None) -> dict:
         r = _measure(one_step, iters)
         r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         r["tokens_per_sec"] = batch * t / r["wall_ms"] * 1e3
+        if dp:
+            rows = next(batches)
+            grads, _ = engine.local_grads(ts, rows[:, :-1], rows[:, 1:])
+            r["aggregation"] = collective_breakdown(lambda: engine.aggregator(grads))
+            del engine, grads
         result[name] = r
         del model, ts, step
         torch.cuda.empty_cache()
+    if stack is not None:
+        stack.close()
     for key, _, _ in configs:
         r = result[key]
         print(f"[profile] {result['step']} step, {key}: wall {r['wall_ms']:.3f} ms, events "
               f"{r['event_ms']:.3f} ms, {r['kernels_per_call']:.0f} kernels summing "
               f"{r['kernel_ms_per_call']:.3f} ms (busy {r['busy_share']:.2f}), "
               f"{r['tokens_per_sec']:.0f} tokens/s, peak {r['peak_mem_gb']:.2f} GB")
+        if "aggregation" in r:
+            print(f"    aggregation alone (world 1): {describe_aggregation(r['aggregation'])}")
         for row in r["top"]:
             print(f"    {row['ms_per_call']:.4f} ms x{row['launches_per_call']:.0f}  "
                   f"{row['kernel']}")

@@ -1,8 +1,10 @@
 """Training step (the port of ``tpudml/train.py``: ``TrainState``,
 ``make_loss_fn``, ``make_train_step_body``, ``make_train_step``, the
 fused-head LM step ``make_lm_fused_loss_fn``,
-``make_lm_fused_train_step_body``, ``make_lm_fused_train_step``, and the
-MoE aux-loss plumbing ``collect_aux_losses``, ``model_has_moe``,
+``make_lm_fused_train_step_body``, ``make_lm_fused_train_step``, the
+DP engine's un-aggregated local step ``local_grads``/``accumulate_grads`` (for both of
+JAX's ``accumulate_grads`` and ``accumulate_fused_grads``), and the MoE
+aux-loss plumbing ``collect_aux_losses``, ``model_has_moe``,
 ``resolve_aux_loss_weight``).
 
 A MoE model's objective adds α·Σ(its layers' Switch load-balancing terms)
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpudml_torch.nn.losses import softmax_cross_entropy
+from tpudml_torch.nn.losses import accuracy, softmax_cross_entropy
 from tpudml_torch.nn.moe import MoELayer
 from tpudml_torch.ops.xent_kernel import linear_cross_entropy
 from tpudml_torch.optim import Optimizer
@@ -83,15 +85,16 @@ def _with_aux(model: nn.Module, loss: torch.Tensor, aux_w: float) -> torch.Tenso
     return loss + aux_w * collect_aux_losses(model).to(loss.device) if aux_w else loss
 
 
-def make_loss_fn(model: nn.Module, aux_loss_weight: float | None = None) -> Callable:
-    """(tokens, labels) -> (loss, logits): ``model``'s forward and the
-    mean softmax cross-entropy over the materialized logits, plus α·aux
-    (module docstring)."""
+def make_loss_fn(model: nn.Module, aux_loss_weight: float | None = None,
+                 loss: Callable = softmax_cross_entropy) -> Callable:
+    """(tokens, labels) -> (loss, logits): ``model``'s forward and ``loss``
+    (default the mean softmax cross-entropy) over the materialized logits,
+    plus α·aux (module docstring)."""
     aux_w = resolve_aux_loss_weight(model, aux_loss_weight)
 
     def loss_fn(tokens, labels):
         logits = model(tokens)
-        return _with_aux(model, softmax_cross_entropy(logits, labels), aux_w), logits
+        return _with_aux(model, loss(logits, labels), aux_w), logits
 
     return loss_fn
 
@@ -117,20 +120,48 @@ def make_lm_fused_loss_fn(model: nn.Module, save_scores: bool | None = None,
     return loss_fn
 
 
+def local_grads(loss_fn: Callable, model: nn.Module, tokens: torch.Tensor,
+                labels: torch.Tensor, with_accuracy: bool = False):
+    """Forward and backward without the update: ``(grads, metrics)``, the
+    gradients of ``loss_fn`` (:func:`make_loss_fn` or
+    :func:`make_lm_fused_loss_fn`) over ``model``'s parameters by name,
+    and ``{"loss"}`` plus, with ``with_accuracy`` and a ``loss_fn`` that
+    returns logits, ``{"accuracy"}`` (detached). Every parameter has a
+    gradient, so that every rank's flat buffer holds the same tensors: one
+    the loss does not reach gets zeros."""
+    params = params_of(model)
+    value, logits = loss_fn(tokens, labels)
+    grads = torch.autograd.grad(value, list(params.values()), allow_unused=True,
+                                materialize_grads=True)
+    metrics = {"loss": value.detach()}
+    if with_accuracy and logits is not None:
+        metrics["accuracy"] = accuracy(logits.detach(), labels)
+    return dict(zip(params, grads)), metrics
+
+
 def _step_body(optimizer: Optimizer, loss_fn: Callable) -> Callable:
-    """(ts, tokens, labels) -> (ts, {"loss": loss}): forward, backward and
-    optimizer update through ``loss_fn``."""
+    """(ts, tokens, labels) -> (ts, {"loss": loss}): :func:`local_grads`,
+    then the optimizer update."""
 
     def step(ts: TrainState, tokens: torch.Tensor, labels: torch.Tensor):
-        params = params_of(ts.model)
-        value, _ = loss_fn(tokens, labels)
-        grads = torch.autograd.grad(value, list(params.values()))
-        _, ts.opt_state = optimizer.update(dict(zip(params, grads)),
-                                           ts.opt_state, params)
+        grads, metrics = local_grads(loss_fn, ts.model, tokens, labels)
+        _, ts.opt_state = optimizer.update(grads, ts.opt_state, params_of(ts.model))
         ts.step += 1
-        return ts, {"loss": value.detach()}
+        return ts, metrics
 
     return step
+
+
+def accumulate_grads(loss_fn: Callable, model: nn.Module, images: torch.Tensor,
+                     labels: torch.Tensor, rng=None, accum_steps: int = 1):
+    """The DP engine's local step: :func:`local_grads` with accuracy, which
+    the engine aggregates before the optimizer update. ``accum_steps > 1``
+    and dropout ``rng`` are not ported."""
+    if accum_steps != 1:
+        raise NotImplementedError(f"accum_steps > 1 {NOT_PORTED}")
+    if rng is not None:
+        raise NotImplementedError(f"dropout rngs {NOT_PORTED}")
+    return local_grads(loss_fn, model, images, labels, with_accuracy=True)
 
 
 def make_train_step_body(model: nn.Module, optimizer: Optimizer,
