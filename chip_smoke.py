@@ -206,13 +206,42 @@ the CPU). Phases, each printing its own line(s):
    the stock dW backward (STEP_GRAD_RTOL, equal losses), then
    MOE_F32_STEPS steps with zeroed counts: 12 launches a step of kernel
    16's f32 twin.
-11. one JSON line of per-kernel numbers (launches summed over the main
+11. main path 7, the north star (``tasks/north_star.py``, ``bench.py``
+   ``bench_resnet``): ResNet-18 at CIFAR width (11.17M parameters) with
+   BatchNorm, SGD 0.1 / 0.9, weights from a seeded generator. It runs no
+   kernel of the port: convolutions go to cuDNN, BatchNorm is PyTorch
+   ops. Launch counts are zeroed at its start and must all read 0 at its
+   end. (1) One f32 3x3 conv at 512 input channels against f64 on the
+   card, within TF32_CONV_REL (TF32 is off for convolutions); the same
+   conv with cuDNN's TF32 allowed is printed beside it. (2) f32 at a
+   batch of 16 from ``synthetic_classification``: the card's train-mode
+   logits, BatchNorm statistics after the forward and step-1 gradients
+   against the port's CPU run of the same weights, the CPU run replaying
+   the card's ReLU masks (``relu_masks``; how many inputs round to the
+   other side of 0 unreplayed is printed), within RESNET_F32_REL and
+   STEP_GRAD_RTOL. (3) bf16 against f32 on the card: step-1 gradients in
+   norm, per parameter and all together, and logits, within the stated
+   bf16 bounds (the f32 run replaying the bf16 run's masks). (4) The
+   single-card bf16 step at bench's batch of 1024 (one batch,
+   ``synthetic_classification(1024, (32, 32, 3), 10, seed=0)``),
+   RESNET_STEPS steps twice from one seed: whether it repeats itself
+   bitwise, ms/step, imgs/s and peak memory. (5) ``DataParallel`` at
+   world 1 on a one-rank NCCL group from the same weights and batch:
+   losses, parameters and BatchNorm buffers bitwise equal to (4) where (4)
+   repeats itself, else within DP_GAP_MULT times the gap between its two
+   runs; its ms/step and imgs/s, labelled world 1. (6) ``python -m
+   tpudml_torch.tasks.north_star --epochs 1`` at its defaults (synthetic
+   CIFAR, 390 steps of 128): the loss falls, the test accuracy reaches
+   NORTH_STAR_ACC_FLOOR, and its imgs/sec/chip line is printed. cuDNN's
+   algorithm choice is left as it is (no ``cudnn.deterministic``).
+12. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -2931,6 +2960,271 @@ def moe_f32_phase() -> dict[str, int]:
     return launches
 
 
+# ------------------------------------------------------------ phase 11
+
+# The north star (tasks/north_star.py; bench.py:200-246 bench_resnet):
+# ResNet-18 at CIFAR width, bf16 compute over f32 masters, SGD 0.1 / 0.9.
+RESNET_BATCH = 1024  # bench.py:215, the per-chip batch
+RESNET_CHECK_BATCH = 16  # card against the CPU (step 2), bf16 against f32 (step 3)
+RESNET_STEPS = 4  # the first is the warm-up; ms/step is taken over the rest
+RESNET_SGD = dict(lr=0.1, momentum=0.9)
+# Step 1: an f32 3x3 conv at 512 input channels (4608-term sums) against the
+# same conv in f64, within TF32_CONV_REL of max |f64|; TF32 keeps 10 bits
+# of each operand and misses that by about 100 times.
+TF32_CONV_REL = 1e-5
+# Steps 2 and 3 compare two runs of the model with the second replaying the
+# first's ReLU masks (``relu_masks``): an input that rounds to the other
+# side of 0 in one run moves a gradient by that element's share (on the
+# CPU, two such flips between the port's f32 and f64 runs move one conv
+# kernel's gradient by 5.6% of its max), and the replay leaves the
+# rounding alone to compare.
+# Step 2 (f32, the card against the port's CPU run): logits and the BN
+# statistics after the forward within RESNET_F32_REL of max |CPU|, each
+# parameter's step-1 gradient within STEP_GRAD_RTOL of its max |CPU| (f32
+# sums over up to 16·32·32 rows a channel and 4608-term windows in another
+# order; on the CPU the port's f32 run lies within 6.1e-6 of its f64 run).
+RESNET_F32_REL = 1e-4
+# Step 3 (bf16 against f32 on the card, the f32 run replaying the bf16
+# run's masks): each parameter's step-1 gradient within
+# RESNET_BF16_GRAD_REL of the f32 one in norm, all of them together within
+# RESNET_BF16_ALL_REL (on the CPU 0.051 and 0.024: bf16 rounds every
+# activation to 8 bits, and a BatchNorm parameter's gradient is a sum that
+# mostly cancels); logits within RESNET_BF16_LOGIT_REL of max |f32| (CPU:
+# 1.6e-2).
+RESNET_BF16_GRAD_REL = 0.1
+RESNET_BF16_ALL_REL = 0.05
+RESNET_BF16_LOGIT_REL = 3e-2
+# Step 6: the north star's entry at its defaults for one epoch (390 steps
+# of 128 on the 50000-image synthetic CIFAR split); chance is 0.1.
+NORTH_STAR_EPOCH_STEPS = 50000 // 128
+NORTH_STAR_ACC_FLOOR = 0.5
+
+
+@contextlib.contextmanager
+def relu_masks(replay=None):
+    """Record each ``F.relu`` the model calls as its ``x > 0`` mask, into the
+    yielded list; or, given ``replay`` (such a list), apply those masks
+    instead: ``x · mask``, whose gradient is the mask."""
+    import torch.nn.functional as F
+
+    relu, masks = F.relu, []
+    masks_in = None if replay is None else iter(replay)
+
+    def patched(x, *args, **kw):
+        if masks_in is not None:
+            return x * next(masks_in).to(x.device)
+        masks.append(x.detach() > 0)
+        return relu(x, *args, **kw)
+
+    F.relu = patched
+    try:
+        yield masks
+    finally:
+        F.relu = relu
+
+
+def _image_run(ts, step, images, labels, steps: int):
+    """``steps`` steps on one batch: (losses, ms/step over the steps after
+    the first, the warm-up)."""
+    import torch
+
+    losses, t0 = [], None
+    for i in range(steps):
+        ts, metrics = step(ts, images, labels)
+        losses.append(metrics["loss"])
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], (time.perf_counter() - t0) * 1e3 / (steps - 1)
+
+
+def _state(model) -> dict:
+    return {n: t.detach().clone() for n, t in model.state_dict().items()}
+
+
+def resnet_phase() -> dict[str, int]:
+    """Main path 7, the north star (module docstring, phase 11). Returns its
+    launch counts: none, as no kernel of the port lies on it."""
+    import io
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tpudml_torch.core import DistributedConfig, process_count, process_group
+    from tpudml_torch.data import synthetic_classification
+    from tpudml_torch.models import ResNet18
+    from tpudml_torch.nn import Conv2D
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import Sgd
+    from tpudml_torch.parallel import DataParallel
+    from tpudml_torch.tasks import north_star
+    from tpudml_torch.train import TrainState, make_loss_fn, make_train_step, params_of
+
+    reset_launch_counts()  # ---- the resnet path starts here
+    gen = torch.Generator().manual_seed(11)
+
+    # (1) TF32 is off for convolutions.
+    conv = Conv2D(512, 512, 3, 1, "SAME", use_bias=False, generator=gen).cuda()
+    x = torch.randn(8, 512, 16, 16, generator=gen).cuda().contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        want = F.conv2d(x.double(), conv.kernel.double(), padding=1)
+        err = rel_to_max(conv(x), want)
+        torch.backends.cudnn.allow_tf32 = True
+        tf32_err = rel_to_max(conv(x), want)
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"[resnet] f32 3x3 conv, 512 -> 512 channels, 16x16: max|err|/max|f64| {err:.3e} "
+          f"(tol {TF32_CONV_REL:g}); with cuDNN's TF32 allowed {tf32_err:.3e}")
+    check(err <= TF32_CONV_REL, "an f32 convolution runs in TF32")
+    del conv, x, want
+
+    # (2) The card against the port's CPU run, f32.
+    images, labels = synthetic_classification(RESNET_CHECK_BATCH, (32, 32, 3), 10, seed=0)
+
+    def model(device, dtype=torch.float32):
+        return ResNet18(compute_dtype=dtype, device=device,
+                        generator=torch.Generator().manual_seed(3))
+
+    def step1(m, replay=None):
+        """(logits, BN buffers after the forward, step-1 gradients, masks)."""
+        dev = next(m.parameters()).device
+        x, y = torch.from_numpy(images).to(dev), torch.from_numpy(labels).long().to(dev)
+        with relu_masks(replay) as masks:
+            loss, logits = make_loss_fn(m)(x, y)
+            grads = torch.autograd.grad(loss, list(params_of(m).values()))
+        return (logits.detach().float().cpu(),
+                {n: b.detach().cpu() for n, b in m.named_buffers()},
+                {n: g.float().cpu() for n, g in zip(params_of(m), grads)}, masks)
+
+    card = step1(model("cuda"))
+    with torch.no_grad(), relu_masks() as cpu_masks:
+        model("cpu")(torch.from_numpy(images))
+    flips = sum(int((a.cpu() != b).sum()) for a, b in zip(card[3], cpu_masks))
+    cpu = step1(model("cpu"), replay=card[3])
+    logit_err = rel_to_max(card[0], cpu[0])
+    buf_err, buf_name = _worst(card[1], cpu[1], cpu[1])
+    grad_err, grad_name = _worst(card[2], cpu[2], cpu[2])
+    n_masked = sum(m.numel() for m in card[3])
+    print(f"[resnet] ResNet-18 f32, batch {RESNET_CHECK_BATCH}, card vs the port's CPU run "
+          f"(the card's ReLU masks replayed; {flips} of {n_masked} ReLU inputs round to the "
+          f"other side of 0 unreplayed): logits {logit_err:.3e}, BN statistics {buf_err:.3e} "
+          f"({buf_name}) (tol {RESNET_F32_REL:g}); step-1 gradients worst max|err|/max|cpu| "
+          f"{grad_err:.3e} ({grad_name}; tol {STEP_GRAD_RTOL:g}) over {len(cpu[2])} parameters")
+    check(logit_err <= RESNET_F32_REL, "f32 logits on the card disagree with the CPU's")
+    check(buf_err <= RESNET_F32_REL, f"BN statistic {buf_name} disagrees with the CPU's")
+    check(grad_err <= STEP_GRAD_RTOL, f"step-1 gradient {grad_name} disagrees with the CPU's")
+    del cpu, cpu_masks
+
+    # (3) bf16 against f32 on the card.
+    bf = step1(model("cuda", torch.bfloat16))
+    f32 = step1(model("cuda"), replay=bf[3])
+
+    def norm_rel(got, want):
+        return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+    per = {n: norm_rel(bf[2][n], f32[2][n]) for n in f32[2]}
+    worst_name = max(per, key=per.get)
+    flat = lambda g: torch.cat([t.flatten() for t in g.values()])  # noqa: E731
+    all_rel = norm_rel(flat(bf[2]), flat(f32[2]))
+    natural = norm_rel(flat(bf[2]), flat(card[2]))
+    logit_err = rel_to_max(bf[0], card[0])
+    print(f"[resnet] bf16 vs f32 on the card (the bf16 run's ReLU masks replayed in f32): "
+          f"step-1 gradients |err|/|f32| worst {per[worst_name]:.3e} ({worst_name}; tol "
+          f"{RESNET_BF16_GRAD_REL:g}), all {all_rel:.3e} (tol {RESNET_BF16_ALL_REL:g}; "
+          f"unreplayed {natural:.3e}); logits {logit_err:.3e} (tol {RESNET_BF16_LOGIT_REL:g})")
+    check(per[worst_name] <= RESNET_BF16_GRAD_REL, f"bf16 gradient {worst_name} is off f32")
+    check(all_rel <= RESNET_BF16_ALL_REL, "bf16 gradients are off f32")
+    check(logit_err <= RESNET_BF16_LOGIT_REL, "bf16 logits are off f32")
+    del card, bf, f32
+    torch.cuda.empty_cache()
+
+    # (4) The single-card bf16 step at bench_resnet's batch, twice from one seed.
+    x, y = synthetic_classification(RESNET_BATCH, (32, 32, 3), 10, seed=0)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).long().cuda()
+
+    def single():
+        m = model("cuda", torch.bfloat16)
+        opt = Sgd(**RESNET_SGD)
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = _image_run(TrainState.create(m, opt), make_train_step(m, opt), x, y,
+                                RESNET_STEPS)
+        return losses, ms, _state(m), torch.cuda.max_memory_allocated() / 1e9
+
+    s1_losses, s1_ms, s1_state, peak = single()
+    s2_losses, s2_ms, s2_state, _ = single()
+    repeats = s1_losses == s2_losses and _bitwise(s1_state, s2_state)
+    print(f"[resnet] single-card bf16 step, batch {RESNET_BATCH}, SGD 0.1 / 0.9: losses "
+          f"{' '.join(f'{v:.6f}' for v in s1_losses)}; {s1_ms:.2f}, {s2_ms:.2f} ms/step, "
+          f"{RESNET_BATCH / s1_ms * 1e3:.0f}, {RESNET_BATCH / s2_ms * 1e3:.0f} imgs/s (steady "
+          f"state, {RESNET_STEPS - 1} steps after one warm-up), peak {peak:.2f} GB; repeats "
+          f"itself bitwise: {repeats}")
+    check(all(np.isfinite(s1_losses)), "a single-card ResNet loss is not finite")
+
+    # (5) DataParallel at world 1, from the same weights and batch.
+    with tempfile.TemporaryDirectory() as tmp, process_group(
+            DistributedConfig(coordinator_address=f"file://{tmp}/store", num_processes=1),
+            device="cuda") as group:
+        check(torch.distributed.get_backend(group) == "nccl" and process_count(group) == 1,
+              "the DP group is not a one-rank NCCL group")
+        m = model("cuda", torch.bfloat16)
+        dp = DataParallel(m, Sgd(**RESNET_SGD), group, stacked_batches=True)
+        d_losses, d_ms = _image_run(dp.create_state(), dp.make_train_step(), x[None], y[None],
+                                    RESNET_STEPS)
+        d_state = _state(m)
+        del dp, m
+    print(f"[resnet] DataParallel world 1 (one-rank NCCL group): losses "
+          f"{' '.join(f'{v:.6f}' for v in d_losses)}; {d_ms:.2f} ms/step, "
+          f"{RESNET_BATCH / d_ms * 1e3:.0f} imgs/s at world 1")
+    if repeats:
+        check(d_losses == s1_losses, "world-1 DP losses differ from the single-card step's")
+        check(_bitwise(d_state, s1_state), "world-1 DP parameters or BN buffers differ from "
+              "the single-card step's")
+        print(f"[resnet] world-1 DP step equals the single-card step bitwise (losses, "
+              f"{len(d_state)} parameters and buffers)")
+    else:
+        def gaps(losses, state):
+            return (max(abs(a - b) for a, b in zip(losses, s1_losses)),
+                    max((state[n].float() - s1_state[n].float()).abs().max().item()
+                        for n in state))
+
+        (ldiff, worst), (lgap, pgap) = gaps(d_losses, d_state), gaps(s2_losses, s2_state)
+        print(f"[resnet] the single-card step is not deterministic (two runs differ by |loss| "
+              f"{lgap:.2e}, |param or buffer| {pgap:.2e}): world-1 DP vs single |loss diff| "
+              f"{ldiff:.2e}, max |diff| {worst:.2e} (tol {DP_GAP_MULT} x the gap)")
+        check(ldiff <= DP_GAP_MULT * lgap and worst <= DP_GAP_MULT * pgap,
+              "world-1 DP disagrees with the single-card step")
+    del x, y, s1_state, s2_state, d_state
+    torch.cuda.empty_cache()
+
+    # (6) The north star's entry, one epoch at its defaults.
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(out):
+        metrics = north_star.main(["--epochs", "1", "--log_dir", f"{tmp}/logs"])
+    lines = out.getvalue().splitlines()
+    losses = [float(ln.split()[-1]) for ln in lines if ln.startswith("epoch ")]
+    print(f"[resnet] north star (python -m tpudml_torch.tasks.north_star --epochs 1, world "
+          f"{metrics['world']}): {lines[-1]}; {metrics['steps']} steps in "
+          f"{metrics['train_time_s']:.1f} s; logged losses {losses[0]:.4f} ... "
+          f"{losses[-1]:.4f} (every 20 steps)")
+    check(metrics["steps"] == NORTH_STAR_EPOCH_STEPS, "the north star's epoch is not 390 steps")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          "the north star's loss did not fall")
+    check(metrics["test_accuracy"] >= NORTH_STAR_ACC_FLOOR,
+          f"the north star's test accuracy {metrics['test_accuracy']} is under "
+          f"{NORTH_STAR_ACC_FLOOR}")
+    check(not torch.distributed.is_initialized(), "the north star's group outlived its run")
+
+    # (7) No kernel of the port lies on this path.
+    launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    print(f"[resnet] launches on the path: {sum(launches.values())} (every kernel 0)")
+    check(not any(launches.values()), f"the resnet path launched a kernel: {launches}")
+    return launches
+
+
 def ptxas_usage(log: str) -> dict[str, dict]:
     """{mangled entry function: {registers, spill, stack}} from a ``-Xptxas
     -v`` build log (spill: bytes stored plus bytes loaded; stack: the
@@ -3341,6 +3635,8 @@ def main() -> int:
     paths["moe"] = moe_phase()
     torch.cuda.empty_cache()
     paths["moe_f32"] = moe_f32_phase()
+    torch.cuda.empty_cache()
+    paths["resnet"] = resnet_phase()
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -41,6 +41,11 @@ Tolerances, with their reasons:
   plain output's largest magnitude (both accumulate the same products in
   f32, over up to M rows in another order; a slab cut into chunks sums
   their partials in chunk order), and bitwise equal on a repeat.
+The small ResNet (stage_sizes (1, 1), width 8) in f32 with TF32 off for
+matmuls and cuDNN: the card's logits, BatchNorm statistics and step-1
+gradients within 1e-4 of the CPU run's largest magnitude, the CPU run
+replaying the card's ReLU masks (an input that rounds to the other side
+of 0 would move a gradient by its share).
 The flagship step through ``DataParallel`` on a one-rank NCCL group
 equals the single-card step bitwise where that step repeats itself
 bitwise (else the flagship's bf16 loss tolerance and AdamW's ±lr a step).
@@ -1171,3 +1176,48 @@ def test_dp_world1_nccl_step_equals_the_single_card_step(cuda_device, tmp_path):
 
         (ldiff, worst), (lgap, pgap) = gaps(got, got_p), gaps(again, again_p)
         assert ldiff <= 4 * lgap and worst <= 4 * pgap, (ldiff, worst, lgap, pgap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [{}, {"block": "bottleneck"}, {"stem": "imagenet"}],
+                         ids=["basic", "bottleneck", "imagenet"])
+def test_small_resnet_f32_on_card_matches_cpu(cuda_device, variant):
+    """The north star's model, small: f32 train-mode logits, BN statistics
+    after the forward and step-1 gradients, card against CPU."""
+    import torch.nn.functional as F
+
+    from tpudml_torch.data import synthetic_classification
+    from tpudml_torch.models import ResNet
+    from tpudml_torch.train import make_loss_fn, params_of
+
+    torch.backends.cudnn.allow_tf32 = False
+    x, y = synthetic_classification(8, (33, 33, 3), 10, seed=0)
+    relu = F.relu
+
+    def run(device, replay=None):
+        m = ResNet(stage_sizes=(1, 1), width=8, device=device, **variant,
+                   generator=torch.Generator().manual_seed(1))
+        masks, given = [], None if replay is None else iter(replay)
+
+        def patched(t, *args, **kw):
+            if given is not None:
+                return t * next(given).to(t.device)
+            masks.append(t.detach() > 0)
+            return relu(t, *args, **kw)
+
+        F.relu = patched
+        try:
+            loss, logits = make_loss_fn(m)(torch.from_numpy(x).to(device),
+                                           torch.from_numpy(y).long().to(device))
+            grads = torch.autograd.grad(loss, list(params_of(m).values()))
+        finally:
+            F.relu = relu
+        out = {"logits": logits.detach(), **dict(m.named_buffers()),
+               **{f"grad:{n}": g for n, g in zip(params_of(m), grads)}}
+        return {k: v.detach().cpu() for k, v in out.items()}, masks
+
+    card, masks = run(cuda_device)
+    cpu, _ = run("cpu", replay=masks)
+    assert set(card) == set(cpu)
+    for name, want in cpu.items():
+        _close_to_max(card[name], want, 1e-4)

@@ -35,7 +35,7 @@ from tpudml_torch.data import synthetic_lm  # noqa: E402
 from tpudml_torch.interop import adam_state_from_tpudml, lm_params_from_tpudml  # noqa: E402
 from tpudml_torch.models import TransformerLM  # noqa: E402
 from tpudml_torch.nn.losses import softmax_cross_entropy  # noqa: E402
-from tpudml_torch.optim import Adam, AdamW, GradientDescent, make_optimizer  # noqa: E402
+from tpudml_torch.optim import Adam, AdamW, GradientDescent, Sgd, make_optimizer  # noqa: E402
 from tpudml_torch.train import (  # noqa: E402
     TrainState, make_loss_fn, make_train_step, make_train_step_body, params_of,
 )
@@ -180,12 +180,12 @@ def test_adamw_decay_matches_jax():
 
 
 @pytest.mark.parametrize("name,cls", [("gd", GradientDescent), ("adam", Adam),
-                                      ("ADAMW", AdamW)])
+                                      ("ADAMW", AdamW), ("sgd", Sgd)])
 def test_make_optimizer(name, cls):
     assert type(make_optimizer(name, 0.1)) is cls
 
 
-@pytest.mark.parametrize("name", ["sgd", "adam_ref"])
+@pytest.mark.parametrize("name", ["reference_adam", "adam_ref"])
 def test_make_optimizer_unported_names_raise(name):
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         make_optimizer(name, 0.1)

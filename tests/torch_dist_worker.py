@@ -8,8 +8,10 @@ cases of its suite and writes its results with ``torch.save`` to
 ``<job>/rank<r>.pt``; the parent compares them.
 
 Suites: ``dp`` (DataParallel against the JAX engine's inputs in
-``<job>/cases.pt``), ``comm`` (collectives on seeded per-rank values) and
-``task5`` (``--parallel dp`` of the port's task5).
+``<job>/cases.pt``), ``resnet`` (DataParallel on the north star's
+ResNet with SGD momentum, from ``<job>/cases.pt``), ``comm``
+(collectives on seeded per-rank values) and ``task5`` (``--parallel dp``
+of the port's task5).
 """
 
 from __future__ import annotations
@@ -145,6 +147,47 @@ def suite_dp(job: Path, rank: int, world: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------- resnet
+
+
+def suite_resnet(job: Path, rank: int, world: int) -> dict:
+    """The small ResNet under DataParallel with SGD momentum on the stacked
+    global batches: per-step losses, this rank's ReLU sign masks a step
+    (NHWC, in call order), and the final parameters and BatchNorm
+    buffers."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudml_torch.models import ResNet
+    from tpudml_torch.optim import Sgd
+    from tpudml_torch.parallel import DataParallel
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    model = ResNet(**case["model"], device="cpu")
+    model.load_state_dict(case["state"])
+    dp = DataParallel(model, Sgd(**case["sgd"]), stacked_batches=True)
+    ts = dp.create_state()
+    step = dp.make_train_step()
+    masks: list = []
+    relu = F.relu
+
+    def recording_relu(x, *args, **kw):
+        masks[-1].append((x.detach() > 0).permute(0, 2, 3, 1).numpy())
+        return relu(x, *args, **kw)
+
+    F.relu = recording_relu
+    losses = []
+    try:
+        for images, labels in case["batches"]:
+            masks.append([])
+            ts, m = step(ts, images, labels)
+            losses.append(float(m["loss"]))
+    finally:
+        F.relu = relu
+    return {"losses": losses, "masks": masks,
+            "state": {k: v.clone() for k, v in model.state_dict().items()}}
+
+
 # --------------------------------------------------------------- comm
 
 
@@ -227,7 +270,8 @@ def suite_task5(job: Path, rank: int, world: int) -> dict:
     return task5.main(argv)
 
 
-SUITES = {"dp": suite_dp, "comm": suite_comm, "task5": suite_task5}
+SUITES = {"dp": suite_dp, "resnet": suite_resnet, "comm": suite_comm,
+          "task5": suite_task5}
 
 
 def main() -> None:

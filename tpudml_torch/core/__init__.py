@@ -1,6 +1,8 @@
 """Process topology and the process group (``tpudml.core`` subset)."""
 
-from tpudml_torch.core.config import DistributedConfig
+from tpudml_torch.core.config import (
+    DataConfig, DistributedConfig, TrainConfig, build_parser, config_from_args,
+)
 from tpudml_torch.core.dist import (
     assert_same_program,
     distributed_init,
@@ -13,7 +15,11 @@ from tpudml_torch.core.dist import (
 )
 
 __all__ = [
+    "DataConfig",
     "DistributedConfig",
+    "TrainConfig",
+    "build_parser",
+    "config_from_args",
     "assert_same_program",
     "distributed_init",
     "get_local_rank",

@@ -1,7 +1,9 @@
-"""Data of the port (``tpudml.data`` subset): seeded synthetic sets, the
-in-memory dataset, samplers and loaders."""
+"""Data of the port (``tpudml.data`` subset): seeded synthetic sets,
+CIFAR-10, the in-memory dataset, samplers and loaders."""
 
-from tpudml_torch.data.datasets import ArrayDataset, synthetic_lm
+from tpudml_torch.data.datasets import (
+    ArrayDataset, load_cifar10, load_dataset, synthetic_classification, synthetic_lm,
+)
 from tpudml_torch.data.loader import DataLoader, ShardedDataLoader
 from tpudml_torch.data.sampler import (
     RandomPartitionSampler,
@@ -19,6 +21,9 @@ __all__ = [
     "Sampler",
     "SequentialSampler",
     "ShardedDataLoader",
+    "load_cifar10",
+    "load_dataset",
     "make_sampler",
+    "synthetic_classification",
     "synthetic_lm",
 ]

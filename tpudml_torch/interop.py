@@ -4,6 +4,9 @@ The JAX package draws its init from threefry keys, which no torch
 generator reproduces, so parity runs carry the JAX parameters across.
 The caller hands over the tree as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``); this module never sees jax.
+Names flatten with dots (``block0.conv1.kernel``). Every tensor keeps
+the JAX layout except a conv kernel (a 4-D ``kernel``), which goes from
+JAX's HWIO to the port's OIHW in ``channels_last`` memory.
 """
 
 from __future__ import annotations
@@ -39,6 +42,36 @@ def lm_params_from_tpudml(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     if "tok_embed" not in flat or "head.kernel" not in flat:
         raise ValueError("not a TransformerLM param tree (no tok_embed/head)")
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in flat.items()}
+
+
+def _tensor(name: str, a: np.ndarray) -> torch.Tensor:
+    """``a`` as a CPU tensor of its dtype; a conv kernel HWIO -> OIHW."""
+    t = torch.from_numpy(np.array(a, copy=True))
+    if name.endswith("kernel") and t.dim() == 4:
+        t = t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return t
+
+
+def resnet_params_from_tpudml(params: Mapping[str, Any],
+                              model_state: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``ResNet`` state dict from a ``tpudml.models.ResNet`` param tree and
+    its model state (BatchNorm's ``mean``/``var``): ``stem``, ``stem_bn``,
+    ``block{i}.{conv1, bn1, conv2, bn2[, conv3, bn3], proj, proj_bn}``,
+    ``head``, conv kernels HWIO -> OIHW. Load with
+    ``model.load_state_dict(state)``."""
+    flat = {**_flatten(params), **_flatten(model_state)}
+    if "stem.kernel" not in flat or "head.kernel" not in flat:
+        raise ValueError("not a ResNet param tree (no stem/head)")
+    return {k: _tensor(k, v) for k, v in flat.items()}
+
+
+def sgd_state_from_tpudml(opt_state: Any) -> Any:
+    """The port's ``Sgd`` state from a ``tpudml`` Sgd state: ``()`` without
+    momentum, else the momentum buffers by the parameters' names, conv
+    buffers transposed as their kernels are."""
+    if isinstance(opt_state, tuple) and not opt_state:
+        return ()
+    return {k: _tensor(k, v) for k, v in _flatten(opt_state).items()}
 
 
 def adam_state_from_tpudml(opt_state: Mapping[str, Any]) -> dict:

@@ -1,5 +1,10 @@
-"""Models of the port (``tpudml.models`` serving subset)."""
+"""Models of the port (``tpudml.models`` subset: the transformer LM and
+the ResNets)."""
 
+from tpudml_torch.models.resnet import (
+    BasicBlock, BottleneckBlock, ResNet, ResNet18, ResNet34, ResNet50,
+)
 from tpudml_torch.models.transformer import TransformerBlock, TransformerLM
 
-__all__ = ["TransformerBlock", "TransformerLM"]
+__all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "ResNet18", "ResNet34", "ResNet50",
+           "TransformerBlock", "TransformerLM"]

@@ -7,10 +7,12 @@ from tpudml_torch.nn.attention import (
     dot_product_attention,
     rotary_embedding,
 )
-from tpudml_torch.nn.layers import Dense, LayerNorm
+from tpudml_torch.nn.layers import BatchNorm, Conv2D, Dense, LayerNorm
 from tpudml_torch.nn.losses import softmax_cross_entropy
 
 __all__ = [
+    "BatchNorm",
+    "Conv2D",
     "Dense",
     "LayerNorm",
     "MultiHeadAttention",

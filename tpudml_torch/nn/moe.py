@@ -39,7 +39,7 @@ from tpudml_torch.ops.moe_kernel import ragged_ffn, ragged_matmul
 DISPATCHES = ("gather", "einsum", "ragged")
 RAGGED_DW = ("grouped", "stock")
 EP_NOT_PORTED = ("expert parallelism (axis_name) is not ported yet (ROADMAP.md "
-                 "queue 1 item 5, data parallel, then EP)")
+                 "queue 1 item 5, EP, the next slice)")
 
 
 def _pad0(rows: torch.Tensor) -> torch.Tensor:

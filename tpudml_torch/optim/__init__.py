@@ -5,7 +5,8 @@ from tpudml_torch.optim.optimizers import (
     AdamW,
     GradientDescent,
     Optimizer,
+    Sgd,
     make_optimizer,
 )
 
-__all__ = ["Adam", "AdamW", "GradientDescent", "Optimizer", "make_optimizer"]
+__all__ = ["Adam", "AdamW", "GradientDescent", "Optimizer", "Sgd", "make_optimizer"]

@@ -1,5 +1,5 @@
 """First-order optimizers (the port of ``tpudml/optim/optimizers.py``:
-``GradientDescent``, ``Adam``, ``AdamW``, ``make_optimizer``).
+``GradientDescent``, ``Sgd``, ``Adam``, ``AdamW``, ``make_optimizer``).
 
 Same contract as the JAX package, over dicts of tensors keyed by
 parameter name (``dict(model.named_parameters())``):
@@ -7,7 +7,8 @@ parameter name (``dict(model.named_parameters())``):
 (params, state)``. The port updates the parameter tensors IN PLACE (the
 JAX functions return new pytrees) and returns the same dict; the
 optimizer state is a plain dict too, so it carries across from a
-``tpudml`` state (``tpudml_torch.interop.adam_state_from_tpudml``).
+``tpudml`` state (``tpudml_torch.interop.adam_state_from_tpudml``,
+``sgd_state_from_tpudml``).
 
 Adam is written out with the JAX package's exact formula and order of
 operations, ``p − lr·(m/c1) / (sqrt(v/c2) + eps)`` with
@@ -20,7 +21,7 @@ from dataclasses import dataclass
 
 import torch
 
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 3, the remaining optimizers)"
+NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 3, ReferenceAdam)"
 
 Params = dict[str, torch.Tensor]
 
@@ -45,6 +46,31 @@ class GradientDescent(Optimizer):
     def update(self, grads, state, params):
         for name, p in params.items():
             p.sub_(self.lr * grads[name])
+        return params, state
+
+
+@dataclass(frozen=True)
+class Sgd(Optimizer):
+    """SGD with (optional) heavy-ball momentum, torch.optim.SGD's
+    formulation: ``buf = mu·buf + g; p −= lr·buf``; no state when mu = 0."""
+
+    lr: float = 1e-2
+    momentum: float = 0.0
+
+    def init(self, params):
+        if self.momentum == 0.0:
+            return ()
+        return {n: torch.zeros_like(p) for n, p in params.items()}
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        for name, p in params.items():
+            if self.momentum == 0.0:
+                p.sub_(self.lr * grads[name])
+                continue
+            buf = state[name]
+            buf.copy_(self.momentum * buf + grads[name])
+            p.sub_(self.lr * buf)
         return params, state
 
 
@@ -114,10 +140,12 @@ def make_optimizer(
     name = name.lower()
     if name == "gd":
         return GradientDescent(lr=lr)
+    if name == "sgd":
+        return Sgd(lr=lr, momentum=momentum)
     if name == "adam":
         return Adam(lr=lr)
     if name == "adamw":
         return AdamW(lr=lr, weight_decay=weight_decay)
-    if name in ("sgd", "adam_ref", "reference_adam"):
+    if name in ("adam_ref", "reference_adam"):
         raise NotImplementedError(f"optimizer {name!r} {NOT_PORTED}")
     raise ValueError(f"unknown optimizer {name!r}")

@@ -50,7 +50,7 @@ from tpudml_torch.nn.attention import MultiHeadAttention
 from tpudml_torch.nn.losses import softmax_cross_entropy
 from tpudml_torch.optim import Optimizer
 from tpudml_torch.train import (
-    TrainState, accumulate_grads, make_lm_fused_loss_fn, make_loss_fn, params_of,
+    TrainState, accumulate_grads, make_lm_fused_loss_fn, make_loss_fn, params_of, to_device,
 )
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
@@ -88,13 +88,6 @@ def shard_rows(images, labels, world: int, rank: int, stacked: bool | None):
             "(drop_remainder=True avoids ragged final batches)")
     b = images.shape[0] // world
     return images[rank * b:(rank + 1) * b], labels[rank * b:(rank + 1) * b]
-
-
-def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """Integer ids as int64 (token ids, class labels), others as they are."""
-    if not x.is_floating_point():
-        x = x.long()
-    return x.to(device)
 
 
 class DataParallel:
@@ -221,16 +214,18 @@ class DataParallel:
     def shard_batch(self, images, labels):
         """This rank's rows of a global host batch, on the replica's device
         (:func:`shard_rows` with the engine's ``stacked_batches``); token
-        ids and labels as int64."""
+        ids and labels as int64, images as floats."""
         x, y = shard_rows(images, labels, self.world, self.rank, self.stacked_batches)
-        return _to(x, self.device), _to(y, self.device)
+        return to_device(x, self.device), to_device(y, self.device)
 
     def _model_state(self) -> dict:
         return {n: b for n, b in self.model.named_buffers() if b.is_floating_point()}
 
     def _pmean_model_state(self) -> None:
-        """Average the model's float buffers (BatchNorm-style running
-        statistics) over the replicas; the transformer has none."""
+        """Average the model's float buffers (BatchNorm's running
+        statistics, which each replica updated from its own rows: not
+        SyncBN) over the replicas after the local step, as JAX does; the
+        transformer has none."""
         state = self._model_state()
         if state:
             new = pmean_tree(state, self.group)

@@ -53,9 +53,19 @@ call of the gradient aggregation alone (the all-reduce of the flat
 gradients, on the step's own gradients): its NCCL kernels and the copies
 around them (the flat buffer's cat, the ÷ world), from ``torch.profiler``.
 
+``--resnet [--batch N]`` profiles the single-card bf16 step of ``bench.py``
+``bench_resnet`` instead (the north star's model and optimizer):
+ResNet-18 at CIFAR width (bf16 compute over f32 master weights), SGD lr
+0.1 momentum 0.9 through ``make_train_step``, one batch
+``synthetic_classification(N, (32, 32, 3), 10, seed=0)`` every step, N
+default 1024 (bench's per-chip batch); it adds imgs/s. One configuration,
+"resnet".
+
+TF32 is off for matmuls and cuDNN's convolutions, so an f32 row means f32.
+
 Run on the card: ``python -m tpudml_torch.tools.profile_train [--flagship | --long |
---wide | --dp | --moe 8 --moe_variant ragged_grouped]`` (one JSON line at the end;
-``--out FILE`` also writes it to FILE).
+--wide | --dp | --moe 8 --moe_variant ragged_grouped | --resnet [--batch 128]]`` (one
+JSON line at the end; ``--out FILE`` also writes it to FILE).
 """
 
 from __future__ import annotations
@@ -73,6 +83,7 @@ from tpudml_torch.tools.profile_serve import _measure
 
 MODEL = dict(vocab_size=32768, embed_dim=512, num_heads=4, num_layers=6,
              max_len=1024, rope=True)
+RESNET_BATCH = 1024  # bench.py:215, bench_resnet's per-chip batch
 WIDE = dict(embed_dim=2048, num_heads=16, num_layers=2)  # chip_smoke.py's WIDE_MODEL
 BATCH = 8
 LONG_T, LONG_BATCH = 16384, 2  # BASELINE.md:45
@@ -137,13 +148,20 @@ def main(argv=None) -> dict:
                       "the single-card one, interleaved")
     mode.add_argument("--moe", type=int, default=0, metavar="E",
                       help="one bench_moe step with E experts (bf16, top-1, capacity 1.25)")
+    mode.add_argument("--resnet", action="store_true",
+                      help="the bf16 ResNet-18 step of bench_resnet (SGD 0.1 / 0.9)")
     p.add_argument("--moe_variant", choices=sorted(MOE_VARIANTS), default="ragged_grouped")
+    p.add_argument("--batch", type=int, default=RESNET_BATCH,
+                   help="--resnet's batch (images a step)")
     p.add_argument("--out", type=str, default=None)
     args = p.parse_args(argv)
     iters = args.iters or (3 if args.long else 10)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device; this measures the card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.resnet:
+        return _emit(profile_resnet(args.batch, iters), ["resnet"], args.out)
     from tpudml_torch.data import synthetic_lm
     from tpudml_torch.models import TransformerLM
     from tpudml_torch.ops import build_kernels
@@ -227,22 +245,58 @@ def main(argv=None) -> dict:
         torch.cuda.empty_cache()
     if stack is not None:
         stack.close()
-    for key, _, _ in configs:
+    return _emit(result, [key for key, _, _ in configs], args.out)
+
+
+def _emit(result: dict, keys: list[str], out: str | None) -> dict:
+    """Print each configuration's line and top device items, then the JSON
+    line (also to ``out``)."""
+    for key in keys:
         r = result[key]
+        rate = (f"{r['imgs_per_sec']:.0f} imgs/s" if "imgs_per_sec" in r
+                else f"{r['tokens_per_sec']:.0f} tokens/s")
         print(f"[profile] {result['step']} step, {key}: wall {r['wall_ms']:.3f} ms, events "
               f"{r['event_ms']:.3f} ms, {r['kernels_per_call']:.0f} kernels summing "
               f"{r['kernel_ms_per_call']:.3f} ms (busy {r['busy_share']:.2f}), "
-              f"{r['tokens_per_sec']:.0f} tokens/s, peak {r['peak_mem_gb']:.2f} GB")
+              f"{rate}, peak {r['peak_mem_gb']:.2f} GB")
         if "aggregation" in r:
             print(f"    aggregation alone (world 1): {describe_aggregation(r['aggregation'])}")
         for row in r["top"]:
             print(f"    {row['ms_per_call']:.4f} ms x{row['launches_per_call']:.0f}  "
                   f"{row['kernel']}")
     line = json.dumps(result)
-    if args.out:
-        with open(args.out, "w") as f:
+    if out:
+        with open(out, "w") as f:
             f.write(line + "\n")
     print(line)
+    return result
+
+
+def profile_resnet(batch: int, iters: int) -> dict:
+    """The ``--resnet`` measurement (module docstring)."""
+    from tpudml_torch.data import synthetic_classification
+    from tpudml_torch.models import ResNet18
+    from tpudml_torch.optim import Sgd
+    from tpudml_torch.train import TrainState, make_train_step
+
+    images, labels = synthetic_classification(batch, (32, 32, 3), 10, seed=0)
+    images, labels = torch.from_numpy(images).cuda(), torch.from_numpy(labels).long().cuda()
+    model = ResNet18(compute_dtype=torch.bfloat16, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    opt = Sgd(lr=0.1, momentum=0.9)
+    step = make_train_step(model, opt)
+    ts = TrainState.create(model, opt)
+
+    def one_step():
+        step(ts, images, labels)
+
+    result = {"device": torch.cuda.get_device_name(0), "model": "resnet18 CIFAR, bf16",
+              "batch": batch, "step": "ResNet-18 bf16 (SGD 0.1 / 0.9, bench_resnet)"}
+    torch.cuda.reset_peak_memory_stats()
+    r = _measure(one_step, iters)
+    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r["imgs_per_sec"] = batch / r["wall_ms"] * 1e3
+    result["resnet"] = r
     return result
 
 

@@ -5,7 +5,13 @@ fused-head LM step ``make_lm_fused_loss_fn``,
 DP engine's un-aggregated local step ``local_grads``/``accumulate_grads`` (for both of
 JAX's ``accumulate_grads`` and ``accumulate_fused_grads``), and the MoE
 aux-loss plumbing ``collect_aux_losses``, ``model_has_moe``,
-``resolve_aux_loss_weight``).
+``resolve_aux_loss_weight``, and the host side: ``make_eval_step``,
+``evaluate`` and the epoch loop ``train_loop``).
+
+The loss functions run the model in training mode (JAX's ``train=True``:
+BatchNorm normalizes by the batch and updates its running statistics
+once a step, JAX's ``new_state``); evaluation runs it in eval mode
+under ``torch.no_grad()`` and restores the mode after.
 
 A MoE model's objective adds α·Σ(its layers' Switch load-balancing terms)
 to the cross-entropy, as in JAX: ``aux_loss_weight=None`` means α =
@@ -21,6 +27,7 @@ callers must, works unchanged.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -93,6 +100,8 @@ def make_loss_fn(model: nn.Module, aux_loss_weight: float | None = None,
     aux_w = resolve_aux_loss_weight(model, aux_loss_weight)
 
     def loss_fn(tokens, labels):
+        if not model.training:
+            model.train()
         logits = model(tokens)
         return _with_aux(model, loss(logits, labels), aux_w), logits
 
@@ -183,13 +192,23 @@ def make_lm_fused_train_step_body(model: nn.Module, optimizer: Optimizer,
     return _step_body(optimizer, make_lm_fused_loss_fn(model, save_scores, aux_loss_weight))
 
 
+def to_device(x, device) -> torch.Tensor:
+    """A batch array (numpy or a tensor anywhere) on ``device``: integer
+    ids (tokens, class labels) as int64, floats (images) as they are."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    if not x.is_floating_point():
+        x = x.long()
+    return x.to(device)
+
+
 def _on_device(body: Callable) -> Callable:
     """``body`` taking the batch as numpy arrays or tensors anywhere,
-    moved to the model's device as int64 token ids."""
+    moved to the model's device by :func:`to_device`."""
 
-    def step(ts: TrainState, tokens, labels):
+    def step(ts: TrainState, inputs, labels):
         dev = next(ts.model.parameters()).device
-        return body(ts, _ids(tokens, dev), _ids(labels, dev))
+        return body(ts, to_device(inputs, dev), to_device(labels, dev))
 
     return step
 
@@ -199,8 +218,9 @@ def make_train_step(model: nn.Module, optimizer: Optimizer,
                     aux_loss_weight: float | None = None) -> Callable:
     """Single-device train step: :func:`make_train_step_body` taking the
     batch as numpy arrays or tensors anywhere, moved to the model's
-    device as int64 token ids. The step's ``loss`` metric stays on the
-    device (reading it waits for the step)."""
+    device by :func:`to_device` (token ids and labels as int64, images
+    as floats). The step's ``loss`` metric stays on the device (reading
+    it waits for the step)."""
     return _on_device(make_train_step_body(model, optimizer, accum_steps, aux_loss_weight))
 
 
@@ -213,7 +233,99 @@ def make_lm_fused_train_step(model: nn.Module, optimizer: Optimizer,
                                                     aux_loss_weight))
 
 
-def _ids(x, device) -> torch.Tensor:
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device=device, dtype=torch.long)
+def make_eval_step(model: nn.Module) -> Callable:
+    """(images, labels) -> the number of rows whose argmax logit is the
+    label (a device tensor): ``model`` in eval mode under
+    ``torch.no_grad()``, its mode restored after; the batch as
+    :func:`make_train_step` takes it."""
+    dev = next(model.parameters()).device
+
+    @torch.no_grad()
+    def step(images, labels):
+        mode = model.training
+        model.eval()
+        try:
+            logits = model(to_device(images, dev))
+        finally:
+            model.train(mode)
+        return (logits.argmax(-1) == to_device(labels, dev)).sum()
+
+    return step
+
+
+def evaluate(model: nn.Module, ts: TrainState, loader) -> float:
+    """Top-1 test accuracy over ``loader``'s batches (reference ``test()``
+    parity, codes/task1/pytorch/model.py:67-81). ``ts.model`` is
+    ``model``: the port's state holds the parameters in the model."""
+    if ts.model is not model:
+        raise ValueError("ts.model is not the model to evaluate")
+    step = make_eval_step(model)
+    correct, total = 0, 0
+    for images, labels in loader:
+        correct += int(step(images, labels))
+        total += len(labels)
+    return correct / max(total, 1)
+
+
+def _sync(model: nn.Module) -> None:
+    dev = next(model.parameters()).device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train_loop(model: nn.Module, optimizer: Optimizer, train_loader, num_epochs: int,
+               writer=None, log_every: int = 20, step_fn: Callable | None = None,
+               state: TrainState | None = None, hooks: list[Callable] | None = None,
+               accum_steps: int = 1) -> tuple[TrainState, dict]:
+    """Host-side epoch loop with the reference's logging cadence (loss every
+    ``log_every`` iters, codes/task1/pytorch/model.py:57-61) and the total
+    wall clock (codes/task2/model-mp.py:48,76-78), as JAX's ``train_loop``:
+    ``step_fn`` (default :func:`make_train_step`) over every batch of
+    every epoch (``set_epoch`` first, where the loader has it), a restored
+    ``state`` resuming step-granular (finished epochs skipped, the partial
+    one fast-forwarded), ``hooks(epoch=, step=, train_state=, metrics=)``
+    after each step, and the last step's metrics as floats plus
+    ``train_time_s`` and ``steps``. JAX's ``key`` has no counterpart (the
+    model holds its initial parameters; dropout rngs are not ported), nor
+    do the obs ``step_stats`` scalars. ``accum_steps > 1`` with a
+    ``step_fn`` raises ``ValueError`` (the engine owns accumulation), and
+    without one :func:`make_train_step` raises (not ported)."""
+    ts = state or TrainState.create(model, optimizer)
+    if step_fn is not None and accum_steps > 1:
+        raise ValueError(
+            "accum_steps is handled by the engine that built step_fn; this "
+            "engine/entrypoint does not support gradient accumulation")
+    step = step_fn or make_train_step(model, optimizer, accum_steps=accum_steps)
+    counter = start_step = ts.step
+    steps_per_epoch = len(train_loader) if hasattr(train_loader, "__len__") else 0
+    if steps_per_epoch:
+        start_epoch = min(start_step // steps_per_epoch, num_epochs)
+        skip_batches = start_step - start_epoch * steps_per_epoch
+    else:
+        start_epoch, skip_batches = 0, 0
+    t0 = time.time()
+    metrics = None  # device values; read only on a log step and at the end
+    for epoch in range(start_epoch, num_epochs):
+        if hasattr(train_loader, "set_epoch"):
+            train_loader.set_epoch(epoch)
+        for i, (images, labels) in enumerate(train_loader):
+            if epoch == start_epoch and i < skip_batches:
+                continue  # fast-forward the sampler to the resume point
+            ts, metrics = step(ts, images, labels)
+            counter += 1
+            if log_every and counter % log_every == 0:
+                loss = float(metrics["loss"])
+                if writer is not None:
+                    writer.add_scalar("Train Loss", loss, counter)
+                print(f"epoch {epoch} iter {counter}: loss {loss:.4f}")
+            for h in hooks or ():
+                h(epoch=epoch, step=counter, train_state=ts, metrics=metrics)
+    _sync(ts.model)
+    train_time = time.time() - t0
+    print(f"Training time: {train_time:.3f}s")
+    if writer is not None:
+        writer.add_scalar("Train Time", train_time, counter)
+    last = {k: float(v) for k, v in metrics.items()} if metrics is not None else {}
+    last["train_time_s"] = train_time
+    last["steps"] = counter
+    return ts, last
