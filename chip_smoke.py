@@ -234,7 +234,23 @@ the CPU). Phases, each printing its own line(s):
    CIFAR, 390 steps of 128): the loss falls, the test accuracy reaches
    NORTH_STAR_ACC_FLOOR, and its imgs/sec/chip line is printed. cuDNN's
    algorithm choice is left as it is (no ``cudnn.deterministic``).
-12. one JSON line of per-kernel numbers (launches summed over the main
+12. main path 8, expert parallelism at world 1 (``tpudml_torch.parallel.
+   ExpertParallel``): task5 ``--parallel ep --attn flash --fused_ln --rope
+   --moe_experts 8 --moe_dispatch gather`` at the training config (V=32768,
+   d=512, H=4, L=6, T=1024, B=8, f32, Adam lr 1e-3, capacity factor 2.0,
+   task5's batches) on a one-rank NCCL group, EP_STEPS steps with the
+   launch counts zeroed just before and read just after: exactly
+   EP_STEPS × (6, 6, 6, 12, 12) of kernels 1–3, 8, 9 and none of the rest.
+   ``--parallel single`` with the same flags runs twice first: the EP
+   run's losses and parameters equal its first run bitwise where it
+   repeats itself, else lie within DP_GAP_MULT times the gap between its
+   two runs. ms/step and peak memory of both, labelled world 1. Then the
+   differentiable ``all_to_all`` on the NCCL group at the dispatch buffer
+   [E, C, d] = [8, 2048, 512]: forward equal to its plain version (the
+   tiled chunk and concat on one rank), backward equal to the plain
+   inverse of the cotangent, the inverse bringing the input back; its
+   time a call.
+13. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -3225,6 +3241,127 @@ def resnet_phase() -> dict[str, int]:
     return launches
 
 
+# ------------------------------------------------------------ phase 12
+
+# Expert parallelism (slice 8): task5 --parallel ep at MOE_F32_TASK5's width
+# with the gather dispatch (EP ships static capacity buffers; ragged is
+# single-shard), against --parallel single with the same flags.
+EP_TASK5 = ["--parallel", "ep", "--attn", "flash", "--fused_ln", "--rope", "--moe_experts", "8",
+            "--moe_dispatch", "gather", "--vocab", "32768", "--embed_dim", "512",
+            "--num_heads", "4", "--num_layers", "6", "--seq_len", "1024", "--batch_size", "8",
+            "--lr", "0.001"]
+EP_STEPS = 3
+EP_PER_STEP = {"flash_forward_lse": 6, "flash_dq": 6, "flash_dkdv": 6,
+               "add_layernorm_fwd": 12, "add_layernorm_bwd": 12}
+
+
+def ep_phase() -> dict[str, int]:
+    """Main path 8: expert parallelism at world 1 over NCCL (module
+    docstring, phase 12). Returns the launch counts of the EP run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudml_torch.comm import all_to_all
+    from tpudml_torch.core import DistributedConfig, process_count, process_group
+    from tpudml_torch.core.dist import collective_device
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.nn.moe import MoELayer
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.tasks import task5_longcontext as task5
+
+    ep_args = task5.parse_args(EP_TASK5)
+    single_args = task5.parse_args(EP_TASK5 + ["--parallel", "single"])
+    b, t, v = ep_args.batch_size, ep_args.seq_len, ep_args.vocab
+    seqs = synthetic_lm(4 * b, t, v, seed=ep_args.seed)
+    rng = np.random.default_rng(ep_args.seed)  # task5's row sampling
+    batches = [seqs[rng.integers(0, len(seqs), size=b)] for _ in range(EP_STEPS)]
+    cuda = torch.device("cuda")
+
+    def run(args):
+        torch.cuda.reset_peak_memory_stats()
+        ts, step = task5.build_engine(args, cuda)
+        losses, ms = _train_run(ts, step, batches)
+        return losses, ms, _params(ts.model), torch.cuda.max_memory_allocated() / 1e9
+
+    # (1) Does the single-card gather step repeat itself bitwise?
+    s1_losses, s1_ms, s1_params, s1_peak = run(single_args)
+    s2_losses, s2_ms, s2_params, s2_peak = run(single_args)
+    repeats = s1_losses == s2_losses and _bitwise(s1_params, s2_params)
+    print(f"[ep] task5 {' '.join(EP_TASK5)}: the single-card gather step (--parallel single) "
+          f"repeats itself bitwise over {EP_STEPS} steps: {repeats}")
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp, process_group(
+            DistributedConfig(coordinator_address=f"file://{tmp}/store", num_processes=1),
+            device="cuda") as group:
+        check(torch.distributed.get_backend(group) == "nccl", "the EP group is not NCCL's")
+        check(process_count(group) == 1, "the EP group is not one rank")
+        print(f"[ep] world 1: a one-rank NCCL group (torch.distributed, file store); "
+              f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}")
+
+        # (2) The EP step: the launches of its run are the path's.
+        reset_launch_counts()  # ---- main path 8 starts here
+        e_losses, e_ms, e_params, e_peak = run(ep_args)
+        launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+        need = {k.name: EP_STEPS * EP_PER_STEP.get(k.name, 0) for k in KERNELS}
+        print(f"[ep] world 1 EP losses {' '.join(f'{x:.6f}' for x in e_losses)}; single-card "
+              f"{' '.join(f'{x:.6f}' for x in s1_losses)}; launches "
+              f"{dict((k, c) for k, c in launches.items() if c)} = {EP_STEPS} x {EP_PER_STEP}")
+        check(launches == need, f"the EP path launched {launches}, not {need}")
+        check(all(np.isfinite(e_losses)), "an EP loss is not finite")
+        if repeats:
+            check(e_losses == s1_losses, "world-1 EP losses differ from the single-card step's")
+            check(_bitwise(e_params, s1_params), "world-1 EP parameters differ from the "
+                  "single-card step's")
+            print(f"[ep] world-1 EP step equals the single-card step bitwise (losses and all "
+                  f"{len(e_params)} parameters)")
+        else:
+            def gaps(losses, params):
+                return (max(abs(a - b) for a, b in zip(losses, s1_losses)),
+                        max((params[n] - s1_params[n]).abs().max().item() for n in params))
+
+            (ldiff, worst), (lgap, pgap) = gaps(e_losses, e_params), gaps(s2_losses, s2_params)
+            print(f"[ep] the single-card step is not deterministic (two runs differ by |loss| "
+                  f"{lgap:.2e}, |param| {pgap:.2e}): world-1 EP vs single |loss diff| "
+                  f"{ldiff:.2e}, max |param diff| {worst:.2e} (tol {DP_GAP_MULT} x the gap)")
+            check(ldiff <= DP_GAP_MULT * lgap and worst <= DP_GAP_MULT * pgap,
+                  "world-1 EP disagrees with the single-card step")
+        print(f"[ep] world 1 EP step {e_ms:.2f} ms/step, {b * t / e_ms * 1e3:.0f} tokens/s, "
+              f"peak {e_peak:.2f} GB; single-card gather step {s1_ms:.2f}, {s2_ms:.2f} ms/step, "
+              f"peak {s1_peak:.2f}, {s2_peak:.2f} GB (eager, {EP_STEPS - 1} steps after one "
+              f"warm-up)")
+        del e_params, s1_params, s2_params
+        torch.cuda.empty_cache()
+
+        # (3) The differentiable all_to_all on the NCCL group at the dispatch's
+        # [E, C, d] (C = B·T·capacity factor / E), forward and backward,
+        # against its plain version: the tiled chunk/concat on one rank.
+        e, d = ep_args.moe_experts, ep_args.embed_dim
+        c = MoELayer(1, e, capacity_factor=2.0)._capacity(b * t)  # TransformerLM's default
+        dev = collective_device(group)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        x = torch.randn(e, c, d, device=dev, generator=gen, requires_grad=True)
+        w = torch.randn(e, c, d, device=dev, generator=gen)
+        y = all_to_all(x, group, split_axis=0, concat_axis=1)
+        (y * w).sum().backward()
+        back = all_to_all(y.detach(), group, split_axis=1, concat_axis=0)
+        plain_y = torch.cat(x.detach().chunk(1, dim=0), dim=1)
+        plain_dx = torch.cat(w.chunk(1, dim=1), dim=0)
+        ms = cuda_ms(lambda: all_to_all(x.detach(), group, split_axis=0, concat_axis=1))
+        print(f"[ep] differentiable all_to_all on NCCL at world 1, [E, C, d] = [{e}, {c}, {d}] "
+              f"f32 ({x.numel() * 4 / 1e6:.1f} MB): forward = plain {torch.equal(y, plain_y)}, "
+              f"backward = the plain inverse {torch.equal(x.grad, plain_dx)}, round trip "
+              f"{torch.equal(back, x.detach())}; {ms:.4f} ms a call (CUDA events)")
+        check(torch.equal(y, plain_y) and y.shape == (e, c, d),
+              "the all_to_all forward disagrees with its plain version")
+        check(torch.equal(x.grad, plain_dx), "the all_to_all backward is not the plain inverse")
+        check(torch.equal(back, x.detach()), "the inverse all_to_all does not bring x back")
+    check(not torch.distributed.is_initialized(), "the EP group outlived its phase")
+    return launches
+
+
 def ptxas_usage(log: str) -> dict[str, dict]:
     """{mangled entry function: {registers, spill, stack}} from a ``-Xptxas
     -v`` build log (spill: bytes stored plus bytes loaded; stack: the
@@ -3637,6 +3774,8 @@ def main() -> int:
     paths["moe_f32"] = moe_f32_phase()
     torch.cuda.empty_cache()
     paths["resnet"] = resnet_phase()
+    torch.cuda.empty_cache()
+    paths["ep"] = ep_phase()
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

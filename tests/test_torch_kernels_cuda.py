@@ -1179,6 +1179,69 @@ def test_dp_world1_nccl_step_equals_the_single_card_step(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_ep_world1_nccl_step_equals_the_single_card_step(cuda_device, tmp_path, top_k):
+    """A small MoE LM (flash attention, fused add+LN, RoPE, 4 experts,
+    gather dispatch, f32, Adam) through ``ExpertParallel`` on a one-rank
+    NCCL group, against the single-card step from the same weights: the
+    path launches the flash and add+LN kernels, and its losses and
+    parameters are bitwise equal where the single-card step repeats
+    itself bitwise (÷ 1 and the mean over one rank are exact), else
+    within 4 times the gap between two single-card runs."""
+    from tpudml_torch.core import DistributedConfig, process_group
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import Adam
+    from tpudml_torch.parallel import ExpertParallel
+    from tpudml_torch.train import TrainState, make_train_step
+
+    cfg = dict(vocab_size=256, embed_dim=128, num_heads=4, num_layers=2, max_len=128,
+               rope=True, impl="flash", fused_ln=True, moe_experts=4, moe_top_k=top_k,
+               device=cuda_device)
+    seqs = synthetic_lm(16, 128, 256, seed=0)
+    batches = [seqs[i:i + 4] for i in range(0, 12, 4)]
+
+    def model(**kw):
+        return TransformerLM(**cfg, **kw, generator=torch.Generator().manual_seed(3))
+
+    def run(m, step, ts):
+        losses = [step(ts, b[:, :-1], b[:, 1:])[1]["loss"].item() for b in batches]
+        return losses, {n: p.detach().clone() for n, p in m.named_parameters()}
+
+    singles = []
+    for _ in range(2):
+        m = model()
+        opt = Adam(lr=1e-3)
+        singles.append(run(m, make_train_step(m, opt), TrainState.create(m, opt)))
+    (want, want_p), (again, again_p) = singles
+    repeats = want == again and all(torch.equal(want_p[n], again_p[n]) for n in want_p)
+    with process_group(DistributedConfig(coordinator_address=f"file://{tmp_path}/store"),
+                       device="cuda"):
+        assert torch.distributed.get_backend() == "nccl"
+        m = model(moe_axis="expert")
+        ep = ExpertParallel(m, Adam(lr=1e-3))
+        reset_launch_counts()
+        got, got_p = run(m, ep.make_train_step(), ep.create_state())
+        launches = {k.name: k.launches for k in KERNELS}
+    for name, per_step in (("flash_forward_lse", 2), ("flash_dq", 2), ("flash_dkdv", 2),
+                           ("add_layernorm_fwd", 4), ("add_layernorm_bwd", 4)):
+        assert launches.pop(name) == 3 * per_step, name
+    assert not any(launches.values()), launches
+    if repeats:
+        assert got == want
+        for n in want_p:
+            assert torch.equal(got_p[n], want_p[n]), n
+    else:
+        def gaps(losses, params):
+            return (max(abs(a - b) for a, b in zip(losses, want)),
+                    max((params[n] - want_p[n]).abs().max().item() for n in params))
+
+        (ldiff, worst), (lgap, pgap) = gaps(got, got_p), gaps(again, again_p)
+        assert ldiff <= 4 * lgap and worst <= 4 * pgap, (ldiff, worst, lgap, pgap)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("variant", [{}, {"block": "bottleneck"}, {"stem": "imagenet"}],
                          ids=["basic", "bottleneck", "imagenet"])
 def test_small_resnet_f32_on_card_matches_cpu(cuda_device, variant):

@@ -7,8 +7,9 @@ gradients of the input and of every parameter, at a capacity factor that
 drops tokens; the drop pattern under overflow, choice priority, a tie in
 the router's probabilities (lower expert index wins, as ``lax.top_k``),
 ``load_balancing_loss``, the aux-loss weight's resolution in
-``tpudml_torch.train``, and what the port refuses (expert parallelism,
-serving a MoE model). f32, rtol 1e-5 / atol 1e-6 (sums in another order).
+``tpudml_torch.train``, and what the port refuses (ragged dispatch under
+expert parallelism, an EP layer with no group bound, serving a MoE
+model). f32, rtol 1e-5 / atol 1e-6 (sums in another order).
 """
 
 import numpy as np
@@ -170,8 +171,12 @@ def test_load_balancing_loss_matches_jax():
 
 
 def test_moe_layer_rejects_what_is_not_ported_or_invalid():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        MoELayer(D, E, axis_name="expert")
+    # Expert parallelism is ported: ragged dispatch refuses it as JAX's
+    # does, and an EP layer needs its process group bound.
+    with pytest.raises(ValueError, match="single-shard"):
+        MoELayer(D, E, dispatch="ragged", axis_name="expert")
+    with pytest.raises(RuntimeError, match="bind its process group"):
+        MoELayer(D, E, axis_name="expert")(torch.from_numpy(_tokens()))
     with pytest.raises(ValueError, match="top_k"):
         MoELayer(D, E, top_k=E + 1)
     with pytest.raises(ValueError, match="dispatch"):

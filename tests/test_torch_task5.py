@@ -96,12 +96,12 @@ def test_card_is_the_default_device(no_card, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--parallel", "ep", "--moe_experts", "4"], "item 5"),
+    (["--parallel", "ep", "--moe_experts", "4", "--sentinel"], "item 6"),
     (["--parallel", "fsdp"], "item 7"),
     (["--parallel", "tp"], "item 7"),
     (["--parallel", "pp"], "item 7"),
     (["--parallel", "cp"], "item 8"),
-    (["--parallel", "ep"], "item 5"),
+    (["--parallel", "ep", "--moe_experts", "4", "--ckpt_dir", "ck"], "item 6"),
     (["--dropout", "0.1"], "item 3"),
     (["--sentinel"], "item 6"),
     (["--ckpt_dir", "ck"], "item 6"),

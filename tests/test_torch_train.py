@@ -197,8 +197,13 @@ def test_accum_steps_and_unported_model_options_raise():
         make_train_step_body(tm, Adam(), accum_steps=2)
     with pytest.raises(NotImplementedError, match="item 3"):
         TransformerLM(**CFG, dropout=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):  # expert parallelism
-        TransformerLM(**CFG, moe_experts=4, moe_axis="expert", device="cpu")
+    # Expert parallelism is ported: the axis reaches the blocks' MoE layers,
+    # and the ragged dispatch refuses it as JAX's does.
+    ep = TransformerLM(**CFG, moe_experts=4, moe_axis="expert", device="cpu")
+    assert all(b.moe.axis_name == "expert" for b in ep.blocks())
+    with pytest.raises(ValueError, match="single-shard"):
+        TransformerLM(**CFG, moe_experts=4, moe_axis="expert", moe_dispatch="ragged",
+                      device="cpu")
     for impl in ("ring", "ulysses"):
         with pytest.raises(NotImplementedError, match="item 8"):
             TransformerLM(**CFG, impl=impl, device="cpu")

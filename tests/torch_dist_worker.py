@@ -10,8 +10,10 @@ cases of its suite and writes its results with ``torch.save`` to
 Suites: ``dp`` (DataParallel against the JAX engine's inputs in
 ``<job>/cases.pt``), ``resnet`` (DataParallel on the north star's
 ResNet with SGD momentum, from ``<job>/cases.pt``), ``comm``
-(collectives on seeded per-rank values) and ``task5`` (``--parallel dp``
-of the port's task5).
+(collectives on seeded per-rank values), ``task5`` (``--parallel dp``
+of the port's task5) and ``ep`` (ExpertParallel, its MoE layer and the
+differentiable all_to_all, from ``<job>/cases.pt``; task5 ``--parallel
+ep``).
 """
 
 from __future__ import annotations
@@ -270,8 +272,181 @@ def suite_task5(job: Path, rank: int, world: int) -> dict:
     return task5.main(argv)
 
 
+# ----------------------------------------------------------------- ep
+
+
+def _tap_optimizer():
+    """An optimizer wrapper (jax-free) that records one parameter's
+    gradient each update and defers to ``base``: around a clip and under
+    it, the ratio of the two records is the clip's scale."""
+    from dataclasses import dataclass, field
+
+    from tpudml_torch.optim import Optimizer
+
+    @dataclass(frozen=True)
+    class Tap(Optimizer):
+        base: Optimizer = None
+        name: str = ""
+        seen: list = field(default_factory=list, compare=False)
+
+        def init(self, params):
+            return self.base.init(params)
+
+        def update(self, grads, state, params):
+            self.seen.append(grads[self.name].detach().clone())
+            return self.base.update(grads, state, params)
+
+    return Tap
+
+
+def _experts(model) -> dict:
+    """A model's expert tensors, by name."""
+    from tpudml_torch.parallel import is_expert_param
+
+    return {n: p.detach().clone() for n, p in model.named_parameters() if is_expert_param(n)}
+
+
+def _ep_engine(spec, model):
+    from tpudml_torch.interop import ep_state_from_tpudml
+    from tpudml_torch.optim import Adam, ClipByGlobalNorm, GradientDescent, Sgd
+    from tpudml_torch.parallel import ExpertParallel
+
+    taps = ()
+    if spec["opt"] == "adam":
+        opt = Adam(lr=spec["lr"])
+    elif spec["opt"] == "clip":
+        tap = _tap_optimizer()
+        inner = tap(base=Sgd(lr=spec["lr"]), name=spec["tap"])
+        opt = tap(base=ClipByGlobalNorm(base=inner, max_norm=spec["max_norm"]),
+                  name=spec["tap"])
+        taps = (opt, inner)
+    elif spec["opt"] == "sgd":
+        opt = Sgd(lr=spec["lr"])
+    else:
+        opt = GradientDescent(lr=spec["lr"])
+    ep = ExpertParallel(model, opt, **spec.get("engine", {}))
+    seeded = _experts(model)  # what the engine kept of the seeded draw
+    state, opt_state = ep_state_from_tpudml(spec["params"], spec["opt_state"],
+                                            ep.expert_index, ep.world)
+    model.load_state_dict(state)
+    ts = ep.create_state()
+    if spec["opt"] == "adam":
+        ts.opt_state = opt_state
+    return ep, ts, taps, seeded
+
+
+def _ep_model(spec, axis_name="expert"):
+    """The model of an EP training case, drawn from its seed: with
+    ``axis_name=None`` the same model without expert parallelism."""
+    import torch
+
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.nn import Activation, Dense, Flatten, Sequential
+    from tpudml_torch.nn.moe import MoELayer
+
+    if "lm" in spec:
+        return TransformerLM(**spec["lm"], moe_axis=axis_name, device="cpu")
+    d, e, n_in = spec["classifier"]
+    g = torch.Generator().manual_seed(0)
+    return Sequential((Flatten(), Dense(n_in, d, generator=g), Activation(),
+                       MoELayer(d, e, mlp_ratio=2, capacity_factor=8.0, axis_name=axis_name,
+                                generator=g),
+                       Dense(d, 10, generator=g)))
+
+
+def _ep_train(spec):
+    """Train ``spec``'s EP engine on its global batches: per-step losses and
+    accuracies, the final parameters (this rank's expert slices), the eval
+    accuracy on the first batch, the clip's taps, the experts the engine
+    kept of the seeded draw and those of the same model drawn without EP."""
+    model = _ep_model(spec)
+    ep, ts, taps, seeded = _ep_engine(spec, model)
+    step = ep.make_train_step()
+    losses, accs = [], []
+    for x, y in spec["batches"]:
+        ts, m = step(ts, x, y)
+        losses.append(float(m["loss"]))
+        accs.append(float(m["accuracy"]))
+    out = {"losses": losses, "accs": accs, "params": _params(model),
+           "expert_index": ep.expert_index, "seeded": seeded,
+           "dense": _experts(_ep_model(spec, axis_name=None)),
+           "eval": ep.evaluate(ts, spec["batches"][:1])}
+    if taps:
+        out["raw"], out["clipped"] = taps[0].seen, taps[1].seen
+        out["clip_axes"] = ep.optimizer.base.axes == (ep.expert_group,)
+    return out
+
+
+def _ep_layer_case(spec, rank: int, world: int):
+    """One MoE layer under EP on this rank's rows of the tokens: its
+    output rows, d(Σ y·cot) wrt its rows, the router and its experts, the
+    experts the engine kept of the seeded draw and the dense layer's."""
+    import torch
+
+    from tpudml_torch.interop import ep_state_from_tpudml
+    from tpudml_torch.nn import Sequential
+    from tpudml_torch.nn.moe import MoELayer
+    from tpudml_torch.optim import GradientDescent
+    from tpudml_torch.parallel import ExpertParallel
+
+    layer = MoELayer(**spec["layer"], axis_name="expert",
+                     generator=torch.Generator().manual_seed(0))
+    dense = Sequential((MoELayer(**spec["layer"], generator=torch.Generator().manual_seed(0)),))
+    seq = Sequential((layer,))
+    ep = ExpertParallel(seq, GradientDescent())
+    seeded = _experts(seq)
+    state, _ = ep_state_from_tpudml({"layer0": spec["params"]}, (), ep.expert_index, ep.world)
+    seq.load_state_dict(state)
+    n = spec["tokens"].shape[0] // world
+    x = spec["tokens"][rank * n:(rank + 1) * n].clone().requires_grad_()
+    y, _ = layer(x)
+    (y * spec["cot"][rank * n:(rank + 1) * n]).sum().backward()
+    return {"y": y.detach(), "dx": x.grad, "seeded": seeded, "dense": _experts(dense),
+            "expert_index": ep.expert_index,
+            "grads": {k: p.grad for k, p in seq.named_parameters()}}
+
+
+def suite_ep(job: Path, rank: int, world: int) -> dict:
+    """World 2: the MoE layer's forward and backward, the differentiable
+    all_to_all, EP training (classifier, clip, the LM fused and unfused)
+    and task5 ``--parallel ep``; world 4: EP×DP on a {data: 2, expert: 2}
+    layout. Inputs from ``<job>/cases.pt``."""
+    import numpy as np
+    import torch
+
+    from tpudml_torch.comm import collectives as c
+
+    cases = torch.load(job / "cases.pt", weights_only=False)
+    out = {name: _ep_train(spec) for name, spec in cases["train"].items()}
+    for name, spec in cases.get("layer", {}).items():
+        out[name] = _ep_layer_case(spec, rank, world)
+    if world == 2:
+        x = torch.from_numpy(np.random.default_rng((7, rank)).standard_normal(
+            (4 * world, 3, 2)).astype(np.float64)).requires_grad_()
+        w = torch.from_numpy(np.random.default_rng((8, rank)).standard_normal(
+            (4, 3 * world, 2)).astype(np.float64))
+        y = c.all_to_all(x, split_axis=0, concat_axis=1)
+        (y * w).sum().backward()
+        back = c.all_to_all(y, split_axis=1, concat_axis=0)
+        out["a2a"] = {"y": y.detach(), "dx": x.grad, "back": back.detach()}
+        from tpudml_torch.tasks import task5_longcontext as task5
+
+        argv = ["--parallel", "ep", "--device", "cpu", "--vocab", "32", "--embed_dim", "32",
+                "--num_heads", "4", "--num_layers", "2", "--seq_len", "16",
+                "--batch_size", "4", "--lr", "0.01", "--steps", "8", "--log_every", "4",
+                "--moe_experts", "4", "--attn", "flash", "--fused_ln", "--rope",
+                "--log_dir", str(job / f"logs{rank}")]
+        out["task5"] = task5.main(argv)
+        try:
+            task5.main(argv[:-2] + ["--moe_experts", "3"])
+            out["indivisible"] = None
+        except ValueError as e:
+            out["indivisible"] = str(e)
+    return out
+
+
 SUITES = {"dp": suite_dp, "resnet": suite_resnet, "comm": suite_comm,
-          "task5": suite_task5}
+          "task5": suite_task5, "ep": suite_ep}
 
 
 def main() -> None:

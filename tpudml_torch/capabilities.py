@@ -1,7 +1,7 @@
 """The port's copy of the engine-composition rejections that its engines
-raise (the rows of ``tpudml/capabilities.py`` that ``DataParallel``
-checks, with the JAX wording; the planner's full table is ROADMAP.md
-queue 1 item 10).
+raise (the rows of ``tpudml/capabilities.py`` that ``DataParallel`` and
+task5 ``--parallel ep`` check, with the JAX wording; the planner's full
+table is ROADMAP.md queue 1 item 10).
 
 Guard sites call :func:`reject` with an entry's key instead of writing
 the message; each entry keeps its ``when`` predicate over a flat
@@ -109,6 +109,12 @@ _ENTRIES = (
             "engine must shard the optimizer state it creates)"
         ),
         when=None,  # constructor invariant: the planner never pre-wraps
+    ),
+    Capability(
+        key="ep_dropout",
+        owner="tpudml_torch.tasks.task5_longcontext",
+        message="--parallel ep does not support --dropout",
+        when=lambda c: _g(c, "engine") == "ep" and bool(_g(c, "dropout")),
     ),
     Capability(
         key="train_flash_attn_dense",

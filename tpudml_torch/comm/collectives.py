@@ -288,12 +288,7 @@ def ppermute_ring(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
     return out
 
 
-def all_to_all(x: torch.Tensor, group=None, split_axis: int = 0,
-               concat_axis: int = 0) -> torch.Tensor:
-    """All-to-all (tiled): ``x`` splits into world chunks along
-    ``split_axis``, chunk j goes to rank j, and the chunks received are
-    concatenated along ``concat_axis`` in rank order (the Ulysses
-    sequence-parallel primitive)."""
+def _all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
     world = _world(group)
     if x.shape[split_axis] % world:
         raise ValueError(f"split axis {split_axis} of {tuple(x.shape)} does not divide "
@@ -302,6 +297,35 @@ def all_to_all(x: torch.Tensor, group=None, split_axis: int = 0,
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
     return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all whose backward is the inverse all-to-all (split and
+    concat axes swapped): JAX's transpose of ``lax.all_to_all``. Chunk j
+    of rank r's input became chunk r of rank j's output, so the cotangent
+    of that output chunk goes back to rank r, to chunk j of its input."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return _all_to_all(g, ctx.group, concat_axis, split_axis), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group=None, split_axis: int = 0,
+               concat_axis: int = 0) -> torch.Tensor:
+    """All-to-all (tiled): ``x`` splits into world chunks along
+    ``split_axis``, chunk j goes to rank j, and the chunks received are
+    concatenated along ``concat_axis`` in rank order (the Ulysses
+    sequence-parallel primitive, and the MoE dispatch's ``[E, C, d] ->
+    [E/W, W·C, d]`` at split 0, concat 1). Differentiable: the backward
+    is the inverse all-to-all. At world 1 it still goes through the
+    group's collective."""
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
 
 
 AGGREGATORS = {

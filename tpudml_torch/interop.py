@@ -6,7 +6,9 @@ The caller hands over the tree as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``); this module never sees jax.
 Names flatten with dots (``block0.conv1.kernel``). Every tensor keeps
 the JAX layout except a conv kernel (a 4-D ``kernel``), which goes from
-JAX's HWIO to the port's OIHW in ``channels_last`` memory.
+JAX's HWIO to the port's OIHW in ``channels_last`` memory. Under expert
+parallelism a rank holds its slice of each expert tensor
+(:func:`ep_state_from_tpudml`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from tpudml_torch.nn.moe import expert_rows, is_expert_param
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
@@ -89,3 +93,46 @@ def adam_state_from_tpudml(opt_state: Mapping[str, Any]) -> dict:
               for k, v in _flatten(opt_state["v"]).items()},
         "t": int(np.asarray(opt_state["t"])),
     }
+
+
+def sequential_params_from_tpudml(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``nn.Sequential``-of-the-port state dict from a ``tpudml.nn.Sequential``
+    param tree: JAX's ``layer{i}`` keys are the port's child names
+    (``layer1.kernel``, ``layer3.router.kernel``, ``layer3.experts.w1``),
+    layouts as they are (conv kernels HWIO -> OIHW)."""
+    if not tree or not all(str(k).startswith("layer") for k in tree):
+        raise ValueError(f"not a Sequential param tree (keys {sorted(tree)})")
+    return {k: _tensor(k, v) for k, v in _flatten(tree).items()}
+
+
+def _local_experts(flat: dict[str, torch.Tensor], index: int, world: int) -> dict:
+    """``flat`` with every expert tensor cut to rank ``index``'s rows
+    (``expert_rows``); the rest as it is."""
+    return {name: expert_rows(t, index, world, name).clone()
+            if is_expert_param(name) and t.dim() > 0 else t for name, t in flat.items()}
+
+
+def ep_state_from_tpudml(params: Mapping[str, Any], opt_state: Any, index: int,
+                         world: int) -> tuple[dict[str, torch.Tensor], Any]:
+    """This rank's ``(state dict, optimizer state)`` under expert
+    parallelism from a JAX ``ExpertParallel`` TrainState's ``params`` and
+    ``opt_state`` (as numpy: JAX's global view of the sharded arrays):
+    replicated tensors copied, expert tensors (a name with an ``experts``
+    component) cut to the rank's ``index``-th of ``world`` row blocks, in
+    the optimizer state as in the parameters. Parameters keep the layouts
+    of :func:`lm_params_from_tpudml` (a ``TransformerLM`` tree) or of
+    :func:`sequential_params_from_tpudml` (``layer{i}`` keys); the
+    optimizer state is an Adam/AdamW state, an Sgd momentum state, or
+    ``()``. Load the state dict into the model that an ``ExpertParallel``
+    engine has already cut to its experts."""
+    state = (sequential_params_from_tpudml(params) if "tok_embed" not in params
+             else lm_params_from_tpudml(params))
+    if isinstance(opt_state, Mapping) and set(opt_state) == {"m", "v", "t"}:
+        adam = adam_state_from_tpudml(opt_state)
+        opt = {"m": _local_experts(adam["m"], index, world),
+               "v": _local_experts(adam["v"], index, world), "t": adam["t"]}
+    else:
+        opt = sgd_state_from_tpudml(opt_state)
+        if opt != ():
+            opt = _local_experts(opt, index, world)
+    return _local_experts(state, index, world), opt

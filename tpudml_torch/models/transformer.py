@@ -1,5 +1,6 @@
 """Decoder-only LM: the port of ``tpudml/models/transformer.py``
-(single-device subset — init, the full forward with full or flash
+(single-device subset, plus the expert-parallel MoE blocks of
+``moe_axis`` — init, the full forward with full or flash
 attention and the unfused or fused add+LayerNorm trunk, dense or MoE FFN
 branches, bf16 compute with f32 master weights, the pre-head features,
 and the KV-cached decode and chunked prefill paths).
@@ -109,7 +110,9 @@ class TransformerLM(nn.Module):
     ``compute_dtype`` the mixed precision (module docstring);
     ``moe_experts > 0`` swaps each block's FFN for a ``MoELayer`` with the
     ``moe_*`` settings (capacity factor, top-k, dispatch, ragged dW;
-    ``moe_axis``, expert parallelism, is not ported and raises).
+    ``moe_axis`` names the expert-parallel axis of the layers, which an
+    ``ExpertParallel`` engine binds to its group; the parameters are drawn
+    as without it).
     Parameters are drawn on the CPU from ``generator`` (default: seeded
     with 0) and moved to ``device`` (default "cuda"; asking for the card
     without one raises). ``dropout > 0`` is not ported and raises."""

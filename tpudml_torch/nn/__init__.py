@@ -7,15 +7,26 @@ from tpudml_torch.nn.attention import (
     dot_product_attention,
     rotary_embedding,
 )
-from tpudml_torch.nn.layers import BatchNorm, Conv2D, Dense, LayerNorm
+from tpudml_torch.nn.layers import (
+    Activation,
+    BatchNorm,
+    Conv2D,
+    Dense,
+    Flatten,
+    LayerNorm,
+    Sequential,
+)
 from tpudml_torch.nn.losses import softmax_cross_entropy
 
 __all__ = [
+    "Activation",
     "BatchNorm",
     "Conv2D",
     "Dense",
+    "Flatten",
     "LayerNorm",
     "MultiHeadAttention",
+    "Sequential",
     "chunk_flash_window",
     "decode_attention",
     "dot_product_attention",

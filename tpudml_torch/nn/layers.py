@@ -1,5 +1,6 @@
-"""Dense, Conv2D, BatchNorm and LayerNorm: the port of
-``tpudml/nn/layers.py`` (the LM's and the ResNet's subset).
+"""Dense, Conv2D, BatchNorm, LayerNorm, Flatten, Activation and
+Sequential: the port of ``tpudml/nn/layers.py`` (the LM's, the ResNet's
+and the MoE classifier's subset).
 
 Parameters keep the JAX package's names, and its layout where torch
 computes in it — ``Dense.kernel`` is [in, out] and ``y = x @ kernel +
@@ -24,6 +25,7 @@ statistics and returns its input's dtype.
 from __future__ import annotations
 
 import math
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -194,3 +196,52 @@ class BatchNorm(nn.Module):
         y = (xf - mean) * torch.rsqrt(var.float() + self.eps)
         y = y * self.scale.float().view(shape) + self.bias.float().view(shape)
         return y.to(x.dtype)
+
+
+class Flatten(nn.Module):
+    """[N, ...] -> [N, prod(...)] (the JAX layer flattens NHWC images; the
+    port flattens whatever layout it is given, so NHWC arrays flatten as
+    JAX's do)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(x.shape[0], -1)
+
+
+class Activation(nn.Module):
+    """``fn(x)``, default relu (``jax.nn.relu``)."""
+
+    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor] = F.relu):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
+
+
+class Sequential(nn.Module):
+    """Chain of modules, registered as ``layer{i}`` so that parameter names
+    are JAX's param-tree keys (``layer1.kernel``, ``layer3.router.kernel``;
+    layers without parameters have no names, as they have no JAX entry).
+
+    A layer whose ``returns_aux`` is true (``MoELayer``) returns ``(y,
+    aux)``; the chain records the sum of those aux terms of its last
+    forward in ``aux_loss`` (None without such a layer), as JAX's
+    ``Sequential.apply`` threads each MoE layer's ``aux_loss`` state, and
+    ``tpudml_torch.train.collect_aux_losses`` reads it."""
+
+    def __init__(self, layers: Sequence[nn.Module] = ()):
+        super().__init__()
+        for i, layer in enumerate(layers):
+            self.add_module(f"layer{i}", layer)
+        self.aux_loss = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        aux = []
+        for layer in self.children():
+            if getattr(layer, "returns_aux", False):
+                x, a = layer(x)
+                aux.append(a.float())
+            else:
+                x = layer(x)
+        self.aux_loss = torch.stack(aux).sum() if aux else None
+        return x

@@ -25,21 +25,41 @@ Parameters keep the JAX layouts and names: ``router.kernel`` [d, E] and
 ``experts.{w1 [E, d, h], b1 [E, h], w2 [E, h, d], b2 [E, d]}``. With
 ``compute_dtype`` the experts' parameters are cast to it where used and the
 router stays f32 (JAX's ``keep_f32``).
+
+Expert parallelism (``axis_name`` set): tokens and experts shard over the
+same ranks (the GShard layout). Each rank routes its own tokens over the
+global E experts, with the capacity C from its own token count; the
+``[E, C, d]`` dispatch buffer goes through one differentiable
+``all_to_all`` (``[E, C, d] -> [E/W, W·C, d]``) to the rank that owns
+each expert, the rank's E/W local experts run, and the inverse
+``all_to_all`` brings the outputs back before the combine. The backward of
+each ``all_to_all`` is the other one, so an expert's gradient is the sum
+over every rank's tokens (``ExpertParallel`` divides it by W). Gather and
+einsum dispatch only: ``dispatch="ragged"`` builds no capacity buffers
+and raises under EP, as in JAX.
+
+Where JAX names a mesh axis that the surrounding ``shard_map`` binds, the
+port's layer keeps the name and needs its process group bound to
+``group`` (``ExpertParallel`` binds every MoE layer of its axis, and
+slices each rank's experts out of the full draw, so that a model built
+from one seed holds the same experts under EP as without it). A layer
+with ``axis_name`` and no group raises when called. The layer holds
+either all E experts (a one-rank group) or the rank's E/W.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from tpudml_torch.comm.collectives import all_to_all
 from tpudml_torch.nn.layers import cast, uniform_fan_in
 from tpudml_torch.ops.moe_kernel import ragged_ffn, ragged_matmul
 
 DISPATCHES = ("gather", "einsum", "ragged")
 RAGGED_DW = ("grouped", "stock")
-EP_NOT_PORTED = ("expert parallelism (axis_name) is not ported yet (ROADMAP.md "
-                 "queue 1 item 5, EP, the next slice)")
 
 
 def _pad0(rows: torch.Tensor) -> torch.Tensor:
@@ -111,13 +131,32 @@ class _Experts(nn.Module):
         self.b2 = nn.Parameter(uniform_fan_in((e, d), h, generator))
 
 
+def is_expert_param(name: str) -> bool:
+    """Whether the dotted parameter name ``name`` is an expert tensor (JAX's
+    ``_is_expert_path``: any ``experts`` component)."""
+    return "experts" in name.split(".")
+
+
+def expert_rows(t: torch.Tensor, index: int, world: int, name: str) -> torch.Tensor:
+    """The experts that rank ``index`` of a ``world``-rank expert group
+    holds of the expert tensor ``name`` [E, ...]: rows
+    [index·E/world, (index+1)·E/world), a view."""
+    if t.shape[0] % world:
+        raise ValueError(f"{name}: {t.shape[0]} experts do not divide over {world} ranks")
+    n = t.shape[0] // world
+    return t[index * n:(index + 1) * n]
+
+
 class MoELayer(nn.Module):
     """Top-k mixture-of-experts FFN over [..., embed_dim] inputs (module
     docstring). ``top_k=1`` gates with the raw top-1 probability (Switch);
     ``top_k>1`` renormalizes the chosen k (GShard), scales capacity by k,
     and choice 0 claims buffer slots before choice 1. Ties in the router's
     probabilities go to the lower expert index, as ``lax.top_k``'s do.
-    ``axis_name`` (expert parallelism) is not ported and raises."""
+    ``axis_name`` set: expert parallelism over the process group bound to
+    ``group`` (module docstring)."""
+
+    returns_aux = True  # forward returns (y, aux): Sequential sums the aux
 
     def __init__(self, embed_dim: int, num_experts: int, mlp_ratio: int = 4,
                  capacity_factor: float = 1.25, top_k: int = 1,
@@ -133,12 +172,18 @@ class MoELayer(nn.Module):
                              f"{dispatch!r}")
         if ragged_dw not in RAGGED_DW:
             raise ValueError(f"ragged_dw must be 'grouped' or 'stock', got {ragged_dw!r}")
-        if axis_name is not None:
-            raise NotImplementedError(EP_NOT_PORTED)
+        if dispatch == "ragged" and axis_name is not None:
+            raise ValueError(
+                "dispatch='ragged' is single-shard only — expert parallelism "
+                "ships static [E, C, d] capacity buffers over all_to_all, "
+                "which the dropless path deliberately does not build; use "
+                "dispatch='gather' under EP")
         self.embed_dim = embed_dim
         self.num_experts = num_experts
         self.capacity_factor = capacity_factor
         self.top_k = top_k
+        self.axis_name = axis_name
+        self.group = None  # the expert group under EP (bound by ExpertParallel)
         self.dispatch = dispatch
         self.ragged_dw = ragged_dw
         self.compute_dtype = compute_dtype
@@ -195,11 +240,18 @@ class MoELayer(nn.Module):
             disp = oh.sum(dim=1).reshape(g, e, cap)
             combine = torch.einsum("gks,gk->gs", oh, w_eff).reshape(g, e, cap)
             expert_in = torch.einsum("gec,gd->ecd", disp.to(tokens.dtype), tokens)
+        ep = self.axis_name is not None
+        if ep:
+            # Each expert's buffer to its owning rank: [E, C, d] -> [E/W, W·C, d].
+            group = self._expert_group()
+            expert_in = all_to_all(expert_in, group, split_axis=0, concat_axis=1)
         w1, b1, w2, b2 = self._expert_params()
         ct = torch.promote_types(expert_in.dtype, w1.dtype)  # as einsum promotes
         expert_in, w1, b1, w2, b2 = (t.to(ct) for t in (expert_in, w1, b1, w2, b2))
         hidden = F.relu(torch.bmm(expert_in, w1) + b1[:, None, :])
         expert_out = torch.bmm(hidden, w2) + b2[:, None, :]
+        if ep:
+            expert_out = all_to_all(expert_out, group, split_axis=1, concat_axis=0)
         if self.dispatch == "gather":
             y = _CombineRows.apply(expert_out.reshape(s_total, d), w_eff, flat_dst,
                                    token_src).to(tokens.dtype)
@@ -207,6 +259,20 @@ class MoELayer(nn.Module):
             y = torch.einsum("gec,ecd->gd", combine.to(expert_out.dtype), expert_out)
         frac = choice_sum.mean(dim=0) / k
         return y.reshape(shape), _switch_aux(frac, probs, e)
+
+    def _expert_group(self):
+        """The bound expert group, checked against the experts held."""
+        if self.group is None:
+            raise RuntimeError(
+                f"MoELayer(axis_name={self.axis_name!r}) runs under expert parallelism: "
+                "bind its process group to .group (ExpertParallel does)")
+        world = dist.get_world_size(self.group)
+        local = self.experts.w1.shape[0]
+        if local * world != self.num_experts:
+            raise ValueError(f"the layer holds {local} experts; {self.num_experts} over a "
+                             f"{world}-rank group need {self.num_experts // world} a rank "
+                             "(ExpertParallel slices them)")
+        return self.group
 
     def _assign_slots(self, topi, cap: int):
         """Choice-priority slot assignment: choice 0 claims buffer slots for

@@ -3,10 +3,13 @@
 from tpudml_torch.optim.optimizers import (
     Adam,
     AdamW,
+    ClipByGlobalNorm,
     GradientDescent,
     Optimizer,
     Sgd,
     make_optimizer,
+    shard_aware_clip,
 )
 
-__all__ = ["Adam", "AdamW", "GradientDescent", "Optimizer", "Sgd", "make_optimizer"]
+__all__ = ["Adam", "AdamW", "ClipByGlobalNorm", "GradientDescent", "Optimizer", "Sgd",
+           "make_optimizer", "shard_aware_clip"]

@@ -1,5 +1,6 @@
 """First-order optimizers (the port of ``tpudml/optim/optimizers.py``:
-``GradientDescent``, ``Sgd``, ``Adam``, ``AdamW``, ``make_optimizer``).
+``GradientDescent``, ``Sgd``, ``Adam``, ``AdamW``, ``ClipByGlobalNorm``,
+``shard_aware_clip``, ``make_optimizer``).
 
 Same contract as the JAX package, over dicts of tensors keyed by
 parameter name (``dict(model.named_parameters())``):
@@ -17,9 +18,13 @@ operations, ``p − lr·(m/c1) / (sqrt(v/c2) + eps)`` with
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Any
 
 import torch
+
+from tpudml_torch.comm.collectives import psum_tree
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 3, ReferenceAdam)"
 
@@ -131,6 +136,77 @@ class AdamW(Adam):
             for name, p in params.items():
                 p.sub_(decay[name])
         return params, state
+
+
+@dataclass(frozen=True)
+class ClipByGlobalNorm(Optimizer):
+    """Gradient clipping wrapper: scales the WHOLE gradient dict by
+    ``min(1, max_norm / max(norm, 1e-12))``, ``norm`` its global L2 norm
+    (squares summed in f32), then defers to ``base``; the state is
+    ``base``'s.
+
+    An engine whose update runs on rank-local gradient shards
+    (``ExpertParallel``: each rank holds its slice of the experts) must
+    reduce the norm across ranks, or every rank derives another scale and
+    the replicated parameters drift apart. JAX names mesh axes there; the
+    port's ``axes`` are process groups (None = the default group): the
+    squares of the leaves ``sharded`` marks (a predicate on the parameter
+    name; None = every leaf) are summed over each group in turn, those of
+    the replicated leaves counted once. Engines rewrap the clip with
+    :func:`shard_aware_clip`.
+    """
+
+    base: Optimizer = None  # type: ignore[assignment]
+    max_norm: float = 1.0
+    axes: tuple = ()
+    sharded: Any = None  # Callable[[str], bool]; None = every leaf local
+
+    def __post_init__(self):
+        if self.base is None:
+            raise ValueError("ClipByGlobalNorm needs a base optimizer")
+
+    def init(self, params):
+        return self.base.init(params)
+
+    @torch.no_grad()
+    def scale(self, grads: Params) -> torch.Tensor:
+        """The factor the update multiplies every gradient by (f32), from
+        the L2 norm of ``grads`` over the ranks of ``axes``."""
+        local = rep = torch.zeros((), dtype=torch.float32,
+                                  device=next(iter(grads.values())).device)
+        for name, g in grads.items():
+            s = g.float().square().sum()
+            if self.sharded is None or self.sharded(name):
+                local = local + s
+            else:
+                rep = rep + s
+        for group in self.axes:
+            local = psum_tree(local, group)
+        norm = torch.sqrt(local + rep)
+        return torch.clamp(self.max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+
+    def update(self, grads, state, params):
+        scale = self.scale(grads)
+        grads = {n: (g * scale).to(g.dtype) for n, g in grads.items()}
+        return self.base.update(grads, state, params)
+
+
+def shard_aware_clip(opt: Optimizer, axes: tuple, sharded) -> Optimizer:
+    """Rewrap every :class:`ClipByGlobalNorm` in ``opt``'s ``.base`` chain
+    that has no ``axes`` yet, so that its norm reduces over the engine's
+    process groups ``axes`` with ``sharded`` marking the rank-local leaves.
+    A clip nested below the top of the chain (or below another clip)
+    would otherwise compute a rank-local norm. Returns a new chain; the
+    optimizers are frozen dataclasses."""
+    if isinstance(opt, ClipByGlobalNorm) and not opt.axes:
+        opt = dataclasses.replace(opt, axes=tuple(axes), sharded=sharded)
+        # fall through: the clip's own .base may nest another clip
+    base = getattr(opt, "base", None)
+    if isinstance(base, Optimizer):
+        new_base = shard_aware_clip(base, axes, sharded)
+        if new_base is not base:
+            opt = dataclasses.replace(opt, base=new_base)
+    return opt
 
 
 def make_optimizer(

@@ -17,10 +17,14 @@ adds the Switch aux term at α = 0.01, as JAX's does), and ``--parallel
 dp``: ``tpudml_torch.parallel.DataParallel`` over the process group, one
 process per replica (``torchrun --nproc_per_node N``; a process started
 alone builds a one-rank group), world = the process count
-(``--n_devices``, if given, must equal it). Every rank draws the same
+(``--n_devices``, if given, must equal it), and ``--parallel ep``:
+``tpudml_torch.parallel.ExpertParallel`` over the same group, the MoE
+blocks' experts split over the ranks (it needs ``--moe_experts``
+divisible by the world, rejects ``--dropout`` with JAX's wording, and
+the ragged dispatch raises, as in JAX). Every rank draws the same
 global batch from the same ``rng`` and trains on its rows; only rank 0
-prints and writes metrics. Every other ``--parallel`` value (``ep``
-among them), ``--dropout``, ``--sentinel`` and ``--ckpt_dir`` raise
+prints and writes metrics. Every other ``--parallel`` value,
+``--dropout``, ``--sentinel`` and ``--ckpt_dir`` raise
 ``NotImplementedError``, naming their ROADMAP item.
 
 Same row sampling (``np.random.default_rng(seed)`` over
@@ -35,7 +39,8 @@ long context on the lean head: ``--attn flash --seq_len 16384 --batch_size 2
 --lr 0.001 --fused_xent``; MoE with the grouped-dW kernel: add
 ``--moe_experts 8 --moe_dispatch ragged``; data parallel over gloo on the
 CPU: ``torchrun --nproc_per_node 2 -m tpudml_torch.tasks.task5_longcontext
---parallel dp --device cpu``
+--parallel dp --device cpu``; expert parallel: ``--parallel ep
+--moe_experts 8`` (one process: a one-rank group; ``torchrun`` for more)
 """
 
 from __future__ import annotations
@@ -47,13 +52,14 @@ import time
 import numpy as np
 import torch
 
+from tpudml_torch.capabilities import reject
 from tpudml_torch.core import assert_same_program, process_count, process_group, process_index
 from tpudml_torch.data import synthetic_lm
 from tpudml_torch.device import resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import TransformerLM
 from tpudml_torch.optim import make_optimizer
-from tpudml_torch.parallel import DataParallel
+from tpudml_torch.parallel import DataParallel, ExpertParallel
 from tpudml_torch.train import TrainState, make_lm_fused_train_step, make_train_step
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
@@ -62,7 +68,6 @@ PARALLEL_ITEMS = {
     "tp": "7 (sharded training engines)",
     "pp": "7 (sharded training engines)",
     "cp": "8 (context parallel)",
-    "ep": "5 (EP, the next slice)",
 }
 
 
@@ -136,7 +141,19 @@ def _save_scores(args) -> bool | None:
 
 
 def _reject_unported(args) -> None:
-    if args.parallel not in ("single", "dp"):
+    if args.parallel == "ep":
+        # MoE decoder trained expert-parallel (the world is checked in
+        # build_engine, inside the group).
+        if not args.moe_experts:
+            raise ValueError("--parallel ep needs --moe_experts N")
+        if args.dropout:
+            reject("ep_dropout")
+        if args.fused_xent:
+            # JAX's ExpertParallel trains through materialized logits and its
+            # task5 drops the flag without a word; the port says so.
+            raise ValueError("--parallel ep trains through materialized logits; "
+                             "--fused_xent composes with --parallel single and dp")
+    elif args.parallel not in ("single", "dp"):
         raise NotImplementedError(
             f"--parallel {args.parallel} {NOT_PORTED.format(PARALLEL_ITEMS[args.parallel])}")
     args._save_scores = _save_scores(args)
@@ -154,9 +171,12 @@ def _reject_unported(args) -> None:
 
 
 def build_engine(args, device: torch.device):
-    """(train_state, step_fn) for ``--parallel single`` or ``dp`` (the
-    latter inside a process group)."""
+    """(train_state, step_fn) for ``--parallel single``, ``dp`` or ``ep``
+    (the last two inside a process group)."""
     _reject_unported(args)
+    if args.parallel == "ep" and args.moe_experts % process_count():
+        raise ValueError(f"--moe_experts {args.moe_experts} must divide over "
+                         f"{process_count()} devices")
     model = TransformerLM(
         vocab_size=args.vocab,
         embed_dim=args.embed_dim,
@@ -170,6 +190,7 @@ def build_engine(args, device: torch.device):
         moe_experts=args.moe_experts,
         moe_top_k=args.moe_top_k,
         moe_dispatch=args.moe_dispatch,
+        moe_axis="expert" if args.parallel == "ep" else None,
         device=device,
         generator=torch.Generator().manual_seed(args.seed),
     )
@@ -178,6 +199,9 @@ def build_engine(args, device: torch.device):
         # [B, T] token batches are never the stacked-loader form.
         engine = DataParallel(model, opt, stacked_batches=False,
                               fused_xent=args.fused_xent, save_scores=args._save_scores)
+        return engine.create_state(), engine.make_train_step()
+    if args.parallel == "ep":
+        engine = ExpertParallel(model, opt)
         return engine.create_state(), engine.make_train_step()
     if args.fused_xent:
         step = make_lm_fused_train_step(model, opt, save_scores=args._save_scores)
@@ -191,7 +215,7 @@ def run(args) -> dict:
         raise ValueError("--steps must be >= 1")
     device = resolve_device(args.device)
     _reject_unported(args)
-    if args.parallel != "dp":
+    if args.parallel not in ("dp", "ep"):  # the engines that run inside a process group
         return _train(args, device)
     with process_group(device=device) as group:
         world = process_count(group)
@@ -206,8 +230,8 @@ def run(args) -> dict:
 
 
 def _train(args, device: torch.device, world: int = 1, lead: bool = True) -> dict:
-    """The training loop; in a DP run every rank runs it on the same global
-    batches, and rank 0 (``lead``) prints and writes the metrics."""
+    """The training loop; in a DP or EP run every rank runs it on the same
+    global batches, and rank 0 (``lead``) prints and writes the metrics."""
     ts, step = build_engine(args, device)
     seqs = synthetic_lm(args.batch_size * 4, args.seq_len, args.vocab, seed=args.seed)
 

@@ -53,6 +53,16 @@ call of the gradient aggregation alone (the all-reduce of the flat
 gradients, on the step's own gradients): its NCCL kernels and the copies
 around them (the flat buffer's cat, the ÷ world), from ``torch.profiler``.
 
+``--ep`` profiles the slice-8 path, task5 ``--parallel ep --attn flash
+--fused_ln --rope --moe_experts 8 --moe_dispatch gather`` (the training
+config in f32, Adam lr 1e-3, task5's batches, capacity factor 2.0):
+``tpudml_torch.parallel.ExpertParallel`` at world 1 (a one-rank NCCL
+group over a file store in a temporary directory) against the
+single-card step of the same model, interleaved in one process:
+single_1, ep_1, ep_2, single_2. Each EP row adds the device ms a call of
+the dispatch's ``all_to_all`` alone at its [E, C, d] = [8, 2048, 512]
+(NCCL's kernels and the copies around them).
+
 ``--resnet [--batch N]`` profiles the single-card bf16 step of ``bench.py``
 ``bench_resnet`` instead (the north star's model and optimizer):
 ResNet-18 at CIFAR width (bf16 compute over f32 master weights), SGD lr
@@ -64,7 +74,7 @@ default 1024 (bench's per-chip batch); it adds imgs/s. One configuration,
 TF32 is off for matmuls and cuDNN's convolutions, so an f32 row means f32.
 
 Run on the card: ``python -m tpudml_torch.tools.profile_train [--flagship | --long |
---wide | --dp | --moe 8 --moe_variant ragged_grouped | --resnet [--batch 128]]`` (one
+--wide | --dp | --ep | --moe 8 --moe_variant ragged_grouped | --resnet [--batch 128]]`` (one
 JSON line at the end; ``--out FILE`` also writes it to FILE).
 """
 
@@ -86,6 +96,7 @@ MODEL = dict(vocab_size=32768, embed_dim=512, num_heads=4, num_layers=6,
 RESNET_BATCH = 1024  # bench.py:215, bench_resnet's per-chip batch
 WIDE = dict(embed_dim=2048, num_heads=16, num_layers=2)  # chip_smoke.py's WIDE_MODEL
 BATCH = 8
+EP_EXPERTS = 8  # chip_smoke.py's EP_TASK5
 LONG_T, LONG_BATCH = 16384, 2  # BASELINE.md:45
 # bench_moe's variants (bench.py:586-661), also driven by chip_smoke.py.
 MOE_VARIANTS = {"gather": dict(moe_dispatch="gather"),
@@ -146,6 +157,9 @@ def main(argv=None) -> dict:
     mode.add_argument("--dp", action="store_true",
                       help="the flagship step under DataParallel at world 1 (NCCL) against "
                       "the single-card one, interleaved")
+    mode.add_argument("--ep", action="store_true",
+                      help="the f32 MoE gather step under ExpertParallel at world 1 (NCCL) "
+                      "against the single-card one, interleaved")
     mode.add_argument("--moe", type=int, default=0, metavar="E",
                       help="one bench_moe step with E experts (bf16, top-1, capacity 1.25)")
     mode.add_argument("--resnet", action="store_true",
@@ -167,7 +181,8 @@ def main(argv=None) -> dict:
     from tpudml_torch.ops import build_kernels
     from tpudml_torch.core import DistributedConfig, process_group
     from tpudml_torch.optim import Adam, AdamW
-    from tpudml_torch.parallel import DataParallel
+    from tpudml_torch.comm import all_to_all
+    from tpudml_torch.parallel import DataParallel, ExpertParallel
     from tpudml_torch.train import TrainState, make_lm_fused_train_step, make_train_step
 
     build_kernels()
@@ -194,33 +209,42 @@ def main(argv=None) -> dict:
         rng = np.random.default_rng(0)
         batches = itertools.cycle(
             [seqs[rng.integers(0, len(seqs), size=batch)] for _ in range(8)])
+        moe = dict(impl="flash", fused_ln=True, moe_experts=EP_EXPERTS, moe_dispatch="gather")
         configs = ((("lean", dict(impl="flash"), None), ("saved", dict(impl="flash"), True))
                    if args.long else
+                   tuple((name, moe, False) for name in ("single_1", "ep_1", "ep_2", "single_2"))
+                   if args.ep else
                    (("kernel", dict(impl="flash", fused_ln=True), False),
                     ("plain", dict(impl="full", fused_ln=False), False)))
     step_name = (f"MoE E={args.moe} {args.moe_variant} bf16 (AdamW 3e-4)" if args.moe else
                  "flagship bf16 (fused xent head, AdamW 3e-4)" if args.flagship else
                  "flagship bf16, single card vs DataParallel world 1 (NCCL)" if args.dp else
+                 f"MoE E={EP_EXPERTS} gather f32, single card vs ExpertParallel world 1 (NCCL; "
+                 "flash, fused add+LN, Adam 1e-3)" if args.ep else
                  "long-context f32 T=16384 (fused xent head, Adam 1e-3)" if args.long
                  else "wide-trunk f32 d=2048 (materialized logits, Adam 1e-3)" if args.wide
                  else "f32 (materialized logits, Adam 1e-3)")
     result = {"device": torch.cuda.get_device_name(0), "model": model_cfg,
               "batch": batch, "tokens_per_step": batch * t, "step": step_name}
     tmp = stack = None
-    if args.dp:
+    if args.dp or args.ep:
         stack = contextlib.ExitStack()
         tmp = stack.enter_context(tempfile.TemporaryDirectory())
         stack.enter_context(process_group(
             DistributedConfig(coordinator_address=f"file://{tmp}/store"), device="cuda"))
     for name, kw, save_scores in configs:
-        dp = name.startswith("dp")
+        dp, ep = name.startswith("dp"), name.startswith("ep")
         model = TransformerLM(**model_cfg, **dict(kw, impl="full") if dp else kw,
+                              moe_axis="expert" if ep else None,
                               device="cuda", generator=torch.Generator().manual_seed(0))
         opt = AdamW(lr=3e-4) if args.flagship or args.moe or args.dp else Adam(lr=1e-3)
         fused_head = args.long or save_scores
         if dp:
             engine = DataParallel(model, opt, fused_xent=True, save_scores=True,
                                   flash_attn=True)
+            step, ts = engine.make_train_step(), engine.create_state()
+        elif ep:
+            engine = ExpertParallel(model, opt)
             step, ts = engine.make_train_step(), engine.create_state()
         else:
             step = (make_lm_fused_train_step(model, opt, save_scores=save_scores) if fused_head
@@ -240,6 +264,14 @@ def main(argv=None) -> dict:
             grads, _ = engine.local_grads(ts, rows[:, :-1], rows[:, 1:])
             r["aggregation"] = collective_breakdown(lambda: engine.aggregator(grads))
             del engine, grads
+        if ep:
+            layer = model.block0.moe
+            buf = torch.randn(EP_EXPERTS, layer._capacity(batch * t), model_cfg["embed_dim"],
+                              device="cuda")
+            r["all_to_all"] = collective_breakdown(
+                lambda: all_to_all(buf, layer.group, split_axis=0, concat_axis=1))
+            r["all_to_all"]["shape"] = list(buf.shape)
+            del engine, buf
         result[name] = r
         del model, ts, step
         torch.cuda.empty_cache()
@@ -261,6 +293,9 @@ def _emit(result: dict, keys: list[str], out: str | None) -> dict:
               f"{rate}, peak {r['peak_mem_gb']:.2f} GB")
         if "aggregation" in r:
             print(f"    aggregation alone (world 1): {describe_aggregation(r['aggregation'])}")
+        if "all_to_all" in r:
+            print(f"    dispatch all_to_all alone {r['all_to_all']['shape']} f32 (world 1): "
+                  f"{describe_aggregation(r['all_to_all'])}")
         for row in r["top"]:
             print(f"    {row['ms_per_call']:.4f} ms x{row['launches_per_call']:.0f}  "
                   f"{row['kernel']}")

@@ -6,7 +6,8 @@ DP engine's un-aggregated local step ``local_grads``/``accumulate_grads`` (for b
 JAX's ``accumulate_grads`` and ``accumulate_fused_grads``), and the MoE
 aux-loss plumbing ``collect_aux_losses``, ``model_has_moe``,
 ``resolve_aux_loss_weight``, and the host side: ``make_eval_step``,
-``evaluate`` and the epoch loop ``train_loop``).
+``evaluate``, the sharded engines' ``evaluate_counts`` and the epoch
+loop ``train_loop``).
 
 The loss functions run the model in training mode (JAX's ``train=True``:
 BatchNorm normalizes by the batch and updates its running statistics
@@ -251,6 +252,20 @@ def make_eval_step(model: nn.Module) -> Callable:
         return (logits.argmax(-1) == to_device(labels, dev)).sum()
 
     return step
+
+
+def evaluate_counts(step: Callable, ts: TrainState, loader) -> float:
+    """Accuracy from a ``(x, labels) -> (correct, count)`` step (the
+    sharded engines' ``make_counting_eval_step``), accumulated over
+    ``loader``'s global batches: the loop behind their ``evaluate``
+    methods. ``ts`` is JAX's argument; the port's step closes over the
+    model, which holds the parameters."""
+    correct = total = 0
+    for x, labels in loader:
+        c, n = step(x, labels)
+        correct += int(c)
+        total += int(n)
+    return correct / max(total, 1)
 
 
 def evaluate(model: nn.Module, ts: TrainState, loader) -> float:
