@@ -250,7 +250,37 @@ the CPU). Phases, each printing its own line(s):
    tiled chunk and concat on one rank), backward equal to the plain
    inverse of the cotangent, the inverse bringing the input back; its
    time a call.
-13. one JSON line of per-kernel numbers (launches summed over the main
+13. main path 9, the lab tasks (``tpudml_torch.tasks.task1``,
+   ``task1_mlp``, ``task2``, ``task3``) on MNIST: the native data plane
+   built and loaded (``tpudml_torch.native.available()``), the synthetic
+   MNIST split quantized to u8 and written as IDX files with
+   ``write_idx``, read back by ``load_mnist`` (u8 storage, the /255 fused
+   into the native gather) and trained on by every entry: task1 at its
+   reference defaults (ReferenceAdam lr 5e-4·√200, one epoch of 300 steps
+   of 200; neither JAX's task1 nor the port's learns the synthetic set at
+   that lr, so its accuracy is printed, not held to a floor) and at the lr
+   of JAX's own test (1e-3); task1_mlp for one epoch; task2 at world 1
+   (a one-rank NCCL group) with each aggregation and once with
+   ``--measure_comm``, one epoch at its defaults; task3 with each
+   division at task2's lr and momentum (its reference lr 0.001 is
+   MNIST-scaled and learns the synthetic set too slowly for one epoch).
+   Each must reach LABS_ACC_FLOOR (LABS_COMM_FLOOR with
+   ``--measure_comm``, which reports a positive comm time), JAX's own
+   test floors. The world-1 DP LeNet step equals the single-card step
+   bitwise where the latter repeats itself (else DP_GAP_MULT times its
+   gap). imgs/s and ms/step of task1 and task2, and the device's busy
+   share of their steps. No kernel of the port lies on this path.
+14. main path 10, dropout: task5's single-card path at the training
+   config (main path 2's model, batches and Adam): ``--dropout 0``
+   through task5's ``build_engine`` equals main path 2's step bitwise
+   where that repeats itself; ``--dropout 0.1`` for DROPOUT_STEPS steps
+   with the launch counts zeroed just before and read just after
+   (kernels 1–3, 8, 9 in main path 2's counts a step): finite losses, the
+   keep share of every mask drawn within 6σ of the binomial's 0.9, and a
+   second run from the same seed equal bitwise where main path 2's step
+   repeats; then the same under ``DataParallel`` at world 1 (its own
+   path, ``dropout_dp``). ms/step against ``--dropout 0``.
+15. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -3362,6 +3392,339 @@ def ep_phase() -> dict[str, int]:
     return launches
 
 
+# ------------------------------------------------------------ phase 13
+
+# The lab tasks (slice 9) on the synthetic MNIST split written as u8 IDX
+# files. JAX's own test floors: test accuracy > 0.5, > 0.4 with
+# --measure_comm (tests/test_task1.py:27, tests/test_task2.py:29,50).
+LABS_ACC_FLOOR = 0.5
+LABS_COMM_FLOOR = 0.4
+TASK1_TEST_LR = "1e-3"  # tests/test_task1.py's lr (the reference lr does not learn this set)
+TASK3_FLAGS = ["--lr", "0.01", "--momentum", "0.9"]  # task2's reference lr and momentum
+LABS_BUSY_ITERS = 30
+
+
+def _lab(module, argv: list[str]) -> tuple[dict, list[str]]:
+    """``module.main(argv)`` with its stdout captured: (metrics, lines)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        metrics = module.main(argv)
+    return metrics, out.getvalue().splitlines()
+
+
+def _write_mnist_idx(root) -> int:
+    """The synthetic MNIST splits quantized to u8, written as torchvision's
+    ``MNIST/raw`` IDX files under ``root``; returns the bytes written."""
+    import numpy as np
+
+    from tpudml_torch.data import load_mnist, write_idx
+
+    raw = root / "MNIST" / "raw"
+    raw.mkdir(parents=True)
+    nbytes = 0
+    for split, stem in (("train", "train"), ("test", "t10k")):
+        ds = load_mnist(str(root / "none"), split, storage="f32")  # the synthetic fallback
+        images = (ds.images[..., 0] * 255.0).round().astype(np.uint8)
+        write_idx(raw / f"{stem}-images-idx3-ubyte", images)
+        write_idx(raw / f"{stem}-labels-idx1-ubyte", ds.labels.astype(np.uint8))
+        nbytes += images.nbytes + len(ds.labels)
+    return nbytes
+
+
+def labs_phase() -> dict[str, int]:
+    """Main path 9, the lab tasks (module docstring, phase 13). Returns its
+    launch counts: none, as no kernel of the port lies on it."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudml_torch import native
+    from tpudml_torch.core import DistributedConfig, process_count, process_group
+    from tpudml_torch.core.prng import seed_key
+    from tpudml_torch.data import load_mnist, synthetic_classification
+    from tpudml_torch.models import LeNet
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import ReferenceAdam, Sgd
+    from tpudml_torch.parallel import DataParallel
+    from tpudml_torch.tasks import task1, task1_mlp, task2, task3
+    from tpudml_torch.tools.profile_serve import _measure
+    from tpudml_torch.train import TrainState, make_train_step
+
+    reset_launch_counts()  # ---- the labs path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        # (1) The native data plane and the IDX files.
+        t0 = time.perf_counter()
+        check(native.available(), "the native data plane is not built")
+        nbytes = _write_mnist_idx(root)
+        train = load_mnist(tmp, "train")
+        idx = np.random.default_rng(0).integers(0, len(train), size=256)
+        got = train.gather(idx)
+        want = train.images[idx].astype(np.float32) * train.scale
+        print(f"[labs] native data plane {native._LIB_PATH.name} built and loaded; synthetic "
+              f"MNIST written as u8 IDX ({nbytes / 1e6:.1f} MB) and read back as "
+              f"{train.name} {train.images.dtype} {train.images.shape} in "
+              f"{time.perf_counter() - t0:.1f} s; fused gather of 256 rows = numpy's "
+              f"{np.array_equal(got[0], want)}")
+        check(train.name == "mnist-train" and train.images.dtype == np.uint8
+              and len(train) == 60000, "the u8 IDX files did not load as MNIST")
+        check(np.array_equal(got[0], want) and np.array_equal(got[1], train.labels[idx]),
+              "the native gather disagrees with numpy")
+        common = ["--data_dir", tmp, "--log_dir", f"{tmp}/logs", "--device", "cuda"]
+
+        def report(tag, m, lines, batch, world=1):
+            ms = m["train_time_s"] * 1e3 / m["steps"]
+            print(f"[labs] {tag}: test accuracy {m['test_accuracy']:.4f}, {m['steps']} steps "
+                  f"in {m['train_time_s']:.2f} s: {ms:.3f} ms/step, "
+                  f"{batch * world * m['steps'] / m['train_time_s']:.0f} imgs/s "
+                  f"(world {world}); last line: {lines[-1]}")
+
+        # (2) task1: reference defaults, then the JAX test's lr.
+        for tag, extra in (("task1 reference defaults (adam_ref, lr 5e-4*sqrt(200))", []),
+                           (f"task1 --lr {TASK1_TEST_LR}", ["--lr", TASK1_TEST_LR])):
+            m, lines = _lab(task1, common + ["--log_every", "100"] + extra)
+            report(tag, m, lines, 200)
+            check(m["steps"] == 300 and np.isfinite(m["loss"]), f"{tag} did not run its epoch")
+        check(m["test_accuracy"] > LABS_ACC_FLOOR, "task1 is under its floor")
+
+        # (3) task1_mlp, one epoch.
+        m, lines = _lab(task1_mlp, common + ["--epochs", "1", "--log_every", "0"])
+        report("task1_mlp --epochs 1 (Model API, SGD 0.01, batch 32)", m, lines, 32)
+        check(m["steps"] == 1875 and m["test_accuracy"] > LABS_ACC_FLOOR,
+              "task1_mlp is under its floor")
+
+        # (4) task2 at world 1, each aggregation, then the comm-timed split step.
+        task2_ms = {}
+        for agg in ("allreduce", "allgather", "reducescatter"):
+            m, lines = _lab(task2, common + ["--epochs", "1", "--log_every", "0",
+                                             "--aggregation", agg])
+            report(f"task2 --aggregation {agg}", m, lines, 32)
+            task2_ms[agg] = m["train_time_s"] * 1e3 / m["steps"]
+            check(m["world"] == 1 and m["test_accuracy"] > LABS_ACC_FLOOR,
+                  f"task2 {agg} is under its floor")
+        m, lines = _lab(task2, common + ["--epochs", "1", "--log_every", "0",
+                                         "--measure_comm"])
+        report("task2 --measure_comm", m, lines, 32)
+        print(f"[labs] task2 --measure_comm: {lines[-2]}")
+        check(m["comm_time_s"] > 0 and m["test_accuracy"] > LABS_COMM_FLOOR,
+              "task2 --measure_comm is under its floor or timed no communication")
+
+        # (5) task3, each division.
+        for division in ("partition", "sampling"):
+            m, lines = _lab(task3, common + ["--epochs", "1", "--log_every", "0",
+                                             "--division", division] + TASK3_FLAGS)
+            report(f"task3 --division {division} {' '.join(TASK3_FLAGS)}", m, lines, 32)
+            check(m["test_accuracy"] > LABS_ACC_FLOOR, f"task3 {division} is under its floor")
+    check(not torch.distributed.is_initialized(), "a lab's group outlived its run")
+
+    # (6) The world-1 DP LeNet step against the single-card step, and the
+    # busy share of task1's and task2's steps.
+    batches = [synthetic_classification(32, (28, 28, 1), 10, seed=i) for i in range(3)]
+
+    def lenet():
+        return LeNet(device="cuda", generator=torch.Generator().manual_seed(0))
+
+    def run(m, step, ts, stacked):
+        losses = [step(ts, x[None] if stacked else x, y[None] if stacked else y)[1]["loss"]
+                  for x, y in batches]
+        return [float(v) for v in losses], _params(m)
+
+    singles = []
+    for _ in range(2):
+        m = lenet()
+        opt = Sgd(lr=0.01, momentum=0.9)
+        singles.append(run(m, make_train_step(m, opt), TrainState.create(m, opt), False))
+    (s1_losses, s1_params), (s2_losses, s2_params) = singles
+    repeats = s1_losses == s2_losses and _bitwise(s1_params, s2_params)
+    x1, y1 = synthetic_classification(200, (28, 28, 1), 10, seed=5)
+    m = lenet()
+    opt = ReferenceAdam(lr=1e-3)
+    ts, step = TrainState.create(m, opt), make_train_step(
+        m, opt, rng_root=seed_key(0).fold_in(0x0D0))
+    busy1 = _measure(lambda: step(ts, x1, y1), LABS_BUSY_ITERS)
+    with tempfile.TemporaryDirectory() as tmp, process_group(
+            DistributedConfig(coordinator_address=f"file://{tmp}/store", num_processes=1),
+            device="cuda") as group:
+        check(torch.distributed.get_backend(group) == "nccl" and process_count(group) == 1,
+              "the labs DP group is not a one-rank NCCL group")
+        m = lenet()
+        dp = DataParallel(m, Sgd(lr=0.01, momentum=0.9), group, stacked_batches=True)
+        d_losses, d_params = run(m, dp.make_train_step(), dp.create_state(), True)
+        dts, dstep = dp.create_state(), dp.make_train_step()
+        x2, y2 = batches[0][0][None], batches[0][1][None]
+        busy2 = _measure(lambda: dstep(dts, x2, y2), LABS_BUSY_ITERS)
+    if repeats:
+        check(d_losses == s1_losses and _bitwise(d_params, s1_params),
+              "the world-1 DP LeNet step differs from the single-card step")
+        print(f"[labs] world-1 DP LeNet step (SGD 0.01 / 0.9, batch 32, one-rank NCCL group) "
+              f"equals the single-card step bitwise over {len(batches)} steps (losses and all "
+              f"{len(d_params)} parameters)")
+    else:
+        lgap = max(abs(a - b) for a, b in zip(s1_losses, s2_losses))
+        pgap = max((s2_params[n] - s1_params[n]).abs().max().item() for n in s1_params)
+        ldiff = max(abs(a - b) for a, b in zip(d_losses, s1_losses))
+        worst = max((d_params[n] - s1_params[n]).abs().max().item() for n in s1_params)
+        print(f"[labs] the single-card LeNet step is not deterministic (two runs differ by "
+              f"|loss| {lgap:.2e}, |param| {pgap:.2e}): world-1 DP vs single |loss diff| "
+              f"{ldiff:.2e}, max |param diff| {worst:.2e} (tol {DP_GAP_MULT} x the gap)")
+        check(ldiff <= DP_GAP_MULT * lgap and worst <= DP_GAP_MULT * pgap,
+              "world-1 DP LeNet disagrees with the single-card step")
+    for tag, r, batch in (("task1 step (LeNet, adam_ref, batch 200, numpy batch in)", busy1,
+                           200),
+                          ("task2 step (DataParallel world 1, allreduce, batch 32)", busy2, 32)):
+        print(f"[labs] {tag}: wall {r['wall_ms']:.3f} ms/step, {batch / r['wall_ms'] * 1e3:.0f} "
+              f"imgs/s, {r['kernels_per_call']:.0f} device kernels summing "
+              f"{r['kernel_ms_per_call']:.3f} ms: busy {r['busy_share']:.3f} "
+              f"({LABS_BUSY_ITERS} steps; torch.profiler over 5)")
+    print(f"[labs] task2 ms/step by aggregation (one epoch each): "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in task2_ms.items())}")
+
+    launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    print(f"[labs] launches on the path: {sum(launches.values())} (every kernel 0)")
+    check(not any(launches.values()), f"the labs path launched a kernel: {launches}")
+    return launches
+
+
+# ------------------------------------------------------------ phase 14
+
+# Dropout on task5's single-card path at the training config (main path
+# 2's model seed, batches and Adam).
+DROPOUT_TASK5 = ["--attn", "flash", "--fused_ln", "--rope", "--vocab", "32768",
+                 "--embed_dim", "512", "--num_heads", "4", "--num_layers", "6",
+                 "--seq_len", "1024", "--batch_size", "8", "--lr", "1e-3", "--seed", "1"]
+DROPOUT_STEPS = 3
+DROPOUT_RATE = 0.1
+
+
+def dropout_phase() -> dict[str, dict[str, int]]:
+    """Main path 10, dropout (module docstring, phase 14). Returns the launch
+    counts of the single-card run ("dropout") and of the world-1 DP run
+    ("dropout_dp")."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudml_torch.core import DistributedConfig, process_group
+    from tpudml_torch.core.prng import seed_key
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.nn import layers
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import Adam
+    from tpudml_torch.tasks import task5_longcontext as task5
+    from tpudml_torch.train import TrainState, make_train_step
+
+    t, v = TRAIN_MODEL["max_len"], TRAIN_MODEL["vocab_size"]
+    seqs = synthetic_lm(4 * TRAIN_BATCH, t, v, seed=0)
+    rng = np.random.default_rng(0)  # main path 2's batches
+    batches = [seqs[rng.integers(0, len(seqs), size=TRAIN_BATCH)] for _ in range(DROPOUT_STEPS)]
+    cuda = torch.device("cuda")
+
+    def phase5_step():
+        m = TransformerLM(**TRAIN_MODEL, impl="flash", fused_ln=True, device="cuda",
+                          generator=torch.Generator().manual_seed(1))
+        opt = Adam(lr=TRAIN_LR)
+        losses, ms = _train_run(TrainState.create(m, opt), make_train_step(m, opt), batches)
+        return losses, ms, _params(m)
+
+    def task5_run(rate, parallel="single"):
+        args = task5.parse_args(DROPOUT_TASK5 + ["--dropout", str(rate), "--parallel", parallel])
+        ts, step = task5.build_engine(args, cuda)
+        losses, ms = _train_run(ts, step, batches)
+        return losses, ms, _params(ts.model)
+
+    # (1) Main path 2's step twice, and task5's --dropout 0 model through
+    # the step with a dropout key (task5's own ``key(seed ^ 0xD0)``).
+    p1, p2 = phase5_step(), phase5_step()
+    repeats = p1[0] == p2[0] and _bitwise(p1[2], p2[2])
+    ts, _ = task5.build_engine(task5.parse_args(DROPOUT_TASK5 + ["--dropout", "0"]), cuda)
+    keyed = make_train_step(ts.model, Adam(lr=TRAIN_LR), rng_root=seed_key(1 ^ 0xD0))
+    off = (*_train_run(ts, keyed, batches), _params(ts.model))
+    del ts, keyed
+    print(f"[dropout] main path 2's step repeats itself bitwise over {DROPOUT_STEPS} steps: "
+          f"{repeats}; task5 --dropout 0 with a dropout key: losses "
+          f"{' '.join(f'{x:.6f}' for x in off[0])}")
+    if repeats:
+        check(off[0] == p1[0] and _bitwise(off[2], p1[2]),
+              "--dropout 0 differs from main path 2's step")
+        print(f"[dropout] --dropout 0 equals main path 2's step bitwise (losses and all "
+              f"{len(off[2])} parameters): the key plumbing changes nothing when off")
+    del p2
+    torch.cuda.empty_cache()
+
+    # (2) --dropout 0.1: the keep share of every mask drawn, and the launches.
+    draw = layers.dropout_mask
+    kept = [0, 0, 0]  # kept, drawn, masks
+
+    def counting(key, keep, shape, device):
+        mask = draw(key, keep, shape, device)
+        kept[0] += int(mask.sum())
+        kept[1] += mask.numel()
+        kept[2] += 1
+        return mask
+
+    layers.dropout_mask = counting
+    try:
+        reset_launch_counts()  # ---- main path 10 starts here
+        on = task5_run(DROPOUT_RATE)
+        launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    finally:
+        layers.dropout_mask = draw
+    need = {k.name: DROPOUT_STEPS * PER_STEP.get(k.name, 0) for k in KERNELS}
+    keep = 1.0 - DROPOUT_RATE
+    share = kept[0] / kept[1]
+    sigma = math.sqrt(keep * (1 - keep) / kept[1])
+    print(f"[dropout] task5 --dropout {DROPOUT_RATE}: losses "
+          f"{' '.join(f'{x:.6f}' for x in on[0])}; {kept[2]} masks, keep share {share:.6f} of "
+          f"{kept[1]} draws (binomial {keep} +- 6 sigma = {6 * sigma:.2e}); launches "
+          f"{dict((k, c) for k, c in launches.items() if c)} = {DROPOUT_STEPS} x {PER_STEP}")
+    check(launches == need, f"the dropout path launched {launches}, not {need}")
+    check(all(np.isfinite(on[0])), "a dropout loss is not finite")
+    check(abs(share - keep) <= 6 * sigma, f"the keep share {share} is off {keep}")
+    check(kept[2] == DROPOUT_STEPS * 2 * TRAIN_MODEL["num_layers"],
+          "not two masks a layer a step")
+    check(on[0] != off[0], "--dropout 0.1 trained as --dropout 0 did")
+
+    # (3) A second run from the same seed.
+    again = task5_run(DROPOUT_RATE)
+    same = again[0] == on[0] and _bitwise(again[2], on[2])
+    print(f"[dropout] a second --dropout {DROPOUT_RATE} run from the same seed repeats the "
+          f"losses and parameters bitwise: {same}")
+    if repeats:
+        check(same, "the dropout run does not repeat itself where main path 2's step does")
+    del again
+    torch.cuda.empty_cache()
+
+    # (4) The same under DataParallel at world 1.
+    with tempfile.TemporaryDirectory() as tmp, process_group(
+            DistributedConfig(coordinator_address=f"file://{tmp}/store", num_processes=1),
+            device="cuda") as group:
+        check(torch.distributed.get_backend(group) == "nccl", "the dropout group is not NCCL's")
+        reset_launch_counts()  # ---- the dropout_dp path starts here
+        dp1 = task5_run(DROPOUT_RATE, "dp")
+        dp_launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+        dp2 = task5_run(DROPOUT_RATE, "dp")
+    dp_same = dp1[0] == dp2[0] and _bitwise(dp1[2], dp2[2])
+    print(f"[dropout] --parallel dp --dropout {DROPOUT_RATE} at world 1 (the replica folds rank "
+          f"0 into its keys): losses {' '.join(f'{x:.6f}' for x in dp1[0])}; two runs equal "
+          f"bitwise: {dp_same}; launches {dict((k, c) for k, c in dp_launches.items() if c)}")
+    check(dp_launches == need, f"the DP dropout path launched {dp_launches}, not {need}")
+    check(all(np.isfinite(dp1[0])), "a DP dropout loss is not finite")
+    if repeats:
+        check(dp_same, "the DP dropout run does not repeat itself")
+    check(not torch.distributed.is_initialized(), "the dropout group outlived its phase")
+    print(f"[dropout] ms/step (steady state, {DROPOUT_STEPS - 1} steps after one warm-up): "
+          f"--dropout {DROPOUT_RATE} {on[1]:.2f}, DP {dp1[1]:.2f}, {dp2[1]:.2f}; --dropout 0 "
+          f"{off[1]:.2f}; main path 2's step {p1[1]:.2f}")
+    return {"dropout": launches, "dropout_dp": dp_launches}
+
+
+
 def ptxas_usage(log: str) -> dict[str, dict]:
     """{mangled entry function: {registers, spill, stack}} from a ``-Xptxas
     -v`` build log (spill: bytes stored plus bytes loaded; stack: the
@@ -3776,6 +4139,10 @@ def main() -> int:
     paths["resnet"] = resnet_phase()
     torch.cuda.empty_cache()
     paths["ep"] = ep_phase()
+    torch.cuda.empty_cache()
+    paths["labs"] = labs_phase()
+    torch.cuda.empty_cache()
+    paths.update(dropout_phase())
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -262,8 +262,6 @@ def test_constructor_rejections_use_the_jax_wording(key, kw):
     (dict(zero1=True, zero1_overlap=True, accum_steps=2), "item 7"),
     (dict(sentinel=True), "item 6"),
     (dict(obs=True), "item 6"),
-    (dict(accum_steps=2), "item 3"),
-    (dict(rng_root=0), "item 3"),
 ])
 def test_unported_knobs_name_their_item(kw, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -1284,3 +1284,130 @@ def test_small_resnet_f32_on_card_matches_cpu(cuda_device, variant):
     assert set(card) == set(cpu)
     for name, want in cpu.items():
         _close_to_max(card[name], want, 1e-4)
+
+
+def _repeat_or_gap(got, want, again):
+    """``got`` (losses, params) equals ``want`` bitwise where the single-card
+    run repeats itself (``want`` == ``again``), else lies within 4 times the
+    gap between the two single-card runs."""
+    (gl, gp), (wl, wp), (al, ap) = got, want, again
+    if wl == al and all(torch.equal(wp[n], ap[n]) for n in wp):
+        assert gl == wl
+        for n in wp:
+            assert torch.equal(gp[n], wp[n]), n
+        return
+    lgap = max(abs(a - b) for a, b in zip(al, wl))
+    pgap = max((ap[n].float() - wp[n].float()).abs().max().item() for n in wp)
+    ldiff = max(abs(a - b) for a, b in zip(gl, wl))
+    worst = max((gp[n].float() - wp[n].float()).abs().max().item() for n in wp)
+    assert ldiff <= 4 * lgap and worst <= 4 * pgap, (ldiff, worst, lgap, pgap)
+
+
+@pytest.mark.cuda
+def test_lenet_world1_dp_step_equals_the_single_card_step(cuda_device, tmp_path):
+    """task2's step (LeNet, SGD 0.01 momentum 0.9, 32 images) through
+    ``DataParallel`` on a one-rank NCCL group against the single-card step
+    from the same weights, three steps: bitwise where the single-card step
+    repeats itself, else within 4 times its run-to-run gap."""
+    from tpudml_torch.core import DistributedConfig, process_group
+    from tpudml_torch.data import synthetic_classification
+    from tpudml_torch.models import LeNet
+    from tpudml_torch.optim import Sgd
+    from tpudml_torch.parallel import DataParallel
+    from tpudml_torch.train import TrainState, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    batches = [synthetic_classification(32, (28, 28, 1), 10, seed=i) for i in range(3)]
+
+    def model():
+        return LeNet(device=cuda_device, generator=torch.Generator().manual_seed(0))
+
+    def run(m, step, ts, stacked):
+        losses = [step(ts, x[None] if stacked else x, y[None] if stacked else y)[1]["loss"]
+                  .item() for x, y in batches]
+        return losses, {n: p.detach().clone() for n, p in m.named_parameters()}
+
+    singles = []
+    for _ in range(2):
+        m = model()
+        opt = Sgd(lr=0.01, momentum=0.9)
+        singles.append(run(m, make_train_step(m, opt), TrainState.create(m, opt), False))
+    with process_group(DistributedConfig(coordinator_address=f"file://{tmp_path}/store"),
+                       device="cuda"):
+        assert torch.distributed.get_backend() == "nccl"
+        m = model()
+        dp = DataParallel(m, Sgd(lr=0.01, momentum=0.9), stacked_batches=True)
+        got = run(m, dp.make_train_step(), dp.create_state(), True)
+    _repeat_or_gap(got, *singles)
+
+
+@pytest.mark.cuda
+def test_fused_trunk_dropout_step_kernels_match_plain(cuda_device):
+    """The dropout LM (0.1, RoPE, f32) on the flash kernels and the fused
+    add+LN kernels against the plain model (dense attention, unfused LN)
+    from the same weights and the same dropout keys, so the same masks
+    (drawn on the card from each key's path): step-1 gradients within
+    1e-4 of each parameter's largest plain magnitude, three steps' losses
+    within 1e-3, and the kernels launched 3 × (2, 2, 2, 4, 4)."""
+    from tpudml_torch.core.prng import seed_key
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import Adam
+    from tpudml_torch.train import TrainState, make_loss_fn, make_train_step, params_of
+
+    cfg = dict(vocab_size=256, embed_dim=128, num_heads=4, num_layers=2, max_len=128,
+               rope=True, dropout=0.1, device=cuda_device)
+    seqs = synthetic_lm(12, 128, 256, seed=0)
+    batches = [seqs[i:i + 4] for i in range(0, 12, 4)]
+    root = seed_key(0xD0)
+
+    def model(**kw):
+        return TransformerLM(**cfg, **kw, generator=torch.Generator().manual_seed(2))
+
+    kernel, plain = model(impl="flash", fused_ln=True), model(impl="full", fused_ln=False)
+    x = torch.from_numpy(batches[0][:, :-1]).long().to(cuda_device)
+    y = torch.from_numpy(batches[0][:, 1:]).long().to(cuda_device)
+    grads = {}
+    for name, m in (("kernel", kernel), ("plain", plain)):
+        loss, _ = make_loss_fn(m)(x, y, key=root.fold_in(0))
+        grads[name] = dict(zip(params_of(m), torch.autograd.grad(loss, list(
+            params_of(m).values()))))
+    for n, want in grads["plain"].items():
+        _close_to_max(grads["kernel"][n], want, 1e-4)
+    losses = {}
+    reset_launch_counts()
+    for name, m in (("kernel", kernel), ("plain", plain)):
+        opt = Adam(lr=1e-3)
+        ts, step = TrainState.create(m, opt), make_train_step(m, opt, rng_root=root)
+        losses[name] = [step(ts, b[:, :-1], b[:, 1:])[1]["loss"].item() for b in batches]
+        if name == "kernel":
+            launches = {k.name: k.launches for k in KERNELS}
+    assert max(abs(a - b) for a, b in zip(losses["kernel"], losses["plain"])) <= 1e-3
+    for name, per_step in (("flash_forward_lse", 2), ("flash_dq", 2), ("flash_dkdv", 2),
+                           ("add_layernorm_fwd", 4), ("add_layernorm_bwd", 4)):
+        assert launches.pop(name) == 3 * per_step, name
+    assert not any(launches.values()), launches
+
+
+@pytest.mark.cuda
+def test_prefetch_to_device_from_pinned_memory(cuda_device):
+    """Batches copied ahead on a side stream from pinned host buffers arrive
+    in order with their values, on the card, for numpy arrays and for
+    tensors already pinned."""
+    import numpy as np
+
+    from tpudml_torch.data import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    items = [(rng.random((64, 28, 28, 1), dtype=np.float32),
+              torch.arange(i, i + 64, dtype=torch.int32).pin_memory()) for i in range(6)]
+    out = []
+    for x, y in prefetch_to_device(iter(items), size=3, device=cuda_device):
+        assert x.device.type == y.device.type == "cuda"
+        out.append((x * 2, y + 1))  # consumed on the default stream
+    torch.cuda.synchronize()
+    assert len(out) == 6
+    for (x, y), (wx, wy) in zip(out, items):
+        assert torch.equal(x.cpu(), torch.from_numpy(wx) * 2)
+        assert torch.equal(y.cpu(), wy + 1)

@@ -458,8 +458,9 @@ def test_train_loop_and_evaluate_match_jax():
     assert acc == jax_evaluate(jm, jts, JaxLoader(JaxDataset(*test), 8, drop_remainder=False))
     with pytest.raises(ValueError, match="engine"):
         train_loop(tm, Sgd(lr=0.05), [], 1, step_fn=lambda *a: a, accum_steps=2)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        train_loop(tm, Sgd(lr=0.05), [], 1, accum_steps=2)
+    with pytest.raises(ValueError, match="not divisible by accum_steps 3"):
+        train_loop(tm, Sgd(lr=0.05), DataLoader(ArrayDataset(*train), 8), 1, accum_steps=3,
+                   log_every=0)
 
 
 @pytest.mark.parametrize("args", [
@@ -477,7 +478,8 @@ def test_synthetic_classification_is_jaxs_bitwise(args):
 def test_cifar10_synthetic_fallback_is_jaxs_bitwise(tmp_path, split):
     """No batches under ``data_dir``: the synthetic set (seeds 2 / 3,
     prototypes 101), cut to 48 images, and ``load_dataset``'s synthetic
-    set, f32 and u8; MNIST raises (its reader is not ported)."""
+    set, f32 and u8; ``load_dataset("mnist")`` falls back to JAX's
+    synthetic MNIST (``tests/test_torch_mnist_native.py`` reads IDX)."""
     got = load_cifar10(str(tmp_path), split, synthetic_size=48)
     want = jax_load_cifar10(str(tmp_path), split, synthetic_size=48)
     assert got.name == want.name == f"cifar10-synthetic-{split}"
@@ -492,8 +494,10 @@ def test_cifar10_synthetic_fallback_is_jaxs_bitwise(tmp_path, split):
         np.testing.assert_array_equal(got.images, want.images)
     with pytest.raises(FileNotFoundError):
         load_cifar10(str(tmp_path), split, synthetic_fallback=False)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        load_dataset("mnist", str(tmp_path), split)
+    got = load_dataset("mnist", str(tmp_path), split, synthetic_size=40)
+    want = jax_load_dataset("mnist", str(tmp_path), split, synthetic_size=40)
+    assert got.name == want.name == f"mnist-synthetic-{split}"
+    np.testing.assert_array_equal(got.images, want.images)
 
 
 def test_cifar10_pickle_batches_match_jax(tmp_path):

@@ -102,7 +102,6 @@ def test_card_is_the_default_device(no_card, tmp_path):
     (["--parallel", "pp"], "item 7"),
     (["--parallel", "cp"], "item 8"),
     (["--parallel", "ep", "--moe_experts", "4", "--ckpt_dir", "ck"], "item 6"),
-    (["--dropout", "0.1"], "item 3"),
     (["--sentinel"], "item 6"),
     (["--ckpt_dir", "ck"], "item 6"),
 ])

@@ -35,7 +35,9 @@ from tpudml_torch.data import synthetic_lm  # noqa: E402
 from tpudml_torch.interop import adam_state_from_tpudml, lm_params_from_tpudml  # noqa: E402
 from tpudml_torch.models import TransformerLM  # noqa: E402
 from tpudml_torch.nn.losses import softmax_cross_entropy  # noqa: E402
-from tpudml_torch.optim import Adam, AdamW, GradientDescent, Sgd, make_optimizer  # noqa: E402
+from tpudml_torch.optim import (  # noqa: E402
+    Adam, AdamW, GradientDescent, ReferenceAdam, Sgd, make_optimizer,
+)
 from tpudml_torch.train import (  # noqa: E402
     TrainState, make_loss_fn, make_train_step, make_train_step_body, params_of,
 )
@@ -187,16 +189,24 @@ def test_make_optimizer(name, cls):
 
 @pytest.mark.parametrize("name", ["reference_adam", "adam_ref"])
 def test_make_optimizer_unported_names_raise(name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        make_optimizer(name, 0.1)
+    """Both names of the reference Adam, which once raised, now build it
+    (``tests/test_torch_labs.py`` holds its update to JAX's)."""
+    opt = make_optimizer(name, 0.1)
+    assert type(opt) is ReferenceAdam and opt.lr == 0.1
 
 
 def test_accum_steps_and_unported_model_options_raise():
+    """Accumulation and dropout, which once raised, now build; a dropout
+    model trained without a key raises as JAX's does
+    (``tests/test_torch_accum.py``, ``tests/test_torch_dropout.py`` hold
+    them to JAX's)."""
     tm = TransformerLM(**CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step_body(tm, Adam(), accum_steps=2)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TransformerLM(**CFG, dropout=0.1, device="cpu")
+    make_train_step_body(tm, Adam(), accum_steps=2)
+    dm = TransformerLM(**CFG, dropout=0.1, device="cpu")
+    with pytest.raises(ValueError, match="requires an rng"):
+        make_train_step_body(dm, Adam())(TrainState.create(dm, Adam()),
+                                         torch.zeros((1, 4), dtype=torch.long),
+                                         torch.zeros((1, 4), dtype=torch.long))
     # Expert parallelism is ported: the axis reaches the blocks' MoE layers,
     # and the ragged dispatch refuses it as JAX's does.
     ep = TransformerLM(**CFG, moe_experts=4, moe_axis="expert", device="cpu")

@@ -13,7 +13,10 @@ ResNet with SGD momentum, from ``<job>/cases.pt``), ``comm``
 (collectives on seeded per-rank values), ``task5`` (``--parallel dp``
 of the port's task5) and ``ep`` (ExpertParallel, its MoE layer and the
 differentiable all_to_all, from ``<job>/cases.pt``; task5 ``--parallel
-ep``).
+ep``) and ``labs`` (task2's DataParallel LeNet for each aggregation and
+with ``accum_steps``, task3's samplers and ShardedDataLoader for each
+division, the dropout LM with a ``rng_root`` stream per rank drawing the
+JAX masks of ``<job>/cases.pt``, and the task2 entry at world 2).
 """
 
 from __future__ import annotations
@@ -445,8 +448,82 @@ def suite_ep(job: Path, rank: int, world: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------- labs
+
+
+def _lenet_run(case, spec, batches):
+    """``spec``'s DataParallel LeNet over the stacked global ``batches``:
+    per-step losses and accuracies and the final parameters."""
+    from tpudml_torch.models import LeNet
+    from tpudml_torch.optim import Sgd
+    from tpudml_torch.parallel import DataParallel
+
+    model = LeNet(device="cpu")
+    model.load_state_dict(case["lenet"])
+    dp = DataParallel(model, Sgd(**spec["sgd"]), aggregation=spec["aggregation"],
+                      accum_steps=spec["accum"], stacked_batches=True)
+    ts, step = dp.create_state(), dp.make_train_step()
+    losses, accs = [], []
+    for epoch, (images, labels) in batches:
+        ts, m = step(ts, images, labels)
+        losses.append(float(m["loss"]))
+        accs.append(float(m["accuracy"]))
+    return {"losses": losses, "accs": accs, "params": _params(model)}
+
+
+def suite_labs(job: Path, rank: int, world: int) -> dict:
+    import torch
+
+    from tpudml_torch.data import ArrayDataset, ShardedDataLoader, make_sampler
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.nn import layers
+    from tpudml_torch.optim import GradientDescent
+    from tpudml_torch.parallel import DataParallel
+    from tpudml_torch.tasks import task2
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    out = {name: _lenet_run(case, spec, [(0, b) for b in case["batches"]])
+           for name, spec in case["specs"].items()}
+
+    # task3: each division's samplers (their index sets) and one epoch of
+    # the sharded loader's batches through the engine.
+    ds = ArrayDataset(*case["dataset"])
+    for division in ("partition", "sampling"):
+        samplers = [make_sampler(division, len(ds), world, r, seed=case["sampler_seed"])
+                    for r in range(world)]
+        sets = []
+        for epoch in (0, 1):
+            for s in samplers:
+                s.set_epoch(epoch)
+            sets.append([list(iter(s)) for s in samplers])
+        loader = ShardedDataLoader(ds, case["task3_batch"], samplers)
+        loader.set_epoch(0)
+        out[division] = dict(_lenet_run(case, case["task3_spec"], [(0, b) for b in loader]),
+                             index_sets=sets)
+
+    # The dropout LM: every mask is the one JAX drew at the same key.
+    masks = case["masks"]
+    layers.dropout_mask = lambda key, keep, shape, device: torch.from_numpy(
+        masks[key.path]).to(device)
+    model = TransformerLM(**case["lm_model"], device="cpu")
+    model.load_state_dict(case["lm_state"])
+    dp = DataParallel(model, GradientDescent(lr=case["lm_lr"]), rng_root=case["lm_root"],
+                      stacked_batches=False)
+    ts, step = dp.create_state(), dp.make_train_step()
+    losses = []
+    for tokens, labels in case["lm_batches"]:
+        ts, m = step(ts, tokens, labels)
+        losses.append(float(m["loss"]))
+    out["dropout"] = {"losses": losses, "params": _params(model)}
+
+    out["task2"] = task2.main(["--device", "cpu", "--dataset", "synthetic", "--epochs", "1",
+                               "--batch_size", "16", "--log_every", "0", "--log_dir",
+                               str(job / f"logs{rank}")])
+    return out
+
+
 SUITES = {"dp": suite_dp, "resnet": suite_resnet, "comm": suite_comm,
-          "task5": suite_task5, "ep": suite_ep}
+          "task5": suite_task5, "ep": suite_ep, "labs": suite_labs}
 
 
 def main() -> None:

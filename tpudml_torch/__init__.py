@@ -9,27 +9,37 @@ prefill, the fused greedy decode head in f32 and int8). Slice 2 is
 single-card training: task5's ``--parallel single`` step with flash
 attention (forward, dQ, dK/dV kernels) and the fused add+LayerNorm
 junctions (forward and backward kernels), Adam in f32. Later slices:
-the bf16 flagship step, long context, MoE on one card, and data
-parallelism over ``torch.distributed`` (slice 6).
+the bf16 flagship step, long context, MoE on one card, data parallelism
+over ``torch.distributed`` (slice 6), the ResNet-18 north star, expert
+parallelism, and the lab tasks with gradient accumulation and dropout
+(slice 9).
 
-- ``tpudml_torch.nn``      — Dense, LayerNorm, attention ops and module,
-                             softmax cross-entropy.
-- ``tpudml_torch.models``  — the decoder-only TransformerLM.
+- ``tpudml_torch.nn``      — Dense, Conv2D, pools, BatchNorm, LayerNorm,
+                             Dropout, Sequential, attention ops and module,
+                             MoE, softmax cross-entropy.
+- ``tpudml_torch.models``  — the decoder-only TransformerLM, the ResNets,
+                             LeNet and the MLP.
 - ``tpudml_torch.ops``     — the CUDA kernels, their wrappers, plain
                              versions and launch counters.
-- ``tpudml_torch.optim``   — GD, Adam, AdamW.
+- ``tpudml_torch.optim``   — GD, SGD, Adam, the reference Adam, AdamW,
+                             the clip, learning-rate schedules.
 - ``tpudml_torch.train``   — TrainState, the train step and the local
                              (un-aggregated) step.
-- ``tpudml_torch.data``    — seeded synthetic data, the in-memory
-                             dataset, samplers and loaders.
-- ``tpudml_torch.core``    — process topology and the process group.
+- ``tpudml_torch.data``    — seeded synthetic data, MNIST (IDX) and
+                             CIFAR-10, the in-memory dataset, samplers,
+                             loaders, the device prefetch.
+- ``tpudml_torch.native``  — the C++ host gather (ctypes).
+- ``tpudml_torch.api``     — the MindSpore-style Model facade.
+- ``tpudml_torch.core``    — process topology, the process group, the
+                             task CLI config, PRNG keys.
 - ``tpudml_torch.comm``    — collectives over a process group, comm
                              timing, the aggregation benchmark.
-- ``tpudml_torch.parallel`` — the DataParallel engine.
+- ``tpudml_torch.parallel`` — the DataParallel and ExpertParallel engines.
 - ``tpudml_torch.capabilities`` — the engines' composition rejections.
 - ``tpudml_torch.serve``   — KV cache, engine, workloads, int8 weights.
-- ``tpudml_torch.tasks``   — the task entry points (task5 training,
-                             task6 serving).
+- ``tpudml_torch.tasks``   — the task entry points (task1, task1_mlp,
+                             task2, task3, task5 training, task6 serving,
+                             the north star).
 - ``tpudml_torch.metrics`` — JSONL scalar writer.
 - ``tpudml_torch.interop`` — tpudml param and Adam-state trees -> the
                              port's state.

@@ -1,12 +1,15 @@
 """Datasets of the port (the port of ``tpudml/data/datasets.py``:
 ``ArrayDataset``, ``synthetic_classification``, ``synthetic_lm``,
-``load_cifar10`` and ``load_dataset``). Plain numpy, bit-identical to the
-JAX package's.
+``load_mnist``, ``load_cifar10`` and ``load_dataset``). Plain numpy,
+bit-identical to the JAX package's.
 
-CIFAR-10 is read from its python-pickle batches under ``data_dir``
-(unpacking ``cifar-10-python.tar.gz`` there if that is all there is);
-without them the deterministic, learnable synthetic set of the same
-shapes takes its place. MNIST (the IDX reader) is not ported yet.
+MNIST is read from its IDX files under ``data_dir`` (torchvision's
+``MNIST/raw`` layout or flat, plain or ``.gz``), CIFAR-10 from its
+python-pickle batches (unpacking ``cifar-10-python.tar.gz`` there if that
+is all there is); without them the deterministic, learnable synthetic set
+of the same shapes takes their place. Batches are gathered by the native
+data plane (``tpudml_torch.native``), which also fuses a uint8 dataset's
+normalization into the gather.
 """
 
 from __future__ import annotations
@@ -18,20 +21,35 @@ from pathlib import Path
 
 import numpy as np
 
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 3, data/idx.py)"
+from tpudml_torch import native
+from tpudml_torch.data.idx import read_idx
+
+MNIST_FILES = {
+    "train_images": ["train-images-idx3-ubyte", "train-images.idx3-ubyte"],
+    "train_labels": ["train-labels-idx1-ubyte", "train-labels.idx1-ubyte"],
+    "test_images": ["t10k-images-idx3-ubyte", "t10k-images.idx3-ubyte"],
+    "test_labels": ["t10k-labels-idx1-ubyte", "t10k-labels.idx1-ubyte"],
+}
 
 
 @dataclass
 class ArrayDataset:
     """In-memory dataset of (images, labels): float32 already normalized
     (scale=1, bias=0), or raw uint8 normalized at batch time as
-    ``raw * scale + bias`` in f32 (the JAX package's numpy path)."""
+    ``raw * scale + bias`` in f32 by the native fused gather (4× less
+    resident memory than f32)."""
 
     images: np.ndarray  # [N, ...] float32 normalized, or uint8 raw
     labels: np.ndarray  # [N] int32
     name: str = "dataset"
     scale: float = 1.0
     bias: float = 0.0
+
+    def __post_init__(self):
+        # Row-major storage, as the native gather reads it (a transposed
+        # load, e.g. CIFAR's NCHW batches viewed NHWC, is copied once here).
+        self.images = np.ascontiguousarray(self.images)
+        self.labels = np.ascontiguousarray(self.labels)
 
     def __len__(self) -> int:
         return len(self.images)
@@ -56,12 +74,12 @@ class ArrayDataset:
 
     def gather(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """A batch: rows ``idx`` (normalized to f32 for uint8 storage) and
-        their labels."""
+        their labels, through ``tpudml_torch.native``."""
         if self.images.dtype == np.uint8:
-            imgs = self.images[idx].astype(np.float32) * self.scale + self.bias
+            imgs = native.gather_normalize(self.images, idx, self.scale, self.bias)
         else:
-            imgs = self.images[idx]
-        return imgs, self.labels[idx]
+            imgs = native.gather_rows(self.images, idx)
+        return imgs, native.gather_labels(self.labels, idx)
 
 
 def synthetic_lm(
@@ -107,6 +125,50 @@ def synthetic_classification(
     labels = rng.integers(0, num_classes, size=n).astype(np.int32)
     imgs = protos[labels] + rng.normal(0.0, noise, size=(n, *shape)).astype(np.float32)
     return np.clip(imgs, 0.0, 1.0).astype(np.float32), labels
+
+
+def _find_file(data_dir: Path, candidates: list[str]) -> Path | None:
+    # torchvision layout (MNIST/raw/...) and flat layout both supported.
+    for sub in ("", "MNIST/raw", "mnist", "raw"):
+        for name in candidates:
+            for suffix in ("", ".gz"):
+                p = data_dir / sub / (name + suffix)
+                if p.exists():
+                    return p
+    return None
+
+
+def load_mnist(
+    data_dir: str = "./data",
+    split: str = "train",
+    synthetic_fallback: bool = True,
+    synthetic_size: int | None = None,
+    storage: str = "u8",
+) -> ArrayDataset:
+    """MNIST, NHWC [N, 28, 28, 1] in [0, 1] (the reference's ToTensor
+    only, codes/task1/pytorch/model.py:93-95): ``u8`` storage keeps the raw
+    bytes and fuses the /255 into the batch gather, ``f32`` converts at
+    load time. Without the IDX files, the synthetic set (seeds 0 / 1 for
+    train / test, prototypes from seed 100; 60000 / 10000 images unless
+    ``synthetic_size``)."""
+    _check_storage(storage)
+    data_dir = Path(data_dir)
+    part = "train" if split == "train" else "test"
+    img_path = _find_file(data_dir, MNIST_FILES[f"{part}_images"])
+    lbl_path = _find_file(data_dir, MNIST_FILES[f"{part}_labels"])
+    if img_path is not None and lbl_path is not None:
+        images = read_idx(img_path)[..., None]  # [N, 28, 28, 1] uint8
+        labels = read_idx(lbl_path).astype(np.int32)
+        if storage == "u8":
+            return ArrayDataset(np.ascontiguousarray(images), labels, name=f"mnist-{split}",
+                                scale=1.0 / 255.0)
+        return ArrayDataset(images.astype(np.float32) / 255.0, labels, name=f"mnist-{split}")
+    if not synthetic_fallback:
+        raise FileNotFoundError(f"MNIST IDX files not found under {data_dir}")
+    n = synthetic_size or (60000 if split == "train" else 10000)
+    imgs, labels = synthetic_classification(
+        n, (28, 28, 1), 10, seed=0 if split == "train" else 1, proto_seed=100)
+    return ArrayDataset(imgs, labels, name=f"mnist-synthetic-{split}")
 
 
 def load_cifar10(
@@ -157,12 +219,12 @@ def load_cifar10(
 
 
 def load_dataset(name: str, data_dir: str, split: str, **kw) -> ArrayDataset:
-    """``cifar10`` (:func:`load_cifar10`) or ``synthetic`` (MNIST-shaped
-    [28, 28, 1] images, 4096 / 1024, prototypes from seed 100); ``mnist``
-    raises (not ported)."""
+    """``mnist`` (:func:`load_mnist`), ``cifar10`` (:func:`load_cifar10`) or
+    ``synthetic`` (MNIST-shaped [28, 28, 1] images, 4096 / 1024,
+    prototypes from seed 100)."""
     name = name.lower()
     if name == "mnist":
-        raise NotImplementedError(f"MNIST {NOT_PORTED}")
+        return load_mnist(data_dir, split, **kw)
     if name == "cifar10":
         return load_cifar10(data_dir, split, **kw)
     if name == "synthetic":

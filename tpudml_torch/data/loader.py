@@ -4,8 +4,9 @@ The DataLoader role of the reference's Dataset/Sampler/DataLoader triad
 (sections/task3.tex:27-43): draws an index stream from a Sampler, gathers
 rows from the in-memory dataset, and yields fixed-shape numpy batches
 (``drop_remainder`` defaults to True, as in the JAX package). Rows are
-gathered with numpy indexing (``ArrayDataset.gather``); the JAX
-package's native gather is not ported (ROADMAP.md queue 1 item 3).
+gathered by the dataset's ``gather``: for an ``ArrayDataset`` the native
+data plane's fused gather (``tpudml_torch.native``), plain indexing for a
+dataset without one.
 
 ``ShardedDataLoader`` batches for several replicas at once: each
 replica's stream from its own sampler, stacked on a leading replica axis

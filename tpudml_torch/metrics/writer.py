@@ -61,6 +61,11 @@ class MetricsWriter:
         if self._tb:
             self._tb.add_scalar(tag, v, step)
 
+    def add_scalars(self, scalars: dict, step: int) -> None:
+        """Append a dict of scalars in one call, in insertion order."""
+        for tag, value in scalars.items():
+            self.add_scalar(tag, value, step)
+
     def close(self) -> None:
         if self._jsonl:
             self._jsonl.close()

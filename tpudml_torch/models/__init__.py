@@ -1,10 +1,12 @@
-"""Models of the port (``tpudml.models`` subset: the transformer LM and
-the ResNets)."""
+"""Models of the port (``tpudml.models``: the transformer LM, the ResNets,
+LeNet and the MLP)."""
 
+from tpudml_torch.models.lenet import LeNet
+from tpudml_torch.models.mlp import ForwardMLP
 from tpudml_torch.models.resnet import (
     BasicBlock, BottleneckBlock, ResNet, ResNet18, ResNet34, ResNet50,
 )
 from tpudml_torch.models.transformer import TransformerBlock, TransformerLM
 
-__all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "ResNet18", "ResNet34", "ResNet50",
+__all__ = ["BasicBlock", "BottleneckBlock", "ForwardMLP", "LeNet", "ResNet", "ResNet18", "ResNet34", "ResNet50",
            "TransformerBlock", "TransformerLM"]

@@ -163,7 +163,9 @@ class ResNet(nn.Module):
     def blocks(self) -> list[nn.Module]:
         return [getattr(self, f"block{i}") for i in range(self.n_blocks)]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        """NHWC images -> f32 logits. ``key`` (a train step's dropout key)
+        is unused: the ResNet draws nothing, and JAX's ignores its rng."""
         cdt = self.compute_dtype
         y = x.to(cdt).permute(0, 3, 1, 2)  # NHWC -> NCHW-indexed, channels_last memory
         y = F.relu(self.stem_bn(self.stem(y))).to(cdt)

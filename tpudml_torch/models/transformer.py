@@ -26,6 +26,14 @@ add is deferred into the NEXT norm's fused add+LayerNorm
 every one but the first block's ``ln1`` — and all 2L adds run as one
 kernel per direction. Same math as the unfused trunk.
 
+``dropout > 0`` drops each block's attention and FFN branches in training
+mode (``self.training``), before their residual adds, as JAX's
+``TransformerBlock._drop`` does: block ``i`` draws from ``key.fold_in(i)``
+folded with salt 1 (attention) or 2 (FFN), through
+``tpudml_torch.nn.layers.dropout``. In the fused trunk the dropped branch
+is the residual input of the next ``fused_add_layernorm``. Training with
+dropout and no key raises, as in JAX.
+
 ``compute_dtype`` (None or ``torch.bfloat16``) is the JAX model's mixed
 precision (``_cast_params``): parameters stay f32 master weights, and
 every one except the LayerNorms' (``ln1``, ``ln2``, ``ln_f``) and the MoE
@@ -44,9 +52,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudml_torch.core.prng import Key
 from tpudml_torch.device import resolve_device
 from tpudml_torch.nn.attention import MultiHeadAttention
-from tpudml_torch.nn.layers import Dense, LayerNorm, cast
+from tpudml_torch.nn.layers import Dense, LayerNorm, cast, dropout
 from tpudml_torch.nn.moe import MoELayer
 from tpudml_torch.ops.layernorm_kernel import fused_add_layernorm
 
@@ -64,11 +73,12 @@ class TransformerBlock(nn.Module):
                  rope_base: float = 10000.0, moe_experts: int = 0,
                  moe_axis: str | None = None, moe_capacity_factor: float = 2.0,
                  moe_top_k: int = 1, moe_dispatch: str = "gather",
-                 moe_ragged_dw: str = "grouped",
+                 moe_ragged_dw: str = "grouped", dropout: float = 0.0,
                  generator: torch.Generator | None = None,
                  compute_dtype: torch.dtype | None = None):
         super().__init__()
         d = embed_dim
+        self.dropout = dropout
         self.ln1 = LayerNorm(d)
         self.attn = MultiHeadAttention(
             d, num_heads, causal=True, impl=impl, num_kv_heads=num_kv_heads,
@@ -95,11 +105,20 @@ class TransformerBlock(nn.Module):
             return self.moe(y)
         return self.fc2(F.gelu(self.fc1(y), approximate="tanh")), None
 
-    def forward(self, x: torch.Tensor):
+    def drop(self, h: torch.Tensor, key: Key | None, salt: int) -> torch.Tensor:
+        """A branch's inverted dropout in training mode (JAX's ``_drop``):
+        ``key.fold_in(salt)`` keeps the attention and FFN masks apart."""
+        if not self.training or self.dropout == 0.0:
+            return h
+        if key is None:
+            raise ValueError("TransformerBlock dropout requires an rng in train mode")
+        return dropout(h, self.dropout, key.fold_in(salt), True)
+
+    def forward(self, x: torch.Tensor, key: Key | None = None):
         """(x + both branches, the FFN's aux term or None)."""
-        x = x + self.attn(self.ln1(x))
+        x = x + self.drop(self.attn(self.ln1(x)), key, 1)
         h, aux = self.ffn(self.ln2(x))
-        return x + h, aux
+        return x + self.drop(h, key, 2), aux
 
 
 class TransformerLM(nn.Module):
@@ -113,9 +132,10 @@ class TransformerLM(nn.Module):
     ``moe_axis`` names the expert-parallel axis of the layers, which an
     ``ExpertParallel`` engine binds to its group; the parameters are drawn
     as without it).
-    Parameters are drawn on the CPU from ``generator`` (default: seeded
-    with 0) and moved to ``device`` (default "cuda"; asking for the card
-    without one raises). ``dropout > 0`` is not ported and raises."""
+    ``dropout`` is the rate of the blocks' branch dropout (module
+    docstring). Parameters are drawn on the CPU from ``generator``
+    (default: seeded with 0) and moved to ``device`` (default "cuda";
+    asking for the card without one raises)."""
 
     def __init__(self, vocab_size: int, embed_dim: int = 128,
                  num_heads: int = 4, num_layers: int = 2, max_len: int = 1024,
@@ -133,8 +153,6 @@ class TransformerLM(nn.Module):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                              f"got {compute_dtype}")
-        if dropout:
-            raise NotImplementedError(f"dropout {NOT_PORTED.format('3 (Dropout)')}")
         dev = resolve_device(device)
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         self.vocab_size = vocab_size
@@ -147,6 +165,7 @@ class TransformerLM(nn.Module):
         self.impl = impl
         self.fused_ln = fused_ln
         self.compute_dtype = compute_dtype
+        self.dropout = dropout
         self.moe_experts = moe_experts
         self.aux_loss = None  # the last forward's summed MoE aux terms
         self.tok_embed = nn.Parameter(
@@ -165,7 +184,7 @@ class TransformerLM(nn.Module):
                 moe_axis=moe_axis, moe_capacity_factor=moe_capacity_factor,
                 moe_top_k=moe_top_k,
                 moe_dispatch=moe_dispatch, moe_ragged_dw=moe_ragged_dw,
-                generator=g, compute_dtype=compute_dtype,
+                dropout=dropout, generator=g, compute_dtype=compute_dtype,
             ))
         self.to(dev)
 
@@ -192,54 +211,58 @@ class TransformerLM(nn.Module):
         # num_layers=0 leaves no junction to fuse.
         return self.fused_ln and self.num_layers > 0
 
-    def _trunk(self, tokens: torch.Tensor):
-        """embed -> blocks (unfused); no final norm or head. Returns (h,
-        the blocks' aux terms)."""
+    def _trunk(self, tokens: torch.Tensor, key: Key | None):
+        """embed -> blocks (unfused); no final norm or head. Block ``i``
+        draws its dropout from ``key.fold_in(i)``. Returns (h, the blocks'
+        aux terms)."""
         h = self._embed(tokens)
         aux = []
-        for block in self.blocks():
-            h, a = block(h)
+        for i, block in enumerate(self.blocks()):
+            h, a = block(h, None if key is None else key.fold_in(i))
             aux.append(a)
         return h, aux
 
-    def _trunk_deferred(self, tokens: torch.Tensor):
+    def _trunk_deferred(self, tokens: torch.Tensor, key: Key | None):
         """Fused-junction trunk: embed -> blocks with each residual add
-        deferred into the next norm's fused add+LN. Returns ``(s, pend,
-        aux)``: the residual stream, the last block's still-unadded FFN
-        branch (so the caller closes the last junction inside the final
-        norm) and the blocks' aux terms."""
+        deferred into the next norm's fused add+LN, whose residual input is
+        the (dropped) branch. Returns ``(s, pend, aux)``: the residual
+        stream, the last block's still-unadded FFN branch (so the caller
+        closes the last junction inside the final norm) and the blocks' aux
+        terms."""
         s = self._embed(tokens)
         pend = None
         aux = []
-        for block in self.blocks():
+        for i, block in enumerate(self.blocks()):
+            brng = None if key is None else key.fold_in(i)
             if pend is None:
                 y = block.ln1(s)
             else:
                 s, y = fused_add_layernorm(s, pend, block.ln1.scale, block.ln1.bias)
-            s, y2 = fused_add_layernorm(s, block.attn(y), block.ln2.scale,
-                                        block.ln2.bias)
-            pend, a = block.ffn(y2)
+            s, y2 = fused_add_layernorm(s, block.drop(block.attn(y), brng, 1),
+                                        block.ln2.scale, block.ln2.bias)
+            h, a = block.ffn(y2)
+            pend = block.drop(h, brng, 2)
             aux.append(a)
         return s, pend, aux
 
-    def apply_features(self, tokens: torch.Tensor) -> torch.Tensor:
+    def apply_features(self, tokens: torch.Tensor, key: Key | None = None) -> torch.Tensor:
         """Pre-head features [B, T, d]: embed -> blocks -> final LayerNorm,
-        without the vocab projection. Records ``aux_loss`` (module
-        docstring)."""
+        without the vocab projection; ``key`` seeds the dropout in
+        training mode. Records ``aux_loss`` (module docstring)."""
         if self._use_fused_ln():
             # The last block's residual add fuses into ln_f.
-            s, pend, aux = self._trunk_deferred(tokens)
+            s, pend, aux = self._trunk_deferred(tokens, key)
             _, y = fused_add_layernorm(s, pend, self.ln_f.scale, self.ln_f.bias)
         else:
-            h, aux = self._trunk(tokens)
+            h, aux = self._trunk(tokens, key)
             y = self.ln_f(h)
         terms = [a for a in aux if a is not None]
         self.aux_loss = torch.stack(terms).sum() if terms else None
         return y
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, key: Key | None = None) -> torch.Tensor:
         """Full forward: tokens [B, T] -> logits [B, T, V]."""
-        return self.head(self.apply_features(tokens))
+        return self.head(self.apply_features(tokens, key))
 
     # ----------------------------------------------------- serving paths
 

@@ -1,4 +1,4 @@
-"""Layers, attention and losses of the port (``tpudml.nn`` subset)."""
+"""Layers, attention and losses of the port (``tpudml.nn``)."""
 
 from tpudml_torch.nn.attention import (
     MultiHeadAttention,
@@ -9,22 +9,28 @@ from tpudml_torch.nn.attention import (
 )
 from tpudml_torch.nn.layers import (
     Activation,
+    AvgPool,
     BatchNorm,
     Conv2D,
     Dense,
+    Dropout,
     Flatten,
     LayerNorm,
+    MaxPool,
     Sequential,
 )
 from tpudml_torch.nn.losses import softmax_cross_entropy
 
 __all__ = [
     "Activation",
+    "AvgPool",
     "BatchNorm",
     "Conv2D",
     "Dense",
+    "Dropout",
     "Flatten",
     "LayerNorm",
+    "MaxPool",
     "MultiHeadAttention",
     "Sequential",
     "chunk_flash_window",

@@ -1,6 +1,5 @@
-"""Dense, Conv2D, BatchNorm, LayerNorm, Flatten, Activation and
-Sequential: the port of ``tpudml/nn/layers.py`` (the LM's, the ResNet's
-and the MoE classifier's subset).
+"""Dense, Conv2D, MaxPool, AvgPool, BatchNorm, LayerNorm, Flatten,
+Activation, Dropout and Sequential: the port of ``tpudml/nn/layers.py``.
 
 Parameters keep the JAX package's names, and its layout where torch
 computes in it — ``Dense.kernel`` is [in, out] and ``y = x @ kernel +
@@ -14,6 +13,11 @@ layout cuDNN's fast kernels take (a ``[N, H, W, C]`` batch
 transposes conv kernels. Initial values come from a ``torch.Generator``
 on the CPU; they follow the same distributions as the JAX init, not its
 numbers.
+
+Dropout draws its keep mask from a :class:`tpudml_torch.core.prng.Key`
+through ONE function, :func:`dropout_mask` (a generator on the tensor's
+device seeded from the key's path), so a test can swap that one function
+for JAX's draw at the same key and hold every dropout path to JAX's.
 
 Mixed precision follows ``TransformerLM._cast_params`` of the JAX package:
 a ``Dense`` built with ``compute_dtype`` keeps its f32 master parameters
@@ -30,6 +34,8 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tpudml_torch.core.prng import Key
 
 
 def uniform_fan_in(shape, fan_in: int, generator: torch.Generator | None):
@@ -198,12 +204,43 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
-class Flatten(nn.Module):
-    """[N, ...] -> [N, prod(...)] (the JAX layer flattens NHWC images; the
-    port flattens whatever layout it is given, so NHWC arrays flatten as
-    JAX's do)."""
+class _Pool(nn.Module):
+    def __init__(self, window: int = 2, stride: int | None = None):
+        super().__init__()
+        self.window, self.stride = window, stride or window
+
+
+class MaxPool(_Pool):
+    """Max over ``window``² windows at ``stride`` (default ``window``) of an
+    NCHW-indexed ``x``, VALID (JAX's ``reduce_window`` max with −inf
+    init); the gradient goes to the first maximum of a window in row-major
+    order, as JAX's does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(x, self.window, self.stride)
+
+
+class AvgPool(_Pool):
+    """Mean over ``window``² windows at ``stride`` (default ``window``) of an
+    NCHW-indexed ``x``, VALID: the window sum over ``window``²."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.avg_pool2d(x, self.window, self.stride)
+
+
+class Flatten(nn.Module):
+    """[N, ...] -> [N, prod(...)] in the order of the given layout (NHWC
+    arrays flatten as JAX's do). ``nhwc=True`` takes an NCHW-indexed
+    4-D tensor (the convs' view of an NHWC batch) and flattens it in JAX's
+    (H, W, C) order, the row order of the next Dense kernel."""
+
+    def __init__(self, nhwc: bool = False):
+        super().__init__()
+        self.nhwc = nhwc
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.nhwc and x.dim() == 4:
+            x = x.permute(0, 2, 3, 1)
         return x.reshape(x.shape[0], -1)
 
 
@@ -218,10 +255,47 @@ class Activation(nn.Module):
         return self.fn(x)
 
 
+def dropout_mask(key: Key, keep: float, shape, device) -> torch.Tensor:
+    """The keep mask of one dropout: ``uniform < keep`` (JAX's
+    ``bernoulli``) from ``key``'s generator on ``device``. Every dropout of
+    the port draws through this function."""
+    gen = key.generator(device)
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def dropout(x: torch.Tensor, rate: float, key: Key | None, training: bool) -> torch.Tensor:
+    """Inverted dropout, JAX's ``Dropout.apply``: ``x`` unchanged when not
+    training or at rate 0; else ``where(mask, x / keep, 0)`` with ``keep =
+    1 − rate`` and the mask of :func:`dropout_mask`. Training without a
+    key raises."""
+    if not training or rate == 0.0:
+        return x
+    if key is None:
+        raise ValueError("Dropout in train mode requires an rng")
+    keep = 1.0 - rate
+    mask = dropout_mask(key, keep, x.shape, x.device)
+    return torch.where(mask, x / keep, 0.0)
+
+
+class Dropout(nn.Module):
+    """:func:`dropout` at ``rate`` in training mode (``self.training``)."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, key: Key | None = None) -> torch.Tensor:
+        return dropout(x, self.rate, key, self.training)
+
+
 class Sequential(nn.Module):
     """Chain of modules, registered as ``layer{i}`` so that parameter names
     are JAX's param-tree keys (``layer1.kernel``, ``layer3.router.kernel``;
     layers without parameters have no names, as they have no JAX entry).
+
+    ``key`` is split into one key a layer, as JAX's ``Sequential.apply``
+    splits its rng (``split(key, n)[i]`` for layer i), and handed to the
+    layers that draw (``Dropout``, a nested ``Sequential``).
 
     A layer whose ``returns_aux`` is true (``MoELayer``) returns ``(y,
     aux)``; the chain records the sum of those aux terms of its last
@@ -235,10 +309,13 @@ class Sequential(nn.Module):
             self.add_module(f"layer{i}", layer)
         self.aux_loss = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key: Key | None = None) -> torch.Tensor:
         aux = []
-        for layer in self.children():
-            if getattr(layer, "returns_aux", False):
+        layers = list(self.children())
+        for i, layer in enumerate(layers):
+            if key is not None and isinstance(layer, (Dropout, Sequential)):
+                x = layer(x, key=key.split(max(len(layers), 1), i))
+            elif getattr(layer, "returns_aux", False):
                 x, a = layer(x)
                 aux.append(a.float())
             else:

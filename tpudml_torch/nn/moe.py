@@ -55,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpudml_torch.comm.collectives import all_to_all
+from tpudml_torch.core.pytree import path_names
 from tpudml_torch.nn.layers import cast, uniform_fan_in
 from tpudml_torch.ops.moe_kernel import ragged_ffn, ragged_matmul
 
@@ -134,7 +135,7 @@ class _Experts(nn.Module):
 def is_expert_param(name: str) -> bool:
     """Whether the dotted parameter name ``name`` is an expert tensor (JAX's
     ``_is_expert_path``: any ``experts`` component)."""
-    return "experts" in name.split(".")
+    return "experts" in path_names(name)
 
 
 def expert_rows(t: torch.Tensor, index: int, world: int, name: str) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """First-order optimizers (the port of ``tpudml/optim/optimizers.py``:
-``GradientDescent``, ``Sgd``, ``Adam``, ``AdamW``, ``ClipByGlobalNorm``,
-``shard_aware_clip``, ``make_optimizer``).
+``GradientDescent``, ``Sgd``, ``Adam``, ``ReferenceAdam``, ``AdamW``,
+``ClipByGlobalNorm``, ``shard_aware_clip``, ``make_optimizer``).
 
 Same contract as the JAX package, over dicts of tensors keyed by
 parameter name (``dict(model.named_parameters())``):
@@ -25,8 +25,6 @@ from typing import Any
 import torch
 
 from tpudml_torch.comm.collectives import psum_tree
-
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 3, ReferenceAdam)"
 
 Params = dict[str, torch.Tensor]
 
@@ -119,6 +117,35 @@ class Adam(Optimizer):
 
     def update(self, grads, state, params):
         return params, self._adam_step(grads, state, params)
+
+
+@dataclass(frozen=True)
+class ReferenceAdam(Optimizer):
+    """The reference's hand-written Adam WITHOUT bias correction
+    (codes/task1/pytorch/MyOptimizer.py:26-43): ``m = b1·m + (1−b1)·g;
+    v = b2·v + (1−b2)·g²; p −= (lr·m) / (sqrt(v) + eps)``, in JAX's order
+    of operations. task1's early-step update scale depends on the missing
+    correction."""
+
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def init(self, params):
+        return {"m": {n: torch.zeros_like(p) for n, p in params.items()},
+                "v": {n: torch.zeros_like(p) for n, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        for name, p in params.items():
+            g = grads[name]
+            m = state["m"][name]
+            v = state["v"][name]
+            m.copy_(self.b1 * m + (1 - self.b1) * g)
+            v.copy_(self.b2 * v + (1 - self.b2) * g * g)
+            p.sub_(self.lr * m / (torch.sqrt(v) + self.eps))
+        return params, state
 
 
 @dataclass(frozen=True)
@@ -223,5 +250,5 @@ def make_optimizer(
     if name == "adamw":
         return AdamW(lr=lr, weight_decay=weight_decay)
     if name in ("adam_ref", "reference_adam"):
-        raise NotImplementedError(f"optimizer {name!r} {NOT_PORTED}")
+        return ReferenceAdam(lr=lr)
     raise ValueError(f"unknown optimizer {name!r}")

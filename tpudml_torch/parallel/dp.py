@@ -109,9 +109,13 @@ class DataParallel:
     equal when every rank builds ``model`` from the same seed
     (:meth:`broadcast_params` forces it). ``flash_attn=True`` swaps the
     model's dense trunk onto the flash kernels in place (JAX returns a
-    new model). ``zero1``, ``zero1_overlap``, ``sentinel`` and ``obs``,
-    ``accum_steps > 1`` and ``rng_root`` (dropout) are not ported and
-    raise ``NotImplementedError`` naming their ROADMAP item.
+    new model). ``accum_steps`` splits each replica's rows into
+    sequential micro-batches (``tpudml_torch.train.accumulate_grads``);
+    ``rng_root`` (a ``tpudml_torch.core.prng.Key``) seeds the dropout
+    streams, one a replica and a step: ``rng_root.fold_in(step)
+    .fold_in(rank)``, as JAX folds the mesh position. ``zero1``,
+    ``zero1_overlap``, ``sentinel`` and ``obs`` are not ported and raise
+    ``NotImplementedError`` naming their ROADMAP item.
     """
 
     def __init__(
@@ -159,9 +163,6 @@ class DataParallel:
                                ("obs", obs, "6 (obs)")):
             if on:
                 raise NotImplementedError(f"DataParallel({knob}=...) {NOT_PORTED.format(item)}")
-        if accum_steps != 1 or rng_root is not None:
-            raise NotImplementedError(
-                f"DataParallel accum_steps > 1 / rng_root {NOT_PORTED.format('3 (train.py)')}")
         aggregator = get_aggregator(aggregation)
         if not dist.is_initialized():
             raise RuntimeError(
@@ -187,6 +188,8 @@ class DataParallel:
         self.measure_comm = measure_comm
         self.bottleneck_rank = bottleneck_rank
         self.bottleneck_delay_s = bottleneck_delay_s
+        self.rng_root = rng_root
+        self.accum_steps = accum_steps
         self.comm_stats = CommStats()
         self.fused_xent = fused_xent
         self._fused_loss_fn = (make_lm_fused_loss_fn(model, save_scores, aux_loss_weight)
@@ -239,10 +242,13 @@ class DataParallel:
 
     def local_grads(self, ts: TrainState, images, labels):
         """This rank's un-aggregated ``(grads, metrics)`` on its rows of the
-        global batch (``tpudml_torch.train.accumulate_grads``)."""
+        global batch (``tpudml_torch.train.accumulate_grads``, with the
+        replica's dropout key of the step)."""
         x, y = self.shard_batch(images, labels)
         loss_fn = self._fused_loss_fn if self.fused_xent else self._loss_fn
-        return accumulate_grads(loss_fn, ts.model, x, y)
+        rng = (None if self.rng_root is None
+               else self.rng_root.fold_in(ts.step).fold_in(self.rank))
+        return accumulate_grads(loss_fn, ts.model, x, y, rng, self.accum_steps)
 
     def _aggregate(self, grads: dict) -> dict:
         """The step's collectives: the gradients' aggregation and the model

@@ -1,6 +1,6 @@
 """Scaffolding shared by the task entry points (the port of
 ``tasks/common.py``): the process group with its same-program guard, the
-world it gives, and the dataset splits, so launch semantics cannot
+world it gives, the dataset splits and the ``--device`` flag, so launch semantics cannot
 diverge between tasks. Checkpointing is not ported yet (ROADMAP.md queue
 1 item 6)."""
 
@@ -48,6 +48,13 @@ def setup_checkpointing(cfg: TrainConfig, ts):
     if not cfg.ckpt_dir:
         return ts, [], None
     raise NotImplementedError(f"--ckpt_dir {NOT_PORTED}")
+
+
+def add_device_flag(parser):
+    """``--device`` (default ``cuda``) on a task's parser; returns it."""
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="'cuda' (the card) or 'cpu'")
+    return parser
 
 
 def load_splits(cfg: TrainConfig):

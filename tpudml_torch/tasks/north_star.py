@@ -35,7 +35,9 @@ from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import ResNet18, ResNet34, ResNet50
 from tpudml_torch.optim import make_optimizer
 from tpudml_torch.parallel import DataParallel
-from tpudml_torch.tasks.common import init_distributed, load_splits, select_devices
+from tpudml_torch.tasks.common import (
+    add_device_flag, init_distributed, load_splits, select_devices,
+)
 from tpudml_torch.train import evaluate, train_loop
 
 MODELS = {"resnet18": ResNet18, "resnet34": ResNet34, "resnet50": ResNet50}
@@ -110,9 +112,7 @@ def main(argv=None):
     parser.add_argument("--model", choices=sorted(MODELS), default="resnet18",
                         help="resnet50 = the BASELINE.json MindSpore auto-parallel parity "
                         "config (bottleneck blocks)")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="'cuda' (the card) or 'cpu'")
-    args = parser.parse_args(argv)
+    args = add_device_flag(parser).parse_args(argv)
     cfg = config_from_args(args)
     return run(cfg, compute_dtype=torch.float32 if args.f32 else torch.bfloat16,
                model_name=args.model, device=args.device)

@@ -23,8 +23,10 @@ blocks' experts split over the ranks (it needs ``--moe_experts``
 divisible by the world, rejects ``--dropout`` with JAX's wording, and
 the ragged dispatch raises, as in JAX). Every rank draws the same
 global batch from the same ``rng`` and trains on its rows; only rank 0
-prints and writes metrics. Every other ``--parallel`` value,
-``--dropout``, ``--sentinel`` and ``--ckpt_dir`` raise
+prints and writes metrics. ``--dropout`` (``--parallel single`` and
+``dp``) drops the blocks' branches with the dropout keys of JAX's entry,
+``key(seed ^ 0xD0)`` folded with the step (and, under ``dp``, the rank).
+Every other ``--parallel`` value, ``--sentinel`` and ``--ckpt_dir`` raise
 ``NotImplementedError``, naming their ROADMAP item.
 
 Same row sampling (``np.random.default_rng(seed)`` over
@@ -54,6 +56,7 @@ import torch
 
 from tpudml_torch.capabilities import reject
 from tpudml_torch.core import assert_same_program, process_count, process_group, process_index
+from tpudml_torch.core.prng import seed_key
 from tpudml_torch.data import synthetic_lm
 from tpudml_torch.device import resolve_device
 from tpudml_torch.metrics import MetricsWriter
@@ -158,7 +161,6 @@ def _reject_unported(args) -> None:
             f"--parallel {args.parallel} {NOT_PORTED.format(PARALLEL_ITEMS[args.parallel])}")
     args._save_scores = _save_scores(args)
     for flag, on, item in (
-        ("--dropout", args.dropout, "3 (Dropout)"),
         ("--sentinel", args.sentinel, "6 (resilience)"),
         ("--ckpt_dir", args.ckpt_dir, "6 (checkpoint)"),
     ):
@@ -191,22 +193,24 @@ def build_engine(args, device: torch.device):
         moe_top_k=args.moe_top_k,
         moe_dispatch=args.moe_dispatch,
         moe_axis="expert" if args.parallel == "ep" else None,
+        dropout=args.dropout,
         device=device,
         generator=torch.Generator().manual_seed(args.seed),
     )
     opt = make_optimizer("adam", args.lr)
+    rng_root = seed_key(args.seed ^ 0xD0) if args.dropout else None
     if args.parallel == "dp":
         # [B, T] token batches are never the stacked-loader form.
-        engine = DataParallel(model, opt, stacked_batches=False,
+        engine = DataParallel(model, opt, rng_root=rng_root, stacked_batches=False,
                               fused_xent=args.fused_xent, save_scores=args._save_scores)
         return engine.create_state(), engine.make_train_step()
     if args.parallel == "ep":
         engine = ExpertParallel(model, opt)
         return engine.create_state(), engine.make_train_step()
     if args.fused_xent:
-        step = make_lm_fused_train_step(model, opt, save_scores=args._save_scores)
+        step = make_lm_fused_train_step(model, opt, rng_root, save_scores=args._save_scores)
     else:
-        step = make_train_step(model, opt)
+        step = make_train_step(model, opt, rng_root)
     return TrainState.create(model, opt), step
 
 

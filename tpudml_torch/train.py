@@ -12,7 +12,10 @@ loop ``train_loop``).
 The loss functions run the model in training mode (JAX's ``train=True``:
 BatchNorm normalizes by the batch and updates its running statistics
 once a step, JAX's ``new_state``); evaluation runs it in eval mode
-under ``torch.no_grad()`` and restores the mode after.
+under ``torch.no_grad()`` and restores the mode after. A step built with
+``rng_root`` (a ``tpudml_torch.core.prng.Key``) hands the model the
+dropout key ``rng_root.fold_in(step)`` (and ``.fold_in(i)`` for
+micro-batch ``i`` under ``accum_steps``), as JAX's folds its rng.
 
 A MoE model's objective adds α·Σ(its layers' Switch load-balancing terms)
 to the cross-entropy, as in JAX: ``aux_loss_weight=None`` means α =
@@ -36,13 +39,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpudml_torch.core.prng import Key
 from tpudml_torch.nn.losses import accuracy, softmax_cross_entropy
 from tpudml_torch.nn.moe import MoELayer
 from tpudml_torch.ops.xent_kernel import linear_cross_entropy
 from tpudml_torch.optim import Optimizer
-
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 3, the rest of train.py)"
-
 
 @dataclass
 class TrainState:
@@ -93,17 +94,24 @@ def _with_aux(model: nn.Module, loss: torch.Tensor, aux_w: float) -> torch.Tenso
     return loss + aux_w * collect_aux_losses(model).to(loss.device) if aux_w else loss
 
 
+def _keyed(key: Key | None) -> dict:
+    """The model call's keyword for a dropout key (none without one, so a
+    model that draws nothing needs no ``key`` argument)."""
+    return {} if key is None else {"key": key}
+
+
 def make_loss_fn(model: nn.Module, aux_loss_weight: float | None = None,
                  loss: Callable = softmax_cross_entropy) -> Callable:
-    """(tokens, labels) -> (loss, logits): ``model``'s forward and ``loss``
-    (default the mean softmax cross-entropy) over the materialized logits,
-    plus α·aux (module docstring)."""
+    """(tokens, labels[, key]) -> (loss, logits): ``model``'s forward in
+    training mode (``key`` seeds its dropout) and ``loss`` (default the
+    mean softmax cross-entropy) over the materialized logits, plus α·aux
+    (module docstring)."""
     aux_w = resolve_aux_loss_weight(model, aux_loss_weight)
 
-    def loss_fn(tokens, labels):
+    def loss_fn(tokens, labels, key: Key | None = None):
         if not model.training:
             model.train()
-        logits = model(tokens)
+        logits = model(tokens, **_keyed(key))
         return _with_aux(model, loss(logits, labels), aux_w), logits
 
     return loss_fn
@@ -111,18 +119,21 @@ def make_loss_fn(model: nn.Module, aux_loss_weight: float | None = None,
 
 def make_lm_fused_loss_fn(model: nn.Module, save_scores: bool | None = None,
                           aux_loss_weight: float | None = None) -> Callable:
-    """(tokens, labels) -> (loss, None) through the fused linear-cross-entropy
-    head: ``model.apply_features`` then ``linear_cross_entropy`` on the head's
-    kernel and bias cast to the compute dtype, so the [B·T, V] logits are
-    never a tensor of the step (the second item, None, stands where
-    :func:`make_loss_fn` returns the logits). ``save_scores`` is
-    ``linear_cross_entropy``'s ``save_s``: True keeps the f32 scores for the
-    backward, False recomputes them there (the lean O(N) residuals), None
-    picks by the residual's size. Plus α·aux (module docstring)."""
+    """(tokens, labels[, key]) -> (loss, None) through the fused
+    linear-cross-entropy head: ``model.apply_features`` (``key`` seeds its
+    dropout) then ``linear_cross_entropy`` on the head's kernel and bias
+    cast to the compute dtype, so the [B·T, V] logits are never a tensor
+    of the step (the second item, None, stands where :func:`make_loss_fn`
+    returns the logits). ``save_scores`` is ``linear_cross_entropy``'s
+    ``save_s``: True keeps the f32 scores for the backward, False
+    recomputes them there (the lean O(N) residuals), None picks by the
+    residual's size. Plus α·aux (module docstring)."""
     aux_w = resolve_aux_loss_weight(model, aux_loss_weight)
 
-    def loss_fn(tokens, labels):
-        feats = model.apply_features(tokens)
+    def loss_fn(tokens, labels, key: Key | None = None):
+        if not model.training:
+            model.train()
+        feats = model.apply_features(tokens, **_keyed(key))
         kernel, bias = model.head.cast_params()
         loss = linear_cross_entropy(feats, kernel, labels, bias, save_s=save_scores)
         return _with_aux(model, loss, aux_w), None
@@ -131,16 +142,16 @@ def make_lm_fused_loss_fn(model: nn.Module, save_scores: bool | None = None,
 
 
 def local_grads(loss_fn: Callable, model: nn.Module, tokens: torch.Tensor,
-                labels: torch.Tensor, with_accuracy: bool = False):
+                labels: torch.Tensor, with_accuracy: bool = False, key: Key | None = None):
     """Forward and backward without the update: ``(grads, metrics)``, the
     gradients of ``loss_fn`` (:func:`make_loss_fn` or
-    :func:`make_lm_fused_loss_fn`) over ``model``'s parameters by name,
-    and ``{"loss"}`` plus, with ``with_accuracy`` and a ``loss_fn`` that
-    returns logits, ``{"accuracy"}`` (detached). Every parameter has a
-    gradient, so that every rank's flat buffer holds the same tensors: one
-    the loss does not reach gets zeros."""
+    :func:`make_lm_fused_loss_fn`, with dropout ``key``) over ``model``'s
+    parameters by name, and ``{"loss"}`` plus, with ``with_accuracy`` and
+    a ``loss_fn`` that returns logits, ``{"accuracy"}`` (detached). Every
+    parameter has a gradient, so that every rank's flat buffer holds the
+    same tensors: one the loss does not reach gets zeros."""
     params = params_of(model)
-    value, logits = loss_fn(tokens, labels)
+    value, logits = loss_fn(tokens, labels, key)
     grads = torch.autograd.grad(value, list(params.values()), allow_unused=True,
                                 materialize_grads=True)
     metrics = {"loss": value.detach()}
@@ -149,12 +160,50 @@ def local_grads(loss_fn: Callable, model: nn.Module, tokens: torch.Tensor,
     return dict(zip(params, grads)), metrics
 
 
-def _step_body(optimizer: Optimizer, loss_fn: Callable) -> Callable:
-    """(ts, tokens, labels) -> (ts, {"loss": loss}): :func:`local_grads`,
-    then the optimizer update."""
+def accumulate_grads(loss_fn: Callable, model: nn.Module, images: torch.Tensor,
+                     labels: torch.Tensor, rng: Key | None = None, accum_steps: int = 1):
+    """The gradients of ``loss_fn`` over the batch and its metrics (the
+    loss, and the accuracy where ``loss_fn`` returns logits), computed in
+    ``accum_steps`` sequential micro-batches of consecutive rows (JAX's
+    ``accumulate_grads`` and ``accumulate_fused_grads``): gradients and
+    metrics are the micro-batches' means (summed from zero in order, then
+    times 1/accum_steps), micro-batch ``i`` draws its dropout from
+    ``rng.fold_in(i)``, and the model's state threads through the
+    micro-batches (BatchNorm's running statistics see every one, in
+    order). ``accum_steps=1`` is one :func:`local_grads` with ``rng`` as it
+    is. A batch not divisible by ``accum_steps`` raises ``ValueError``."""
+    if accum_steps == 1:
+        return local_grads(loss_fn, model, images, labels, with_accuracy=True, key=rng)
+    batch = images.shape[0]
+    if batch % accum_steps:
+        raise ValueError(f"(per-replica) batch {batch} not divisible by accum_steps "
+                         f"{accum_steps}")
+    micro = batch // accum_steps
+    grads_sum = metrics_sum = None
+    for i in range(accum_steps):
+        rows = slice(i * micro, (i + 1) * micro)
+        grads, metrics = local_grads(loss_fn, model, images[rows], labels[rows],
+                                     with_accuracy=True,
+                                     key=None if rng is None else rng.fold_in(i))
+        if grads_sum is None:
+            grads_sum = {n: torch.zeros_like(g) for n, g in grads.items()}
+            metrics_sum = {k: torch.zeros_like(v) for k, v in metrics.items()}
+        grads_sum = {n: grads_sum[n] + g for n, g in grads.items()}
+        metrics_sum = {k: metrics_sum[k] + v for k, v in metrics.items()}
+    inv = 1.0 / accum_steps
+    return ({n: g * inv for n, g in grads_sum.items()},
+            {k: v * inv for k, v in metrics_sum.items()})
+
+
+def _step_body(optimizer: Optimizer, loss_fn: Callable, rng_root: Key | None,
+               accum_steps: int) -> Callable:
+    """(ts, tokens, labels) -> (ts, metrics): :func:`accumulate_grads` with
+    the step's dropout key ``rng_root.fold_in(ts.step)``, then the
+    optimizer update."""
 
     def step(ts: TrainState, tokens: torch.Tensor, labels: torch.Tensor):
-        grads, metrics = local_grads(loss_fn, ts.model, tokens, labels)
+        rng = None if rng_root is None else rng_root.fold_in(ts.step)
+        grads, metrics = accumulate_grads(loss_fn, ts.model, tokens, labels, rng, accum_steps)
         _, ts.opt_state = optimizer.update(grads, ts.opt_state, params_of(ts.model))
         ts.step += 1
         return ts, metrics
@@ -162,35 +211,28 @@ def _step_body(optimizer: Optimizer, loss_fn: Callable) -> Callable:
     return step
 
 
-def accumulate_grads(loss_fn: Callable, model: nn.Module, images: torch.Tensor,
-                     labels: torch.Tensor, rng=None, accum_steps: int = 1):
-    """The DP engine's local step: :func:`local_grads` with accuracy, which
-    the engine aggregates before the optimizer update. ``accum_steps > 1``
-    and dropout ``rng`` are not ported."""
-    if accum_steps != 1:
-        raise NotImplementedError(f"accum_steps > 1 {NOT_PORTED}")
-    if rng is not None:
-        raise NotImplementedError(f"dropout rngs {NOT_PORTED}")
-    return local_grads(loss_fn, model, images, labels, with_accuracy=True)
-
-
 def make_train_step_body(model: nn.Module, optimizer: Optimizer,
-                         accum_steps: int = 1,
+                         rng_root: Key | None = None, accum_steps: int = 1,
+                         loss: Callable = softmax_cross_entropy,
                          aux_loss_weight: float | None = None) -> Callable:
-    """(ts, tokens, labels) -> (ts, {"loss": loss}) on tensors that already
-    lie on the model's device: forward, backward, optimizer update."""
-    if accum_steps != 1:
-        raise NotImplementedError(f"accum_steps > 1 {NOT_PORTED}")
-    return _step_body(optimizer, make_loss_fn(model, aux_loss_weight))
+    """(ts, tokens, labels) -> (ts, {"loss", "accuracy"}) on tensors that
+    already lie on the model's device: forward, backward (in
+    ``accum_steps`` micro-batches, :func:`accumulate_grads`), optimizer
+    update. ``rng_root`` seeds the dropout keys, folded with the step
+    count."""
+    return _step_body(optimizer, make_loss_fn(model, aux_loss_weight, loss), rng_root,
+                      accum_steps)
 
 
 def make_lm_fused_train_step_body(model: nn.Module, optimizer: Optimizer,
+                                  rng_root: Key | None = None,
                                   save_scores: bool | None = None,
                                   aux_loss_weight: float | None = None) -> Callable:
     """:func:`make_train_step_body` through :func:`make_lm_fused_loss_fn`:
     the flagship LM step (``bench.py`` ``bench_transformer``). Metrics
     carry the loss only."""
-    return _step_body(optimizer, make_lm_fused_loss_fn(model, save_scores, aux_loss_weight))
+    return _step_body(optimizer, make_lm_fused_loss_fn(model, save_scores, aux_loss_weight),
+                      rng_root, 1)
 
 
 def to_device(x, device) -> torch.Tensor:
@@ -215,22 +257,25 @@ def _on_device(body: Callable) -> Callable:
 
 
 def make_train_step(model: nn.Module, optimizer: Optimizer,
-                    accum_steps: int = 1,
+                    rng_root: Key | None = None, accum_steps: int = 1,
+                    loss: Callable = softmax_cross_entropy,
                     aux_loss_weight: float | None = None) -> Callable:
     """Single-device train step: :func:`make_train_step_body` taking the
     batch as numpy arrays or tensors anywhere, moved to the model's
     device by :func:`to_device` (token ids and labels as int64, images
-    as floats). The step's ``loss`` metric stays on the device (reading
-    it waits for the step)."""
-    return _on_device(make_train_step_body(model, optimizer, accum_steps, aux_loss_weight))
+    as floats). The step's metrics stay on the device (reading one waits
+    for the step)."""
+    return _on_device(make_train_step_body(model, optimizer, rng_root, accum_steps, loss,
+                                           aux_loss_weight))
 
 
 def make_lm_fused_train_step(model: nn.Module, optimizer: Optimizer,
+                             rng_root: Key | None = None,
                              save_scores: bool | None = None,
                              aux_loss_weight: float | None = None) -> Callable:
     """:func:`make_lm_fused_train_step_body` taking the batch as
     :func:`make_train_step` does."""
-    return _on_device(make_lm_fused_train_step_body(model, optimizer, save_scores,
+    return _on_device(make_lm_fused_train_step_body(model, optimizer, rng_root, save_scores,
                                                     aux_loss_weight))
 
 
@@ -289,6 +334,7 @@ def _sync(model: nn.Module) -> None:
 
 
 def train_loop(model: nn.Module, optimizer: Optimizer, train_loader, num_epochs: int,
+               key: Key | None = None,
                writer=None, log_every: int = 20, step_fn: Callable | None = None,
                state: TrainState | None = None, hooks: list[Callable] | None = None,
                accum_steps: int = 1) -> tuple[TrainState, dict]:
@@ -300,17 +346,21 @@ def train_loop(model: nn.Module, optimizer: Optimizer, train_loader, num_epochs:
     ``state`` resuming step-granular (finished epochs skipped, the partial
     one fast-forwarded), ``hooks(epoch=, step=, train_state=, metrics=)``
     after each step, and the last step's metrics as floats plus
-    ``train_time_s`` and ``steps``. JAX's ``key`` has no counterpart (the
-    model holds its initial parameters; dropout rngs are not ported), nor
-    do the obs ``step_stats`` scalars. ``accum_steps > 1`` with a
-    ``step_fn`` raises ``ValueError`` (the engine owns accumulation), and
-    without one :func:`make_train_step` raises (not ported)."""
+    ``train_time_s`` and ``steps``. The default step draws its dropout
+    keys from ``key.fold_in(0x0D0)``, JAX's domain-separated branch of the
+    seed key (the model already holds its initial parameters, which JAX
+    draws from ``key``; without a key the step has none and a dropout
+    model raises). The obs ``step_stats`` scalars have no counterpart.
+    ``accum_steps > 1`` with a ``step_fn`` raises ``ValueError`` (the
+    engine owns accumulation)."""
     ts = state or TrainState.create(model, optimizer)
     if step_fn is not None and accum_steps > 1:
         raise ValueError(
             "accum_steps is handled by the engine that built step_fn; this "
             "engine/entrypoint does not support gradient accumulation")
-    step = step_fn or make_train_step(model, optimizer, accum_steps=accum_steps)
+    step = step_fn or make_train_step(
+        model, optimizer, rng_root=None if key is None else key.fold_in(0x0D0),
+        accum_steps=accum_steps)
     counter = start_step = ts.step
     steps_per_epoch = len(train_loader) if hasattr(train_loader, "__len__") else 0
     if steps_per_epoch:
