@@ -112,6 +112,33 @@ the CPU). Phases, each printing its own line(s):
    checked against a teacher-forced full forward (plain attention) and
    between the fused and unfused runs; a divergence is allowed only at a
    near-tie of the plain logits (top-2 gap < 1e-5), and is printed.
+   Then ``[serve_levers]``: first kernel 1's bf16 twin at the serving
+   block (B=1, T=128, H=8, D=64, causal and not) against its plain
+   version, and the paged prefill's window for both instances (chunk 3,
+   start 384, K/V written through a scattered page table, read back with
+   ``read_row_prefix``, GQA-repeated, four launches of
+   ``chunk_flash_window``) against the plain attention at the chunk's
+   offset; then the serving levers at the same width, each
+   run after an uncounted warm-up on an engine of its own, with launch
+   counts zeroed just before it and read just after (paths
+   ``serve_paged`` ... ``serve_bf16_paged``): the paged cache (page 16;
+   streams against the dense unfused run's under the near-tie rule, the
+   flash launches prefill needs), the same pool starved to a quarter of
+   dense capacity (``defer`` events, every request completes), prefix
+   sharing (page 128, 8 requests on one seeded 384-token head: prefix
+   hits, each request's shared pages, streams against the unshared run,
+   flash launches over the unshared chunks only), trunk-draft speculative
+   decoding dense and paged (spec_k=3, 3 of 6 layers, block parameters
+   ×0.25 as bench.py's spec row; streams against a plain dense engine on
+   the same weights, accepted length > 0, the spec events accounting for
+   every token), SLO admission (budget = the cost model's 4-slot step at
+   the H100's HBM rate: at most 4 active slots, ``defer`` events, a second
+   run's event log byte-identical), and the bf16-compute model dense
+   unfused, with the fused head and paged (kernel 1's bf16 twin in the
+   prefill, the head once a decode step, streams against the bf16 full
+   forward with BF16_TIE_GAP). Each run prints tokens/s, per-token and
+   TTFT p50/p99, decode steps, occupancy, accepted length and pool
+   statistics, and the pool's bytes against the dense cache's.
 5. main path 2, training: ``TransformerLM(impl="flash", fused_ln=True,
    rope=True)`` at the repo's chip training config (V=32768, d=512, H=4,
    L=6, T=1024, B=8, f32, Adam lr 1e-3; random weights from a seeded
@@ -296,6 +323,12 @@ import time
 from pathlib import Path
 
 TIE_GAP = 1e-5  # plain top-2 logit gap under which a pick may differ
+# The bf16-compute serving model's tie gap: four bf16 steps (2^-6 each) at
+# its largest logits (|logit| in [2, 4) for the random serving model). The
+# decode path rounds activations to bf16 in other places than the full
+# forward (cached K/V, the window attention, the fused tail's f32 head) through
+# six blocks, which moves a logit by a few such steps.
+BF16_TIE_GAP = 4 * 2.0 ** -6
 FLASH_TOL = 1e-5  # max |err| of O and of lse, kernel vs plain (f32 sums in another order)
 HEAD_TOL = 1e-4  # max |err| of max logit and lse (512-term f32 dots in another order; lse ~ 10)
 # Flash dQ/dK/dV, elementwise |err| <= atol + rtol·|plain|: the JAX
@@ -2186,10 +2219,12 @@ def grid_edge_phase(gen) -> None:
 # ------------------------------------------------------------ phase 4
 
 
-def teacher_forced_check(model, requests, streams, label: str) -> int:
+def teacher_forced_check(model, requests, streams, label: str,
+                         tie_gap: float = TIE_GAP) -> int:
     """Hold every generated token against the argmax of a full forward
     (plain attention, no cache, no kernel) over prompt + the tokens
-    before it; a mismatch must be a near-tie. Returns the mismatches."""
+    before it; a mismatch must be a near-tie (top-2 gap < ``tie_gap``).
+    Returns the mismatches."""
     import torch
 
     mismatches = 0
@@ -2205,7 +2240,7 @@ def teacher_forced_check(model, requests, streams, label: str) -> int:
                     mismatches += 1
                     print(f"[serve] {label}: request {req.rid} token {i}: "
                           f"{a} vs full-forward {r}, top-2 gap {gap[i].item():.3e}")
-                    check(gap[i].item() < TIE_GAP,
+                    check(gap[i].item() < tie_gap,
                           f"{label}: stream disagrees with the full forward off a near-tie")
     return mismatches
 
@@ -2236,6 +2271,20 @@ def expected_flash_calls(requests, chunk: int, layers: int) -> int:
     for req in requests:
         chunks = -(-(len(req.prompt) - 1) // chunk)
         n += layers * chunks * (chunks + 1) // 2
+    return n
+
+
+def expected_flash_calls_shared(requests, shared: dict, page_size: int, chunk: int,
+                                layers: int) -> int:
+    """Flash launches one prefill of these requests needs when request
+    ``rid`` maps ``shared[rid]`` prefix pages: chunk j of a prompt runs j+1
+    window blocks per layer, and the chunks below the shared pages run
+    none."""
+    n = 0
+    for req in requests:
+        chunks = -(-(len(req.prompt) - 1) // chunk)
+        first = shared[req.rid] * page_size // chunk
+        n += layers * sum(j + 1 for j in range(first, chunks))
     return n
 
 
@@ -2314,6 +2363,288 @@ def serve_phase(gen) -> dict[str, int]:
     print(f"[serve] streams hold against the teacher-forced full forward "
           f"({mism} near-tie mismatches) and across fused/unfused runs")
     return launches
+
+
+SLO_SLOTS = 4  # the SLO run's budget: the cost model's step at 4 active slots
+PAGE_SIZE = 16  # the paged runs' page (the prefix run's is the prefill chunk)
+SPEC_K = 3
+SPEC_DAMP = 0.25  # block parameters scaled as bench.py's spec row (bench.py:1036)
+PREFIX_HEAD = 384  # tokens of the shared head: 3 pages of 128
+PREFIX_WORKLOAD = dict(n_requests=8, tail=(16, 64), new_tokens=(16, 64))
+
+
+def _serve_line(name: str, rep, launches: dict, extra: str = "") -> None:
+    lat = rep.latency_summary()
+    used = {k: v for k, v in launches.items() if v}
+    print(f"[serve_levers] {name}: {rep.generated_tokens} tokens, {rep.decode_steps} "
+          f"decode steps, {rep.tokens_per_sec:.1f} tok/s, per-token p50/p99 "
+          f"{lat['per_token_p50_s'] * 1e3:.3f}/{lat['per_token_p99_s'] * 1e3:.3f} ms, "
+          f"ttft p50/p99 {lat['ttft_p50_s'] * 1e3:.1f}/{lat['ttft_p99_s'] * 1e3:.1f} ms, "
+          f"occupancy {rep.occupancy:.3f}, mean accepted {rep.mean_accepted_len:.3f}, "
+          f"pool {rep.pool_stats}, launches {used}{extra}")
+
+
+def _prefix_workload():
+    """8 requests on one seeded 384-token head with seeded divergent tails."""
+    import numpy as np
+
+    from tpudml_torch.serve import Request
+
+    rng = np.random.default_rng(7)
+    v = SERVE_MODEL["vocab_size"]
+    head = rng.integers(0, v, PREFIX_HEAD).astype(np.int32)
+    lo, hi = PREFIX_WORKLOAD["tail"]
+    nlo, nhi = PREFIX_WORKLOAD["new_tokens"]
+    return [Request(rid=i, prompt=np.concatenate(
+                [head, rng.integers(0, v, int(rng.integers(lo, hi + 1))).astype(np.int32)]),
+                    max_new_tokens=int(rng.integers(nlo, nhi + 1)), arrival_time=0.0)
+            for i in range(PREFIX_WORKLOAD["n_requests"])]
+
+
+def serve_window_check(gen, rows: dict) -> None:
+    """Kernel 1's bf16 twin at the block the serving levers give it,
+    [1, 128, 8, 64] causal and not, against its plain version (BF16_REL of
+    max on O, FLASH_TOL on lse; f32 at this block is flash_phase's). Then
+    the paged prefill's window for both instances: chunk 3 (start 384) of
+    a SERVE_MODEL layer, its K/V written through a scattered page table
+    (page PAGE_SIZE, 2 kv heads), read back with ``read_row_prefix``,
+    GQA-repeated and run through ``chunk_flash_window`` (4 launches),
+    against the plain causal attention at the chunk's offset: f32 within
+    |err| <= FLASH_TOL + FLASH_TOL·|plain|, bf16 within BF16_REL of max.
+    Folds the errors into the rows (``at_serving_window``)."""
+    import torch
+
+    from tpudml_torch.nn.attention import chunk_flash_window, dot_product_attention
+    from tpudml_torch.ops import (
+        FLASH_FORWARD, FLASH_FORWARD_BF16, flash_forward_lse, flash_forward_lse_reference,
+    )
+    from tpudml_torch.serve.paged import init_pool, read_row_prefix, write_chunk
+
+    c = SERVE_CFG["prefill_chunk"]
+    h, kvh = SERVE_MODEL["num_heads"], SERVE_MODEL["num_kv_heads"]
+    d = SERVE_MODEL["embed_dim"] // h
+    start = 3 * c
+    pages = (start + c) // PAGE_SIZE
+    worst = {FLASH_FORWARD.name: 0.0, FLASH_FORWARD_BF16.name: 0.0}
+    for causal in (True, False):
+        q, k, v = (torch.randn((1, c, h, d), generator=gen).cuda().bfloat16() for _ in range(3))
+        o, lse = flash_forward_lse(q, k, v, causal=causal)
+        ro, rlse = flash_forward_lse_reference(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        eo, el = rel_to_max(o, ro), (lse - rlse).abs().max().item()
+        print(f"[serve_levers] {FLASH_FORWARD_BF16.name} B=1 T={c} H={h} D={d} "
+              f"causal={causal}: O max|err|/max|plain| {eo:.3e}, max|dlse| {el:.3e} "
+              f"(tol {BF16_REL:g} of max; lse {FLASH_TOL:g})")
+        check(o.dtype == torch.bfloat16 and eo <= BF16_REL and el <= FLASH_TOL,
+              f"bf16 flash forward disagrees with its plain version at the serving block "
+              f"(causal={causal})")
+        worst[FLASH_FORWARD_BF16.name] = max(worst[FLASH_FORWARD_BF16.name], el,
+                                             (o.float() - ro.float()).abs().max().item())
+
+    pool = init_pool(2 * pages + 1, PAGE_SIZE, kvh, d, "f32", "cuda")
+    table_row = (torch.randperm(2 * pages, generator=gen)[:pages] + 1).cuda()
+    kv = [[torch.randn((1, c, kvh, d), generator=gen).cuda() for _ in range(2)]
+          for _ in range(start // c + 1)]
+    for j, (k_new, v_new) in enumerate(kv):
+        write_chunk(pool, k_new, v_new, table_row, j * c)
+    written = [torch.cat([x[i] for x in kv], dim=1) for i in (0, 1)]
+    for dtype, kernel in ((torch.float32, FLASH_FORWARD), (torch.bfloat16, FLASH_FORWARD_BF16)):
+        k, v = read_row_prefix(pool, table_row, start + c, dtype)
+        check(torch.equal(k, written[0].to(dtype)) and torch.equal(v, written[1].to(dtype)),
+              "read_row_prefix does not give back the K/V written through the page table")
+        k, v = (torch.repeat_interleave(x, h // kvh, dim=2) for x in (k, v))
+        q = torch.randn((1, c, h, d), generator=gen).cuda().to(dtype)
+        before = kernel.launches
+        o = chunk_flash_window(q, k, v, start)
+        n = kernel.launches - before
+        ro = dot_product_attention(q, k, v, causal=True, q_offset=start)
+        torch.cuda.synchronize()
+        err = (o.float() - ro.float()).abs().max().item()
+        if dtype == torch.float32:
+            ok = ((o - ro).abs() - FLASH_TOL * ro.abs()).max().item() <= FLASH_TOL
+            tol = f"|err| <= {FLASH_TOL:g} + {FLASH_TOL:g}·|plain|"
+        else:
+            ok = rel_to_max(o, ro) <= BF16_REL
+            tol = f"max|err|/max|plain| {rel_to_max(o, ro):.3e}, tol {BF16_REL:g} of max"
+        print(f"[serve_levers] {kernel.name} paged prefill window: chunk [{start}, "
+              f"{start + c}) over {start + c} rows read through a table of {pages} pages, "
+              f"{n} launches, max|err| {err:.3e} ({tol})")
+        check(n == start // c + 1, f"chunk_flash_window made {n} {kernel.name} launches, "
+              f"its window needs {start // c + 1}")
+        check(o.dtype == dtype and ok,
+              f"{kernel.name}: the paged prefill window disagrees with the plain attention")
+        worst[kernel.name] = max(worst[kernel.name], err)
+    for name, err in worst.items():
+        rows[name]["at_serving_window"] = err
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+
+
+def serve_levers_phase(gen, rows: dict) -> dict[str, dict[str, int]]:
+    """The serving levers at SERVE_MODEL's width (module docstring, phase
+    4): first :func:`serve_window_check`, then each run, its launches its
+    own path."""
+    import torch
+
+    serve_window_check(gen, rows)
+
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.serve import (
+        DecodeCostModel, ServeConfig, ServingEngine, SLOConfig, cache_bytes,
+        poisson_workload, pool_bytes,
+    )
+
+    def lm(**kw):
+        return TransformerLM(**SERVE_MODEL, device="cuda",
+                             generator=torch.Generator().manual_seed(0), **kw)
+
+    requests, ledger = poisson_workload(
+        WORKLOAD["n_requests"], float("inf"), 0, vocab_size=SERVE_MODEL["vocab_size"],
+        prompt_len=WORKLOAD["prompt_len"], new_tokens=WORKLOAD["new_tokens"],
+    )
+    prefix_reqs = _prefix_workload()
+    chunk, layers = SERVE_CFG["prefill_chunk"], SERVE_MODEL["num_layers"]
+    model = lm()
+    damped = lm()
+    with torch.no_grad():
+        for name, p in damped.named_parameters():
+            if name.startswith("block"):
+                p.mul_(SPEC_DAMP)
+    model_bf16 = lm(compute_dtype=torch.bfloat16)
+    max_pages = -(-SERVE_CFG["max_len"] // PAGE_SIZE)
+    probe = DecodeCostModel(model, ServeConfig(**SERVE_CFG),
+                            SLOConfig(tpot_budget_s=1.0, hbm_gbps=H100_BYTES_PER_S / 1e9))
+    slo = SLOConfig(tpot_budget_s=probe.step_seconds(SLO_SLOTS),
+                    hbm_gbps=H100_BYTES_PER_S / 1e9)
+    paged = dict(cache_layout="paged", page_size=PAGE_SIZE)
+    runs = {  # path: (model, ServeConfig extras, workload)
+        "serve_paged": (model, paged, requests),
+        "serve_paged_starved": (model, dict(
+            paged, num_pages=SERVE_CFG["slots"] * max_pages // 4 + 1), requests),
+        "serve_prefix": (model, dict(cache_layout="paged", page_size=chunk,
+                                     prefix_sharing=True), prefix_reqs),
+        "serve_spec": (damped, dict(spec_k=SPEC_K), requests),
+        "serve_spec_paged": (damped, dict(paged, spec_k=SPEC_K), requests),
+        "serve_slo": (model, dict(slo=slo), requests),
+        "serve_bf16": (model_bf16, {}, requests),
+        "serve_bf16_fused_head": (model_bf16, dict(fused_head=True), requests),
+        "serve_bf16_paged": (model_bf16, paged, requests),
+    }
+
+    def engine(m, kw):
+        return ServingEngine(m, ServeConfig(**SERVE_CFG, **kw), device="cuda")
+
+    def warmed(m, kw, wl):
+        engine(m, kw).run(wl[:2])  # warm-up, on an engine of its own
+        return engine(m, kw)
+
+    # References, outside every counted window: the dense unfused runs on
+    # the f32 and the damped weights, the prefix workload unshared.
+    dense_eng = warmed(model, {}, requests)
+    dense = dense_eng.run(requests)
+    dense_mib = sum(cache_bytes(c) for c in dense_eng.caches) / 2**20
+    dense_damped = warmed(damped, {}, requests).run(requests)
+    unshared = warmed(model, dict(cache_layout="paged", page_size=chunk),
+                      prefix_reqs).run(prefix_reqs)
+    for name, rep in (("reference dense", dense), ("reference dense, damped", dense_damped),
+                      ("reference prefix unshared", unshared)):
+        _serve_line(name, rep, {})
+    paths, reports = {}, {}
+    for path, (m, kw, wl) in runs.items():
+        eng = warmed(m, kw, wl)
+        torch.cuda.synchronize()
+        reset_launch_counts()  # ---- this path starts here
+        reports[path] = eng.run(wl)
+        paths[path] = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+        extra = ""
+        if kw.get("cache_layout") == "paged":
+            extra = (f", pool {sum(pool_bytes(c) for c in eng.caches) / 2**20:.1f} MiB "
+                     f"against the dense cache's {dense_mib:.1f} MiB")
+        _serve_line(path, reports[path], paths[path], extra)
+        owed = sum(r.max_new_tokens for r in wl)
+        check(reports[path].generated_tokens == owed,
+              f"{path}: generated {reports[path].generated_tokens} tokens, owes {owed}")
+        check(all(st.finished is not None for st in reports[path].requests.values()),
+              f"{path}: a request did not complete")
+
+    def streams(rep):
+        return {rid: st.tokens for rid, st in rep.requests.items()}
+
+    flash_need = expected_flash_calls(requests, chunk, layers)
+    for path in ("serve_paged", "serve_paged_starved", "serve_slo"):
+        check(paths[path]["flash_forward_lse"] == flash_need,
+              f"{path}: {paths[path]['flash_forward_lse']} flash launches, prefill needs "
+              f"{flash_need}")
+    for path in ("serve_paged", "serve_paged_starved", "serve_slo"):
+        compare_streams(model, requests, streams(dense), streams(reports[path]),
+                        f"{path} vs dense unfused")
+    check(any(e[0] == "defer" for e in reports["serve_paged_starved"].events),
+          "serve_paged_starved: no admission was deferred")
+
+    rep = reports["serve_prefix"]
+    shared = {rid: st.shared_pages for rid, st in rep.requests.items()}
+    head_pages = PREFIX_HEAD // chunk
+    check(rep.pool_stats["prefix_hits"] > 0, "serve_prefix: no prefix hit")
+    check(shared == {r.rid: (0 if r.rid == 0 else head_pages) for r in prefix_reqs},
+          f"serve_prefix: shared pages {shared}, the head implies {head_pages} from request 1")
+    need = expected_flash_calls_shared(prefix_reqs, shared, chunk, chunk, layers)
+    check(paths["serve_prefix"]["flash_forward_lse"] == need,
+          f"serve_prefix: {paths['serve_prefix']['flash_forward_lse']} flash launches, the "
+          f"unshared chunks need {need} (unshared run "
+          f"{expected_flash_calls(prefix_reqs, chunk, layers)})")
+    compare_streams(model, prefix_reqs, streams(unshared), streams(rep),
+                    "serve_prefix vs unshared")
+
+    draft_layers = layers // 2
+    for path in ("serve_spec", "serve_spec_paged"):
+        rep = reports[path]
+        compare_streams(damped, requests, streams(dense_damped), streams(rep),
+                        f"{path} vs dense on the same weights")
+        check(rep.mean_accepted_len > 0, f"{path}: no draft token accepted")
+        per_rid: dict[int, int] = {}
+        for e in rep.events:
+            if e[0] == "spec":
+                per_rid[e[1]] = per_rid.get(e[1], 0) + e[4] + 1
+        check(per_rid == {rid: len(st.tokens) for rid, st in rep.requests.items()},
+              f"{path}: the spec events do not account for every committed token")
+        need = flash_need + expected_flash_calls(requests, chunk, draft_layers)
+        check(paths[path]["flash_forward_lse"] == need,
+              f"{path}: {paths[path]['flash_forward_lse']} flash launches, the target's "
+              f"and the draft's prefill need {need}")
+
+    rep = reports["serve_slo"]
+    live, most = set(), 0
+    for e in rep.events:
+        if e[0] == "admit":
+            live.add(e[1])
+            most = max(most, len(live))
+        elif e[0] in ("evict", "expire"):
+            live.discard(e[1])
+    check(most <= SLO_SLOTS, f"serve_slo: {most} active slots, the budget allows {SLO_SLOTS}")
+    check(any(e[0] == "defer" for e in rep.events), "serve_slo: no admission was deferred")
+    again = engine(model, dict(slo=slo)).run(requests)
+    check(repr(again.events).encode() == repr(rep.events).encode(),
+          "serve_slo: a second run's event log differs")
+    print(f"[serve_levers] serve_slo: budget {slo.tpot_budget_s * 1e6:.3f} us a step (the "
+          f"cost model's {SLO_SLOTS}-slot step at {slo.hbm_gbps:.0f} GB/s), at most {most} "
+          f"active slots, a second run's event log byte-identical")
+
+    for path in ("serve_bf16", "serve_bf16_fused_head", "serve_bf16_paged"):
+        got = paths[path]
+        check(got["flash_forward_lse_bf16"] == flash_need and got["flash_forward_lse"] == 0,
+              f"{path}: {got['flash_forward_lse_bf16']} bf16 flash launches "
+              f"({got['flash_forward_lse']} f32), prefill needs {flash_need}")
+        mism = teacher_forced_check(model_bf16, requests, streams(reports[path]), path,
+                                    BF16_TIE_GAP)
+        print(f"[serve_levers] {path}: streams hold against the bf16 full forward "
+              f"({mism} near-tie mismatches, gap < {BF16_TIE_GAP:g})")
+    check(paths["serve_bf16_fused_head"]["fused_decode_head"]
+          == reports["serve_bf16_fused_head"].decode_steps,
+          "serve_bf16_fused_head: the f32 head must launch once a decode step")
+    print(f"[serve_levers] flash per run {flash_need}, the spec runs add the draft's "
+          f"{expected_flash_calls(requests, chunk, draft_layers)}; owed "
+          f"{sum(o['max_new_tokens'] for o in ledger.values())} tokens a run")
+    return paths
 
 
 # ------------------------------------------------------------ phase 5
@@ -4119,6 +4450,8 @@ def main() -> int:
     grid_edge_phase(gen)
     torch.cuda.empty_cache()
     paths = {"serve": serve_phase(gen)}
+    torch.cuda.empty_cache()
+    paths.update(serve_levers_phase(gen, by_name))
     torch.cuda.empty_cache()
     paths["train"] = train_phase()
     torch.cuda.empty_cache()

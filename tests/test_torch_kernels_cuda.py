@@ -1411,3 +1411,63 @@ def test_prefetch_to_device_from_pinned_memory(cuda_device):
     for (x, y), (wx, wy) in zip(out, items):
         assert torch.equal(x.cpu(), torch.from_numpy(wx) * 2)
         assert torch.equal(y.cpu(), wy + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_paged_prefill_flash_window_matches_plain(cuda_device, dtype):
+    """The paged prefill's window attention: K/V written through a
+    non-contiguous page table, read back with ``read_row_prefix`` and
+    GQA-repeated, through ``chunk_flash_window`` (start/C + 1 launches of
+    kernel 1 or its bf16 twin) against the plain causal attention at the
+    chunk's offset. f32 at the flash tolerance; bf16 within BF16_REL."""
+    from tpudml_torch.nn.attention import chunk_flash_window
+    from tpudml_torch.serve.paged import init_pool, read_row_prefix, write_chunk
+
+    c, h, kvh, d, p, start = 64, 8, 2, 64, 16, 192
+    pool = init_pool(40, p, kvh, d, "f32", cuda_device)
+    row = (torch.randperm(39, generator=torch.Generator().manual_seed(3))[:16] + 1).to(cuda_device)
+    for s0 in range(0, start + c, c):
+        write_chunk(pool, _randn(1, c, kvh, d, seed=s0, device=cuda_device),
+                    _randn(1, c, kvh, d, seed=s0 + 1, device=cuda_device), row, s0)
+    q = _randn(1, c, h, d, seed=7, device=cuda_device).to(dtype)
+    k, v = read_row_prefix(pool, row, start + c, dtype)
+    k, v = (torch.repeat_interleave(a, h // kvh, dim=2) for a in (k, v))
+    kernel = FLASH_FORWARD if dtype == torch.float32 else FLASH_FORWARD_BF16
+    before = kernel.launches
+    o = chunk_flash_window(q, k, v, start)
+    assert kernel.launches - before == start // c + 1
+    ref = dot_product_attention(q, k, v, causal=True, q_offset=start)
+    assert o.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ref, rtol=1e-5, atol=1e-5)
+    else:
+        _close_to_max(o, ref, BF16_REL)
+
+
+@pytest.mark.cuda
+def test_paged_engine_streams_match_dense_on_card(cuda_device):
+    """A paged engine (page 8, prefill chunks of 16 through the flash
+    kernel) serves the same seeded workload as the dense engine: the same
+    token streams, event log and flash launches."""
+    import math
+
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.serve import ServeConfig, ServingEngine, poisson_workload
+
+    model = TransformerLM(vocab_size=256, embed_dim=128, num_heads=4, num_kv_heads=2,
+                          num_layers=2, max_len=128, rope=True, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    reqs, _ = poisson_workload(8, math.inf, 3, vocab_size=256, prompt_len=(4, 60),
+                               new_tokens=(4, 20))
+    reps, flash = {}, {}
+    for layout in ("dense", "paged"):
+        cfg = ServeConfig(slots=3, max_len=128, prefill_chunk=16, cache_layout=layout,
+                          page_size=8, step_time_s=0.01)
+        before = FLASH_FORWARD.launches
+        reps[layout] = ServingEngine(model, cfg, device="cuda").run(reqs)
+        flash[layout] = FLASH_FORWARD.launches - before
+    assert reps["paged"].events == reps["dense"].events
+    for rid, st in reps["dense"].requests.items():
+        assert reps["paged"].requests[rid].tokens == st.tokens
+    assert flash["paged"] == flash["dense"] > 0

@@ -70,6 +70,17 @@ def test_dp_slice_modules_are_among_the_checked(module):
     assert REPO / (module.replace(".", "/") + ".py") in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "tpudml_torch.serve.paged", "tpudml_torch.serve.spec", "tpudml_torch.serve.sched",
+    "tpudml_torch.serve.engine", "tpudml_torch.tools.profile_serve"])
+def test_serving_lever_modules_are_among_the_checked(module):
+    """The serving levers' modules (paged cache, speculative decoding, SLO
+    admission) are among the modules the jax-blocked import and the AST
+    scan cover."""
+    assert module in list(_modules())
+    assert REPO / (module.replace(".", "/") + ".py") in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_tpudml_import(path):
     tree = ast.parse(path.read_text())

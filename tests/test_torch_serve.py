@@ -128,6 +128,26 @@ def test_engine_streams_and_events_match_jax(rope_pair, kw):
     assert all(len(s) == 6 for s in got[0].values())
 
 
+def test_cacheless_decode_step_matches_jax_and_the_engine(rope_pair):
+    """The full-forward baseline picks JAX's tokens, and greedy decoding
+    through it gives the cached engine's stream."""
+    from tpudml.serve import make_cacheless_decode_step as jax_cacheless
+    from tpudml_torch.serve import make_cacheless_decode_step
+
+    jm, params, tm = rope_pair
+    jstep, tstep = jax_cacheless(jm), make_cacheless_decode_step(tm)
+    prompt = np.asarray(_PROMPTS[2], np.int32)
+    toks = list(prompt)
+    for _ in range(6):
+        seq = np.asarray([toks], np.int32)
+        t = int(tstep(torch.from_numpy(seq).long())[0])
+        assert t == int(jstep(params, jnp.asarray(seq))[0])
+        toks.append(t)
+    rep = ServingEngine(tm, ServeConfig(slots=1, max_len=32, prefill_chunk=4),
+                        device="cpu").run([Request(rid=0, prompt=prompt, max_new_tokens=6)])
+    assert rep.requests[0].tokens == toks[len(prompt):]
+
+
 def test_poisson_workload_bitwise():
     for qps in (4.0, float("inf")):
         a, la = poisson_workload(16, qps, 7, vocab_size=100,
@@ -142,22 +162,44 @@ def test_poisson_workload_bitwise():
             np.testing.assert_array_equal(x.prompt, y.prompt)
 
 
-def test_not_ported_levers_raise(rope_pair):
+def test_not_ported_levers_raise(rope_pair, tmp_path):
+    """Only tensor-parallel serving (``mesh=``, task6 ``--tp``) and task6
+    ``--obs`` are still to port; each raises citing its ROADMAP item. The
+    single-device levers build."""
+    from tpudml_torch.serve import SLOConfig
+    from tpudml_torch.tasks import task6_serve
+
     _, _, tm = rope_pair
-    for kw in ({"cache_layout": "paged"}, {"spec_k": 2}, {"slo": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(tm, ServeConfig(slots=2, max_len=32, prefill_chunk=4,
-                                          **kw), device="cpu")
+    cfg = dict(slots=2, max_len=32, prefill_chunk=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+        ServingEngine(tm, ServeConfig(**cfg), device="cpu", mesh=object())
+    for kw in ({"cache_layout": "paged"}, {"spec_k": 2},
+               {"slo": SLOConfig(tpot_budget_s=1.0)}):
+        ServingEngine(tm, ServeConfig(**cfg, **kw), device="cpu")
+    argv = ["--device", "cpu", "--n_requests", "1", "--log_dir", str(tmp_path)]
+    for flags, item in ((["--tp", "2"], "item 7"), (["--obs"], "item 6")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
+            task6_serve.main(argv + flags)
 
 
 def test_task_cli_cpu(tmp_path):
-    out = subprocess.run(
-        [sys.executable, "-m", "tpudml_torch.tasks.task6_serve",
-         "--device", "cpu", "--n_requests", "4", "--qps", "inf",
-         "--embed_dim", "32", "--num_heads", "4", "--num_layers", "1",
-         "--max_len", "64", "--prompt_len", "4", "8", "--new_tokens", "4", "8",
-         "--log_dir", str(tmp_path)],
-        cwd=REPO, capture_output=True, text=True, timeout=120,
+    """The task CLI on the CPU, dense and with every single-device lever."""
+    runs = (
+        ([], "[serve/f32/cpu] 4 requests"),
+        (["--num_layers", "2", "--paged", "--prefix_sharing", "--page_size", "8",
+          "--prefill_chunk", "8", "--spec_k", "2", "--slo_tpot_ms", "1000"],
+         "[serve/paged/spec2/f32/cpu] 4 requests"),
     )
-    assert out.returncode == 0, out.stderr
-    assert "[serve/f32/cpu] 4 requests" in out.stdout
+    for levers, tag in runs:
+        out = subprocess.run(
+            [sys.executable, "-m", "tpudml_torch.tasks.task6_serve",
+             "--device", "cpu", "--n_requests", "4", "--qps", "inf",
+             "--embed_dim", "32", "--num_heads", "4", "--num_layers", "1",
+             "--max_len", "64", "--prompt_len", "4", "8", "--new_tokens", "4", "8",
+             "--log_dir", str(tmp_path), *levers],
+            cwd=REPO, capture_output=True, text=True, timeout=120,
+        )
+        assert out.returncode == 0, out.stderr
+        assert tag in out.stdout
+        if levers:
+            assert "spec: mean accepted_len" in out.stdout and "pages:" in out.stdout

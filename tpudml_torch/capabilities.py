@@ -1,7 +1,7 @@
 """The port's copy of the engine-composition rejections that its engines
-raise (the rows of ``tpudml/capabilities.py`` that ``DataParallel`` and
-task5 ``--parallel ep`` check, with the JAX wording; the planner's full
-table is ROADMAP.md queue 1 item 10).
+raise (the rows of ``tpudml/capabilities.py`` that ``DataParallel``, task5
+``--parallel ep`` and the serving engine check, with the JAX wording; the
+planner's full table is ROADMAP.md queue 1 item 10).
 
 Guard sites call :func:`reject` with an entry's key instead of writing
 the message; each entry keeps its ``when`` predicate over a flat
@@ -128,6 +128,36 @@ _ENTRIES = (
         when=lambda c: bool(_g(c, "flash_attn"))
         and (
             _g(c, "impl", "full") != "full" or bool(_g(c, "seq_sharded"))
+        ),
+    ),
+    Capability(
+        key="serve_fused_head_dense",
+        owner="tpudml_torch.serve.engine",
+        message=(
+            "fused_head folds the greedy pick into the head matmul "
+            "epilogue of the dense single-device decode step only: the "
+            "paged/spec steps consume full logits windows and TP "
+            "shards the head — run those unfused"
+        ),
+        when=lambda c: bool(_g(c, "serve_fused_head"))
+        and (
+            bool(_g(c, "serve_tp"))
+            or _g(c, "serve_cache_layout", "dense") != "dense"
+            or _g(c, "serve_spec_k", 0) > 0
+        ),
+    ),
+    Capability(
+        key="serve_tp_paged_spec",
+        owner="tpudml_torch.serve.engine",
+        message=(
+            "tensor-parallel serving does not compose with "
+            "cache_layout='paged' or spec_k>0 yet; run TP dense, or "
+            "paged/spec single-device"
+        ),
+        when=lambda c: bool(_g(c, "serve_tp"))
+        and (
+            _g(c, "serve_cache_layout", "dense") == "paged"
+            or _g(c, "serve_spec_k", 0) > 0
         ),
     ),
 )

@@ -3,7 +3,8 @@
 ``moe_axis`` — init, the full forward with full or flash
 attention and the unfused or fused add+LayerNorm trunk, dense or MoE FFN
 branches, bf16 compute with f32 master weights, the pre-head features,
-and the KV-cached decode and chunked prefill paths).
+and the KV-cached serving paths: decode, the speculative verify window
+and chunked prefill, over the dense cache or a paged pool).
 
 Parameter names follow the JAX param tree: ``tok_embed``, ``pos_embed``
 (learned positions, absent with RoPE), ``block{i}.{ln1, attn.{q,k,v,out},
@@ -43,7 +44,10 @@ The gather-then-cast forward equals JAX's cast-then-gather; its backward
 sums the table gradient in f32, where JAX's ``embed_lookup`` rounds it to
 bf16 once (a defined difference, ROADMAP queue 3). LayerNorm statistics,
 attention scores and softmax stay f32; the logits stay in the compute
-dtype. None computes in the parameter dtype.
+dtype. None computes in the parameter dtype. The serving paths compute
+the same way (bf16 embeddings, blocks and head; f32 LayerNorm parameters
+returning their input's dtype, so the decode features are bf16), and
+their KV caches store the cache kind's dtype whatever the compute dtype.
 """
 
 from __future__ import annotations
@@ -60,7 +64,6 @@ from tpudml_torch.nn.moe import MoELayer
 from tpudml_torch.ops.layernorm_kernel import fused_add_layernorm
 
 MLP_RATIO = 4
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
 COMPUTE_DTYPES = (None, torch.float32, torch.bfloat16)
 
 
@@ -269,10 +272,6 @@ class TransformerLM(nn.Module):
     def _serve_guard(self) -> None:
         if self.moe_experts:
             raise NotImplementedError("serve decode does not compose with MoE blocks yet")
-        if self.compute_dtype not in (None, torch.float32):
-            raise NotImplementedError(
-                f"serving with compute_dtype {NOT_PORTED.format('1 (serving levers)')}"
-            )
         if self._use_fused_ln():
             # The fused junction is a training throughput fusion; the
             # serving paths run the unfused math, the parity reference.
@@ -302,11 +301,44 @@ class TransformerLM(nn.Module):
             for _ in range(self.num_layers)
         )
 
+    def init_paged_cache(self, num_pages: int, page_size: int, kind: str = "f32"):
+        """Per-layer page pools on the model's device: a tuple of
+        ``num_layers`` ``PagedKVCache``, each [num_pages, page_size,
+        kv_heads, head_dim]. The slot→page table lives with the engine."""
+        from tpudml_torch.serve.paged import init_pool
+
+        self._serve_guard()
+        head_dim = self.embed_dim // self.num_heads
+        kv_heads = self.num_kv_heads or self.num_heads
+        return tuple(
+            init_pool(num_pages, page_size, kv_heads, head_dim, kind, self.device)
+            for _ in range(self.num_layers)
+        )
+
     def _decode_embed(self, tokens, pos):
         """[B] tokens at per-slot positions ``pos`` [B] -> [B, 1, d]."""
-        h = self.tok_embed[tokens][:, None, :]
+        return self._decode_embed_window(tokens[:, None], pos)
+
+    def _decode_embed_window(self, tokens, pos):
+        """[B, Q] window tokens, the first at per-slot positions ``pos``
+        [B] -> [B, Q, d] in the compute dtype."""
+        h = cast(self.tok_embed[tokens], self.compute_dtype)
         if not self.rope:
-            h = h + self.pos_embed[pos][:, None, :]
+            positions = pos[:, None] + torch.arange(tokens.shape[1], device=pos.device)[None, :]
+            h = h + cast(self.pos_embed[positions], self.compute_dtype)
+        return h
+
+    def _chunk_embed(self, chunk, start: int):
+        """A prefill chunk [1, C] at global positions [start, start+C) ->
+        [1, C, d] in the compute dtype."""
+        c = chunk.shape[1]
+        h = cast(self.tok_embed[chunk], self.compute_dtype)
+        if not self.rope:
+            if start + c > self.max_len:
+                raise ValueError(
+                    f"prefill window {start + c} exceeds max_len {self.max_len}"
+                )
+            h = h + cast(self.pos_embed[start:start + c], self.compute_dtype)[None]
         return h
 
     def _serve_blocks(self, caches, h, attend):
@@ -337,20 +369,44 @@ class TransformerLM(nn.Module):
         h, caches = self.apply_decode_features(caches, tokens, pos)
         return self.head(h), caches
 
+    def apply_decode_window(self, caches, tokens, pos):
+        """Decode a window of Q consecutive tokens per slot over the dense
+        cache: ``tokens`` [B, Q], the first at ``pos`` [B] -> (logits
+        [B, Q, V], caches). The speculative verify step: one pass scores
+        all Q positions."""
+        self._serve_guard()
+        h = self._decode_embed_window(tokens, pos)
+        h, caches = self._serve_blocks(
+            caches, h, lambda attn, cache, y: attn.apply_decode_window(cache, y, pos))
+        return self.head(self.ln_f(h)), caches
+
+    def apply_decode_paged(self, caches, table, tokens, pos):
+        """Decode over paged pools: ``table`` [B, max_pages] maps each slot
+        to its pages, ``tokens`` [B, Q] (Q = 1 plain decode, K+1 spec
+        verify), ``pos`` [B] -> (logits [B, Q, V], pools)."""
+        self._serve_guard()
+        h = self._decode_embed_window(tokens, pos)
+        h, caches = self._serve_blocks(
+            caches, h,
+            lambda attn, pool, y: attn.apply_decode_paged(pool, table, y, pos))
+        return self.head(self.ln_f(h)), caches
+
+    def apply_prefill_paged(self, caches, table_row, chunk, start: int):
+        """Paged prefill of one chunk: ``table_row`` [max_pages] is the
+        admitted slot's page map, ``chunk`` [1, C] tokens at positions
+        [start, start+C) -> pools (on the card through the flash kernel)."""
+        self._serve_guard()
+        _, caches = self._serve_blocks(
+            caches, self._chunk_embed(chunk, start),
+            lambda attn, pool, y: attn.apply_prefill_paged(pool, table_row, y, start))
+        return caches
+
     def apply_prefill(self, caches, chunk, slot: int, start: int):
         """Prefill one chunk of one slot's prompt: ``chunk`` [1, C] tokens
         at global positions [start, start+C) -> caches. No logits: the
         engine feeds the prompt's last token through ``apply_decode``."""
         self._serve_guard()
-        c = chunk.shape[1]
-        h = self.tok_embed[chunk]
-        if not self.rope:
-            if start + c > self.max_len:
-                raise ValueError(
-                    f"prefill window {start + c} exceeds max_len {self.max_len}"
-                )
-            h = h + self.pos_embed[start:start + c][None]
         _, caches = self._serve_blocks(
-            caches, h,
+            caches, self._chunk_embed(chunk, start),
             lambda attn, cache, y: attn.apply_prefill(cache, y, slot, start))
         return caches

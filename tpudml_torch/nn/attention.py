@@ -5,9 +5,10 @@ attention, the serving paths).
 Layout is [B, T, H, D] throughout, as in the JAX package. Scores and
 softmax run in f32; masked entries get ``NEG_INF`` (large-finite, so a
 fully masked row never computes inf − inf). The serving paths read K/V
-from a ``tpudml_torch.serve.cache.KVCache`` and update it IN PLACE (the
-JAX package returns a new cache; the engine here keeps one set of
-buffers).
+from a ``tpudml_torch.serve.cache.KVCache`` or, paged, through a page
+table from a ``tpudml_torch.serve.paged.PagedKVCache``, and update it IN
+PLACE (the JAX package returns a new cache; the engine here keeps one set
+of buffers).
 """
 
 from __future__ import annotations
@@ -69,6 +70,21 @@ def decode_attention(q, k, v, pos):
     s = _scores(q, k)
     mask = torch.arange(k.shape[1], device=q.device)[None, :] <= pos[:, None]
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def decode_attention_window(q, k, v, pos):
+    """Multi-token decode attention: q [B, Q, H, D] — Q consecutive tokens
+    per slot, the first at per-slot position ``pos`` [B] — over a full
+    cache k/v [B, L, H, D]. The speculative verify window (Q = K+1) and
+    the paged decode step land here; Q = 1 is :func:`decode_attention`.
+    Query j masks ``k_pos <= pos[b] + j``: its own row, the committed
+    prefix and the earlier window rows, all written before this call."""
+    s = _scores(q, k)
+    q_pos = pos[:, None] + torch.arange(q.shape[1], device=q.device)[None, :]
+    mask = torch.arange(k.shape[1], device=q.device)[None, None, :] <= q_pos[:, :, None]
+    s = torch.where(mask[:, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
@@ -201,6 +217,83 @@ class MultiHeadAttention(nn.Module):
         o = decode_attention(q, k, v, pos).reshape(b, 1, self.embed_dim)
         return self.out(o), cache
 
+    def _window_qkv(self, x, pos):
+        """(q, k_new, v_new) of a window x [B, Q, d] whose first token sits
+        at per-slot position ``pos`` [B]."""
+        q, k_new, v_new = self._project(x)
+        if self.rope:
+            positions = pos[:, None] + torch.arange(x.shape[1], device=x.device)[None, :]
+            q = rotary_embedding(q, positions, self.rope_base)
+            k_new = rotary_embedding(k_new, positions, self.rope_base)
+        return q, k_new, v_new
+
+    def _window_out(self, q, k, v, pos):
+        b, qlen = q.shape[:2]
+        k, v = self._gqa_repeat(k, v, self.num_heads)
+        o = decode_attention_window(q, k, v, pos)
+        return self.out(o.reshape(b, qlen, self.embed_dim))
+
+    def apply_decode_window(self, cache, x, pos):
+        """Decode a window of Q consecutive tokens per slot: x [B, Q, d] at
+        positions pos..pos+Q-1 (the speculative verify window). Writes all
+        Q rows' K/V (in place), attends each query over the prefix and the
+        earlier window rows, returns (out [B, Q, d], cache). Rows past the
+        committed count are rewritten by a later window before any
+        unmasked read."""
+        from tpudml_torch.serve.cache import read_all, write_token
+
+        q, k_new, v_new = self._window_qkv(x, pos)
+        cache = write_token(cache, k_new, v_new, pos)
+        k, v = read_all(cache, x.dtype)
+        return self._window_out(q, k, v, pos), cache
+
+    def apply_decode_paged(self, pool, table, x, pos):
+        """Decode step over a paged pool: x [B, Q, d] (Q = 1 plain decode,
+        K+1 spec verify), ``table`` [B, max_pages] each slot's page map,
+        ``pos`` [B]. Same math as :meth:`apply_decode_window`: the gathered
+        table window holds the same values at the same flat positions.
+        Returns (out [B, Q, d], pool)."""
+        from tpudml_torch.serve.paged import read_table, write_tokens
+
+        q, k_new, v_new = self._window_qkv(x, pos)
+        pool = write_tokens(pool, k_new, v_new, table, pos)
+        k, v = read_table(pool, table, x.dtype)
+        return self._window_out(q, k, v, pos), pool
+
+    def _chunk_qkv(self, x, start: int):
+        """(q, k_new, v_new) of a prefill chunk x [1, C, d] at global
+        positions [start, start+C)."""
+        q, k_new, v_new = self._project(x)
+        if self.rope:
+            positions = start + torch.arange(x.shape[1], device=x.device)
+            q = rotary_embedding(q, positions, self.rope_base)
+            k_new = rotary_embedding(k_new, positions, self.rope_base)
+        return q, k_new, v_new
+
+    def _prefill_attend(self, q, k, v, start: int):
+        """A prefill chunk's window attention: on the card the flash kernel
+        (:func:`chunk_flash_window`), on the CPU the plain masked attention —
+        chosen by the tensor's device, never by a failure."""
+        k, v = self._gqa_repeat(k, v, self.num_heads)
+        if q.is_cuda:
+            o = chunk_flash_window(q, k, v, start)
+        else:
+            o = dot_product_attention(q, k, v, causal=True, q_offset=start)
+        return self.out(o.reshape(1, q.shape[1], self.embed_dim))
+
+    def apply_prefill_paged(self, pool, table_row, x, start: int):
+        """Prefill one chunk of the slot owning ``table_row`` [max_pages]:
+        x [1, C, d] at global positions [start, start+C). Mirrors
+        :meth:`apply_prefill` over the paged pool, the window attention
+        through the flash kernel on the card."""
+        from tpudml_torch.serve.paged import read_row_prefix, write_chunk
+
+        c = x.shape[1]
+        q, k_new, v_new = self._chunk_qkv(x, start)
+        pool = write_chunk(pool, k_new, v_new, table_row, start)
+        k, v = read_row_prefix(pool, table_row, start + c, x.dtype)
+        return self._prefill_attend(q, k, v, start), pool
+
     def apply_prefill(self, cache, x, slot: int, start: int):
         """Prefill one chunk of one slot: x [1, C, d] at global positions
         [start, start+C). Writes their K/V (in place), attends the chunk
@@ -211,16 +304,7 @@ class MultiHeadAttention(nn.Module):
         from tpudml_torch.serve.cache import read_slot_prefix, write_chunk
 
         c = x.shape[1]
-        q, k_new, v_new = self._project(x)
-        if self.rope:
-            positions = start + torch.arange(c, device=x.device)
-            q = rotary_embedding(q, positions, self.rope_base)
-            k_new = rotary_embedding(k_new, positions, self.rope_base)
+        q, k_new, v_new = self._chunk_qkv(x, start)
         cache = write_chunk(cache, k_new, v_new, slot, start)
         k, v = read_slot_prefix(cache, slot, start + c, x.dtype)
-        k, v = self._gqa_repeat(k, v, self.num_heads)
-        if q.is_cuda:
-            o = chunk_flash_window(q, k, v, start)
-        else:
-            o = dot_product_attention(q, k, v, causal=True, q_offset=start)
-        return self.out(o.reshape(1, c, self.embed_dim)), cache
+        return self._prefill_attend(q, k, v, start), cache

@@ -93,17 +93,26 @@ def _encode(x: torch.Tensor, kind: str):
 
 def write_token(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
                 pos: torch.Tensor) -> KVCache:
-    """Write one token per slot: k_new/v_new [B, 1, Hkv, Dh] at per-slot
-    positions ``pos`` [B], in place."""
+    """Write Q consecutive tokens per slot: k_new/v_new [B, Q, Hkv, Dh]
+    from per-slot positions ``pos`` [B] (Q = 1 in a decode step, K+1 in a
+    speculative verify window), in place."""
     ks, kscale = _encode(k_new, cache.kind)
     vs, vscale = _encode(v_new, cache.kind)
+    q = ks.shape[1]
     rows = torch.arange(cache.k.shape[0], device=cache.k.device)
-    p = pos.to(device=cache.k.device, dtype=torch.long).clamp(0, cache.max_len - 1)
-    cache.k[rows, p] = ks[:, 0]
-    cache.v[rows, p] = vs[:, 0]
+    p = pos.to(device=cache.k.device, dtype=torch.long).clamp(0, cache.max_len - q)
+    if q > 1:  # a window: Q consecutive rows a slot
+        rows = rows[:, None]
+        p = p[:, None] + torch.arange(q, device=cache.k.device)[None, :]
+    else:  # a decode step: one row a slot, with no index arithmetic
+        ks, vs = ks[:, 0], vs[:, 0]
+        if cache.kind == "int8":
+            kscale, vscale = kscale[:, 0], vscale[:, 0]
+    cache.k[rows, p] = ks
+    cache.v[rows, p] = vs
     if cache.kind == "int8":
-        cache.k_scale[rows, p] = kscale[:, 0]
-        cache.v_scale[rows, p] = vscale[:, 0]
+        cache.k_scale[rows, p] = kscale
+        cache.v_scale[rows, p] = vscale
     return cache
 
 

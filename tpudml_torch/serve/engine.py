@@ -1,5 +1,5 @@
 """Prefill–decode serving engine with continuous batching: the port of
-``tpudml/serve/engine.py`` (dense cache, one device).
+``tpudml/serve/engine.py`` (one device).
 
 A fixed decode batch of ``slots`` cache rows runs ONE decode step per
 iteration, and the host-side scheduler rewrites rows — evicting finished
@@ -20,14 +20,27 @@ The caches are updated in place. Stale rows need no zeroing on eviction:
 a slot's mask is ``k_pos <= pos``, and every position is written before
 it is first unmasked.
 
-Not ported yet (each raises ``NotImplementedError`` and never falls
-back): the paged layout, speculative decoding, SLO admission and tensor
-parallelism — ROADMAP.md queue 1, serving levers.
+Three levers compose on top, each set in ``ServeConfig`` and each
+greedy-exact against the dense path: ``cache_layout="paged"`` (+
+``prefix_sharing``) swaps the cache for a page pool behind a slot→page
+table (``serve/paged.py``; the paged prefill runs the flash kernel on the
+card), ``spec_k > 0`` swaps the decode step for draft-then-verify
+speculative decoding (``serve/spec.py``), and ``slo`` prices admission
+with the static cost model (``serve/sched.py``). A ``compute_dtype=
+torch.bfloat16`` model serves in bf16 on every path; its fused tail feeds
+the bf16 features, widened exactly to f32, with the f32 head into the
+decode-head kernel, as JAX's fused step does (its unfused step uses the
+bf16 head). ``fused_head`` with paged or spec raises
+``ServeCompositionError``.
+
+Not ported yet (raises ``NotImplementedError`` and never falls back):
+tensor-parallel serving (``mesh=``), ROADMAP.md queue 1 item 7.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -35,12 +48,23 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from tpudml_torch.capabilities import CompositionError, reject
 from tpudml_torch.device import resolve_device
 from tpudml_torch.ops.decode_head import fused_decode_head, fused_decode_head_int8
 from tpudml_torch.serve.cache import KINDS
 from tpudml_torch.serve.load import Request
+from tpudml_torch.serve.paged import PagePool
+from tpudml_torch.serve.sched import DecodeCostModel, SLOConfig
+from tpudml_torch.serve.spec import draft_from_trunk, make_spec_decode_step
 
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1, serving levers)"
+TP_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 7, tensor-parallel serving)"
+
+
+class ServeCompositionError(CompositionError):
+    """Raised when serving levers are combined in a regime that has no
+    correct path (the fused head × paged or spec; tensor parallelism ×
+    paged or spec). Loud by contract: the alternative is a silently wrong
+    answer path."""
 
 
 def make_decode_step(model):
@@ -61,11 +85,17 @@ def make_fused_decode_step(model, head_q=None, head_scale=None):
     statistics run in one kernel. Returns (next tokens [B],
     {"max_logit": [B], "lse": [B]}). With ``head_q``/``head_scale`` (int8
     mode) the kernel reads the int8 codes + scales and dequantizes per
-    weight in the oracle's op order."""
+    weight in the oracle's op order.
+
+    The head is read uncast: under bf16 compute the bf16 features are
+    widened to f32 (exact) and meet the f32 head weights at f32, which is
+    what JAX's fused step computes (its kernel takes the bf16 features
+    with the f32 head at ``preferred_element_type=f32``)."""
 
     @torch.inference_mode()
     def step(caches, tokens, pos):
         h, _ = model.apply_decode_features(caches, tokens, pos)
+        h = h.float()
         bias = model.head.bias
         if head_q is not None:
             tok, mx, lse = fused_decode_head_int8(h, head_q, head_scale, bias)
@@ -76,11 +106,36 @@ def make_fused_decode_step(model, head_q=None, head_scale=None):
     return step
 
 
+def make_cacheless_decode_step(model):
+    """The decode strategy the KV cache exists to remove: re-run the full
+    forward over the whole history and keep the last row's greedy pick,
+    tokens [B, T] -> next tokens [B] int32. The cache's A/B baseline."""
+
+    @torch.inference_mode()
+    def step(tokens):
+        return torch.argmax(model(tokens)[:, -1, :], dim=-1).to(torch.int32)
+
+    return step
+
+
+def make_paged_decode_step(model):
+    """The paged twin of :func:`make_decode_step`: (pools, table [B,
+    max_pages], tokens [B], pos [B]) -> (next greedy tokens [B] int32,
+    logits [B, V]); the pools update in place. Page alloc/free between
+    steps only rewrites the table."""
+
+    @torch.inference_mode()
+    def step(caches, table, tokens, pos):
+        logits, _ = model.apply_decode_paged(caches, table, tokens[:, None], pos)
+        logits = logits[:, 0, :]
+        return torch.argmax(logits, dim=-1).to(torch.int32), logits
+
+    return step
+
+
 @dataclass(frozen=True)
 class ServeConfig:
-    """Engine shape knobs. Every field of the JAX ``ServeConfig`` is kept
-    so later slices fill them in; the ones not ported yet raise at engine
-    init."""
+    """Engine shape knobs, the JAX ``ServeConfig``'s fields."""
 
     slots: int = 4  # fixed decode batch: concurrent in-flight sequences
     max_len: int = 256  # cache rows per slot (prompt + generation bound)
@@ -95,12 +150,22 @@ class ServeConfig:
     # step_time_s (+ idle skips), so the schedule is a pure function of
     # (workload seed, config).
     step_time_s: float | None = None
-    cache_layout: str = "dense"  # "paged": not ported yet
+    # Cache layout: "dense" [slots, max_len] rows, or "paged": K/V in a
+    # pool of [num_pages, page_size, ...] pages behind a [slots,
+    # max_pages] table (serve/paged.py). num_pages=None sizes the pool to
+    # dense capacity + the garbage page.
+    cache_layout: str = "dense"
     page_size: int = 16
     num_pages: int | None = None
+    # Prefix sharing (paged only): admit-time page reuse for equal prompt
+    # heads; page_size must be a multiple of prefill_chunk.
     prefix_sharing: bool = False
-    spec_k: int = 0  # speculative decoding: not ported yet
-    slo: object | None = None  # SLO admission: not ported yet
+    # Speculative decoding: draft spec_k tokens per target step (0: off).
+    # Admission reserves spec_k rows of verify headroom per slot.
+    spec_k: int = 0
+    # SLO-aware admission: admit the queue head only while the priced
+    # decode step (serve/sched.py) fits the per-token budget.
+    slo: SLOConfig | None = None
     # "int8": per-output-channel int8 kernels + f32 scales, computing on
     # their dequantization; "int8_sim": the f32-storage oracle.
     weight_quant: str | None = None
@@ -129,7 +194,22 @@ class ServeConfig:
                 f"cache_layout must be 'dense' or 'paged', "
                 f"got {self.cache_layout!r}"
             )
-        if self.prefix_sharing and self.cache_layout != "paged":
+        if self.cache_layout == "paged":
+            if self.page_size < 1:
+                raise ValueError("page_size must be >= 1")
+            if self.num_pages is not None and self.num_pages < 2:
+                raise ValueError(
+                    "num_pages must be >= 2 (page 0 is the garbage sink)"
+                )
+            if self.prefix_sharing and self.page_size % self.prefill_chunk:
+                raise ValueError(
+                    f"prefix_sharing requires page_size "
+                    f"{self.page_size} to be a multiple of prefill_chunk "
+                    f"{self.prefill_chunk} (a shared head must end on a "
+                    f"chunk boundary so fresh prefill never rewrites a "
+                    f"shared page)"
+                )
+        elif self.prefix_sharing:
             raise ValueError("prefix_sharing requires cache_layout='paged'")
         if self.spec_k < 0:
             raise ValueError("spec_k must be >= 0")
@@ -138,6 +218,19 @@ class ServeConfig:
                 f"weight_quant must be None, 'int8' or 'int8_sim', "
                 f"got {self.weight_quant!r}"
             )
+
+    @property
+    def max_pages(self) -> int:
+        """Page-table width: pages covering one slot's max_len rows."""
+        return math.ceil(self.max_len / self.page_size)
+
+    @property
+    def total_pages(self) -> int:
+        """Pool size: ``num_pages``, by default dense capacity (slots ×
+        max_pages) plus the garbage page."""
+        if self.num_pages is not None:
+            return self.num_pages
+        return self.slots * self.max_pages + 1
 
 
 @dataclass
@@ -157,6 +250,7 @@ class RequestStats:
     slot: int | None = None
     tokens: list = field(default_factory=list)
     token_times: list = field(default_factory=list)
+    shared_pages: int = 0  # prefix-cache pages reused at admit (paged)
 
     @property
     def ttft_s(self) -> float | None:
@@ -182,13 +276,15 @@ class ServeReport:
     (the determinism contract), and aggregates."""
 
     requests: dict
-    # ("admit"|"evict"|"reject"|"expire", rid, slot, step)
+    # ("admit"|"evict"|"reject"|"expire"|"defer", rid, slot, step) plus
+    # ("spec", rid, slot, step, accepted_len) when spec decoding is on.
     events: list
     decode_steps: int
     wall_time: float
     peak_queue_depth: int = 0
     busy_slot_steps: int = 0
     slots: int = 0
+    pool_stats: dict | None = None  # paged only: prefix hits/evictions
 
     @property
     def generated_tokens(self) -> int:
@@ -199,6 +295,13 @@ class ServeReport:
         """Mean fraction of decode-slot-steps doing useful work."""
         denom = self.decode_steps * max(self.slots, 1)
         return self.busy_slot_steps / denom if denom else 0.0
+
+    @property
+    def mean_accepted_len(self) -> float:
+        """Mean accepted draft tokens COMMITTED per spec step (0.0 without
+        spec events); Σ(accepted_len + 1) is the generated token count."""
+        ls = [e[4] for e in self.events if e[0] == "spec"]
+        return float(np.mean(ls)) if ls else 0.0
 
     def annotate_ledger(self, ledger: dict[int, dict]) -> dict[int, dict]:
         """Fill the workload ledger's per-request ``ttft_s``/``tpot_s``
@@ -253,10 +356,15 @@ class ServeReport:
 class ServingEngine:
     """Continuous-batching prefill/decode over a ``TransformerLM`` on one
     device. ``device`` (default "cuda") must be where the model's
-    parameters live; asking for the card without one raises."""
+    parameters live; asking for the card without one raises. With
+    ``spec_k`` the draft is ``draft_model`` run with the weights
+    ``draft_params`` (its state dict), or by default the target's lower
+    ``draft_layers`` blocks (``draft_from_trunk``, num_layers // 2)."""
 
     def __init__(self, model, config: ServeConfig | None = None, *,
-                 device: str | torch.device = "cuda", mesh=None):
+                 device: str | torch.device = "cuda", mesh=None,
+                 draft_model=None, draft_params=None,
+                 draft_layers: int | None = None):
         self.device = resolve_device(device)
         self.cfg = config or ServeConfig()
         cfg = self.cfg
@@ -265,14 +373,15 @@ class ServingEngine:
                 f"model parameters are on {model.device}, engine device is "
                 f"{self.device}; move the model first"
             )
+        self._paged = cfg.cache_layout == "paged"
         if mesh is not None:
-            raise NotImplementedError(f"tensor-parallel serving {NOT_PORTED}")
-        if cfg.cache_layout == "paged":
-            raise NotImplementedError(f"cache_layout='paged' {NOT_PORTED}")
-        if cfg.spec_k:
-            raise NotImplementedError(f"speculative decoding (spec_k) {NOT_PORTED}")
-        if cfg.slo is not None:
-            raise NotImplementedError(f"SLO-priced admission {NOT_PORTED}")
+            if self._paged or cfg.spec_k:
+                reject("serve_tp_paged_spec", exc=ServeCompositionError)
+            raise NotImplementedError(f"tensor-parallel serving {TP_NOT_PORTED}")
+        if cfg.fused_head and (self._paged or cfg.spec_k):
+            # The fused tail consumes the dense step's features; the paged
+            # and spec steps consume full logits windows.
+            reject("serve_fused_head_dense", exc=ServeCompositionError)
         if not model.rope and cfg.max_len > model.max_len:
             raise ValueError(
                 f"cache max_len {cfg.max_len} exceeds the position "
@@ -300,58 +409,184 @@ class ServingEngine:
             model = copy.deepcopy(model)
             model.load_state_dict(state)
         self.model = model
-        self.caches = model.init_decode_cache(cfg.slots, cfg.max_len, cfg.cache_kind)
-        if cfg.fused_head:
-            hq = hs = None
-            if self.quantized_params is not None:
-                hq = self.quantized_params["head.kernel"]
-                hs = self.quant_scales["head.kernel"]
-            self._decode = make_fused_decode_step(model, head_q=hq, head_scale=hs)
+        # Paged bookkeeping: the host-side allocator plus the [slots,
+        # max_pages] table the decode step reads through.
+        self._pool = None
+        self._table = None
+        self._slot_pages: list[list[int]] = [[] for _ in range(cfg.slots)]
+        if self._paged:
+            self.caches = model.init_paged_cache(cfg.total_pages, cfg.page_size,
+                                                 cfg.cache_kind)
+            self._decode = make_paged_decode_step(model)
+            self._pool = PagePool(cfg.total_pages, cfg.page_size, cfg.prefix_sharing)
+            self._table = np.zeros((cfg.slots, cfg.max_pages), np.int32)
         else:
-            self._decode = make_decode_step(model)
+            self.caches = model.init_decode_cache(cfg.slots, cfg.max_len, cfg.cache_kind)
+            if cfg.fused_head:
+                hq = hs = None
+                if self.quantized_params is not None:
+                    hq = self.quantized_params["head.kernel"]
+                    hs = self.quant_scales["head.kernel"]
+                self._decode = make_fused_decode_step(model, head_q=hq, head_scale=hs)
+            else:
+                self._decode = make_decode_step(model)
+        # Speculative decoding: by default the target's lower trunk (no
+        # extra weights); exactness never depends on the draft.
+        self._spec = None
+        self.draft_model = None
+        if cfg.spec_k:
+            if draft_model is None:
+                n = draft_layers or max(1, model.num_layers // 2)
+                draft_model, _ = draft_from_trunk(model, n)
+            elif draft_params is None:
+                raise ValueError("draft_model requires draft_params")
+            else:
+                draft_model.load_state_dict(draft_params)
+            self.draft_model = draft_model
+            # The draft cache stays dense in every mode: it is small and
+            # only ever single-token-stepped.
+            self._dcaches = draft_model.init_decode_cache(cfg.slots, cfg.max_len,
+                                                          cfg.cache_kind)
+            self._spec = make_spec_decode_step(model, draft_model, cfg.spec_k,
+                                               paged=self._paged)
+        # SLO admission pricing (deterministic, host-side).
+        self._cost = None
+        if cfg.slo is not None:
+            self._cost = DecodeCostModel(model, cfg, cfg.slo,
+                                         draft_model=self.draft_model)
 
     # ------------------------------------------------------------ prefill
+
+    def _spec_headroom(self) -> int:
+        return self.cfg.spec_k if self._spec is not None else 0
 
     def _validate_request(self, req: Request) -> np.ndarray:
         prompt = np.asarray(req.prompt, np.int32)
         if prompt.ndim != 1 or prompt.size < 1:
             raise ValueError(f"request {req.rid}: prompt must be [L>=1]")
-        total = prompt.size + req.max_new_tokens
+        total = prompt.size + req.max_new_tokens + self._spec_headroom()
         if total > self.cfg.max_len:
+            extra = (
+                f" (+ spec_k {self.cfg.spec_k} verify headroom)"
+                if self._spec_headroom() else ""
+            )
             raise ValueError(
                 f"request {req.rid}: prompt {prompt.size} + "
-                f"max_new_tokens {req.max_new_tokens} exceeds "
+                f"max_new_tokens {req.max_new_tokens}{extra} exceeds "
                 f"cache max_len {self.cfg.max_len}"
             )
         return prompt
 
-    @torch.inference_mode()
-    def _admit(self, slot: int, req: Request) -> tuple[int, int]:
-        """Prefill ``req``'s prompt (all but the last token) into a slot's
-        cache rows; returns (pos, last_token) for the decode state. Chunk
-        tails are padded — padded rows land at positions the mask
-        excludes until decode overwrites them."""
-        prompt = self._validate_request(req)
+    def _chunks(self, prompt: np.ndarray, start: int = 0):
+        """(s0, chunk [1, C] on the device) of the prompt's prefilled
+        positions [start, len - 1); the tail chunk is zero-padded (padded
+        rows land at positions the mask excludes until decode overwrites
+        them)."""
         p = prompt.size - 1
         c = self.cfg.prefill_chunk
-        for s0 in range(0, p, c):
+        for s0 in range(start, p, c):
             chunk = np.zeros((1, c), np.int64)
             n = min(c, p - s0)
             chunk[0, :n] = prompt[s0:s0 + n]
-            self.caches = self.model.apply_prefill(
-                self.caches, torch.from_numpy(chunk).to(self.device), slot, s0
-            )
+            yield s0, torch.from_numpy(chunk).to(self.device)
+
+    def _prefill_draft(self, slot: int, prompt: np.ndarray) -> None:
+        """Spec only: the DRAFT cache needs the whole prompt too (it is per
+        slot and dense, and never shares prefix pages)."""
+        if self._spec is None:
+            return
+        for s0, chunk in self._chunks(prompt):
+            self._dcaches = self.draft_model.apply_prefill(self._dcaches, chunk, slot, s0)
+
+    @torch.inference_mode()
+    def _admit(self, slot: int, req: Request) -> tuple[int, int]:
+        """Prefill ``req``'s prompt (all but the last token) into a slot's
+        cache rows; returns (pos, last_token) for the decode state."""
+        prompt = self._validate_request(req)
+        for s0, chunk in self._chunks(prompt):
+            self.caches = self.model.apply_prefill(self.caches, chunk, slot, s0)
+        self._prefill_draft(slot, prompt)
+        return prompt.size - 1, int(prompt[-1])
+
+    @torch.inference_mode()
+    def _admit_paged(self, slot: int, req: Request,
+                     stats: RequestStats) -> tuple[int, int] | None:
+        """Paged admission: map pages into the slot's table row — prefix
+        hits first (refcounted, their prefill skipped), fresh pages for the
+        rest — then prefill from the first unshared position. Returns None
+        (the pool untouched, the request still queued) when the pool cannot
+        supply the fresh pages."""
+        cfg = self.cfg
+        prompt = self._validate_request(req)
+        total = prompt.size + req.max_new_tokens + self._spec_headroom()
+        p = prompt.size - 1
+        pool = self._pool
+        needed = math.ceil(total / cfg.page_size)
+        shared = pool.match_prefix(prompt)  # only pages ending before p
+        # Acquire the matched pages BEFORE allocating fresh ones: a
+        # pressured alloc_n could otherwise evict a page about to be mapped
+        # as this slot's prefix (one pool page at two table rows).
+        for pid in shared:
+            pool.acquire(pid)
+        fresh = pool.alloc_n(needed - len(shared))
+        if fresh is None:
+            for pid in shared:
+                pool.release(pid)
+            return None
+        if shared:
+            pool.prefix_hits += 1
+            pool.pages_reused += len(shared)
+        pages = shared + fresh
+        row = np.zeros(cfg.max_pages, np.int32)
+        row[: len(pages)] = pages
+        self._table[slot] = row
+        self._slot_pages[slot] = pages
+        stats.shared_pages = len(shared)
+        # Prefill [n_shared·P, p): chunk-aligned by page_size %
+        # prefill_chunk == 0, so a fresh chunk never writes a shared page.
+        row_t = torch.from_numpy(row).to(self.device)
+        for s0, chunk in self._chunks(prompt, len(shared) * cfg.page_size):
+            self.caches = self.model.apply_prefill_paged(self.caches, row_t, chunk, s0)
+        if pool.prefix_sharing:
+            # Publish the fully prefilled fresh pages: page j is shareable
+            # iff it ends strictly before the first decode write at p.
+            for j in range(len(shared), len(pages)):
+                if (j + 1) * cfg.page_size <= p:
+                    pool.register(pages[j], prompt, j)
+        self._prefill_draft(slot, prompt)
         return p, int(prompt[-1])
+
+    def _release_slot(self, slot: int) -> None:
+        """Return a finished or expired slot's pages to the allocator and
+        zero its table row (its don't-care writes go to the garbage page)."""
+        if self._pool is None:
+            return
+        for pid in self._slot_pages[slot]:
+            self._pool.release(pid)
+        self._slot_pages[slot] = []
+        self._table[slot] = 0
+
+    def _step(self, last: np.ndarray, pos: np.ndarray):
+        """One decode (or spec) step for all slots: (emitted [B, W] int,
+        n_emit [B]) on the host, W = 1 or spec_k + 1."""
+        tokens = torch.from_numpy(last).to(self.device)
+        pos_t = torch.from_numpy(pos).to(self.device)
+        table = () if self._table is None else (torch.from_numpy(self._table).to(self.device),)
+        if self._spec is not None:
+            emitted, n_emit, _ = self._spec(self.caches, self._dcaches, *table, tokens, pos_t)
+            return emitted.cpu().numpy(), n_emit.cpu().numpy()
+        next_t, _ = self._decode(self.caches, *table, tokens, pos_t)
+        return next_t.cpu().numpy()[:, None], np.ones(len(last), np.int64)
 
     # ---------------------------------------------------------------- run
 
     def run(self, requests: list[Request]) -> ServeReport:
         """Serve a request stream to completion. Arrival times are honored
-        open-loop, decode advances every occupied slot one token per step,
-        finished slots are refilled mid-flight from the waiting queue.
-        Every request ends in exactly one terminal state: finished,
-        rejected (bounded queue full at arrival) or expired (deadline
-        passed while queued or in flight)."""
+        open-loop, decode advances every occupied slot each step, finished
+        slots are refilled mid-flight from the waiting queue. Every request
+        ends in exactly one terminal state: finished, rejected (bounded
+        queue full at arrival) or expired (deadline passed while queued or
+        in flight)."""
         cfg = self.cfg
         b = cfg.slots
         arrivals = deque(sorted(requests, key=lambda r: (r.arrival_time, r.rid)))
@@ -376,6 +611,7 @@ class ServingEngine:
         steps = 0
         peak_queue = 0
         busy_slot_steps = 0
+        deferred_logged: set[int] = set()  # one "defer" event per rid
         t0 = time.perf_counter()
         v_extra = 0.0  # virtual-clock idle skips (accumulated)
         if cfg.step_time_s is not None:
@@ -403,14 +639,36 @@ class ServingEngine:
                     else:
                         kept.append(req)
                 queue = kept
-            # Admit: free slots in index order, queue in arrival order.
+            # Admit: free slots in index order, queue in arrival order. The
+            # head is only PEEKED until admission succeeds: an SLO deferral
+            # or a page-starved pool leaves it queued, and nothing behind
+            # it overtakes.
             for i in range(b):
                 if active[i] or not queue:
                     continue
                 req = queue[0]
+                if self._cost is not None and not self._cost.admit_ok(int(active.sum())):
+                    if req.rid not in deferred_logged:
+                        deferred_logged.add(req.rid)
+                        events.append(("defer", req.rid, -1, steps))
+                    break
                 st = stats[req.rid]
                 st.admit_start = now()
-                admitted = self._admit(i, req)
+                if self._paged:
+                    admitted = self._admit_paged(i, req, st)
+                    if admitted is None:
+                        if not active.any():
+                            raise ValueError(
+                                f"request {req.rid} needs more pages than the "
+                                f"pool can ever supply ({cfg.total_pages} pages "
+                                f"incl. the garbage page)"
+                            )
+                        if req.rid not in deferred_logged:
+                            deferred_logged.add(req.rid)
+                            events.append(("defer", req.rid, -1, steps))
+                        break
+                else:
+                    admitted = self._admit(i, req)
                 queue.popleft()
                 pos[i], last[i] = admitted
                 remaining[i] = req.max_new_tokens
@@ -433,45 +691,60 @@ class ServingEngine:
                 elif gap > 0:
                     time.sleep(min(gap, 0.05))
                 continue
-            # One decode step for ALL slots: inactive slots run garbage
-            # tokens at stale positions (harmless by the mask argument), so
-            # the step's shape never changes with occupancy.
+            # One step for ALL slots: inactive slots run garbage tokens at
+            # stale positions (harmless by the mask argument; paged, their
+            # zero table rows send every write to the garbage page), so the
+            # step's shape never changes with occupancy.
             busy_slot_steps += int(active.sum())
-            next_t, _ = self._decode(
-                self.caches,
-                torch.from_numpy(last).to(self.device),
-                torch.from_numpy(pos).to(self.device),
-            )
-            emitted = next_t.cpu().numpy()
+            emitted, n_emit = self._step(last, pos)
             steps += 1
             t_step = now()
             for i in range(b):
                 if not active[i]:
                     continue
                 st = stats[slot_rid[i]]
-                tok = int(emitted[i])
-                st.tokens.append(tok)
-                st.token_times.append(t_step)
-                if st.first_token is None:
-                    st.first_token = t_step
-                pos[i] += 1
-                last[i] = tok
-                remaining[i] -= 1
-                done = remaining[i] <= 0 or (
-                    cfg.eos_token is not None and tok == cfg.eos_token
-                )
+                done = False
+                committed = 0
+                for tok in emitted[i, : int(n_emit[i])]:
+                    tok = int(tok)
+                    st.tokens.append(tok)
+                    st.token_times.append(t_step)
+                    committed += 1
+                    if st.first_token is None:
+                        st.first_token = t_step
+                    pos[i] += 1
+                    last[i] = tok
+                    remaining[i] -= 1
+                    if remaining[i] <= 0 or (
+                        cfg.eos_token is not None and tok == cfg.eos_token
+                    ):
+                        done = True
+                        break
+                if self._spec is not None:
+                    # Draft tokens actually COMMITTED (the last commit is
+                    # the target's bonus or correction token).
+                    events.append(("spec", int(slot_rid[i]), i, steps, committed - 1))
                 if done:
                     st.finished = t_step
                     active[i] = False
                     events.append(("evict", int(slot_rid[i]), i, steps))
                     slot_rid[i] = -1
+                    self._release_slot(i)
                 elif t_step > slot_deadline[i]:
                     st.expired = t_step
                     active[i] = False
                     events.append(("expire", int(slot_rid[i]), i, steps))
                     slot_rid[i] = -1
+                    self._release_slot(i)
+        pool_stats = None
+        if self._pool is not None:
+            pool_stats = {
+                "prefix_hits": self._pool.prefix_hits,
+                "pages_reused": self._pool.pages_reused,
+                "retained_evictions": self._pool.retained_evictions,
+            }
         return ServeReport(
             requests=stats, events=events, decode_steps=steps,
             wall_time=now(), peak_queue_depth=peak_queue,
-            busy_slot_steps=busy_slot_steps, slots=b,
+            busy_slot_steps=busy_slot_steps, slots=b, pool_stats=pool_stats,
         )

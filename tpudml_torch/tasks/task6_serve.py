@@ -4,9 +4,13 @@ Drives ``tpudml_torch.serve.ServingEngine`` over a decoder-only
 ``TransformerLM`` with a seeded Poisson arrival stream (open-loop: arrival
 times are fixed before the run, so queueing delay shows up in the
 latencies). Same flags as ``tasks/task6_serve.py`` plus ``--device``
-(default ``cuda``; ``cpu`` runs the plain versions of the kernels). The
-levers not ported yet — ``--tp``, ``--paged``, ``--spec_k``,
-``--slo_tpot_ms`` and ``--obs`` — raise ``NotImplementedError``.
+(default ``cuda``; ``cpu`` runs the plain versions of the kernels).
+Multi-tenant levers: ``--paged`` (+ ``--page_size``, ``--num_pages``,
+``--prefix_sharing``) for the page-pool cache layout, ``--spec_k K`` (+
+``--draft_layers``) for trunk-draft speculative decoding, and
+``--slo_tpot_ms`` for cost-model-priced admission. Not ported yet:
+``--tp`` (ROADMAP.md queue 1 item 7) and ``--obs`` (item 6) raise
+``NotImplementedError``.
 
 Reports generated tokens/sec and p50/p99 per-token, time-to-first-token
 and end-to-end latency, then cross-checks the workload ledger's
@@ -24,8 +28,10 @@ import torch
 from tpudml_torch.device import resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import TransformerLM
-from tpudml_torch.serve import ServeConfig, ServingEngine, poisson_workload
-from tpudml_torch.serve.engine import NOT_PORTED
+from tpudml_torch.serve import SLOConfig, ServeConfig, ServingEngine, poisson_workload
+from tpudml_torch.serve.engine import TP_NOT_PORTED
+
+OBS_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 6, observability)"
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -88,12 +94,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_engine(args) -> ServingEngine:
     device = resolve_device(args.device)
-    for flag, on in (("--tp", args.tp), ("--paged", args.paged),
-                     ("--spec_k", args.spec_k),
-                     ("--slo_tpot_ms", args.slo_tpot_ms is not None),
-                     ("--obs", args.obs)):
-        if on:
-            raise NotImplementedError(f"{flag} {NOT_PORTED}")
+    if args.tp:
+        raise NotImplementedError(f"--tp {TP_NOT_PORTED}")
+    if args.obs:
+        raise NotImplementedError(f"--obs {OBS_NOT_PORTED}")
     model = TransformerLM(
         vocab_size=args.vocab,
         embed_dim=args.embed_dim,
@@ -105,13 +109,18 @@ def build_engine(args) -> ServingEngine:
         device=device,
         generator=torch.Generator().manual_seed(args.seed),
     )
+    slo = None
+    if args.slo_tpot_ms is not None:
+        slo = SLOConfig(tpot_budget_s=args.slo_tpot_ms / 1e3)
     cfg = ServeConfig(
         slots=args.slots, max_len=args.max_len,
         prefill_chunk=args.prefill_chunk, cache_kind=args.cache_kind,
+        cache_layout="paged" if args.paged else "dense",
         page_size=args.page_size, num_pages=args.num_pages,
+        prefix_sharing=args.prefix_sharing, spec_k=args.spec_k, slo=slo,
         step_time_s=args.step_time_s, weight_quant=args.weight_quant,
     )
-    return ServingEngine(model, cfg, device=device)
+    return ServingEngine(model, cfg, device=device, draft_layers=args.draft_layers)
 
 
 def run(args) -> dict:
@@ -150,7 +159,11 @@ def run(args) -> dict:
     writer.close()
 
     refills = sum(1 for e in report.events if e[0] == "admit" and e[3] > 0)
-    mode = f"/w{args.weight_quant}" if args.weight_quant else ""
+    mode = "".join([
+        "/paged" if args.paged else "",
+        f"/spec{args.spec_k}" if args.spec_k else "",
+        f"/w{args.weight_quant}" if args.weight_quant else "",
+    ])
     print(
         f"[serve{mode}/{args.cache_kind}/{engine.device}] {args.n_requests} "
         f"requests @ qps={args.qps}, {args.slots} slots: "
@@ -158,6 +171,14 @@ def run(args) -> dict:
         f"({report.tokens_per_sec:,.1f} tok/s, {report.decode_steps} decode "
         f"steps, {refills} mid-flight refills)"
     )
+    if args.spec_k:
+        print(f"  spec: mean accepted_len "
+              f"{report.mean_accepted_len:.2f} of {args.spec_k} "
+              f"({1 + report.mean_accepted_len:.2f} tokens/target step)")
+    if report.pool_stats is not None:
+        print(f"  pages: {report.pool_stats['prefix_hits']} prefix hits, "
+              f"{report.pool_stats['pages_reused']} pages reused, "
+              f"{report.pool_stats['retained_evictions']} retained evicted")
     print(
         f"  per-token p50/p99: {lat['per_token_p50_s'] * 1e3:.2f}/"
         f"{lat['per_token_p99_s'] * 1e3:.2f} ms | ttft p50/p99: "
@@ -169,6 +190,8 @@ def run(args) -> dict:
         "decode_steps": report.decode_steps,
         "generated_tokens": report.generated_tokens,
         "mid_flight_refills": refills,
+        "mean_accepted_len": report.mean_accepted_len,
+        "pool_stats": report.pool_stats,
         **lat,
     }
 

@@ -4,7 +4,7 @@ Builds the full-width serving model of ``chip_smoke.py`` (V=32768, d=512,
 H=8, kv_heads=2, L=6, RoPE, f32; 8 slots, max_len 1024) and measures, for
 the unfused decode step, the fused-head one with f32 and with int8 head
 weights (``weight_quant="int8"``), and one 128-token prefill chunk at a
-512-token window:
+512-token window (every slot 512 tokens deep):
 
 - wall ms per call (host clock around N back-to-back calls ending in a
   synchronize) and the CUDA-event span per call;
@@ -12,8 +12,16 @@ weights (``weight_quant="int8"``), and one 128-token prefill chunk at a
   count and the sum of kernel time per call, and the device's busy share
   (kernel time over wall time) while the host drives it.
 
-Run on the card: ``python -m tpudml_torch.tools.profile_serve`` (one JSON
-line at the end; ``--out FILE`` also writes it to FILE).
+The serving levers add their rows: ``--paged`` the paged decode step and
+paged prefill chunk (``--page_size``, default 16; each slot maps its own
+pages), ``--spec_k K`` the speculative decode step with the default trunk
+draft (dense, and paged with ``--paged``), ``--bf16`` the decode steps,
+unfused and fused-head, and the prefill chunk of the
+``compute_dtype=torch.bfloat16`` model.
+
+Run on the card: ``python -m tpudml_torch.tools.profile_serve [--paged]
+[--spec_k 3] [--bf16]`` (one JSON line at the end; ``--out FILE`` also
+writes it to FILE).
 """
 
 from __future__ import annotations
@@ -84,6 +92,10 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser()
     p.add_argument("--iters", type=int, default=50)
     p.add_argument("--out", type=str, default=None)
+    p.add_argument("--paged", action="store_true", help="add the paged rows")
+    p.add_argument("--page_size", type=int, default=16)
+    p.add_argument("--spec_k", type=int, default=0, help="add the spec-decode rows")
+    p.add_argument("--bf16", action="store_true", help="add the bf16-compute rows")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: no CUDA device; this measures the card")
@@ -100,25 +112,62 @@ def main(argv=None) -> dict:
     pos = torch.full((slots,), 511, device="cuda")  # every slot 512 tokens deep
     result = {"device": torch.cuda.get_device_name(0), "model": MODEL,
               "slots": slots, "decode_pos": 511}
-    for name, fused, quant in (("decode_unfused", False, None),
-                               ("decode_fused_head", True, None),
-                               ("decode_fused_head_int8", True, "int8")):
-        eng = ServingEngine(model, ServeConfig(slots=slots, max_len=1024, prefill_chunk=128,
-                                               fused_head=fused, weight_quant=quant),
-                            device="cuda")
-        step = lambda eng=eng: eng._decode(eng.caches, tokens, pos)  # noqa: E731
-        result[name] = _measure(step, args.iters)
     chunk = torch.arange(128, device="cuda")[None] % MODEL["vocab_size"]
-    eng = ServingEngine(model, ServeConfig(slots=slots, max_len=1024,
-                                           prefill_chunk=128), device="cuda")
 
-    @torch.inference_mode()
-    def prefill():
-        model.apply_prefill(eng.caches, chunk, 0, 384)  # window of 512 rows
+    def engine(m, **kw):
+        return ServingEngine(m, ServeConfig(slots=slots, max_len=1024, prefill_chunk=128,
+                                            **kw), device="cuda")
 
-    result["prefill_chunk_start384"] = _measure(prefill, args.iters)
-    for key in ("decode_unfused", "decode_fused_head", "decode_fused_head_int8",
-                "prefill_chunk_start384"):
+    def decode_row(eng):
+        """The engine's step over every slot 512 tokens deep; paged, slot b
+        maps pages 1 + b·max_pages onwards."""
+        table = ()
+        if eng._table is not None:
+            m = eng.cfg.max_pages
+            table = (1 + torch.arange(slots * m, device="cuda").reshape(slots, m),)
+        if eng._spec is not None:
+            return lambda: eng._spec(eng.caches, eng._dcaches, *table, tokens, pos)
+        return lambda: eng._decode(eng.caches, *table, tokens, pos)
+
+    def prefill_row(eng):
+        """One 128-token chunk at start 384 (a window of 512 rows)."""
+        m = eng.model
+
+        @torch.inference_mode()
+        def prefill():
+            if eng._table is None:
+                m.apply_prefill(eng.caches, chunk, 0, 384)
+            else:
+                row = 1 + torch.arange(eng.cfg.max_pages, device="cuda")
+                m.apply_prefill_paged(eng.caches, row, chunk, 384)
+
+        return prefill
+
+    rows = {
+        "decode_unfused": decode_row(engine(model)),
+        "decode_fused_head": decode_row(engine(model, fused_head=True)),
+        "decode_fused_head_int8": decode_row(engine(model, fused_head=True,
+                                                    weight_quant="int8")),
+        "prefill_chunk_start384": prefill_row(engine(model)),
+    }
+    paged = dict(cache_layout="paged", page_size=args.page_size)
+    if args.paged:
+        rows["decode_paged"] = decode_row(engine(model, **paged))
+        rows["prefill_chunk_paged_start384"] = prefill_row(engine(model, **paged))
+    if args.spec_k:
+        rows[f"decode_spec{args.spec_k}"] = decode_row(engine(model, spec_k=args.spec_k))
+        if args.paged:
+            rows[f"decode_spec{args.spec_k}_paged"] = decode_row(
+                engine(model, spec_k=args.spec_k, **paged))
+    if args.bf16:
+        model_bf16 = TransformerLM(**MODEL, device="cuda", compute_dtype=torch.bfloat16,
+                                   generator=torch.Generator().manual_seed(0))
+        rows["decode_bf16_unfused"] = decode_row(engine(model_bf16))
+        rows["decode_bf16_fused_head"] = decode_row(engine(model_bf16, fused_head=True))
+        rows["prefill_chunk_bf16_start384"] = prefill_row(engine(model_bf16))
+    for key, fn in rows.items():
+        result[key] = _measure(fn, args.iters)
+    for key in rows:
         r = result[key]
         print(f"[profile] {key}: wall {r['wall_ms']:.3f} ms, events {r['event_ms']:.3f} ms, "
               f"{r['kernels_per_call']:.0f} kernels summing {r['kernel_ms_per_call']:.3f} ms "
