@@ -307,7 +307,42 @@ the CPU). Phases, each printing its own line(s):
    second run from the same seed equal bitwise where main path 2's step
    repeats; then the same under ``DataParallel`` at world 1 (its own
    path, ``dropout_dp``). ms/step against ``--dropout 0``.
-15. one JSON line of per-kernel numbers (launches summed over the main
+15. host infrastructure (``[host_infra]``): checkpoints, the launcher,
+   the grad sentinel, the flight recorder and the profiler on task5's f32
+   training path at the training config (HOST_TASK5: ``--parallel dp``,
+   world 1) and on the serving model. (a) The kill/resume drill through
+   ``tpudml_torch.launch`` (one rank on the card, each run a process of
+   its own): an uninterrupted run of HOST_STEPS steps saving every
+   HOST_CKPT_EVERY; a run killed by ``rank_kill_hook`` (``os._exit``, a
+   marker) at step HOST_KILL_AT, which the launcher must report as rc 17
+   and failed_rank 0; ``vandalize(..., "truncate")`` tears its step 4,
+   which must fail its CRC check; ``--resume`` walks back to step 2 and
+   runs to step 6. The resumed run's losses of steps 3–6 and every leaf
+   of its step-6 checkpoint (parameters, Adam m, t, v, the step) must
+   equal the uninterrupted run's bitwise, and both runs must launch
+   kernels 1–3, 8, 9 in main path 2's counts a step (paths
+   ``host_drill_ref``, ``host_drill_resumed``, read in the children).
+   (b) ``DataParallel(sentinel=True)`` at world 1 on a one-rank NCCL
+   group: step HOST_POISON_STEP gets NaN at ``corrupt_microbatch``'s
+   seeded positions of the first block's input; its parameters and Adam
+   state must equal step 2's bitwise, ``sentinel_stats`` give 1 skip and
+   a ``bad_leaf`` that names a leaf, ``bad_micro`` 0, the later losses be
+   finite; the update runs under CUDA's sync debug mode "error" (a host
+   sync inside it raises); launches in main path 2's counts a step
+   (``host_sentinel``); ms/step with the sentinel and without; then the
+   training state's checkpoint save, verified restore (bitwise) and
+   async save times. (c) ``DataParallel(obs=True)``: one ``train_step``
+   span a step, ``step_stats.grad_norm`` within STEP_GRAD_RTOL of the f64
+   norm of the aggregated gradients, the trace validating
+   (``host_obs``); two steps under ``metrics.profiler.trace`` whose
+   Chrome trace names ``flash_fwd_f32_kernel`` once a layer a step and
+   whose device time a step fits in each step's span; ms/step with obs
+   on and off and a span's host cost. (d) task6 ``--obs --fused_head`` on
+   the serving model and workload (HOST_SERVE): ``trace.json`` validates,
+   one residency span a request, the prefill's flash launches and one
+   head launch a decode step (``host_serve``), streams bitwise equal to
+   the same run without ``--obs``.
+16. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -4056,6 +4091,472 @@ def dropout_phase() -> dict[str, dict[str, int]]:
 
 
 
+# ------------------------------------------------------------ phase 15
+
+# Host infrastructure on task5's f32 training path (--parallel dp at world
+# 1: the training config with flash attention, fused add+LN, RoPE, Adam)
+# and on the serving model: the checkpoint store, the launcher, the grad
+# sentinel, the flight recorder and the profiler.
+HOST_TASK5 = ["--parallel", "dp", "--vocab", "32768", "--embed_dim", "512", "--num_heads", "4",
+              "--num_layers", "6", "--seq_len", "1024", "--batch_size", "8", "--attn", "flash",
+              "--fused_ln", "--rope", "--lr", "1e-3", "--seed", "1", "--log_every", "1",
+              "--device", "cuda"]
+HOST_STEPS = 6
+HOST_CKPT_EVERY = 2
+HOST_KILL_AT = 5  # the killed run saved steps 2 and 4; the vandal tears step 4
+HOST_KILL_RC = 17
+HOST_POISON_STEP = 3
+HOST_OBS_STEPS = 3
+HOST_TIMED_STEPS = 4  # the first is the warm-up; ms/step is taken over the rest
+HOST_CHILD_TIMEOUT_S = 300.0
+HOST_SERVE = ["--vocab", "32768", "--embed_dim", "512", "--num_heads", "8", "--num_kv_heads", "2",
+              "--num_layers", "6", "--max_len", "1024", "--slots", "8", "--prefill_chunk", "128",
+              "--n_requests", "16", "--qps", "inf", "--prompt_len", "64", "512",
+              "--new_tokens", "16", "64", "--fused_head", "--device", "cuda"]
+# One launched run of task5's loop: its hooks get the kill (where the
+# environment asks for it), and it writes its launch counts at the end.
+DRILL_CHILD = """
+import json, os, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from tpudml_torch.ops import KERNELS
+from tpudml_torch.resilience import rank_kill_hook
+from tpudml_torch.tasks import task5_longcontext as task5
+hooks = []
+if os.environ.get("DRILL_KILL_AT"):
+    hooks.append(rank_kill_hook(int(os.environ["DRILL_KILL_AT"]),
+                                exit_code=int(os.environ["DRILL_KILL_RC"]),
+                                marker=os.environ["DRILL_MARKER"]))
+res = task5.run(task5.parse_args(sys.argv[1:]), hooks=hooks)
+with open(os.environ["DRILL_OUT"], "w") as f:
+    json.dump({"launches": {k.name: k.launches for k in KERNELS},
+               "final_loss": res["final_loss"]}, f)
+"""
+
+
+def _drill_run(tmp: Path, tag: str, extra: list[str], env: dict) -> tuple:
+    """One launched task5 run at world 1 (``tpudml_torch.launch``): (the
+    LaunchResult, its rank-tagged output, its launch counts or None, its
+    per-step losses from ``metrics.jsonl``)."""
+    import io
+
+    from tpudml_torch.launch import ClusterSpec, launch
+
+    out = tmp / f"{tag}.json"
+    spec = ClusterSpec(num_processes=1, timeout_s=HOST_CHILD_TIMEOUT_S,
+                       env=dict(env, DRILL_OUT=str(out)))
+    sink = io.StringIO()
+    t0 = time.perf_counter()
+    res = launch([sys.executable, "-c", DRILL_CHILD, *HOST_TASK5, "--log_dir",
+                  str(tmp / f"logs_{tag}"), *extra], spec, sink=sink)
+    text = sink.getvalue()
+    losses = {}
+    for f in (tmp / f"logs_{tag}").rglob("metrics.jsonl"):
+        for line in f.read_text().splitlines():
+            rec = json.loads(line)
+            if rec["tag"] == "Train Loss":
+                losses[rec["step"]] = rec["value"]
+    counts = json.loads(out.read_text())["launches"] if out.exists() else None
+    print(f"[host_infra] {tag}: rc {res.returncodes}, failed_rank {res.failed_rank}, "
+          f"{time.perf_counter() - t0:.1f} s; losses "
+          f"{' '.join(f'{k}:{v:.6f}' for k, v in sorted(losses.items()))}")
+    return res, text, counts, losses
+
+
+def _npz_leaves(step_dir: Path) -> list:
+    import numpy as np
+
+    with np.load(step_dir / "leaves.npz") as data:
+        return [data[k] for k in sorted(data.files)]
+
+
+def host_drill(tmp: Path) -> dict[str, dict[str, int]]:
+    """(a) The kill/resume drill through the launcher (module docstring,
+    phase 15). Returns the launch counts of the uninterrupted and the
+    resumed run."""
+    import numpy as np
+
+    from tpudml_torch.checkpoint import CheckpointCorruptError, verify_checkpoint
+    from tpudml_torch.resilience import vandalize
+
+    ref_dir, run_dir = tmp / "ckpt_ref", tmp / "ckpt_run"
+    ckpt = ["--steps", str(HOST_STEPS), "--ckpt_every", str(HOST_CKPT_EVERY)]
+    ref, _, ref_counts, ref_losses = _drill_run(tmp, "uninterrupted", ckpt + [
+        "--ckpt_dir", str(ref_dir)], {})
+    check(ref.success, f"the uninterrupted run failed: {ref.returncodes}")
+    kill_env = {"DRILL_KILL_AT": str(HOST_KILL_AT), "DRILL_KILL_RC": str(HOST_KILL_RC),
+                "DRILL_MARKER": str(tmp / "killed.marker")}
+    killed, _, _, _ = _drill_run(tmp, "killed", ckpt + ["--ckpt_dir", str(run_dir)], kill_env)
+    check(killed.returncodes == [HOST_KILL_RC] and killed.failed_rank == 0,
+          f"the killed run ended {killed.returncodes}, failed_rank {killed.failed_rank}")
+    saved = sorted(p.name for p in run_dir.iterdir() if p.name.startswith("step_"))
+    check(saved == ["step_2", "step_4"], f"the killed run left {saved}")
+    torn = vandalize(str(run_dir), "truncate")
+    try:
+        verify_checkpoint(run_dir / "step_4")
+        torn_ok = False
+    except CheckpointCorruptError:
+        torn_ok = True
+    check(torn_ok, "the truncated step_4 still verifies")
+    check(verify_checkpoint(run_dir / "step_2") == 2, "step_2 does not verify")
+    print(f"[host_infra] the vandal truncated {Path(torn).relative_to(tmp)}; step_4 fails its "
+          f"CRC check, step_2 verifies")
+    resumed, text, res_counts, res_losses = _drill_run(
+        tmp, "resumed", ckpt + ["--ckpt_dir", str(run_dir), "--resume"], kill_env)
+    check(resumed.success, f"the resumed run failed: {resumed.returncodes}\n{text[-2000:]}")
+    check("resumed from step 2" in text, "the resume did not walk back to step 2")
+    check(sorted(res_losses) == list(range(3, HOST_STEPS + 1)),
+          f"the resumed run logged steps {sorted(res_losses)}")
+    check(all(res_losses[i] == ref_losses[i] for i in res_losses),
+          "the resumed run's losses differ from the uninterrupted run's")
+    a = _npz_leaves(ref_dir / f"step_{HOST_STEPS}")
+    b = _npz_leaves(run_dir / f"step_{HOST_STEPS}")
+    check(len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b)),
+          "the resumed run's state (parameters, Adam moments, step) differs from the "
+          "uninterrupted run's")
+    need = {k: HOST_STEPS * n for k, n in PER_STEP.items()}
+    for tag, counts, steps in (("uninterrupted", ref_counts, HOST_STEPS),
+                               ("resumed", res_counts, HOST_STEPS - 2)):
+        want = {k: steps * n for k, n in PER_STEP.items()}
+        got = {k: c for k, c in counts.items() if c}
+        check(got == want, f"the {tag} run launched {got}, not {want}")
+    print(f"[host_infra] kill/resume drill: killed at step {HOST_KILL_AT} (rc {HOST_KILL_RC}, "
+          f"failed_rank 0), restored step 2 past the torn step 4, resumed to step "
+          f"{HOST_STEPS}: losses of steps 3-{HOST_STEPS} and all {len(a)} leaves (parameters, "
+          f"Adam m, t, v, step) bitwise equal to the uninterrupted run; launches "
+          f"{need} and 4/6 of them")
+    return {"host_drill_ref": ref_counts, "host_drill_resumed": res_counts}
+
+
+class _NoHostSync:
+    """An optimizer whose ``update`` runs under CUDA's sync debug mode
+    "error": a host synchronization inside it raises."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return self.inner.update(grads, state, params)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def _host_batches(steps: int):
+    import numpy as np
+
+    from tpudml_torch.data import synthetic_lm
+
+    seqs = synthetic_lm(4 * TRAIN_BATCH, TRAIN_MODEL["max_len"], TRAIN_MODEL["vocab_size"],
+                        seed=0)
+    rng = np.random.default_rng(0)  # main path 2's batches
+    return [seqs[rng.integers(0, len(seqs), size=TRAIN_BATCH)] for _ in range(steps)]
+
+
+def _host_model():
+    import torch
+
+    from tpudml_torch.models import TransformerLM
+
+    return TransformerLM(**TRAIN_MODEL, impl="flash", fused_ln=True, device="cuda",
+                         generator=torch.Generator().manual_seed(1))
+
+
+def _timed_steps(ts, step, batches) -> float:
+    """ms/step over the batches after the first."""
+    import torch
+
+    for i, b in enumerate(batches):
+        ts, _ = step(ts, b[:, :-1], b[:, 1:])
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+
+
+def _opt_tensors(state) -> list:
+    import torch
+
+    if isinstance(state, torch.Tensor):
+        return [state.detach().clone()]
+    if isinstance(state, dict):
+        return [t for v in state.values() for t in _opt_tensors(v)]
+    return []
+
+
+def host_sentinel(tmp: Path) -> dict[str, int]:
+    """(b) The sentinel on the DP step, then the checkpoint store's save and
+    restore times of that state. Returns the sentinel run's launches."""
+    import numpy as np
+    import torch
+
+    from tpudml_torch.checkpoint import CheckpointManager, restore_checkpoint, save_checkpoint
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import Adam
+    from tpudml_torch.parallel import DataParallel
+    from tpudml_torch.resilience import corrupt_microbatch, param_leaf_names, sentinel_stats
+
+    batches = _host_batches(HOST_STEPS)
+    d = TRAIN_MODEL["embed_dim"]
+    poison = torch.from_numpy(corrupt_microbatch(
+        np.zeros((TRAIN_BATCH, TRAIN_MODEL["max_len"], d), np.float32), "nan",
+        seed=HOST_POISON_STEP)).cuda()
+    model = _host_model()
+    dp = DataParallel(model, Adam(lr=TRAIN_LR), sentinel=True, stacked_batches=False)
+    check(dp.sentinel is not None, "DataParallel(sentinel=True) has no sentinel")
+    dp.optimizer = _NoHostSync(dp.optimizer)
+    armed = {"on": False}
+    # The poisoned micro-batch: NaN at corrupt_microbatch's seeded
+    # positions of the first block's input (token ids cannot hold a NaN).
+    hook = model.block0.ln1.register_forward_pre_hook(
+        lambda mod, args: (args[0] + poison,) if armed["on"] else None)
+    # What kernel 1 makes of the NaN rows (ROADMAP.md queue 3: its max
+    # drops NaN), read after the step.
+    attn_out = []
+    watch = model.block0.attn.register_forward_hook(
+        lambda mod, args, out: attn_out.append(out.detach()) if armed["on"] else None)
+    ts, step = dp.create_state(), dp.make_train_step()
+    losses, snaps = [], {}
+    reset_launch_counts()  # ---- the sentinel path starts here
+    for i, b in enumerate(batches, start=1):
+        armed["on"] = i == HOST_POISON_STEP
+        ts, m = step(ts, b[:, :-1], b[:, 1:])
+        losses.append(m["loss"])
+        if i in (HOST_POISON_STEP - 1, HOST_POISON_STEP):
+            snaps[i] = (_params(model), _opt_tensors(ts.opt_state["base"]),
+                        sentinel_stats(ts.opt_state), int(m["bad_micro"]))
+    launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    hook.remove()
+    watch.remove()
+    nan_in = int(torch.isnan(poison).any(-1).sum())
+    nan_out = int((~torch.isfinite(attn_out[0])).sum())
+    losses = [float(x) for x in losses]
+    before, after = snaps[HOST_POISON_STEP - 1], snaps[HOST_POISON_STEP]
+    st = sentinel_stats(ts.opt_state)
+    names = param_leaf_names(model)
+    check(_bitwise(before[0], after[0]), "the skipped step changed a parameter")
+    check(len(before[1]) == len(after[1])
+          and all(torch.equal(x, y) for x, y in zip(before[1], after[1])),
+          "the skipped step changed the Adam state (m, v or t)")
+    check(after[2]["skips"] == 1 and after[2]["consecutive"] == 1 and st["skips"] == 1
+          and st["consecutive"] == 0, f"sentinel counters {after[2]} then {st}")
+    check(0 <= after[2]["bad_leaf"] < len(names), f"bad_leaf {after[2]['bad_leaf']}")
+    check(after[3] == 0 and before[3] == -1, f"bad_micro {before[3]}, {after[3]}")
+    check(all(np.isfinite(losses[HOST_POISON_STEP:])), "a loss after the skip is not finite")
+    need = {k.name: HOST_STEPS * PER_STEP.get(k.name, 0) for k in KERNELS}
+    check(launches == need, f"the sentinel path launched {launches}, not {need}")
+    print(f"[host_infra] sentinel: step {HOST_POISON_STEP} poisoned with NaN "
+          f"(corrupt_microbatch seed {HOST_POISON_STEP}), skipped: parameters and Adam state "
+          f"bitwise those of step {HOST_POISON_STEP - 1}, skips {st['skips']}, bad_leaf "
+          f"{after[2]['bad_leaf']} {names[after[2]['bad_leaf']]}, bad_micro 0; losses "
+          f"{' '.join(f'{x:.6f}' for x in losses)}; the update ran under sync debug mode "
+          f"'error' (no host sync); the poisoned step: {nan_in} of {poison[..., 0].numel()} "
+          f"rows hold a NaN, the first block's attention output (kernel 1) {nan_out} "
+          f"non-finite values of {attn_out[0].numel()}")
+
+    # ms/step with the sentinel and without, from the same weights.
+    timed = _host_batches(HOST_TIMED_STEPS)
+    ms = {}
+    for tag, kw in (("without", {}), ("with", {"sentinel": True}),
+                    ("without (again)", {}), ("with (again)", {"sentinel": True})):
+        m2 = _host_model()
+        eng = DataParallel(m2, Adam(lr=TRAIN_LR), stacked_batches=False, **kw)
+        ms[tag] = _timed_steps(eng.create_state(), eng.make_train_step(), timed)
+        del m2, eng
+    print(f"[host_infra] ms/step (steady state, {HOST_TIMED_STEPS - 1} steps after one "
+          f"warm-up): " + ", ".join(f"{k} sentinel {v:.2f}" for k, v in ms.items()))
+
+    # The checkpoint store on this state (52M parameters and two moments, f32).
+    nbytes = sum(p.numel() * 4 for p in model.parameters()) * 3
+    t0 = time.perf_counter()
+    path = save_checkpoint(tmp / "ckpt_state", ts, ts.step)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    want = (_params(model), _opt_tensors(ts.opt_state))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.zero_()
+    t0 = time.perf_counter()
+    restore_checkpoint(path, ts)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(_bitwise(want[0], _params(model))
+          and all(torch.equal(x, y) for x, y in zip(want[1], _opt_tensors(ts.opt_state))),
+          "the restored state differs from the saved one")
+    mgr = CheckpointManager(tmp / "ckpt_async", async_write=True)
+    t0 = time.perf_counter()
+    mgr.save(ts, ts.step)
+    async_ms = (time.perf_counter() - t0) * 1e3
+    mgr.wait()
+    async_total = (time.perf_counter() - t0) * 1e3
+    print(f"[host_infra] checkpoint of the training state ({nbytes / 1e6:.1f} MB of f32 "
+          f"parameters and moments, the sentinel's counters): save {save_ms:.1f} ms, restore "
+          f"with CRC verification {restore_ms:.1f} ms (bitwise); async save returns in "
+          f"{async_ms:.1f} ms, on disk after {async_total:.1f} ms")
+    return launches
+
+
+def host_obs(tmp: Path) -> dict[str, int]:
+    """(c) The flight recorder on the DP step, and the profiler over two
+    steps. Returns the obs run's launches."""
+    import torch
+
+    from tpudml_torch.metrics.profiler import trace
+    from tpudml_torch.obs import Tracer, validate_chrome_trace
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import Adam
+    from tpudml_torch.parallel import DataParallel
+
+    batches = _host_batches(HOST_OBS_STEPS + 2)
+    model = _host_model()
+    dp = DataParallel(model, Adam(lr=TRAIN_LR), obs=True, stacked_batches=False)
+    check(isinstance(dp.tracer, Tracer), "DataParallel(obs=True) has no tracer")
+    grads_seen = []
+    aggregate = dp._aggregate
+
+    def capture(grads):
+        out = aggregate(grads)
+        grads_seen.append(torch.sqrt(sum(g.double().square().sum() for g in out.values())))
+        return out
+
+    dp._aggregate = capture
+    ts, step = dp.create_state(), dp.make_train_step()
+    stats = []
+    reset_launch_counts()  # ---- the obs path starts here
+    for b in batches[:HOST_OBS_STEPS]:
+        ts, m = step(ts, b[:, :-1], b[:, 1:])
+        stats.append(m["step_stats"])
+    launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    spans = [(s.cat, s.name) for s in dp.tracer.events]
+    check(spans == [("step", "train_step")] * HOST_OBS_STEPS, f"spans {spans}")
+    errs = []
+    for s, ref in zip(stats, grads_seen):
+        got = float(s.grad_norm)
+        errs.append(abs(got - float(ref)) / float(ref))
+        check(errs[-1] <= STEP_GRAD_RTOL, f"grad_norm {got} against {float(ref)}")
+        check(int(s.skips) == 0 and float(s.comm_bytes) == 0.0, "StepStats at world 1")
+    doc = dp.tracer.chrome_trace()
+    validate_chrome_trace(doc)
+    need = {k.name: HOST_OBS_STEPS * PER_STEP.get(k.name, 0) for k in KERNELS}
+    check(launches == need, f"the obs path launched {launches}, not {need}")
+
+    # Two steps under the profiler: its trace names the flash kernels, and
+    # each step's span (closed after a synchronize) holds its kernels' time.
+    n0 = len(dp.tracer.events)
+    with trace(tmp / "profile") as prof:
+        for b in batches[HOST_OBS_STEPS:]:
+            ts, m = step(ts, b[:, :-1], b[:, 1:])
+    prof_doc = json.loads(Path(prof.trace_path).read_text())
+    kernels = [e for e in prof_doc["traceEvents"] if e.get("cat") == "kernel"]
+    flash = [e for e in kernels if "flash_fwd_f32_kernel" in e.get("name", "")]
+    check(len(flash) == 2 * PER_STEP["flash_forward_lse"],
+          f"the profiler's trace names flash_fwd_f32_kernel {len(flash)} times")
+    kernel_ms = sum(e.get("dur", 0) for e in kernels) / 1e3 / 2
+    span_ms = [s.dur_us / 1e3 for s in dp.tracer.events[n0:]]
+    check(all(ms >= 0.95 * kernel_ms for ms in span_ms),
+          f"train_step spans {span_ms} ms hold less than the {kernel_ms:.2f} device ms a step")
+    step_ms = ", ".join(f"{s.dur_us / 1e3:.2f}" for s in dp.tracer.events[:n0])
+    print(f"[host_infra] obs: {HOST_OBS_STEPS} train_step spans ({step_ms} ms), "
+          f"grad_norm against the f64 norm of the aggregated gradients within "
+          f"{max(errs):.2e}; trace.json validates; profiler trace {Path(prof.trace_path).name}: "
+          f"{len(kernels)} device kernels in 2 steps, flash_fwd_f32_kernel x{len(flash)} "
+          f"('{flash[0]['name'][:60] if flash else ''}'), {kernel_ms:.2f} device ms a step "
+          f"inside spans of "
+          f"{', '.join(f'{x:.2f}' for x in span_ms)} ms (profiled)")
+
+    # ms/step with obs on and off, and the tracer's own cost a span.
+    timed = _host_batches(HOST_TIMED_STEPS)
+    ms = {}
+    for tag, kw in (("off", {}), ("on", {"obs": True}), ("off (again)", {}),
+                    ("on (again)", {"obs": True})):
+        m2 = _host_model()
+        eng = DataParallel(m2, Adam(lr=TRAIN_LR), stacked_batches=False, **kw)
+        ms[tag] = _timed_steps(eng.create_state(), eng.make_train_step(), timed)
+        del m2, eng
+    cost = {}
+    for tag, tr in (("on", Tracer()), ("off", Tracer(enabled=False))):
+        t0 = time.perf_counter()
+        for _ in range(20000):
+            with tr.span("x", cat="bench"):
+                pass
+        cost[tag] = (time.perf_counter() - t0) / 20000 * 1e6
+    print(f"[host_infra] ms/step (steady state, {HOST_TIMED_STEPS - 1} steps after one "
+          f"warm-up): " + ", ".join(f"obs {k} {v:.2f}" for k, v in ms.items())
+          + f"; a span costs {cost['on']:.2f} us on, {cost['off']:.3f} us off (host, empty body)")
+    return launches
+
+
+def host_serve(tmp: Path) -> dict[str, int]:
+    """(d) task6 ``--obs --fused_head`` on the serving workload. Returns its
+    launches."""
+    from tpudml_torch.obs import validate_chrome_trace
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.serve import poisson_workload
+    from tpudml_torch.tasks import task6_serve as task6
+
+    argv = HOST_SERVE + ["--log_dir", str(tmp / "serve")]
+    plain = task6.main(argv)  # the stream without --obs (and a warm-up)
+    reset_launch_counts()  # ---- the serving obs path starts here
+    res = task6.main(argv + ["--obs"])
+    launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    doc = json.loads(Path(res["trace_path"]).read_text())
+    validate_chrome_trace(doc)
+    slots = [e for e in doc["traceEvents"] if e["ph"] == "X" and e["name"].startswith("slot")]
+    n = WORKLOAD["n_requests"]
+    check(sorted(e["args"]["rid"] for e in slots) == list(range(n)),
+          f"{len(slots)} residency spans for {n} requests")
+    requests, _ = poisson_workload(n, float("inf"), 0, vocab_size=SERVE_MODEL["vocab_size"],
+                                   prompt_len=WORKLOAD["prompt_len"],
+                                   new_tokens=WORKLOAD["new_tokens"])
+    flash_need = expected_flash_calls(requests, SERVE_CFG["prefill_chunk"],
+                                      SERVE_MODEL["num_layers"])
+    check(launches["flash_forward_lse"] == flash_need,
+          f"{launches['flash_forward_lse']} flash launches, prefill needs {flash_need}")
+    check(launches["fused_decode_head"] == res["decode_steps"] > 0,
+          f"{launches['fused_decode_head']} head launches for {res['decode_steps']} steps")
+    check(res["streams"] == plain["streams"], "the --obs run's streams differ from the run "
+          "without --obs")
+    print(f"[host_infra] task6 --obs --fused_head: trace.json validates, {len(slots)} residency "
+          f"spans = {n} requests, {len(doc['traceEvents']) - 1} events; launches "
+          f"{dict((k, c) for k, c in launches.items() if c)}; streams bitwise equal to the run "
+          f"without --obs; {res['tokens_per_sec']:.1f} tok/s (without: "
+          f"{plain['tokens_per_sec']:.1f})")
+    return launches
+
+
+def host_infra_phase() -> dict[str, dict[str, int]]:
+    """Phase 15, host infrastructure (module docstring). Returns the launch
+    counts of its paths."""
+    import tempfile
+
+    import torch
+
+    from tpudml_torch.core import DistributedConfig, process_group
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        paths = host_drill(tmp)
+        with process_group(DistributedConfig(coordinator_address=f"file://{tmp}/store",
+                                             num_processes=1), device="cuda") as group:
+            check(torch.distributed.get_backend(group) == "nccl", "the group is not NCCL's")
+            paths["host_sentinel"] = host_sentinel(tmp)
+            torch.cuda.empty_cache()
+            paths["host_obs"] = host_obs(tmp)
+        torch.cuda.empty_cache()
+        paths["host_serve"] = host_serve(tmp)
+    check(not torch.distributed.is_initialized(), "the host_infra group outlived its phase")
+    print(f"[host_infra] phase {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+
 def ptxas_usage(log: str) -> dict[str, dict]:
     """{mangled entry function: {registers, spill, stack}} from a ``-Xptxas
     -v`` build log (spill: bytes stored plus bytes loaded; stack: the
@@ -4476,6 +4977,8 @@ def main() -> int:
     paths["labs"] = labs_phase()
     torch.cuda.empty_cache()
     paths.update(dropout_phase())
+    torch.cuda.empty_cache()
+    paths.update(host_infra_phase())
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -260,10 +260,13 @@ def test_constructor_rejections_use_the_jax_wording(key, kw):
 @pytest.mark.parametrize("kw,match", [
     (dict(zero1=True), "item 7"),
     (dict(zero1=True, zero1_overlap=True, accum_steps=2), "item 7"),
-    (dict(sentinel=True), "item 6"),
-    (dict(obs=True), "item 6"),
+    (dict(zero1=True, sentinel=True), "item 7"),
+    (dict(zero1=True, obs=True), "item 7"),
 ])
 def test_unported_knobs_name_their_item(kw, match):
+    """ZeRO-1 still raises, also beside the sentinel and the flight
+    recorder (which are ported: ``tests/test_torch_sentinel.py``,
+    ``tests/test_torch_obs.py``)."""
     with pytest.raises(NotImplementedError, match=match):
         DataParallel(_tiny(), GradientDescent(), flash_attn=True, **kw)
 

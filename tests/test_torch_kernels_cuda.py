@@ -1471,3 +1471,40 @@ def test_paged_engine_streams_match_dense_on_card(cuda_device):
     for rid, st in reps["dense"].requests.items():
         assert reps["paged"].requests[rid].tokens == st.tokens
     assert flash["paged"] == flash["dense"] > 0
+
+
+@pytest.mark.cuda
+def test_resume_at_the_training_config_is_bitwise(cuda_device, tmp_path):
+    """task5 ``--parallel dp`` at the training config (V=32768, d=512, H=4,
+    L=6, T=1024, B=8; flash, fused add+LN, RoPE, Adam): a run resumed from
+    the step-2 checkpoint of a 4-step run ends with the same losses and
+    the same state (parameters, Adam moments, step) bitwise."""
+    import json
+    import shutil
+
+    import numpy as np
+
+    from tpudml_torch.tasks import task5_longcontext as task5
+
+    flags = ["--parallel", "dp", "--vocab", "32768", "--embed_dim", "512", "--num_heads", "4",
+             "--num_layers", "6", "--seq_len", "1024", "--batch_size", "8", "--attn", "flash",
+             "--fused_ln", "--rope", "--lr", "1e-3", "--steps", "4", "--ckpt_every", "2",
+             "--log_every", "1", "--device", "cuda"]
+
+    def losses(log_dir):
+        recs = [json.loads(line) for f in log_dir.rglob("metrics.jsonl")
+                for line in f.read_text().splitlines()]
+        return {r["step"]: r["value"] for r in recs if r["tag"] == "Train Loss"}
+
+    def leaves(step_dir):
+        with np.load(step_dir / "leaves.npz") as data:
+            return [data[k] for k in sorted(data.files)]
+
+    task5.main(flags + ["--ckpt_dir", str(tmp_path / "ref"), "--log_dir", str(tmp_path / "a")])
+    shutil.copytree(tmp_path / "ref" / "step_2", tmp_path / "run" / "step_2")
+    task5.main(flags + ["--ckpt_dir", str(tmp_path / "run"), "--resume",
+                        "--log_dir", str(tmp_path / "b")])
+    want, got = losses(tmp_path / "a"), losses(tmp_path / "b")
+    assert sorted(got) == [3, 4] and all(got[i] == want[i] for i in got)
+    a, b = leaves(tmp_path / "ref" / "step_4"), leaves(tmp_path / "run" / "step_4")
+    assert len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))

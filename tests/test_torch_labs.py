@@ -349,8 +349,8 @@ def test_task3_cli_end_to_end(tmp_path, division):
     assert task3.reference_defaults().lr == 0.001
 
 
-@pytest.mark.parametrize("flag,item", [(["--zero1"], "item 7"), (["--obs"], "item 6"),
-                                       (["--ckpt_dir", "ck"], "item 6")])
+@pytest.mark.parametrize("flag,item", [(["--zero1"], "item 7"), (["--plan", "p.json"], "item 10"),
+                                       (["--zero1", "--obs", "--ckpt_dir", "ck"], "item 7")])
 def test_lab_clis_keep_unported_flags_raising(tmp_path, flag, item):
     for module in (task1, task2):
         with pytest.raises(NotImplementedError, match=item):

@@ -81,6 +81,22 @@ def test_serving_lever_modules_are_among_the_checked(module):
     assert REPO / (module.replace(".", "/") + ".py") in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "tpudml_torch.obs", "tpudml_torch.obs.tracer", "tpudml_torch.obs.convert",
+    "tpudml_torch.obs.stepstats", "tpudml_torch.metrics.profiler", "tpudml_torch.checkpoint",
+    "tpudml_torch.checkpoint.store", "tpudml_torch.resilience",
+    "tpudml_torch.resilience.faults", "tpudml_torch.resilience.sentinel",
+    "tpudml_torch.launch", "tpudml_torch.launch.cluster", "tpudml_torch.launch.launcher",
+    "tpudml_torch.launch.__main__", "tpudml_torch.tools.obs_report"])
+def test_host_infrastructure_modules_are_among_the_checked(module):
+    """The host-infrastructure slice's modules (flight recorder, profiler,
+    checkpoint store, sentinel and faults, launcher, obs report) are among
+    the modules the jax-blocked import and the AST scan cover."""
+    assert module in list(_modules())
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert (path if path.exists() else path.with_suffix("") / "__init__.py") in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_tpudml_import(path):
     tree = ast.parse(path.read_text())

@@ -163,9 +163,9 @@ def test_poisson_workload_bitwise():
 
 
 def test_not_ported_levers_raise(rope_pair, tmp_path):
-    """Only tensor-parallel serving (``mesh=``, task6 ``--tp``) and task6
-    ``--obs`` are still to port; each raises citing its ROADMAP item. The
-    single-device levers build."""
+    """Only tensor-parallel serving (``mesh=``, task6 ``--tp``) is still to
+    port; it raises citing its ROADMAP item. The single-device levers
+    build, and task6 ``--obs`` writes its trace."""
     from tpudml_torch.serve import SLOConfig
     from tpudml_torch.tasks import task6_serve
 
@@ -177,9 +177,9 @@ def test_not_ported_levers_raise(rope_pair, tmp_path):
                {"slo": SLOConfig(tpot_budget_s=1.0)}):
         ServingEngine(tm, ServeConfig(**cfg, **kw), device="cpu")
     argv = ["--device", "cpu", "--n_requests", "1", "--log_dir", str(tmp_path)]
-    for flags, item in ((["--tp", "2"], "item 7"), (["--obs"], "item 6")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-            task6_serve.main(argv + flags)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+        task6_serve.main(argv + ["--tp", "2"])
+    assert task6_serve.main(argv + ["--obs"])["trace_path"].endswith("trace.json")
 
 
 def test_task_cli_cpu(tmp_path):

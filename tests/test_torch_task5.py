@@ -96,16 +96,18 @@ def test_card_is_the_default_device(no_card, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--parallel", "ep", "--moe_experts", "4", "--sentinel"], "item 6"),
+    (["--parallel", "fsdp", "--sentinel"], "item 7"),
     (["--parallel", "fsdp"], "item 7"),
     (["--parallel", "tp"], "item 7"),
     (["--parallel", "pp"], "item 7"),
     (["--parallel", "cp"], "item 8"),
-    (["--parallel", "ep", "--moe_experts", "4", "--ckpt_dir", "ck"], "item 6"),
-    (["--sentinel"], "item 6"),
-    (["--ckpt_dir", "ck"], "item 6"),
+    (["--parallel", "tp", "--ckpt_dir", "ck"], "item 7"),
+    (["--parallel", "pp", "--sentinel"], "item 7"),
+    (["--parallel", "cp", "--ckpt_dir", "ck"], "item 8"),
 ])
 def test_unported_flags_raise(tmp_path, flags, match):
+    """The unported engines raise, also with the host flags (``--sentinel``
+    and ``--ckpt_dir`` are ported: ``tests/test_torch_host_cli.py``)."""
     with pytest.raises(NotImplementedError, match=match):
         task5.main(TINY + flags + ["--device", "cpu", "--steps", "1",
                                    "--log_dir", str(tmp_path)])

@@ -13,10 +13,13 @@ ResNet with SGD momentum, from ``<job>/cases.pt``), ``comm``
 (collectives on seeded per-rank values), ``task5`` (``--parallel dp``
 of the port's task5) and ``ep`` (ExpertParallel, its MoE layer and the
 differentiable all_to_all, from ``<job>/cases.pt``; task5 ``--parallel
-ep``) and ``labs`` (task2's DataParallel LeNet for each aggregation and
+ep``), ``labs`` (task2's DataParallel LeNet for each aggregation and
 with ``accum_steps``, task3's samplers and ShardedDataLoader for each
 division, the dropout LM with a ``rng_root`` stream per rank drawing the
-JAX masks of ``<job>/cases.pt``, and the task2 entry at world 2).
+JAX masks of ``<job>/cases.pt``, and the task2 entry at world 2), ``obs``
+(``DataParallel(obs=True)``, fused and split, and obs off: StepStats,
+spans) and ``sentinel`` (``DataParallel(sentinel=...)`` on LeNet: a
+clean run, a NaN step, a poisoned micro-batch under accumulation).
 """
 
 from __future__ import annotations
@@ -522,8 +525,89 @@ def suite_labs(job: Path, rank: int, world: int) -> dict:
     return out
 
 
+# ------------------------------------------------------ obs, sentinel
+
+
+def _obs_run(case, **engine):
+    """The LM of ``case`` under ``DataParallel(**engine)`` (GD): each step's
+    StepStats as floats, the loss, the tracer's (cat, name) events and the
+    comm bytes."""
+    from tpudml_torch.optim import GradientDescent
+    from tpudml_torch.parallel import DataParallel
+
+    model = _dp_model(case, case["params"])
+    dp = DataParallel(model, GradientDescent(lr=case["lr"]), stacked_batches=False, **engine)
+    ts, step = dp.create_state(), dp.make_train_step()
+    stats, losses = [], []
+    for tokens, labels in case["batches"]:
+        ts, m = step(ts, tokens, labels)
+        losses.append(float(m["loss"]))
+        stats.append({k: float(v) for k, v in m["step_stats"].to_scalars().items()}
+                     if "step_stats" in m else None)
+    events = [(e.cat, e.name, (e.args or {}).get("bytes")) for e in dp.tracer.events] \
+        if dp.tracer is not None else None
+    return {"stats": stats, "losses": losses, "events": events,
+            "comm_bytes": dp.comm_stats.comm_bytes}
+
+
+def suite_obs(job: Path, rank: int, world: int) -> dict:
+    import torch
+
+    from tpudml_torch.obs import tracer
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    out = {"fused": _obs_run(case, obs=True),
+           "split": _obs_run(case, obs=True, measure_comm=True)}
+    before = tracer.SPANS_ALLOCATED
+    out["off"] = _obs_run(case)
+    out["off_spans"] = tracer.SPANS_ALLOCATED - before
+    return out
+
+
+def _lenet_sentinel(case, opt, batches, **engine):
+    """LeNet (the case's parameters) under ``DataParallel(sentinel=...)``:
+    after each step the parameters, the base optimizer state's tensors,
+    the sentinel's counters and ``bad_micro``."""
+    from tpudml_torch.models import LeNet
+    from tpudml_torch.parallel import DataParallel
+    from tpudml_torch.resilience import param_leaf_names, sentinel_stats
+
+    model = LeNet(device="cpu")
+    model.load_state_dict(case["lenet"])
+    dp = DataParallel(model, opt, stacked_batches=False, **engine)
+    ts, step = dp.create_state(), dp.make_train_step()
+    steps = []
+    for x, y in batches:
+        ts, m = step(ts, x, y)
+        base = ts.opt_state["base"]
+        steps.append({"params": _params(model), "loss": float(m["loss"]),
+                      "base": {k: ({n: t.clone() for n, t in v.items()}
+                                   if isinstance(v, dict) else v.clone())
+                               for k, v in base.items()} if isinstance(base, dict) else None,
+                      "stats": sentinel_stats(ts.opt_state), "bad_micro": int(m["bad_micro"])})
+    return {"steps": steps, "names": param_leaf_names(model),
+            "budget": dp.sentinel.skip_budget}
+
+
+def suite_sentinel(job: Path, rank: int, world: int) -> dict:
+    import torch
+
+    from tpudml_torch.optim import Adam, Sgd
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    x, y, xbad, xacc = case["x"], case["y"], case["xbad"], case["xacc"]
+    return {
+        "clean": _lenet_sentinel(case, Adam(lr=1e-3), [(x, y), (x, y)], sentinel=True),
+        "poisoned": _lenet_sentinel(case, Adam(lr=1e-3), [(x, y), (xbad, y), (x, y)],
+                                    sentinel={"skip_budget": 2}),
+        "accum": _lenet_sentinel(case, Sgd(lr=0.01), [(x, y), (xacc, y)], sentinel=True,
+                                 accum_steps=2),
+    }
+
+
 SUITES = {"dp": suite_dp, "resnet": suite_resnet, "comm": suite_comm,
-          "task5": suite_task5, "ep": suite_ep, "labs": suite_labs}
+          "task5": suite_task5, "ep": suite_ep, "labs": suite_labs, "obs": suite_obs,
+          "sentinel": suite_sentinel}
 
 
 def main() -> None:

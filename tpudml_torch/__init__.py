@@ -11,8 +11,10 @@ attention (forward, dQ, dK/dV kernels) and the fused add+LayerNorm
 junctions (forward and backward kernels), Adam in f32. Later slices:
 the bf16 flagship step, long context, MoE on one card, data parallelism
 over ``torch.distributed`` (slice 6), the ResNet-18 north star, expert
-parallelism, and the lab tasks with gradient accumulation and dropout
-(slice 9).
+parallelism, the lab tasks with gradient accumulation and dropout
+(slice 9), the serving levers (slice 10) and the host infrastructure
+(slice 11: checkpoints, the grad sentinel, the flight recorder, the
+profiler, the launcher).
 
 - ``tpudml_torch.nn``      — Dense, Conv2D, pools, BatchNorm, LayerNorm,
                              Dropout, Sequential, attention ops and module,
@@ -40,7 +42,14 @@ parallelism, and the lab tasks with gradient accumulation and dropout
 - ``tpudml_torch.tasks``   — the task entry points (task1, task1_mlp,
                              task2, task3, task5 training, task6 serving,
                              the north star).
-- ``tpudml_torch.metrics`` — JSONL scalar writer.
+- ``tpudml_torch.metrics`` — JSONL scalar writer, the profiler session
+                             and the span timer.
+- ``tpudml_torch.obs``     — the flight recorder (Chrome-trace spans),
+                             StepStats, the serve-trace conversion.
+- ``tpudml_torch.checkpoint`` — format-2 checkpoints (JAX's), restore and
+                             fallback, the rolling manager.
+- ``tpudml_torch.resilience`` — the grad sentinel, fault injection.
+- ``tpudml_torch.launch``  — the multi-process launcher.
 - ``tpudml_torch.interop`` — tpudml param and Adam-state trees -> the
                              port's state.
 

@@ -55,19 +55,29 @@ def collective_wire_bytes(kind: str, payload_bytes: float, world: int) -> float:
 class CommStats:
     """The reference's ``comm_time_sum`` (model-mp.py:48,79), with the
     per-call spans and the ring-model wire bytes each timed call moved.
-    (JAX's tracer feed comes with the flight recorder, ROADMAP.md queue 1
-    item 6.)"""
+    With a ``tpudml_torch.obs.Tracer`` in ``tracer`` (the engines' ``obs=``
+    knob sets it), every timed call also lands on the trace as a complete
+    span of category "comm", named ``label``, its bytes in its args."""
 
     comm_time_s: float = 0.0
     calls: int = 0
     per_call_s: list = field(default_factory=list)
     comm_bytes: float = 0.0
+    tracer: Any = None
+    label: str = "comm"
 
     def add(self, dt: float, nbytes: float = 0.0) -> None:
         self.comm_time_s += dt
         self.calls += 1
         self.per_call_s.append(dt)
         self.comm_bytes += nbytes
+        if self.tracer is not None and self.tracer.enabled:
+            dur_us = int(dt * 1e6)
+            self.tracer.add_complete(
+                self.label, cat="comm",
+                ts_us=max(self.tracer.now_us() - dur_us, 0),
+                dur_us=dur_us, args={"bytes": nbytes} if nbytes else None,
+            )
 
     def percentiles(self) -> dict:
         """p50/p99 of the recorded per-call spans (empty without calls)."""

@@ -10,9 +10,9 @@ as the JAX package. The ``coordinator_address`` is the rendezvous of
 counterpart: the process group replaces the mesh (one process a device,
 its ranks the replicas), so ``TrainConfig`` has no ``mesh`` field.
 
-Flags of features not ported yet parse, and :func:`config_from_args`
-raises ``NotImplementedError`` naming their ROADMAP item when one is set
-(``UNPORTED``).
+Flags of features not ported yet (``--zero1``, ``--plan``) parse, and
+:func:`config_from_args` raises ``NotImplementedError`` naming their
+ROADMAP item when one is set (``UNPORTED``).
 """
 
 from __future__ import annotations
@@ -25,9 +25,7 @@ from typing import Any, Sequence
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
 # Flags of unported features: set, they raise naming the item.
-UNPORTED = {"zero1": "7 (ZeRO-1)", "sentinel": "6 (resilience)", "obs": "6 (obs)",
-            "profile": "6 (metrics/profiler.py)", "ckpt_dir": "6 (checkpoint)",
-            "plan": "10 (plan/)"}
+UNPORTED = {"zero1": "7 (ZeRO-1)", "plan": "10 (plan/)"}
 
 
 @dataclass

@@ -25,3 +25,16 @@ def path_names(path) -> tuple:
     if isinstance(path, str):
         return tuple(path.split("."))
     return tuple(key_name(k) for k in path)
+
+
+def jax_sort_key(name) -> tuple:
+    """Sort key that puts dotted names in the order JAX flattens the
+    nested dicts they name (keys sorted at every level): the tuple of
+    their components."""
+    return tuple(str(name).split("."))
+
+
+def keystr(name: str) -> str:
+    """JAX's ``keystr`` of the nested-dict path a dotted name stands for:
+    ``block0.attn.q.kernel`` -> ``['block0']['attn']['q']['kernel']``."""
+    return "".join(f"[{c!r}]" for c in name.split("."))

@@ -16,11 +16,10 @@ view in that order (``Flatten(nhwc=True)``), not in (C, H, W) order.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from tpudml_torch.core.prng import Key
 from tpudml_torch.device import resolve_device
-from tpudml_torch.nn.layers import Activation, Conv2D, Dense, Flatten, MaxPool, Sequential
+from tpudml_torch.nn.layers import Activation, Conv2D, Dense, Flatten, MaxPool, Sequential, relu
 
 
 class LeNet(Sequential):
@@ -35,14 +34,14 @@ class LeNet(Sequential):
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         super().__init__((
             Conv2D(in_channels, 6, kernel_size=5, padding=2, generator=g),
-            Activation(F.relu),
+            Activation(relu),
             MaxPool(2),
             Conv2D(6, 16, kernel_size=5, padding="VALID", generator=g),
-            Activation(F.relu),
+            Activation(relu),
             MaxPool(2),
             Flatten(nhwc=True),
             Dense(400, 120, generator=g),
-            Activation(F.relu),
+            Activation(relu),
             Dense(120, num_classes, generator=g),
         ))
         self.to(dev)

@@ -10,10 +10,9 @@ JAX's order.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from tpudml_torch.device import resolve_device
-from tpudml_torch.nn.layers import Activation, Dense, Flatten, Sequential
+from tpudml_torch.nn.layers import Activation, Dense, Flatten, Sequential, relu
 
 
 class ForwardMLP(Sequential):
@@ -30,7 +29,7 @@ class ForwardMLP(Sequential):
         layers: list = [Flatten()]
         prev = in_features
         for h in hidden:
-            layers += [Dense(prev, h, generator=g), Activation(F.relu)]
+            layers += [Dense(prev, h, generator=g), Activation(relu)]
             prev = h
         layers.append(Dense(prev, num_classes, generator=g))
         super().__init__(layers)

@@ -244,10 +244,33 @@ class Flatten(nn.Module):
         return x.reshape(x.shape[0], -1)
 
 
+class _Relu(torch.autograd.Function):
+    """``max(x, 0)`` with ``jax.nn.relu``'s derivative: the gradient where
+    ``x > 0``, else 0. They differ from ``F.relu``'s only at a NaN input,
+    whose gradient torch passes through and JAX zeroes (so a NaN batch
+    poisons the same parameters in both)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.relu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.relu``: ``max(x, 0)``, its derivative 0 where ``x <= 0`` or
+    ``x`` is NaN."""
+    return _Relu.apply(x)
+
+
 class Activation(nn.Module):
     """``fn(x)``, default relu (``jax.nn.relu``)."""
 
-    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor] = F.relu):
+    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor] = relu):
         super().__init__()
         self.fn = fn
 

@@ -77,8 +77,14 @@ class Sgd(Optimizer):
         return params, state
 
 
-def _bias_correction(beta: float, t: int) -> float:
-    """1 − β**t computed in f32, as the JAX update does with an f32 step."""
+def _bias_correction(beta: float, t):
+    """1 − β**t computed in f32, as the JAX update does with an f32 step:
+    a Python float for an int ``t``, a 0-d f32 tensor on ``t``'s device
+    for a tensor ``t`` (a state that must advance without a host read,
+    as under ``GradSentinel``)."""
+    if isinstance(t, torch.Tensor):
+        b = torch.full((), beta, dtype=torch.float32, device=t.device)
+        return 1.0 - b ** t.float()
     b = torch.tensor(beta, dtype=torch.float32)
     return float(1.0 - b ** torch.tensor(float(t), dtype=torch.float32))
 

@@ -23,6 +23,17 @@ Two execution modes, as in JAX:
   codes/task2/model-mp.py:47,64-65), and the aggregation alone is timed
   into ``comm_stats`` with its ring-model wire bytes.
 
+``obs=True`` (or a ``tpudml_torch.obs.Tracer``) records one ``train_step``
+span a step, the card synchronized before it closes (JAX's span times the
+dispatch; the port's eager step would otherwise time only the launches),
+feeds ``comm_stats`` to the tracer, and adds ``metrics["step_stats"]``
+(``tpudml_torch.obs.StepStats``) from the aggregated gradients; the split
+step builds them from its measured wire bytes. ``sentinel=True`` (or a
+dict of ``GradSentinel`` options) wraps the optimizer in
+``tpudml_torch.resilience.GradSentinel`` (``self.sentinel``): a
+non-finite step is skipped on the device, and ``metrics["bad_micro"]``
+names the first poisoned micro-batch (the max over the replicas).
+
 On a CUDA device the group must be NCCL's, on the CPU gloo's; anything
 else raises. JAX's ``DispatchThrottle`` (``tpudml/parallel/sharding.py``)
 bounds asynchronous dispatch on its CPU mesh; an eager step has nothing
@@ -40,7 +51,7 @@ from torch import nn
 
 from tpudml_torch.capabilities import reject
 from tpudml_torch.comm.collectives import (
-    aggregation_wire_bytes, broadcast_from, get_aggregator, pmean_tree,
+    aggregation_wire_bytes, broadcast_from, get_aggregator, pmax_tree, pmean_tree,
 )
 from tpudml_torch.comm.timing import (
     CommStats, collective_wire_bytes, synchronize, timed_call,
@@ -48,7 +59,10 @@ from tpudml_torch.comm.timing import (
 from tpudml_torch.core.dist import backend_for
 from tpudml_torch.nn.attention import MultiHeadAttention
 from tpudml_torch.nn.losses import softmax_cross_entropy
+from tpudml_torch.obs.stepstats import dp_wire_bytes_per_step, grad_normsq, make_step_stats
+from tpudml_torch.obs.tracer import NULL_SPAN, Tracer
 from tpudml_torch.optim import Optimizer
+from tpudml_torch.resilience.sentinel import attach_sentinel, find_sentinel
 from tpudml_torch.train import (
     TrainState, accumulate_grads, make_lm_fused_loss_fn, make_loss_fn, params_of, to_device,
 )
@@ -113,9 +127,9 @@ class DataParallel:
     sequential micro-batches (``tpudml_torch.train.accumulate_grads``);
     ``rng_root`` (a ``tpudml_torch.core.prng.Key``) seeds the dropout
     streams, one a replica and a step: ``rng_root.fold_in(step)
-    .fold_in(rank)``, as JAX folds the mesh position. ``zero1``,
-    ``zero1_overlap``, ``sentinel`` and ``obs`` are not ported and raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    .fold_in(rank)``, as JAX folds the mesh position. ``sentinel`` and
+    ``obs``: module docstring. ``zero1`` and ``zero1_overlap`` are not
+    ported and raise ``NotImplementedError`` naming their ROADMAP item.
     """
 
     def __init__(
@@ -138,7 +152,7 @@ class DataParallel:
         zero1: bool = False,
         zero1_overlap: bool = False,
         sentinel: bool | dict = False,
-        obs: bool = False,
+        obs=False,
         flash_attn: bool = False,
         device: str | torch.device | None = None,
     ):
@@ -158,9 +172,7 @@ class DataParallel:
                            or getattr(model, "seq_sharded", False)):
             reject("train_flash_attn_dense")
         for knob, on, item in (("zero1", zero1, "7 (ZeRO-1)"),
-                               ("zero1_overlap", zero1_overlap, "7 (ZeRO-1)"),
-                               ("sentinel", sentinel, "6 (resilience)"),
-                               ("obs", obs, "6 (obs)")):
+                               ("zero1_overlap", zero1_overlap, "7 (ZeRO-1)")):
             if on:
                 raise NotImplementedError(f"DataParallel({knob}=...) {NOT_PORTED.format(item)}")
         aggregator = get_aggregator(aggregation)
@@ -191,6 +203,19 @@ class DataParallel:
         self.rng_root = rng_root
         self.accum_steps = accum_steps
         self.comm_stats = CommStats()
+        # Observability: obs=True builds a Tracer, a Tracer passes through.
+        self.tracer: Tracer | None = None
+        self._step_wire_bytes: float | None = None
+        if obs:
+            self.tracer = obs if isinstance(obs, Tracer) else Tracer()
+            self.comm_stats.tracer = self.tracer
+        # The sentinel wraps the optimizer outermost: the gradients it sees
+        # are already aggregated, so its decision needs no collective.
+        self.sentinel = None
+        if sentinel:
+            kw = dict(sentinel) if isinstance(sentinel, dict) else {}
+            self.optimizer = attach_sentinel(self.optimizer, (), **kw)
+            self.sentinel = find_sentinel(self.optimizer)
         self.fused_xent = fused_xent
         self._fused_loss_fn = (make_lm_fused_loss_fn(model, save_scores, aux_loss_weight)
                                if fused_xent else None)
@@ -237,8 +262,37 @@ class DataParallel:
                     b.copy_(new[name])
 
     def _agg_metrics(self, local: dict) -> dict:
-        """The step's metrics averaged over the replicas (one collective)."""
-        return pmean_tree(local, self.group)
+        """The step's metrics averaged over the replicas (one collective),
+        but the sentinel's ``bad_micro`` index: its max (-1 is clean; a
+        mean would mangle the integer)."""
+        means = pmean_tree({k: v for k, v in local.items() if k != "bad_micro"}, self.group)
+        if "bad_micro" in local:
+            means["bad_micro"] = pmax_tree(local["bad_micro"], self.group)
+        return means
+
+    def _obs_span(self):
+        """The step's tracer span (the card synchronized before it closes);
+        the shared no-op when obs is off."""
+        if self.tracer is None:
+            return NULL_SPAN
+        return self.tracer.span("train_step", cat="step", sync=next(self.model.parameters()))
+
+    def _obs_step_stats(self, metrics: dict, grads: dict, ts: TrainState, step: int,
+                        wire_bytes: float | None = None) -> dict:
+        """``metrics`` with the step's ``StepStats`` (obs on only): the
+        aggregated gradients' norm, the post-update sentinel counters, and
+        the wire bytes a step (the ring model's, or the split step's
+        measured ones) times ``step + 1``."""
+        if self.tracer is None:
+            return metrics
+        if wire_bytes is None:
+            if self._step_wire_bytes is None:  # the shapes are the same every step
+                self._step_wire_bytes = dp_wire_bytes_per_step(
+                    grads, self._model_state(), self.world, aggregation=self.aggregation)
+            wire_bytes = self._step_wire_bytes
+        metrics["step_stats"] = make_step_stats(metrics["loss"], grad_normsq(grads),
+                                                ts.opt_state, wire_bytes, step)
+        return metrics
 
     def local_grads(self, ts: TrainState, images, labels):
         """This rank's un-aggregated ``(grads, metrics)`` on its rows of the
@@ -248,7 +302,8 @@ class DataParallel:
         loss_fn = self._fused_loss_fn if self.fused_xent else self._loss_fn
         rng = (None if self.rng_root is None
                else self.rng_root.fold_in(ts.step).fold_in(self.rank))
-        return accumulate_grads(loss_fn, ts.model, x, y, rng, self.accum_steps)
+        return accumulate_grads(loss_fn, ts.model, x, y, rng, self.accum_steps,
+                                taint=self.sentinel is not None)
 
     def _aggregate(self, grads: dict) -> dict:
         """The step's collectives: the gradients' aggregation and the model
@@ -269,9 +324,13 @@ class DataParallel:
 
     def _make_fused_step(self) -> Callable:
         def step(ts: TrainState, images, labels):
-            grads, local = self.local_grads(ts, images, labels)
-            ts = self._update(ts, self._aggregate(grads))
-            return ts, self._agg_metrics(local)
+            with self._obs_span():
+                index = ts.step
+                grads, local = self.local_grads(ts, images, labels)
+                grads = self._aggregate(grads)
+                ts = self._update(ts, grads)
+                metrics = self._obs_step_stats(self._agg_metrics(local), grads, ts, index)
+            return ts, metrics
 
         return step
 
@@ -282,6 +341,11 @@ class DataParallel:
         wire_bytes: list = []
 
         def step(ts: TrainState, images, labels):
+            with self._obs_span():
+                return split(ts, images, labels)
+
+        def split(ts: TrainState, images, labels):
+            index = ts.step
             grads, local = self.local_grads(ts, images, labels)
             synchronize(grads)
             if (self.bottleneck_rank is not None
@@ -298,7 +362,8 @@ class DataParallel:
                     + collective_wire_bytes("psum", state_bytes, self.world))
             grads = timed_call(self.comm_stats, self._aggregate, grads, nbytes=wire_bytes[0])
             ts = self._update(ts, grads)
-            return ts, self._agg_metrics(local)
+            return ts, self._obs_step_stats(self._agg_metrics(local), grads, ts, index,
+                                            wire_bytes[0])
 
         return step
 

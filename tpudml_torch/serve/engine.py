@@ -303,6 +303,14 @@ class ServeReport:
         ls = [e[4] for e in self.events if e[0] == "spec"]
         return float(np.mean(ls)) if ls else 0.0
 
+    def to_trace_events(self, step_time_s: float | None = None) -> list[dict]:
+        """This run's event log as Chrome trace events (the pure conversion
+        of ``tpudml_torch.obs.convert``); pass the run's
+        ``ServeConfig.step_time_s`` for virtual-clock timestamps."""
+        from tpudml_torch.obs.convert import serve_trace_events
+
+        return serve_trace_events(self.events, step_time_s=step_time_s)
+
     def annotate_ledger(self, ledger: dict[int, dict]) -> dict[int, dict]:
         """Fill the workload ledger's per-request ``ttft_s``/``tpot_s``
         from this run's stats, in place."""

@@ -1,8 +1,8 @@
 """Scaffolding shared by the task entry points (the port of
 ``tasks/common.py``): the process group with its same-program guard, the
-world it gives, the dataset splits and the ``--device`` flag, so launch semantics cannot
-diverge between tasks. Checkpointing is not ported yet (ROADMAP.md queue
-1 item 6)."""
+world it gives, the dataset splits, the ``--device`` flag and the
+checkpoint wiring (``--ckpt_dir``, ``--ckpt_every``, ``--resume``), so
+launch semantics cannot diverge between tasks."""
 
 from __future__ import annotations
 
@@ -14,8 +14,7 @@ from tpudml_torch.core import (
     TrainConfig, assert_same_program, process_count, process_group,
 )
 from tpudml_torch.data import load_dataset
-
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 6, checkpoint)"
+from tpudml_torch.device import default_device
 
 
 @contextmanager
@@ -43,16 +42,35 @@ def select_devices(cfg: TrainConfig, group=None) -> int:
 
 
 def setup_checkpointing(cfg: TrainConfig, ts):
-    """(train_state, hooks, manager): nothing to do without ``--ckpt_dir``;
-    with it, raises (not ported)."""
+    """(train_state, hooks, manager) per the config's checkpoint fields.
+
+    With ``--ckpt_dir``: ``--resume`` restores the LATEST VALID checkpoint
+    into ``ts`` (in place; the CRCs verified, corrupt or partial
+    ``step_*`` dirs walked past, every rank reading the same files), and
+    ``--ckpt_every N`` installs a rolling-save ``train_loop`` hook. The
+    caller does the final save with :func:`final_checkpoint`."""
     if not cfg.ckpt_dir:
         return ts, [], None
-    raise NotImplementedError(f"--ckpt_dir {NOT_PORTED}")
+    from tpudml_torch.checkpoint import CheckpointHook, CheckpointManager
+
+    mgr = CheckpointManager(cfg.ckpt_dir)
+    if cfg.resume:
+        ts = mgr.restore_latest(ts)
+    hooks = [CheckpointHook(mgr, every_n_steps=cfg.ckpt_every)] if cfg.ckpt_every else []
+    return ts, hooks, mgr
+
+
+def final_checkpoint(mgr, ts) -> None:
+    """End-of-run save, skipped when the rolling hook already wrote this
+    step."""
+    if mgr is not None and mgr.latest_step() != int(ts.step):
+        mgr.save(ts, int(ts.step))
 
 
 def add_device_flag(parser):
-    """``--device`` (default ``cuda``) on a task's parser; returns it."""
-    parser.add_argument("--device", type=str, default="cuda",
+    """``--device`` (default ``TPUDML_DEVICE``, else ``cuda``) on a task's
+    parser; returns it."""
+    parser.add_argument("--device", type=str, default=default_device(),
                         help="'cuda' (the card) or 'cpu'")
     return parser
 

@@ -8,7 +8,10 @@ test set's top-1 accuracy. Reference hyperparameters
 without bias correction at lr = 5e-4·√200. MNIST comes from its IDX files
 under ``--data_dir``, else from the synthetic set of the same shapes.
 Same flags as the JAX entry point plus ``--device`` (default ``cuda``;
-``cpu`` runs on the CPU). The initial weights come from
+``cpu`` runs on the CPU): ``--profile`` writes a ``torch.profiler``
+Chrome trace under ``<run_dir>/profile``, ``--ckpt_dir`` checkpoints
+(``--ckpt_every N`` steps and at the end) and ``--resume`` restores the
+latest valid checkpoint first. The initial weights come from
 ``torch.Generator().manual_seed(seed)``, not JAX's threefry keys; the
 dropout keys (LeNet draws none) from ``seed_key(seed)``, as JAX's.
 
@@ -27,9 +30,12 @@ from tpudml_torch.core.prng import seed_key
 from tpudml_torch.data import DataLoader, make_sampler
 from tpudml_torch.device import resolve_device
 from tpudml_torch.metrics import MetricsWriter
+from tpudml_torch.metrics.profiler import trace
 from tpudml_torch.models import LeNet
 from tpudml_torch.optim import make_optimizer
-from tpudml_torch.tasks.common import add_device_flag, load_splits, setup_checkpointing
+from tpudml_torch.tasks.common import (
+    add_device_flag, final_checkpoint, load_splits, setup_checkpointing,
+)
 from tpudml_torch.train import TrainState, evaluate, train_loop
 
 
@@ -55,10 +61,12 @@ def run(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
                   generator=torch.Generator().manual_seed(cfg.seed))
     optimizer = make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum)
     writer = MetricsWriter(cfg.log_dir, run_name=f"task1-epoch{cfg.epochs}")
-    ts, hooks, _ = setup_checkpointing(cfg, TrainState.create(model, optimizer))
-    ts, metrics = train_loop(model, optimizer, train_loader, cfg.epochs, seed_key(cfg.seed),
-                             writer=writer, log_every=cfg.log_every, state=ts, hooks=hooks,
-                             accum_steps=cfg.accum_steps)
+    ts, hooks, ckpt_mgr = setup_checkpointing(cfg, TrainState.create(model, optimizer))
+    with trace(writer.run_dir / "profile", enabled=cfg.profile):
+        ts, metrics = train_loop(model, optimizer, train_loader, cfg.epochs,
+                                 seed_key(cfg.seed), writer=writer, log_every=cfg.log_every,
+                                 state=ts, hooks=hooks, accum_steps=cfg.accum_steps)
+    final_checkpoint(ckpt_mgr, ts)
     acc = evaluate(model, ts, test_loader)
     print(f"Test accuracy: {acc * 100:.2f}%")
     writer.add_scalar("Test Accuracy", acc, ts.step)

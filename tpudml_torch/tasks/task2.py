@@ -14,12 +14,17 @@ fed the stacked ``[world, B, ...]`` batches of a ``ShardedDataLoader``
 whose per-replica samplers are JAX's (``--division``). Every rank loads
 the splits and evaluates the whole test set; rank 0 prints and writes
 the metrics. Same flags as the JAX entry point plus ``--device`` (default
-``cuda``; ``cpu`` for the CPU, with gloo); ``--zero1``, ``--sentinel``,
-``--obs``, ``--profile``, ``--ckpt_dir`` and ``--plan`` raise, naming
-their ROADMAP item.
+``cuda``; ``cpu`` for the CPU, with gloo): ``--sentinel`` skips non-finite
+steps on the device (and raises ``SentinelTripped`` past its budget,
+naming the poisoned leaf), ``--obs`` records the flight recorder (the
+engine's step and comm spans, checkpoint and sentinel events) into
+``<run_dir>/trace.json``, ``--profile`` writes a ``torch.profiler``
+trace under ``<run_dir>/profile``, ``--ckpt_dir`` / ``--ckpt_every`` /
+``--resume`` checkpoint and resume. ``--zero1`` and ``--plan`` raise,
+naming their ROADMAP item.
 
 Run: ``python -m tpudml_torch.tasks.task2 [--aggregation allgather] [--measure_comm]
-[--bottleneck_rank 1] [--device cpu]``
+[--bottleneck_rank 1] [--sentinel] [--obs] [--device cpu]``
 """
 
 from __future__ import annotations
@@ -31,11 +36,15 @@ from tpudml_torch.core.prng import seed_key
 from tpudml_torch.data import DataLoader, ShardedDataLoader, make_sampler
 from tpudml_torch.device import resolve_device
 from tpudml_torch.metrics import MetricsWriter
+from tpudml_torch.metrics.profiler import trace
 from tpudml_torch.models import LeNet
+from tpudml_torch.obs.tracer import Tracer, use_tracer
 from tpudml_torch.optim import make_optimizer
 from tpudml_torch.parallel import DataParallel
+from tpudml_torch.resilience import sentinel_hook
 from tpudml_torch.tasks.common import (
-    add_device_flag, init_distributed, load_splits, select_devices, setup_checkpointing,
+    add_device_flag, final_checkpoint, init_distributed, load_splits, select_devices,
+    setup_checkpointing,
 )
 from tpudml_torch.train import evaluate, train_loop
 
@@ -68,18 +77,36 @@ def run(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
         model = LeNet(in_channels=train_set.images.shape[-1], device=device,
                       generator=torch.Generator().manual_seed(cfg.seed))
         optimizer = make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum)
+        # The flight recorder (--obs): one Tracer takes the engine's step
+        # and comm spans and, as the ambient tracer, the checkpoint and
+        # sentinel events; exported as <run_dir>/trace.json.
+        tracer = Tracer() if cfg.obs else None
         dp = DataParallel(model, optimizer, group, aggregation=cfg.aggregation,
+                          sentinel=cfg.sentinel, obs=tracer or False,
                           measure_comm=cfg.measure_comm or cfg.bottleneck_rank is not None,
                           bottleneck_rank=cfg.bottleneck_rank,
                           bottleneck_delay_s=cfg.bottleneck_delay_s,
                           accum_steps=cfg.accum_steps,
                           stacked_batches=True)  # ShardedDataLoader yields [world, B, ...]
-        ts, hooks, _ = setup_checkpointing(cfg, dp.create_state())
         writer = (MetricsWriter(cfg.log_dir, run_name=f"task2-{cfg.aggregation}-w{world}")
                   if lead else None)
-        ts, metrics = train_loop(model, optimizer, train_loader, cfg.epochs, seed_key(cfg.seed),
-                                 writer=writer, log_every=cfg.log_every if lead else 0,
-                                 step_fn=dp.make_train_step(), state=ts, hooks=hooks)
+        with use_tracer(tracer):
+            ts, hooks, ckpt_mgr = setup_checkpointing(cfg, dp.create_state())
+            if dp.sentinel is not None:
+                # Escalate past the consecutive-skip budget, naming the
+                # poisoned leaf and micro-batch.
+                hooks.append(sentinel_hook(dp.sentinel, model))
+            profile_dir = writer.run_dir / "profile" if lead else cfg.log_dir
+            with trace(profile_dir, enabled=cfg.profile and lead):
+                ts, metrics = train_loop(
+                    model, optimizer, train_loader, cfg.epochs, seed_key(cfg.seed),
+                    writer=writer, log_every=cfg.log_every if lead else 0,
+                    step_fn=dp.make_train_step(), state=ts, hooks=hooks)
+            final_checkpoint(ckpt_mgr, ts)
+        if tracer is not None and lead:
+            trace_path = tracer.export(writer.run_dir / "trace.json")
+            print(f"[obs] trace: {trace_path}")
+            metrics["trace_path"] = str(trace_path)
         if dp.comm_stats.calls:
             if lead:
                 print(dp.comm_stats.report())  # reference print parity: model-mp.py:79

@@ -26,11 +26,24 @@ global batch from the same ``rng`` and trains on its rows; only rank 0
 prints and writes metrics. ``--dropout`` (``--parallel single`` and
 ``dp``) drops the blocks' branches with the dropout keys of JAX's entry,
 ``key(seed ^ 0xD0)`` folded with the step (and, under ``dp``, the rank).
-Every other ``--parallel`` value, ``--sentinel`` and ``--ckpt_dir`` raise
-``NotImplementedError``, naming their ROADMAP item.
+``--sentinel`` wraps ``dp``'s optimizer in ``GradSentinel`` (non-finite
+steps skipped on the device; ``SentinelTripped`` past its budget) and,
+as in JAX, raises ``ValueError`` with ``single`` and ``ep``.
+``--ckpt_dir`` saves every ``--ckpt_every`` steps and at the end, in the
+format-2 store of ``tpudml_torch.checkpoint``; ``--resume`` restores the
+latest valid checkpoint and continues: the loop counter is the global
+step, and the row stream is drawn on past the restored step's rows, so a
+resumed run takes the batches the uninterrupted run took (JAX's loop
+restarts the stream at the seed; ROADMAP.md queue 3). Under ``ep`` a
+checkpoint holds whole experts only at world 1. Every other
+``--parallel`` value raises ``NotImplementedError``, naming its ROADMAP
+item.
 
 Same row sampling (``np.random.default_rng(seed)`` over
 ``synthetic_lm(4·B, …)``) and steady-state clock as the JAX entry point;
+``run(args, hooks=...)`` calls each hook after every step as
+``hook(step=, train_state=, metrics=)`` (``train_loop``'s contract; the
+kill/resume drill's ``rank_kill_hook``);
 reports steady-state tokens/sec and the final loss. The model's initial
 weights come from ``torch.Generator().manual_seed(seed)``, not from
 JAX's threefry keys, so the numbers differ from the JAX run's.
@@ -55,14 +68,17 @@ import numpy as np
 import torch
 
 from tpudml_torch.capabilities import reject
+from tpudml_torch.checkpoint import CheckpointManager
 from tpudml_torch.core import assert_same_program, process_count, process_group, process_index
 from tpudml_torch.core.prng import seed_key
 from tpudml_torch.data import synthetic_lm
-from tpudml_torch.device import resolve_device
+from tpudml_torch.device import default_device, resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import TransformerLM
 from tpudml_torch.optim import make_optimizer
 from tpudml_torch.parallel import DataParallel, ExpertParallel
+from tpudml_torch.resilience import sentinel_hook
+from tpudml_torch.tasks.common import final_checkpoint
 from tpudml_torch.train import TrainState, make_lm_fused_train_step, make_train_step
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
@@ -120,11 +136,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--log_every", type=int, default=20)
     p.add_argument("--log_dir", type=str, default="./logs")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--sentinel", action="store_true", help="not ported")
-    p.add_argument("--ckpt_dir", type=str, default=None, help="not ported")
+    p.add_argument("--sentinel", action="store_true",
+                   help="step sentinel: skip non-finite updates (--parallel dp)")
+    p.add_argument("--ckpt_dir", type=str, default=None,
+                   help="checkpoint directory (enables --ckpt_every/--resume)")
     p.add_argument("--ckpt_every", type=int, default=0)
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--device", type=str, default="cuda",
+    p.add_argument("--device", type=str, default=default_device(),
                    help="'cuda' (the kernels) or 'cpu' (their plain versions)")
     args = p.parse_args(argv)
     if (args.resume or args.ckpt_every) and not args.ckpt_dir:
@@ -160,12 +178,11 @@ def _reject_unported(args) -> None:
         raise NotImplementedError(
             f"--parallel {args.parallel} {NOT_PORTED.format(PARALLEL_ITEMS[args.parallel])}")
     args._save_scores = _save_scores(args)
-    for flag, on, item in (
-        ("--sentinel", args.sentinel, "6 (resilience)"),
-        ("--ckpt_dir", args.ckpt_dir, "6 (checkpoint)"),
-    ):
-        if on:
-            raise NotImplementedError(f"{flag} {NOT_PORTED.format(item)}")
+    if args.sentinel and args.parallel != "dp":
+        # single's step and the ep engine have no sentinel slot in their
+        # optimizer chain (JAX's wording; fsdp/tp/pp raise above).
+        raise ValueError(f"--sentinel composes with --parallel dp/fsdp/tp/pp, not "
+                         f"{args.parallel!r}")
     if args.attn in ("ring", "ulysses"):
         raise ValueError(f"--attn {args.attn} requires --parallel cp")
     if args.cp_layout != "contiguous":
@@ -176,9 +193,14 @@ def build_engine(args, device: torch.device):
     """(train_state, step_fn) for ``--parallel single``, ``dp`` or ``ep``
     (the last two inside a process group)."""
     _reject_unported(args)
+    args._sentinel = None  # the DP engine's GradSentinel, for the escalation hook
     if args.parallel == "ep" and args.moe_experts % process_count():
         raise ValueError(f"--moe_experts {args.moe_experts} must divide over "
                          f"{process_count()} devices")
+    if args.parallel == "ep" and args.ckpt_dir and process_count() > 1:
+        raise NotImplementedError(
+            "--ckpt_dir under --parallel ep past world 1: each rank holds its slice of "
+            f"the experts, and the sharded store {NOT_PORTED.format('7 (checkpoint/sharded.py)')}")
     model = TransformerLM(
         vocab_size=args.vocab,
         embed_dim=args.embed_dim,
@@ -202,7 +224,9 @@ def build_engine(args, device: torch.device):
     if args.parallel == "dp":
         # [B, T] token batches are never the stacked-loader form.
         engine = DataParallel(model, opt, rng_root=rng_root, stacked_batches=False,
-                              fused_xent=args.fused_xent, save_scores=args._save_scores)
+                              fused_xent=args.fused_xent, save_scores=args._save_scores,
+                              sentinel=args.sentinel)
+        args._sentinel = engine.sentinel
         return engine.create_state(), engine.make_train_step()
     if args.parallel == "ep":
         engine = ExpertParallel(model, opt)
@@ -214,13 +238,13 @@ def build_engine(args, device: torch.device):
     return TrainState.create(model, opt), step
 
 
-def run(args) -> dict:
+def run(args, hooks=()) -> dict:
     if args.steps < 1:
         raise ValueError("--steps must be >= 1")
     device = resolve_device(args.device)
     _reject_unported(args)
     if args.parallel not in ("dp", "ep"):  # the engines that run inside a process group
-        return _train(args, device)
+        return _train(args, device, hooks=hooks)
     with process_group(device=device) as group:
         world = process_count(group)
         if args.n_devices and args.n_devices != world:
@@ -230,14 +254,33 @@ def run(args) -> dict:
         rank_invariant = {k: v for k, v in vars(args).items()
                           if k not in ("log_dir", "ckpt_dir")}
         assert_same_program(repr(sorted(rank_invariant.items())), "task5 args", group)
-        return _train(args, device, world, lead=process_index(group) == 0)
+        return _train(args, device, world, lead=process_index(group) == 0, hooks=hooks)
 
 
-def _train(args, device: torch.device, world: int = 1, lead: bool = True) -> dict:
+def _train(args, device: torch.device, world: int = 1, lead: bool = True,
+           hooks=()) -> dict:
     """The training loop; in a DP or EP run every rank runs it on the same
     global batches, and rank 0 (``lead``) prints and writes the metrics."""
     ts, step = build_engine(args, device)
     seqs = synthetic_lm(args.batch_size * 4, args.seq_len, args.vocab, seed=args.seed)
+    mgr = None
+    start = 0
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir)
+        if args.resume:
+            # The latest VALID checkpoint: CRCs verified, corrupt or partial
+            # step dirs walked past.
+            ts = mgr.restore_latest(ts)
+            start = int(ts.step)
+            if start >= args.steps:
+                raise ValueError(f"--resume: latest checkpoint is already at step {start} "
+                                 f">= --steps {args.steps}; nothing left to run")
+            if start and lead:
+                print(f"resumed from step {start} ({args.ckpt_dir})")
+    guard = None
+    if args._sentinel is not None:
+        # Escalate past the consecutive-skip budget, naming the poisoned leaf.
+        guard = sentinel_hook(args._sentinel, ts.model)
 
     def sync():
         if device.type == "cuda":
@@ -245,19 +288,29 @@ def _train(args, device: torch.device, world: int = 1, lead: bool = True) -> dic
 
     writer = MetricsWriter(args.log_dir, run_name=f"task5-{args.parallel}-torch") if lead else None
     rng = np.random.default_rng(args.seed)
+    for _ in range(start):  # the row stream continues past the restored steps
+        rng.integers(0, len(seqs), size=args.batch_size)
     t0 = None
     loss = float("nan")
     hit_target = None
     time_to_target = None
     final_step = args.steps
-    steady_from = 1
-    # Steady state: past the first (warm-up) steps, capped at 5 so a run
-    # that hits its target at the earliest check still has a window.
-    steady_mark = min(max(args.steps // 5, 1), 5)
-    for i in range(1, args.steps + 1):
+    steady_from = start + 1
+    # Steady state: past the first (warm-up) steps of this run, capped at 5
+    # so a run that hits its target at the earliest check still has a window.
+    steady_mark = start + min(max((args.steps - start) // 5, 1), 5)
+    for i in range(start + 1, args.steps + 1):
+        # The loop counter IS the global step: checkpoint keys and logging
+        # continue where a killed run stopped.
         rows = rng.integers(0, len(seqs), size=args.batch_size)
         batch = seqs[rows]
         ts, metrics = step(ts, batch[:, :-1], batch[:, 1:])
+        if guard is not None:
+            guard(step=i, train_state=ts, metrics=metrics)
+        if mgr is not None and args.ckpt_every and i % args.ckpt_every == 0:
+            mgr.save(ts, i, metadata={"parallel": args.parallel})
+        for hook in hooks:
+            hook(step=i, train_state=ts, metrics=metrics)
         if i == steady_mark:
             sync()
             t0, steady_from = time.time(), i
@@ -279,6 +332,7 @@ def _train(args, device: torch.device, world: int = 1, lead: bool = True) -> dic
                           f"({time_to_target:.1f}s after steady-state step {steady_from})")
                 break
     sync()
+    final_checkpoint(mgr, ts)
     loss = float(metrics["loss"])
     elapsed = time.time() - t0 if t0 else float("nan")
     tokens = (final_step - steady_from) * args.batch_size * args.seq_len

@@ -8,8 +8,12 @@ latencies). Same flags as ``tasks/task6_serve.py`` plus ``--device``
 Multi-tenant levers: ``--paged`` (+ ``--page_size``, ``--num_pages``,
 ``--prefix_sharing``) for the page-pool cache layout, ``--spec_k K`` (+
 ``--draft_layers``) for trunk-draft speculative decoding, and
-``--slo_tpot_ms`` for cost-model-priced admission. Not ported yet:
-``--tp`` (ROADMAP.md queue 1 item 7) and ``--obs`` (item 6) raise
+``--slo_tpot_ms`` for cost-model-priced admission. ``--obs`` writes
+``<run_dir>/trace.json``, the event log converted to Chrome trace events
+(``tpudml_torch.obs.write_serve_trace``; byte-deterministic under
+``--step_time_s``). ``--fused_head`` (the port's own flag; ServeConfig's
+``fused_head``) runs the greedy decode tail through the fused head
+kernel. Not ported yet: ``--tp`` (ROADMAP.md queue 1 item 7) raises
 ``NotImplementedError``.
 
 Reports generated tokens/sec and p50/p99 per-token, time-to-first-token
@@ -25,13 +29,11 @@ import argparse
 
 import torch
 
-from tpudml_torch.device import resolve_device
+from tpudml_torch.device import default_device, resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import TransformerLM
 from tpudml_torch.serve import SLOConfig, ServeConfig, ServingEngine, poisson_workload
 from tpudml_torch.serve.engine import TP_NOT_PORTED
-
-OBS_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 6, observability)"
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -72,6 +74,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    default=None,
                    help="int8 per-channel weight quantization; int8_sim = "
                         "f32-storage oracle")
+    p.add_argument("--fused_head", action="store_true",
+                   help="fused greedy decode head (head matmul + pick + stats "
+                        "in one kernel; dense, no spec)")
     # workload
     p.add_argument("--n_requests", type=int, default=16)
     p.add_argument("--qps", type=str, default="4",
@@ -87,7 +92,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="write run_dir/trace.json from the event log")
     p.add_argument("--step_time_s", type=float, default=None,
                    help="virtual decode-step clock (deterministic runs)")
-    p.add_argument("--device", type=str, default="cuda",
+    p.add_argument("--device", type=str, default=default_device(),
                    help="'cuda' (the kernels) or 'cpu' (their plain versions)")
     return p.parse_args(argv)
 
@@ -96,8 +101,6 @@ def build_engine(args) -> ServingEngine:
     device = resolve_device(args.device)
     if args.tp:
         raise NotImplementedError(f"--tp {TP_NOT_PORTED}")
-    if args.obs:
-        raise NotImplementedError(f"--obs {OBS_NOT_PORTED}")
     model = TransformerLM(
         vocab_size=args.vocab,
         embed_dim=args.embed_dim,
@@ -119,6 +122,7 @@ def build_engine(args) -> ServingEngine:
         page_size=args.page_size, num_pages=args.num_pages,
         prefix_sharing=args.prefix_sharing, spec_k=args.spec_k, slo=slo,
         step_time_s=args.step_time_s, weight_quant=args.weight_quant,
+        fused_head=args.fused_head,
     )
     return ServingEngine(model, cfg, device=device, draft_layers=args.draft_layers)
 
@@ -157,10 +161,18 @@ def run(args) -> dict:
     writer.add_scalar("Per-Token p99 (ms)", lat["per_token_p99_s"] * 1e3, 0)
     writer.add_scalar("E2E p99 (s)", lat["e2e_p99_s"], 0)
     writer.close()
+    trace_path = None
+    if args.obs:
+        from tpudml_torch.obs import write_serve_trace
+
+        trace_path = write_serve_trace(report, writer.run_dir / "trace.json",
+                                       step_time_s=args.step_time_s)
+        print(f"[obs] trace: {trace_path}")
 
     refills = sum(1 for e in report.events if e[0] == "admit" and e[3] > 0)
     mode = "".join([
         "/paged" if args.paged else "",
+        "/fused" if args.fused_head else "",
         f"/spec{args.spec_k}" if args.spec_k else "",
         f"/w{args.weight_quant}" if args.weight_quant else "",
     ])
@@ -192,6 +204,8 @@ def run(args) -> dict:
         "mid_flight_refills": refills,
         "mean_accepted_len": report.mean_accepted_len,
         "pool_stats": report.pool_stats,
+        "trace_path": str(trace_path) if trace_path else None,
+        "streams": {rid: list(st.tokens) for rid, st in report.requests.items()},
         **lat,
     }
 

@@ -63,6 +63,13 @@ single_1, ep_1, ep_2, single_2. Each EP row adds the device ms a call of
 the dispatch's ``all_to_all`` alone at its [E, C, d] = [8, 2048, 512]
 (NCCL's kernels and the copies around them).
 
+``--host`` profiles the slice-11 path, task5 ``--parallel dp`` at the f32
+training config (flash, fused add+LN, RoPE, Adam lr 1e-3, task5's
+batches) under ``DataParallel`` at world 1 (a one-rank NCCL group over a
+file store in a temporary directory): plain, with ``sentinel=True`` and
+with ``obs=True``, interleaved in one process: plain_1, sentinel, obs,
+plain_2 (what the grad sentinel and the flight recorder cost a step).
+
 ``--resnet [--batch N]`` profiles the single-card bf16 step of ``bench.py``
 ``bench_resnet`` instead (the north star's model and optimizer):
 ResNet-18 at CIFAR width (bf16 compute over f32 master weights), SGD lr
@@ -74,7 +81,8 @@ default 1024 (bench's per-chip batch); it adds imgs/s. One configuration,
 TF32 is off for matmuls and cuDNN's convolutions, so an f32 row means f32.
 
 Run on the card: ``python -m tpudml_torch.tools.profile_train [--flagship | --long |
---wide | --dp | --ep | --moe 8 --moe_variant ragged_grouped | --resnet [--batch 128]]`` (one
+--wide | --dp | --ep | --host | --moe 8 --moe_variant ragged_grouped | --resnet [--batch 128]]``
+(one
 JSON line at the end; ``--out FILE`` also writes it to FILE).
 """
 
@@ -160,6 +168,9 @@ def main(argv=None) -> dict:
     mode.add_argument("--ep", action="store_true",
                       help="the f32 MoE gather step under ExpertParallel at world 1 (NCCL) "
                       "against the single-card one, interleaved")
+    mode.add_argument("--host", action="store_true",
+                      help="the f32 DP step at world 1 plain, with the sentinel and with obs, "
+                      "interleaved")
     mode.add_argument("--moe", type=int, default=0, metavar="E",
                       help="one bench_moe step with E experts (bf16, top-1, capacity 1.25)")
     mode.add_argument("--resnet", action="store_true",
@@ -214,6 +225,9 @@ def main(argv=None) -> dict:
                    if args.long else
                    tuple((name, moe, False) for name in ("single_1", "ep_1", "ep_2", "single_2"))
                    if args.ep else
+                   tuple((name, dict(impl="flash", fused_ln=True), False)
+                         for name in ("plain_1", "sentinel", "obs", "plain_2"))
+                   if args.host else
                    (("kernel", dict(impl="flash", fused_ln=True), False),
                     ("plain", dict(impl="full", fused_ln=False), False)))
     step_name = (f"MoE E={args.moe} {args.moe_variant} bf16 (AdamW 3e-4)" if args.moe else
@@ -221,13 +235,15 @@ def main(argv=None) -> dict:
                  "flagship bf16, single card vs DataParallel world 1 (NCCL)" if args.dp else
                  f"MoE E={EP_EXPERTS} gather f32, single card vs ExpertParallel world 1 (NCCL; "
                  "flash, fused add+LN, Adam 1e-3)" if args.ep else
+                 "f32 DataParallel world 1 (NCCL; flash, fused add+LN, Adam 1e-3): plain, "
+                 "sentinel=True, obs=True" if args.host else
                  "long-context f32 T=16384 (fused xent head, Adam 1e-3)" if args.long
                  else "wide-trunk f32 d=2048 (materialized logits, Adam 1e-3)" if args.wide
                  else "f32 (materialized logits, Adam 1e-3)")
     result = {"device": torch.cuda.get_device_name(0), "model": model_cfg,
               "batch": batch, "tokens_per_step": batch * t, "step": step_name}
     tmp = stack = None
-    if args.dp or args.ep:
+    if args.dp or args.ep or args.host:
         stack = contextlib.ExitStack()
         tmp = stack.enter_context(tempfile.TemporaryDirectory())
         stack.enter_context(process_group(
@@ -245,6 +261,10 @@ def main(argv=None) -> dict:
             step, ts = engine.make_train_step(), engine.create_state()
         elif ep:
             engine = ExpertParallel(model, opt)
+            step, ts = engine.make_train_step(), engine.create_state()
+        elif args.host:
+            engine = DataParallel(model, opt, stacked_batches=False,
+                                  sentinel=name == "sentinel", obs=name == "obs")
             step, ts = engine.make_train_step(), engine.create_state()
         else:
             step = (make_lm_fused_train_step(model, opt, save_scores=save_scores) if fused_head

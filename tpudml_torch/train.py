@@ -160,8 +160,23 @@ def local_grads(loss_fn: Callable, model: nn.Module, tokens: torch.Tensor,
     return dict(zip(params, grads)), metrics
 
 
+def nonfinite_leaves(tensors: list) -> torch.Tensor:
+    """Bool tensor [len(tensors)]: which tensors hold a non-finite element,
+    with no host read and in two multi-tensor launches whatever their
+    number: t·0 is 0 where t is finite and NaN where it is not, so the norm
+    of the products is NaN exactly for such a tensor (a finite outlier
+    cannot overflow it)."""
+    return torch.stack(torch._foreach_norm(torch._foreach_mul(tensors, 0.0))).isnan()
+
+
+def _grads_nonfinite(grads: dict) -> torch.Tensor:
+    """0-d bool tensor: any non-finite element in any gradient."""
+    return nonfinite_leaves(list(grads.values())).any()
+
+
 def accumulate_grads(loss_fn: Callable, model: nn.Module, images: torch.Tensor,
-                     labels: torch.Tensor, rng: Key | None = None, accum_steps: int = 1):
+                     labels: torch.Tensor, rng: Key | None = None, accum_steps: int = 1,
+                     taint: bool = False):
     """The gradients of ``loss_fn`` over the batch and its metrics (the
     loss, and the accuracy where ``loss_fn`` returns logits), computed in
     ``accum_steps`` sequential micro-batches of consecutive rows (JAX's
@@ -171,15 +186,22 @@ def accumulate_grads(loss_fn: Callable, model: nn.Module, images: torch.Tensor,
     ``rng.fold_in(i)``, and the model's state threads through the
     micro-batches (BatchNorm's running statistics see every one, in
     order). ``accum_steps=1`` is one :func:`local_grads` with ``rng`` as it
-    is. A batch not divisible by ``accum_steps`` raises ``ValueError``."""
+    is. A batch not divisible by ``accum_steps`` raises ``ValueError``.
+    ``taint=True`` adds ``metrics["bad_micro"]``, an int32 tensor: the
+    index of the FIRST micro-batch whose gradients hold a non-finite
+    value, -1 if none (the sentinel's escalation names it)."""
     if accum_steps == 1:
-        return local_grads(loss_fn, model, images, labels, with_accuracy=True, key=rng)
+        grads, metrics = local_grads(loss_fn, model, images, labels, with_accuracy=True,
+                                     key=rng)
+        if taint:
+            metrics["bad_micro"] = torch.where(_grads_nonfinite(grads), 0, -1).to(torch.int32)
+        return grads, metrics
     batch = images.shape[0]
     if batch % accum_steps:
         raise ValueError(f"(per-replica) batch {batch} not divisible by accum_steps "
                          f"{accum_steps}")
     micro = batch // accum_steps
-    grads_sum = metrics_sum = None
+    grads_sum = metrics_sum = bad = None
     for i in range(accum_steps):
         rows = slice(i * micro, (i + 1) * micro)
         grads, metrics = local_grads(loss_fn, model, images[rows], labels[rows],
@@ -190,9 +212,15 @@ def accumulate_grads(loss_fn: Callable, model: nn.Module, images: torch.Tensor,
             metrics_sum = {k: torch.zeros_like(v) for k, v in metrics.items()}
         grads_sum = {n: grads_sum[n] + g for n, g in grads.items()}
         metrics_sum = {k: metrics_sum[k] + v for k, v in metrics.items()}
+        if taint:
+            if bad is None:
+                bad = torch.full((), -1, dtype=torch.int32, device=images.device)
+            bad = torch.where((bad < 0) & _grads_nonfinite(grads), i, bad).to(torch.int32)
     inv = 1.0 / accum_steps
-    return ({n: g * inv for n, g in grads_sum.items()},
-            {k: v * inv for k, v in metrics_sum.items()})
+    metrics = {k: v * inv for k, v in metrics_sum.items()}
+    if taint:
+        metrics["bad_micro"] = bad
+    return {n: g * inv for n, g in grads_sum.items()}, metrics
 
 
 def _step_body(optimizer: Optimizer, loss_fn: Callable, rng_root: Key | None,
@@ -350,7 +378,8 @@ def train_loop(model: nn.Module, optimizer: Optimizer, train_loader, num_epochs:
     keys from ``key.fold_in(0x0D0)``, JAX's domain-separated branch of the
     seed key (the model already holds its initial parameters, which JAX
     draws from ``key``; without a key the step has none and a dropout
-    model raises). The obs ``step_stats`` scalars have no counterpart.
+    model raises). A step's ``step_stats`` (the DP engine's ``obs=``)
+    streams as ``obs/*`` scalars on the loss's cadence, as in JAX.
     ``accum_steps > 1`` with a ``step_fn`` raises ``ValueError`` (the
     engine owns accumulation)."""
     ts = state or TrainState.create(model, optimizer)
@@ -382,6 +411,10 @@ def train_loop(model: nn.Module, optimizer: Optimizer, train_loader, num_epochs:
                 loss = float(metrics["loss"])
                 if writer is not None:
                     writer.add_scalar("Train Loss", loss, counter)
+                    stats = metrics.get("step_stats")
+                    if stats is not None:
+                        writer.add_scalars({f"obs/{k}": float(v)
+                                            for k, v in stats.to_scalars().items()}, counter)
                 print(f"epoch {epoch} iter {counter}: loss {loss:.4f}")
             for h in hooks or ():
                 h(epoch=epoch, step=counter, train_state=ts, metrics=metrics)
@@ -390,7 +423,9 @@ def train_loop(model: nn.Module, optimizer: Optimizer, train_loader, num_epochs:
     print(f"Training time: {train_time:.3f}s")
     if writer is not None:
         writer.add_scalar("Train Time", train_time, counter)
-    last = {k: float(v) for k, v in metrics.items()} if metrics is not None else {}
+    last = {k: ({kk: float(vv) for kk, vv in v.to_scalars().items()}
+                if hasattr(v, "to_scalars") else float(v))  # obs StepStats
+            for k, v in (metrics or {}).items()}
     last["train_time_s"] = train_time
     last["steps"] = counter
     return ts, last
