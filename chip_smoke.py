@@ -342,7 +342,36 @@ the CPU). Phases, each printing its own line(s):
    one residency span a request, the prefill's flash launches and one
    head launch a decode step (``host_serve``), streams bitwise equal to
    the same run without ``--obs``.
-16. one JSON line of per-kernel numbers (launches summed over the main
+   The poisoned step's loss must be NaN, as the plain version's is
+   (kernel 1 keeps a NaN score's row NaN).
+16. the repairs (``[repairs]``): kernel 1, f32 and bf16, at the training
+   shape with NaN query rows and NaN key rows (and at B=2, T=200 with
+   k_shift=1, whose row 0 sees no key), and kernels 10 and 11 at the
+   flagship head with NaN rows of x, a NaN column of W and, at V=1, a
+   whole NaN row: NaN exactly where the plain version has it, the finite
+   rest at the phase-3 tolerances, the no-key row's out 0 and lse −1e30;
+   then kernel 1's phase-3 times beside those before the repair (PERF.md
+   §6: f32 0.4066 ms and bf16 0.0996 ms at the training shape, f32
+   17.235 ms at long context).
+17. main path 11, model parallelism at world 1 (``[gspmd]``, a one-rank
+   NCCL group): task4 ``--schedule gspmd`` at the reference's settings on
+   the synthetic MNIST IDX files (accuracy ≥ LABS_ACC_FLOOR, imgs/s);
+   ``GSPMDParallel(flash_attn=True)`` on TRAIN_MODEL under the stage rule
+   (path ``gspmd_stage``) and under ``tensor_parallel_rules`` (path
+   ``gspmd_tp``), TRAIN_STEPS steps each, held against
+   ``train.make_train_step`` on the same model and batches: bitwise where
+   that step repeats itself, else losses within LOSS_TOL and parameters
+   within GRAD_TOL; kernels 1–3, 8, 9 in main path 2's counts a step;
+   ms/step against the single-card step.
+18. main path 12, ZeRO-1 at world 1 (``[zero1]``): the bf16 flagship under
+   ``DataParallel(zero1=True)`` (path ``zero1``) and ``zero1_overlap=True``
+   at ``accum_steps=2`` (path ``zero1_overlap``) against the same engine
+   without ZeRO-1: bitwise where that repeats itself (AdamW's chain is
+   elementwise), else within DP_GAP_MULT times its own gap; task2
+   ``--zero1`` on the IDX files; the GSPMD (stage rule, Adam) and ZeRO-1
+   (AdamW) states through ``checkpoint/sharded.py``: save, verify and
+   restore bitwise into fresh engines, with bytes and seconds.
+19. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -3414,12 +3443,13 @@ NORTH_STAR_ACC_FLOOR = 0.5
 
 @contextlib.contextmanager
 def relu_masks(replay=None):
-    """Record each ``F.relu`` the model calls as its ``x > 0`` mask, into the
-    yielded list; or, given ``replay`` (such a list), apply those masks
-    instead: ``x · mask``, whose gradient is the mask."""
-    import torch.nn.functional as F
+    """Record each ``tpudml_torch.nn.layers.relu`` the model calls as its
+    ``x > 0`` mask, into the yielded list; or, given ``replay`` (such a
+    list), apply those masks instead: ``x · mask``, whose gradient is the
+    mask."""
+    from tpudml_torch.nn import layers
 
-    relu, masks = F.relu, []
+    relu, masks = layers.relu, []
     masks_in = None if replay is None else iter(replay)
 
     def patched(x, *args, **kw):
@@ -3428,11 +3458,11 @@ def relu_masks(replay=None):
         masks.append(x.detach() > 0)
         return relu(x, *args, **kw)
 
-    F.relu = patched
+    layers.relu = patched
     try:
         yield masks
     finally:
-        F.relu = relu
+        layers.relu = relu
 
 
 def _image_run(ts, step, images, labels, steps: int):
@@ -4317,8 +4347,7 @@ def host_sentinel(tmp: Path) -> dict[str, int]:
     # positions of the first block's input (token ids cannot hold a NaN).
     hook = model.block0.ln1.register_forward_pre_hook(
         lambda mod, args: (args[0] + poison,) if armed["on"] else None)
-    # What kernel 1 makes of the NaN rows (ROADMAP.md queue 3: its max
-    # drops NaN), read after the step.
+    # What kernel 1 makes of the NaN rows, read after the step.
     attn_out = []
     watch = model.block0.attn.register_forward_hook(
         lambda mod, args, out: attn_out.append(out.detach()) if armed["on"] else None)
@@ -4350,6 +4379,11 @@ def host_sentinel(tmp: Path) -> dict[str, int]:
     check(0 <= after[2]["bad_leaf"] < len(names), f"bad_leaf {after[2]['bad_leaf']}")
     check(after[3] == 0 and before[3] == -1, f"bad_micro {before[3]}, {after[3]}")
     check(all(np.isfinite(losses[HOST_POISON_STEP:])), "a loss after the skip is not finite")
+    # The poisoned step's loss is the plain version's: NaN (kernel 1 keeps a
+    # NaN score's row NaN, as its plain version and the TPU kernel do).
+    check(np.isnan(losses[HOST_POISON_STEP - 1]) and nan_out > 0,
+          f"the poisoned step's loss {losses[HOST_POISON_STEP - 1]} is not NaN "
+          f"({nan_out} non-finite values in the first block's attention output)")
     need = {k.name: HOST_STEPS * PER_STEP.get(k.name, 0) for k in KERNELS}
     check(launches == need, f"the sentinel path launched {launches}, not {need}")
     print(f"[host_infra] sentinel: step {HOST_POISON_STEP} poisoned with NaN "
@@ -4555,6 +4589,367 @@ def host_infra_phase() -> dict[str, dict[str, int]]:
     print(f"[host_infra] phase {time.perf_counter() - t0:.1f} s")
     return paths
 
+
+
+# ------------------------------------------------------------ the repairs
+
+# PERF.md §6's kernel-1 times before the NaN repair (H100 80GB HBM3 at
+# 700 W): f32 and bf16 at the training shape, f32 at long context.
+K1_BEFORE = {"f32": 0.4066, "bf16": 0.0996, "f32 long": 17.235}
+
+
+def _same_nans(got, want, tol: float | None = None, rel: float | None = None) -> float:
+    """NaN exactly where ``want`` has it (else fail); returns max |err| of
+    the finite rest, checked against ``tol`` (absolute, scaled by 1 +
+    |want| when ``rel`` is None) or ``rel`` of the finite max."""
+    import torch
+
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    check(torch.equal(gn, wn), f"NaN in {int(gn.sum())} places where the plain version has "
+          f"{int(wn.sum())}")
+    keep = ~wn
+    g, w = got[keep].float(), want[keep].float()
+    err = (g - w).abs().max().item() if g.numel() else 0.0
+    if rel is not None:
+        check(err <= rel * w.abs().max().item(), f"finite values off by {err:.3e}")
+    else:
+        check(bool(((g - w).abs() <= tol * (1 + w.abs())).all()),
+              f"finite values off by {err:.3e}")
+    return err
+
+
+def repairs_phase(gen, by_name: dict) -> None:
+    """Phase 16: the NaN cases of kernels 1, 10 and 11 against their plain
+    versions, and kernel 1's re-timed rows (module docstring)."""
+    import torch
+
+    from tpudml_torch.ops import (
+        flash_forward_lse, flash_forward_lse_reference, xent_forward, xent_forward_save,
+        xent_forward_save_reference,
+    )
+
+    t0 = time.perf_counter()
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for b, t, h, d, k_shift in ((8, 1024, 4, 128, 0), (2, 200, 2, 64, 1)):
+            q, k, v = (torch.randn((b, t, h, d), generator=gen).cuda().to(dtype)
+                       for _ in range(3))
+            rows = torch.randperm(t, generator=gen)[: max(t // 16, 2)].cuda()
+            half = rows.numel() // 2
+            q[:, rows[:half], 0, :] = float("nan")
+            k[:, rows[half:], h - 1, 3] = float("nan")
+            o, lse = flash_forward_lse(q, k, v, causal=True, k_shift=k_shift)
+            ro, rl = flash_forward_lse_reference(q, k, v, causal=True, k_shift=k_shift)
+            torch.cuda.synchronize()
+            eo = _same_nans(o, ro, rel=BF16_REL) if dtype == torch.bfloat16 \
+                else _same_nans(o, ro, tol=FLASH_TOL)
+            el = _same_nans(lse, rl, tol=FLASH_TOL)
+            line = (f"[repairs] flash_forward_lse {tag} B={b} T={t} H={h} D={d} causal "
+                    f"k_shift={k_shift}, NaN in {half} query rows and {rows.numel() - half} "
+                    f"key rows: O NaN at {int(torch.isnan(o).sum())} places = plain's, lse "
+                    f"{int(torch.isnan(lse).sum())} = plain's; finite max|dO| {eo:.3e}, "
+                    f"max|dlse| {el:.3e}")
+            if k_shift:
+                check(torch.equal(o[:, :k_shift], torch.zeros_like(o[:, :k_shift]))
+                      and bool((lse[:, :, :k_shift] == -1e30).all()),
+                      "a row that sees no key lost its out 0 / lse -1e30")
+                line += "; row 0 (no key) keeps out 0, lse -1e30"
+            print(line)
+    n, d, v = XENT_SHAPE
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for poison, (nn_, vv) in (("x rows", (n, v)), ("W column", (n, v)),
+                                  ("a whole row, V=1", (37, 1))):
+            x, w, bias, y = _xent_inputs(gen, nn_, d, vv, dtype, bad_labels=True)
+            if poison == "x rows":
+                x[torch.randperm(nn_, generator=gen)[: nn_ // 50].cuda(), d // 2] = float("nan")
+            elif poison == "W column":
+                w[:, vv // 2] = float("nan")
+            else:
+                x[nn_ // 2] = float("nan")
+            lse0, picked0 = xent_forward(x, w, bias, y)
+            lse, picked, s = xent_forward_save(x, w, bias, y)
+            rlse, rpicked, rs = xent_forward_save_reference(x, w, bias, y)
+            torch.cuda.synchronize()
+            check(bool(torch.isnan(rlse).any()), "the plain xent forward kept no NaN")
+            errs = [_same_nans(g, r, tol=XENT_ROW_TOL) for g, r in
+                    ((lse0, rlse), (picked0, rpicked), (lse, rlse), (picked, rpicked), (s, rs))]
+            print(f"[repairs] xent forward (kernels 10, 11) {tag} N={nn_} d={d} V={vv}, NaN in "
+                  f"{poison}: lse NaN in {int(torch.isnan(lse).sum())} rows = plain's (both "
+                  f"kernels), picked and scores likewise; finite max|err| {max(errs):.3e}")
+            del x, w, s, rs
+            torch.cuda.empty_cache()
+    fwd, fwd16 = by_name["flash_forward_lse"], by_name["flash_forward_lse_bf16"]
+    now = {"f32": fwd["at_train_shape"]["ms"], "bf16": fwd16["ms"],
+           "f32 long": fwd["at_long_context"]["ms"]}
+    print("[repairs] kernel 1 after the NaN repair (phase 3's times): " + "; ".join(
+        f"{k} {now[k]:.4f} ms (before {K1_BEFORE[k]:g} ms, {now[k] / K1_BEFORE[k]:.3f}x)"
+        for k in K1_BEFORE) + f"; bf16 device {fwd16['device_ms']:.5f} ms")
+    print(f"[repairs] {time.perf_counter() - t0:.1f} s")
+
+
+# ------------------------------------------------ model parallelism, ZeRO-1
+
+GSPMD_RULES = ("stage", "tp")  # paths gspmd_stage, gspmd_tp
+
+
+def _one_rank_group(tmp):
+    from tpudml_torch.core import DistributedConfig, process_group
+
+    return process_group(DistributedConfig(coordinator_address=f"file://{tmp}/store",
+                                           num_processes=1), device="cuda")
+
+
+def _close_params(got: dict, want: dict) -> float:
+    """max over parameters of max |got − want| − GRAD_RTOL·|want| (≤ GRAD_ATOL
+    passes: the JAX package's GRAD_TOL, rtol 1e-4, atol 1e-6)."""
+    return max(((got[n].float() - want[n].float()).abs()
+                - 1e-4 * want[n].float().abs()).max().item() for n in want)
+
+
+def gspmd_phase() -> dict[str, dict[str, int]]:
+    """Main path 11 (module docstring, phase 17). Returns the launch counts of
+    task4 and of the two TRAIN_MODEL runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudml_torch.core import process_count
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import Adam
+    from tpudml_torch.parallel import GSPMDParallel, tensor_parallel_rules
+    from tpudml_torch.tasks import task4
+    from tpudml_torch.train import TrainState, make_train_step
+
+    t0 = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp, _one_rank_group(tmp) as group:
+        check(torch.distributed.get_backend(group) == "nccl" and process_count(group) == 1,
+              "the GSPMD group is not a one-rank NCCL group")
+        root = Path(tmp)
+        _write_mnist_idx(root)
+        reset_launch_counts()  # ---- task4's path starts here
+        m, lines = _lab(task4, ["--data_dir", tmp, "--log_dir", f"{tmp}/logs", "--device",
+                                "cuda", "--log_every", "0"])
+        paths["task4"] = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+        ms = m["train_time_s"] * 1e3 / m["steps"]
+        print(f"[gspmd] world 1 (one-rank NCCL group): task4 --schedule gspmd at the "
+              f"reference's settings (SGD lr 0.01, batch 32, one epoch): test accuracy "
+              f"{m['test_accuracy']:.4f}, {m['steps']} steps in {m['train_time_s']:.2f} s: "
+              f"{ms:.3f} ms/step, {32 * m['steps'] / m['train_time_s']:.0f} imgs/s; "
+              f"{lines[-1]}")
+        check(m["test_accuracy"] >= LABS_ACC_FLOOR and m["world"] == 1, "task4 did not learn")
+
+        t, v = TRAIN_MODEL["max_len"], TRAIN_MODEL["vocab_size"]
+        seqs = synthetic_lm(4 * TRAIN_BATCH, t, v, seed=0)
+        rng = np.random.default_rng(0)
+        batches = [seqs[rng.integers(0, len(seqs), size=TRAIN_BATCH)]
+                   for _ in range(TRAIN_STEPS)]
+
+        def model(impl):
+            return TransformerLM(**TRAIN_MODEL, impl=impl, fused_ln=True, device="cuda",
+                                 generator=torch.Generator().manual_seed(1))
+
+        def single():
+            mm = model("flash")
+            opt = Adam(lr=TRAIN_LR)
+            losses, ms = _train_run(TrainState.create(mm, opt), make_train_step(mm, opt),
+                                    batches)
+            return losses, ms, _params(mm)
+
+        s1, s2 = single(), single()
+        repeats = s1[0] == s2[0] and _bitwise(s1[2], s2[2])
+        print(f"[gspmd] single-card f32 training step repeats itself bitwise over "
+              f"{TRAIN_STEPS} steps: {repeats}")
+        for rule in GSPMD_RULES:
+            mm = model("full")
+            kw = (dict(mesh={"stage": 1}) if rule == "stage" else
+                  dict(mesh={"model": 1}, rule=tensor_parallel_rules("model"),
+                       axis_name="model"))
+            mp = GSPMDParallel(mm, Adam(lr=TRAIN_LR), flash_attn=True, **kw)
+            ts = mp.create_state()
+            sharded = sum(mp.is_sharded(n) for n in mp.param_specs)
+            reset_launch_counts()  # ---- main path 11 (this rule) starts here
+            losses, g_ms = _train_run(ts, mp.make_train_step(), batches)
+            launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+            params = mp.gather_params()
+            for name, n in launches.items():
+                need = TRAIN_STEPS * PER_STEP.get(name, 0)
+                check(n == need, f"gspmd ({rule}) launched {name} {n} times, need {need}")
+            if repeats:
+                check(losses == s1[0] and _bitwise(params, s1[2]),
+                      f"gspmd ({rule}) at world 1 differs from the single-card step")
+                agree = "bitwise (losses and every parameter)"
+            else:
+                ldiff = max(abs(a - b) for a, b in zip(losses, s1[0]))
+                worst = _close_params(params, s1[2])
+                check(ldiff <= LOSS_TOL and worst <= 1e-6,
+                      f"gspmd ({rule}) disagrees with the single-card step")
+                agree = (f"within LOSS_TOL ({ldiff:.2e}) and GRAD_TOL (the single-card step "
+                         "itself does not repeat)")
+            print(f"[gspmd] GSPMDParallel(flash_attn=True), {rule} rule, {sharded} of "
+                  f"{len(mp.param_specs)} parameters sharded over a size-1 axis (each "
+                  f"all-gathered a step through NCCL): losses "
+                  f"{' '.join(f'{x:.6f}' for x in losses)}; equals the single-card step "
+                  f"{agree}; {g_ms:.2f} ms/step vs single-card {s1[1]:.2f}, {s2[1]:.2f} "
+                  f"ms/step; launches {launches} = {TRAIN_STEPS} x {PER_STEP}")
+            paths[f"gspmd_{rule}"] = launches
+            del mm, mp, ts, params
+            torch.cuda.empty_cache()
+    check(not torch.distributed.is_initialized(), "the GSPMD group outlived its phase")
+    print(f"[gspmd] {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _ckpt_roundtrip(tag: str, tmp: str, ts, engine, fresh_ts, fresh_engine, tensors) -> None:
+    """Save ``ts`` through the sharded store with ``engine``'s placement,
+    verify it, restore it into ``fresh_ts`` and require every tensor of
+    ``tensors(state)`` bitwise; prints bytes and seconds."""
+    import torch
+
+    from tpudml_torch.checkpoint import (
+        restore_sharded_checkpoint, save_sharded_checkpoint, verify_sharded_checkpoint,
+    )
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_sharded_checkpoint(f"{tmp}/{tag}", ts, ts.step, placement=engine.placement)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = verify_sharded_checkpoint(path)
+    verify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restore_sharded_checkpoint(path, fresh_ts, placement=fresh_engine.placement)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    a, b = tensors(ts), tensors(fresh_ts)
+    check(step == ts.step == fresh_ts.step and len(a) == len(b)
+          and all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"the {tag} state did not restore bitwise")
+    print(f"[zero1] sharded store, {tag} state: {_dir_bytes(path) / 1e6:.1f} MB in "
+          f"{len(list(Path(path).iterdir()))} files; save {save_s:.2f} s, verify {verify_s:.2f} "
+          f"s, restore (CRCs verified) {restore_s:.2f} s; {len(a)} tensors bitwise")
+
+
+def zero1_phase() -> dict[str, dict[str, int]]:
+    """Main path 12 (module docstring, phase 18). Returns the launch counts of
+    the ZeRO-1 flagship runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import Adam, AdamW
+    from tpudml_torch.parallel import DataParallel, GSPMDParallel
+    from tpudml_torch.tasks import task2
+
+    t0 = time.perf_counter()
+    t, v = TRAIN_MODEL["max_len"], TRAIN_MODEL["vocab_size"]
+    batch = synthetic_lm(TRAIN_BATCH, t, v, seed=1)  # the flagship phase's
+    paths = {}
+
+    def model(seed=3):
+        return TransformerLM(**TRAIN_MODEL, impl="full", fused_ln=True, device="cuda",
+                             compute_dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(seed))
+
+    def tensors(state):
+        if isinstance(state, dict):
+            return [x for k in sorted(state) for x in tensors(state[k])]
+        return [state] if isinstance(state, torch.Tensor) else []
+
+    with tempfile.TemporaryDirectory() as tmp, _one_rank_group(tmp) as group:
+        def run(accum=1, count=None, **kw):
+            m = model()
+            dp = DataParallel(m, AdamW(lr=FLAGSHIP_LR), group, fused_xent=True,
+                              save_scores=True, flash_attn=True, accum_steps=accum, **kw)
+            ts = dp.create_state()
+            if count:
+                reset_launch_counts()  # ---- the path starts here
+            losses, ms = _train_run(ts, dp.make_train_step(), [batch] * FLAGSHIP_STEPS)
+            if count:
+                paths[count] = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+            return losses, ms, dp.gather_params(ts), dp, ts
+
+        a1, a2 = run(), run()
+        repeats = a1[0] == a2[0] and _bitwise(a1[2], a2[2])
+        z = run(zero1=True, count="zero1")
+        d = run(accum=2)
+        zo = run(accum=2, zero1=True, zero1_overlap=True, count="zero1_overlap")
+        for tag, got, want, per in (("zero1=True", z, a1, 1),
+                                    ("zero1_overlap=True, accum_steps=2", zo, d, 2)):
+            if repeats:
+                check(got[0] == want[0] and _bitwise(got[2], want[2]),
+                      f"DataParallel({tag}) at world 1 differs from the step without ZeRO-1")
+                agree = "bitwise (losses and every parameter)"
+            else:
+                lgap = max(abs(x - y) for x, y in zip(a1[0], a2[0]))
+                pgap = max((a1[2][n] - a2[2][n]).abs().max().item() for n in a1[2])
+                ldiff = max(abs(x - y) for x, y in zip(got[0], want[0]))
+                worst = max((got[2][n] - want[2][n]).abs().max().item() for n in want[2])
+                check(ldiff <= DP_GAP_MULT * lgap and worst <= DP_GAP_MULT * pgap,
+                      f"DataParallel({tag}) disagrees with the step without ZeRO-1")
+                agree = f"within {DP_GAP_MULT} x the step's own gap"
+            name = "zero1" if per == 1 else "zero1_overlap"
+            for k, n in paths[name].items():
+                need = FLAGSHIP_STEPS * per * FLAGSHIP_PER_STEP.get(k, 0)
+                check(n == need, f"{tag} launched {k} {n} times, need {need}")
+            opt_mb = sum(x.numel() * x.element_size() for x in tensors(got[4].opt_state)
+                         if x.dim() > 0) / 1e6
+            print(f"[zero1] world 1 (one-rank NCCL group), bf16 flagship, "
+                  f"DataParallel({tag}): losses {' '.join(f'{x:.6f}' for x in got[0])}; "
+                  f"{agree} vs the same step without ZeRO-1 (which repeats itself: "
+                  f"{repeats}); {got[1]:.2f} ms/step vs {want[1]:.2f} ms/step; optimizer "
+                  f"state {opt_mb:.1f} MB on this rank; launches {paths[name]} = "
+                  f"{FLAGSHIP_STEPS} x {per} x {FLAGSHIP_PER_STEP}")
+        print(f"[zero1] without ZeRO-1: {a1[1]:.2f}, {a2[1]:.2f} ms/step (accum_steps=1), "
+              f"{d[1]:.2f} ms/step (accum_steps=2)")
+
+        # The sharded store: ZeRO-1's state, then a GSPMD state.
+        m2 = model(seed=9)
+        dp2 = DataParallel(m2, AdamW(lr=FLAGSHIP_LR), group, fused_xent=True, save_scores=True,
+                           flash_attn=True, zero1=True)
+        ts2 = dp2.create_state()
+        _ckpt_roundtrip("ZeRO-1 (AdamW, bf16 flagship)", tmp, z[4], z[3], ts2, dp2,
+                        lambda ts: [*ts.model.parameters(), *tensors(ts.opt_state)])
+        del z, zo, d, a1, a2, m2, dp2, ts2
+        torch.cuda.empty_cache()
+
+        def lm(seed):
+            return TransformerLM(**TRAIN_MODEL, impl="full", fused_ln=True, device="cuda",
+                                 generator=torch.Generator().manual_seed(seed))
+
+        mp = GSPMDParallel(lm(1), Adam(lr=TRAIN_LR), {"stage": 1}, flash_attn=True)
+        ts = mp.create_state()
+        ts, _ = mp.make_train_step()(ts, batch[:, :-1], batch[:, 1:])
+        mp2 = GSPMDParallel(lm(2), Adam(lr=TRAIN_LR), {"stage": 1}, flash_attn=True)
+        _ckpt_roundtrip("GSPMD (stage rule, Adam, f32)", tmp, ts, mp, mp2.create_state(), mp2,
+                        lambda s: [*s.model.parameters(), *tensors(s.opt_state)])
+        del mp, mp2, ts
+        torch.cuda.empty_cache()
+
+        # task2 --zero1 on the IDX files.
+        root = Path(tmp) / "mnist"
+        root.mkdir()
+        _write_mnist_idx(root)
+        m, lines = _lab(task2, ["--data_dir", str(root), "--log_dir", f"{tmp}/logs",
+                                "--device", "cuda", "--epochs", "1", "--log_every", "0",
+                                "--zero1"])
+        print(f"[zero1] task2 --zero1 (one epoch): test accuracy {m['test_accuracy']:.4f}, "
+              f"{m['steps']} steps in {m['train_time_s']:.2f} s "
+              f"({m['train_time_s'] * 1e3 / m['steps']:.3f} ms/step); {lines[-1]}")
+        check(m["test_accuracy"] >= LABS_ACC_FLOOR, "task2 --zero1 did not learn")
+    check(not torch.distributed.is_initialized(), "the ZeRO-1 group outlived its phase")
+    print(f"[zero1] {time.perf_counter() - t0:.1f} s")
+    return paths
 
 
 def ptxas_usage(log: str) -> dict[str, dict]:
@@ -4979,6 +5374,12 @@ def main() -> int:
     paths.update(dropout_phase())
     torch.cuda.empty_cache()
     paths.update(host_infra_phase())
+    torch.cuda.empty_cache()
+    repairs_phase(gen, by_name)
+    torch.cuda.empty_cache()
+    paths.update(gspmd_phase())
+    torch.cuda.empty_cache()
+    paths.update(zero1_phase())
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

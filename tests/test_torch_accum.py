@@ -126,7 +126,9 @@ def test_batchnorm_state_threads_through_the_micro_batches(monkeypatch):
     equal to JAX's first (a flip moves a BatchNorm gradient past
     GRAD_TOL, as in ``tests/test_torch_resnet_dp.py``)."""
     jmasks, tmasks = [], []
-    relu, trelu = jax.nn.relu, torch.nn.functional.relu
+    from tpudml_torch.nn import layers
+
+    relu, trelu = jax.nn.relu, layers.relu
 
     def jrec(x):
         jax.debug.callback(lambda v: jmasks.append(np.asarray(v) > 0), x, ordered=True)
@@ -137,7 +139,7 @@ def test_batchnorm_state_threads_through_the_micro_batches(monkeypatch):
         return trelu(x, *a, **kw)
 
     monkeypatch.setattr(jax.nn, "relu", jrec)
-    monkeypatch.setattr(torch.nn.functional, "relu", trec)
+    monkeypatch.setattr(layers, "relu", trec)
     jm = small_resnet()
     jparams, jstate = jm.init(jax.random.key(BN_SEED))
     tm = ResNet(stage_sizes=(1, 1), width=8, device="cpu")

@@ -263,12 +263,22 @@ def test_constructor_rejections_use_the_jax_wording(key, kw):
     (dict(zero1=True, sentinel=True), "item 7"),
     (dict(zero1=True, obs=True), "item 7"),
 ])
-def test_unported_knobs_name_their_item(kw, match):
-    """ZeRO-1 still raises, also beside the sentinel and the flight
-    recorder (which are ported: ``tests/test_torch_sentinel.py``,
-    ``tests/test_torch_obs.py``)."""
-    with pytest.raises(NotImplementedError, match=match):
-        DataParallel(_tiny(), GradientDescent(), flash_attn=True, **kw)
+def test_unported_knobs_name_their_item(kw, match, tmp_path):
+    """ZeRO-1 (item 7, ported since: ``tests/test_torch_zero1.py``) builds,
+    also beside the sentinel, which sits inside the ZeRO1 wrapper, and the
+    flight recorder."""
+    from tpudml_torch.optim import ZeRO1
+    from tpudml_torch.resilience import GradSentinel, find_sentinel
+
+    assert match == "item 7"
+    with process_group(DistributedConfig(coordinator_address=f"file://{tmp_path}/store"),
+                       device="cpu"):
+        dp = DataParallel(_tiny(), GradientDescent(), flash_attn=True, **kw)
+    assert isinstance(dp.optimizer, ZeRO1) and dp.zero1
+    if kw.get("sentinel"):
+        assert isinstance(dp.optimizer.base, GradSentinel)
+        assert find_sentinel(dp.optimizer) is dp.sentinel
+    assert (dp.tracer is not None) == bool(kw.get("obs"))
 
 
 def test_needs_a_process_group_and_the_devices_backend(tmp_path):

@@ -1247,15 +1247,14 @@ def test_ep_world1_nccl_step_equals_the_single_card_step(cuda_device, tmp_path, 
 def test_small_resnet_f32_on_card_matches_cpu(cuda_device, variant):
     """The north star's model, small: f32 train-mode logits, BN statistics
     after the forward and step-1 gradients, card against CPU."""
-    import torch.nn.functional as F
-
     from tpudml_torch.data import synthetic_classification
     from tpudml_torch.models import ResNet
+    from tpudml_torch.nn import layers
     from tpudml_torch.train import make_loss_fn, params_of
 
     torch.backends.cudnn.allow_tf32 = False
     x, y = synthetic_classification(8, (33, 33, 3), 10, seed=0)
-    relu = F.relu
+    relu = layers.relu
 
     def run(device, replay=None):
         m = ResNet(stage_sizes=(1, 1), width=8, device=device, **variant,
@@ -1268,13 +1267,13 @@ def test_small_resnet_f32_on_card_matches_cpu(cuda_device, variant):
             masks.append(t.detach() > 0)
             return relu(t, *args, **kw)
 
-        F.relu = patched
+        layers.relu = patched
         try:
             loss, logits = make_loss_fn(m)(torch.from_numpy(x).to(device),
                                            torch.from_numpy(y).long().to(device))
             grads = torch.autograd.grad(loss, list(params_of(m).values()))
         finally:
-            F.relu = relu
+            layers.relu = relu
         out = {"logits": logits.detach(), **dict(m.named_buffers()),
                **{f"grad:{n}": g for n, g in zip(params_of(m), grads)}}
         return {k: v.detach().cpu() for k, v in out.items()}, masks
@@ -1508,3 +1507,79 @@ def test_resume_at_the_training_config_is_bitwise(cuda_device, tmp_path):
     assert sorted(got) == [3, 4] and all(got[i] == want[i] for i in got)
     a, b = leaves(tmp_path / "ref" / "step_4"), leaves(tmp_path / "run" / "step_4")
     assert len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _same_nans_and_close(got, want, tol=None, rel=None):
+    """NaN exactly where ``want`` has it; the finite rest within ``tol``
+    (rtol/atol) or ``rel`` of ``want``'s largest finite magnitude."""
+    assert torch.equal(got.isnan(), want.isnan()), (
+        int(got.isnan().sum()), int(want.isnan().sum()))
+    keep = ~want.isnan()
+    if rel is None:
+        torch.testing.assert_close(got[keep], want[keep], **tol)
+    else:
+        _close_to_max(got[keep], want[keep], rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,h,d,causal,k_shift", [
+    (8, 1024, 4, 128, True, 0),    # the training shape
+    (2, 200, 2, 64, True, 1),      # rows 0 sees no key
+    (1, 77, 2, 32, False, 0),
+])
+def test_flash_forward_keeps_nan(cuda_device, dtype, b, t, h, d, causal, k_shift):
+    """Kernel 1 writes NaN wherever its plain version does: NaN query rows
+    (their own rows), NaN key rows (every row that sees them), in one
+    head each; the finite rest at the forward's tolerances, and a row
+    that sees no key keeps out 0 and lse −1e30."""
+    q, k, v = (_randn(b, t, h, d, seed=s, device=cuda_device).to(dtype) for s in (11, 12, 13))
+    g = torch.Generator().manual_seed(14)
+    rows = torch.randperm(t, generator=g)[: max(t // 16, 2)].to(cuda_device)
+    half = rows.numel() // 2
+    q[:, rows[:half], 0, :] = float("nan")
+    k[:, rows[half:], h - 1, 3] = float("nan")
+    o, lse = flash_forward_lse(q, k, v, causal=causal, k_shift=k_shift)
+    ro, rl = flash_forward_lse_reference(q, k, v, causal=causal, k_shift=k_shift)
+    assert o.isnan().any() and lse.isnan().any()
+    if dtype == torch.float32:
+        _same_nans_and_close(o, ro, tol=dict(rtol=1e-5, atol=1e-5))
+    else:
+        _same_nans_and_close(o, ro, rel=BF16_REL)
+    _same_nans_and_close(lse, rl, tol=dict(rtol=1e-5, atol=1e-5))
+    if k_shift:
+        assert torch.equal(o[:, :k_shift], torch.zeros_like(o[:, :k_shift]))
+        assert bool((lse[:, :, :k_shift] == -1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("poison", ["x_rows", "w_col", "all_row"])
+@pytest.mark.parametrize("n,d,v", [(8192, 512, 32768), (1000, 64, 1000), (65, 520, 129),
+                                   (37, 8, 1)])
+def test_xent_forward_keeps_nan(cuda_device, dtype, poison, n, d, v):
+    """Kernels 10 and 11 keep NaN as their plain versions do: NaN in some
+    rows of x (those rows' lse, picked and scores), in one column of W
+    (every row's lse, that column's scores and picks), or a whole row of
+    x NaN (its lse through the merge of vocabulary lanes that saw no
+    finite score: V = 1 leaves most lanes empty); the finite rest at the
+    xent tolerances. (They keep it as they are: their max drops a NaN
+    score, but the sum of exp(s − max) it feeds does not.)"""
+    x, w, b, y = _xent_inputs(n, d, v, dtype, cuda_device)
+    g = torch.Generator().manual_seed(21)
+    if poison == "x_rows":
+        rows = torch.randperm(n, generator=g)[: max(n // 50, 1)].to(cuda_device)
+        x[rows, d // 2] = float("nan")
+    elif poison == "w_col":
+        w[:, v // 2] = float("nan")
+    else:
+        x[n // 2] = float("nan")
+    lse0, picked0 = xent_forward(x, w, b, y)
+    lse, picked, s = xent_forward_save(x, w, b, y)
+    rlse, rpicked, rs = xent_forward_save_reference(x, w, b, y)
+    assert rlse.isnan().any()
+    for got in (lse0, lse):
+        _same_nans_and_close(got, rlse, tol=ROW_TOL)
+    for got in (picked0, picked):
+        _same_nans_and_close(got, rpicked, tol=ROW_TOL)
+    _same_nans_and_close(s, rs, tol=ROW_TOL)

@@ -132,13 +132,13 @@ def _rel(a, b) -> float:
 @pytest.fixture
 def relu_masks(monkeypatch):
     """(JAX masks, port masks): each ReLU's ``x > 0`` as the two models
-    call ``jax.nn.relu`` and ``F.relu``, in call order, NHWC (JAX's
-    through an ordered debug callback, so also under ``jit``).
-    ``check()`` asserts them equal."""
-    import torch.nn.functional as F
+    call ``jax.nn.relu`` and ``tpudml_torch.nn.layers.relu``, in call
+    order, NHWC (JAX's through an ordered debug callback, so also under
+    ``jit``). ``check()`` asserts them equal."""
+    from tpudml_torch.nn import layers
 
     jax_masks, port_masks = [], []
-    jax_relu, port_relu = jax.nn.relu, F.relu
+    jax_relu, port_relu = jax.nn.relu, layers.relu
 
     def jrelu(x):
         jax.debug.callback(lambda v: jax_masks.append(np.asarray(v) > 0), x, ordered=True)
@@ -149,7 +149,7 @@ def relu_masks(monkeypatch):
         return port_relu(x, *args, **kw)
 
     monkeypatch.setattr(jax.nn, "relu", jrelu)
-    monkeypatch.setattr(F, "relu", trelu)
+    monkeypatch.setattr(layers, "relu", trelu)
 
     class Masks:
         @staticmethod
@@ -560,10 +560,16 @@ def test_config_from_args_matches_jax(argv, monkeypatch):
     (["--plan", "p.json", "--ckpt_dir", "ck"], "item 10"), (["--plan", "p.json"], "item 10"),
 ])
 def test_unported_flags_parse_and_raise(flag, item):
-    """``--zero1`` and ``--plan`` still raise, also beside the host flags
-    (``--sentinel``, ``--obs``, ``--profile``, ``--ckpt_dir``), which parse
-    and are ported."""
+    """``--plan`` still raises, also beside the host flags (``--sentinel``,
+    ``--obs``, ``--profile``, ``--ckpt_dir``), which parse and are ported;
+    ``--zero1`` (item 7, ported since) parses into ``cfg.zero1`` beside
+    them."""
     args = build_parser().parse_args(flag)
+    if item == "item 7":
+        cfg = config_from_args(args)
+        assert cfg.zero1 and cfg.sentinel == ("--sentinel" in flag)
+        assert cfg.profile == ("--profile" in flag)
+        return
     with pytest.raises(NotImplementedError, match=item):
         config_from_args(args)
 

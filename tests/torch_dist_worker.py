@@ -18,8 +18,14 @@ with ``accum_steps``, task3's samplers and ShardedDataLoader for each
 division, the dropout LM with a ``rng_root`` stream per rank drawing the
 JAX masks of ``<job>/cases.pt``, and the task2 entry at world 2), ``obs``
 (``DataParallel(obs=True)``, fused and split, and obs off: StepStats,
-spans) and ``sentinel`` (``DataParallel(sentinel=...)`` on LeNet: a
-clean run, a NaN step, a poisoned micro-batch under accumulation).
+spans), ``sentinel`` (``DataParallel(sentinel=...)`` on LeNet: a
+clean run, a NaN step, a poisoned micro-batch under accumulation),
+``gspmd`` and ``gspmd2d`` (``GSPMDParallel`` on LeNet's stages and the
+tiny LM), ``task4`` (the task4 entry), ``zero1``
+(``DataParallel(zero1=...)``, its sharded checkpoints, task2 ``--zero1``)
+and ``sharded`` (the sharded store on a GSPMD and an EP state, this
+package's and JAX's files; task5 ``--parallel ep --ckpt_dir`` and
+``--resume``).
 """
 
 from __future__ import annotations
@@ -164,9 +170,9 @@ def suite_resnet(job: Path, rank: int, world: int) -> dict:
     (NHWC, in call order), and the final parameters and BatchNorm
     buffers."""
     import torch
-    import torch.nn.functional as F
 
     from tpudml_torch.models import ResNet
+    from tpudml_torch.nn import layers
     from tpudml_torch.optim import Sgd
     from tpudml_torch.parallel import DataParallel
 
@@ -177,13 +183,13 @@ def suite_resnet(job: Path, rank: int, world: int) -> dict:
     ts = dp.create_state()
     step = dp.make_train_step()
     masks: list = []
-    relu = F.relu
+    relu = layers.relu
 
     def recording_relu(x, *args, **kw):
         masks[-1].append((x.detach() > 0).permute(0, 2, 3, 1).numpy())
         return relu(x, *args, **kw)
 
-    F.relu = recording_relu
+    layers.relu = recording_relu
     losses = []
     try:
         for images, labels in case["batches"]:
@@ -191,7 +197,7 @@ def suite_resnet(job: Path, rank: int, world: int) -> dict:
             ts, m = step(ts, images, labels)
             losses.append(float(m["loss"]))
     finally:
-        F.relu = relu
+        layers.relu = relu
     return {"losses": losses, "masks": masks,
             "state": {k: v.clone() for k, v in model.state_dict().items()}}
 
@@ -605,9 +611,257 @@ def suite_sentinel(job: Path, rank: int, world: int) -> dict:
     }
 
 
+# ------------------------------------------- gspmd, zero1, sharded store
+
+
+def _staged(case, key="lenet"):
+    from tpudml_torch.models import lenet_stages
+
+    model = lenet_stages(device="cpu")
+    model.load_state_dict(case[key])
+    return model
+
+
+def _mp_run(model, opt, batches, **engine):
+    """``GSPMDParallel(model, opt, **engine)``: per-step losses, the full
+    parameters after, each local parameter's and optimizer tensor's shape."""
+    from tpudml_torch.parallel import GSPMDParallel
+
+    mp = GSPMDParallel(model, opt, **engine)
+    ts, step = mp.create_state(), mp.make_train_step()
+    losses = []
+    for x, y in batches:
+        ts, m = step(ts, x, y)
+        losses.append(float(m["loss"]))
+    opt_shapes = ({n: tuple(t.shape) for n, t in ts.opt_state.items()}
+                  if isinstance(ts.opt_state, dict) and "m" not in ts.opt_state else {})
+    return {"losses": losses, "params": mp.gather_params(),
+            "local": {n: tuple(p.shape) for n, p in model.named_parameters()},
+            "opt_local": opt_shapes, "specs": mp.param_specs}, mp, ts
+
+
+def _lm(case):
+    from tpudml_torch.models import TransformerLM
+
+    model = TransformerLM(**case["lm"], device="cpu")
+    model.load_state_dict(case["lm_state"])
+    return model
+
+
+def suite_gspmd(job: Path, rank: int, world: int) -> dict:
+    """World 2: LeNet's stages under the stage rule (SGD, then SGD momentum:
+    the blocks and their momentum), the tiny LM under tensor_parallel_rules
+    (SGD momentum)."""
+    import torch
+
+    from tpudml_torch.optim import Sgd
+    from tpudml_torch.parallel import tensor_parallel_rules
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    batches = [(case["x"], case["y"])] * case["steps"]
+    out = {}
+    out["sgd"], _, _ = _mp_run(_staged(case), Sgd(lr=0.01), batches, mesh={"stage": world})
+    out["momentum"], _, _ = _mp_run(_staged(case), Sgd(lr=0.01, momentum=0.9), batches[:1],
+                                    mesh={"stage": world})
+
+    tp = dict(mesh={"model": world}, rule=tensor_parallel_rules("model"), axis_name="model")
+    tokens = [(case["tokens"], case["labels"])] * 2
+    out["tp"], _, _ = _mp_run(_lm(case), Sgd(lr=0.1, momentum=0.9), tokens, **tp)
+    return out
+
+
+def suite_task4(job: Path, rank: int, world: int) -> dict:
+    """The task4 entry (``--schedule gspmd``) at this world."""
+    from tpudml_torch.tasks import task4
+
+    return task4.main(["--device", "cpu", "--dataset", "synthetic", "--epochs", "1",
+                       "--lr", "0.05", "--momentum", "0.9", "--log_every", "25",
+                       "--log_dir", str(job / f"logs{rank}")])
+
+
+def suite_gspmd2d(job: Path, rank: int, world: int) -> dict:
+    """World 4 as {"data": 2, "stage": 2}: LeNet's stages with batch_axis."""
+    import torch
+
+    from tpudml_torch.optim import Sgd
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    run, _, _ = _mp_run(_staged(case), Sgd(lr=0.01), [(case["x"], case["y"])] * 2,
+                        mesh={"data": 2, "stage": 2}, batch_axis="data")
+    return run
+
+
+def _zero1_run(case, opt, batches, **engine):
+    """LeNet (the case's parameters) under ``DataParallel(**engine)``: per-step
+    losses, the full parameters after, this rank's optimizer-state bytes
+    and the engine's comm calls."""
+    from tpudml_torch.models import LeNet
+    from tpudml_torch.parallel import DataParallel
+
+    model = LeNet(device="cpu")
+    model.load_state_dict(case["lenet"])
+    dp = DataParallel(model, opt, stacked_batches=False, **engine)
+    ts, step = dp.create_state(), dp.make_train_step()
+    losses, extra = [], {}
+    for x, y in batches:
+        ts, m = step(ts, x, y)
+        losses.append(float(m["loss"]))
+    params = {n: t.clone() for n, t in dp.gather_params(ts).items()}
+
+    def tensors(state):
+        if isinstance(state, dict):
+            return [t for v in state.values() for t in tensors(v)]
+        return [state] if isinstance(state, __import__("torch").Tensor) else []
+
+    opt_bytes = sum(t.numel() * t.element_size() for t in tensors(ts.opt_state)
+                    if t.dim() > 0)
+    if dp.sentinel is not None:
+        from tpudml_torch.resilience import param_leaf_names, sentinel_stats
+
+        extra = {"stats": sentinel_stats(ts.opt_state), "names": param_leaf_names(model)}
+    return {"losses": losses, "params": params, "opt_bytes": opt_bytes,
+            "comm_calls": dp.comm_stats.calls, **extra}, dp, ts
+
+
+def suite_zero1(job: Path, rank: int, world: int) -> dict:
+    """World 2: DataParallel(zero1=...) on LeNet (Adam, SGD momentum, with
+    accumulation, a clip, the overlap variant, the split step, the
+    sentinel on a NaN step), the sharded store of a ZeRO-1 state, and task2
+    --zero1."""
+    import torch
+
+    from tpudml_torch.checkpoint import restore_sharded_checkpoint, save_sharded_checkpoint
+    from tpudml_torch.models import LeNet
+    from tpudml_torch.optim import Adam, ClipByGlobalNorm, Sgd
+    from tpudml_torch.parallel import DataParallel
+    from tpudml_torch.tasks import task2
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    b = [(case["x"], case["y"])] * 3
+    out = {
+        "adam": _zero1_run(case, Adam(lr=1e-2), b, zero1=True)[0],
+        "adam_rep": _zero1_run(case, Adam(lr=1e-2), b)[0],
+        "sgd": _zero1_run(case, Sgd(lr=1e-2, momentum=0.9), b, zero1=True)[0],
+        "accum": _zero1_run(case, Sgd(lr=1e-2, momentum=0.9), b, zero1=True,
+                            accum_steps=2)[0],
+        "clip": _zero1_run(case, ClipByGlobalNorm(Adam(lr=1e-3), max_norm=0.05), b,
+                           zero1=True)[0],
+        "overlap": _zero1_run(case, Sgd(lr=1e-2, momentum=0.9), b, zero1=True,
+                              zero1_overlap=True, accum_steps=2)[0],
+        "split": _zero1_run(case, Adam(lr=1e-3), b, zero1=True, measure_comm=True)[0],
+        "sentinel": _zero1_run(case, Sgd(lr=1e-2, momentum=0.9),
+                               [b[0], (case["xbad"], case["y"]), b[0]],
+                               zero1=True, sentinel=True)[0],
+    }
+    run, dp, ts = _zero1_run(case, Adam(lr=1e-3), b[:2], zero1=True)
+    out["ckpt_run_losses"] = run["losses"]
+    save_sharded_checkpoint(job / "zero1_ckpt", ts, 2, placement=dp.placement)
+    model = LeNet(device="cpu", generator=torch.Generator().manual_seed(9))
+    dp2 = DataParallel(model, Adam(lr=1e-3), stacked_batches=False, zero1=True)
+    ts2 = dp2.create_state()
+    restore_sharded_checkpoint(job / "zero1_ckpt" / "step_2", ts2, placement=dp2.placement)
+    out["ckpt"] = {"m": {n: t.clone() for n, t in ts.opt_state["m"].items()},
+                   "roundtrip": ts2.step == 2 and ts2.opt_state["t"] == ts.opt_state["t"]
+                   and all(torch.equal(p, run["params"][n]) for n, p in model.named_parameters())
+                   and all(torch.equal(t, ts.opt_state["v"][n])
+                           for n, t in ts2.opt_state["v"].items())}
+    out["task2"] = task2.main(["--device", "cpu", "--dataset", "synthetic", "--epochs", "1",
+                               "--batch_size", "16", "--log_every", "0", "--zero1",
+                               "--log_dir", str(job / f"logs{rank}")])
+    return out
+
+
+def suite_sharded(job: Path, rank: int, world: int) -> dict:
+    """World 2: the sharded store on a GSPMD state (the tiny LM under
+    tensor_parallel_rules, Adam, after a step): saved, restored into a
+    fresh engine's state (other weights) bitwise, JAX's file of the same
+    state restored; an EP state likewise; then task5 --parallel ep
+    --ckpt_dir (4 steps, a checkpoint every 2) and a resume from the step-2
+    checkpoint to step 4."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from tpudml_torch.checkpoint import (
+        restore_latest_valid_sharded, restore_sharded_checkpoint, save_sharded_checkpoint,
+        verify_sharded_checkpoint,
+    )
+    from tpudml_torch.interop import gspmd_state_from_tpudml
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.nn import Activation, Dense, Flatten, Sequential
+    from tpudml_torch.nn.moe import MoELayer
+    from tpudml_torch.optim import Adam, Sgd
+    from tpudml_torch.parallel import ExpertParallel, GSPMDParallel, tensor_parallel_rules
+    from tpudml_torch.tasks import task5_longcontext as task5
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    out = {}
+    tp = dict(mesh={"model": world}, rule=tensor_parallel_rules("model"), axis_name="model")
+    _, mp, ts = _mp_run(_lm(case), Adam(lr=1e-3), [(case["tokens"], case["labels"])], **tp)
+    save_sharded_checkpoint(job / "port_tp", ts, 1, placement=mp.placement)
+    out["verified_step"] = verify_sharded_checkpoint(job / "port_tp" / "step_1")
+    out["full"] = mp.gather_params()
+    with torch.no_grad():
+        out["m_full"] = {n: t.clone() for n, t in mp.gather(ts.opt_state["m"]).items()}
+
+    def fresh():
+        model = TransformerLM(**case["lm"], device="cpu",
+                              generator=torch.Generator().manual_seed(7))
+        eng = GSPMDParallel(model, Adam(lr=1e-3), **tp)
+        return eng, eng.create_state()
+
+    mp2, ts2 = fresh()
+    restore_latest_valid_sharded(job / "port_tp", ts2, placement=mp2.placement)
+    out["roundtrip"] = (
+        ts2.step == 1 and ts2.opt_state["t"] == ts.opt_state["t"]
+        and all(torch.equal(p, q) for p, q in zip(ts.model.parameters(), ts2.model.parameters()))
+        and all(torch.equal(t, ts2.opt_state[k][n]) for k in ("m", "v")
+                for n, t in ts.opt_state[k].items()))
+    mp3, ts3 = fresh()
+    restore_sharded_checkpoint(job / "jax_tp" / "step_3", ts3, placement=mp3.placement)
+    params, opt = gspmd_state_from_tpudml(case["jax_tp_params"], case["jax_tp_opt"],
+                                          mp3.param_specs, mp3.mesh, mp3.coords)
+    out["from_jax"] = (
+        ts3.step == 1 and ts3.opt_state["t"] == opt["t"]
+        and all(torch.equal(p, params[n]) for n, p in ts3.model.named_parameters())
+        and all(torch.equal(t, opt[k][n]) for k in ("m", "v")
+                for n, t in ts3.opt_state[k].items()))
+
+    def ep_model(seed):
+        g = torch.Generator().manual_seed(seed)
+        return Sequential((Flatten(), Dense(16, 8, generator=g), Activation(),
+                           MoELayer(8, 4, mlp_ratio=2, axis_name="expert", generator=g),
+                           Dense(8, 4, generator=g))).to("cpu")
+
+    ep = ExpertParallel(ep_model(2), Sgd(lr=0.1, momentum=0.9))
+    ts = ep.create_state()
+    ts, _ = ep.make_train_step()(ts, case["ep_x"], case["ep_y"])
+    save_sharded_checkpoint(job / "ep_shards", ts, 1, placement=ep.placement)
+    ep2 = ExpertParallel(ep_model(5), Sgd(lr=0.1, momentum=0.9))
+    ts2 = ep2.create_state()
+    restore_sharded_checkpoint(job / "ep_shards" / "step_1", ts2, placement=ep2.placement)
+    out["ep_roundtrip"] = (
+        ts2.step == 1
+        and all(torch.equal(p, q) for p, q in zip(ts.model.parameters(), ts2.model.parameters()))
+        and all(torch.equal(ts.opt_state[n], ts2.opt_state[n]) for n in ts.opt_state))
+
+    flags = case["task5"] + ["--n_devices", str(world)]
+    out["a"] = task5.main(flags + ["--ckpt_dir", str(job / "ref"),
+                                   "--log_dir", str(job / f"a{rank}")])
+    if rank == 0:
+        shutil.copytree(job / "ref" / "step_2", job / "run" / "step_2")
+    dist.barrier()
+    out["b"] = task5.main(flags + ["--ckpt_dir", str(job / "run"), "--resume",
+                                   "--log_dir", str(job / f"b{rank}")])
+    return out
+
+
 SUITES = {"dp": suite_dp, "resnet": suite_resnet, "comm": suite_comm,
           "task5": suite_task5, "ep": suite_ep, "labs": suite_labs, "obs": suite_obs,
-          "sentinel": suite_sentinel}
+          "sentinel": suite_sentinel, "gspmd": suite_gspmd, "gspmd2d": suite_gspmd2d,
+          "task4": suite_task4,
+          "zero1": suite_zero1, "sharded": suite_sharded}
 
 
 def main() -> None:

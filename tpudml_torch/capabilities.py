@@ -1,6 +1,7 @@
 """The port's copy of the engine-composition rejections that its engines
-raise (the rows of ``tpudml/capabilities.py`` that ``DataParallel``, task5
-``--parallel ep`` and the serving engine check, with the JAX wording; the
+raise (the rows of ``tpudml/capabilities.py`` that ``DataParallel``,
+``GSPMDParallel``, ``ZeRO1``, task5 ``--parallel ep`` and the serving
+engine check, with the JAX wording; the
 planner's full table is ROADMAP.md queue 1 item 10).
 
 Guard sites call :func:`reject` with an entry's key instead of writing
@@ -23,8 +24,9 @@ class CompositionError(ValueError):
 
 
 # Engine families the predicates reason over. ``zero1`` is the DP
-# engine with zero1=True.
+# engine with zero1=True; fsdp/tp/fsdp_tp all construct GSPMDParallel.
 _DP_FAMILY = ("dp", "zero1")
+_GSPMD_FAMILY = ("tp", "fsdp", "fsdp_tp")
 
 
 def _g(c: dict, key: str, default=None):
@@ -61,6 +63,29 @@ _ENTRIES = (
         when=lambda c: _g(c, "engine") in _DP_FAMILY
         and bool(_g(c, "fused_xent"))
         and bool(_g(c, "measure_comm") or _g(c, "custom_loss")),
+    ),
+    Capability(
+        key="gspmd_fused_xent_accum",
+        owner="tpudml_torch.parallel.mp",
+        message=(
+            "fused_xent composes with the fused LM step and the built-in "
+            "cross-entropy only (no accum_steps, no custom loss)"
+        ),
+        when=lambda c: _g(c, "engine") in _GSPMD_FAMILY
+        and bool(_g(c, "fused_xent"))
+        and _g(c, "schedule", "gpipe") == "gpipe",
+    ),
+    Capability(
+        key="zero1_stacked_clip",
+        owner="tpudml_torch.optim.zero1",
+        message=(
+            "ZeRO1(stacked=...) cannot wrap a ClipByGlobalNorm chain: "
+            "stage-stacked chunks shard over two mesh axes and the "
+            "clip's single-psum norm would double-count or miss shards"
+        ),
+        when=lambda c: _g(c, "engine") == "pp_dp"
+        and bool(_g(c, "zero1"))
+        and bool(_g(c, "grad_clip")),
     ),
     Capability(
         key="zero1_overlap_needs_zero1",

@@ -1,6 +1,7 @@
 """Checkpoint store: atomic npz + manifest, rank-0 writes (the port of
 ``tpudml/checkpoint/store.py``), in JAX's format 2, so either package
-reads what the other wrote.
+reads what the other wrote. A state whose ranks hold different blocks
+goes through ``checkpoint/sharded.py`` instead.
 
 On disk, as in JAX: ``step_N/leaves.npz`` with one array a leaf under
 ``leaf_%05d`` keys, and ``manifest.json`` with ``format`` (2), ``step``,
@@ -97,10 +98,11 @@ class _Leaf:
     decoded array goes back (``put``) and what shape and dtype it must
     have there."""
 
-    __slots__ = ("value", "put", "hwio")
+    __slots__ = ("value", "put", "hwio", "name", "kind")
 
-    def __init__(self, value, put=None, hwio: bool = False):
-        self.value, self.put, self.hwio = value, put, hwio
+    def __init__(self, value, put=None, hwio: bool = False, name: str = ""):
+        self.value, self.put, self.hwio, self.name = value, put, hwio, name
+        self.kind = None  # a TrainState's leaf: "param", "state", "opt" or "step"
 
     def host(self, copy: bool) -> np.ndarray | torch.Tensor:
         """The leaf on the host in JAX's layout: a CPU tensor (one
@@ -144,7 +146,7 @@ def _flatten(tree, out: list, put=None, layout: bool = False, name: str = "") ->
     else:
         hwio = (layout and isinstance(tree, torch.Tensor) and tree.dim() == 4
                 and name.split(".")[-1] == "kernel")
-        out.append(_Leaf(tree, put, hwio))
+        out.append(_Leaf(tree, put, hwio, name))
 
 
 def _item_put(container, key):
@@ -167,11 +169,18 @@ def _train_state_leaves(ts) -> list[_Leaf]:
     """The leaves of a port TrainState in JAX's ``TrainState`` order."""
     out: list[_Leaf] = []
     model = ts.model
-    _flatten(dict(model.named_parameters()), out, layout=True)
-    _flatten({n: b for n, b in model.named_buffers() if b.is_floating_point()}, out,
-             layout=True)
-    _flatten_opt(ts.opt_state, out)
-    out.append(_Leaf(np.int32(ts.step), _step_put(ts)))
+    sections = (
+        ("param", lambda: _flatten(dict(model.named_parameters()), out, layout=True)),
+        ("state", lambda: _flatten({n: b for n, b in model.named_buffers()
+                                    if b.is_floating_point()}, out, layout=True)),
+        ("opt", lambda: _flatten_opt(ts.opt_state, out)),
+        ("step", lambda: out.append(_Leaf(np.int32(ts.step), _step_put(ts), name="step"))),
+    )
+    for kind, add in sections:
+        first = len(out)
+        add()
+        for leaf in out[first:]:
+            leaf.kind = kind
     return out
 
 
@@ -183,7 +192,7 @@ def _flatten_opt(state, out: list[_Leaf]) -> None:
             if isinstance(v, (dict, list, tuple)):
                 _flatten_opt(v, out)
             elif isinstance(v, int):
-                out.append(_Leaf(np.int32(v), _int_put(state, k)))
+                out.append(_Leaf(np.int32(v), _int_put(state, k), name=str(k)))
             else:
                 _flatten(v, out, _item_put(state, k), layout=True, name=str(k))
     elif isinstance(state, (list, tuple)):

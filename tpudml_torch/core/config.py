@@ -10,7 +10,7 @@ as the JAX package. The ``coordinator_address`` is the rendezvous of
 counterpart: the process group replaces the mesh (one process a device,
 its ranks the replicas), so ``TrainConfig`` has no ``mesh`` field.
 
-Flags of features not ported yet (``--zero1``, ``--plan``) parse, and
+Flags of features not ported yet (``--plan``) parse, and
 :func:`config_from_args` raises ``NotImplementedError`` naming their
 ROADMAP item when one is set (``UNPORTED``).
 """
@@ -25,7 +25,7 @@ from typing import Any, Sequence
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
 # Flags of unported features: set, they raise naming the item.
-UNPORTED = {"zero1": "7 (ZeRO-1)", "plan": "10 (plan/)"}
+UNPORTED = {"plan": "10 (plan/)"}
 
 
 @dataclass

@@ -70,6 +70,19 @@ constexpr int BK = 64;  // keys per K tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// max(a, b) that keeps NaN, as the TPU kernel's jnp.maximum does (fmaxf
+// returns the other operand): a NaN score makes the row's max, and so its
+// p, l and O, NaN.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// Whether a row saw a key: its normalizer is not 0. A NaN normalizer counts
+// as seen, so the row stores NaN rather than the no-key row's 0 and -1e30.
+__device__ __forceinline__ bool saw_a_key(float l) { return !(l == 0.f); }
+
 // ------------------------------------------------------------------ bf16
 
 template <int DP>
@@ -176,14 +189,14 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (mask && !visible(a, row0 + (e >> 1) * 8, k0 + n * 8 + 2 * c + (e & 1)))
           x = -INFINITY;
         s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        mx[e >> 1] = max_nan(mx[e >> 1], x);
       }
     float alpha[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
+      mx[i] = max_nan(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = max_nan(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = max_nan(m[i], mx[i]);
       // m_new == -inf: nothing visible yet in this row; keep the zero state.
       alpha[i] = m_new == -INFINITY ? 1.f : exp2f(m[i] - m_new);
       m[i] = m_new;
@@ -231,7 +244,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int t = row0 + i * 8;
     if (t >= a.T) continue;
-    const bool seen = l[i] > 0.f;
+    const bool seen = saw_a_key(l[i]);
     bf16* orow = o + ((static_cast<long long>(b) * a.T + t) * a.H + h) * a.D;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -355,12 +368,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float x = s[i][jj] * a.scale_log2;
         if (mask && !visible(a, row, k0 + tx + 16 * jj)) x = -INFINITY;
         s[i][jj] = x;
-        mx = fmaxf(mx, x);
+        mx = max_nan(mx, x);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
+        mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = max_nan(m[i], mx);
       const float alpha = m_new == -INFINITY ? 1.f : exp2f(m[i] - m_new);
       m[i] = m_new;
       l[i] *= alpha;
@@ -410,7 +423,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int off = 8; off > 0; off >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
     const int t = q0 + 4 * ty + i;
     if (t >= a.T) continue;
-    const bool seen = l[i] > 0.f;
+    const bool seen = saw_a_key(l[i]);
     float* orow = o + ((static_cast<long long>(b) * a.T + t) * a.H + h) * a.D;
 #pragma unroll
     for (int cg = 0; cg < NCG; ++cg) {

@@ -8,7 +8,8 @@ Names flatten with dots (``block0.conv1.kernel``). Every tensor keeps
 the JAX layout except a conv kernel (a 4-D ``kernel``), which goes from
 JAX's HWIO to the port's OIHW in ``channels_last`` memory. Under expert
 parallelism a rank holds its slice of each expert tensor
-(:func:`ep_state_from_tpudml`).
+(:func:`ep_state_from_tpudml`); under ``GSPMDParallel`` its block of each
+sharded leaf (:func:`gspmd_state_from_tpudml`).
 """
 
 from __future__ import annotations
@@ -136,3 +137,44 @@ def ep_state_from_tpudml(params: Mapping[str, Any], opt_state: Any, index: int,
         if opt != ():
             opt = _local_experts(opt, index, world)
     return _local_experts(state, index, world), opt
+
+
+def staged_params_from_tpudml(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``StagedModel`` state dict from a ``tpudml.models.StagedModel`` param
+    tree (``lenet_stages``: ``conv.layer{i}``, ``fc.layer{i}``), conv
+    kernels HWIO -> OIHW. Load with ``model.load_state_dict(state)``."""
+    flat = _flatten(tree)
+    if not flat or not all("." in k for k in flat):
+        raise ValueError(f"not a StagedModel param tree (keys {sorted(tree)})")
+    return {k: _tensor(k, v) for k, v in flat.items()}
+
+
+def gspmd_state_from_tpudml(params: Mapping[str, Any], opt_state: Any, specs: dict,
+                            mesh: dict, coords: dict) -> tuple[dict[str, torch.Tensor], Any]:
+    """One rank's ``(state dict, optimizer state)`` of a JAX
+    ``GSPMDParallel`` TrainState: ``params`` and ``opt_state`` as numpy (JAX's
+    global view), ``specs`` the parameters' specs by dotted name
+    (``GSPMDParallel.param_specs``, JAX's layout), ``mesh`` the axis sizes,
+    ``coords`` the rank's index on each axis. Each sharded leaf is cut to
+    the rank's window (``parallel.mp.block_window``), in the optimizer
+    state as in the parameters, before the conv kernels turn OIHW. The
+    optimizer state is an Sgd momentum state, ``()``, or an Adam state.
+    Load the state dict into the model an engine has cut to its blocks."""
+    from tpudml_torch.parallel.mp import block_window
+
+    def blocks(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        out = {}
+        for k, a in flat.items():
+            win = block_window(k, a.shape, specs[k], mesh, coords)
+            out[k] = _tensor(k, a[tuple(slice(lo, hi) for lo, hi in win)])
+        return out
+
+    state = blocks(_flatten(params))
+    if isinstance(opt_state, Mapping) and set(opt_state) == {"m", "v", "t"}:
+        opt = {"m": blocks(_flatten(opt_state["m"])), "v": blocks(_flatten(opt_state["v"])),
+               "t": int(np.asarray(opt_state["t"]))}
+    elif isinstance(opt_state, tuple) and not opt_state:
+        opt = ()
+    else:
+        opt = blocks(_flatten(opt_state))
+    return state, opt

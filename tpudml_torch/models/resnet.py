@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpudml_torch.device import resolve_device
+from tpudml_torch.nn import layers
 from tpudml_torch.nn.layers import BatchNorm, Conv2D, Dense, pad_same
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -64,11 +65,11 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x
-        y = F.relu(self._bn(self.bn1, self.conv1(x)))
+        y = layers.relu(self._bn(self.bn1, self.conv1(x)))
         y = self._bn(self.bn2, self.conv2(y))
         if self.has_projection:
             shortcut = self._bn(self.proj_bn, self.proj(x))
-        return F.relu(y + shortcut)
+        return layers.relu(y + shortcut)
 
 
 class BottleneckBlock(nn.Module):
@@ -104,12 +105,12 @@ class BottleneckBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x
-        y = F.relu(self._bn(self.bn1, self.conv1(x)))
-        y = F.relu(self._bn(self.bn2, self.conv2(y)))
+        y = layers.relu(self._bn(self.bn1, self.conv1(x)))
+        y = layers.relu(self._bn(self.bn2, self.conv2(y)))
         y = self._bn(self.bn3, self.conv3(y))
         if self.has_projection:
             shortcut = self._bn(self.proj_bn, self.proj(x))
-        return F.relu(y + shortcut)
+        return layers.relu(y + shortcut)
 
 
 class ResNet(nn.Module):
@@ -168,7 +169,7 @@ class ResNet(nn.Module):
         is unused: the ResNet draws nothing, and JAX's ignores its rng."""
         cdt = self.compute_dtype
         y = x.to(cdt).permute(0, 3, 1, 2)  # NHWC -> NCHW-indexed, channels_last memory
-        y = F.relu(self.stem_bn(self.stem(y))).to(cdt)
+        y = layers.relu(self.stem_bn(self.stem(y))).to(cdt)
         if self.stem_kind == "imagenet":
             y, padding = pad_same(y, (3, 3), (2, 2), value=float("-inf"))
             y = F.max_pool2d(y, 3, 2, padding)

@@ -56,6 +56,7 @@ from torch import nn
 
 from tpudml_torch.comm.collectives import all_to_all
 from tpudml_torch.core.pytree import path_names
+from tpudml_torch.nn import layers
 from tpudml_torch.nn.layers import cast, uniform_fan_in
 from tpudml_torch.ops.moe_kernel import ragged_ffn, ragged_matmul
 
@@ -210,6 +211,14 @@ class MoELayer(nn.Module):
         return tuple(cast(p, self.compute_dtype) for p in (w.w1, w.b1, w.w2, w.b2))
 
     def forward(self, x: torch.Tensor):
+        """(y, aux): the layer's output and its Switch load-balancing term,
+        which it also keeps, detached, as ``last_aux`` (JAX's ``aux_loss``
+        entry of the model state)."""
+        y, aux = self._forward(x)
+        self.last_aux = aux.detach()
+        return y, aux
+
+    def _forward(self, x: torch.Tensor):
         shape = x.shape
         d, e, k = self.embed_dim, self.num_experts, self.top_k
         tokens = x.reshape(-1, d)
@@ -249,7 +258,7 @@ class MoELayer(nn.Module):
         w1, b1, w2, b2 = self._expert_params()
         ct = torch.promote_types(expert_in.dtype, w1.dtype)  # as einsum promotes
         expert_in, w1, b1, w2, b2 = (t.to(ct) for t in (expert_in, w1, b1, w2, b2))
-        hidden = F.relu(torch.bmm(expert_in, w1) + b1[:, None, :])
+        hidden = layers.relu(torch.bmm(expert_in, w1) + b1[:, None, :])
         expert_out = torch.bmm(hidden, w2) + b2[:, None, :]
         if ep:
             expert_out = all_to_all(expert_out, group, split_axis=1, concat_axis=0)
@@ -320,7 +329,7 @@ class MoELayer(nn.Module):
             out_sorted = ragged_ffn(x_sorted, w1, b1, w2, b2, onehot, group_sizes)
         else:  # "stock": autograd through the per-slab matmuls
             sizes = group_sizes.tolist()
-            hidden = F.relu(ragged_matmul(x_sorted, w1, sizes) + onehot @ b1)
+            hidden = layers.relu(ragged_matmul(x_sorted, w1, sizes) + onehot @ b1)
             out_sorted = ragged_matmul(hidden, w2, sizes) + onehot @ b2
         return _CombineRows.apply(out_sorted, gates, flat_dst, token_src).to(tokens.dtype)
 

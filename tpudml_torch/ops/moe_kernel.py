@@ -236,7 +236,9 @@ class _RaggedFFN(torch.autograd.Function):
         dw2 = grouped_dw(hidden, dout, group_sizes).to(w2.dtype)
         db2 = (onehot.T.float() @ dout.float()).to(ct)
         dh = ragged_matmul(dout, w2.transpose(1, 2), sizes)
-        dpre = dh * (hidden > 0).to(ct)
+        # relu's derivative as XLA computes JAX's dh·(hidden > 0): a select,
+        # so a NaN row of hidden passes 0, not 0·NaN.
+        dpre = torch.where(hidden > 0, dh, torch.zeros((), dtype=ct, device=dh.device))
         dw1 = grouped_dw(x, dpre, group_sizes).to(w1.dtype)
         db1 = (onehot.T.float() @ dpre.float()).to(ct)
         dx = ragged_matmul(dpre, w1.transpose(1, 2), sizes)

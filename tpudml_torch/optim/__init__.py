@@ -1,5 +1,5 @@
-"""Optimizers and learning-rate schedules of the port (``tpudml.optim``
-without ZeRO-1)."""
+"""Optimizers, the ZeRO-1 wrapper and learning-rate schedules of the port
+(``tpudml.optim``)."""
 
 from tpudml_torch.optim.optimizers import (
     Adam,
@@ -20,7 +20,9 @@ from tpudml_torch.optim.schedules import (
     step_decay,
     warmup_cosine,
 )
+from tpudml_torch.optim.zero1 import ZeRO1, stages_stacked, with_stacked, zero1_handles
 
 __all__ = ["Adam", "AdamW", "ClipByGlobalNorm", "GradientDescent", "Optimizer",
            "ReferenceAdam", "Scheduled", "Sgd", "constant", "cosine_decay", "linear_warmup",
-           "make_optimizer", "shard_aware_clip", "step_decay", "warmup_cosine"]
+           "ZeRO1", "make_optimizer", "shard_aware_clip", "stages_stacked", "step_decay",
+           "warmup_cosine", "with_stacked", "zero1_handles"]

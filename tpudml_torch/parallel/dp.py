@@ -61,7 +61,7 @@ from tpudml_torch.nn.attention import MultiHeadAttention
 from tpudml_torch.nn.losses import softmax_cross_entropy
 from tpudml_torch.obs.stepstats import dp_wire_bytes_per_step, grad_normsq, make_step_stats
 from tpudml_torch.obs.tracer import NULL_SPAN, Tracer
-from tpudml_torch.optim import Optimizer
+from tpudml_torch.optim import Optimizer, ZeRO1
 from tpudml_torch.resilience.sentinel import attach_sentinel, find_sentinel
 from tpudml_torch.train import (
     TrainState, accumulate_grads, make_lm_fused_loss_fn, make_loss_fn, params_of, to_device,
@@ -128,8 +128,13 @@ class DataParallel:
     ``rng_root`` (a ``tpudml_torch.core.prng.Key``) seeds the dropout
     streams, one a replica and a step: ``rng_root.fold_in(step)
     .fold_in(rank)``, as JAX folds the mesh position. ``sentinel`` and
-    ``obs``: module docstring. ``zero1`` and ``zero1_overlap`` are not
-    ported and raise ``NotImplementedError`` naming their ROADMAP item.
+    ``obs``: module docstring. ``zero1=True`` wraps the optimizer in
+    ``tpudml_torch.optim.ZeRO1`` over the group: its reduce-scatter is the
+    aggregation and each rank holds 1/N of the optimizer state;
+    ``zero1_overlap=True`` (with ``accum_steps >= 2``) also keeps 1/N of
+    the parameters, as ``ts.param_chunks``, and gathers them at the next
+    step's start, overlapped with the first micro-batch (read the full
+    parameters through :meth:`gather_params`).
     """
 
     def __init__(
@@ -171,10 +176,6 @@ class DataParallel:
         if flash_attn and (getattr(model, "impl", None) != "full"
                            or getattr(model, "seq_sharded", False)):
             reject("train_flash_attn_dense")
-        for knob, on, item in (("zero1", zero1, "7 (ZeRO-1)"),
-                               ("zero1_overlap", zero1_overlap, "7 (ZeRO-1)")):
-            if on:
-                raise NotImplementedError(f"DataParallel({knob}=...) {NOT_PORTED.format(item)}")
         aggregator = get_aggregator(aggregation)
         if not dist.is_initialized():
             raise RuntimeError(
@@ -195,6 +196,13 @@ class DataParallel:
         self.group = group
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
+        if isinstance(optimizer, ZeRO1):
+            if not zero1:
+                reject("zero1_optimizer_needs_zero1")
+            if optimizer.axis_name != "data" or optimizer.world != self.world:
+                raise ValueError(
+                    f"ZeRO1(axis_name={optimizer.axis_name!r}, world={optimizer.world}) does "
+                    f"not match the engine's 'data' axis of size {self.world}")
         self.stacked_batches = stacked_batches
         self.aggregation = aggregation
         self.measure_comm = measure_comm
@@ -209,8 +217,19 @@ class DataParallel:
         if obs:
             self.tracer = obs if isinstance(obs, Tracer) else Tracer()
             self.comm_stats.tracer = self.tracer
-        # The sentinel wraps the optimizer outermost: the gradients it sees
-        # are already aggregated, so its decision needs no collective.
+        # ZeRO-1: the optimizer reduce-scatters the gradients and updates this
+        # rank's 1/N chunk (tpudml_torch.optim.zero1); zero1_overlap keeps the
+        # parameters' chunks in the state and gathers them at the next step's
+        # start, behind its first micro-batch.
+        self.zero1, self.zero1_overlap = zero1, zero1_overlap
+        self._param_names = set(params_of(model))
+        if zero1 and not isinstance(optimizer, ZeRO1):
+            self.optimizer = ZeRO1(optimizer, axis_name="data", world=self.world, group=group)
+        self._param_template = None
+        self._fired_modules = None  # zero1_overlap: the modules whose forward runs in a step
+        # The sentinel wraps the optimizer outermost (the gradients it sees
+        # are already aggregated, so its decision needs no collective), or,
+        # under ZeRO-1, sits inside it on the disjoint chunks.
         self.sentinel = None
         if sentinel:
             kw = dict(sentinel) if isinstance(sentinel, dict) else {}
@@ -224,14 +243,56 @@ class DataParallel:
     # ---------------------------------------------------------------- state
 
     def create_state(self) -> TrainState:
-        """The replica's TrainState (its model and a fresh optimizer state)."""
-        return TrainState.create(self.model, self.optimizer)
+        """The replica's TrainState (its model and a fresh optimizer state:
+        under ZeRO-1 this rank's chunk of it; the overlap variant also
+        carries this rank's parameter chunks in ``param_chunks``)."""
+        ts = TrainState.create(self.model, self.optimizer)
+        if self.zero1_overlap:
+            params = params_of(self.model)
+            self._param_template = {n: tuple(p.shape) for n, p in params.items()}
+            ts.param_chunks = self.optimizer.shard_params(params)
+        return ts
+
+    def gather_params(self, ts: TrainState) -> dict[str, torch.Tensor]:
+        """The full parameters: the model's; under ``zero1_overlap`` first
+        gathered from ``ts.param_chunks`` into the model (they are stale
+        there between steps). Evaluation, checkpoints and parity read
+        them through this."""
+        if self.zero1_overlap:
+            if self._param_template is None:
+                raise ValueError("zero1_overlap: create_state must run before gather_params "
+                                 "(the original param shapes come from it)")
+            full = self.optimizer.gather_params(ts.param_chunks, self._param_template)
+            with torch.no_grad():
+                for n, p in params_of(self.model).items():
+                    p.copy_(full[n])
+        return {n: p.detach() for n, p in params_of(self.model).items()}
+
+    def placement(self, kind: str, name: str, shape: tuple):
+        """Where this rank's leaf sits (``checkpoint.sharded``'s placement):
+        under ZeRO-1 an optimizer-state tensor of a parameter is this rank's
+        chunk ``[r·c, (r+1)·c)`` of JAX's flat-padded ``[N·c]`` layout (``[S,
+        N·c]`` stacked); every other leaf is replicated (None)."""
+        from tpudml_torch.checkpoint.sharded import Window
+
+        if not self.zero1 or kind != "opt" or name not in self._param_names:
+            return None
+        if self.zero1_overlap:
+            raise ValueError("a zero1_overlap state carries parameter chunks: gather_params "
+                             "first, and checkpoint a zero1=True engine's state")
+        c, r = shape[-1], self.rank
+        if len(shape) == 2:
+            return Window((shape[0], self.world * c), [[0, shape[0]], [r * c, (r + 1) * c]])
+        return Window((self.world * c,), [[r * c, (r + 1) * c]])
 
     def broadcast_params(self, ts: TrainState, root: int = 0) -> TrainState:
         """Copy rank ``root``'s parameters into every replica (one
         broadcast of the flat parameters): the reference's
         ``init_parameters`` (codes/task2/dist_utils.py:33-37), needed only
         when replicas may have diverged."""
+        if self.zero1_overlap:
+            raise ValueError("broadcast_params is meaningless under zero1_overlap: the "
+                             "per-rank param chunks are distinct BY DESIGN, not divergent")
         params = params_of(ts.model)
         new = broadcast_from({n: p.detach() for n, p in params.items()}, self.group, root)
         with torch.no_grad():
@@ -288,9 +349,15 @@ class DataParallel:
         if wire_bytes is None:
             if self._step_wire_bytes is None:  # the shapes are the same every step
                 self._step_wire_bytes = dp_wire_bytes_per_step(
-                    grads, self._model_state(), self.world, aggregation=self.aggregation)
+                    grads, self._model_state(), self.world, aggregation=self.aggregation,
+                    zero1=self.zero1)
             wire_bytes = self._step_wire_bytes
-        metrics["step_stats"] = make_step_stats(metrics["loss"], grad_normsq(grads),
+        normsq = grad_normsq(grads)
+        if self.zero1:
+            # The grads here are the replica's own (the reduce-scatter is
+            # inside the update): the RMS of their norms, as JAX reports.
+            normsq = pmean_tree(normsq.to(self.device), self.group)
+        metrics["step_stats"] = make_step_stats(metrics["loss"], normsq,
                                                 ts.opt_state, wire_bytes, step)
         return metrics
 
@@ -306,16 +373,83 @@ class DataParallel:
                                 taint=self.sentinel is not None)
 
     def _aggregate(self, grads: dict) -> dict:
-        """The step's collectives: the gradients' aggregation and the model
-        state's mean."""
-        grads = self.aggregator(grads, self.group)
+        """The step's collectives: the gradients' aggregation (none under
+        ZeRO-1, whose reduce-scatter is the mean) and the model state's
+        mean."""
+        if not self.zero1:
+            grads = self.aggregator(grads, self.group)
         self._pmean_model_state()
         return grads
 
     def _update(self, ts: TrainState, grads: dict) -> TrainState:
-        _, ts.opt_state = self.optimizer.update(grads, ts.opt_state, params_of(ts.model))
+        if self.zero1_overlap:
+            _, ts.opt_state = self.optimizer.update_shards(grads, ts.opt_state,
+                                                           ts.param_chunks)
+        else:
+            _, ts.opt_state = self.optimizer.update(grads, ts.opt_state, params_of(ts.model))
         ts.step += 1
         return ts
+
+    def _exchange(self, ts: TrainState, grads: dict) -> TrainState:
+        """ZeRO-1's weight-update exchange (the split step times it whole):
+        the model state's mean, reduce-scatter, chunk update, all-gather."""
+        self._pmean_model_state()
+        return self._update(ts, grads)
+
+    def _gather_at_start(self, ts: TrainState) -> list:
+        """zero1_overlap: start one async all-gather a leaf of the chunks and
+        land each leaf (wait, write it into the model) just before its
+        module's forward runs, so the gathers of later layers overlap the
+        first micro-batch's early layers. A module lands at its forward
+        pre-hook only if that hook fired in the first step (which lands
+        everything up front and records them): a parameter its model reads
+        outside its module's forward (the fused trunk's LayerNorm scales, the
+        fused head) is landed before the forward. Returns what
+        :meth:`_gather_done` finishes."""
+        params = params_of(self.model)
+        owners = {}
+        for mod_name, mod in self.model.named_modules():
+            for k, _ in mod.named_parameters(recurse=False):
+                owners[f"{mod_name}.{k}" if mod_name else k] = mod_name
+        fired = self._fired_modules
+        late = [n for n in params if fired is not None and owners[n] in fired]
+        pending = {}
+        for n in [n for n in params if n not in late] + late:  # the up-front ones first
+            chunk = ts.param_chunks[n]
+            full = chunk.new_empty(self.world * chunk.numel())
+            work = dist.all_gather_into_tensor(full, chunk.contiguous(), group=self.group,
+                                               async_op=True)
+            pending[n] = (work, full)
+
+        def land(names):
+            with torch.no_grad():
+                for n in names:
+                    if n in pending:
+                        work, full = pending.pop(n)
+                        work.wait()
+                        p = params[n]
+                        p.copy_(full[:p.numel()].view(p.shape))
+
+        land([n for n in params if n not in late])
+        record = fired is None
+        seen: set = set()
+        hooks = []
+        for mod_name, mod in self.model.named_modules():
+            own = [n for n in late if owners[n] == mod_name]
+            if record or own:
+                hooks.append(mod.register_forward_pre_hook(
+                    lambda m, args, mod_name=mod_name, own=own:
+                    seen.add(mod_name) if record else land(own)))
+        if record:
+            self._fired_modules = seen
+        return [hooks, land, pending]
+
+    @staticmethod
+    def _gather_done(started: list) -> None:
+        hooks, land, pending = started
+        for h in hooks:
+            h.remove()
+        land(list(pending))
 
     # ----------------------------------------------------------- the steps
 
@@ -323,10 +457,19 @@ class DataParallel:
         return self._make_split_step() if self.measure_comm else self._make_fused_step()
 
     def _make_fused_step(self) -> Callable:
+        if self.zero1_overlap and self._param_template is None:
+            raise ValueError("zero1_overlap: call create_state before make_train_step (the "
+                             "step gathers into the original param shapes recorded there)")
+
         def step(ts: TrainState, images, labels):
             with self._obs_span():
                 index = ts.step
-                grads, local = self.local_grads(ts, images, labels)
+                started = self._gather_at_start(ts) if self.zero1_overlap else None
+                try:
+                    grads, local = self.local_grads(ts, images, labels)
+                finally:
+                    if started is not None:
+                        self._gather_done(started)
                 grads = self._aggregate(grads)
                 ts = self._update(ts, grads)
                 metrics = self._obs_step_stats(self._agg_metrics(local), grads, ts, index)
@@ -358,10 +501,17 @@ class DataParallel:
                 state_bytes = sum(b.numel() * b.element_size()
                                   for b in self._model_state().values())
                 wire_bytes.append(
+                    dp_wire_bytes_per_step(grads, self._model_state(), self.world, zero1=True)
+                    if self.zero1 else
                     aggregation_wire_bytes(self.aggregation, grads, self.world)
                     + collective_wire_bytes("psum", state_bytes, self.world))
-            grads = timed_call(self.comm_stats, self._aggregate, grads, nbytes=wire_bytes[0])
-            ts = self._update(ts, grads)
+            if self.zero1:  # the whole weight-update exchange is the comm span
+                ts = timed_call(self.comm_stats, self._exchange, ts, grads,
+                                nbytes=wire_bytes[0])
+            else:
+                grads = timed_call(self.comm_stats, self._aggregate, grads,
+                                   nbytes=wire_bytes[0])
+                ts = self._update(ts, grads)
             return ts, self._obs_step_stats(self._agg_metrics(local), grads, ts, index,
                                             wire_bytes[0])
 

@@ -40,11 +40,12 @@ import itertools
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from tpudml_torch.comm.collectives import pmean_tree
+from tpudml_torch.comm.collectives import all_gather_tree, pmean_tree
 from tpudml_torch.core.dist import backend_for
 from tpudml_torch.nn.moe import MoELayer, expert_rows, is_expert_param
 from tpudml_torch.optim import Optimizer, shard_aware_clip
@@ -230,6 +231,92 @@ class ExpertParallel:
             return ts, pmean_tree(local, self.group)
 
         return step
+
+    # ----------------------------------------------------------- checkpoints
+
+    def placement(self, kind: str, name: str, shape: tuple):
+        """Where this rank's leaf sits (``checkpoint.sharded``'s placement):
+        an expert tensor of the parameters or the optimizer state is rows
+        ``[i·E/W, (i+1)·E/W)`` of the whole, written by data index 0; every
+        other leaf is replicated (None)."""
+        from tpudml_torch.checkpoint.sharded import Window
+
+        if kind not in ("param", "opt") or not is_expert_param(name) or not shape:
+            return None
+        rows = shape[0]
+        index = [[self.expert_index * rows, (self.expert_index + 1) * rows],
+                 *[[0, n] for n in shape[1:]]]
+        return Window((rows * self.world, *shape[1:]), index,
+                      write=self.shard // self.world == 0)
+
+    def _whole(self, tree: dict) -> dict:
+        """``tree`` (by parameter name) with every expert tensor
+        all-gathered whole over the expert group (one collective a dtype)."""
+        experts = {n: t.detach() for n, t in tree.items() if is_expert_param(n)}
+        full = all_gather_tree(experts, self.expert_group, axis=0, tiled=True) if experts else {}
+        return {n: full[n] if n in full else t.detach() for n, t in tree.items()}
+
+    def full_state(self, ts: TrainState) -> list:
+        """JAX's global view of ``ts`` for the base store (call on every
+        rank): ``[params, model state, optimizer state, step]`` in JAX's
+        TrainState order, each expert tensor whole, the MoE layers' last
+        aux terms as JAX's ``aux_loss`` state entries, Python ints (Adam's
+        clock, the step) as int32. Rank 0 writes it as JAX's task5 writes
+        its global arrays."""
+        params = params_of(ts.model)
+
+        def whole(state):
+            if isinstance(state, dict):
+                if state and set(state) <= set(params):
+                    return self._whole(state)
+                return {k: whole(v) for k, v in state.items()}
+            if isinstance(state, int) and not isinstance(state, bool):
+                return np.int32(state)
+            return state
+
+        state = {n: b.detach() for n, b in ts.model.named_buffers() if b.is_floating_point()}
+        # JAX's model state also holds each MoE layer's last aux term,
+        # averaged over the ranks as its EP engine averages the state.
+        aux = {f"{n}.aux_loss": getattr(m, "last_aux", None)
+               for n, m in ts.model.named_modules() if isinstance(m, MoELayer)}
+        if aux:
+            dev = next(ts.model.parameters()).device
+            state.update(pmean_tree({k: (v if v is not None else torch.zeros((), device=dev))
+                                     .float().reshape(()) for k, v in aux.items()}, self.group))
+        return [self._whole(params), state, whole(ts.opt_state), np.int32(ts.step)]
+
+    @torch.no_grad()
+    def load_full_state(self, ts: TrainState, full: list) -> TrainState:
+        """Write a :meth:`full_state` tree (as restored: whole experts) back
+        into ``ts`` in place: this rank's rows of each expert tensor, the
+        rest whole, the ints and the step as ints (the aux terms are a
+        record the next forward rewrites)."""
+        params, buffers, opt, step = full
+
+        def local(name, t):
+            t = torch.as_tensor(t)
+            return expert_rows(t, self.expert_index, self.world, name) \
+                if is_expert_param(name) and t.dim() else t
+
+        for n, p in params_of(ts.model).items():
+            p.copy_(local(n, params[n]))
+        for n, b in ts.model.named_buffers():
+            if n in buffers:
+                b.copy_(torch.as_tensor(buffers[n]))
+
+        def load(state, saved):
+            if isinstance(state, dict):
+                for k, v in state.items():
+                    if isinstance(v, torch.Tensor):
+                        v.copy_(local(k, saved[k]))
+                    elif isinstance(v, int) and not isinstance(v, bool):
+                        state[k] = int(saved[k])
+                    else:
+                        load(v, saved[k])
+
+        load(ts.opt_state, opt)
+        ts.step = int(step)
+        return ts
 
     def make_eval_step(self) -> Callable:
         """(images, labels) -> (correct, count) summed over all ranks

@@ -35,13 +35,18 @@ host read (``Adam`` takes either).
 may differ between ranks (JAX's ``axis_names``); the per-leaf non-finite
 flags (JAX sums counts: the same decision) and the squared norm are
 summed over them, so every rank takes the same decision. The DP engine's
-gradients are aggregated before the update: ``groups=()``. The flags run
+gradients are aggregated before the update: ``groups=()``. Under ZeRO-1
+the sentinel sits inside the wrapper, on the reduce-scattered chunks,
+with the data group (:func:`attach_sentinel`); ``GSPMDParallel``'s blocks
+of sharded parameters differ over the stage group, its replicated leaves
+do not (``sharded``). The flags run
 in JAX's flatten order of the parameters (their dotted names as the
 nested paths), so ``bad_leaf`` indexes the same leaf JAX's does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
@@ -116,7 +121,9 @@ class GradSentinel(Optimizer):
     """Suppress non-finite / spiking updates on the device.
 
     ``groups``: process groups over which the gradients here may differ
-    between ranks (module docstring). ``spike_factor`` > 0 also skips a
+    between ranks (module docstring); ``sharded`` marks, by parameter name,
+    the leaves that do (a rank's block of a sharded parameter): the squares
+    of the others count once in the norm (None: every leaf). ``spike_factor`` > 0 also skips a
     step whose global gradient norm exceeds ``spike_factor ×`` a running
     EMA (decay ``ema_decay``), armed only after ``warmup_steps``
     non-skipped steps. ``skip_budget``: the CONSECUTIVE skips tolerated
@@ -125,6 +132,7 @@ class GradSentinel(Optimizer):
 
     base: Optimizer = None  # type: ignore[assignment]
     groups: tuple = ()
+    sharded: Any = None  # Callable[[str], bool]: the leaves that differ over ``groups``
     skip_budget: int = 3
     spike_factor: float = 0.0
     ema_decay: float = 0.99
@@ -169,7 +177,14 @@ class GradSentinel(Optimizer):
         nonfinite = flagged.any()
         bad_leaf_now = torch.where(nonfinite, torch.argmax(flagged.to(torch.int32)),
                                    -1).to(torch.int32)
-        normsq = self._psum(grad_normsq(leaves))
+        if self.sharded is None:
+            normsq = self._psum(grad_normsq(leaves))
+        else:
+            names = sorted(grads, key=jax_sort_key)
+            normsq = (self._psum(grad_normsq([grads[n] for n in names if self.sharded(n)]))
+                      .to(leaves[0].device)
+                      + grad_normsq([grads[n] for n in names if not self.sharded(n)])
+                      .to(leaves[0].device))
         # A non-finite gradient makes the norm non-finite too; skipped
         # steps never enter the EMA (below).
         norm = torch.sqrt(normsq)
@@ -207,10 +222,19 @@ class GradSentinel(Optimizer):
 
 
 def attach_sentinel(optimizer: Optimizer, divergent_groups: tuple = (), **kwargs) -> Optimizer:
-    """Wrap ``optimizer`` in a :class:`GradSentinel` (outermost: the port
-    has no ZeRO-1 wrapper to nest inside yet, ROADMAP.md queue 1 item
-    7); ``kwargs`` go to :class:`GradSentinel` (``skip_budget``,
+    """Insert a :class:`GradSentinel` at its place in a chain: inside a
+    ``ZeRO1`` (it then guards the reduce-scattered chunk gradients, with
+    ZeRO-1's data group appended to ``divergent_groups``: the chunks are
+    disjoint over it; on a skip the all-gather of the unselected old
+    chunks gives back the old parameters bitwise), outermost otherwise.
+    ``kwargs`` go to :class:`GradSentinel` (``sharded``, ``skip_budget``,
     ``spike_factor``, ...)."""
+    from tpudml_torch.optim.zero1 import ZeRO1
+
+    if isinstance(optimizer, ZeRO1):
+        sent = GradSentinel(optimizer.base,
+                            groups=tuple(divergent_groups) + (optimizer.group,), **kwargs)
+        return dataclasses.replace(optimizer, base=sent)
     return GradSentinel(optimizer, groups=tuple(divergent_groups), **kwargs)
 
 

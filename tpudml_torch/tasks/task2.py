@@ -20,11 +20,13 @@ naming the poisoned leaf), ``--obs`` records the flight recorder (the
 engine's step and comm spans, checkpoint and sentinel events) into
 ``<run_dir>/trace.json``, ``--profile`` writes a ``torch.profiler``
 trace under ``<run_dir>/profile``, ``--ckpt_dir`` / ``--ckpt_every`` /
-``--resume`` checkpoint and resume. ``--zero1`` and ``--plan`` raise,
-naming their ROADMAP item.
+``--resume`` checkpoint and resume (under ``--zero1`` at world 1 only:
+each rank holds its chunk of the optimizer state), ``--zero1`` shards the
+optimizer state over the replicas (``DataParallel(zero1=True)``).
+``--plan`` raises, naming its ROADMAP item.
 
 Run: ``python -m tpudml_torch.tasks.task2 [--aggregation allgather] [--measure_comm]
-[--bottleneck_rank 1] [--sentinel] [--obs] [--device cpu]``
+[--bottleneck_rank 1] [--zero1] [--sentinel] [--obs] [--device cpu]``
 """
 
 from __future__ import annotations
@@ -81,8 +83,12 @@ def run(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
         # and comm spans and, as the ambient tracer, the checkpoint and
         # sentinel events; exported as <run_dir>/trace.json.
         tracer = Tracer() if cfg.obs else None
+        if cfg.zero1 and cfg.ckpt_dir and world > 1:
+            raise ValueError("--ckpt_dir with --zero1 runs at world 1 only: past it each rank "
+                             "holds a chunk of the optimizer state, which the rank-0 store "
+                             "does not gather (tpudml_torch.checkpoint.sharded saves it)")
         dp = DataParallel(model, optimizer, group, aggregation=cfg.aggregation,
-                          sentinel=cfg.sentinel, obs=tracer or False,
+                          zero1=cfg.zero1, sentinel=cfg.sentinel, obs=tracer or False,
                           measure_comm=cfg.measure_comm or cfg.bottleneck_rank is not None,
                           bottleneck_rank=cfg.bottleneck_rank,
                           bottleneck_delay_s=cfg.bottleneck_delay_s,

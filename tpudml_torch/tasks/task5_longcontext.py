@@ -35,7 +35,9 @@ latest valid checkpoint and continues: the loop counter is the global
 step, and the row stream is drawn on past the restored step's rows, so a
 resumed run takes the batches the uninterrupted run took (JAX's loop
 restarts the stream at the seed; ROADMAP.md queue 3). Under ``ep`` a
-checkpoint holds whole experts only at world 1. Every other
+checkpoint holds whole experts at any world, as JAX's task5 writes its
+global arrays: the ranks gather their slices, rank 0 writes, and a
+resume slices them back (``ExpertParallel.full_state``). Every other
 ``--parallel`` value raises ``NotImplementedError``, naming its ROADMAP
 item.
 
@@ -194,13 +196,10 @@ def build_engine(args, device: torch.device):
     (the last two inside a process group)."""
     _reject_unported(args)
     args._sentinel = None  # the DP engine's GradSentinel, for the escalation hook
+    args._ep = None  # the EP engine, whose checkpoints hold whole experts
     if args.parallel == "ep" and args.moe_experts % process_count():
         raise ValueError(f"--moe_experts {args.moe_experts} must divide over "
                          f"{process_count()} devices")
-    if args.parallel == "ep" and args.ckpt_dir and process_count() > 1:
-        raise NotImplementedError(
-            "--ckpt_dir under --parallel ep past world 1: each rank holds its slice of "
-            f"the experts, and the sharded store {NOT_PORTED.format('7 (checkpoint/sharded.py)')}")
     model = TransformerLM(
         vocab_size=args.vocab,
         embed_dim=args.embed_dim,
@@ -230,6 +229,7 @@ def build_engine(args, device: torch.device):
         return engine.create_state(), engine.make_train_step()
     if args.parallel == "ep":
         engine = ExpertParallel(model, opt)
+        args._ep = engine
         return engine.create_state(), engine.make_train_step()
     if args.fused_xent:
         step = make_lm_fused_train_step(model, opt, rng_root, save_scores=args._save_scores)
@@ -265,12 +265,27 @@ def _train(args, device: torch.device, world: int = 1, lead: bool = True,
     seqs = synthetic_lm(args.batch_size * 4, args.seq_len, args.vocab, seed=args.seed)
     mgr = None
     start = 0
+    # Under ep past world 1 a rank holds its slice of the experts: the
+    # checkpoint holds them whole (gathered over the expert group, rank 0
+    # writing JAX's global arrays), and a resume slices them back.
+    whole = args._ep is not None and world > 1
+
+    def save(i):
+        mgr.save(args._ep.full_state(ts) if whole else ts, i,
+                 metadata={"parallel": args.parallel})
+
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir)
         if args.resume:
             # The latest VALID checkpoint: CRCs verified, corrupt or partial
             # step dirs walked past.
-            ts = mgr.restore_latest(ts)
+            if whole:
+                view = args._ep.full_state(ts)
+                restored = mgr.restore_latest(view)
+                if restored is not view:
+                    args._ep.load_full_state(ts, restored)
+            else:
+                ts = mgr.restore_latest(ts)
             start = int(ts.step)
             if start >= args.steps:
                 raise ValueError(f"--resume: latest checkpoint is already at step {start} "
@@ -308,7 +323,7 @@ def _train(args, device: torch.device, world: int = 1, lead: bool = True,
         if guard is not None:
             guard(step=i, train_state=ts, metrics=metrics)
         if mgr is not None and args.ckpt_every and i % args.ckpt_every == 0:
-            mgr.save(ts, i, metadata={"parallel": args.parallel})
+            save(i)
         for hook in hooks:
             hook(step=i, train_state=ts, metrics=metrics)
         if i == steady_mark:

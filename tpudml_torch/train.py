@@ -48,11 +48,15 @@ from tpudml_torch.optim import Optimizer
 @dataclass
 class TrainState:
     """Everything that evolves during training: the model (its
-    parameters), the optimizer state and the step count."""
+    parameters), the optimizer state and the step count; under
+    ``DataParallel(zero1_overlap=True)`` also this rank's parameter chunks
+    (``param_chunks``, by name), which the model's parameters lag between
+    steps."""
 
     model: nn.Module
     opt_state: Any
     step: int = 0
+    param_chunks: dict | None = None
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: Optimizer) -> "TrainState":
