@@ -371,7 +371,31 @@ the CPU). Phases, each printing its own line(s):
    ``--zero1`` on the IDX files; the GSPMD (stage rule, Adam) and ZeRO-1
    (AdamW) states through ``checkpoint/sharded.py``: save, verify and
    restore bitwise into fresh engines, with bytes and seconds.
-19. one JSON line of per-kernel numbers (launches summed over the main
+19. main path 13, FSDP and tensor parallelism with the vocab-sharded head
+   at world 1 (``[fsdp_tp]``, a one-rank NCCL group): task5 through its
+   entry point (``task5.run``) at main path 2's widths (FSDP_TP_TASK5),
+   FSDP_TP_STEPS steps, the first a warm-up: ``--parallel fsdp
+   --fused_xent`` (saved scores by the auto rule; path ``fsdp_fused``:
+   kernels 1–3, 8, 9, 11, 12, 13), ``--parallel tp --fused_xent
+   --fused_xent_lean`` (``tp_fused_lean``: 1–3, 8, 9, 10, 14, 15) and
+   ``--parallel fsdp --sentinel`` (``fsdp_sentinel``: the reduce-scatter
+   gradient rule on the unfused path, 1–3, 8, 9), each launching exactly
+   its kernels' counts a step and no other kernel; each run's losses and
+   final parameters against the single-card step with the same head
+   (``make_lm_fused_train_step`` / ``make_train_step``; Adam in a
+   ``GradSentinel`` for the sentinel's run) from the same seed and
+   batches: bitwise (a one-rank merge, gather and reduce-scatter are
+   exact) or, where they are not, within LOSS_TOL and GRAD_TOL; ms/step
+   beside the single-card step's and the engine's wire bytes a step.
+   Then the vocab shards at W = 2 and 4 in one process (one card cannot
+   host a group of 2): the op's per-shard halves
+   (``ops.sharded_xent_in_one_process``) at the flagship head's shape, f32
+   and bf16, saved and lean, labels −1 and V among the rows: loss, dX
+   (summed) and dW, db (concatenated) against the unsharded kernels and
+   the plain version at XENT_ROW_TOL / XENT_GRAD_REL (BF16_REL in bf16);
+   each shard's head kernel times and the composition's time beside the
+   unsharded kernels' and ``F.cross_entropy``'s chain.
+20. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -4802,6 +4826,222 @@ def gspmd_phase() -> dict[str, dict[str, int]]:
     return paths
 
 
+# FSDP and TP with the vocab-sharded head (slice 13): task5 at main path 2's
+# widths (TRAIN_MODEL, TRAIN_BATCH, TRAIN_LR), through its entry point.
+FSDP_TP_STEPS = 4  # the first is the warm-up; ms/step is taken over the rest
+FSDP_TP_TASK5 = ["--vocab", "32768", "--embed_dim", "512", "--num_heads", "4", "--num_layers",
+                 "6", "--seq_len", "1024", "--batch_size", "8", "--lr", "0.001", "--attn",
+                 "flash", "--fused_ln", "--rope", "--steps", str(FSDP_TP_STEPS),
+                 "--log_every", "0", "--device", "cuda"]
+# path: (flags, the reference's head flags, the head kernels a step)
+FSDP_TP_PATHS = {
+    "fsdp_fused": (["--parallel", "fsdp", "--fused_xent"], ["--fused_xent"],
+                   ("xent_fwd_save", "xent_dx_s", "xent_dw_s")),
+    "tp_fused_lean": (["--parallel", "tp", "--fused_xent", "--fused_xent_lean"],
+                      ["--fused_xent", "--fused_xent_lean"],
+                      ("xent_fwd", "xent_dx_lean", "xent_dw_lean")),
+    "fsdp_sentinel": (["--parallel", "fsdp", "--sentinel"], [], ()),
+}
+VOCAB_SHARDS = (2, 4)
+
+
+def _task5_run(task5, argv: list[str]) -> tuple[dict, list[float], dict, object]:
+    """task5's entry point on ``argv`` (inside the caller's group): its
+    result, every step's loss, the final parameters in full and the
+    engine."""
+    args = task5.parse_args(argv)
+    losses = []
+    out = task5.run(args, hooks=[lambda step, train_state, metrics: losses.append(
+        float(metrics["loss"]))])
+    return out, losses, args._sharded.gather_params(), args._sharded
+
+
+def _single_card_run(task5, argv: list[str], sentinel: bool) -> tuple[list[float], float, dict]:
+    """The single-card step (``make_lm_fused_train_step`` or
+    ``make_train_step``, through task5's ``build_engine`` for ``--parallel
+    single``) on task5's batches from the same seed, its Adam wrapped in a
+    ``GradSentinel`` as the engine's is with ``sentinel`` (the sentinel's
+    Adam divides by bias corrections held on the device): (losses, ms/step
+    after one warm-up, the final parameters)."""
+    import numpy as np
+    import torch
+
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.optim import make_optimizer
+    from tpudml_torch.resilience import attach_sentinel
+    from tpudml_torch.train import TrainState, make_train_step
+
+    args = task5.parse_args(argv)
+    ts, step = task5.build_engine(args, torch.device(args.device))
+    if sentinel:
+        opt = attach_sentinel(make_optimizer("adam", args.lr))
+        ts, step = TrainState.create(ts.model, opt), make_train_step(ts.model, opt)
+    seqs = synthetic_lm(4 * args.batch_size, args.seq_len, args.vocab, seed=args.seed)
+    rng = np.random.default_rng(args.seed)  # task5's row sampling
+    batches = [seqs[rng.integers(0, len(seqs), size=args.batch_size)] for _ in range(args.steps)]
+    losses, ms = _train_run(ts, step, batches)
+    return losses, ms, _params(ts.model)
+
+
+def _vocab_shard_check(gen, dtype, shards: int, save_s: bool) -> str:
+    """The op's halves over ``shards`` vocab shards in one process at the
+    flagship head (XENT_SHAPE, labels −1 and V among the rows) against the
+    unsharded kernels and the plain version; returns the printed line's
+    numbers and times."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudml_torch.ops import (
+        sharded_xent_backward, sharded_xent_forward, sharded_xent_in_one_process, xent_dw,
+        xent_dw_lean, xent_dw_reference, xent_dx, xent_dx_lean, xent_dx_reference, xent_forward,
+        xent_forward_save, xent_forward_save_reference,
+    )
+
+    n, d, v = XENT_SHAPE
+    x, w, b, y = _xent_inputs(gen, n, d, v, dtype, bad_labels=True)
+    loss, dx, dw, db = sharded_xent_in_one_process(x, w, b, y, shards, save_s)
+    if save_s:
+        lse, picked, s = xent_forward_save(x, w, b, y)
+        udx, (udw, udb) = xent_dx(s, w, y, lse, 1.0 / n), xent_dw(s, x, y, lse, 1.0 / n)
+        del s
+    else:
+        lse, picked = xent_forward(x, w, b, y)
+        udx = xent_dx_lean(x, w, b, y, lse, 1.0 / n)
+        udw, udb = xent_dw_lean(x, w, b, y, lse, 1.0 / n)
+    rlse, rpicked, rs = xent_forward_save_reference(x, w, b, y)
+    rloss = (rlse - rpicked).mean()
+    rdx = xent_dx_reference(rs, w, y, rlse, 1.0 / n)
+    rdw, rdb = xent_dw_reference(rs, x, y, rlse, 1.0 / n)
+    del rs
+    torch.cuda.synchronize()
+    rel = XENT_GRAD_REL if dtype == torch.float32 else BF16_REL
+    tag = f"W={shards} {'saved' if save_s else 'lean'} {str(dtype)[6:]}"
+    lerr, uerr = abs(loss.item() - rloss.item()), abs(loss.item() - (lse - picked).mean().item())
+    errs = {"dx": (rel_to_max(dx, rdx), rel_to_max(dx, udx)),
+            "dw": (rel_to_max(dw, rdw), rel_to_max(dw, udw)),
+            "db": (rel_to_max(db, rdb), rel_to_max(db, udb))}
+    check(lerr <= XENT_ROW_TOL * (1 + abs(rloss.item())) and uerr <= XENT_ROW_TOL * (
+        1 + abs(rloss.item())), f"vocab shards {tag}: the loss disagrees ({lerr:.3e})")
+    for name, (e_plain, e_unsharded) in errs.items():
+        tol = XENT_GRAD_REL if name == "db" else rel
+        check(e_plain <= tol and e_unsharded <= tol,
+              f"vocab shards {tag}: {name} disagrees ({e_plain:.3e}, {e_unsharded:.3e})")
+    # Times: each shard's head kernels, the whole composition, the unsharded
+    # kernels, and the library chain (F.cross_entropy forward and backward).
+    vl = v // shards
+    ws, bs = w[:, :vl].contiguous(), b[:vl].contiguous()
+    ln, slse, _, ss = sharded_xent_forward(x, ws, bs, y, 0, save_s)
+    fwd_ms = cuda_ms(lambda: sharded_xent_forward(x, ws, bs, y, 0, save_s), iters=10)
+    dx_ms = cuda_ms(lambda: sharded_xent_backward(x, ws, bs, ln, slse, ss, 1.0 / n,
+                                                  need_dw=False), iters=10)
+    dw_ms = cuda_ms(lambda: sharded_xent_backward(x, ws, bs, ln, slse, ss, 1.0 / n,
+                                                  need_dx=False), iters=10)
+    del ss
+    all_ms = cuda_ms(lambda: sharded_xent_in_one_process(x, w, b, y, shards, save_s),
+                     iters=5, warmup=1)
+    if save_s:
+        def unsharded():
+            lse_, _, s_ = xent_forward_save(x, w, b, y)
+            return xent_dx(s_, w, y, lse_, 1.0 / n), xent_dw(s_, x, y, lse_, 1.0 / n)
+    else:
+        def unsharded():
+            lse_, _ = xent_forward(x, w, b, y)
+            return (xent_dx_lean(x, w, b, y, lse_, 1.0 / n),
+                    xent_dw_lean(x, w, b, y, lse_, 1.0 / n))
+    un_ms = cuda_ms(unsharded, iters=5, warmup=1)
+
+    def plain():
+        lse_, _, s_ = xent_forward_save_reference(x, w, b, y)
+        return (xent_dx_reference(s_, w, y, lse_, 1.0 / n),
+                xent_dw_reference(s_, x, y, lse_, 1.0 / n))
+
+    plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    yl = y.long().clamp(0, v - 1)  # F.cross_entropy takes no label outside [0, V)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        F.cross_entropy(torch.addmm(leaves[2], leaves[0], leaves[1]), yl), leaves), iters=5,
+        warmup=1)
+    e = x.element_size()
+    nbytes = 2 * (n * d + d * v) * e + v * (e + 4) + 4 * n  # x, W, b, labels in; dX, dW, db out
+    bnd, by = bound(nbytes, 6 * n * d * v,
+                    H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS)
+    return (f"{tag}: loss |err| {lerr:.3e} vs plain, {uerr:.3e} vs unsharded kernels; "
+            + ", ".join(f"{k} {a:.3e} / {u:.3e}" for k, (a, u) in errs.items())
+            + f" of max (plain / unsharded; tol {rel:g}, db {XENT_GRAD_REL:g}); a shard "
+            f"[{d}, {vl}]: fwd {fwd_ms:.3f} ms, dX {dx_ms:.3f} ms, dW+db {dw_ms:.3f} ms; "
+            f"all {shards} shards with the merge {all_ms:.3f} ms vs the unsharded kernels "
+            f"{un_ms:.3f} ms, the plain version {plain_ms:.3f} ms and F.cross_entropy fwd+bwd "
+            f"{lib_ms:.3f} ms; bound {bnd:.5f} ms "
+            f"({by}, 6·N·d·V)")
+
+
+def fsdp_tp_phase(gen) -> dict[str, dict[str, int]]:
+    """Main path 13 (module docstring, phase 19). Returns the launch counts
+    of the three task5 runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudml_torch.core import process_count
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.tasks import task5_longcontext as task5
+
+    t0 = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp, _one_rank_group(tmp) as group:
+        check(torch.distributed.get_backend(group) == "nccl" and process_count(group) == 1,
+              "the FSDP/TP group is not a one-rank NCCL group")
+        base = FSDP_TP_TASK5 + ["--log_dir", f"{tmp}/logs"]
+        tokens = TRAIN_BATCH * TRAIN_MODEL["max_len"]
+        for path, (flags, head, kernels) in FSDP_TP_PATHS.items():
+            ref_losses, ref_ms, ref_params = _single_card_run(task5, base + head,
+                                                              "--sentinel" in flags)
+            torch.cuda.empty_cache()
+            reset_launch_counts()  # ---- main path 13 (this path) starts here
+            out, losses, params, eng = _task5_run(task5, base + flags)
+            launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+            per_step = dict(PER_STEP, **{k: 1 for k in kernels})
+            need = {k.name: FSDP_TP_STEPS * per_step.get(k.name, 0) for k in KERNELS}
+            check(launches == need, f"{path} launched {launches}, not {need}")
+            check(out["devices"] == 1 and all(np.isfinite(losses)), f"{path} did not train")
+            bitwise = losses == ref_losses and _bitwise(params, ref_params)
+            if bitwise:
+                agree = "bitwise (losses and every parameter)"
+            else:
+                ldiff = max(abs(a - b) for a, b in zip(losses, ref_losses))
+                worst = _close_params(params, ref_params)
+                check(ldiff <= LOSS_TOL and worst <= 1e-6,
+                      f"{path} disagrees with the single-card step ({ldiff:.2e}, {worst:.2e})")
+                agree = (f"within LOSS_TOL ({ldiff:.2e}) and GRAD_TOL (rtol {STEP_GRAD_RTOL:g}, "
+                         f"atol 1e-6), not bitwise")
+            ms = tokens / out["tokens_per_sec"] * 1e3
+            sharded = sum(eng.is_sharded(n) for n in eng.param_specs)
+            ref_name = ("make_lm_fused_train_step" if head else "make_train_step") + (
+                " (Adam in a GradSentinel)" if "--sentinel" in flags else "")
+            print(f"[fsdp_tp] world 1 (one-rank NCCL group): task5 {' '.join(flags)}: losses "
+                  f"{' '.join(f'{x:.6f}' for x in losses)}; equals the single-card "
+                  f"{ref_name} {agree}; {ms:.2f} ms/step vs single-card {ref_ms:.2f} "
+                  f"ms/step ({FSDP_TP_STEPS - 1} steps after one warm-up); {sharded} of "
+                  f"{len(eng.param_specs)} parameters sharded (head kernel "
+                  f"{eng.param_specs['head.kernel']}), wire bytes a step (ring model) "
+                  f"{eng.step_wire_bytes():.0f}; launches "
+                  f"{dict((k, c) for k, c in launches.items() if c)}")
+            paths[path] = launches
+            del params, ref_params, eng
+            torch.cuda.empty_cache()
+    check(not torch.distributed.is_initialized(), "the FSDP/TP group outlived its phase")
+    for dtype in (torch.float32, torch.bfloat16):
+        for shards in VOCAB_SHARDS:
+            for save_s in (True, False):
+                print(f"[fsdp_tp] vocab shards in one process, N={XENT_SHAPE[0]} "
+                      f"d={XENT_SHAPE[1]} V={XENT_SHAPE[2]}, "
+                      f"{_vocab_shard_check(gen, dtype, shards, save_s)}")
+                torch.cuda.empty_cache()
+    print(f"[fsdp_tp] {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def _dir_bytes(path) -> int:
     return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
 
@@ -5380,6 +5620,8 @@ def main() -> int:
     paths.update(gspmd_phase())
     torch.cuda.empty_cache()
     paths.update(zero1_phase())
+    torch.cuda.empty_cache()
+    paths.update(fsdp_tp_phase(gen))
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

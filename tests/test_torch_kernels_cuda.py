@@ -1583,3 +1583,81 @@ def test_xent_forward_keeps_nan(cuda_device, dtype, poison, n, d, v):
     for got in (picked0, picked):
         _same_nans_and_close(got, rpicked, tol=ROW_TOL)
     _same_nans_and_close(s, rs, tol=ROW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_s", [False, True], ids=["lean", "saved"])
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,d,v", [(1000, 64, 1000), (256, 512, 4096), (300, 1032, 700)])
+def test_vocab_sharded_head_kernels_compose(cuda_device, n, d, v, dtype, shards, save_s):
+    """The vocab-sharded head's halves on the card (kernels 10 or 11
+    forward, 12 and 13 or 14 and 15 backward, one launch each a shard):
+    labels shifted below each shard's first column (negative ones pick
+    nothing; −1 and V among them), the lse merged over the shards; the
+    loss at the xent row tolerance of the plain unsharded head, dX (summed
+    over the shards), dW (concatenated) and db within the xent gradient
+    tolerances of the plain version's, as the unsharded kernels are."""
+    from tpudml_torch.ops import sharded_xent_in_one_process
+
+    x, w, b, y = _xent_inputs(n, d, v, dtype, cuda_device)
+    kernels = ((XENT_FORWARD_SAVE, XENT_DX, XENT_DW) if save_s else
+               (XENT_FORWARD, XENT_DX_LEAN, XENT_DW_LEAN))
+    before = [k.launches for k in kernels]
+    loss, dx, dw, db = sharded_xent_in_one_process(x, w, b, y, shards, save_s)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [c + shards for c in before]
+    rlse, rpicked, rs = xent_forward_save_reference(x, w, b, y)
+    torch.testing.assert_close(loss, (rlse - rpicked).mean(), **ROW_TOL)
+    rel = XENT_GRAD_REL[dtype]
+    _close_to_max(dx, xent_dx_reference(rs, w, y, rlse, 1.0 / n), rel)
+    rdw, rdb = xent_dw_reference(rs, x, y, rlse, 1.0 / n)
+    _close_to_max(dw, rdw, rel)
+    _close_to_max(db, rdb, XENT_GRAD_REL[torch.float32])
+    assert dw.dtype == dtype and db.dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [["--parallel", "fsdp", "--fused_xent"],
+                                   ["--parallel", "tp", "--fused_xent", "--fused_xent_lean"]],
+                         ids=["fsdp_saved", "tp_lean"])
+def test_sharded_head_world1_nccl_steps_equal_the_single_card_step(cuda_device, tmp_path, flags):
+    """task5 ``--parallel fsdp|tp`` with the vocab-sharded head on a one-rank
+    NCCL group (kernels 10–15 on the one shard, the merge and dX's
+    all-reduce over one rank) against the single-card fused step from the
+    same seed, through the entry point at a small width: every loss and
+    parameter bitwise equal where the single-card step repeats itself."""
+    from tpudml_torch.core import DistributedConfig, process_group
+    from tpudml_torch.tasks import task5_longcontext as task5
+
+    common = ["--vocab", "4096", "--embed_dim", "256", "--num_heads", "4", "--num_layers",
+              "2", "--seq_len", "256", "--batch_size", "4", "--steps", "3", "--log_every", "0",
+              "--attn", "flash", "--fused_ln", "--rope", "--device", "cuda",
+              "--log_dir", str(tmp_path)]
+
+    def run(argv):
+        args = task5.parse_args(argv)
+        losses, last = [], {}
+
+        def hook(step, train_state, metrics):
+            losses.append(float(metrics["loss"]))
+            last["model"] = train_state.model
+
+        task5.run(args, hooks=[hook])
+        eng = args._sharded
+        params = (eng.gather_params() if eng is not None else
+                  {n: p.detach().clone() for n, p in last["model"].named_parameters()})
+        return losses, params
+
+    head = [f for f in flags if f.startswith("--fused")]
+    (want, want_p), (again, again_p) = run(common + head), run(common + head)
+    with process_group(DistributedConfig(coordinator_address=f"file://{tmp_path}/store"),
+                       device="cuda"):
+        assert torch.distributed.get_backend() == "nccl"
+        got, got_p = run(common + flags)
+    if want == again and all(torch.equal(want_p[n], again_p[n]) for n in want_p):
+        assert got == want
+        for n in want_p:
+            assert torch.equal(got_p[n], want_p[n]), n
+    else:
+        assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-3

@@ -231,8 +231,14 @@ def test_rejections(tmp_path):
         GSPMDParallel(model, Sgd())
     cfg = DistributedConfig(coordinator_address=f"file://{tmp_path}/store")
     with process_group(cfg, device="cpu"):
-        with pytest.raises(NotImplementedError, match="item 7 \\(7c\\)"):
-            GSPMDParallel(model, Sgd(), fused_xent=True)
+        fused = GSPMDParallel(model, Sgd(), fused_xent=True)  # the vocab-sharded head (7c)
+        fused.create_state()
+        fused.make_train_step()
+        assert fused._fused_loss_fn.keep == {"head.kernel": (1,), "head.bias": (0,)}
+        with pytest.raises(ValueError, match="fused_xent needs a model with a 'head'"):
+            mp = GSPMDParallel(lenet_stages(device="cpu"), Sgd(), fused_xent=True)
+            mp.create_state()
+            mp.make_train_step()
         with pytest.raises(CompositionError, match="save_scores requires fused_xent"):
             GSPMDParallel(model, Sgd(), save_scores=True)
         with pytest.raises(CompositionError, match="no accum_steps"):

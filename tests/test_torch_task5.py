@@ -2,7 +2,9 @@
 on the CPU: a few steps at a tiny size, the fused linear-xent head in its
 saved-scores, lean and auto modes and its flag validation, the flags that
 are not ported, and the card being required unless the caller asks for
-the CPU. ``--parallel dp`` at world 1 in this process (equal to
+the CPU. ``--parallel fsdp`` and ``tp`` at world 1 (equal to ``single``,
+with the sentinel, the fused head and a checkpoint; world 2:
+``tests/test_torch_mp_cli.py``). ``--parallel dp`` at world 1 in this process (equal to
 ``--parallel single``) and at world 2 over gloo
 (``tests/torch_dist_worker.py``: both ranks end at the same loss). (The lean step against JAX's task5 engine:
 ``tests/test_torch_longcontext.py``.) Also the MoE LM (``--moe_experts``):
@@ -96,13 +98,9 @@ def test_card_is_the_default_device(no_card, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--parallel", "fsdp", "--sentinel"], "item 7"),
-    (["--parallel", "fsdp"], "item 7"),
-    (["--parallel", "tp"], "item 7"),
-    (["--parallel", "pp"], "item 7"),
+    (["--parallel", "pp"], "item 7 \\(7d"),
     (["--parallel", "cp"], "item 8"),
-    (["--parallel", "tp", "--ckpt_dir", "ck"], "item 7"),
-    (["--parallel", "pp", "--sentinel"], "item 7"),
+    (["--parallel", "pp", "--sentinel"], "item 7 \\(7d"),
     (["--parallel", "cp", "--ckpt_dir", "ck"], "item 8"),
 ])
 def test_unported_flags_raise(tmp_path, flags, match):
@@ -111,6 +109,31 @@ def test_unported_flags_raise(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         task5.main(TINY + flags + ["--device", "cpu", "--steps", "1",
                                    "--log_dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--parallel", "fsdp", "--sentinel"],
+    ["--parallel", "fsdp"],
+    ["--parallel", "tp"],
+    ["--parallel", "tp", "--ckpt_dir", "ck"],
+    ["--parallel", "fsdp", "--fused_xent", "--fused_xent_lean"],
+    ["--parallel", "tp", "--fused_xent", "--sentinel"],
+], ids=["fsdp_sentinel", "fsdp", "tp", "tp_ckpt", "fsdp_fused_lean", "tp_fused_sentinel"])
+def test_fsdp_and_tp_run_with_the_host_flags(tmp_path, capsys, flags):
+    """``--parallel fsdp`` and ``tp`` (which raised before they were ported)
+    alone build a one-rank gloo group; each run equals ``--parallel
+    single``'s, the fused head's too (a one-rank merge is exact), with the
+    sentinel and a checkpoint at the end (JAX's leaves)."""
+    flags = [str(tmp_path / f) if f == "ck" else f for f in flags]
+    common = TINY + ["--device", "cpu", "--steps", "6", "--log_every", "0", "--attn",
+                     "flash", "--fused_ln", "--rope", "--log_dir", str(tmp_path)]
+    fused = [f for f in flags if f.startswith("--fused")]
+    single = task5.main(common + fused)
+    out = task5.main(common + flags)
+    assert f"[{flags[1]}/flash/cpu] 1 device(s)" in capsys.readouterr().out
+    assert out["devices"] == 1 and out["final_loss"] == single["final_loss"]
+    if "--ckpt_dir" in flags:
+        assert (tmp_path / "ck" / "step_6" / "leaves.npz").is_file()
 
 
 def test_dp_at_world_one_equals_single(tmp_path, capsys):

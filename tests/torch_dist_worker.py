@@ -23,9 +23,15 @@ clean run, a NaN step, a poisoned micro-batch under accumulation),
 ``gspmd`` and ``gspmd2d`` (``GSPMDParallel`` on LeNet's stages and the
 tiny LM), ``task4`` (the task4 entry), ``zero1``
 (``DataParallel(zero1=...)``, its sharded checkpoints, task2 ``--zero1``)
-and ``sharded`` (the sharded store on a GSPMD and an EP state, this
+``sharded`` (the sharded store on a GSPMD and an EP state, this
 package's and JAX's files; task5 ``--parallel ep --ckpt_dir`` and
-``--resume``).
+``--resume``), ``fsdp`` (FSDP on ForwardMLP, under the block-then-mean
+gradient rule too, and FSDP×TP on the tiny LM), ``sharded_xent`` (the
+vocab-sharded head under TP, 1-D FSDP and FSDP×TP, both routes; the
+engines fused and unfused), ``overlap`` (``tp_overlap_matmul`` against
+the plain all-reduce) and ``mp_cli`` (task5 ``--parallel fsdp | tp``
+from JAX's parameters, their checkpoints and resume, an FSDP state
+through the sharded store).
 """
 
 from __future__ import annotations
@@ -622,29 +628,33 @@ def _staged(case, key="lenet"):
     return model
 
 
-def _mp_run(model, opt, batches, **engine):
-    """``GSPMDParallel(model, opt, **engine)``: per-step losses, the full
-    parameters after, each local parameter's and optimizer tensor's shape."""
+def _mp_run(model, opt, batches, engine=None, **kw):
+    """``engine(model, opt, **kw)`` (default ``GSPMDParallel``): per-step
+    losses, the full parameters after, each local parameter's and
+    optimizer tensor's shape."""
     from tpudml_torch.parallel import GSPMDParallel
 
-    mp = GSPMDParallel(model, opt, **engine)
+    mp = (engine or GSPMDParallel)(model, opt, **kw)
     ts, step = mp.create_state(), mp.make_train_step()
     losses = []
     for x, y in batches:
         ts, m = step(ts, x, y)
         losses.append(float(m["loss"]))
     opt_shapes = ({n: tuple(t.shape) for n, t in ts.opt_state.items()}
-                  if isinstance(ts.opt_state, dict) and "m" not in ts.opt_state else {})
+                  if isinstance(ts.opt_state, dict) and "m" not in ts.opt_state else
+                  {f"{k}.{n}": tuple(t.shape) for k in ("m", "v")
+                   for n, t in ts.opt_state[k].items()}
+                  if isinstance(ts.opt_state, dict) else {})
     return {"losses": losses, "params": mp.gather_params(),
             "local": {n: tuple(p.shape) for n, p in model.named_parameters()},
             "opt_local": opt_shapes, "specs": mp.param_specs}, mp, ts
 
 
-def _lm(case):
+def _lm(case, key="lm"):
     from tpudml_torch.models import TransformerLM
 
-    model = TransformerLM(**case["lm"], device="cpu")
-    model.load_state_dict(case["lm_state"])
+    model = TransformerLM(**case[key], device="cpu")
+    model.load_state_dict(case[f"{key}_state"])
     return model
 
 
@@ -857,11 +867,312 @@ def suite_sharded(job: Path, rank: int, world: int) -> dict:
     return out
 
 
+# ------------------------------------------- FSDP, the sharded head, overlap
+
+
+def _mlp(case):
+    from tpudml_torch.models import ForwardMLP
+
+    model = ForwardMLP(device="cpu")
+    model.load_state_dict(case["mlp"])
+    return model
+
+
+def _old_rule_run(case, batches) -> dict:
+    """FSDP under the block-then-mean gradient rule: the gather's backward
+    keeps this rank's block of the gradient whatever the axis, and the data
+    mean then averages every gradient, blocks that differ by rank
+    included."""
+    import torch.distributed as dist
+
+    from tpudml_torch.optim import Sgd
+    from tpudml_torch.parallel import FSDP, mp
+
+    def narrow_only(gs, dims, group, size):
+        i = dist.get_rank(group)
+        return [g.narrow(d, i * (g.shape[d] // size), g.shape[d] // size).contiguous()
+                for g, d in zip(gs, dims)]
+
+    model = _mlp(case)
+    eng = FSDP(model, Sgd(lr=0.05, momentum=0.9))
+    eng._batch_sharded = set()
+    real, mp.reduce_scatter_blocks = mp.reduce_scatter_blocks, narrow_only
+    try:
+        ts, step = eng.create_state(), eng.make_train_step()
+        losses = []
+        for x, y in batches:
+            ts, m = step(ts, x, y)
+            losses.append(float(m["loss"]))
+    finally:
+        mp.reduce_scatter_blocks = real
+    return {"losses": losses, "params": eng.gather_params()}
+
+
+def _reduce_scatter_check(rank: int, world: int) -> float:
+    """:func:`parallel.mp.reduce_scatter_blocks` against its plain version,
+    an all-reduce then a narrow (W× the bytes): max |difference| over f32
+    and f64 leaves cut along dims 0, 1 and 2."""
+    import torch
+
+    from tpudml_torch.parallel.mp import reduce_scatter_blocks
+
+    g = torch.Generator().manual_seed(100 + rank)
+    gs = [torch.randn(4 * world, 3, generator=g), torch.randn(5, 2 * world, generator=g),
+          torch.randn(2, 3, world, generator=g).double(), torch.randn(world, generator=g)]
+    dims = (0, 1, 2, 0)
+    got = reduce_scatter_blocks(gs, dims, None, world)
+    err = 0.0
+    for t, d, mine in zip(gs, dims, got):
+        full = t.clone()
+        torch.distributed.all_reduce(full)
+        b = t.shape[d] // world
+        want = full.div_(world).narrow(d, rank * b, b)
+        err = max(err, float((mine - want).abs().max()))
+    return err
+
+
+def suite_fsdp(job: Path, rank: int, world: int) -> dict:
+    """FSDP at this world on ForwardMLP (SGD momentum: losses, the full
+    parameters; Adam one step: each rank's blocks and moments); the same
+    run under the block-then-mean gradient rule; the reduce-scatter
+    against its plain version; at world 4 also FSDP×TP {data 2, model 2}
+    on the tiny LM, without and with a global-norm clip."""
+    import torch
+
+    from tpudml_torch.optim import Adam, ClipByGlobalNorm, Sgd
+    from tpudml_torch.parallel import FSDP, tensor_parallel_rules
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    batches = [(case["x"], case["y"])] * case["steps"]
+    out = {"rs_err": _reduce_scatter_check(rank, world)}
+    out["sgd"], _, _ = _mp_run(_mlp(case), Sgd(lr=0.05, momentum=0.9), batches,
+                               engine=FSDP)
+    out["adam"], _, _ = _mp_run(_mlp(case), Adam(lr=1e-3), batches[:1], engine=FSDP)
+    out["old_rule"] = _old_rule_run(case, batches)
+    if world == 4:
+        tokens = [(case["tokens"], case["labels"])] * 3
+        two_d = dict(engine=FSDP, mesh={"data": 2, "model": 2},
+                     base_rule=tensor_parallel_rules("model"))
+        out["fsdp_tp"], _, _ = _mp_run(_lm(case), Sgd(lr=0.1, momentum=0.9), tokens, **two_d)
+        out["fsdp_tp_clip"], _, _ = _mp_run(
+            _lm(case), ClipByGlobalNorm(Sgd(lr=0.1, momentum=0.9), max_norm=0.05), tokens,
+            **two_d)
+    return out
+
+
+def suite_sharded_xent(job: Path, rank: int, world: int) -> dict:
+    """World 4: ``sharded_linear_cross_entropy`` (the plain path the CPU
+    runs, and the kernels' autograd function on their plain versions) under
+    TP {model 4}, 1-D FSDP {data 4} (tokens gathered first) and FSDP×TP
+    {data 2, model 2}, saved and lean: the loss and the full dX, dW, db;
+    then the engines fused against unfused: TP, FSDP, FSDP×TP and TP at an
+    indivisible vocabulary, each also through the kernels' function."""
+    import torch
+
+    from tpudml_torch.comm.collectives import gather_rows
+    from tpudml_torch.ops import xent_kernel as xk
+    from tpudml_torch.optim import Sgd
+    from tpudml_torch.parallel import FSDP, GSPMDParallel, tensor_parallel_rules
+    from tpudml_torch.parallel.ep import mesh_groups
+
+    dist = torch.distributed
+    case = torch.load(job / "cases.pt", weights_only=False)
+    x0, w0, b0, labels0 = (torch.from_numpy(case[k]).clone() for k in ("x", "w", "b", "labels"))
+    n, v = x0.shape[0], w0.shape[1]
+
+    def via_function(x, w, labels, bias, *, group, save_s=None, reduce_dx=True, **_):
+        xn, ln = x.reshape(-1, x.shape[-1]), labels.reshape(-1).to(torch.int32)
+        if save_s is None:
+            save_s = xk._auto_save_s(xn.shape[0], w.shape[1], 256, 2048)
+        return xk._ShardedLinearXent.apply(xn, w, bias, ln, group, bool(save_s), reduce_dx)
+
+    def grads(layout: str, op, save_s):
+        """The loss and the FULL gradients (gathered back) under ``layout``."""
+        x, w, b = (t.clone().requires_grad_(True) for t in (x0, w0, b0))
+        if layout == "tp":
+            groups = mesh_groups({"model": world})
+            group, index, size = groups["model"]
+            vl = v // size
+            loss = op(x, w[:, index * vl:(index + 1) * vl], labels0,
+                      b[index * vl:(index + 1) * vl], group=group, save_s=save_s)
+        elif layout == "fsdp":
+            group, index, size = mesh_groups({"data": world})["data"]
+            vl, nl = v // size, n // size
+            xg = gather_rows(x[index * nl:(index + 1) * nl], group, grad_scale=1.0)
+            lg = gather_rows(labels0[index * nl:(index + 1) * nl].contiguous(), group)
+            loss = op(xg, w[:, index * vl:(index + 1) * vl], lg,
+                      b[index * vl:(index + 1) * vl], group=group, save_s=save_s,
+                      reduce_dx=False)
+        else:  # fsdp_tp: tokens over data, vocab over model, a pmean of the token means
+            groups = mesh_groups({"data": 2, "model": 2})
+            dgroup, di, ds = groups["data"]
+            mgroup, mi, ms = groups["model"]
+            vl, nl = v // ms, n // ds
+            loss = op(x[di * nl:(di + 1) * nl], w[:, mi * vl:(mi + 1) * vl],
+                      labels0[di * nl:(di + 1) * nl], b[mi * vl:(mi + 1) * vl],
+                      group=mgroup, save_s=save_s)
+            loss = loss / ds  # the global loss is the data ranks' mean
+            loss_value = loss.detach().clone()
+            dist.all_reduce(loss_value, group=dgroup)
+        loss.backward()
+        g = [t.grad.clone() for t in (x, w, b)]
+        for t in g:  # each rank computed its own part; the sum is the whole
+            dist.all_reduce(t)
+        if layout in ("tp", "fsdp_tp"):  # the model ranks hold the same rows' dX
+            g[0] /= world if layout == "tp" else 2
+        value = loss_value if layout == "fsdp_tp" else loss.detach()
+        return float(value), g
+
+    out = {}
+    for layout in ("tp", "fsdp", "fsdp_tp"):
+        for save_s in (False, True):
+            out[f"{layout}/plain/{save_s}"] = grads(layout, xk.sharded_linear_cross_entropy,
+                                                   save_s)
+            out[f"{layout}/kernels/{save_s}"] = grads(layout, via_function, save_s)
+
+    tp = dict(rule=tensor_parallel_rules("model"), axis_name="model")
+    engines = {"tp": (GSPMDParallel, dict(mesh={"model": world}, **tp)),
+               "fsdp": (FSDP, dict(mesh={"data": world})),
+               "fsdp_tp": (FSDP, dict(mesh={"data": 2, "model": 2},
+                                      base_rule=tensor_parallel_rules("model"))),
+               "tp_v34": (GSPMDParallel, dict(mesh={"model": world}, **tp))}
+    real = xk.sharded_linear_cross_entropy
+    for name, (cls, kw) in engines.items():
+        key = {"tp_v34": "lm34", "fsdp": "lm64"}.get(name, "lm")
+        batches = [(case[f"{key}_tokens"], case[f"{key}_labels"])] * 3
+        for mode in ("unfused", "fused", "fused_kernels"):
+            xk.sharded_linear_cross_entropy = via_function if mode == "fused_kernels" else real
+            run, eng, _ = _mp_run(_lm(case, key), Sgd(lr=0.05), batches, engine=cls,
+                                  fused_xent=mode != "unfused", **kw)
+            run["head_spec"] = eng.param_specs["head.kernel"]
+            run["wire"] = eng.step_wire_bytes()
+            run["head_wire"] = getattr(eng._fused_loss_fn, "wire_bytes", 0.0)
+            out[f"engine/{name}/{mode}"] = run
+        xk.sharded_linear_cross_entropy = real
+    return out
+
+
+def suite_overlap(job: Path, rank: int, world: int) -> dict:
+    """``tp_overlap_matmul`` against the plain ``all_reduce(x @ w)`` (value
+    and the gradients of sum(sin(·))), over the world (4 chunks) and, at
+    world 4, over the model group of {data 2, model 2} (2 chunks); and its
+    rejection of rows the chunks do not divide."""
+    import torch
+
+    from tpudml_torch.comm.collectives import _ReplicatedSum
+    from tpudml_torch.parallel import tp_overlap_matmul
+    from tpudml_torch.parallel.ep import mesh_groups
+
+    def run(group, fn, seed):
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn(8, 16, generator=g, requires_grad=True)
+        w = torch.randn(16, 8, generator=g, requires_grad=True)
+        y = fn(x, w, group)
+        torch.sin(y).sum().backward()
+        return y.detach(), x.grad, w.grad
+
+    def plain(x, w, group):
+        return _ReplicatedSum.apply(x @ w, group)
+
+    out = {}
+    layouts = [("world", None, 4)]
+    if world == 4:
+        layouts.append(("fsdp_tp", mesh_groups({"data": 2, "model": 2})["model"][0], 2))
+    for name, group, chunks in layouts:
+        seed = 10 + rank
+        out[name] = {"overlap": run(group, lambda x, w, gr: tp_overlap_matmul(
+            x, w, group=gr, chunks=chunks), seed), "plain": run(group, plain, seed)}
+    try:
+        tp_overlap_matmul(torch.ones(6, 4), torch.ones(4, 2), chunks=4)
+        out["rows_error"] = None
+    except ValueError as e:
+        out["rows_error"] = str(e)
+    return out
+
+
+def _task5_losses(task5, argv: list[str], state) -> tuple[dict, list[float]]:
+    """task5 on ``argv`` with its model's initial parameters replaced by
+    ``state`` (JAX's): the entry's result and every step's loss."""
+    from tpudml_torch.models import TransformerLM
+
+    class Loaded(TransformerLM):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.load_state_dict(state)
+
+    losses = []
+    real, task5.TransformerLM = task5.TransformerLM, Loaded
+    try:
+        out = task5.run(task5.parse_args(argv), hooks=[
+            lambda step, train_state, metrics: losses.append(float(metrics["loss"]))])
+    finally:
+        task5.TransformerLM = real
+    return out, losses
+
+
+def suite_mp_cli(job: Path, rank: int, world: int) -> dict:
+    """World 2: task5 ``--parallel fsdp`` and ``tp`` (plain, ``--fused_xent``,
+    ``--sentinel``) from JAX's initial parameters; ``--ckpt_dir`` under both
+    (4 steps, a checkpoint every 2) and a resume from the step-2
+    checkpoint; an FSDP state (the small LM, Adam, one step) through the
+    sharded store, restored into a fresh engine bitwise, then a step of
+    each."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from tpudml_torch.checkpoint import restore_sharded_checkpoint, save_sharded_checkpoint
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.optim import Adam
+    from tpudml_torch.parallel import FSDP
+    from tpudml_torch.tasks import task5_longcontext as task5
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    out = {}
+    for name, extra in case["runs"].items():
+        argv = case["task5"] + extra + ["--log_dir", str(job / f"l{rank}")]
+        out[name] = _task5_losses(task5, argv, case["task5_state"])
+    for par in ("fsdp", "tp"):
+        flags = case["task5"] + ["--parallel", par, "--ckpt_every", "2"]
+        out[f"{par}_a"] = task5.main(flags + ["--ckpt_dir", str(job / f"{par}_ref"),
+                                              "--log_dir", str(job / f"a{rank}")])
+        if rank == 0:
+            shutil.copytree(job / f"{par}_ref" / "step_2", job / f"{par}_run" / "step_2")
+        dist.barrier()
+        out[f"{par}_b"] = task5.main(flags + ["--ckpt_dir", str(job / f"{par}_run"), "--resume",
+                                              "--log_dir", str(job / f"b{rank}")])
+
+    tokens = [(case["tokens"], case["labels"])]
+    run, eng, ts = _mp_run(_lm(case), Adam(lr=1e-3), tokens, engine=FSDP)
+    save_sharded_checkpoint(job / "port_fsdp", ts, 1, placement=eng.placement)
+    out["fsdp_full"] = run["params"]
+    with torch.no_grad():
+        out["fsdp_m_full"] = {n: t.clone() for n, t in eng.gather(ts.opt_state["m"]).items()}
+    model = TransformerLM(**case["lm"], device="cpu", generator=torch.Generator().manual_seed(7))
+    eng2 = FSDP(model, Adam(lr=1e-3))
+    ts2 = eng2.create_state()
+    restore_sharded_checkpoint(job / "port_fsdp" / "step_1", ts2, placement=eng2.placement)
+    out["fsdp_roundtrip"] = (
+        ts2.step == 1 and ts2.opt_state["t"] == ts.opt_state["t"]
+        and all(torch.equal(p, q) for p, q in zip(ts.model.parameters(), ts2.model.parameters()))
+        and all(torch.equal(t, ts2.opt_state[k][n]) for k in ("m", "v")
+                for n, t in ts.opt_state[k].items()))
+    _, m = eng.make_train_step()(ts, *tokens[0])
+    _, m2 = eng2.make_train_step()(ts2, *tokens[0])
+    out["fsdp_resumed_losses"] = (float(m["loss"]), float(m2["loss"]))
+    out["fsdp_resumed_equal"] = all(torch.equal(p, q) for p, q in
+                                    zip(ts.model.parameters(), ts2.model.parameters()))
+    return out
+
+
 SUITES = {"dp": suite_dp, "resnet": suite_resnet, "comm": suite_comm,
           "task5": suite_task5, "ep": suite_ep, "labs": suite_labs, "obs": suite_obs,
           "sentinel": suite_sentinel, "gspmd": suite_gspmd, "gspmd2d": suite_gspmd2d,
           "task4": suite_task4,
-          "zero1": suite_zero1, "sharded": suite_sharded}
+          "zero1": suite_zero1, "sharded": suite_sharded, "fsdp": suite_fsdp,
+          "sharded_xent": suite_sharded_xent, "overlap": suite_overlap,
+          "mp_cli": suite_mp_cli}
 
 
 def main() -> None:

@@ -1,7 +1,7 @@
 """The port's copy of the engine-composition rejections that its engines
 raise (the rows of ``tpudml/capabilities.py`` that ``DataParallel``,
-``GSPMDParallel``, ``ZeRO1``, task5 ``--parallel ep`` and the serving
-engine check, with the JAX wording; the
+``GSPMDParallel``, ``ZeRO1``, ``tp_overlap_matmul``, task5 ``--parallel
+ep`` and the serving engine check, with the JAX wording; the
 planner's full table is ROADMAP.md queue 1 item 10).
 
 Guard sites call :func:`reject` with an entry's key instead of writing
@@ -154,6 +154,17 @@ _ENTRIES = (
         and (
             _g(c, "impl", "full") != "full" or bool(_g(c, "seq_sharded"))
         ),
+    ),
+    Capability(
+        key="tp_overlap_needs_model_axis",
+        owner="tpudml_torch.parallel.overlap",
+        message=(
+            "tp_overlap chunks a row-sharded matmul against its psum; "
+            "without a model axis of size > 1 there is no reduce to "
+            "hide — run the unchunked matmul"
+        ),
+        when=lambda c: bool(_g(c, "tp_overlap"))
+        and _g(c, "mesh", {}).get("model", 1) <= 1,
     ),
     Capability(
         key="serve_fused_head_dense",

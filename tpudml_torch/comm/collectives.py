@@ -139,6 +139,57 @@ class _ReplicatedSum(torch.autograd.Function):
         return g, None
 
 
+class _SumCotangent(torch.autograd.Function):
+    """Identity whose backward all-reduces (sums) the cotangent: an input
+    that every rank of the group holds alike and feeds into its own part
+    of a sum (JAX's transpose of a replicated ``shard_map`` input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def sum_cotangent(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` as it is; its gradient is the group's sum of the gradients the
+    ranks compute for it (a vocab shard's partial dX summed to the whole)."""
+    return _SumCotangent.apply(x, group)
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather along dim 0, rank order; backward: this rank's rows of the
+    group's reduce-scatter (sum) of the cotangent, times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, group, scale: float):
+        ctx.group, ctx.scale = group, scale
+        out = x.new_empty((_world(group) * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        mine = g.new_empty((g.shape[0] // _world(ctx.group), *g.shape[1:]))
+        dist.reduce_scatter_tensor(mine, g.contiguous(), group=ctx.group)
+        if ctx.scale != 1:
+            mine.mul_(ctx.scale)
+        return mine, None, None
+
+
+def gather_rows(x: torch.Tensor, group=None, grad_scale: float = 1.0) -> torch.Tensor:
+    """Every rank's rows of ``x`` [n, ...] stacked in rank order [W·n, ...]
+    (JAX's tiled ``all_gather``). Differentiable: the gradient of this
+    rank's rows is its rows of the group's sum of the cotangents (one
+    reduce-scatter), times ``grad_scale``."""
+    return _GatherRows.apply(x, group, grad_scale)
+
+
 def plogsumexp(x: torch.Tensor, group=None) -> torch.Tensor:
     """Cross-rank log-sum-exp merge: each rank holds a partial
     ``lse_local`` over its slice of a reduced axis; the result is their

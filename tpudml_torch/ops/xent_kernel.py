@@ -30,6 +30,13 @@ lean ones in one thread-block cluster (:func:`lean_plan`).
   and 13, :func:`xent_dx_lean` / :func:`xent_dw_lean` kernels 14 and 15;
   each has a plain PyTorch version (``*_reference``), which CPU tensors
   run. A CUDA input the kernels do not take raises: nothing falls back.
+- :func:`sharded_linear_cross_entropy` is the vocab-sharded head over a
+  process group: each rank runs kernels 10–15 on its [d, V/W] shard with
+  the labels shifted below its first column, and the shards merge their
+  (lse, picked) (comment above :func:`sharded_xent_forward`); its halves
+  :func:`sharded_xent_forward` / :func:`sharded_xent_backward` are public so
+  that one card can check their composition
+  (:func:`sharded_xent_in_one_process`).
 - :func:`linear_cross_entropy` is the JAX package's entry point. When a
   gradient is needed it runs a ``torch.autograd.Function``: saved scores
   (kernel 11 forward; kernels 12 and 13 backward) or lean (kernel 10
@@ -55,6 +62,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed as dist
 
 from tpudml_torch.ops.cuda_lib import (
     F, I, P, STORAGE_DTYPES, CudaLibrary, Kernel, check_cuda_operand, ptr,
@@ -552,3 +560,157 @@ def linear_cross_entropy(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         return mode.apply(xn, w, b, ln)
     lse, picked = xent_forward(xn, w, b, ln)
     return (lse - picked).mean()
+
+
+# ------------------------------------------------------- the vocab-sharded head
+#
+# Each rank of a group holds a [d, V/W] shard of W (and its slice of the
+# bias) and the same rows x. The forward runs kernel 11 (saved scores) or
+# 10 (lean) on the shard with the labels shifted by shard·V/W: a label
+# outside the shard, negative ones included, picks nothing, the kernels'
+# own rule. The shards' (lse, picked) merge into the global ones (one pmax
+# and one sum for lse, one sum for picked). p = exp(s − lse_global) is this
+# shard's slice of the global softmax, so the backward kernels (12 and 13,
+# or 14 and 15) run unchanged on the shard with the merged lse and give dW
+# and db of the shard with no collective; dX is the shard's partial sum,
+# all-reduced over the group before it goes back to the trunk. The loss is
+# replicated and each rank differentiates it with cotangent 1, so no factor
+# is restored: JAX's psum of the cotangent makes up for shard_map's
+# transpose convention, which the port does not have.
+
+
+def sharded_xent_forward(x, w, b, labels, shard: int, save_s: bool):
+    """One vocab shard's forward: kernel 11 (``save_s``) or 10 on ``w``
+    [d, V_local] and ``b`` [V_local] with int32 ``labels`` shifted by
+    ``shard``·V_local. Returns (the shifted labels, lse_local [N],
+    picked_local [N], the f32 scores [N, V_local] or None)."""
+    ln = labels - shard * w.shape[1]
+    if save_s:
+        lse, picked, s = xent_forward_save(x, w, b, ln)
+        return ln, lse, picked, s
+    lse, picked = xent_forward(x, w, b, ln)
+    return ln, lse, picked, None
+
+
+def sharded_xent_backward(x, w, b, ln, lse, s, inv_n: float, need_dx: bool = True,
+                          need_dw: bool = True):
+    """One vocab shard's backward from the MERGED lse: (dx [N, d], this
+    shard's partial sum over its vocabulary; dw [d, V_local]; db [V_local]
+    f32), kernels 12 and 13 from the saved scores ``s`` or 14 and 15
+    (``s`` None); a gradient not needed is None."""
+    dx = dw = db = None
+    if s is not None:
+        if need_dx:
+            dx = xent_dx(s, w, ln, lse, inv_n)
+        if need_dw:
+            dw, db = xent_dw(s, x, ln, lse, inv_n)
+    else:
+        if need_dx:
+            dx = xent_dx_lean(x, w, b, ln, lse, inv_n)
+        if need_dw:
+            dw, db = xent_dw_lean(x, w, b, ln, lse, inv_n)
+    return dx, dw, db
+
+
+def sharded_xent_in_one_process(x, w, b, labels, shards: int, save_s: bool):
+    """The vocab-sharded head's halves over ``shards`` equal shards of ``w``
+    in ONE process, as one card can run them: each shard's
+    :func:`sharded_xent_forward` on its contiguous columns, the lse merged
+    by ``torch.logsumexp`` over the stacked shards and picked summed, each
+    shard's :func:`sharded_xent_backward` with the merged lse. Returns
+    (loss, dx summed over the shards in f32, dw and db concatenated)."""
+    vl = w.shape[1] // shards
+    parts = []
+    for k in range(shards):
+        ws, bs = w[:, k * vl:(k + 1) * vl].contiguous(), b[k * vl:(k + 1) * vl].contiguous()
+        parts.append((ws, bs, *sharded_xent_forward(x, ws, bs, labels, k, save_s)))
+    lse = torch.logsumexp(torch.stack([p[3] for p in parts]), dim=0)
+    loss = (lse - torch.stack([p[4] for p in parts]).sum(dim=0)).mean()
+    dx, dws, dbs = 0.0, [], []
+    for ws, bs, ln, _, _, s in parts:
+        gx, gw, gb = sharded_xent_backward(x, ws, bs, ln, lse, s, 1.0 / x.shape[0])
+        dx = dx + gx.float()
+        dws.append(gw)
+        dbs.append(gb)
+    return loss, dx, torch.cat(dws, dim=1), torch.cat(dbs)
+
+
+class _ShardedLinearXent(torch.autograd.Function):
+    """The vocab-sharded head (comment above): the kernels on this rank's
+    shard, the statistics merged over ``group``; dX all-reduced over it
+    (``reduce_dx``) or left as the shard's partial."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, labels, group, save_s: bool, reduce_dx: bool):
+        from tpudml_torch.comm.collectives import plogsumexp, psum_tree
+
+        ln, lse_loc, picked_loc, s = sharded_xent_forward(x, w, b, labels,
+                                                          dist.get_rank(group), save_s)
+        lse = plogsumexp(lse_loc, group)
+        picked = psum_tree(picked_loc, group)
+        ctx.save_for_backward(x, w, b, ln, lse, s)
+        ctx.group, ctx.reduce_dx = group, reduce_dx
+        ctx.dtypes = (x.dtype, w.dtype, b.dtype)
+        return (lse - picked).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, ln, lse, s = ctx.saved_tensors
+        dx, dw, db = sharded_xent_backward(
+            x, w, b, ln, lse, s, 1.0 / x.shape[0], ctx.needs_input_grad[0],
+            ctx.needs_input_grad[1] or ctx.needs_input_grad[2])
+        dx, dw, db = _scale_cotangents(g, dx, dw, db, ctx.dtypes)
+        if dx is not None and ctx.reduce_dx:
+            dist.all_reduce(dx, op=dist.ReduceOp.SUM, group=ctx.group)
+        return dx, dw, db, None, None, None, None
+
+
+def sharded_xent_reference(x, w, b, labels, group, reduce_dx: bool = True):
+    """Plain version of the vocab-sharded head (JAX's ``_sharded_reference``):
+    this shard's f32 scores, the same merge, autograd; dX summed over the
+    group (``reduce_dx``) or the shard's partial."""
+    from tpudml_torch.comm.collectives import _ReplicatedSum, plogsumexp, sum_cotangent
+
+    if reduce_dx:
+        x = sum_cotangent(x, group)
+    v_local = w.shape[1]
+    ln = labels.long() - dist.get_rank(group) * v_local
+    logits = _scores(x, w, b)
+    lse = plogsumexp(torch.logsumexp(logits, dim=-1), group)
+    valid = (ln >= 0) & (ln < v_local)
+    picked = logits.gather(1, ln.clamp(0, v_local - 1)[:, None])[:, 0]
+    picked = _ReplicatedSum.apply(torch.where(valid, picked, 0.0), group)
+    return (lse - picked).mean()
+
+
+def sharded_linear_cross_entropy(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                                 bias: torch.Tensor | None = None, *, group,
+                                 block_n: int = 256, block_v: int = 2048,
+                                 save_s: bool | None = None,
+                                 reduce_dx: bool = True) -> torch.Tensor:
+    """Vocab-sharded :func:`linear_cross_entropy` over the process group
+    ``group`` (JAX's ``axis_name``): ``w`` is this rank's [d, V/W] shard,
+    the one of rank ``dist.get_rank(group)``, ``bias`` its [V/W] slice,
+    ``labels`` GLOBAL ids; every rank holds the same ``x`` rows. Returns
+    the replicated global mean loss, equal to the unsharded call on the
+    concatenated W. ``save_s=None`` resolves on the LOCAL vocabulary
+    (``_auto_save_s(N, V/W, ...)``: each shard keeps 1/W of the scores).
+    dW and db are this shard's; dX is summed over the group, or left as
+    the shard's partial with ``reduce_dx=False`` (for a caller that sums it
+    into token shards itself, as the 1-D FSDP head reduce-scatters it).
+    CUDA tensors run kernels 10–15 on the shard; CPU tensors run the plain
+    version :func:`sharded_xent_reference`."""
+    d = x.shape[-1]
+    v_local = w.shape[-1]
+    xn = x.reshape(-1, d)
+    ln = labels.reshape(-1)
+    if xn.shape[0] != ln.shape[0]:
+        raise ValueError(f"{tuple(x.shape)} rows != {tuple(labels.shape)} labels")
+    if save_s is None:
+        save_s = _auto_save_s(xn.shape[0], v_local, block_n, block_v)
+    b = torch.zeros((v_local,), dtype=w.dtype, device=w.device) if bias is None else bias
+    ln = ln.to(torch.int32)
+    if not xn.is_cuda:
+        return sharded_xent_reference(xn, w, b, ln, group, reduce_dx)
+    xn, w, b, ln = (t.contiguous() for t in (xn, w, b, ln))
+    return _ShardedLinearXent.apply(xn, w, b, ln, group, bool(save_s), reduce_dx)

@@ -185,14 +185,16 @@ class ClipByGlobalNorm(Optimizer):
     port's ``axes`` are process groups (None = the default group): the
     squares of the leaves ``sharded`` marks (a predicate on the parameter
     name; None = every leaf) are summed over each group in turn, those of
-    the replicated leaves counted once. Engines rewrap the clip with
+    the replicated leaves counted once. A float ``sharded(name)`` weighs
+    the leaf's squares (``GSPMDParallel.norm_share``: 1 / the ranks of
+    those groups holding the same block). Engines rewrap the clip with
     :func:`shard_aware_clip`.
     """
 
     base: Optimizer = None  # type: ignore[assignment]
     max_norm: float = 1.0
     axes: tuple = ()
-    sharded: Any = None  # Callable[[str], bool]; None = every leaf local
+    sharded: Any = None  # Callable[[str], bool | float]; None = every leaf local
 
     def __post_init__(self):
         if self.base is None:
@@ -209,8 +211,9 @@ class ClipByGlobalNorm(Optimizer):
                                   device=next(iter(grads.values())).device)
         for name, g in grads.items():
             s = g.float().square().sum()
-            if self.sharded is None or self.sharded(name):
-                local = local + s
+            share = 1.0 if self.sharded is None else float(self.sharded(name))
+            if share:
+                local = local + s * share
             else:
                 rep = rep + s
         for group in self.axes:

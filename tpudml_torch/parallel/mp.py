@@ -17,24 +17,34 @@ sharded dimension, and its optimizer state is shaped like that block.
 The step gathers the weights (JAX's XLA partitioner moves activations
 instead, a defined difference). Before the forward, each sharded
 parameter is all-gathered over its axis, one collective a dtype and
-axis, through an autograd op whose backward keeps this rank's block of
-the gradient. Every rank of a stage group then runs the whole forward
-and backward on the same batch, so the full gradient is the same on each
-and its block is the gradient of the rank's parameters: the results are
-those of single-device training, for any rule. With ``batch_axis`` each
-data rank takes its rows of the global batch, and the gradients (and the
-loss, and the model's float buffers) are averaged over the data group
-first. Custom autograd functions (the flash kernels) see plain tensors.
+axis, through an autograd op. Over an axis that is not ``batch_axis``
+every rank of the group runs the whole forward and backward on the same
+rows, so the full gradient is the same on each and the op's backward
+keeps this rank's block of it. Over ``batch_axis`` itself (FSDP shards
+the parameters over the data axis, ``parallel/fsdp.py``) the ranks hold
+different rows, so the backward reduce-scatters the ranks' full
+gradients (one collective a dtype) and divides by the axis size: this
+rank's block of their data mean. With ``batch_axis`` each data rank
+takes its rows of the global batch, and the gradients of the leaves not
+split over it (and the loss, and the model's float buffers) are averaged
+over the data group. The results are those of single-device training,
+for any rule. Custom autograd functions (the flash kernels) see plain
+tensors.
+
+``fused_xent`` trains a ``TransformerLM`` through the vocab-sharded fused
+head (``train.make_lm_fused_sharded_loss_fn``): the head's vocabulary
+dimension stays in blocks, each rank runs the head kernels on its shard
+and the shards merge their statistics.
 
 What crosses ranks each step: the all-gather of the sharded parameters'
-blocks, (size − 1) × the block's bytes into each rank; with
-``batch_axis``, the data group's mean of the gradient blocks. For
-``lenet_stages`` at world 2 every leaf shards (51,902 f32 parameters):
-103,804 bytes into each rank a step, and no gradient exchange.
+blocks, (size − 1) × the block's bytes into each rank; over
+``batch_axis`` also the reduce-scatter of the gathered gradient; the
+data group's mean of the other gradients. For ``lenet_stages`` at world
+2 every leaf shards (51,902 f32 parameters): 103,804 bytes into each rank
+a step, and no gradient exchange.
 
 JAX's ``DispatchThrottle`` has nothing to bound in an eager step
-(``parallel/sharding.py``). ``fused_xent`` and ``save_scores`` need the
-vocab-sharded head, ROADMAP.md queue 1 item 7 (7c).
+(``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import math
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -55,12 +66,13 @@ from tpudml_torch.nn.losses import softmax_cross_entropy
 from tpudml_torch.obs.stepstats import grad_normsq, make_step_stats
 from tpudml_torch.obs.tracer import NULL_SPAN, Tracer
 from tpudml_torch.optim import Optimizer, shard_aware_clip
-from tpudml_torch.parallel.dp import NOT_PORTED, _use_flash, shard_rows
+from tpudml_torch.parallel.dp import _use_flash, shard_rows
 from tpudml_torch.parallel.ep import mesh_groups
 from tpudml_torch.parallel.sharding import make_counting_eval_step
 from tpudml_torch.resilience.sentinel import attach_sentinel, find_sentinel
 from tpudml_torch.train import (
-    TrainState, accumulate_grads, make_loss_fn, params_of, resolve_aux_loss_weight, to_device,
+    TrainState, accumulate_grads, make_lm_fused_sharded_loss_fn, make_loss_fn, params_of,
+    resolve_aux_loss_weight, to_device,
 )
 
 PartitionSpec = tuple
@@ -209,20 +221,45 @@ def block_window(name: str, t_shape: tuple, spec: PartitionSpec, mesh: dict[str,
 # ----------------------------------------------------------- the gather
 
 
+def _by_dtype(xs) -> list[list[int]]:
+    groups: dict = {}
+    for i, x in enumerate(xs):
+        groups.setdefault(x.dtype, []).append(i)
+    return list(groups.values())
+
+
+def reduce_scatter_blocks(gs, dims: tuple, group, size: int) -> list[torch.Tensor]:
+    """This rank's block, along ``dims[i]``, of the group's sum of each
+    ``gs[i]`` divided by ``size`` (their mean): one reduce-scatter a dtype
+    over the blocks laid out rank-major."""
+    out: list = [None] * len(gs)
+    for idx in _by_dtype(gs):
+        pieces = [gs[i].unflatten(dims[i], (size, -1)).movedim(dims[i], 0).reshape(size, -1)
+                  for i in idx]
+        mine = pieces[0].new_empty(sum(p.shape[1] for p in pieces))
+        dist.reduce_scatter_tensor(mine, torch.cat(pieces, dim=1).reshape(-1), group=group)
+        mine.div_(size)
+        for i, piece in zip(idx, mine.split([p.shape[1] for p in pieces])):
+            shape = list(gs[i].shape)
+            shape[dims[i]] //= size
+            out[i] = piece.view(shape)
+    return out
+
+
 class _GatherBlocks(torch.autograd.Function):
     """All-gather the blocks ``xs`` along their dimensions ``dims`` over one
     group of ``size`` ranks (one collective a dtype): the full tensors,
     blocks in rank order. Backward: this rank's (``index``) block of each
-    gradient."""
+    gradient, which every rank of the group computed on the same rows; or,
+    with ``batch`` (the group is the data axis, whose ranks hold different
+    rows), this rank's block of the ranks' mean gradient
+    (:func:`reduce_scatter_blocks`)."""
 
     @staticmethod
-    def forward(ctx, group, size: int, index: int, dims: tuple, *xs):
-        ctx.size, ctx.index, ctx.dims = size, index, dims
+    def forward(ctx, group, size: int, index: int, dims: tuple, batch: bool, *xs):
+        ctx.group, ctx.size, ctx.index, ctx.dims, ctx.batch = group, size, index, dims, batch
         out: list = [None] * len(xs)
-        by_dtype: dict = {}
-        for i, x in enumerate(xs):
-            by_dtype.setdefault(x.dtype, []).append(i)
-        for idx in by_dtype.values():
+        for idx in _by_dtype(xs):
             flat = torch.cat([xs[i].reshape(-1) for i in idx])
             full = flat.new_empty(size * flat.numel())
             dist.all_gather_into_tensor(full, flat, group=group)
@@ -237,11 +274,13 @@ class _GatherBlocks(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gs):
+        if ctx.batch:
+            return (None,) * 5 + tuple(reduce_scatter_blocks(gs, ctx.dims, ctx.group, ctx.size))
         out = []
         for g, dim in zip(gs, ctx.dims):
             b = g.shape[dim] // ctx.size
             out.append(g.narrow(dim, ctx.index * b, b).contiguous())
-        return (None, None, None, None, *out)
+        return (None,) * 5 + tuple(out)
 
 
 class _Gathered(nn.Module):
@@ -295,7 +334,11 @@ class GSPMDParallel:
     ``obs`` as in ``DataParallel`` (the sentinel's and a clip's norm count
     a sharded leaf's blocks once each, a replicated leaf once);
     ``flash_attn=True`` swaps a dense causal trunk onto the flash kernels
-    in place.
+    in place. ``fused_xent`` (a ``TransformerLM``; no ``accum_steps``, the
+    built-in loss) trains through the vocab-sharded fused head, built at
+    :meth:`make_train_step` from the head kernel's placed spec
+    (``train.make_lm_fused_sharded_loss_fn``); ``save_scores`` is its
+    ``save_s``. Its metrics carry the loss only, as JAX's.
     """
 
     def __init__(self, model: nn.Module, optimizer: Optimizer, mesh: dict | None = None,
@@ -308,9 +351,6 @@ class GSPMDParallel:
             reject("save_scores_needs_fused_xent")
         if fused_xent and (accum_steps != 1 or loss is not softmax_cross_entropy):
             reject("gspmd_fused_xent_accum")
-        if fused_xent:
-            raise NotImplementedError(
-                f"GSPMDParallel(fused_xent=...) {NOT_PORTED.format('7 (7c)')}")
         if flash_attn and (getattr(model, "impl", None) != "full"
                            or getattr(model, "seq_sharded", False)):
             reject("train_flash_attn_dense")
@@ -340,6 +380,10 @@ class GSPMDParallel:
         self.groups = mesh_groups(mesh)
         self.coords = {a: self.groups[a][1] for a in mesh}
         self.param_specs = apply_rules(self.rule, model, mesh)
+        # The leaves split over the batch axis: their gradient comes out of
+        # the gather's reduce-scatter already averaged over the data group.
+        self._batch_sharded = {n for n, spec in self.param_specs.items()
+                               if batch_axis in {a for e in spec for a in _axes(e)}}
         buffers = {n: b for n, b in model.named_buffers() if b.is_floating_point()}
         self.buffer_specs = apply_rules(self.rule, buffers, mesh)
         if any(_axes(e) for spec in self.buffer_specs.values() for e in spec):
@@ -348,12 +392,13 @@ class GSPMDParallel:
         sharded_axes = [a for a in mesh
                         if any(a in _axes(e) for s in self.param_specs.values() for e in s)]
         self._divergent = tuple(self.groups[a][0] for a in sharded_axes)
-        self.optimizer = shard_aware_clip(optimizer, self._divergent, self.is_sharded)
+        self._sharded_axes = tuple(sharded_axes)
+        self.optimizer = shard_aware_clip(optimizer, self._divergent, self.norm_share)
         self.sentinel = None
         if sentinel:
             kw = dict(sentinel) if isinstance(sentinel, dict) else {}
             self.optimizer = attach_sentinel(self.optimizer, self._divergent,
-                                             sharded=self.is_sharded, **kw)
+                                             sharded=self.norm_share, **kw)
             self.sentinel = find_sentinel(self.optimizer)
         self.tracer: Tracer | None = None
         if obs:
@@ -361,6 +406,10 @@ class GSPMDParallel:
         self._gathered = _Gathered(self)
         self._loss_fn = make_loss_fn(self._gathered,
                                      resolve_aux_loss_weight(model, aux_loss_weight), loss)
+        self.fused_xent = fused_xent
+        self.save_scores = save_scores
+        self._aux_loss_weight = aux_loss_weight
+        self._fused_loss_fn = None
         self._wire_bytes = None
         self._cut = False
 
@@ -369,6 +418,17 @@ class GSPMDParallel:
     def is_sharded(self, name: str) -> bool:
         """Whether parameter ``name`` is split over a mesh axis."""
         return any(_axes(e) for e in self.param_specs.get(name, ()))
+
+    def norm_share(self, name: str) -> float:
+        """The weight of parameter ``name``'s squared gradient in a norm
+        summed over the groups of every sharded axis: 0 for a replicated
+        leaf (counted once, outside the sum), else 1 / the ranks that hold
+        the same block (a leaf split over the model axis only is held alike
+        by each data rank of a {data, model} mesh)."""
+        if not self.is_sharded(name):
+            return 0.0
+        used = {a for e in self.param_specs[name] for a in _axes(e)}
+        return 1.0 / math.prod(self.mesh[a] for a in self._sharded_axes if a not in used)
 
     def window(self, name: str) -> list[list[int]]:
         """This rank's ``[start, stop)`` of each JAX dimension of parameter
@@ -418,14 +478,22 @@ class GSPMDParallel:
         write = all(c == 0 for a, c in self.coords.items() if a not in used)
         return Window(self._global_shape[name], self.window(name), write)
 
-    def gather(self, params: dict) -> dict:
-        """The parameters with every sharded block all-gathered to the full
-        tensor (differentiable: the backward keeps this rank's block). A
-        dimension split over several axes gathers its last axis first
-        (the blocks' row-major order); one collective a round, axis and
-        dtype."""
-        ops = {n: [(jd, a) for jd, e in enumerate(spec) for a in reversed(_axes(e))]
-               for n, spec in self.param_specs.items()}
+    def _gather_ops(self, names, keep: dict | None = None) -> dict:
+        """Per parameter, its gathers in order: (JAX dimension, axis), a
+        dimension's last axis first (the blocks' row-major order), none
+        along the dimensions ``keep[name]`` holds in blocks."""
+        keep = keep or {}
+        return {n: [(jd, a) for jd, e in enumerate(self.param_specs[n])
+                    if jd not in keep.get(n, ()) for a in reversed(_axes(e))] for n in names}
+
+    def gather(self, params: dict, keep: dict | None = None) -> dict:
+        """``params`` (a dict by parameter name) with every sharded block
+        all-gathered to the full tensor, differentiable (module
+        docstring: over ``batch_axis`` the backward is the gradient's
+        reduce-scatter, over another axis a narrow); the dimensions
+        ``keep[name]`` (JAX's) stay in blocks. One collective a round,
+        axis and dtype."""
+        ops = self._gather_ops(params, keep)
         out = dict(params)
         for r in range(max((len(o) for o in ops.values()), default=0)):
             for axis in self.mesh:
@@ -434,7 +502,8 @@ class GSPMDParallel:
                     continue
                 group, index, size = self.groups[axis]
                 dims = tuple(port_dim(n, params[n], ops[n][r][0]) for n in names)
-                full = _GatherBlocks.apply(group, size, index, dims, *[out[n] for n in names])
+                full = _GatherBlocks.apply(group, size, index, dims, axis == self.batch_axis,
+                                           *[out[n] for n in names])
                 out.update(zip(names, full))
         return out
 
@@ -448,26 +517,39 @@ class GSPMDParallel:
 
     # ----------------------------------------------------------- the steps
 
-    def _step_wire_bytes(self, params: dict) -> float:
-        """Ring-model bytes into a rank a step: the gathers, and the data
-        group's gradient mean."""
+    def step_wire_bytes(self) -> float:
+        """Ring-model bytes into a rank a step: each gather (and, over
+        ``batch_axis``, its gradient's reduce-scatter), the data group's
+        mean of the other gradients, and the fused head's own collectives
+        (``train.make_lm_fused_sharded_loss_fn``)."""
         if self._wire_bytes is None:
+            params = params_of(self.model)
+            keep = self._fused_loss_fn.keep if self._fused_loss_fn is not None else None
             total = 0.0
-            for name, p in params.items():
-                nbytes = p.numel() * p.element_size()
-                for entry in self.param_specs[name]:
-                    for a in _axes(entry):
-                        total += collective_wire_bytes("all_gather", nbytes, self.mesh[a])
-                        nbytes *= self.mesh[a]
+            for name, ops in self._gather_ops(params, keep).items():
+                nbytes = params[name].numel() * params[name].element_size()
+                for _, a in ops:
+                    total += collective_wire_bytes("all_gather", nbytes, self.mesh[a])
+                    nbytes *= self.mesh[a]
+                    if a == self.batch_axis:
+                        total += collective_wire_bytes("reduce_scatter", nbytes, self.mesh[a])
             if self.batch_axis is not None:
-                gb = sum(p.numel() * p.element_size() for p in params.values())
+                gb = sum(p.numel() * p.element_size() for n, p in params.items()
+                         if n not in self._batch_sharded)
                 total += collective_wire_bytes("psum", gb, self.mesh[self.batch_axis])
             self._wire_bytes = total
-        return self._wire_bytes
+        head = self._fused_loss_fn.wire_bytes if self._fused_loss_fn is not None else 0.0
+        return self._wire_bytes + head
 
-    def _data_mean(self, tree: dict) -> dict:
+    def _data_mean(self, tree: dict, grads: bool = False) -> dict:
+        """The data group's mean of ``tree`` (of its gradients not split over
+        ``batch_axis``, which their reduce-scatter averaged, with
+        ``grads``)."""
         if self.batch_axis is None or not tree:
             return tree
+        if grads:
+            rest = {n: g for n, g in tree.items() if n not in self._batch_sharded}
+            return {**tree, **self._data_mean(rest)} if rest else tree
         return pmean_tree(tree, self.groups[self.batch_axis][0])
 
     def _mean_model_state(self) -> None:
@@ -482,14 +564,19 @@ class GSPMDParallel:
 
     def _normsq(self, grads: dict) -> torch.Tensor:
         """The global gradient's squared norm: sharded blocks summed over
-        their groups, replicated leaves once."""
-        local = [g for n, g in grads.items() if self.is_sharded(n)]
-        rep = [g for n, g in grads.items() if not self.is_sharded(n)]
+        their groups (each weighted by :meth:`norm_share`), replicated
+        leaves once."""
         dev = next(iter(grads.values())).device
-        s = grad_normsq(local).to(dev) if local else torch.zeros((), device=dev)
+        s = torch.zeros((), device=dev)
+        by_share: dict = {}
+        for n, g in grads.items():
+            by_share.setdefault(self.norm_share(n), []).append(g)
+        for share, leaves in by_share.items():
+            if share:
+                s = s + share * grad_normsq(leaves).to(dev)
         for group in self._divergent:
             s = psum_tree(s, group)
-        return s + (grad_normsq(rep).to(dev) if rep else 0.0)
+        return s + (grad_normsq(by_share[0.0]).to(dev) if 0.0 in by_share else 0.0)
 
     def make_train_step(self) -> Callable:
         """(ts, images, labels) -> (ts, metrics): gather, forward and
@@ -498,6 +585,18 @@ class GSPMDParallel:
         (and ``bad_micro`` with the sentinel, ``step_stats`` with obs)."""
         if not self._cut:
             raise RuntimeError("call create_state() before make_train_step()")
+        if self.fused_xent and self._fused_loss_fn is None:
+            # Built here, not in __init__: the sharded head reads the head
+            # kernel's placed spec, which create_state fixed.
+            if "head.kernel" not in self.param_specs or not hasattr(self.model,
+                                                                    "apply_features"):
+                raise ValueError("fused_xent needs a model with a 'head' Dense and "
+                                 "apply_features (TransformerLM)")
+            self._fused_loss_fn = make_lm_fused_sharded_loss_fn(
+                self.model, self, self.param_specs["head.kernel"], self.batch_axis,
+                self.save_scores, self._aux_loss_weight)
+            self._wire_bytes = None
+        loss_fn = self._fused_loss_fn if self.fused_xent else self._loss_fn
 
         def step(ts: TrainState, images, labels):
             span = (NULL_SPAN if self.tracer is None else
@@ -508,10 +607,10 @@ class GSPMDParallel:
                 rng = None if self.rng_root is None else self.rng_root.fold_in(ts.step)
                 if rng is not None and self.batch_axis is not None:
                     rng = rng.fold_in(self.coords[self.batch_axis])
-                grads, local = accumulate_grads(self._loss_fn, self.model, x, y, rng,
+                grads, local = accumulate_grads(loss_fn, self.model, x, y, rng,
                                                 self.accum_steps,
                                                 taint=self.sentinel is not None)
-                grads = self._data_mean(grads)
+                grads = self._data_mean(grads, grads=True)
                 self._mean_model_state()
                 params = params_of(self.model)
                 _, ts.opt_state = self.optimizer.update(grads, ts.opt_state, params)
@@ -526,7 +625,7 @@ class GSPMDParallel:
                 if self.tracer is not None:
                     metrics["step_stats"] = make_step_stats(
                         metrics["loss"], self._normsq(grads), ts.opt_state,
-                        self._step_wire_bytes(params), index)
+                        self.step_wire_bytes(), index)
             return ts, metrics
 
         return step
@@ -546,3 +645,59 @@ class GSPMDParallel:
         :meth:`create_state` cut it: what a single-device run holds."""
         with torch.no_grad():
             return {n: t.detach() for n, t in self.gather(params_of(self.model)).items()}
+
+    def full_state(self, ts: TrainState) -> list:
+        """JAX's global view of ``ts`` for the base store (call on every
+        rank): ``[params, model state, optimizer state, step]`` in JAX's
+        TrainState order, every sharded parameter and its optimizer
+        tensors whole, Python ints (Adam's clock, the step) as int32. Rank
+        0 writes it as JAX's task5 writes its global arrays."""
+        names = set(self.param_specs)
+
+        def whole(state):
+            if isinstance(state, dict):
+                if state and set(state) <= names:
+                    with torch.no_grad():
+                        return {n: t.detach() for n, t in self.gather(state).items()}
+                return {k: whole(v) for k, v in state.items()}
+            if isinstance(state, int) and not isinstance(state, bool):
+                return np.int32(state)
+            return state
+
+        buffers = {n: b.detach() for n, b in ts.model.named_buffers() if b.is_floating_point()}
+        return [self.gather_params(), buffers, whole(ts.opt_state), np.int32(ts.step)]
+
+    @torch.no_grad()
+    def load_full_state(self, ts: TrainState, full: list) -> TrainState:
+        """Write a :meth:`full_state` tree (as restored: whole leaves) back
+        into ``ts`` in place: this rank's block of each sharded parameter
+        and of its optimizer tensors, the rest whole, the ints and the step
+        as ints."""
+        params, buffers, opt, step = full
+        live = params_of(ts.model)
+
+        def block(name, t):
+            t = torch.as_tensor(t)
+            if name in live and self.is_sharded(name) and t.dim():
+                for jd, (lo, hi) in enumerate(self.window(name)):
+                    t = t.narrow(port_dim(name, live[name], jd), lo, hi - lo)
+            return t
+
+        for n, p in live.items():
+            p.copy_(block(n, params[n]))
+        for n, b in ts.model.named_buffers():
+            if n in buffers:
+                b.copy_(torch.as_tensor(buffers[n]))
+
+        def load(state, saved):
+            for k, v in state.items():
+                if isinstance(v, torch.Tensor):
+                    v.copy_(block(k, saved[k]))
+                elif isinstance(v, int) and not isinstance(v, bool):
+                    state[k] = int(saved[k])
+                elif isinstance(v, dict):
+                    load(v, saved[k])
+
+        load(ts.opt_state, opt)
+        ts.step = int(step)
+        return ts

@@ -122,7 +122,8 @@ class GradSentinel(Optimizer):
 
     ``groups``: process groups over which the gradients here may differ
     between ranks (module docstring); ``sharded`` marks, by parameter name,
-    the leaves that do (a rank's block of a sharded parameter): the squares
+    the leaves that do (a rank's block of a sharded parameter; a float
+    weighs the leaf's squares, ``GSPMDParallel.norm_share``): the squares
     of the others count once in the norm (None: every leaf). ``spike_factor`` > 0 also skips a
     step whose global gradient norm exceeds ``spike_factor ×`` a running
     EMA (decay ``ema_decay``), armed only after ``warmup_steps``
@@ -132,7 +133,7 @@ class GradSentinel(Optimizer):
 
     base: Optimizer = None  # type: ignore[assignment]
     groups: tuple = ()
-    sharded: Any = None  # Callable[[str], bool]: the leaves that differ over ``groups``
+    sharded: Any = None  # Callable[[str], bool | float]: the leaves that differ over ``groups``
     skip_budget: int = 3
     spike_factor: float = 0.0
     ema_decay: float = 0.99
@@ -180,11 +181,15 @@ class GradSentinel(Optimizer):
         if self.sharded is None:
             normsq = self._psum(grad_normsq(leaves))
         else:
-            names = sorted(grads, key=jax_sort_key)
-            normsq = (self._psum(grad_normsq([grads[n] for n in names if self.sharded(n)]))
-                      .to(leaves[0].device)
-                      + grad_normsq([grads[n] for n in names if not self.sharded(n)])
-                      .to(leaves[0].device))
+            # A float share weighs a leaf's squares (ClipByGlobalNorm's rule).
+            by_share: dict = {}
+            for n in sorted(grads, key=jax_sort_key):
+                by_share.setdefault(float(self.sharded(n)), []).append(grads[n])
+            local = sum((share * grad_normsq(ls).to(leaves[0].device)
+                         for share, ls in by_share.items() if share),
+                        torch.zeros((), device=leaves[0].device))
+            normsq = (self._psum(local)
+                      + grad_normsq(by_share.get(0.0, [])).to(leaves[0].device))
         # A non-finite gradient makes the norm non-finite too; skipped
         # steps never enter the EMA (below).
         norm = torch.sqrt(normsq)

@@ -21,25 +21,30 @@ alone builds a one-rank group), world = the process count
 ``tpudml_torch.parallel.ExpertParallel`` over the same group, the MoE
 blocks' experts split over the ranks (it needs ``--moe_experts``
 divisible by the world, rejects ``--dropout`` with JAX's wording, and
-the ragged dispatch raises, as in JAX). Every rank draws the same
+the ragged dispatch raises, as in JAX), and ``--parallel fsdp`` and
+``tp``: ``tpudml_torch.parallel.FSDP`` over ``{"data": world}`` and
+``GSPMDParallel`` with ``tensor_parallel_rules("model")`` over ``{"model":
+world}``, both taking ``--fused_xent`` (the vocab-sharded head, with
+``--fused_xent_scores``/``--fused_xent_lean``) and ``--sentinel``. Every rank draws the same
 global batch from the same ``rng`` and trains on its rows; only rank 0
 prints and writes metrics. ``--dropout`` (``--parallel single`` and
 ``dp``) drops the blocks' branches with the dropout keys of JAX's entry,
 ``key(seed ^ 0xD0)`` folded with the step (and, under ``dp``, the rank).
-``--sentinel`` wraps ``dp``'s optimizer in ``GradSentinel`` (non-finite
-steps skipped on the device; ``SentinelTripped`` past its budget) and,
-as in JAX, raises ``ValueError`` with ``single`` and ``ep``.
+``--sentinel`` wraps the ``dp``, ``fsdp`` and ``tp`` optimizers in
+``GradSentinel`` (non-finite steps skipped on the device;
+``SentinelTripped`` past its budget) and, as in JAX, raises
+``ValueError`` with ``single`` and ``ep``.
 ``--ckpt_dir`` saves every ``--ckpt_every`` steps and at the end, in the
 format-2 store of ``tpudml_torch.checkpoint``; ``--resume`` restores the
 latest valid checkpoint and continues: the loop counter is the global
 step, and the row stream is drawn on past the restored step's rows, so a
 resumed run takes the batches the uninterrupted run took (JAX's loop
-restarts the stream at the seed; ROADMAP.md queue 3). Under ``ep`` a
-checkpoint holds whole experts at any world, as JAX's task5 writes its
-global arrays: the ranks gather their slices, rank 0 writes, and a
-resume slices them back (``ExpertParallel.full_state``). Every other
-``--parallel`` value raises ``NotImplementedError``, naming its ROADMAP
-item.
+restarts the stream at the seed; ROADMAP.md queue 3). Under ``ep``,
+``fsdp`` and ``tp`` a checkpoint holds whole leaves at any world, as
+JAX's task5 writes its global arrays: the ranks gather their blocks,
+rank 0 writes, and a resume cuts them back (the engines' ``full_state``).
+``--parallel pp`` and ``cp`` raise ``NotImplementedError``, naming their
+ROADMAP items.
 
 Same row sampling (``np.random.default_rng(seed)`` over
 ``synthetic_lm(4·B, …)``) and steady-state clock as the JAX entry point;
@@ -57,7 +62,9 @@ long context on the lean head: ``--attn flash --seq_len 16384 --batch_size 2
 ``--moe_experts 8 --moe_dispatch ragged``; data parallel over gloo on the
 CPU: ``torchrun --nproc_per_node 2 -m tpudml_torch.tasks.task5_longcontext
 --parallel dp --device cpu``; expert parallel: ``--parallel ep
---moe_experts 8`` (one process: a one-rank group; ``torchrun`` for more)
+--moe_experts 8`` (one process: a one-rank group; ``torchrun`` for more);
+FSDP and tensor parallel: ``--parallel fsdp`` / ``--parallel tp`` (add
+``--fused_xent`` for the vocab-sharded head)
 """
 
 from __future__ import annotations
@@ -78,18 +85,19 @@ from tpudml_torch.device import default_device, resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import TransformerLM
 from tpudml_torch.optim import make_optimizer
-from tpudml_torch.parallel import DataParallel, ExpertParallel
+from tpudml_torch.parallel import (
+    FSDP, DataParallel, ExpertParallel, GSPMDParallel, tensor_parallel_rules,
+)
 from tpudml_torch.resilience import sentinel_hook
-from tpudml_torch.tasks.common import final_checkpoint
 from tpudml_torch.train import TrainState, make_lm_fused_train_step, make_train_step
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
 PARALLEL_ITEMS = {
-    "fsdp": "7 (sharded training engines)",
-    "tp": "7 (sharded training engines)",
-    "pp": "7 (sharded training engines)",
+    "pp": "7 (7d, pipeline parallel)",
     "cp": "8 (context parallel)",
 }
+# The engines that run inside a process group (one process a rank).
+GROUP_ENGINES = ("dp", "ep", "fsdp", "tp")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -175,14 +183,14 @@ def _reject_unported(args) -> None:
             # JAX's ExpertParallel trains through materialized logits and its
             # task5 drops the flag without a word; the port says so.
             raise ValueError("--parallel ep trains through materialized logits; "
-                             "--fused_xent composes with --parallel single and dp")
-    elif args.parallel not in ("single", "dp"):
+                             "--fused_xent composes with --parallel single, dp, fsdp and tp")
+    elif args.parallel in PARALLEL_ITEMS:
         raise NotImplementedError(
             f"--parallel {args.parallel} {NOT_PORTED.format(PARALLEL_ITEMS[args.parallel])}")
     args._save_scores = _save_scores(args)
-    if args.sentinel and args.parallel != "dp":
+    if args.sentinel and args.parallel not in ("dp", "fsdp", "tp"):
         # single's step and the ep engine have no sentinel slot in their
-        # optimizer chain (JAX's wording; fsdp/tp/pp raise above).
+        # optimizer chain (JAX's wording; pp raises above).
         raise ValueError(f"--sentinel composes with --parallel dp/fsdp/tp/pp, not "
                          f"{args.parallel!r}")
     if args.attn in ("ring", "ulysses"):
@@ -192,11 +200,11 @@ def _reject_unported(args) -> None:
 
 
 def build_engine(args, device: torch.device):
-    """(train_state, step_fn) for ``--parallel single``, ``dp`` or ``ep``
-    (the last two inside a process group)."""
+    """(train_state, step_fn) for ``--parallel single``, ``dp``, ``ep``,
+    ``fsdp`` or ``tp`` (all but the first inside a process group)."""
     _reject_unported(args)
-    args._sentinel = None  # the DP engine's GradSentinel, for the escalation hook
-    args._ep = None  # the EP engine, whose checkpoints hold whole experts
+    args._sentinel = None  # the engine's GradSentinel, for the escalation hook
+    args._sharded = None  # the EP, FSDP or TP engine, whose checkpoints hold whole leaves
     if args.parallel == "ep" and args.moe_experts % process_count():
         raise ValueError(f"--moe_experts {args.moe_experts} must divide over "
                          f"{process_count()} devices")
@@ -229,7 +237,20 @@ def build_engine(args, device: torch.device):
         return engine.create_state(), engine.make_train_step()
     if args.parallel == "ep":
         engine = ExpertParallel(model, opt)
-        args._ep = engine
+        args._sharded = engine
+        return engine.create_state(), engine.make_train_step()
+    if args.parallel in ("fsdp", "tp"):
+        world = process_count()
+        common = dict(rng_root=rng_root, fused_xent=args.fused_xent,
+                      save_scores=args._save_scores, sentinel=args.sentinel)
+        if args.parallel == "fsdp":  # ZeRO-3: params, grads, opt state over data too
+            engine = FSDP(model, opt, {"data": world}, **common)
+        else:
+            engine = GSPMDParallel(model, opt, {"model": world},
+                                   rule=tensor_parallel_rules("model"), axis_name="model",
+                                   **common)
+        args._sentinel = engine.sentinel
+        args._sharded = engine
         return engine.create_state(), engine.make_train_step()
     if args.fused_xent:
         step = make_lm_fused_train_step(model, opt, rng_root, save_scores=args._save_scores)
@@ -243,7 +264,7 @@ def run(args, hooks=()) -> dict:
         raise ValueError("--steps must be >= 1")
     device = resolve_device(args.device)
     _reject_unported(args)
-    if args.parallel not in ("dp", "ep"):  # the engines that run inside a process group
+    if args.parallel not in GROUP_ENGINES:
         return _train(args, device, hooks=hooks)
     with process_group(device=device) as group:
         world = process_count(group)
@@ -259,19 +280,20 @@ def run(args, hooks=()) -> dict:
 
 def _train(args, device: torch.device, world: int = 1, lead: bool = True,
            hooks=()) -> dict:
-    """The training loop; in a DP or EP run every rank runs it on the same
-    global batches, and rank 0 (``lead``) prints and writes the metrics."""
+    """The training loop; under a group engine every rank runs it on the
+    same global batches, and rank 0 (``lead``) prints and writes the
+    metrics."""
     ts, step = build_engine(args, device)
     seqs = synthetic_lm(args.batch_size * 4, args.seq_len, args.vocab, seed=args.seed)
     mgr = None
     start = 0
-    # Under ep past world 1 a rank holds its slice of the experts: the
-    # checkpoint holds them whole (gathered over the expert group, rank 0
-    # writing JAX's global arrays), and a resume slices them back.
-    whole = args._ep is not None and world > 1
+    # Under ep, fsdp and tp past world 1 a rank holds blocks: the checkpoint
+    # holds the leaves whole (gathered over their groups, rank 0 writing
+    # JAX's global arrays), and a resume cuts them back.
+    whole = args._sharded is not None and world > 1
 
     def save(i):
-        mgr.save(args._ep.full_state(ts) if whole else ts, i,
+        mgr.save(args._sharded.full_state(ts) if whole else ts, i,
                  metadata={"parallel": args.parallel})
 
     if args.ckpt_dir:
@@ -280,10 +302,10 @@ def _train(args, device: torch.device, world: int = 1, lead: bool = True,
             # The latest VALID checkpoint: CRCs verified, corrupt or partial
             # step dirs walked past.
             if whole:
-                view = args._ep.full_state(ts)
+                view = args._sharded.full_state(ts)
                 restored = mgr.restore_latest(view)
                 if restored is not view:
-                    args._ep.load_full_state(ts, restored)
+                    args._sharded.load_full_state(ts, restored)
             else:
                 ts = mgr.restore_latest(ts)
             start = int(ts.step)
@@ -347,7 +369,8 @@ def _train(args, device: torch.device, world: int = 1, lead: bool = True,
                           f"({time_to_target:.1f}s after steady-state step {steady_from})")
                 break
     sync()
-    final_checkpoint(mgr, ts)
+    if mgr is not None and mgr.latest_step() != int(ts.step):  # the end-of-run save
+        save(int(ts.step))
     loss = float(metrics["loss"])
     elapsed = time.time() - t0 if t0 else float("nan")
     tokens = (final_step - steady_from) * args.batch_size * args.seq_len

@@ -70,6 +70,15 @@ file store in a temporary directory): plain, with ``sentinel=True`` and
 with ``obs=True``, interleaved in one process: plain_1, sentinel, obs,
 plain_2 (what the grad sentinel and the flight recorder cost a step).
 
+``--fsdp`` profiles the slice-13 unfused path, task5 ``--parallel fsdp``
+at the f32 training config (flash, fused add+LN, RoPE, Adam lr 1e-3,
+task5's batches): ``tpudml_torch.parallel.FSDP`` at world 1 (a one-rank
+NCCL group over a file store in a temporary directory; each weight
+all-gathered and its gradient reduce-scattered, copies at one rank),
+plain and with ``sentinel=True``, against the single-card step plain and
+with its Adam in a ``GradSentinel``, interleaved in one process:
+single_1, fsdp, fsdp_sentinel, single_sentinel, single_2.
+
 ``--resnet [--batch N]`` profiles the single-card bf16 step of ``bench.py``
 ``bench_resnet`` instead (the north star's model and optimizer):
 ResNet-18 at CIFAR width (bf16 compute over f32 master weights), SGD lr
@@ -81,7 +90,8 @@ default 1024 (bench's per-chip batch); it adds imgs/s. One configuration,
 TF32 is off for matmuls and cuDNN's convolutions, so an f32 row means f32.
 
 Run on the card: ``python -m tpudml_torch.tools.profile_train [--flagship | --long |
---wide | --dp | --ep | --host | --moe 8 --moe_variant ragged_grouped | --resnet [--batch 128]]``
+--wide | --dp | --ep | --host | --fsdp | --moe 8 --moe_variant ragged_grouped | --resnet
+[--batch 128]]``
 (one
 JSON line at the end; ``--out FILE`` also writes it to FILE).
 """
@@ -171,6 +181,9 @@ def main(argv=None) -> dict:
     mode.add_argument("--host", action="store_true",
                       help="the f32 DP step at world 1 plain, with the sentinel and with obs, "
                       "interleaved")
+    mode.add_argument("--fsdp", action="store_true",
+                      help="the f32 step under FSDP at world 1 (NCCL), plain and with the "
+                      "sentinel, against the single-card step, interleaved")
     mode.add_argument("--moe", type=int, default=0, metavar="E",
                       help="one bench_moe step with E experts (bf16, top-1, capacity 1.25)")
     mode.add_argument("--resnet", action="store_true",
@@ -193,7 +206,8 @@ def main(argv=None) -> dict:
     from tpudml_torch.core import DistributedConfig, process_group
     from tpudml_torch.optim import Adam, AdamW
     from tpudml_torch.comm import all_to_all
-    from tpudml_torch.parallel import DataParallel, ExpertParallel
+    from tpudml_torch.parallel import FSDP, DataParallel, ExpertParallel
+    from tpudml_torch.resilience import attach_sentinel
     from tpudml_torch.train import TrainState, make_lm_fused_train_step, make_train_step
 
     build_kernels()
@@ -228,6 +242,10 @@ def main(argv=None) -> dict:
                    tuple((name, dict(impl="flash", fused_ln=True), False)
                          for name in ("plain_1", "sentinel", "obs", "plain_2"))
                    if args.host else
+                   tuple((name, dict(impl="flash", fused_ln=True), False)
+                         for name in ("single_1", "fsdp", "fsdp_sentinel", "single_sentinel",
+                                      "single_2"))
+                   if args.fsdp else
                    (("kernel", dict(impl="flash", fused_ln=True), False),
                     ("plain", dict(impl="full", fused_ln=False), False)))
     step_name = (f"MoE E={args.moe} {args.moe_variant} bf16 (AdamW 3e-4)" if args.moe else
@@ -237,13 +255,15 @@ def main(argv=None) -> dict:
                  "flash, fused add+LN, Adam 1e-3)" if args.ep else
                  "f32 DataParallel world 1 (NCCL; flash, fused add+LN, Adam 1e-3): plain, "
                  "sentinel=True, obs=True" if args.host else
+                 "f32 FSDP world 1 (NCCL; flash, fused add+LN, Adam 1e-3) against the single "
+                 "card, each plain and with the sentinel" if args.fsdp else
                  "long-context f32 T=16384 (fused xent head, Adam 1e-3)" if args.long
                  else "wide-trunk f32 d=2048 (materialized logits, Adam 1e-3)" if args.wide
                  else "f32 (materialized logits, Adam 1e-3)")
     result = {"device": torch.cuda.get_device_name(0), "model": model_cfg,
               "batch": batch, "tokens_per_step": batch * t, "step": step_name}
     tmp = stack = None
-    if args.dp or args.ep or args.host:
+    if args.dp or args.ep or args.host or args.fsdp:
         stack = contextlib.ExitStack()
         tmp = stack.enter_context(tempfile.TemporaryDirectory())
         stack.enter_context(process_group(
@@ -266,6 +286,13 @@ def main(argv=None) -> dict:
             engine = DataParallel(model, opt, stacked_batches=False,
                                   sentinel=name == "sentinel", obs=name == "obs")
             step, ts = engine.make_train_step(), engine.create_state()
+        elif name.startswith("fsdp"):
+            engine = FSDP(model, opt, sentinel=name == "fsdp_sentinel")
+            ts = engine.create_state()
+            step = engine.make_train_step()
+        elif name == "single_sentinel":
+            opt = attach_sentinel(opt)
+            step, ts = make_train_step(model, opt), TrainState.create(model, opt)
         else:
             step = (make_lm_fused_train_step(model, opt, save_scores=save_scores) if fused_head
                     else make_train_step(model, opt))

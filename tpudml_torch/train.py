@@ -1,6 +1,7 @@
 """Training step (the port of ``tpudml/train.py``: ``TrainState``,
 ``make_loss_fn``, ``make_train_step_body``, ``make_train_step``, the
-fused-head LM step ``make_lm_fused_loss_fn``,
+fused-head LM step ``make_lm_fused_loss_fn``, its vocab-sharded form
+``make_lm_fused_sharded_loss_fn`` (the GSPMD engines' ``fused_xent``),
 ``make_lm_fused_train_step_body``, ``make_lm_fused_train_step``, the
 DP engine's un-aggregated local step ``local_grads``/``accumulate_grads`` (for both of
 JAX's ``accumulate_grads`` and ``accumulate_fused_grads``), and the MoE
@@ -142,6 +143,105 @@ def make_lm_fused_loss_fn(model: nn.Module, save_scores: bool | None = None,
         loss = linear_cross_entropy(feats, kernel, labels, bias, save_s=save_scores)
         return _with_aux(model, loss, aux_w), None
 
+    return loss_fn
+
+
+class _HeadInputs(nn.Module):
+    """``model.apply_features`` and the head's kernel and bias cast to the
+    compute dtype, as one module call (for ``torch.func.functional_call``
+    with gathered parameters)."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.m = model
+
+    def forward(self, tokens, **kwargs):
+        feats = self.m.apply_features(tokens, **kwargs)
+        return (feats, *self.m.head.cast_params())
+
+
+def _spec_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def make_lm_fused_sharded_loss_fn(model: nn.Module, engine, kernel_spec,
+                                  batch_axis: str | None = None,
+                                  save_scores: bool | None = None,
+                                  aux_loss_weight: float | None = None) -> Callable:
+    """(tokens, labels[, key]) -> (loss, None) through the fused head when
+    the head itself is SHARDED: the loss of ``GSPMDParallel(fused_xent=True)``
+    (TP, FSDP, FSDP×TP) over ``engine`` (its mesh groups and its
+    parameter gather). The trunk runs on the gathered parameters; what
+    the head does is read from ``kernel_spec``, the head kernel's [d, V]
+    placed spec:
+
+    - dim 1 names the VOCAB axis: ``sharded_linear_cross_entropy`` over
+      that axis's group, the head's dim 1 (and its bias) left in blocks;
+      a demoted dim 1 (a vocabulary the axis does not divide) takes the
+      plain ``linear_cross_entropy`` on the gathered head;
+    - dim 0 sharded (FSDP×TP puts ``data`` there): gathered on use by the
+      engine, its gradient the gather's reduce-scatter;
+    - vocab axis == ``batch_axis`` (1-D FSDP): the tokens' features and
+      labels are all-gathered over the group first, every rank scores all
+      of them against its vocabulary slice and the loss is the global
+      mean; the partial dX goes back to the token shards by one
+      reduce-scatter, times the group size, so that each rank's trunk
+      gradient is its rows' mean gradient, as the engine's data mean
+      expects (the head's own gradient is already the global one);
+    - otherwise, under ``batch_axis``, each rank's loss is the mean over
+      its rows, which the engine averages over the data group with the
+      gradients.
+
+    The function carries ``keep`` (the head's dimensions left in blocks,
+    for the engine's gather) and ``wire_bytes`` (the head's ring-model
+    bytes into a rank in its last call). Plus α·aux (module docstring)."""
+    from tpudml_torch.comm.collectives import gather_rows
+    from tpudml_torch.comm.timing import collective_wire_bytes
+    from tpudml_torch.ops.xent_kernel import sharded_linear_cross_entropy
+
+    aux_w = resolve_aux_loss_weight(model, aux_loss_weight)
+    kspec = tuple(kernel_spec) + (None,) * (2 - len(kernel_spec))
+    v_axes = _spec_axes(kspec[1])
+    if len(v_axes) > 1:
+        raise ValueError(f"head kernel vocab dim sharded over {v_axes}: the partial-stat "
+                         "merge runs over ONE mesh axis")
+    vocab_axis = v_axes[0] if v_axes else None
+    gather_batch = batch_axis is not None and batch_axis == vocab_axis
+    heads = _HeadInputs(model)
+
+    def loss_fn(tokens, labels, key: Key | None = None):
+        if not model.training:
+            model.train()
+        full = engine.gather(params_of(model), loss_fn.keep)
+        feats, kernel, bias = torch.func.functional_call(
+            heads, {f"m.{n}": t for n, t in full.items()}, (tokens,), _keyed(key),
+            strict=False)
+        xn, ln = feats.reshape(-1, feats.shape[-1]), labels.reshape(-1)
+        if vocab_axis is None:
+            loss = linear_cross_entropy(xn, kernel, ln, bias, save_s=save_scores)
+            loss_fn.wire_bytes = 0.0
+            return _with_aux(model, loss, aux_w), None
+        group, _, size = engine.groups[vocab_axis]
+        wire = 0.0
+        if gather_batch:
+            nbytes = xn.numel() * xn.element_size()
+            wire += (collective_wire_bytes("all_gather", nbytes, size)
+                     + collective_wire_bytes("reduce_scatter", nbytes * size, size)
+                     + collective_wire_bytes("all_gather", ln.numel() * ln.element_size(),
+                                             size))
+            xn, ln = gather_rows(xn, group, grad_scale=size), gather_rows(ln, group)
+        else:
+            wire += collective_wire_bytes("psum", xn.numel() * xn.element_size(), size)
+        wire += 3 * collective_wire_bytes("psum", xn.shape[0] * 4, size)  # lse: max, sum; picked
+        loss_fn.wire_bytes = wire
+        loss = sharded_linear_cross_entropy(xn, kernel, ln, bias, group=group,
+                                            save_s=save_scores, reduce_dx=not gather_batch)
+        return _with_aux(model, loss, aux_w), None
+
+    loss_fn.keep = {"head.kernel": (1,), "head.bias": (0,)} if vocab_axis else {}
+    loss_fn.wire_bytes = 0.0
     return loss_fn
 
 
