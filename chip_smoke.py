@@ -395,7 +395,29 @@ the CPU). Phases, each printing its own line(s):
    the plain version at XENT_ROW_TOL / XENT_GRAD_REL (BF16_REL in bf16);
    each shard's head kernel times and the composition's time beside the
    unsharded kernels' and ``F.cross_entropy``'s chain.
-20. one JSON line of per-kernel numbers (launches summed over the main
+20. main path 14, pipeline parallelism at world 1, one stage (``[pp]``,
+   the one-rank NCCL group of ``[gspmd]``): task5 through its entry point
+   at main path 2's widths (PP_TASK5: V=32768, d=512, H=4, T=1024, B=8,
+   ``--attn flash --fused_ln --rope``, one block a stage) with
+   ``--parallel pp --microbatches 4``: ``--schedule gpipe`` (``pp_gpipe``),
+   the same with ``--remat`` (``pp_gpipe_remat``), ``1f1b --dropout 0.1``
+   (``pp_1f1b_dropout``) and ``interleaved --v_chunks 2``
+   (``pp_interleaved``, two blocks on the one stage), four steps each;
+   each launching exactly PP_PER_STEP's kernels 1–3, 8, 9 a step and no
+   other kernel. Agreement with the single-card step of a
+   ``TransformerLM`` holding the pipeline's initial parameters (one block,
+   two in chunk order for interleaved) on the same batches: GPipe and
+   1F1B at ``--microbatches 1`` bitwise where the single-card step repeats
+   itself; at four micro-batches (the micro-batches' gradients sum in
+   another order) the step-1 gradients (``GPipe.grads``) within
+   STEP_GRAD_RTOL of each parameter's largest, every loss within
+   LOSS_TOL, and the final parameters within Adam's reach, 2·lr a step
+   (Adam moves an element about lr a step whatever its gradient's size,
+   so a near-zero gradient's rounding shows there; the worst is printed);
+   the dropout run's loss falls. Then the peak allocated
+   bytes of GPipe and 1F1B at ``--microbatches 8``: 1F1B's must be lower.
+   ms/step of every run beside the single-card step's.
+21. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -5042,6 +5064,211 @@ def fsdp_tp_phase(gen) -> dict[str, dict[str, int]]:
     return paths
 
 
+# Pipeline parallelism (slice 14): task5 --parallel pp at main path 2's
+# widths, one stage (world 1), through its entry point.
+PP_STEPS = 4  # the first is the warm-up; ms/step is taken over the rest
+PP_TASK5 = ["--vocab", "32768", "--embed_dim", "512", "--num_heads", "4", "--seq_len", "1024",
+            "--batch_size", "8", "--lr", "0.001", "--attn", "flash", "--fused_ln", "--rope",
+            "--steps", str(PP_STEPS), "--log_every", "0", "--device", "cuda", "--parallel", "pp"]
+# Launches of kernels 1-3, 8, 9 a step at one stage, M = 4: a micro-batch's
+# block runs flash forward, dQ, dK/dV once and its ln2 junction through
+# add+LN once each way; GPipe's head normalizes the whole batch once (its
+# ln_f is kernel 8 on (x, 0), as the LM's fused trunk closes its last
+# add), 1F1B's once a micro-batch inside the last stage's backward;
+# --remat repeats the block's forward; interleaved's first chunk runs its
+# forward twice (the forward unit, then the backward's recompute).
+PP_PER_STEP = {
+    "pp_gpipe": {"flash_forward_lse": 4, "flash_dq": 4, "flash_dkdv": 4,
+                 "add_layernorm_fwd": 5, "add_layernorm_bwd": 5},
+    "pp_gpipe_remat": {"flash_forward_lse": 8, "flash_dq": 4, "flash_dkdv": 4,
+                       "add_layernorm_fwd": 9, "add_layernorm_bwd": 5},
+    "pp_1f1b_dropout": {"flash_forward_lse": 4, "flash_dq": 4, "flash_dkdv": 4,
+                        "add_layernorm_fwd": 8, "add_layernorm_bwd": 8},
+    "pp_interleaved": {"flash_forward_lse": 12, "flash_dq": 8, "flash_dkdv": 8,
+                       "add_layernorm_fwd": 16, "add_layernorm_bwd": 12},
+}
+# path: (flags, micro-batches, the single-card LM's blocks or None)
+PP_PATHS = {
+    "pp_gpipe_m1": (["--schedule", "gpipe"], 1, 1),
+    "pp_1f1b_m1": (["--schedule", "1f1b"], 1, 1),
+    "pp_gpipe": (["--schedule", "gpipe"], 4, 1),
+    "pp_gpipe_remat": (["--schedule", "gpipe", "--remat"], 4, 1),
+    "pp_1f1b_dropout": (["--schedule", "1f1b", "--dropout", "0.1"], 4, None),
+    "pp_interleaved": (["--schedule", "interleaved", "--v_chunks", "2"], 4, 2),
+}
+PP_PER_STEP_M1 = {"flash_forward_lse": 1, "flash_dq": 1, "flash_dkdv": 1,
+                  "add_layernorm_fwd": 2, "add_layernorm_bwd": 2}
+PP_MEM_MICRO = 8
+
+
+def _pp_single_run(task5, argv: list[str], init: dict, layers: int):
+    """The single-card step of a ``TransformerLM`` of ``layers`` blocks
+    holding ``init`` (a pipeline's initial parameters) on task5's batches
+    for ``argv``: (losses, ms/step after one warm-up, final parameters)."""
+    import numpy as np
+    import torch
+
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.optim import Adam
+    from tpudml_torch.train import TrainState, make_train_step
+
+    args = task5.parse_args(argv)
+    lm = TransformerLM(**dict(TRAIN_MODEL, num_layers=layers), impl="flash", fused_ln=True,
+                       device="cuda")
+    lm.load_state_dict(init)
+    opt = Adam(lr=args.lr)
+    seqs = synthetic_lm(4 * args.batch_size, args.seq_len, args.vocab, seed=args.seed)
+    rng = np.random.default_rng(args.seed)  # task5's row sampling
+    batches = [seqs[rng.integers(0, len(seqs), size=args.batch_size)] for _ in range(args.steps)]
+    losses, ms = _train_run(TrainState.create(lm, opt), make_train_step(lm, opt), batches)
+    params = _params(lm)
+    del lm
+    torch.cuda.empty_cache()
+    return losses, ms, params
+
+
+def _pp_single_grads(task5, argv: list[str], init: dict, layers: int):
+    """((tokens, labels) of task5's first batch, the single-card LM's
+    step-1 gradients there from ``init``)."""
+    import numpy as np
+    import torch
+
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.train import make_loss_fn
+
+    args = task5.parse_args(argv)
+    lm = TransformerLM(**dict(TRAIN_MODEL, num_layers=layers), impl="flash", fused_ln=True,
+                       device="cuda")
+    lm.load_state_dict(init)
+    seqs = synthetic_lm(4 * args.batch_size, args.seq_len, args.vocab, seed=args.seed)
+    batch = seqs[np.random.default_rng(args.seed).integers(0, len(seqs), size=args.batch_size)]
+    x, y = (torch.from_numpy(a).long().to(lm.device) for a in (batch[:, :-1], batch[:, 1:]))
+    grads = _grads(make_loss_fn(lm), lm, x, y)[1]
+    del lm
+    return (batch[:, :-1], batch[:, 1:]), grads
+
+
+def pp_phase() -> dict[str, dict[str, int]]:
+    """Main path 14 (module docstring, phase 20). Returns the launch counts
+    of the four pipeline paths."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudml_torch.core import process_count
+    from tpudml_torch.interop import lm_params_from_pipeline
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.tasks import task5_longcontext as task5
+
+    t0 = time.perf_counter()
+    paths, refs = {}, {}
+    tokens = TRAIN_BATCH * TRAIN_MODEL["max_len"]
+    with tempfile.TemporaryDirectory() as tmp, _one_rank_group(tmp) as group:
+        check(torch.distributed.get_backend(group) == "nccl" and process_count(group) == 1,
+              "the pipeline group is not a one-rank NCCL group")
+        base = PP_TASK5 + ["--log_dir", f"{tmp}/logs"]
+        for path, (flags, micro, layers) in PP_PATHS.items():
+            argv = base + flags + ["--microbatches", str(micro)]
+            grad_note = ""
+            if layers is not None:
+                # The pipeline's initial parameters (the entry draws the same
+                # from the same seed) and its step-1 gradients.
+                v = 2 if layers == 2 else None
+                args = task5.parse_args(argv)
+                task5.build_engine(args, torch.device("cuda"))
+                eng = args._sharded
+                init = lm_params_from_pipeline(
+                    {n: t.clone() for n, t in eng.gather_params().items()}, v)
+                if layers not in refs:
+                    # The single-card step from them, twice (does it repeat
+                    # itself bitwise?), and its step-1 gradients.
+                    runs = [_pp_single_run(task5, argv, init, layers) for _ in range(2)]
+                    repeats = runs[0][0] == runs[1][0] and _bitwise(runs[0][2], runs[1][2])
+                    refs[layers] = (runs[0], runs[1][1], repeats, _pp_single_grads(
+                        task5, argv, init, layers))
+                    print(f"[pp] single-card TransformerLM({layers} block"
+                          f"{'s' * (layers > 1)}) from the pipeline's initial parameters: "
+                          f"{runs[0][1]:.2f}, {runs[1][1]:.2f} ms/step; repeats itself "
+                          f"bitwise: {repeats}")
+                    del runs
+                if micro > 1:
+                    x0, y0 = refs[layers][3][0]
+                    got_g = lm_params_from_pipeline(
+                        {n: g.float() for n, g in eng.grads(x0, y0)[0].items()}, v)
+                    gworst, gname = _worst(got_g, refs[layers][3][1], refs[layers][3][1])
+                    check(gworst <= STEP_GRAD_RTOL,
+                          f"{path}: step-1 gradient {gname} disagrees ({gworst:.3e})")
+                    grad_note = (f"; step-1 gradients worst max|err|/max|single| {gworst:.3e} "
+                                 f"({gname}; tol {STEP_GRAD_RTOL:g})")
+                    del got_g
+                del args, eng
+            torch.cuda.empty_cache()
+            reset_launch_counts()  # ---- main path 14 (this path) starts here
+            out, losses, params, eng = _task5_run(task5, argv)
+            launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+            per_step = PP_PER_STEP.get(path, PP_PER_STEP_M1)
+            need = {k.name: PP_STEPS * per_step.get(k.name, 0) for k in KERNELS}
+            check(launches == need, f"{path} launched {launches}, not {need}")
+            check(out["devices"] == 1 and all(np.isfinite(losses)), f"{path} did not train")
+            ms = tokens / out["tokens_per_sec"] * 1e3
+            if layers is None:
+                check(losses[-1] < losses[0], f"{path}: the loss did not fall")
+                agree = f"its own dropout masks; loss {losses[0]:.6f} -> {losses[-1]:.6f}"
+            else:
+                (ref_losses, ref_ms, ref_params), ref_ms2, repeats, _ = refs[layers]
+                got = lm_params_from_pipeline(params, 2 if layers == 2 else None)
+                if micro == 1 and repeats:
+                    check(losses == ref_losses and _bitwise(got, ref_params),
+                          f"{path} differs from the single-card step")
+                    agree = "bitwise (losses and every parameter)"
+                else:
+                    ldiff = max(abs(a - b) for a, b in zip(losses, ref_losses))
+                    pworst, pname = _worst(got, ref_params, ref_params)
+                    pabs = max((got[n].float() - ref_params[n].float()).abs().max().item()
+                               for n in ref_params)
+                    check(ldiff <= LOSS_TOL, f"{path}: a loss disagrees with the single-card "
+                          f"step ({ldiff:.2e})")
+                    # Adam moves an element about lr a step whatever its
+                    # gradient's size, so an element whose gradient is near
+                    # 0 (where the sum order tells) can part by up to 2·lr
+                    # a step: the bound on the final parameters.
+                    check(pabs <= 2 * TRAIN_LR * PP_STEPS, f"{path}: a final parameter parts "
+                          f"from the single-card step's by {pabs:.3e}")
+                    agree = (f"losses within LOSS_TOL ({ldiff:.2e}){grad_note}; final "
+                             f"parameters max|err| {pabs:.3e} (Adam's bound 2·lr·steps "
+                             f"{2 * TRAIN_LR * PP_STEPS:g}), worst max|err|/max|single| "
+                             f"{pworst:.3e} ({pname})")
+                agree += f"; single-card {ref_ms:.2f}, {ref_ms2:.2f} ms/step"
+            print(f"[pp] world 1, one stage (one-rank NCCL group): task5 {' '.join(flags)} "
+                  f"--microbatches {micro}: losses {' '.join(f'{x:.6f}' for x in losses)}; "
+                  f"{agree}; {ms:.2f} ms/step ({PP_STEPS - 1} steps after one warm-up); "
+                  f"launches {dict((k, c) for k, c in launches.items() if c)}")
+            if path in PP_PER_STEP:
+                paths[path] = launches
+            del params, eng
+            torch.cuda.empty_cache()
+        # Memory: GPipe keeps every micro-batch's graph, 1F1B one input slot.
+        peaks = {}
+        for schedule in ("gpipe", "1f1b"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out, _, _, eng = _task5_run(task5, base + ["--schedule", schedule, "--microbatches",
+                                                       str(PP_MEM_MICRO)])
+            peaks[schedule] = torch.cuda.max_memory_allocated()
+            del eng
+        check(peaks["1f1b"] < peaks["gpipe"], f"1F1B's peak {peaks} is not under GPipe's")
+        print(f"[pp] world 1, one stage, --microbatches {PP_MEM_MICRO}: peak allocated "
+              f"GPipe {peaks['gpipe']} B ({peaks['gpipe'] / 2**30:.3f} GiB), 1F1B "
+              f"{peaks['1f1b']} B ({peaks['1f1b'] / 2**30:.3f} GiB), "
+              f"{peaks['1f1b'] / peaks['gpipe']:.3f}x")
+    check(not torch.distributed.is_initialized(), "the pipeline group outlived its phase")
+    print(f"[pp] {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def _dir_bytes(path) -> int:
     return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
 
@@ -5622,6 +5849,8 @@ def main() -> int:
     paths.update(zero1_phase())
     torch.cuda.empty_cache()
     paths.update(fsdp_tp_phase(gen))
+    torch.cuda.empty_cache()
+    paths.update(pp_phase())
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

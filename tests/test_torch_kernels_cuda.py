@@ -1661,3 +1661,110 @@ def test_sharded_head_world1_nccl_steps_equal_the_single_card_step(cuda_device, 
             assert torch.equal(got_p[n], want_p[n]), n
     else:
         assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-3
+
+
+# --------------------------------------------------------------- pipelines
+
+PP_CFG = dict(vocab_size=512, embed_dim=128, num_heads=4, max_len=128, rope=True)
+# Kernel launches a step at one stage, M = 4 (kernels 1–3, 8, 9): GPipe runs
+# the head's ln_f once on the whole batch, 1F1B once a micro-batch; remat
+# repeats the block's forward; interleaved's first chunk runs its forward
+# twice (the forward unit and the backward's recompute).
+PP_PER_STEP = {
+    "gpipe": {"flash_forward_lse": 4, "flash_dq": 4, "flash_dkdv": 4,
+              "add_layernorm_fwd": 5, "add_layernorm_bwd": 5},
+    "gpipe_remat": {"flash_forward_lse": 8, "flash_dq": 4, "flash_dkdv": 4,
+                    "add_layernorm_fwd": 9, "add_layernorm_bwd": 5},
+    "1f1b": {"flash_forward_lse": 4, "flash_dq": 4, "flash_dkdv": 4,
+             "add_layernorm_fwd": 8, "add_layernorm_bwd": 8},
+    "interleaved": {"flash_forward_lse": 12, "flash_dq": 8, "flash_dkdv": 8,
+                    "add_layernorm_fwd": 16, "add_layernorm_bwd": 12},
+}
+
+
+def _pipe(kind, m, device):
+    from tpudml_torch.models import TransformerBlock, TransformerEmbed, TransformerHead
+    from tpudml_torch.optim import Adam
+    from tpudml_torch.parallel import GPipe, Interleaved1F1B, OneFOneB
+
+    d, h, v, t = (PP_CFG[k] for k in ("embed_dim", "num_heads", "vocab_size", "max_len"))
+    g = torch.Generator().manual_seed(0)
+    kw = dict(optimizer=Adam(lr=1e-3), device=device,
+              prologue=TransformerEmbed(v, d, t, use_pos_embed=False, generator=g),
+              epilogue=TransformerHead(d, v, fused_ln=True, generator=g))
+
+    def block(gen):
+        return TransformerBlock(d, h, impl="flash", rope=True, fused_ln=True, generator=gen)
+
+    if kind == "interleaved":
+        return Interleaved1F1B(block, m, v_chunks=2, **kw)
+    if kind == "1f1b":
+        return OneFOneB(block, m, **kw)
+    return GPipe(block, m, remat=kind == "gpipe_remat", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gpipe", "1f1b"])
+def test_one_stage_pipeline_on_the_card_is_the_one_block_lm(cuda_device, tmp_path, kind):
+    """A one-stage pipeline at one micro-batch on a one-rank NCCL group
+    runs the same kernels on the same rows as ``TransformerLM(num_layers=1)``
+    (flash attention, fused add+LN, the head's ln_f through kernel 8):
+    three Adam steps bitwise equal where the single-card step repeats
+    itself, else within 1e-3 in every loss."""
+    from tpudml_torch.core import DistributedConfig, process_group
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.interop import lm_params_from_pipeline
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.optim import Adam
+    from tpudml_torch.train import TrainState, make_train_step
+
+    seqs = synthetic_lm(8, PP_CFG["max_len"], PP_CFG["vocab_size"], seed=1)
+    x, y = seqs[:, :-1], seqs[:, 1:]
+    with process_group(DistributedConfig(coordinator_address=f"file://{tmp_path}/store"),
+                       device="cuda"):
+        assert torch.distributed.get_backend() == "nccl"
+        pipe = _pipe(kind, 1, cuda_device)
+        ts, step = pipe.create_state(0), pipe.make_train_step()
+        init = lm_params_from_pipeline({n: t.clone() for n, t in pipe.gather_params().items()})
+        got = [step(ts, x, y)[1]["loss"].item() for _ in range(3)]
+        got_p = lm_params_from_pipeline(pipe.gather_params())
+
+    def single():
+        lm = TransformerLM(**PP_CFG, num_layers=1, impl="flash", fused_ln=True,
+                           device=cuda_device)
+        lm.load_state_dict(init)
+        opt = Adam(lr=1e-3)
+        st, lm_step = TrainState.create(lm, opt), make_train_step(lm, opt)
+        losses = [lm_step(st, x, y)[1]["loss"].item() for _ in range(3)]
+        return losses, {n: p.detach().clone() for n, p in lm.named_parameters()}
+
+    (want, want_p), (again, again_p) = single(), single()
+    if want == again and all(torch.equal(want_p[n], again_p[n]) for n in want_p):
+        assert got == want
+        for n in want_p:
+            assert torch.equal(got_p[n], want_p[n]), n
+    else:
+        assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(PP_PER_STEP))
+def test_pipeline_launch_counts_on_the_card(cuda_device, tmp_path, kind):
+    """One stage, M = 4, two steps: kernels 1–3, 8 and 9 launch exactly
+    PP_PER_STEP a step, and nothing else does."""
+    from tpudml_torch.core import DistributedConfig, process_group
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+
+    seqs = synthetic_lm(8, PP_CFG["max_len"], PP_CFG["vocab_size"], seed=1)
+    with process_group(DistributedConfig(coordinator_address=f"file://{tmp_path}/store"),
+                       device="cuda"):
+        pipe = _pipe(kind, 4, cuda_device)
+        ts, step = pipe.create_state(0), pipe.make_train_step()
+        reset_launch_counts()
+        for _ in range(2):
+            ts, m = step(ts, seqs[:, :-1], seqs[:, 1:])
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in KERNELS if k.launches}
+    assert launches == {k: 2 * n for k, n in PP_PER_STEP[kind].items()}
+    assert torch.isfinite(m["loss"]).item()

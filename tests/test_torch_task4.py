@@ -11,7 +11,8 @@ on the CPU.
   ranks report the world-1 run's last loss and accuracy, bitwise (both on
   one intra-op thread): model parallelism gives single-device training's
   numbers;
-- ``--schedule gpipe | 1f1b`` raise, naming ROADMAP item 7.
+- ``--schedule gpipe | 1f1b`` at world 1 raise JAX's error (two stages
+  need two ranks; world 2: ``tests/test_torch_pp_task4.py``).
 """
 
 import pytest
@@ -64,7 +65,10 @@ def test_world_2_is_world_1(world1, tmp_path):
 
 
 @pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
-def test_pipeline_schedules_name_their_item(tmp_path, schedule):
-    with pytest.raises(NotImplementedError, match="item 7 \\(7d"):
+def test_pipeline_schedules_need_two_stages(tmp_path, schedule):
+    """The pipelines are ported (world 2 against JAX's task4:
+    ``tests/test_torch_pp_task4.py``); one process is half a LeNet split,
+    which JAX's entry rejects too, with this wording."""
+    with pytest.raises(ValueError, match="needs a multiple of 2 devices, got 1"):
         task4.main(["--device", "cpu", "--dataset", "synthetic", "--schedule", schedule,
                     "--microbatches", "2", "--log_dir", str(tmp_path)])

@@ -98,15 +98,56 @@ def test_card_is_the_default_device(no_card, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--parallel", "pp"], "item 7 \\(7d"),
     (["--parallel", "cp"], "item 8"),
-    (["--parallel", "pp", "--sentinel"], "item 7 \\(7d"),
     (["--parallel", "cp", "--ckpt_dir", "ck"], "item 8"),
 ])
 def test_unported_flags_raise(tmp_path, flags, match):
-    """The unported engines raise, also with the host flags (``--sentinel``
+    """The unported engine raises, also with the host flags (``--sentinel``
     and ``--ckpt_dir`` are ported: ``tests/test_torch_host_cli.py``)."""
     with pytest.raises(NotImplementedError, match=match):
+        task5.main(TINY + flags + ["--device", "cpu", "--steps", "1",
+                                   "--log_dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--parallel", "pp"],
+    ["--parallel", "pp", "--sentinel"],
+    ["--parallel", "pp", "--schedule", "1f1b", "--dropout", "0.1"],
+    ["--parallel", "pp", "--schedule", "interleaved", "--ckpt_dir", "ck"],
+    ["--parallel", "pp", "--remat", "--microbatches", "2"],
+], ids=["gpipe", "gpipe_sentinel", "1f1b_dropout", "interleaved_ckpt", "gpipe_remat"])
+def test_pp_runs_with_the_host_flags(tmp_path, capsys, flags):
+    """``--parallel pp`` (which raised before it was ported) alone builds a
+    one-rank gloo group: one stage, ``--num_layers`` ignored (one block;
+    two under interleaved), and it learns; with the sentinel and a
+    checkpoint at the end holding JAX's leaves (the stages ``[1, ...]``).
+    GPipe with and without ``--remat`` and the sentinel end on one loss.
+    World 2 against JAX's task5: ``tests/test_torch_pp_cli.py``."""
+    flags = [str(tmp_path / f) if f == "ck" else f for f in flags]
+    common = TINY + ["--device", "cpu", "--steps", "6", "--log_every", "0", "--attn",
+                     "flash", "--fused_ln", "--rope", "--log_dir", str(tmp_path)]
+    out = task5.main(common + flags)
+    assert "[pp/flash/cpu] 1 device(s)" in capsys.readouterr().out
+    assert out["devices"] == 1 and np.isfinite(out["final_loss"]) and out["final_loss"] < 3.4
+    if "--ckpt_dir" in flags:
+        with np.load(tmp_path / "ck" / "step_6" / "leaves.npz") as data:
+            shapes = {data[k].shape for k in data.files}
+        assert (1, 2, 32, 128) in shapes  # fc1 kernel: [S, V, d, 4d]
+    if flags in (["--parallel", "pp", "--sentinel"],
+                 ["--parallel", "pp", "--remat", "--microbatches", "2"]):
+        gpipe = task5.main(common + ["--parallel", "pp"] + (
+            ["--microbatches", "2"] if "--remat" in flags else []))
+        assert out["final_loss"] == gpipe["final_loss"]
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--parallel", "pp", "--dropout", "0.1"], "need --schedule 1f1b or interleaved"),
+    (["--parallel", "pp", "--moe_experts", "4"], "does not support --moe_experts"),
+    (["--parallel", "pp", "--fused_xent"], "does not compose with --parallel pp"),
+    (["--parallel", "pp", "--pp_data", "2"], "--pp_data 2 must be >= 1 and divide"),
+])
+def test_pp_rejections_keep_jax_wording(tmp_path, flags, match):
+    with pytest.raises(ValueError, match=match):
         task5.main(TINY + flags + ["--device", "cpu", "--steps", "1",
                                    "--log_dir", str(tmp_path)])
 

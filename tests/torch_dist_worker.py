@@ -29,9 +29,12 @@ package's and JAX's files; task5 ``--parallel ep --ckpt_dir`` and
 gradient rule too, and FSDP×TP on the tiny LM), ``sharded_xent`` (the
 vocab-sharded head under TP, 1-D FSDP and FSDP×TP, both routes; the
 engines fused and unfused), ``overlap`` (``tp_overlap_matmul`` against
-the plain all-reduce) and ``mp_cli`` (task5 ``--parallel fsdp | tp``
+the plain all-reduce), ``mp_cli`` (task5 ``--parallel fsdp | tp``
 from JAX's parameters, their checkpoints and resume, an FSDP state
-through the sharded store).
+through the sharded store), ``pp`` (the pipeline engines on the cases of
+``<job>/cases.pt``, the open stage shifts, ExpertParallel's forward) and
+``pp_cli`` (task5 ``--parallel pp`` from JAX's parameters, its
+checkpoint and resume; task4 ``--schedule gpipe | 1f1b``).
 """
 
 from __future__ import annotations
@@ -1166,13 +1169,252 @@ def suite_mp_cli(job: Path, rank: int, world: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- pipelines
+
+
+def _pp_block(spec):
+    """The block factory of a homogeneous pipeline case."""
+    from tpudml_torch.models import TransformerBlock
+    from tpudml_torch.nn import Activation, Dense, Dropout, Sequential
+
+    if spec["kind"] == "transformer":
+        return lambda g: TransformerBlock(**spec["args"], generator=g)
+    w, rate = spec["width"], spec.get("dropout", 0.0)
+    return lambda g: Sequential((Dense(w, w, generator=g), Activation())
+                                + ((Dropout(rate),) if rate else ()))
+
+
+def _pp_stages(spec) -> list:
+    """The stages of a heterogeneous case: LeNet's split, or MLP stages
+    ``(in, out, relu, dropout rate)``."""
+    import torch
+
+    from tpudml_torch.models import lenet_stages
+    from tpudml_torch.nn import Activation, Dense, Dropout, Sequential
+
+    if spec == "lenet":
+        return [m for _, m in lenet_stages(device="cpu").named_children()]
+    g = torch.Generator().manual_seed(0)
+    return [Sequential((Dense(i, o, generator=g),) + ((Activation(),) if relu else ())
+                       + ((Dropout(rate),) if rate else ())) for i, o, relu, rate in spec]
+
+
+def _pp_optimizer(spec):
+    from tpudml_torch.optim import Adam, ClipByGlobalNorm, Sgd, ZeRO1
+
+    kind, lr, *rest = spec["opt"]
+    opt = Adam(lr=lr) if kind == "adam" else Sgd(lr=lr, momentum=rest[0] if rest else 0.0)
+    if spec.get("clip"):
+        opt = ClipByGlobalNorm(base=opt, max_norm=spec["clip"])
+    if spec.get("zero1"):
+        opt = ZeRO1(base=opt, axis_name="data", world=spec["mesh"]["data"])
+    return opt
+
+
+def _pp_engine(spec):
+    """(engine, ts) of a pipeline case, its parameters JAX's."""
+    import torch
+
+    from tpudml_torch.core.prng import seed_key
+    from tpudml_torch.interop import hetero_stage_from_tpudml, pipeline_state_from_tpudml
+    from tpudml_torch.models import TransformerEmbed, TransformerHead
+    from tpudml_torch.nn import Dense
+    from tpudml_torch.parallel import (
+        GPipe, HeteroOneFOneB, HeteroPipeline, Interleaved1F1B, OneFOneB,
+    )
+
+    kw = dict(n_microbatches=spec["M"], mesh=spec["mesh"], optimizer=_pp_optimizer(spec),
+              batch_axis=spec.get("batch_axis"))
+    root = spec.get("rng_root")
+    engine = spec["engine"]
+    if engine.startswith("hetero"):
+        if root is not None:
+            kw["rng_root"] = seed_key(root)
+        cls = HeteroOneFOneB if engine == "hetero_1f1b" else HeteroPipeline
+        pipe = cls(_pp_stages(spec["stages"]), nhwc_input=spec["stages"] == "lenet", **kw)
+        ts = pipe.create_state(0)
+        stage = ts.model.stages
+        stage.load_state_dict(hetero_stage_from_tpudml(spec["params"]["stages"][pipe.stage],
+                                                       stage))
+        return pipe, ts
+    g = torch.Generator().manual_seed(0)
+
+    def end(e):  # (in, out) a Dense; ("embed", V, d, T) or ("head", d, V)
+        if e[0] == "embed":
+            return TransformerEmbed(*e[1:], generator=g)
+        if e[0] == "head":
+            return TransformerHead(*e[1:], generator=g)
+        return Dense(*e, generator=g)
+
+    kw.update(prologue=end(spec["prologue"]), epilogue=end(spec["epilogue"]),
+              remat=spec.get("remat", False), device="cpu")
+    if engine == "gpipe":
+        pipe = GPipe(_pp_block(spec["block"]), **kw)
+    else:
+        kw.pop("remat")
+        kw["rng_root"] = None if root is None else seed_key(root)
+        if engine == "interleaved":
+            pipe = Interleaved1F1B(_pp_block(spec["block"]), v_chunks=spec["v"], **kw)
+        else:
+            pipe = OneFOneB(_pp_block(spec["block"]), **kw)
+    ts = pipe.create_state(0)
+    state, _ = pipeline_state_from_tpudml(spec["params"], (), pipe.stage)
+    ts.model.load_state_dict(state)
+    return pipe, ts
+
+
+def _pp_case(spec) -> dict:
+    """Train a pipeline case on its batches: per-step losses, the whole
+    parameters after (a hetero stage: its row in JAX's layout), the
+    forward's logits, each tick's bytes on the wire, the local leaves'
+    shapes and the replicated leaves (to check them alike on every rank)."""
+    import torch
+
+    from tpudml_torch.interop import hetero_stage_from_tpudml, hetero_stage_to_tpudml
+    from tpudml_torch.nn import layers
+
+    masks = spec.get("masks")
+    real = layers.dropout_mask
+    if masks is not None:
+        layers.dropout_mask = lambda key, keep, shape, device: torch.from_numpy(
+            masks[key.path]).to(device)
+    try:
+        pipe, ts = _pp_engine(spec)
+        out = {"stage": pipe.stage, "local": {n: tuple(p.shape)
+                                              for n, p in ts.model.named_parameters()}}
+        if "forward_x" in spec:
+            out["forward"] = pipe.make_forward()(spec["forward_x"])
+            if spec["engine"].startswith("hetero"):  # every stage from JAX's rows
+                out["sequential"] = pipe.sequential_forward(
+                    {s: hetero_stage_from_tpudml(spec["params"]["stages"][s], st)
+                     for s, st in enumerate(pipe.stages)}, spec["forward_x"])
+        step = pipe.make_train_step()
+        losses, ticks = [], []
+        for x, y in spec.get("batches", ()):
+            ts, m = step(ts, x, y)
+            losses.append(float(m["loss"]))
+            ticks.append(list(pipe.tick_bytes))
+        out.update(losses=losses, tick_bytes=ticks)
+        if spec["engine"].startswith("hetero"):
+            width = spec["params"]["stages"].shape[1]
+            out["row"] = hetero_stage_to_tpudml(dict(ts.model.stages.named_parameters()),
+                                                ts.model.stages, width)
+        else:
+            out["params"] = pipe.gather_params()
+            out["replicated"] = {n: p.detach().clone() for n, p in ts.model.named_parameters()
+                                 if not n.startswith("stages.")}
+        state = ts.opt_state.get("m", ts.opt_state) if isinstance(ts.opt_state, dict) else {}
+        out["opt_local"] = {n: tuple(t.shape) for n, t in state.items()}  # momentum / Adam's m
+        return out
+    finally:
+        layers.dropout_mask = real
+
+
+def _shift_case(rank: int, world: int) -> dict:
+    """The open shifts on rank-seeded values: the values, the gradient of
+    Σ shifted·cot, the bytes sent."""
+    import torch
+
+    from tpudml_torch.comm import shift_next, shift_prev
+
+    g = torch.Generator().manual_seed(rank)
+    out = {}
+    for name, fn in (("next", shift_next), ("prev", shift_prev)):
+        x = torch.randn(3, 5, generator=g).requires_grad_()
+        cot = torch.randn(3, 5, generator=g)
+        counter: list = []
+        y = fn(x, None, counter)
+        (grad,) = torch.autograd.grad(y, x, cot)
+        out[name] = {"x": x.detach(), "y": y.detach(), "cot": cot, "grad": grad,
+                     "bytes": counter}
+    return out
+
+
+def suite_pp(job: Path, rank: int, world: int) -> dict:
+    """The pipeline cases of ``<job>/cases.pt`` at this world, plus the open
+    shifts and, with an ``ep_forward`` case, ExpertParallel's forward."""
+    import torch
+
+    cases = torch.load(job / "cases.pt", weights_only=False)
+    out = {name: _pp_case(spec) for name, spec in cases["pp"].items()}
+    out["shift"] = _shift_case(rank, world)
+    if "ep_forward" in cases:
+        spec = cases["ep_forward"]
+        ep, _, _, _ = _ep_engine(spec, _ep_model(spec))
+        out["ep_forward"] = ep.make_forward()(spec["x"])
+    return out
+
+
+def suite_pp_cli(job: Path, rank: int, world: int) -> dict:
+    """task5 ``--parallel pp`` (the case's runs, from JAX's initial
+    parameters, dropout masks JAX's) and its checkpoint and resume; task4
+    ``--schedule gpipe | 1f1b`` from JAX's initial rows, at this world."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from tpudml_torch.interop import pipeline_state_from_tpudml
+    from tpudml_torch.parallel import GPipe
+    from tpudml_torch.tasks import task4
+    from tpudml_torch.tasks import task5_longcontext as task5
+
+    from tpudml_torch.interop import hetero_stage_from_tpudml
+    from tpudml_torch.nn import layers
+    from tpudml_torch.parallel import HeteroPipeline
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    out = {}
+    real, real_mask = GPipe.create_state, layers.dropout_mask
+    current = [None]  # the task5 run whose JAX state the engine loads
+
+    def loaded(self, key=0):  # the engine's state, its parameters JAX's
+        ts = real(self, key)
+        if isinstance(self, HeteroPipeline):
+            stage = ts.model.stages
+            stage.load_state_dict(hetero_stage_from_tpudml(case["task4_rows"][self.stage], stage))
+        else:
+            ts.model.load_state_dict(pipeline_state_from_tpudml(case["states"][current[0]], (),
+                                                                self.stage)[0])
+        return ts
+
+    GPipe.create_state = loaded
+    masks = case.get("masks", {})
+    layers.dropout_mask = lambda key, keep, shape, device: torch.from_numpy(
+        masks[key.path]).to(device)
+    try:
+        for name, flags in case.get("task5", {}).items():
+            current[0] = name
+            losses = []
+            args = task5.parse_args(case["base"] + flags + ["--log_dir", str(job / f"l{rank}")])
+            res = task5.run(args, hooks=[lambda step, train_state, metrics: losses.append(
+                float(metrics["loss"]))])
+            out[name] = {"losses": losses, "final_loss": res["final_loss"]}
+        if case.get("ckpt"):
+            current[0] = case["ckpt"]
+            flags = case["base"] + case["task5"][case["ckpt"]] + ["--ckpt_every", "2"]
+            out["ckpt_a"] = task5.main(flags + ["--ckpt_dir", str(job / "ref"),
+                                                "--log_dir", str(job / f"a{rank}")])
+            if rank == 0:
+                shutil.copytree(job / "ref" / "step_2", job / "run" / "step_2")
+            dist.barrier()
+            out["ckpt_b"] = task5.main(flags + ["--ckpt_dir", str(job / "run"), "--resume",
+                                                "--log_dir", str(job / f"b{rank}")])
+        for schedule in case.get("task4", ()):
+            out[f"task4_{schedule}"] = task4.main(case["task4_flags"] + [
+                "--schedule", schedule, "--log_dir", str(job / f"t4{rank}{schedule}")])
+    finally:
+        GPipe.create_state, layers.dropout_mask = real, real_mask
+    return out
+
+
 SUITES = {"dp": suite_dp, "resnet": suite_resnet, "comm": suite_comm,
           "task5": suite_task5, "ep": suite_ep, "labs": suite_labs, "obs": suite_obs,
           "sentinel": suite_sentinel, "gspmd": suite_gspmd, "gspmd2d": suite_gspmd2d,
           "task4": suite_task4,
           "zero1": suite_zero1, "sharded": suite_sharded, "fsdp": suite_fsdp,
           "sharded_xent": suite_sharded_xent, "overlap": suite_overlap,
-          "mp_cli": suite_mp_cli}
+          "mp_cli": suite_mp_cli, "pp": suite_pp, "pp_cli": suite_pp_cli}
 
 
 def main() -> None:

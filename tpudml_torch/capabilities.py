@@ -1,7 +1,7 @@
 """The port's copy of the engine-composition rejections that its engines
 raise (the rows of ``tpudml/capabilities.py`` that ``DataParallel``,
-``GSPMDParallel``, ``ZeRO1``, ``tp_overlap_matmul``, task5 ``--parallel
-ep`` and the serving engine check, with the JAX wording; the
+``GSPMDParallel``, the pipelines, ``ZeRO1``, ``tp_overlap_matmul``, task5
+``--parallel ep`` and ``pp`` and the serving engine check, with the JAX wording; the
 planner's full table is ROADMAP.md queue 1 item 10).
 
 Guard sites call :func:`reject` with an entry's key instead of writing
@@ -73,6 +73,45 @@ _ENTRIES = (
         ),
         when=lambda c: _g(c, "engine") in _GSPMD_FAMILY
         and bool(_g(c, "fused_xent"))
+        and _g(c, "schedule", "gpipe") == "gpipe",
+    ),
+    Capability(
+        key="pp_zero1_needs_batch_axis",
+        owner="tpudml_torch.parallel.pp",
+        message=(
+            "a ZeRO1 optimizer needs a data axis to shard the "
+            "update over: pass batch_axis (PP×DP composition)"
+        ),
+        when=lambda c: _g(c, "engine") == "pp_dp"
+        and bool(_g(c, "zero1"))
+        and not _g(c, "mesh", {}).get("data"),
+    ),
+    Capability(
+        key="pp_fused_xent",
+        owner="tpudml_torch.tasks.task5_longcontext",
+        message=(
+            "--fused_xent does not compose with --parallel pp: the "
+            "pipeline epilogue ships logits between stages, so there "
+            "is no feature tensor for the fused head to consume"
+        ),
+        when=lambda c: _g(c, "engine") == "pp_dp" and bool(_g(c, "fused_xent")),
+    ),
+    Capability(
+        key="pp_moe",
+        owner="tpudml_torch.tasks.task5_longcontext",
+        message="--parallel pp does not support --moe_experts",
+        when=lambda c: _g(c, "engine") == "pp_dp"
+        and bool(_g(c, "moe_experts")),
+    ),
+    Capability(
+        key="gpipe_dropout",
+        owner="tpudml_torch.parallel.pp",
+        message=(
+            "GPipe stages do not support dropout; use OneFOneB "
+            "(schedule='1f1b') with rng_root for dropout pipelines"
+        ),
+        when=lambda c: _g(c, "engine") == "pp_dp"
+        and bool(_g(c, "dropout"))
         and _g(c, "schedule", "gpipe") == "gpipe",
     ),
     Capability(

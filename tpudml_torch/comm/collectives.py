@@ -339,6 +339,71 @@ def ppermute_ring(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
     return out
 
 
+def stage_exchange(sends, recvs, group=None, counter: list | None = None) -> list[torch.Tensor]:
+    """One tick of point-to-point traffic over ``group``: ``sends`` lists
+    ``(peer, tensor)`` and ``recvs`` ``(peer, shape, dtype, device)``, peers
+    as ranks of the group. Every op of the tick is posted in ONE
+    ``batch_isend_irecv``, sends then receives, each in the order listed;
+    both ends of a pair derive their lists from the same static schedule,
+    so every send meets its receive. Returns the received tensors in
+    ``recvs`` order; appends the bytes this rank sends to ``counter`` (the
+    pipelines' per-tick record)."""
+    ops, out, wire = [], [], 0
+    for peer, t in sends:
+        t = t.contiguous()
+        wire += t.numel() * t.element_size()
+        ops.append(dist.P2POp(dist.isend, t, _global(group, peer), group))
+    for peer, shape, dtype, device in recvs:
+        buf = torch.empty(shape, dtype=dtype, device=device)
+        ops.append(dist.P2POp(dist.irecv, buf, _global(group, peer), group))
+        out.append(buf)
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if counter is not None:
+        counter.append(wire)
+    return out
+
+
+def _open_shift(x: torch.Tensor, group, step: int, counter) -> torch.Tensor:
+    """Rank i's ``x`` to rank i + ``step`` (±1) of the group; a rank with no
+    sender receives zeros, the one with no receiver sends nothing."""
+    world, rank = _world(group), dist.get_rank(group)
+    dst, src = rank + step, rank - step
+    sends = [(dst, x)] if 0 <= dst < world else []
+    recvs = [(src, x.shape, x.dtype, x.device)] if 0 <= src < world else []
+    got = stage_exchange(sends, recvs, group, counter)
+    return got[0] if got else torch.zeros_like(x)
+
+
+class _Shift(torch.autograd.Function):
+    """The open shift; backward: the cotangent shifted the other way (JAX's
+    transpose of ``ppermute`` with the open permutation)."""
+
+    @staticmethod
+    def forward(ctx, x, group, step, counter):
+        ctx.group, ctx.step, ctx.counter = group, step, counter
+        return _open_shift(x, group, step, counter)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _open_shift(g.contiguous(), ctx.group, -ctx.step, ctx.counter), None, None, None
+
+
+def shift_next(x: torch.Tensor, group=None, counter: list | None = None) -> torch.Tensor:
+    """Stage i's ``x`` to stage i + 1 (JAX's ``ppermute`` with the open
+    permutation ``[(i, i + 1)]``): the first stage receives zeros and the
+    last sends nothing. Differentiable; ``counter`` as
+    :func:`stage_exchange`'s."""
+    return _Shift.apply(x, group, 1, counter)
+
+
+def shift_prev(x: torch.Tensor, group=None, counter: list | None = None) -> torch.Tensor:
+    """Stage i's ``x`` to stage i − 1 (the open permutation ``[(i, i − 1)]``):
+    the last stage receives zeros and the first sends nothing."""
+    return _Shift.apply(x, group, -1, counter)
+
+
 def _all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
     world = _world(group)
     if x.shape[split_axis] % world:

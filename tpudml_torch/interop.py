@@ -9,7 +9,10 @@ the JAX layout except a conv kernel (a 4-D ``kernel``), which goes from
 JAX's HWIO to the port's OIHW in ``channels_last`` memory. Under expert
 parallelism a rank holds its slice of each expert tensor
 (:func:`ep_state_from_tpudml`); under ``GSPMDParallel`` its block of each
-sharded leaf (:func:`gspmd_state_from_tpudml`).
+sharded leaf (:func:`gspmd_state_from_tpudml`); under a pipeline its row
+of the stage-stacked leaves (:func:`pipeline_state_from_tpudml`), and a
+heterogeneous stage its module's tensors from JAX's padded ``[S, L]`` row
+and back (:func:`hetero_stage_from_tpudml`, :func:`hetero_stage_to_tpudml`).
 """
 
 from __future__ import annotations
@@ -178,3 +181,97 @@ def gspmd_state_from_tpudml(params: Mapping[str, Any], opt_state: Any, specs: di
     else:
         opt = blocks(_flatten(opt_state))
     return state, opt
+
+
+def _stage_rows(flat: dict[str, np.ndarray], stage: int) -> dict[str, torch.Tensor]:
+    """``flat`` with every ``stages`` leaf cut to row ``stage`` of its
+    leading (stage) dim, kept as ``[1, ...]``."""
+    return {k: torch.from_numpy(np.array(a[stage:stage + 1] if k.split(".")[0] == "stages"
+                                         else a, copy=True)) for k, a in flat.items()}
+
+
+def pipeline_state_from_tpudml(params: Mapping[str, Any], opt_state: Any,
+                               stage: int) -> tuple[dict[str, torch.Tensor], Any]:
+    """One stage's ``(state dict, optimizer state)`` of a JAX ``GPipe``,
+    ``OneFOneB`` or ``Interleaved1F1B`` TrainState (``params`` and
+    ``opt_state`` as numpy: JAX's global view): ``prologue.*`` and
+    ``epilogue.*`` whole, every ``stages.*`` leaf cut to row ``stage``
+    (``[1, ...]``, or ``[1, V, ...]`` interleaved), in the optimizer state
+    as in the parameters. The optimizer state is an Sgd momentum state,
+    ``()``, or an Adam state. Load the state dict into the engine's
+    ``ts.model``."""
+    state = _stage_rows(_flatten(params), stage)
+    if isinstance(opt_state, Mapping) and set(opt_state) == {"m", "v", "t"}:
+        opt = {"m": _stage_rows(_flatten(opt_state["m"]), stage),
+               "v": _stage_rows(_flatten(opt_state["v"]), stage),
+               "t": int(np.asarray(opt_state["t"]))}
+    elif isinstance(opt_state, tuple) and not opt_state:
+        opt = ()
+    else:
+        opt = _stage_rows(_flatten(opt_state), stage)
+    return state, opt
+
+
+def _jax_shape(name: str, t: torch.Tensor) -> tuple:
+    s = tuple(t.shape)
+    return (s[2], s[3], s[1], s[0]) if name.endswith("kernel") and t.dim() == 4 else s
+
+
+def _jax_order(stage) -> list[str]:
+    from tpudml_torch.core.pytree import jax_sort_key
+
+    return sorted((n for n, _ in stage.named_parameters()), key=jax_sort_key)
+
+
+def hetero_stage_from_tpudml(row: np.ndarray, stage) -> dict[str, torch.Tensor]:
+    """A heterogeneous stage's state dict from its row of JAX's
+    ``HeteroPipeline`` layout: JAX ravels the stage's param tree (its
+    leaves in tree order, each in JAX's layout) into one f32 vector padded
+    to the widest stage's L, ``params["stages"][s]``; the port keeps the
+    stage module's own tensors. ``stage`` is the port's module for that
+    stage (it gives the names and shapes); conv kernels turn OIHW. The
+    same call carries an optimizer state row (Sgd momentum, Adam's m or
+    v) to the tensors of that state, by the parameters' names."""
+    row = np.asarray(row)
+    out, at = {}, 0
+    for name in _jax_order(stage):
+        shape = _jax_shape(name, stage.get_parameter(name))
+        n = int(np.prod(shape))
+        out[name] = _tensor(name, row[at:at + n].reshape(shape))
+        at += n
+    if np.any(row[at:]):
+        raise ValueError(f"the row's padding past the stage's {at} values is not zero")
+    return out
+
+
+def hetero_stage_to_tpudml(tensors: Mapping[str, torch.Tensor], stage, width: int) -> np.ndarray:
+    """The inverse of :func:`hetero_stage_from_tpudml`: ``tensors`` (the
+    stage's parameters, or an optimizer state's tensors, by name) raveled
+    in JAX's order and layout and zero-padded to ``width`` (JAX's L)."""
+    parts = []
+    for name in _jax_order(stage):
+        t = tensors[name].detach().cpu()
+        if name.endswith("kernel") and t.dim() == 4:
+            t = t.permute(2, 3, 1, 0)
+        parts.append(t.reshape(-1).numpy())
+    flat = np.concatenate(parts) if parts else np.zeros((0,), np.float32)
+    return np.pad(flat, (0, width - flat.shape[0])).astype(np.float32)
+
+
+def lm_params_from_pipeline(params: Mapping[str, torch.Tensor],
+                            v_chunks: int | None = None) -> dict[str, torch.Tensor]:
+    """A ``TransformerLM`` state dict from a transformer pipeline's whole
+    parameters (``GPipe.gather_params``: a ``TransformerEmbed`` prologue,
+    ``TransformerBlock`` stages, a ``TransformerHead`` epilogue): block
+    σ = v·S + s is the stages' row ``[s]``, or ``[s, v]`` for an
+    ``Interleaved1F1B`` of ``v_chunks``. The LM has V·S layers."""
+    out = {}
+    for n, t in params.items():
+        part, name = n.split(".", 1)
+        if part != "stages":
+            out[name] = t
+            continue
+        for s in range(t.shape[0]):
+            for v in range(v_chunks or 1):
+                out[f"block{v * t.shape[0] + s}.{name}"] = t[s, v] if v_chunks else t[s]
+    return out

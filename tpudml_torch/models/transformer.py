@@ -77,11 +77,12 @@ class TransformerBlock(nn.Module):
                  moe_axis: str | None = None, moe_capacity_factor: float = 2.0,
                  moe_top_k: int = 1, moe_dispatch: str = "gather",
                  moe_ragged_dw: str = "grouped", dropout: float = 0.0,
-                 generator: torch.Generator | None = None,
+                 fused_ln: bool = False, generator: torch.Generator | None = None,
                  compute_dtype: torch.dtype | None = None):
         super().__init__()
         d = embed_dim
         self.dropout = dropout
+        self.fused_ln = fused_ln
         self.ln1 = LayerNorm(d)
         self.attn = MultiHeadAttention(
             d, num_heads, causal=True, impl=impl, num_kv_heads=num_kv_heads,
@@ -118,10 +119,91 @@ class TransformerBlock(nn.Module):
         return dropout(h, self.dropout, key.fold_in(salt), True)
 
     def forward(self, x: torch.Tensor, key: Key | None = None):
-        """(x + both branches, the FFN's aux term or None)."""
+        """(x + both branches, the FFN's aux term or None). With
+        ``fused_ln`` the ln2 junction (x + attention branch, then ln2) runs
+        as one fused add+LN: the pipeline-stage form of the LM's deferred
+        trunk, whose closing residual add stays a plain add so that the
+        block maps x to one tensor (JAX's ``TransformerBlock(fused_ln=True)``)."""
+        if self.fused_ln:
+            s, y2 = fused_add_layernorm(x, self.drop(self.attn(self.ln1(x)), key, 1),
+                                        self.ln2.scale, self.ln2.bias)
+            h, aux = self.ffn(y2)
+            return s + self.drop(h, key, 2), aux
         x = x + self.drop(self.attn(self.ln1(x)), key, 1)
         h, aux = self.ffn(self.ln2(x))
         return x + self.drop(h, key, 2), aux
+
+
+def embed_tokens(tok_embed: torch.Tensor, pos_embed: torch.Tensor | None,
+                 tokens: torch.Tensor, max_len: int,
+                 compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """tokens [B, T] -> [B, T, d] in the compute dtype: plain indexing of
+    the f32 token table, then the cast, plus the learned positions
+    ``pos_embed[:T]`` unless it is None (RoPE). Its backward sums the same
+    rows as JAX's one-hot-matmul backward, in another order and in f32.
+    The embedding of both ``TransformerLM`` and ``TransformerEmbed``."""
+    h = cast(tok_embed[tokens], compute_dtype)
+    if pos_embed is not None:
+        t = tokens.shape[1]
+        if t > max_len:
+            raise ValueError(f"sequence length {t} exceeds max_len {max_len}")
+        h = h + cast(pos_embed[:t], compute_dtype)
+    return h
+
+
+def final_norm(ln_f: LayerNorm, x: torch.Tensor, fused_ln: bool) -> torch.Tensor:
+    """``ln_f(x)``; with ``fused_ln`` through the fused add+LN kernel on
+    ``(x, 0)``, the kernel that closes the fused trunk's last residual add
+    inside ``ln_f`` (``TransformerLM``): adding 0 leaves every element as
+    it is, so a pipeline whose blocks close their own adds normalizes its
+    output as the LM does, bit for bit."""
+    if not fused_ln:
+        return ln_f(x)
+    return fused_add_layernorm(x, torch.zeros_like(x), ln_f.scale, ln_f.bias)[1]
+
+
+class TransformerEmbed(nn.Module):
+    """Token (+ learned position) embedding: the pipeline's prologue (JAX's
+    ``TransformerEmbed``, parameters ``tok_embed`` and, unless
+    ``use_pos_embed=False`` for RoPE, ``pos_embed``), drawn as
+    ``TransformerLM`` draws its embedding (tokens, then positions, 0.02 ×
+    a standard normal) and computed by the same :func:`embed_tokens`.
+    Sequences past ``max_len`` raise when there is a position table."""
+
+    def __init__(self, vocab_size: int, embed_dim: int, max_len: int = 1024, *,
+                 use_pos_embed: bool = True, compute_dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.max_len = max_len
+        self.compute_dtype = compute_dtype
+        self.tok_embed = nn.Parameter(0.02 * torch.randn((vocab_size, embed_dim), generator=g))
+        self.pos_embed = (nn.Parameter(0.02 * torch.randn((max_len, embed_dim), generator=g))
+                          if use_pos_embed else None)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return embed_tokens(self.tok_embed, self.pos_embed, tokens, self.max_len,
+                            self.compute_dtype)
+
+
+class TransformerHead(nn.Module):
+    """Final LayerNorm then the vocab projection: the pipeline's epilogue
+    (JAX's ``TransformerHead``: ``ln_f``, ``head``). ``fused_ln`` runs
+    ``ln_f`` through the fused add+LN kernel (:func:`final_norm`), so that
+    a pipeline of ``fused_ln`` blocks computes what the ``fused_ln``
+    ``TransformerLM`` computes."""
+
+    def __init__(self, embed_dim: int, vocab_size: int, *, fused_ln: bool = False,
+                 compute_dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.fused_ln = fused_ln
+        self.ln_f = LayerNorm(embed_dim)
+        self.head = Dense(embed_dim, vocab_size, generator=g, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(final_norm(self.ln_f, x, self.fused_ln))
 
 
 class TransformerLM(nn.Module):
@@ -199,16 +281,10 @@ class TransformerLM(nn.Module):
         return [getattr(self, f"block{i}") for i in range(self.num_layers)]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, T] -> [B, T, d] in the compute dtype. Plain indexing
-        of the f32 tables, then the cast: its backward sums the same rows
-        as JAX's one-hot-matmul backward, in another order and in f32."""
-        t = tokens.shape[1]
-        h = cast(self.tok_embed[tokens], self.compute_dtype)
-        if not self.rope:
-            if t > self.max_len:
-                raise ValueError(f"sequence length {t} exceeds max_len {self.max_len}")
-            h = h + cast(self.pos_embed[:t], self.compute_dtype)
-        return h
+        """tokens [B, T] -> [B, T, d] in the compute dtype
+        (:func:`embed_tokens`)."""
+        return embed_tokens(self.tok_embed, self.pos_embed, tokens, self.max_len,
+                            self.compute_dtype)
 
     def _use_fused_ln(self) -> bool:
         # num_layers=0 leaves no junction to fuse.

@@ -318,6 +318,25 @@ class ExpertParallel:
         ts.step = int(step)
         return ts
 
+    def make_forward(self) -> Callable:
+        """x (the global batch) -> the logits of every row, on every rank:
+        this rank's rows through the model (its MoE layers' all_to_all over
+        the expert group) in eval mode without a graph, all-gathered in
+        shard order (JAX's jitted forward with batch-sharded output)."""
+
+        @torch.no_grad()
+        def forward(x):
+            xb, _ = self.shard_batch(x, torch.zeros(len(x), dtype=torch.long))
+            mode = self.model.training
+            self.model.eval()
+            try:
+                logits = self.model(xb)
+            finally:
+                self.model.train(mode)
+            return all_gather_tree(logits, self.group, axis=0, tiled=True)
+
+        return forward
+
     def make_eval_step(self) -> Callable:
         """(images, labels) -> (correct, count) summed over all ranks
         (``make_counting_eval_step``)."""

@@ -43,8 +43,14 @@ restarts the stream at the seed; ROADMAP.md queue 3). Under ``ep``,
 ``fsdp`` and ``tp`` a checkpoint holds whole leaves at any world, as
 JAX's task5 writes its global arrays: the ranks gather their blocks,
 rank 0 writes, and a resume cuts them back (the engines' ``full_state``).
-``--parallel pp`` and ``cp`` raise ``NotImplementedError``, naming their
-ROADMAP items.
+``--parallel pp``: the pipelines of ``tpudml_torch.parallel.pp``, one
+``TransformerBlock`` a stage (``TransformerEmbed`` and ``TransformerHead``
+replicated), ``--schedule gpipe | 1f1b | interleaved`` with
+``--microbatches``, ``--v_chunks``, ``--pp_data`` (PP×DP), ``--remat``
+(GPipe), ``--dropout`` (1f1b and interleaved, with JAX's message
+otherwise), ``--sentinel`` and ``--ckpt_dir``; ``--moe_experts`` and
+``--fused_xent`` are rejected with JAX's keys. ``--parallel cp`` raises
+``NotImplementedError``, naming its ROADMAP item.
 
 Same row sampling (``np.random.default_rng(seed)`` over
 ``synthetic_lm(4·B, …)``) and steady-state clock as the JAX entry point;
@@ -64,7 +70,9 @@ CPU: ``torchrun --nproc_per_node 2 -m tpudml_torch.tasks.task5_longcontext
 --parallel dp --device cpu``; expert parallel: ``--parallel ep
 --moe_experts 8`` (one process: a one-rank group; ``torchrun`` for more);
 FSDP and tensor parallel: ``--parallel fsdp`` / ``--parallel tp`` (add
-``--fused_xent`` for the vocab-sharded head)
+``--fused_xent`` for the vocab-sharded head); pipelines: ``torchrun
+--nproc_per_node 2 -m tpudml_torch.tasks.task5_longcontext --parallel pp
+--schedule 1f1b --device cpu``
 """
 
 from __future__ import annotations
@@ -93,11 +101,10 @@ from tpudml_torch.train import TrainState, make_lm_fused_train_step, make_train_
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
 PARALLEL_ITEMS = {
-    "pp": "7 (7d, pipeline parallel)",
     "cp": "8 (context parallel)",
 }
 # The engines that run inside a process group (one process a rank).
-GROUP_ENGINES = ("dp", "ep", "fsdp", "tp")
+GROUP_ENGINES = ("dp", "ep", "fsdp", "tp", "pp")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -135,7 +142,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--num_kv_heads", type=int, default=None, help="GQA/MQA")
     p.add_argument("--rope", action="store_true", help="rotary positions")
     p.add_argument("--remat", action="store_true",
-                   help="accepted for compatibility (ring backward only)")
+                   help="pp --schedule gpipe: recompute each tick's block in the backward")
     p.add_argument("--moe_experts", type=int, default=0, help="MoE FFN experts")
     p.add_argument("--moe_top_k", type=int, default=1)
     p.add_argument("--moe_dispatch", choices=("gather", "einsum", "ragged"),
@@ -147,7 +154,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--log_dir", type=str, default="./logs")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sentinel", action="store_true",
-                   help="step sentinel: skip non-finite updates (--parallel dp)")
+                   help="step sentinel: skip non-finite updates (--parallel dp/fsdp/tp/pp)")
     p.add_argument("--ckpt_dir", type=str, default=None,
                    help="checkpoint directory (enables --ckpt_every/--resume)")
     p.add_argument("--ckpt_every", type=int, default=0)
@@ -187,10 +194,14 @@ def _reject_unported(args) -> None:
     elif args.parallel in PARALLEL_ITEMS:
         raise NotImplementedError(
             f"--parallel {args.parallel} {NOT_PORTED.format(PARALLEL_ITEMS[args.parallel])}")
+    if args.parallel == "pp" and args.fused_xent:
+        # The pipeline's epilogue takes the last stage's output whole:
+        # there is no pre-head feature tensor for the fused head.
+        reject("pp_fused_xent")
     args._save_scores = _save_scores(args)
-    if args.sentinel and args.parallel not in ("dp", "fsdp", "tp"):
+    if args.sentinel and args.parallel not in ("dp", "fsdp", "tp", "pp"):
         # single's step and the ep engine have no sentinel slot in their
-        # optimizer chain (JAX's wording; pp raises above).
+        # optimizer chain (JAX's wording).
         raise ValueError(f"--sentinel composes with --parallel dp/fsdp/tp/pp, not "
                          f"{args.parallel!r}")
     if args.attn in ("ring", "ulysses"):
@@ -201,13 +212,20 @@ def _reject_unported(args) -> None:
 
 def build_engine(args, device: torch.device):
     """(train_state, step_fn) for ``--parallel single``, ``dp``, ``ep``,
-    ``fsdp`` or ``tp`` (all but the first inside a process group)."""
+    ``fsdp``, ``tp`` or ``pp`` (all but the first inside a process group)."""
     _reject_unported(args)
     args._sentinel = None  # the engine's GradSentinel, for the escalation hook
-    args._sharded = None  # the EP, FSDP or TP engine, whose checkpoints hold whole leaves
+    args._sharded = None  # the EP, FSDP, TP or pipeline engine: checkpoints hold whole leaves
     if args.parallel == "ep" and args.moe_experts % process_count():
         raise ValueError(f"--moe_experts {args.moe_experts} must divide over "
                          f"{process_count()} devices")
+    opt = make_optimizer("adam", args.lr)
+    rng_root = seed_key(args.seed ^ 0xD0) if args.dropout else None
+    if args.parallel == "pp":
+        pipe = _pipeline(args, device, opt, rng_root)
+        args._sentinel = pipe.sentinel
+        args._sharded = pipe
+        return pipe.create_state(args.seed), pipe.make_train_step()
     model = TransformerLM(
         vocab_size=args.vocab,
         embed_dim=args.embed_dim,
@@ -226,8 +244,6 @@ def build_engine(args, device: torch.device):
         device=device,
         generator=torch.Generator().manual_seed(args.seed),
     )
-    opt = make_optimizer("adam", args.lr)
-    rng_root = seed_key(args.seed ^ 0xD0) if args.dropout else None
     if args.parallel == "dp":
         # [B, T] token batches are never the stacked-loader form.
         engine = DataParallel(model, opt, rng_root=rng_root, stacked_batches=False,
@@ -259,6 +275,46 @@ def build_engine(args, device: torch.device):
     return TrainState.create(model, opt), step
 
 
+def _pipeline(args, device: torch.device, opt, rng_root):
+    """``--parallel pp`` (JAX's task5 pipeline branch): one decoder block a
+    stage (depth S, or V·S under interleaved; ``--num_layers`` is ignored),
+    the embedding and the head replicated, over ``{"stage": world}`` or,
+    with ``--pp_data D``, ``{"data": D, "stage": world/D}``. The blocks are
+    drawn from ``--seed`` (``GPipe.create_state``), the embedding and the
+    head from ``torch.Generator().manual_seed(seed)``. ``--remat`` is
+    GPipe's per-tick recompute (JAX's task5 drops the flag here)."""
+    from tpudml_torch.models import TransformerBlock, TransformerEmbed, TransformerHead
+    from tpudml_torch.parallel import GPipe, Interleaved1F1B, OneFOneB
+
+    if args.moe_experts:
+        reject("pp_moe")
+    if args.dropout and args.schedule not in ("1f1b", "interleaved"):
+        raise ValueError("--dropout pipelines need --schedule 1f1b or interleaved")
+    n, d = process_count(), args.pp_data
+    if d < 1 or n % d:
+        raise ValueError(f"--pp_data {d} must be >= 1 and divide n_devices {n}")
+    mesh = {"data": d, "stage": n // d} if d > 1 else {"stage": n}
+    g = torch.Generator().manual_seed(args.seed)
+    common = dict(
+        n_microbatches=args.microbatches, mesh=mesh, optimizer=opt,
+        prologue=TransformerEmbed(args.vocab, args.embed_dim, args.seq_len,
+                                  use_pos_embed=not args.rope, generator=g),
+        epilogue=TransformerHead(args.embed_dim, args.vocab, fused_ln=args.fused_ln,
+                                 generator=g),
+        batch_axis="data" if d > 1 else None, sentinel=args.sentinel, device=device)
+
+    def block(gen):
+        return TransformerBlock(args.embed_dim, args.num_heads, impl=args.attn or "full",
+                                num_kv_heads=args.num_kv_heads, rope=args.rope,
+                                dropout=args.dropout, fused_ln=args.fused_ln, generator=gen)
+
+    if args.schedule == "interleaved":
+        return Interleaved1F1B(block, rng_root=rng_root, v_chunks=args.v_chunks, **common)
+    if args.schedule == "1f1b":
+        return OneFOneB(block, rng_root=rng_root, **common)
+    return GPipe(block, remat=args.remat, **common)
+
+
 def run(args, hooks=()) -> dict:
     if args.steps < 1:
         raise ValueError("--steps must be >= 1")
@@ -287,10 +343,12 @@ def _train(args, device: torch.device, world: int = 1, lead: bool = True,
     seqs = synthetic_lm(args.batch_size * 4, args.seq_len, args.vocab, seed=args.seed)
     mgr = None
     start = 0
-    # Under ep, fsdp and tp past world 1 a rank holds blocks: the checkpoint
-    # holds the leaves whole (gathered over their groups, rank 0 writing
-    # JAX's global arrays), and a resume cuts them back.
-    whole = args._sharded is not None and world > 1
+    # Under ep, fsdp, tp and pp past world 1 a rank holds blocks: the
+    # checkpoint holds the leaves whole (gathered over their groups, rank 0
+    # writing JAX's global arrays), and a resume cuts them back. A pipeline
+    # always writes through its full_state: its stacked [S, V, d, d] stage
+    # kernels are no conv kernels to turn HWIO.
+    whole = args._sharded is not None and (world > 1 or args.parallel == "pp")
 
     def save(i):
         mgr.save(args._sharded.full_state(ts) if whole else ts, i,
