@@ -417,7 +417,44 @@ the CPU). Phases, each printing its own line(s):
    the dropout run's loss falls. Then the peak allocated
    bytes of GPipe and 1F1B at ``--microbatches 8``: 1F1B's must be lower.
    ms/step of every run beside the single-card step's.
-21. one JSON line of per-kernel numbers (launches summed over the main
+21. main path 15, tensor-parallel serving at world 1 (``[tp_serve]``, a
+   one-rank NCCL group): first kernel 1 at the prefill chunk's shape with
+   the head counts a rank holds at W = 2 (h_local 4, kv_local 1
+   GQA-repeated; causal and not, and the 512-token window at start 384
+   through ``chunk_flash_window``) against its plain version at FLASH_TOL,
+   and W = 4 refused (2 kv heads); then ``ServingEngine(mesh={"model":
+   1})`` on SERVE_MODEL, SERVE_CFG and WORKLOAD, fused head off, with the
+   f32 and the int8 cache (paths ``tp_serve_f32``, ``tp_serve_int8``):
+   kernel 1 launches exactly ``expected_flash_calls`` a run and nothing
+   else; the streams hold against the teacher-forced full forward (f32)
+   and equal the dense engine's on the same requests (``compare_streams``:
+   a divergence only at a near-tie, as the TP step adds the row-parallel
+   bias after the sum: TIE_GAP in f32, INT8_TIE_GAP with the int8 cache),
+   the event logs equal; tokens/s and the decode step's wall beside the
+   dense engine's.
+22. main path 16, context parallelism at world 1 (``[cp]``, a one-rank
+   NCCL group): task5 ``--parallel cp`` through its entry point at main
+   path 2's widths with ``--fused_ln --rope --fused_xent`` (CP_TASK5, f32,
+   CP_STEPS steps): ``--attn ring`` contiguous (``cp_ring``) and striped
+   (``cp_ring_striped``), each bitwise equal to the single-card ``--attn
+   flash`` step (step-1 gradients, losses, final parameters) where that
+   step repeats itself (at world 1 the ring is one diagonal fold, and the
+   merge of one block returns it), and ``--attn ulysses``
+   (``cp_ulysses``: the plain attention, no attention kernel; within
+   STEP_GRAD_RTOL, LOSS_TOL and Adam's 2·lr a step); each launching
+   exactly CP_PER_STEP; then the ring at LONG_TASK5's shape (T=16384, the
+   lean head; ``cp_long``) beside the single card's ms/step. Then W ranks
+   in one process (``parallel.cp.ring_attention_in_one_process``, each
+   rank's K/V block taken by index: the real multi-block folds a one-card
+   group never makes) through kernels 1–3 at CP_SIM's shapes, W = 2 and
+   4, contiguous and striped, f32 and bf16 at W = 2, and W = 4 at the
+   long shape: the output and dq, dk, dv against ``flash_attention`` over
+   the whole sequence (FLASH_TOL; GRAD_RTOL, GRAD_ATOL; BF16_REL), the
+   folds (W(W+1)/2 contiguous, W² striped, and kernel 1's launches equal
+   to them), the striped folds with k_shift = 1 (W(W−1)/2); the ring's
+   forward and forward+backward device times beside the whole-sequence
+   kernels'.
+23. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -433,6 +470,15 @@ import time
 from pathlib import Path
 
 TIE_GAP = 1e-5  # plain top-2 logit gap under which a pick may differ
+# Two runs on the int8 KV cache: a cached K/V element rounds to one of 255
+# codes of its row's largest value, so two computations of one value that
+# differ in the last f32 bit (the TP step adds the row-parallel bias after
+# the sum, the dense step before it) can take neighbouring codes and move a
+# logit by far more than TIE_GAP (1.8e-3 seen on the card). Each int8 run's
+# logits lie within 0.25 of the f32 ones (tests/test_serve.py's int8 cache
+# contract), so two of them can part only where the plain top-2 gap is
+# under twice that.
+INT8_TIE_GAP = 0.5
 # The bf16-compute serving model's tie gap: four bf16 steps (2^-6 each) at
 # its largest logits (|logit| in [2, 4) for the random serving model). The
 # decode path rounds activations to bf16 in other places than the full
@@ -2355,9 +2401,10 @@ def teacher_forced_check(model, requests, streams, label: str,
     return mismatches
 
 
-def compare_streams(model, requests, a, b, label: str) -> None:
+def compare_streams(model, requests, a, b, label: str, tie_gap: float = TIE_GAP) -> None:
     """Streams of two runs must match; a divergence is allowed only where
-    the plain logits at the first differing token are a near-tie."""
+    the plain logits at the first differing token are a near-tie (top-2 gap
+    under ``tie_gap``)."""
     import torch
 
     for req in requests:
@@ -2370,7 +2417,7 @@ def compare_streams(model, requests, a, b, label: str) -> None:
             gap = _top2_gap(model(seq[None])[0, -1]).item()
         print(f"[serve] {label}: request {req.rid} diverges at token {i} "
               f"({sa[i]} vs {sb[i]}), plain top-2 gap {gap:.3e}")
-        check(gap < TIE_GAP, f"{label}: streams diverge off a near-tie")
+        check(gap < tie_gap, f"{label}: streams diverge off a near-tie")
 
 
 def expected_flash_calls(requests, chunk: int, layers: int) -> int:
@@ -5269,6 +5316,381 @@ def pp_phase() -> dict[str, dict[str, int]]:
     return paths
 
 
+# ------------------------------------------------- TP serving (phase 21)
+
+TP_LOCAL_HEADS = (4, 1)  # SERVE_MODEL's (h, kv) heads a rank holds at W = 2
+TP_WINDOW_START = 384  # the local-heads prefill window: chunk 4 of a 512-token prompt
+
+
+def _tp_local_heads_check(gen) -> str:
+    """Kernel 1 at the prefill chunk's shape with the local head counts
+    that W = 2 gives SERVE_MODEL (h_local 4, kv_local 1 GQA-repeated to 4):
+    one block causal and one not against the plain version, and the
+    chunked window (``chunk_flash_window``, four blocks) against the plain
+    masked attention. Launches outside the counted path."""
+    import torch
+
+    from tpudml_torch.nn.attention import chunk_flash_window, dot_product_attention
+    from tpudml_torch.ops import flash_forward_lse, flash_forward_lse_reference
+
+    h, kv = TP_LOCAL_HEADS
+    c, d = SERVE_CFG["prefill_chunk"], SERVE_MODEL["embed_dim"] // SERVE_MODEL["num_heads"]
+    t = TP_WINDOW_START + c
+    q = torch.randn((1, c, h, d), generator=gen).cuda()
+    k, v = (torch.randn((1, t, kv, d), generator=gen).cuda().repeat_interleave(h // kv, dim=2)
+            for _ in range(2))
+    errs = []
+    for causal in (True, False):
+        kb, vb = k[:, -c:], v[:, -c:]
+        o, lse = flash_forward_lse(q, kb, vb, causal=causal)
+        ro, rl = flash_forward_lse_reference(q, kb, vb, causal=causal)
+        errs.append(max((o - ro).abs().max().item(), (lse - rl).abs().max().item()))
+    win = chunk_flash_window(q, k, v, TP_WINDOW_START)
+    ref = dot_product_attention(q, k, v, causal=True, q_offset=TP_WINDOW_START)
+    errs.append((win - ref).abs().max().item())
+    check(max(errs) <= FLASH_TOL, f"kernel 1 at the local heads disagrees ({errs})")
+    return (f"kernel 1 at B=1, T={c}, h_local={h} (kv_local={kv}), D={d}: causal "
+            f"{errs[0]:.2e}, non-causal {errs[1]:.2e}, the {t}-token window at start "
+            f"{TP_WINDOW_START} {errs[2]:.2e} (tol {FLASH_TOL:g})")
+
+
+def tp_serve_phase(gen) -> dict[str, dict[str, int]]:
+    """Main path 15 (module docstring, phase 21). Returns the launch counts
+    of the TP engine's f32 and int8-cache runs."""
+    import tempfile
+
+    import torch
+
+    from tpudml_torch.core import process_count
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.serve import ServeConfig, ServingEngine, poisson_workload
+    from tpudml_torch.serve.tp import TPServing
+
+    t0 = time.perf_counter()
+    print(f"[tp_serve] {_tp_local_heads_check(gen)}")
+    model = TransformerLM(**SERVE_MODEL, device="cuda", generator=gen)
+    requests, ledger = poisson_workload(
+        WORKLOAD["n_requests"], float("inf"), 0, vocab_size=SERVE_MODEL["vocab_size"],
+        prompt_len=WORKLOAD["prompt_len"], new_tokens=WORKLOAD["new_tokens"],
+    )
+    owed = sum(o["max_new_tokens"] for o in ledger.values())
+    refusal = None
+    try:
+        TPServing(model, {"model": 4}, "model", ServeConfig(**SERVE_CFG))
+    except ValueError as e:  # the refusal this check expects
+        refusal = str(e)
+    check(refusal is not None and "kv_heads (2) divisible" in refusal,
+          f"W = 4 was not refused for its kv heads: {refusal}")
+    print(f"[tp_serve] W = 4 refused: {refusal}")
+    kinds = ("f32", "int8")
+    dense = {k: ServingEngine(model, ServeConfig(**SERVE_CFG, cache_kind=k), device="cuda")
+             for k in kinds}
+    paths, reports = {}, {}
+    with tempfile.TemporaryDirectory() as tmp, _one_rank_group(tmp) as group:
+        check(torch.distributed.get_backend(group) == "nccl" and process_count(group) == 1,
+              "the TP group is not a one-rank NCCL group")
+        tp = {k: ServingEngine(model, ServeConfig(**SERVE_CFG, cache_kind=k), device="cuda",
+                               mesh={"model": 1}) for k in kinds}
+        held = sum(p.numel() for p in tp["f32"].tp.local.parameters())
+        check(held == sum(p.numel() for p in model.parameters()),
+              "a one-rank TP shard does not hold the whole model")
+        for eng in (*tp.values(), *dense.values()):  # warm-up; not counted
+            eng.run(requests[:2])
+        torch.cuda.synchronize()
+        for k in kinds:
+            reset_launch_counts()  # ---- main path 15 (this run) starts here
+            reports[f"tp_{k}"] = tp[k].run(requests)
+            paths[f"tp_serve_{k}"] = {x.name: x.launches for x in KERNELS}  # ---- ends here
+    check(not torch.distributed.is_initialized(), "the TP group outlived its phase")
+    for k in kinds:
+        reports[f"dense_{k}"] = dense[k].run(requests)
+    need = expected_flash_calls(requests, SERVE_CFG["prefill_chunk"], SERVE_MODEL["num_layers"])
+    streams = {}
+    for name, rep in reports.items():
+        lat = rep.latency_summary()
+        step_ms = rep.wall_time / rep.decode_steps * 1e3
+        world = "world 1 (one-rank NCCL group)" if name.startswith("tp") else "dense engine"
+        print(f"[tp_serve] {name}, {world}: {rep.generated_tokens} tokens, {rep.decode_steps} "
+              f"decode steps, {rep.tokens_per_sec:.1f} tok/s, wall {rep.wall_time:.3f} s "
+              f"({step_ms:.3f} ms a decode step, prefill included), per-token p50/p99 "
+              f"{lat['per_token_p50_s'] * 1e3:.3f}/{lat['per_token_p99_s'] * 1e3:.3f} ms")
+        check(rep.generated_tokens == owed, f"{name}: generated {rep.generated_tokens}, "
+              f"the workload owes {owed}")
+        streams[name] = {rid: st.tokens for rid, st in rep.requests.items()}
+    for k in kinds:
+        got = paths[f"tp_serve_{k}"]
+        check(got == {x.name: need if x.name == "flash_forward_lse" else 0 for x in KERNELS},
+              f"tp_serve_{k} launched {got}, the prefill needs {need} of kernel 1 and nothing "
+              "else")
+        check(reports[f"tp_{k}"].events == reports[f"dense_{k}"].events,
+              f"the TP {k} run's schedule differs from the dense engine's")
+        compare_streams(model, requests, streams[f"tp_{k}"], streams[f"dense_{k}"],
+                        f"tp_{k} vs dense_{k}", INT8_TIE_GAP if k == "int8" else TIE_GAP)
+    mism = teacher_forced_check(model, requests, streams["tp_f32"], "tp_f32")
+    print(f"[tp_serve] kernel 1 launched {need} times a run (the prefill's blocks), no other "
+          f"kernel; streams equal the dense engine's (near-ties allowed) and hold against "
+          f"the teacher-forced full forward ({mism} near-tie mismatches); event logs equal; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+# ------------------------------------------------ context parallel (phase 22)
+
+CP_STEPS = 4  # the first is the warm-up; ms/step is taken over the rest
+CP_TASK5 = ["--vocab", "32768", "--embed_dim", "512", "--num_heads", "4", "--num_layers", "6",
+            "--seq_len", "1024", "--batch_size", "8", "--lr", "0.001", "--fused_ln", "--rope",
+            "--fused_xent", "--steps", str(CP_STEPS), "--log_every", "0", "--device", "cuda"]
+# path: the flags after --parallel cp; the kernels a step beyond the ring's
+CP_PATHS = {
+    "cp_ring": ["--attn", "ring"],
+    "cp_ring_striped": ["--attn", "ring", "--cp_layout", "striped"],
+    "cp_ulysses": ["--attn", "ulysses"],
+}
+# Launches a step at world 1: one diagonal fold a layer (kernel 1 forward,
+# 2 and 3 backward), the fused trunk's 12 junctions each way, and the
+# saved-scores head (N = 8192); Ulysses runs the plain attention.
+CP_HEAD = {"xent_fwd_save": 1, "xent_dx_s": 1, "xent_dw_s": 1}
+CP_PER_STEP = {
+    "cp_ring": {**PER_STEP, **CP_HEAD},
+    "cp_ring_striped": {**PER_STEP, **CP_HEAD},
+    "cp_ulysses": {"add_layernorm_fwd": 12, "add_layernorm_bwd": 12, **CP_HEAD},
+}
+CP_LONG_STEPS = LONG_STEPS
+# The W ranks in one process: (W, B, T, H, D, dtype, layouts).
+CP_SIM = ((2, 8, 1024, 4, 128, "f32", ("contiguous", "striped")),
+          (4, 8, 1024, 4, 128, "f32", ("contiguous", "striped")),
+          (2, 8, 1024, 4, 128, "bf16", ("contiguous", "striped")),
+          (4, 2, 16384, 4, 128, "f32", ("contiguous", "striped")))
+
+
+def _drop_flags(argv: list[str], names: tuple) -> list[str]:
+    """``argv`` without the flags ``names`` and the value after each."""
+    out, skip = [], False
+    for a in argv:
+        if skip or a in names:
+            skip = not skip
+            continue
+        out.append(a)
+    return out
+
+
+def _cp_run(task5, argv: list[str]):
+    """task5 on ``argv`` (inside the caller's group): (losses, ms/step after
+    the first step, the final parameters)."""
+    import torch
+
+    args = task5.parse_args(argv)
+    losses, last, marks = [], {}, []
+
+    def hook(step, train_state, metrics):
+        losses.append(float(metrics["loss"]))
+        last["model"] = train_state.model
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    task5.run(args, hooks=[hook])
+    ms = (marks[-1] - marks[0]) * 1e3 / (len(marks) - 1)
+    return losses, ms, _params(last["model"])
+
+
+def _cp_step1_grads(task5, argv: list[str]):
+    """The step-1 gradients of task5's engine for ``argv`` (its fused loss
+    on task5's first batch, from the entry's initial parameters)."""
+    import numpy as np
+    import torch
+
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.train import make_lm_fused_loss_fn
+
+    args = task5.parse_args(argv)
+    ts, _ = task5.build_engine(args, torch.device("cuda"))
+    seqs = synthetic_lm(4 * args.batch_size, args.seq_len, args.vocab, seed=args.seed)
+    batch = seqs[np.random.default_rng(args.seed).integers(0, len(seqs), size=args.batch_size)]
+    x, y = (torch.from_numpy(a).long().cuda() for a in (batch[:, :-1], batch[:, 1:]))
+    loss, grads = _grads(make_lm_fused_loss_fn(ts.model, args._save_scores), ts.model, x, y)
+    del ts
+    return loss, grads
+
+
+def _cp_sim_check(w, b, t, h, d, dtype, layout) -> str:
+    """W ranks' ring in one process through kernels 1–3
+    (``ring_attention_in_one_process``, each rank's K/V block taken by
+    index) against ``flash_attention`` over the whole sequence: output,
+    dq, dk, dv; the folds; kernel 1's k_shift = 1 calls (striped); the
+    ring's forward and forward+backward device times beside the
+    whole-sequence kernel's."""
+    from unittest import mock
+
+    import torch
+
+    import tpudml_torch.ops as ops
+    from tpudml_torch.ops import FLASH_FORWARD, FLASH_FORWARD_BF16, flash_attention
+    from tpudml_torch.parallel.cp import (
+        _stripe_time, _unstripe_time, ring_attention_in_one_process,
+    )
+
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    gen = torch.Generator().manual_seed(w * 10 + (layout == "striped"))
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen).cuda().to(dt) for _ in range(4))
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    want = flash_attention(qr, kr, vr, causal=True)
+    want.backward(do)
+    striped = layout == "striped"
+    lay = (lambda x: _stripe_time(x, w)) if striped else (lambda x: x)
+    back = (lambda x: _unstripe_time(x, w)) if striped else (lambda x: x)
+    shards = [list(lay(x).chunk(w, dim=1)) for x in (q, k, v, do)]
+    shifts = []
+    real = ops.flash_forward_lse
+    kernel = FLASH_FORWARD_BF16 if dtype == "bf16" else FLASH_FORWARD
+
+    def spy(*a, **kw):
+        shifts.append(kw.get("k_shift", 0))
+        return real(*a, **kw)
+
+    before = kernel.launches
+    with mock.patch.object(ops, "flash_forward_lse", spy):
+        (outs, _, dqs, dks, dvs), folds = ring_attention_in_one_process(
+            *shards, causal=True, layout=layout)
+    need = w * w if striped else w * (w + 1) // 2
+    check(folds == (need, need), f"W={w} {layout}: {folds} folds, not {need} each way")
+    check(kernel.launches - before == need, f"W={w} {layout}: kernel 1 launched "
+          f"{kernel.launches - before} times for {need} folds")
+    n_shift = shifts.count(1)
+    check(n_shift == (w * (w - 1) // 2 if striped else 0),
+          f"W={w} {layout}: {n_shift} folds with k_shift = 1")
+    errs = {}
+    for name, got, ref in (("out", outs, want), ("dq", dqs, qr.grad), ("dk", dks, kr.grad),
+                           ("dv", dvs, vr.grad)):
+        got, ref = back(torch.cat(got, dim=1)).float(), ref.float()
+        if dtype == "bf16":
+            errs[name] = rel_to_max(got, ref)
+            check(errs[name] <= BF16_REL, f"W={w} {layout} bf16 {name}: {errs[name]:.3e}")
+        elif name == "out":
+            errs[name] = (got - ref).abs().max().item()
+            check(errs[name] <= FLASH_TOL, f"W={w} {layout} out: {errs[name]:.3e}")
+        else:
+            errs[name] = (got - ref).abs().max().item()
+            excess = ((got - ref).abs() - GRAD_RTOL * ref.abs()).max().item()
+            check(excess <= GRAD_ATOL, f"W={w} {layout} {name}: max|err| {errs[name]:.3e}")
+    del outs, dqs, dks, dvs
+    ring_fwd = cuda_ms(lambda: ring_attention_in_one_process(*shards[:3], causal=True,
+                                                             layout=layout), iters=3, warmup=1)
+    ring_all = cuda_ms(lambda: ring_attention_in_one_process(*shards, causal=True,
+                                                             layout=layout), iters=3, warmup=1)
+    one_fwd = cuda_ms(lambda: ops.flash_forward_lse(q, k, v, causal=True), iters=3, warmup=1)
+
+    def whole():
+        out = flash_attention(qr, kr, vr, causal=True)
+        torch.autograd.grad(out, (qr, kr, vr), do)
+
+    one_all = cuda_ms(whole, iters=3, warmup=1)
+    tol = "BF16_REL" if dtype == "bf16" else "FLASH_TOL / GRAD_RTOL, GRAD_ATOL"
+    return (f"W={w} {layout} {dtype} B={b} T={t} H={h} D={d}: {folds[0]} folds each way "
+            f"({n_shift} with k_shift = 1); err " + ", ".join(f"{n} {e:.2e}" for n, e in
+                                                               errs.items())
+            + f" ({tol}); ring forward {ring_fwd:.4f} ms, forward+backward {ring_all:.4f} "
+            f"ms over the W ranks, against the whole-sequence kernel 1 {one_fwd:.4f} ms, "
+            f"kernels 1-3 {one_all:.4f} ms")
+
+
+def cp_phase() -> dict[str, dict[str, int]]:
+    """Main path 16 (module docstring, phase 22). Returns the launch counts
+    of the cp paths."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudml_torch.core import process_count
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.tasks import task5_longcontext as task5
+
+    t0 = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = CP_TASK5 + ["--log_dir", f"{tmp}/logs"]
+        single = base + ["--parallel", "single", "--attn", "flash"]
+        runs = [_cp_run(task5, single) for _ in range(2)]
+        repeats = runs[0][0] == runs[1][0] and _bitwise(runs[0][2], runs[1][2])
+        s_loss, s_grads = _cp_step1_grads(task5, single)
+        print(f"[cp] single-card --attn flash: {runs[0][1]:.2f}, {runs[1][1]:.2f} ms/step; "
+              f"repeats itself bitwise: {repeats}")
+        with _one_rank_group(tmp) as group:
+            check(torch.distributed.get_backend(group) == "nccl" and process_count(group) == 1,
+                  "the cp group is not a one-rank NCCL group")
+            for path, flags in CP_PATHS.items():
+                argv = base + ["--parallel", "cp"] + flags
+                c_loss, c_grads = _cp_step1_grads(task5, argv)
+                gworst, gname = _worst(c_grads, s_grads, s_grads)
+                gbit = c_loss == s_loss and _bitwise(c_grads, s_grads)
+                del c_grads
+                torch.cuda.empty_cache()
+                reset_launch_counts()  # ---- main path 16 (this path) starts here
+                losses, ms, params = _cp_run(task5, argv)
+                launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+                need = {k.name: CP_STEPS * CP_PER_STEP[path].get(k.name, 0) for k in KERNELS}
+                check(launches == need, f"{path} launched {launches}, not {need}")
+                check(all(np.isfinite(losses)), f"{path}: a loss is not finite")
+                bit = losses == runs[0][0] and _bitwise(params, runs[0][2])
+                ldiff = max(abs(a - c) for a, c in zip(losses, runs[0][0]))
+                pabs = max((params[n] - runs[0][2][n]).abs().max().item() for n in params)
+                if path != "cp_ulysses" and repeats:
+                    check(gbit and bit, f"{path} is not the single-card flash step bitwise "
+                          f"(step-1 gradients {gworst:.3e} off, {gname}; losses {ldiff:.2e})")
+                else:
+                    check(gworst <= STEP_GRAD_RTOL, f"{path}: step-1 gradient {gname} "
+                          f"disagrees ({gworst:.3e})")
+                    check(ldiff <= LOSS_TOL and pabs <= 2 * TRAIN_LR * CP_STEPS,
+                          f"{path}: losses {ldiff:.2e} / parameters {pabs:.3e} off")
+                print(f"[cp] world 1 (one-rank NCCL group): task5 --parallel cp "
+                      f"{' '.join(flags)} at the training widths: losses "
+                      f"{' '.join(f'{x:.6f}' for x in losses)}; against the single-card "
+                      f"--attn flash step: step-1 gradients bitwise {gbit} (worst "
+                      f"max|err|/max|single| {gworst:.3e}, {gname}), losses and final "
+                      f"parameters bitwise {bit} (max |loss diff| {ldiff:.2e}, max |param "
+                      f"diff| {pabs:.3e}); {ms:.2f} ms/step ({CP_STEPS - 1} steps after one "
+                      f"warm-up) against {runs[0][1]:.2f}; launches "
+                      f"{dict((k, c) for k, c in launches.items() if c)}")
+                paths[path] = launches
+                del params
+                torch.cuda.empty_cache()
+            del runs, s_grads
+            torch.cuda.empty_cache()
+            # Long context: the ring at LONG_TASK5's shape, beside the single card.
+            long_base = _drop_flags(LONG_TASK5, ("--parallel", "--attn", "--steps")) + [
+                "--steps", str(CP_LONG_STEPS), "--log_every", "0", "--device", "cuda",
+                "--log_dir", f"{tmp}/logs"]
+            s_l, s_ms, _ = _cp_run(task5, long_base + ["--parallel", "single", "--attn",
+                                                       "flash"])
+            torch.cuda.empty_cache()
+            reset_launch_counts()  # ---- main path 16 (cp_long) starts here
+            c_l, c_ms, _ = _cp_run(task5, long_base + ["--parallel", "cp", "--attn", "ring"])
+            launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+            need = {k.name: CP_LONG_STEPS * LONG_PER_STEP.get(k.name, 0) for k in KERNELS}
+            check(launches == need, f"cp_long launched {launches}, not {need}")
+            ldiff = max(abs(a - c) for a, c in zip(c_l, s_l))
+            check(ldiff <= LOSS_TOL, f"cp_long: losses {ldiff:.2e} off the single card's")
+            largs = task5.parse_args(long_base)
+            tok = largs.batch_size * largs.seq_len
+            print(f"[cp] world 1: task5 --parallel cp --attn ring at LONG_TASK5's shape "
+                  f"(T={largs.seq_len}, B={largs.batch_size}, lean head): losses "
+                  f"{' '.join(f'{x:.6f}' for x in c_l)} "
+                  f"(max |diff| from the single card {ldiff:.2e}); {c_ms:.2f} ms/step, "
+                  f"{tok / c_ms * 1e3:.0f} tokens/s, against the single card --attn flash "
+                  f"{s_ms:.2f} ms/step ({CP_LONG_STEPS - 1} steps after one warm-up); "
+                  f"launches {dict((k, c) for k, c in launches.items() if c)}")
+            paths["cp_long"] = launches
+    check(not torch.distributed.is_initialized(), "the cp group outlived its phase")
+    torch.cuda.empty_cache()
+    for w, b, t, h, d, dtype, layouts in CP_SIM:
+        for layout in layouts:
+            print(f"[cp] in one process: {_cp_sim_check(w, b, t, h, d, dtype, layout)}")
+            torch.cuda.empty_cache()
+    print(f"[cp] {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def _dir_bytes(path) -> int:
     return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
 
@@ -5851,6 +6273,10 @@ def main() -> int:
     paths.update(fsdp_tp_phase(gen))
     torch.cuda.empty_cache()
     paths.update(pp_phase())
+    torch.cuda.empty_cache()
+    paths.update(tp_serve_phase(gen))
+    torch.cuda.empty_cache()
+    paths.update(cp_phase())
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -1768,3 +1768,137 @@ def test_pipeline_launch_counts_on_the_card(cuda_device, tmp_path, kind):
         launches = {k.name: k.launches for k in KERNELS if k.launches}
     assert launches == {k: 2 * n for k, n in PP_PER_STEP[kind].items()}
     assert torch.isfinite(m["loss"]).item()
+
+
+# ------------------------------------------------- context parallel, TP serving
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "striped"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ring_in_one_process_matches_flash_attention(cuda_device, dtype, layout):
+    """W = 2 ranks' ring ticks in one process (each rank's K/V block taken
+    by index) through kernels 1–3: the merged output and dq, dk, dv held
+    against ``flash_attention`` over the whole sequence (the flash
+    tolerances; bf16 within 2e-2 of the largest magnitude); the causal
+    contiguous ring folds 3 blocks a direction, the striped one 4, two of
+    them with ``k_shift = 1``."""
+    from unittest import mock
+
+    import tpudml_torch.ops as ops
+    from tpudml_torch.parallel.cp import (
+        _stripe_time, _unstripe_time, ring_attention_in_one_process,
+    )
+
+    b, t, h, d, w = 2, 256, 4, 64, 2
+    q, k, v, do = (_randn(b, t, h, d, seed=s, device=cuda_device).to(dtype) for s in range(4))
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    want = flash_attention(qr, kr, vr, causal=True)
+    want.backward(do)
+    lay = (lambda x: _stripe_time(x, w)) if layout == "striped" else (lambda x: x)
+    back = (lambda x: _unstripe_time(x, w)) if layout == "striped" else (lambda x: x)
+    shards = [list(lay(x).chunk(w, dim=1)) for x in (q, k, v, do)]
+    shifts = []
+    real = ops.flash_forward_lse
+
+    def spy(*a, **kw):
+        shifts.append(kw.get("k_shift", 0))
+        return real(*a, **kw)
+
+    with mock.patch.object(ops, "flash_forward_lse", spy):
+        (outs, _, dqs, dks, dvs), folds = ring_attention_in_one_process(
+            *shards, causal=True, layout=layout)
+    assert folds == ((3, 3) if layout == "contiguous" else (4, 4))
+    assert shifts.count(1) == (0 if layout == "contiguous" else 1)
+    for got, ref, rtol in ((outs, want, 1e-5), (dqs, qr.grad, 5e-4), (dks, kr.grad, 5e-4),
+                           (dvs, vr.grad, 5e-4)):
+        got, ref = back(torch.cat(got, dim=1)).float(), ref.float()
+        if dtype == torch.bfloat16:
+            assert (got - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+        else:
+            torch.testing.assert_close(got, ref, rtol=rtol, atol=1e-5)
+
+
+def _task5_losses_params(task5, argv):
+    args = task5.parse_args(argv)
+    losses, last = [], {}
+
+    def hook(step, train_state, metrics):
+        losses.append(float(metrics["loss"]))
+        last["model"] = train_state.model
+
+    task5.run(args, hooks=[hook])
+    return losses, {n: p.detach().clone() for n, p in last["model"].named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "striped"])
+def test_cp_world1_nccl_step_equals_the_single_card_flash_step(cuda_device, tmp_path, layout):
+    """task5 ``--parallel cp --attn ring`` on a one-rank NCCL group (one
+    diagonal fold through kernels 1–3, its merge of one block exact) equals
+    ``--parallel single --attn flash`` from the same seed, every loss and
+    parameter bitwise where the single-card step repeats itself."""
+    from tpudml_torch.core import DistributedConfig, process_group
+    from tpudml_torch.tasks import task5_longcontext as task5
+
+    common = ["--vocab", "512", "--embed_dim", "128", "--num_heads", "4", "--num_layers", "2",
+              "--seq_len", "128", "--batch_size", "4", "--steps", "3", "--log_every", "0",
+              "--fused_ln", "--rope", "--device", "cuda", "--log_dir", str(tmp_path)]
+    want, want_p = _task5_losses_params(task5, common + ["--attn", "flash"])
+    again, again_p = _task5_losses_params(task5, common + ["--attn", "flash"])
+    with process_group(DistributedConfig(coordinator_address=f"file://{tmp_path}/store"),
+                       device="cuda"):
+        assert torch.distributed.get_backend() == "nccl"
+        got, got_p = _task5_losses_params(task5, common + [
+            "--parallel", "cp", "--attn", "ring", "--cp_layout", layout])
+    if want == again and all(torch.equal(want_p[n], again_p[n]) for n in want_p):
+        assert got == want
+        for n in want_p:
+            assert torch.equal(got_p[n], want_p[n]), n
+    else:
+        assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_tp_serving_world1_equals_the_dense_engine(cuda_device, tmp_path, kind):
+    """``ServingEngine(mesh={"model": 1})`` on a one-rank NCCL group serves
+    the dense engine's streams and event log (virtual clock), and launches
+    kernel 1 exactly as often as the prefill needs."""
+    from tpudml_torch.core import DistributedConfig, process_group
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.serve import ServeConfig, ServingEngine, poisson_workload
+
+    model = TransformerLM(vocab_size=1024, embed_dim=128, num_heads=8, num_kv_heads=2,
+                          num_layers=2, max_len=256, rope=True, device=cuda_device,
+                          generator=torch.Generator().manual_seed(0))
+    requests, _ = poisson_workload(6, float("inf"), 0, vocab_size=1024, prompt_len=(16, 100),
+                                   new_tokens=(4, 12))
+    cfg = ServeConfig(slots=4, max_len=256, prefill_chunk=32, cache_kind=kind,
+                      step_time_s=0.01)
+    dense = ServingEngine(model, cfg, device="cuda").run(requests)
+    with process_group(DistributedConfig(coordinator_address=f"file://{tmp_path}/store"),
+                       device="cuda"):
+        eng = ServingEngine(model, cfg, device="cuda", mesh={"model": 1})
+        reset_launch_counts()
+        tp = eng.run(requests)
+        launches = {k.name: k.launches for k in KERNELS if k.launches}
+    need = sum(2 * c * (c + 1) // 2 for c in (-(-(len(r.prompt) - 1) // 32) for r in requests))
+    assert launches == {"flash_forward_lse": need}
+    assert tp.events == dense.events
+    # TP adds the row-parallel bias after the sum ((h + a·W) + b, JAX's
+    # order), the dense step inside the projection (h + (a·W + b)): a
+    # stream may part only at a near-tie of the plain logits, in f32 within
+    # 1e-5; with the int8 cache a last-bit difference can move a cached
+    # element to the neighbouring code, and each int8 run's logits lie
+    # within 0.25 of the f32 ones (tests/test_serve.py), so within 0.5.
+    gap_bound = 0.5 if kind == "int8" else 1e-5
+    for req in requests:
+        a, b = tp.requests[req.rid].tokens, dense.requests[req.rid].tokens
+        if a != b:
+            i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            seq = torch.tensor(list(req.prompt) + a[:i], device=cuda_device)
+            with torch.inference_mode():
+                top2 = model(seq[None])[0, -1].topk(2).values
+            assert (top2[0] - top2[1]).item() < gap_bound

@@ -97,6 +97,14 @@ def test_host_infrastructure_modules_are_among_the_checked(module):
     assert (path if path.exists() else path.with_suffix("") / "__init__.py") in SOURCES
 
 
+@pytest.mark.parametrize("module", ["tpudml_torch.serve.tp", "tpudml_torch.parallel.cp"])
+def test_tp_serving_and_cp_modules_are_among_the_checked(module):
+    """Tensor-parallel serving and context parallelism are among the
+    modules the jax-blocked import and the AST scan cover."""
+    assert module in list(_modules())
+    assert REPO / (module.replace(".", "/") + ".py") in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_tpudml_import(path):
     tree = ast.parse(path.read_text())

@@ -163,22 +163,31 @@ def test_poisson_workload_bitwise():
 
 
 def test_not_ported_levers_raise(rope_pair, tmp_path):
-    """Only tensor-parallel serving (``mesh=``, task6 ``--tp``) is still to
-    port; it raises citing its ROADMAP item. The single-device levers
-    build, and task6 ``--obs`` writes its trace."""
+    """Tensor-parallel serving (``mesh=``, task6 ``--tp``), which raised
+    before it was ported, builds: on a one-rank gloo group the engine
+    holds its shard, and task6 ``--tp 1`` alone serves the dense run's
+    streams, ``--tp 2`` alone raises JAX's RuntimeError. The single-device
+    levers build, and task6 ``--obs`` writes its trace. World 2 against
+    JAX's ``TPServing``: ``tests/test_torch_serve_tp.py``."""
+    from tpudml_torch.core import DistributedConfig, process_group
     from tpudml_torch.serve import SLOConfig
     from tpudml_torch.tasks import task6_serve
 
     _, _, tm = rope_pair
     cfg = dict(slots=2, max_len=32, prefill_chunk=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        ServingEngine(tm, ServeConfig(**cfg), device="cpu", mesh=object())
+    with process_group(DistributedConfig(coordinator_address=f"file://{tmp_path}/store",
+                                         num_processes=1), device="cpu"):
+        eng = ServingEngine(tm, ServeConfig(**cfg), device="cpu", mesh={"model": 1})
+        assert eng.tp.world == 1 and eng.tp.local is not tm
+        assert eng.caches[0].k.shape == (2, 32, 2, 8)
     for kw in ({"cache_layout": "paged"}, {"spec_k": 2},
                {"slo": SLOConfig(tpot_budget_s=1.0)}):
         ServingEngine(tm, ServeConfig(**cfg, **kw), device="cpu")
     argv = ["--device", "cpu", "--n_requests", "1", "--log_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+    with pytest.raises(RuntimeError, match="--tp 2 needs 2 devices, have 1"):
         task6_serve.main(argv + ["--tp", "2"])
+    tp1 = task6_serve.main(argv + ["--tp", "1", "--step_time_s", "0.01"])
+    assert tp1["streams"] == task6_serve.main(argv + ["--step_time_s", "0.01"])["streams"]
     assert task6_serve.main(argv + ["--obs"])["trace_path"].endswith("trace.json")
 
 

@@ -97,16 +97,27 @@ def test_card_is_the_default_device(no_card, tmp_path):
     assert not list(tmp_path.rglob("metrics.jsonl"))  # raised before any work
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--parallel", "cp"], "item 8"),
-    (["--parallel", "cp", "--ckpt_dir", "ck"], "item 8"),
+@pytest.mark.parametrize("flags", [
+    ["--parallel", "cp"],
+    ["--parallel", "cp", "--ckpt_dir", "ck"],
 ])
-def test_unported_flags_raise(tmp_path, flags, match):
-    """The unported engine raises, also with the host flags (``--sentinel``
-    and ``--ckpt_dir`` are ported: ``tests/test_torch_host_cli.py``)."""
-    with pytest.raises(NotImplementedError, match=match):
-        task5.main(TINY + flags + ["--device", "cpu", "--steps", "1",
-                                   "--log_dir", str(tmp_path)])
+def test_unported_flags_raise(tmp_path, flags):
+    """``--parallel cp`` (which raised before it was ported) alone builds a
+    one-rank gloo group and trains the ring trunk to the single-device
+    loss, also with ``--ckpt_dir`` (the replicated state, JAX's leaves);
+    ``--sentinel`` under cp raises JAX's ValueError. World 2 against JAX's
+    task5: ``tests/test_torch_cp_cli.py``."""
+    flags = [str(tmp_path / f) if f == "ck" else f for f in flags]
+    common = TINY + ["--device", "cpu", "--steps", "3", "--log_every", "0",
+                     "--log_dir", str(tmp_path)]
+    got = task5.main(common + flags)
+    want = task5.main(common + ["--attn", "full"])
+    assert got["devices"] == 1 and got["final_loss"] == pytest.approx(want["final_loss"],
+                                                                       rel=1e-5)
+    if "--ckpt_dir" in flags:
+        assert (tmp_path / "ck" / "step_3").is_dir()
+    with pytest.raises(ValueError, match="--sentinel composes with --parallel dp/fsdp/tp/pp"):
+        task5.main(common + flags + ["--sentinel"])
 
 
 @pytest.mark.parametrize("flags", [

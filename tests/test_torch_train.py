@@ -214,9 +214,18 @@ def test_accum_steps_and_unported_model_options_raise():
     with pytest.raises(ValueError, match="single-shard"):
         TransformerLM(**CFG, moe_experts=4, moe_axis="expert", moe_dispatch="ragged",
                       device="cpu")
+    # Context parallelism is ported: the seq-sharded ring and Ulysses
+    # trunks build (tests/test_torch_cp.py holds them to JAX's), striping
+    # needs the ring, and the serving paths refuse a seq-sharded model,
+    # with JAX's wording.
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TransformerLM(**CFG, impl=impl, device="cpu")
+        cp = TransformerLM(**CFG, impl=impl, seq_sharded=True, device="cpu")
+        assert all(b.attn.impl == impl and b.attn.seq_sharded for b in cp.blocks())
+        with pytest.raises(ValueError, match="serve decode requires seq_sharded=False"):
+            cp.init_decode_cache(1)
+    with pytest.raises(ValueError, match="seq_layout='striped' requires impl='ring'"):
+        TransformerLM(**CFG, impl="ulysses", seq_sharded=True, seq_layout="striped",
+                      device="cpu")
 
 
 def test_apply_features_matches_jax():

@@ -34,7 +34,12 @@ from JAX's parameters, their checkpoints and resume, an FSDP state
 through the sharded store), ``pp`` (the pipeline engines on the cases of
 ``<job>/cases.pt``, the open stage shifts, ExpertParallel's forward) and
 ``pp_cli`` (task5 ``--parallel pp`` from JAX's parameters, its
-checkpoint and resume; task4 ``--schedule gpipe | 1f1b``).
+checkpoint and resume; task4 ``--schedule gpipe | 1f1b``), ``serve_tp``
+(the tensor-parallel decode steps from JAX's parameters, task6 ``--tp``),
+``cp`` (ring and Ulysses attention on the shards of ``<job>/cases.pt``'s
+global q, k, v, the ``ContextParallel`` engine from JAX's parameters) and
+``cp_cli`` (task5 ``--parallel cp`` from JAX's parameters, dropout masks
+JAX's).
 """
 
 from __future__ import annotations
@@ -1408,13 +1413,158 @@ def suite_pp_cli(job: Path, rank: int, world: int) -> dict:
     return out
 
 
+# ------------------------------------------------------ TP serving, CP
+
+
+def _serve_tp_decode(spec, world: int) -> dict:
+    """A TP engine over {"model": world} from ``spec``'s parameters: the
+    prompt admitted into slot 0, then ``steps`` decode steps (slot 1 idle
+    at position 0): each step's slot-0 logits and token."""
+    import numpy as np
+    import torch
+
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.serve import Request, ServeConfig, ServingEngine
+
+    model = TransformerLM(**spec["model"], device="cpu")
+    model.load_state_dict(spec["state"])
+    eng = ServingEngine(model, ServeConfig(**spec["cfg"]), device="cpu",
+                        mesh={"model": world}, axis_name="model")
+    pos0, last0 = eng._admit(0, Request(rid=0, prompt=spec["prompt"],
+                                        max_new_tokens=spec["steps"]))
+    pos, last = np.array([pos0, 0]), np.array([last0, 0])
+    logits, tokens = [], []
+    for _ in range(spec["steps"]):
+        nxt, lg = eng._decode(eng.caches, torch.from_numpy(last), torch.from_numpy(pos))
+        logits.append(lg[0].clone())
+        tokens.append(int(nxt[0]))
+        last, pos = np.array([tokens[-1], 0]), pos + np.array([1, 0])
+    held = {n: tuple(p.shape) for n, p in eng.tp.local.named_parameters()}
+    return {"logits": logits, "tokens": tokens, "held": held}
+
+
+def suite_serve_tp(job: Path, rank: int, world: int) -> dict:
+    """The TP decode cases of ``<job>/cases.pt`` at this world, and task6
+    ``--tp`` on each of its argv lists (every rank's result)."""
+    import torch
+
+    from tpudml_torch.tasks import task6_serve
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    out = {name: _serve_tp_decode(spec, world) for name, spec in case["decode"].items()}
+    for name, argv in case.get("task6", {}).items():
+        res = task6_serve.main(argv + ["--log_dir", str(job / f"{name}{rank}")])
+        out[name] = {k: res[k] for k in ("events", "streams", "decode_steps",
+                                         "generated_tokens")}
+    return out
+
+
+def _cp_attention(c, rank: int, world: int) -> dict:
+    """One attention case on this rank's T/W columns of the global q, k, v
+    (already striped when the case is): the output shard and the
+    gradients of sum(out · w) with respect to the shards."""
+    import torch
+
+    from tpudml_torch.parallel import ring_attention, ulysses_attention
+
+    tl = c["q"].shape[1] // world
+    cols = slice(rank * tl, (rank + 1) * tl)
+    q, k, v = (torch.from_numpy(c[n][:, cols].copy()).requires_grad_() for n in "qkv")
+    folds: list = []
+    if c["impl"] == "ring":
+        o = ring_attention(q, k, v, causal=c["causal"], layout=c["layout"],
+                           use_flash=c["use_flash"], folds=folds)
+    else:
+        o = ulysses_attention(q, k, v, causal=c["causal"])
+    (o * torch.from_numpy(c["w"][:, cols].copy())).sum().backward()
+    return {"out": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad, "folds": folds}
+
+
+def _cp_engine(c) -> dict:
+    """A ``ContextParallel`` case from JAX's parameters: every step's loss,
+    the final parameters, and the accuracy or the forward's logits when
+    the case asks."""
+    import torch
+
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.optim import make_optimizer
+    from tpudml_torch.parallel import ContextParallel
+
+    model = TransformerLM(**c["model"], device="cpu")
+    model.load_state_dict(c["state"])
+    eng = ContextParallel(model, make_optimizer(c["opt"], c["lr"]), c["mesh"],
+                          batch_axis=c.get("batch_axis"), layout=c["model"].get(
+                              "seq_layout", "contiguous"))
+    out = {}
+    if c.get("forward"):
+        out["logits"] = eng.make_forward()(c["batches"][0][0])
+    ts = eng.create_state()
+    if c.get("evaluate"):
+        out["accuracy"] = eng.evaluate(ts, c["batches"])
+    step = eng.make_train_step()
+    out["losses"] = []
+    for x, y in c["batches"][:c.get("steps", len(c["batches"]))]:
+        ts, m = step(ts, x, y)
+        out["losses"].append(float(m["loss"]))
+    out["params"] = _params(model)
+    return out
+
+
+def suite_cp(job: Path, rank: int, world: int) -> dict:
+    """The attention cases of ``<job>/cases.pt`` (ring and Ulysses, forward
+    and gradients, on this rank's shards; a NaN-poisoned v beyond shard 0
+    under the causal ring), the engine cases at this world, and the
+    Ulysses head-divisibility rejection."""
+    import torch
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    out = {name: _cp_attention(c, rank, world) for name, c in case["attn"].items()}
+    for name, c in case.get("engine", {}).items():
+        out[name] = _cp_engine(c)
+    from tpudml_torch.parallel import ulysses_attention
+
+    q = torch.ones((1, 4, world + 1, 8))
+    try:
+        ulysses_attention(q, q, q)
+        out["ulysses_error"] = None
+    except ValueError as e:
+        out["ulysses_error"] = str(e)
+    return out
+
+
+def suite_cp_cli(job: Path, rank: int, world: int) -> dict:
+    """task5 ``--parallel cp`` on each run of ``<job>/cases.pt`` from JAX's
+    initial parameters (dropout masks JAX's, by the port key's fold
+    path): every step's loss."""
+    import torch
+
+    from tpudml_torch.nn import layers
+    from tpudml_torch.tasks import task5_longcontext as task5
+
+    case = torch.load(job / "cases.pt", weights_only=False)
+    masks = case.get("masks", {})
+    real_mask = layers.dropout_mask
+    layers.dropout_mask = lambda key, keep, shape, device: torch.from_numpy(
+        masks[key.path]).to(device)
+    out = {}
+    try:
+        for name, flags in case["runs"].items():
+            argv = case["base"] + flags + ["--log_dir", str(job / f"l{rank}{name}")]
+            res, losses = _task5_losses(task5, argv, case["states"][name])
+            out[name] = {"losses": losses, "final_loss": res["final_loss"]}
+    finally:
+        layers.dropout_mask = real_mask
+    return out
+
+
 SUITES = {"dp": suite_dp, "resnet": suite_resnet, "comm": suite_comm,
           "task5": suite_task5, "ep": suite_ep, "labs": suite_labs, "obs": suite_obs,
           "sentinel": suite_sentinel, "gspmd": suite_gspmd, "gspmd2d": suite_gspmd2d,
           "task4": suite_task4,
           "zero1": suite_zero1, "sharded": suite_sharded, "fsdp": suite_fsdp,
           "sharded_xent": suite_sharded_xent, "overlap": suite_overlap,
-          "mp_cli": suite_mp_cli, "pp": suite_pp, "pp_cli": suite_pp_cli}
+          "mp_cli": suite_mp_cli, "pp": suite_pp, "pp_cli": suite_pp_cli,
+          "serve_tp": suite_serve_tp, "cp": suite_cp, "cp_cli": suite_cp_cli}
 
 
 def main() -> None:

@@ -1,7 +1,7 @@
 """The port's copy of the engine-composition rejections that its engines
 raise (the rows of ``tpudml/capabilities.py`` that ``DataParallel``,
 ``GSPMDParallel``, the pipelines, ``ZeRO1``, ``tp_overlap_matmul``, task5
-``--parallel ep`` and ``pp`` and the serving engine check, with the JAX wording; the
+``--parallel ep`` and ``pp``, the serving engine and ``TPServing`` check, with the JAX wording; the
 planner's full table is ROADMAP.md queue 1 item 10).
 
 Guard sites call :func:`reject` with an entry's key instead of writing
@@ -232,6 +232,30 @@ _ENTRIES = (
         when=lambda c: bool(_g(c, "serve_tp"))
         and (
             _g(c, "serve_cache_layout", "dense") == "paged"
+            or _g(c, "serve_spec_k", 0) > 0
+        ),
+    ),
+    Capability(
+        key="serve_tp_weight_quant",
+        owner="tpudml_torch.serve.engine",
+        message=(
+            "tensor-parallel serving does not compose with "
+            "weight_quant: shard_params knows nothing of int8 kernels "
+            "+ scale trees; quantize single-device replicas"
+        ),
+        when=lambda c: bool(_g(c, "serve_tp"))
+        and _g(c, "serve_weight_quant") is not None,
+    ),
+    Capability(
+        key="serve_tp_dense_only",
+        owner="tpudml_torch.serve.tp",
+        message=(
+            "TPServing supports cache_layout='dense' with spec_k=0 "
+            "only; paged/speculative serving is single-device"
+        ),
+        when=lambda c: bool(_g(c, "serve_tp"))
+        and (
+            _g(c, "serve_cache_layout", "dense") != "dense"
             or _g(c, "serve_spec_k", 0) > 0
         ),
     ),

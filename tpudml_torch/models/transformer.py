@@ -1,6 +1,7 @@
 """Decoder-only LM: the port of ``tpudml/models/transformer.py``
 (single-device subset, plus the expert-parallel MoE blocks of
-``moe_axis`` — init, the full forward with full or flash
+``moe_axis`` and the sequence-sharded trunk of context parallelism —
+init, the full forward with full, flash, ring or Ulysses
 attention and the unfused or fused add+LayerNorm trunk, dense or MoE FFN
 branches, bf16 compute with f32 master weights, the pre-head features,
 and the KV-cached serving paths: decode, the speculative verify window
@@ -53,12 +54,13 @@ their KV caches store the cache kind's dtype whatever the compute dtype.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from tpudml_torch.core.prng import Key
 from tpudml_torch.device import resolve_device
-from tpudml_torch.nn.attention import MultiHeadAttention
+from tpudml_torch.nn.attention import MultiHeadAttention, sharded_positions
 from tpudml_torch.nn.layers import Dense, LayerNorm, cast, dropout
 from tpudml_torch.nn.moe import MoELayer
 from tpudml_torch.ops.layernorm_kernel import fused_add_layernorm
@@ -69,7 +71,8 @@ COMPUTE_DTYPES = (None, torch.float32, torch.bfloat16)
 
 class TransformerBlock(nn.Module):
     """Pre-LN decoder block: x + MHA(LN(x)); x + FFN(LN(x)), the FFN dense
-    or, with ``moe_experts``, a ``MoELayer``."""
+    or, with ``moe_experts``, a ``MoELayer``; ``seq_sharded`` and
+    ``seq_layout`` are the attention's (``MultiHeadAttention``)."""
 
     def __init__(self, embed_dim: int, num_heads: int, *, impl: str = "full",
                  num_kv_heads: int | None = None, rope: bool = False,
@@ -77,7 +80,8 @@ class TransformerBlock(nn.Module):
                  moe_axis: str | None = None, moe_capacity_factor: float = 2.0,
                  moe_top_k: int = 1, moe_dispatch: str = "gather",
                  moe_ragged_dw: str = "grouped", dropout: float = 0.0,
-                 fused_ln: bool = False, generator: torch.Generator | None = None,
+                 fused_ln: bool = False, seq_sharded: bool = False,
+                 seq_layout: str = "contiguous", generator: torch.Generator | None = None,
                  compute_dtype: torch.dtype | None = None):
         super().__init__()
         d = embed_dim
@@ -86,8 +90,8 @@ class TransformerBlock(nn.Module):
         self.ln1 = LayerNorm(d)
         self.attn = MultiHeadAttention(
             d, num_heads, causal=True, impl=impl, num_kv_heads=num_kv_heads,
-            rope=rope, rope_base=rope_base, generator=generator,
-            compute_dtype=compute_dtype,
+            rope=rope, rope_base=rope_base, seq_sharded=seq_sharded,
+            seq_layout=seq_layout, generator=generator, compute_dtype=compute_dtype,
         )
         self.ln2 = LayerNorm(d)
         self.moe = None
@@ -209,8 +213,8 @@ class TransformerHead(nn.Module):
 class TransformerLM(nn.Module):
     """Decoder-only language model: token (+ learned position, unless
     ``rope``) embeddings, ``num_layers`` pre-LN blocks, final LayerNorm,
-    vocab projection. ``impl`` is the blocks' attention ("full" or
-    "flash"); ``fused_ln`` selects the deferred fused add+LN trunk;
+    vocab projection. ``impl`` is the blocks' attention ("full", "flash",
+    or with ``seq_sharded`` "ring" or "ulysses"); ``fused_ln`` selects the deferred fused add+LN trunk;
     ``compute_dtype`` the mixed precision (module docstring);
     ``moe_experts > 0`` swaps each block's FFN for a ``MoELayer`` with the
     ``moe_*`` settings (capacity factor, top-k, dispatch, ragged dW;
@@ -218,7 +222,13 @@ class TransformerLM(nn.Module):
     ``ExpertParallel`` engine binds to its group; the parameters are drawn
     as without it).
     ``dropout`` is the rate of the blocks' branch dropout (module
-    docstring). Parameters are drawn on the CPU from ``generator``
+    docstring). ``seq_sharded=True`` (with ``impl`` "ring" or "ulysses")
+    makes the model run on one rank's shard of the time axis, under
+    ``ContextParallel``, which binds the ``seq`` process group
+    (``seq_group`` here, ``group`` of each attention): the position table
+    and RoPE read global positions in ``seq_layout`` "contiguous" or
+    "striped" (``nn.attention.sharded_positions``), and the serving paths
+    refuse the model. Parameters are drawn on the CPU from ``generator``
     (default: seeded with 0) and moved to ``device`` (default "cuda";
     asking for the card without one raises)."""
 
@@ -230,7 +240,8 @@ class TransformerLM(nn.Module):
                  dropout: float = 0.0, moe_experts: int = 0,
                  moe_axis: str | None = None, moe_capacity_factor: float = 2.0,
                  moe_top_k: int = 1, moe_dispatch: str = "gather",
-                 moe_ragged_dw: str = "grouped",
+                 moe_ragged_dw: str = "grouped", seq_sharded: bool = False,
+                 seq_layout: str = "contiguous",
                  compute_dtype: torch.dtype | None = None,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
@@ -252,6 +263,9 @@ class TransformerLM(nn.Module):
         self.compute_dtype = compute_dtype
         self.dropout = dropout
         self.moe_experts = moe_experts
+        self.seq_sharded = seq_sharded
+        self.seq_layout = seq_layout
+        self.seq_group = None  # the seq process group of the global positions
         self.aux_loss = None  # the last forward's summed MoE aux terms
         self.tok_embed = nn.Parameter(
             0.02 * torch.randn((vocab_size, embed_dim), generator=g))
@@ -269,7 +283,8 @@ class TransformerLM(nn.Module):
                 moe_axis=moe_axis, moe_capacity_factor=moe_capacity_factor,
                 moe_top_k=moe_top_k,
                 moe_dispatch=moe_dispatch, moe_ragged_dw=moe_ragged_dw,
-                dropout=dropout, generator=g, compute_dtype=compute_dtype,
+                dropout=dropout, seq_sharded=seq_sharded, seq_layout=seq_layout,
+                generator=g, compute_dtype=compute_dtype,
             ))
         self.to(dev)
 
@@ -282,9 +297,22 @@ class TransformerLM(nn.Module):
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, T] -> [B, T, d] in the compute dtype
-        (:func:`embed_tokens`)."""
-        return embed_tokens(self.tok_embed, self.pos_embed, tokens, self.max_len,
-                            self.compute_dtype)
+        (:func:`embed_tokens`); seq-sharded, the position table's rows at
+        the shard's global positions, the length checked is the whole
+        sequence's (W·T)."""
+        if not self.seq_sharded:
+            return embed_tokens(self.tok_embed, self.pos_embed, tokens, self.max_len,
+                                self.compute_dtype)
+        t = tokens.shape[1]
+        h = cast(self.tok_embed[tokens], self.compute_dtype)
+        if self.pos_embed is not None:
+            t_global = dist.get_world_size(self.seq_group) * t
+            if t_global > self.max_len:
+                raise ValueError(f"sequence length {t_global} exceeds max_len {self.max_len}")
+            positions = sharded_positions(t, True, self.seq_layout, self.seq_group,
+                                          tokens.device)
+            h = h + cast(self.pos_embed[positions], self.compute_dtype)
+        return h
 
     def _use_fused_ln(self) -> bool:
         # num_layers=0 leaves no junction to fuse.
@@ -354,6 +382,14 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 "serve decode runs the unfused-LN math; build the serving "
                 "model with fused_ln=False"
+            )
+        if self.seq_sharded:
+            raise ValueError("serve decode requires seq_sharded=False")
+        if self.impl not in ("full", "flash"):
+            raise ValueError(
+                f"serve decode supports impl='full'/'flash' attention "
+                f"configs, not {self.impl!r} (ring/ulysses shard the "
+                f"sequence axis, which a per-slot cache does not)"
             )
 
     def init_decode_cache(self, batch: int, max_len: int | None = None,

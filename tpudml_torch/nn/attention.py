@@ -1,6 +1,6 @@
 """Attention ops and the multi-head attention module: the port of
-``tpudml/nn/attention.py`` (single-device subset: full and flash
-attention, the serving paths).
+``tpudml/nn/attention.py`` (full, flash, ring and Ulysses attention, the
+sequence-sharded positions and the serving paths).
 
 Layout is [B, T, H, D] throughout, as in the JAX package. Scores and
 softmax run in f32; masked entries get ``NEG_INF`` (large-finite, so a
@@ -14,6 +14,7 @@ of buffers).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from tpudml_torch.nn.layers import Dense
@@ -21,8 +22,24 @@ from tpudml_torch.ops.attention_kernel import (
     NEG_INF, flash_attention, flash_forward_lse,
 )
 
-IMPLS = ("full", "flash")
-CP_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 8, context parallel)"
+IMPLS = ("full", "flash", "ring", "ulysses")
+SEQ_LAYOUTS = ("contiguous", "striped")
+
+
+def sharded_positions(t_local: int, seq_sharded: bool, seq_layout: str, group=None,
+                      device=None) -> torch.Tensor:
+    """GLOBAL token positions [t_local] of this rank's sequence shard: the
+    one definition RoPE, the position table and the ring's masks derive
+    from. Contiguous: ``idx·Tl + j``; striped: ``idx + W·j``; unsharded:
+    ``j`` (``idx``, ``W``: this rank's index and the size of the ``seq``
+    process ``group``, None for the default group)."""
+    j = torch.arange(t_local, device=device)
+    if not seq_sharded:
+        return j
+    idx, world = dist.get_rank(group), dist.get_world_size(group)
+    if seq_layout == "striped":
+        return idx + world * j
+    return idx * t_local + j
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
@@ -125,26 +142,38 @@ class MultiHeadAttention(nn.Module):
     group (``repeat_interleave``, as ``jnp.repeat``) before attention, so
     the dK/dV of a GQA model sum through the repeat's autograd. ``impl``
     selects the attention of ``forward``: "full" (the plain masked
-    softmax) or "flash" (:func:`flash_attention`, the flash kernels on the
-    card); "ring" and "ulysses" are context-parallel and not ported.
-    ``compute_dtype`` is the projections' (``Dense``); scores and softmax
-    run in f32 whatever it is, and RoPE rounds cos/sin to the input dtype."""
+    softmax), "flash" (:func:`flash_attention`, the flash kernels on the
+    card), or the context-parallel "ring" and "ulysses"
+    (``tpudml_torch.parallel.cp``) over the sequence shards of the process
+    group ``group`` (None: the default group; ``ContextParallel`` binds
+    its ``seq`` group). ``seq_sharded`` makes the RoPE positions global
+    (:func:`sharded_positions`) in ``seq_layout`` "contiguous" or
+    "striped" (ring only: token t on rank t mod W). ``compute_dtype`` is
+    the projections' (``Dense``); scores and softmax run in f32 whatever
+    it is, and RoPE rounds cos/sin to the input dtype."""
 
     def __init__(self, embed_dim: int, num_heads: int, *, causal: bool = False,
                  impl: str = "full", num_kv_heads: int | None = None,
                  rope: bool = False, rope_base: float = 10000.0,
+                 seq_sharded: bool = False, seq_layout: str = "contiguous",
                  generator: torch.Generator | None = None,
                  compute_dtype: torch.dtype | None = None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} % num_heads {num_heads} != 0")
-        if impl in ("ring", "ulysses"):
-            raise NotImplementedError(f"attention impl {impl!r} {CP_NOT_PORTED}")
         if impl not in IMPLS:
             raise ValueError(f"unknown attention impl {impl!r}")
         kv = num_kv_heads
         if kv is not None and (kv < 1 or num_heads % kv):
             raise ValueError(f"num_kv_heads {kv} must divide num_heads {num_heads}")
+        if seq_layout not in SEQ_LAYOUTS:
+            raise ValueError(f"unknown seq_layout {seq_layout!r}")
+        if seq_layout == "striped" and impl != "ring":
+            # Ulysses and full attention gather shards in rank order: under
+            # striping that is a permuted sequence, whose causal mask would
+            # let tokens see the future. Only the ring's folds know the
+            # striped positions.
+            raise ValueError(f"seq_layout='striped' requires impl='ring', got {impl!r}")
         if rope and (embed_dim // num_heads) % 2:
             raise ValueError(
                 f"rope requires an even head_dim, got {embed_dim // num_heads}"
@@ -157,6 +186,9 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = embed_dim // num_heads
         self.rope = rope
         self.rope_base = rope_base
+        self.seq_sharded = seq_sharded
+        self.seq_layout = seq_layout
+        self.group = None  # the seq process group of ring/ulysses and the positions
         kv_dim = self.kv_heads * self.head_dim
         dense = dict(generator=generator, compute_dtype=compute_dtype)
         self.q = Dense(embed_dim, embed_dim, **dense)
@@ -168,11 +200,14 @@ class MultiHeadAttention(nn.Module):
         b, t, _ = x.shape
         return x.reshape(b, t, n_heads, self.head_dim)
 
-    def _project(self, x):
-        """(q, k, v) head tensors for x [B, T, d]."""
-        return (self._heads(self.q(x), self.num_heads),
-                self._heads(self.k(x), self.kv_heads),
-                self._heads(self.v(x), self.kv_heads))
+    def _project(self, x, n_heads: int | None = None, n_kv: int | None = None):
+        """(q, k, v) head tensors for x [B, T, d]. ``n_heads``/``n_kv``
+        override the head counts, so that the tensor-parallel serving step
+        runs this code on a rank's head-aligned block of the projections
+        (``tpudml_torch.serve.tp``)."""
+        return (self._heads(self.q(x), n_heads or self.num_heads),
+                self._heads(self.k(x), n_kv or self.kv_heads),
+                self._heads(self.v(x), n_kv or self.kv_heads))
 
     def _gqa_repeat(self, k, v, n_heads):
         group = n_heads // k.shape[2]
@@ -182,17 +217,28 @@ class MultiHeadAttention(nn.Module):
         return k, v
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Full forward over x [B, T, d] through ``impl``'s attention."""
+        """Full forward over x [B, T, d] (this rank's sequence shard when
+        ``seq_sharded``) through ``impl``'s attention."""
         b, t, _ = x.shape
         q, k, v = self._project(x)
         if self.rope:
             # Before the GQA repeat, as the JAX module does.
-            positions = torch.arange(t, device=x.device)
+            positions = sharded_positions(t, self.seq_sharded, self.seq_layout, self.group,
+                                          x.device)
             q = rotary_embedding(q, positions, self.rope_base)
             k = rotary_embedding(k, positions, self.rope_base)
         k, v = self._gqa_repeat(k, v, self.num_heads)
         if self.impl == "flash":
             o = flash_attention(q, k, v, causal=self.causal)
+        elif self.impl == "ring":
+            from tpudml_torch.parallel.cp import ring_attention
+
+            o = ring_attention(q, k, v, self.group, causal=self.causal,
+                               layout=self.seq_layout)
+        elif self.impl == "ulysses":
+            from tpudml_torch.parallel.cp import ulysses_attention
+
+            o = ulysses_attention(q, k, v, self.group, causal=self.causal)
         else:
             o = dot_product_attention(q, k, v, causal=self.causal)
         return self.out(o.reshape(b, t, self.embed_dim))
@@ -217,10 +263,10 @@ class MultiHeadAttention(nn.Module):
         o = decode_attention(q, k, v, pos).reshape(b, 1, self.embed_dim)
         return self.out(o), cache
 
-    def _window_qkv(self, x, pos):
+    def _window_qkv(self, x, pos, n_heads: int | None = None, n_kv: int | None = None):
         """(q, k_new, v_new) of a window x [B, Q, d] whose first token sits
-        at per-slot position ``pos`` [B]."""
-        q, k_new, v_new = self._project(x)
+        at per-slot position ``pos`` [B] (head counts as :meth:`_project`)."""
+        q, k_new, v_new = self._project(x, n_heads, n_kv)
         if self.rope:
             positions = pos[:, None] + torch.arange(x.shape[1], device=x.device)[None, :]
             q = rotary_embedding(q, positions, self.rope_base)
@@ -260,25 +306,31 @@ class MultiHeadAttention(nn.Module):
         k, v = read_table(pool, table, x.dtype)
         return self._window_out(q, k, v, pos), pool
 
-    def _chunk_qkv(self, x, start: int):
+    def _chunk_qkv(self, x, start: int, n_heads: int | None = None,
+                   n_kv: int | None = None):
         """(q, k_new, v_new) of a prefill chunk x [1, C, d] at global
-        positions [start, start+C)."""
-        q, k_new, v_new = self._project(x)
+        positions [start, start+C) (head counts as :meth:`_project`)."""
+        q, k_new, v_new = self._project(x, n_heads, n_kv)
         if self.rope:
             positions = start + torch.arange(x.shape[1], device=x.device)
             q = rotary_embedding(q, positions, self.rope_base)
             k_new = rotary_embedding(k_new, positions, self.rope_base)
         return q, k_new, v_new
 
-    def _prefill_attend(self, q, k, v, start: int):
-        """A prefill chunk's window attention: on the card the flash kernel
-        (:func:`chunk_flash_window`), on the CPU the plain masked attention —
-        chosen by the tensor's device, never by a failure."""
-        k, v = self._gqa_repeat(k, v, self.num_heads)
+    def _prefill_window(self, q, k, v, start: int):
+        """A prefill chunk's window attention, q [1, C, H, D] over the
+        window's K/V (GQA-repeated to q's H heads): on the card the flash
+        kernel (:func:`chunk_flash_window`), on the CPU the plain masked
+        attention — chosen by the tensor's device, never by a failure.
+        Returns o [1, C, H, D] (before the out projection)."""
+        k, v = self._gqa_repeat(k, v, q.shape[2])
         if q.is_cuda:
-            o = chunk_flash_window(q, k, v, start)
-        else:
-            o = dot_product_attention(q, k, v, causal=True, q_offset=start)
+            return chunk_flash_window(q, k, v, start)
+        return dot_product_attention(q, k, v, causal=True, q_offset=start)
+
+    def _prefill_attend(self, q, k, v, start: int):
+        """:meth:`_prefill_window` through the out projection."""
+        o = self._prefill_window(q, k, v, start)
         return self.out(o.reshape(1, q.shape[1], self.embed_dim))
 
     def apply_prefill_paged(self, pool, table_row, x, start: int):

@@ -218,6 +218,28 @@ def block_window(name: str, t_shape: tuple, spec: PartitionSpec, mesh: dict[str,
     return out
 
 
+def cut_to_blocks(model: nn.Module, specs: dict[str, PartitionSpec], mesh: dict[str, int],
+                  coords: dict[str, int]) -> dict[str, tuple]:
+    """Replace every parameter of ``model`` that ``specs`` shards by the
+    block the rank at mesh ``coords`` holds (:func:`block_window`), in
+    place; returns every parameter's full JAX shape, by name."""
+    shapes = {n: jax_leaf(n, p).shape for n, p in model.named_parameters()}
+    for name, p in list(model.named_parameters()):
+        spec = specs[name]
+        if not any(_axes(e) for e in spec):
+            continue
+        block = p.detach()
+        for jd, (lo, hi) in enumerate(block_window(name, shapes[name], spec, mesh, coords)):
+            block = block.narrow(port_dim(name, p, jd), lo, hi - lo)
+        mod_name, _, attr = name.rpartition(".")
+        owner = model.get_submodule(mod_name) if mod_name else model
+        setattr(owner, attr, nn.Parameter(block.clone(memory_format=torch.contiguous_format)
+                                          if p.dim() != 4 else
+                                          block.contiguous(memory_format=torch.channels_last),
+                                          requires_grad=p.requires_grad))
+    return shapes
+
+
 # ----------------------------------------------------------- the gather
 
 
@@ -440,20 +462,8 @@ class GSPMDParallel:
         """Cut every sharded parameter to this rank's block (once), then a
         fresh optimizer state over the blocks."""
         if not self._cut:
-            self._global_shape = {n: jax_leaf(n, p).shape
-                                  for n, p in self.model.named_parameters()}
-            for name, p in list(self.model.named_parameters()):
-                if not self.is_sharded(name):
-                    continue
-                block = p.detach()
-                for jd, (lo, hi) in enumerate(self.window(name)):
-                    block = block.narrow(port_dim(name, p, jd), lo, hi - lo)
-                mod_name, _, attr = name.rpartition(".")
-                owner = self.model.get_submodule(mod_name) if mod_name else self.model
-                setattr(owner, attr, nn.Parameter(block.clone(memory_format=torch.contiguous_format)
-                                                  if p.dim() != 4 else
-                                                  block.contiguous(memory_format=torch.channels_last),
-                                                  requires_grad=p.requires_grad))
+            self._global_shape = cut_to_blocks(self.model, self.param_specs, self.mesh,
+                                               self.coords)
             self._cut = True
         return TrainState.create(self.model, self.optimizer)
 

@@ -1,14 +1,15 @@
 """tpudml_torch.serve — prefill–decode LM serving (the port of
-``tpudml.serve``, one device).
+``tpudml.serve``).
 
 Layers: ``cache`` (dense preallocated per-layer KV caches,
 f32/bf16/int8), ``paged`` (page-pool cache + slot→page table + prefix
 sharing), ``spec`` (speculative decoding with exact greedy acceptance),
 ``sched`` (SLO-aware admission priced on the static cost model),
 ``engine`` (one decode step + chunked prefill + slot scheduler composing
-all of the above), ``load`` (seeded Poisson request streams),
-``fleet.quant`` (int8 weights). Tensor parallelism and the fleet router
-are still to port (ROADMAP.md queue 1 items 7 and 10).
+all of the above), ``tp`` (the tensor-parallel decode and prefill steps
+on one rank's shard), ``load`` (seeded Poisson request streams),
+``fleet.quant`` (int8 weights). The fleet router is still to port
+(ROADMAP.md queue 1 item 10).
 """
 
 from tpudml_torch.serve.cache import KVCache, cache_bytes, init_cache

@@ -33,8 +33,15 @@ decode-head kernel, as JAX's fused step does (its unfused step uses the
 bf16 head). ``fused_head`` with paged or spec raises
 ``ServeCompositionError``.
 
-Not ported yet (raises ``NotImplementedError`` and never falls back):
-tensor-parallel serving (``mesh=``), ROADMAP.md queue 1 item 7.
+``mesh={"model": W}`` serves tensor-parallel over the job's W ranks
+(``serve/tp.py``): each rank holds its shard of the weights and the KV
+cache, and every rank runs the same scheduler and the same steps. The
+schedule must be the same on every rank, or the collectives inside the
+steps fall out of step: under the virtual clock it is a pure function of
+the inputs, and under the wall clock every reading of the clock is rank
+0's, broadcast to the group. TP composes with the dense f32/bf16/int8
+caches only: paged, spec, weight quantization and the fused head raise
+``ServeCompositionError``.
 """
 
 from __future__ import annotations
@@ -56,8 +63,6 @@ from tpudml_torch.serve.load import Request
 from tpudml_torch.serve.paged import PagePool
 from tpudml_torch.serve.sched import DecodeCostModel, SLOConfig
 from tpudml_torch.serve.spec import draft_from_trunk, make_spec_decode_step
-
-TP_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 7, tensor-parallel serving)"
 
 
 class ServeCompositionError(CompositionError):
@@ -367,10 +372,13 @@ class ServingEngine:
     parameters live; asking for the card without one raises. With
     ``spec_k`` the draft is ``draft_model`` run with the weights
     ``draft_params`` (its state dict), or by default the target's lower
-    ``draft_layers`` blocks (``draft_from_trunk``, num_layers // 2)."""
+    ``draft_layers`` blocks (``draft_from_trunk``, num_layers // 2).
+    ``mesh`` (``{axis_name: W}`` over the job's ranks) serves
+    tensor-parallel (module docstring); ``model`` stays whole, and
+    ``tp.local`` is this rank's shard."""
 
     def __init__(self, model, config: ServeConfig | None = None, *,
-                 device: str | torch.device = "cuda", mesh=None,
+                 device: str | torch.device = "cuda", mesh=None, axis_name: str = "model",
                  draft_model=None, draft_params=None,
                  draft_layers: int | None = None):
         self.device = resolve_device(device)
@@ -382,13 +390,17 @@ class ServingEngine:
                 f"{self.device}; move the model first"
             )
         self._paged = cfg.cache_layout == "paged"
-        if mesh is not None:
-            if self._paged or cfg.spec_k:
-                reject("serve_tp_paged_spec", exc=ServeCompositionError)
-            raise NotImplementedError(f"tensor-parallel serving {TP_NOT_PORTED}")
-        if cfg.fused_head and (self._paged or cfg.spec_k):
-            # The fused tail consumes the dense step's features; the paged
-            # and spec steps consume full logits windows.
+        if mesh is not None and (self._paged or cfg.spec_k):
+            # The TP steps know nothing of page tables or verify windows.
+            reject("serve_tp_paged_spec", exc=ServeCompositionError)
+        if mesh is not None and cfg.weight_quant is not None:
+            # The shards are cut from f32 weights; int8 kernels and their
+            # scale trees have no placement.
+            reject("serve_tp_weight_quant", exc=ServeCompositionError)
+        if cfg.fused_head and (mesh is not None or self._paged or cfg.spec_k):
+            # The fused tail consumes the dense step's features and the
+            # whole [d, V] head; the paged and spec steps consume full
+            # logits windows, and TP shards the head.
             reject("serve_fused_head_dense", exc=ServeCompositionError)
         if not model.rope and cfg.max_len > model.max_len:
             raise ValueError(
@@ -422,7 +434,17 @@ class ServingEngine:
         self._pool = None
         self._table = None
         self._slot_pages: list[list[int]] = [[] for _ in range(cfg.slots)]
-        if self._paged:
+        self.tp = None
+        self._prefill = model.apply_prefill
+        if mesh is not None:
+            from tpudml_torch.serve.tp import TPServing
+
+            self.tp = TPServing(model, mesh, axis_name, cfg)
+            self.tp.shard_params()
+            self.caches = self.tp.init_caches()
+            self._decode = self.tp.decode_step
+            self._prefill = self.tp.prefill
+        elif self._paged:
             self.caches = model.init_paged_cache(cfg.total_pages, cfg.page_size,
                                                  cfg.cache_kind)
             self._decode = make_paged_decode_step(model)
@@ -461,6 +483,7 @@ class ServingEngine:
         self._cost = None
         if cfg.slo is not None:
             self._cost = DecodeCostModel(model, cfg, cfg.slo,
+                                         world=self.tp.world if self.tp is not None else 1,
                                          draft_model=self.draft_model)
 
     # ------------------------------------------------------------ prefill
@@ -512,7 +535,7 @@ class ServingEngine:
         cache rows; returns (pos, last_token) for the decode state."""
         prompt = self._validate_request(req)
         for s0, chunk in self._chunks(prompt):
-            self.caches = self.model.apply_prefill(self.caches, chunk, slot, s0)
+            self.caches = self._prefill(self.caches, chunk, slot, s0)
         self._prefill_draft(slot, prompt)
         return prompt.size - 1, int(prompt[-1])
 
@@ -586,6 +609,15 @@ class ServingEngine:
         next_t, _ = self._decode(self.caches, *table, tokens, pos_t)
         return next_t.cpu().numpy()[:, None], np.ones(len(last), np.int64)
 
+    def _shared_clock(self, t: float) -> float:
+        """Rank 0's reading ``t`` of the wall clock on every rank of the TP
+        group (one broadcast): every scheduling decision then sees the same
+        time on every rank, as JAX's one scheduler sees one clock."""
+        reading = torch.tensor([t], dtype=torch.float64, device=self.device)
+        torch.distributed.broadcast(reading, src=torch.distributed.get_global_rank(
+            self.tp.group, 0), group=self.tp.group)
+        return float(reading.item())
+
     # ---------------------------------------------------------------- run
 
     def run(self, requests: list[Request]) -> ServeReport:
@@ -624,6 +656,8 @@ class ServingEngine:
         v_extra = 0.0  # virtual-clock idle skips (accumulated)
         if cfg.step_time_s is not None:
             now = lambda: steps * cfg.step_time_s + v_extra  # noqa: E731
+        elif self.tp is not None:
+            now = lambda: self._shared_clock(time.perf_counter() - t0)  # noqa: E731
         else:
             now = lambda: time.perf_counter() - t0  # noqa: E731
 

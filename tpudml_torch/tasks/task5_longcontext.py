@@ -49,8 +49,16 @@ replicated), ``--schedule gpipe | 1f1b | interleaved`` with
 ``--microbatches``, ``--v_chunks``, ``--pp_data`` (PP×DP), ``--remat``
 (GPipe), ``--dropout`` (1f1b and interleaved, with JAX's message
 otherwise), ``--sentinel`` and ``--ckpt_dir``; ``--moe_experts`` and
-``--fused_xent`` are rejected with JAX's keys. ``--parallel cp`` raises
-``NotImplementedError``, naming its ROADMAP item.
+``--fused_xent`` are rejected with JAX's keys. ``--parallel cp``:
+``tpudml_torch.parallel.ContextParallel`` over ``{"seq": world}``, the
+time axis split over the ranks, ``--attn ring`` (default) or ``ulysses``,
+``--cp_layout contiguous | striped`` (striped needs ring), taking
+``--fused_xent`` (with ``--fused_xent_scores``/``--fused_xent_lean``),
+``--fused_ln``, ``--rope``, ``--num_kv_heads``, ``--moe_experts``,
+``--dropout`` (keys folded with the step and the seq index, as in JAX) and
+``--ckpt_dir`` (the state is replicated); ``--remat`` is accepted and
+implied (the ring's backward recomputes), ``--sentinel`` is rejected with
+JAX's wording.
 
 Same row sampling (``np.random.default_rng(seed)`` over
 ``synthetic_lm(4·B, …)``) and steady-state clock as the JAX entry point;
@@ -72,7 +80,9 @@ CPU: ``torchrun --nproc_per_node 2 -m tpudml_torch.tasks.task5_longcontext
 FSDP and tensor parallel: ``--parallel fsdp`` / ``--parallel tp`` (add
 ``--fused_xent`` for the vocab-sharded head); pipelines: ``torchrun
 --nproc_per_node 2 -m tpudml_torch.tasks.task5_longcontext --parallel pp
---schedule 1f1b --device cpu``
+--schedule 1f1b --device cpu``; context parallel: ``torchrun
+--nproc_per_node 2 -m tpudml_torch.tasks.task5_longcontext --parallel cp
+--attn ring --cp_layout striped --device cpu``
 """
 
 from __future__ import annotations
@@ -94,17 +104,13 @@ from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import TransformerLM
 from tpudml_torch.optim import make_optimizer
 from tpudml_torch.parallel import (
-    FSDP, DataParallel, ExpertParallel, GSPMDParallel, tensor_parallel_rules,
+    FSDP, ContextParallel, DataParallel, ExpertParallel, GSPMDParallel, tensor_parallel_rules,
 )
 from tpudml_torch.resilience import sentinel_hook
 from tpudml_torch.train import TrainState, make_lm_fused_train_step, make_train_step
 
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
-PARALLEL_ITEMS = {
-    "cp": "8 (context parallel)",
-}
 # The engines that run inside a process group (one process a rank).
-GROUP_ENGINES = ("dp", "ep", "fsdp", "tp", "pp")
+GROUP_ENGINES = ("dp", "ep", "fsdp", "tp", "pp", "cp")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -191,9 +197,6 @@ def _reject_unported(args) -> None:
             # task5 drops the flag without a word; the port says so.
             raise ValueError("--parallel ep trains through materialized logits; "
                              "--fused_xent composes with --parallel single, dp, fsdp and tp")
-    elif args.parallel in PARALLEL_ITEMS:
-        raise NotImplementedError(
-            f"--parallel {args.parallel} {NOT_PORTED.format(PARALLEL_ITEMS[args.parallel])}")
     if args.parallel == "pp" and args.fused_xent:
         # The pipeline's epilogue takes the last stage's output whole:
         # there is no pre-head feature tensor for the fused head.
@@ -204,15 +207,21 @@ def _reject_unported(args) -> None:
         # optimizer chain (JAX's wording).
         raise ValueError(f"--sentinel composes with --parallel dp/fsdp/tp/pp, not "
                          f"{args.parallel!r}")
-    if args.attn in ("ring", "ulysses"):
+    if args.parallel != "cp" and args.attn in ("ring", "ulysses"):
         raise ValueError(f"--attn {args.attn} requires --parallel cp")
-    if args.cp_layout != "contiguous":
+    if args.cp_layout != "contiguous" and args.parallel != "cp":
         raise ValueError("--cp_layout striped requires --parallel cp")
+    if args.parallel == "cp":
+        if (args.attn or "ring") not in ("ring", "ulysses"):
+            raise ValueError("cp needs --attn ring|ulysses")
+        if args.cp_layout == "striped" and (args.attn or "ring") != "ring":
+            raise ValueError("--cp_layout striped requires --attn ring")
 
 
 def build_engine(args, device: torch.device):
     """(train_state, step_fn) for ``--parallel single``, ``dp``, ``ep``,
-    ``fsdp``, ``tp`` or ``pp`` (all but the first inside a process group)."""
+    ``fsdp``, ``tp``, ``pp`` or ``cp`` (all but the first inside a process
+    group)."""
     _reject_unported(args)
     args._sentinel = None  # the engine's GradSentinel, for the escalation hook
     args._sharded = None  # the EP, FSDP, TP or pipeline engine: checkpoints hold whole leaves
@@ -226,6 +235,7 @@ def build_engine(args, device: torch.device):
         args._sentinel = pipe.sentinel
         args._sharded = pipe
         return pipe.create_state(args.seed), pipe.make_train_step()
+    cp = args.parallel == "cp"
     model = TransformerLM(
         vocab_size=args.vocab,
         embed_dim=args.embed_dim,
@@ -234,7 +244,9 @@ def build_engine(args, device: torch.device):
         max_len=args.seq_len,
         num_kv_heads=args.num_kv_heads,
         rope=args.rope,
-        impl=args.attn or "full",
+        impl=args.attn or ("ring" if cp else "full"),
+        seq_sharded=cp,
+        seq_layout=args.cp_layout,
         fused_ln=args.fused_ln,
         moe_experts=args.moe_experts,
         moe_top_k=args.moe_top_k,
@@ -250,6 +262,11 @@ def build_engine(args, device: torch.device):
                               fused_xent=args.fused_xent, save_scores=args._save_scores,
                               sentinel=args.sentinel)
         args._sentinel = engine.sentinel
+        return engine.create_state(), engine.make_train_step()
+    if cp:
+        engine = ContextParallel(model, opt, {"seq": process_count()}, rng_root=rng_root,
+                                 layout=args.cp_layout, fused_xent=args.fused_xent,
+                                 save_scores=args._save_scores)
         return engine.create_state(), engine.make_train_step()
     if args.parallel == "ep":
         engine = ExpertParallel(model, opt)

@@ -13,14 +13,21 @@ Multi-tenant levers: ``--paged`` (+ ``--page_size``, ``--num_pages``,
 (``tpudml_torch.obs.write_serve_trace``; byte-deterministic under
 ``--step_time_s``). ``--fused_head`` (the port's own flag; ServeConfig's
 ``fused_head``) runs the greedy decode tail through the fused head
-kernel. Not ported yet: ``--tp`` (ROADMAP.md queue 1 item 7) raises
-``NotImplementedError``.
+kernel. ``--tp N`` serves tensor-parallel (``serve/tp.py``) over a job of
+N ranks, one process a rank (``torchrun --nproc_per_node N`` or
+``python -m tpudml_torch.launch``; a process started alone is a one-rank
+group, so ``--tp 1`` runs alone): every rank runs the engine on its shard,
+and rank 0 alone prints and writes the metrics and the ``--obs`` trace.
+TP composes with the dense cache only (paged, spec, weight quantization
+and the fused head raise, as in JAX).
 
 Reports generated tokens/sec and p50/p99 per-token, time-to-first-token
 and end-to-end latency, then cross-checks the workload ledger's
 per-request TTFT/TPOT annotations against the raw timing ledger.
 
-Run: ``python -m tpudml_torch.tasks.task6_serve --n_requests 16 --qps 4``
+Run: ``python -m tpudml_torch.tasks.task6_serve --n_requests 16 --qps 4``;
+on the CPU over gloo at two ranks: ``torchrun --nproc_per_node 2 -m
+tpudml_torch.tasks.task6_serve --device cpu --tp 2``
 """
 
 from __future__ import annotations
@@ -29,11 +36,11 @@ import argparse
 
 import torch
 
+from tpudml_torch.core import assert_same_program, process_count, process_group, process_index
 from tpudml_torch.device import default_device, resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import TransformerLM
 from tpudml_torch.serve import SLOConfig, ServeConfig, ServingEngine, poisson_workload
-from tpudml_torch.serve.engine import TP_NOT_PORTED
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -98,9 +105,16 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build_engine(args) -> ServingEngine:
+    """The engine of ``args``; with ``--tp N`` inside a process group of N
+    ranks."""
     device = resolve_device(args.device)
     if args.tp:
-        raise NotImplementedError(f"--tp {TP_NOT_PORTED}")
+        world = process_count()
+        if world < args.tp:
+            raise RuntimeError(f"--tp {args.tp} needs {args.tp} devices, have {world}")
+        if world > args.tp:
+            raise RuntimeError(f"--tp {args.tp} runs on a job of {args.tp} ranks, "
+                               f"this one has {world}")
     model = TransformerLM(
         vocab_size=args.vocab,
         embed_dim=args.embed_dim,
@@ -124,10 +138,25 @@ def build_engine(args) -> ServingEngine:
         step_time_s=args.step_time_s, weight_quant=args.weight_quant,
         fused_head=args.fused_head,
     )
+    if args.tp:
+        return ServingEngine(model, cfg, device=device, mesh={"model": args.tp},
+                             axis_name="model")
     return ServingEngine(model, cfg, device=device, draft_layers=args.draft_layers)
 
 
 def run(args) -> dict:
+    if not args.tp:
+        return _serve(args)
+    with process_group(device=resolve_device(args.device)) as group:
+        rank_invariant = {k: v for k, v in vars(args).items() if k != "log_dir"}
+        assert_same_program(repr(sorted(rank_invariant.items())), "task6 args", group)
+        return _serve(args, lead=process_index(group) == 0)
+
+
+def _serve(args, lead: bool = True) -> dict:
+    """Serve the workload; under ``--tp`` every rank runs this, and rank 0
+    (``lead``) alone prints and writes the metrics and the trace. The
+    accounting checks run on every rank."""
     qps = float(args.qps)
     engine = build_engine(args)
     requests, ledger = poisson_workload(
@@ -155,22 +184,36 @@ def run(args) -> dict:
         if row["ttft_s"] != st.first_token - st.arrival or row["tpot_s"] != tpot:
             raise RuntimeError(f"ledger annotation mismatch for request {rid}")
     lat = report.latency_summary()
+    refills = sum(1 for e in report.events if e[0] == "admit" and e[3] > 0)
+    result = {
+        "tokens_per_sec": report.tokens_per_sec,
+        "decode_steps": report.decode_steps,
+        "generated_tokens": report.generated_tokens,
+        "mid_flight_refills": refills,
+        "mean_accepted_len": report.mean_accepted_len,
+        "pool_stats": report.pool_stats,
+        "trace_path": None,
+        "streams": {rid: list(st.tokens) for rid, st in report.requests.items()},
+        "events": list(report.events),
+        **lat,
+    }
+    if not lead:
+        return result
     writer = MetricsWriter(args.log_dir, run_name="task6-serve-torch")
     writer.add_scalar("Serve Tokens Per Sec", report.tokens_per_sec, 0)
     writer.add_scalar("Per-Token p50 (ms)", lat["per_token_p50_s"] * 1e3, 0)
     writer.add_scalar("Per-Token p99 (ms)", lat["per_token_p99_s"] * 1e3, 0)
     writer.add_scalar("E2E p99 (s)", lat["e2e_p99_s"], 0)
     writer.close()
-    trace_path = None
     if args.obs:
         from tpudml_torch.obs import write_serve_trace
 
-        trace_path = write_serve_trace(report, writer.run_dir / "trace.json",
-                                       step_time_s=args.step_time_s)
-        print(f"[obs] trace: {trace_path}")
+        result["trace_path"] = str(write_serve_trace(report, writer.run_dir / "trace.json",
+                                                     step_time_s=args.step_time_s))
+        print(f"[obs] trace: {result['trace_path']}")
 
-    refills = sum(1 for e in report.events if e[0] == "admit" and e[3] > 0)
     mode = "".join([
+        f"/tp{args.tp}" if args.tp else "",
         "/paged" if args.paged else "",
         "/fused" if args.fused_head else "",
         f"/spec{args.spec_k}" if args.spec_k else "",
@@ -197,17 +240,7 @@ def run(args) -> dict:
         f"{lat['ttft_p50_s'] * 1e3:.1f}/{lat['ttft_p99_s'] * 1e3:.1f} ms | "
         f"e2e p50/p99: {lat['e2e_p50_s']:.3f}/{lat['e2e_p99_s']:.3f} s"
     )
-    return {
-        "tokens_per_sec": report.tokens_per_sec,
-        "decode_steps": report.decode_steps,
-        "generated_tokens": report.generated_tokens,
-        "mid_flight_refills": refills,
-        "mean_accepted_len": report.mean_accepted_len,
-        "pool_stats": report.pool_stats,
-        "trace_path": str(trace_path) if trace_path else None,
-        "streams": {rid: list(st.tokens) for rid, st in report.requests.items()},
-        **lat,
-    }
+    return result
 
 
 def main(argv=None):

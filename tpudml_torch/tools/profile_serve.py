@@ -17,17 +17,21 @@ paged prefill chunk (``--page_size``, default 16; each slot maps its own
 pages), ``--spec_k K`` the speculative decode step with the default trunk
 draft (dense, and paged with ``--paged``), ``--bf16`` the decode steps,
 unfused and fused-head, and the prefill chunk of the
-``compute_dtype=torch.bfloat16`` model.
+``compute_dtype=torch.bfloat16`` model, ``--tp`` the tensor-parallel
+engine's decode step and prefill chunk at world 1 (``mesh={"model": 1}``
+on a one-rank NCCL group) and one reading of its shared clock (rank 0's,
+broadcast).
 
 Run on the card: ``python -m tpudml_torch.tools.profile_serve [--paged]
-[--spec_k 3] [--bf16]`` (one JSON line at the end; ``--out FILE`` also
-writes it to FILE).
+[--spec_k 3] [--bf16] [--tp]`` (one JSON line at the end; ``--out FILE``
+also writes it to FILE).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 import time
 
 import torch
@@ -96,6 +100,8 @@ def main(argv=None) -> dict:
     p.add_argument("--page_size", type=int, default=16)
     p.add_argument("--spec_k", type=int, default=0, help="add the spec-decode rows")
     p.add_argument("--bf16", action="store_true", help="add the bf16-compute rows")
+    p.add_argument("--tp", action="store_true",
+                   help="add the tensor-parallel rows at world 1 (one-rank NCCL group)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: no CUDA device; this measures the card")
@@ -167,6 +173,22 @@ def main(argv=None) -> dict:
         rows["prefill_chunk_bf16_start384"] = prefill_row(engine(model_bf16))
     for key, fn in rows.items():
         result[key] = _measure(fn, args.iters)
+    if args.tp:
+        from tpudml_torch.core import DistributedConfig, process_group
+
+        with tempfile.TemporaryDirectory() as tmp, process_group(
+                DistributedConfig(coordinator_address=f"file://{tmp}/store", num_processes=1),
+                device="cuda"):
+            eng = ServingEngine(model, ServeConfig(slots=slots, max_len=1024, prefill_chunk=128),
+                                device="cuda", mesh={"model": 1})
+            tp_rows = {
+                "decode_tp1": decode_row(eng),
+                "prefill_chunk_tp1_start384": lambda: eng.tp.prefill(eng.caches, chunk, 0, 384),
+                "shared_clock_tp1": lambda: eng._shared_clock(0.0),
+            }
+            for key, fn in tp_rows.items():
+                result[key] = _measure(fn, args.iters)
+        rows.update(tp_rows)
     for key in rows:
         r = result[key]
         print(f"[profile] {key}: wall {r['wall_ms']:.3f} ms, events {r['event_ms']:.3f} ms, "
