@@ -454,7 +454,28 @@ the CPU). Phases, each printing its own line(s):
    to them), the striped folds with k_shift = 1 (W(W−1)/2); the ring's
    forward and forward+backward device times beside the whole-sequence
    kernels'.
-23. one JSON line of per-kernel numbers (launches summed over the main
+23. main path 17, the planner at world 1 (``[plan]``): ``python -m
+   tpudml_torch.plan --world 1`` in this process at the training widths
+   (PLAN_SPEC, f32), the HBM budget the card's memory: the winner
+   (PLAN_WINNER, path ``plan_winner``) verified by one step on a one-rank
+   NCCL group, launching kernels 1–3 once a layer and nothing else; the
+   ranking's top, the measured peak beside ``estimate_hbm``'s and the
+   step's wall printed; a second emission byte-identical to the first;
+   then the best-ranked ``fused_xent`` survivor verified (``plan_fused``:
+   1–3 once a layer, 11–13 once) and its engine's step held against the
+   single-card ``make_lm_fused_train_step`` (bitwise, else LOSS_TOL and
+   AdamW's 2·lr, the differing parameter named); then ``--plan``: the
+   plan's knobs fill task2's defaults, an explicit ``--accum_steps`` wins,
+   and task2 ``--plan`` trains one epoch on the card.
+24. main path 18, the elastic controller (``[elastic]``): ``run_drill`` at
+   world 1 with the restart policy (one NCCL rank killed at step 13,
+   re-formed on a fresh port, resumed from step 10), its final parameter
+   CRC bitwise the uninterrupted run's; the MTTR figures (backoff,
+   restart latency, steps lost). The ranks are child processes training
+   a ForwardMLP, which runs no kernel (``elastic_drill`` counts none).
+   The shrink drill needs two NCCL ranks, two cards: it runs on the CPU
+   in the tests.
+25. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -5691,6 +5712,202 @@ def cp_phase() -> dict[str, dict[str, int]]:
     return paths
 
 
+# ---------------------------------------------- the planner (phase 23)
+
+# The planner's spec at the training widths (TRAIN_MODEL, TRAIN_BATCH rows a
+# device, f32); the HBM budget is the card's memory.
+PLAN_SPEC = dict(vocab_size=TRAIN_MODEL["vocab_size"], embed_dim=TRAIN_MODEL["embed_dim"],
+                 num_heads=TRAIN_MODEL["num_heads"], num_layers=TRAIN_MODEL["num_layers"],
+                 seq_len=TRAIN_MODEL["max_len"], per_chip_batch=TRAIN_BATCH)
+PLAN_WINNER = "dp[data=1]z00a1f0s0o0t0"  # compute sets the step: f0 and f1 tie, f0 first
+# A verification step at L = 6: kernels 1–3 once a layer; the fused head's
+# saved-scores kernels 11–13 once (N = 8192 rows, the scores kept).
+PLAN_PER_STEP = {"flash_forward_lse": 6, "flash_dq": 6, "flash_dkdv": 6}
+PLAN_HEAD = {"xent_fwd_save": 1, "xent_dx_s": 1, "xent_dw_s": 1}
+PLAN_TASK2_BATCH = 256  # task2 --plan's one epoch on the card, 234 steps
+
+
+def _plan_cli(argv: list[str]) -> list[str]:
+    """``python -m tpudml_torch.plan``'s ``main(argv)`` in this process,
+    its stdout captured; returns its lines."""
+    import io
+
+    from tpudml_torch.plan.__main__ import main as plan_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = plan_main(argv)
+    check(rc == 0, f"python -m tpudml_torch.plan {' '.join(argv)} exited {rc}")
+    return out.getvalue().splitlines()
+
+
+def plan_phase() -> dict[str, dict[str, int]]:
+    """Main path 17 (module docstring, phase 23). Returns the launch counts
+    of the winner's and the fused candidate's verification steps."""
+    import tempfile
+
+    import torch
+
+    from tpudml_torch.core import build_parser, config_from_args
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import make_optimizer
+    from tpudml_torch.parallel.dp import _use_flash
+    from tpudml_torch.plan import Candidate, ModelSpec, build_candidate, load_plan
+    from tpudml_torch.plan import verify_candidate
+    from tpudml_torch.plan.emit import _batch, _model
+    from tpudml_torch.tasks import task2
+    from tpudml_torch.train import TrainState, make_lm_fused_train_step
+
+    t0 = time.perf_counter()
+    paths = {}
+    spec = ModelSpec(**PLAN_SPEC)
+    budget_mb = torch.cuda.get_device_properties(0).total_memory / 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = Path(tmp) / "spec.json"
+        spec_path.write_text(json.dumps(spec.to_dict()))
+        argv = ["--world", "1", "--spec", str(spec_path), "--hbm_budget", f"{budget_mb:.0f}",
+                "--top", "4"]
+        reset_launch_counts()  # ---- main path 17 (plan_winner) starts here
+        lines = _plan_cli(argv + ["--out", f"{tmp}/plan.json"])
+        launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+        need = {k.name: PLAN_PER_STEP.get(k.name, 0) for k in KERNELS}
+        check(launches == need, f"the winner's verification launched {launches}, not {need}")
+        paths["plan_winner"] = launches
+        for line in lines:
+            if line.strip():
+                print(f"[plan] {line}")
+        plan = load_plan(f"{tmp}/plan.json")
+        winner = plan["winner"]
+        check(winner["candidate"]["key"] == PLAN_WINNER,
+              f"the world-1 winner is {winner['candidate']['key']}, not {PLAN_WINNER}")
+        check(plan["verification"]["ok"] and not plan["verification"]["demoted"],
+              f"the winner did not verify: {plan['verification']}")
+        wall = float(re.search(r"step_wall_s=([0-9.]+)", "\n".join(lines)).group(1))
+        peak, est = plan["predicted"]["peak_hbm_bytes"], winner["score"]["est_hbm_bytes"]
+        print(f"[plan] world 1 (one-rank NCCL group): winner {PLAN_WINNER} verified by one "
+              f"step on the card in {wall * 1e3:.1f} ms; measured peak {peak} bytes beside "
+              f"estimate_hbm's {est} (measured / estimate {peak / est:.3f}); launches "
+              f"{dict((k, c) for k, c in launches.items() if c)}")
+        again = _plan_cli(argv + ["--out", f"{tmp}/plan_again.json"])
+        first, second = load_plan(f"{tmp}/plan.json"), load_plan(f"{tmp}/plan_again.json")
+        same = Path(f"{tmp}/plan.json").read_bytes() == Path(f"{tmp}/plan_again.json").read_bytes()
+        wall2 = float(re.search(r"step_wall_s=([0-9.]+)", "\n".join(again)).group(1))
+        print(f"[plan] the second --world 1 emission is byte-identical to the first: {same} "
+              f"({len(Path(f'{tmp}/plan.json').read_bytes())} bytes; its verification step "
+              f"{wall2 * 1e3:.1f} ms)")
+        check(same, "two --world 1 emissions of the same plan differ: "
+              + str({k: (first[k], second[k]) for k in first if first[k] != second[k]}))
+
+        # The best-ranked fused_xent survivor, verified, then its engine's
+        # step held against the single-card fused step.
+        entry = next(e for e in plan["ranking"] if e["candidate"]["fused_xent"])
+        cand = Candidate.from_dict(entry["candidate"])
+        torch.cuda.empty_cache()
+        reset_launch_counts()  # ---- main path 17 (plan_fused) starts here
+        v = verify_candidate(spec, cand, int(budget_mb * 1e6), device="cuda")
+        launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+        need = {k.name: PLAN_PER_STEP.get(k.name, 0) + PLAN_HEAD.get(k.name, 0)
+                for k in KERNELS}
+        check(launches == need, f"the fused candidate launched {launches}, not {need}")
+        check(v["ok"], f"{cand.key()} did not verify: {v['findings']}")
+        paths["plan_fused"] = launches
+        fpeak, fest = v["predicted"]["peak_hbm_bytes"], entry["score"]["est_hbm_bytes"]
+        x, y = _batch(spec, 1)
+        with _one_rank_group(tmp):
+            eng, ts, step, _ = build_candidate(spec, cand, "cuda")
+            ts, m = step(ts, x, y)
+            e_loss = m["loss"].item()
+            e_params = {n: p.detach().clone() for n, p in eng.model.named_parameters()}
+            del eng, ts, step, m
+        single = _model(spec, torch.device("cuda"))
+        _use_flash(single)  # DataParallel(flash_attn=True)'s swap
+        opt = make_optimizer("adamw", 3e-4)
+        _, m1 = make_lm_fused_train_step(single, opt)(TrainState.create(single, opt), x, y)
+        s_loss = m1["loss"].item()
+        s_params = {n: p.detach() for n, p in single.named_parameters()}
+        bit = e_loss == s_loss and _bitwise(e_params, s_params)
+        diff, name = max(((e_params[n] - s_params[n]).abs().max().item(), n) for n in s_params)
+        if not bit:
+            check(abs(e_loss - s_loss) <= LOSS_TOL and diff <= 2 * 3e-4,
+                  f"{cand.key()}'s step differs from the single-card step: loss "
+                  f"{e_loss} vs {s_loss}, parameter {name} {diff:.3e} off")
+        print(f"[plan] the best fused_xent survivor {cand.key()} (rank "
+              f"{plan['ranking'].index(entry) + 1}) verified in {v['step_wall_s'] * 1e3:.1f} "
+              f"ms; measured peak {fpeak} bytes beside estimate_hbm's {fest} (measured / "
+              f"estimate {fpeak / fest:.3f}); its step against the single-card "
+              f"make_lm_fused_train_step: loss {e_loss:.6f} vs {s_loss:.6f}, bitwise "
+              f"(loss and every parameter) {bit}, max |param diff| {diff:.3e} ({name}); "
+              f"launches {dict((k, c) for k, c in launches.items() if c)}")
+        del single, s_params, e_params
+        torch.cuda.empty_cache()
+
+        # --plan in a task: the plan's knobs fill task2's defaults, an
+        # explicit flag wins, and task2 runs one epoch on the card.
+        ec = plan["engine_config"]
+        cfg = config_from_args(build_parser().parse_args(["--plan", f"{tmp}/plan.json"]))
+        merged = {k: getattr(cfg, k) for k in ("zero1", "accum_steps", "sentinel", "obs",
+                                               "aggregation")}
+        check(all(merged[k] == ec[k] for k in merged), f"--plan merged {merged}, plan {ec}")
+        cfg2 = config_from_args(build_parser().parse_args(
+            ["--plan", f"{tmp}/plan.json", "--accum_steps", "2"]))
+        check(cfg2.accum_steps == 2, "an explicit --accum_steps did not beat the plan")
+        root = Path(tmp) / "mnist"
+        root.mkdir()
+        _write_mnist_idx(root)
+        m, tlines = _lab(task2, ["--data_dir", str(root), "--log_dir", f"{tmp}/logs",
+                                 "--device", "cuda", "--epochs", "1", "--log_every", "0",
+                                 "--batch_size", str(PLAN_TASK2_BATCH), "--plan",
+                                 f"{tmp}/plan.json"])
+        check(m["steps"] > 0 and m["test_accuracy"] >= LABS_ACC_FLOOR,
+              f"task2 --plan did not learn: {m['test_accuracy']}")
+        print(f"[plan] task2 --plan on the card, one epoch at batch {PLAN_TASK2_BATCH}: merged "
+              f"knobs {merged} (the plan's engine_config); --accum_steps 2 beside --plan "
+              f"gives accum_steps {cfg2.accum_steps}; test accuracy "
+              f"{m['test_accuracy']:.4f} in {m['steps']} steps, "
+              f"{m['train_time_s'] * 1e3 / m['steps']:.3f} ms/step")
+    check(not torch.distributed.is_initialized(), "the plan's group outlived its phase")
+    print(f"[plan] {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+# ---------------------------------------- the elastic controller (phase 24)
+
+ELASTIC_TIMEOUT_S = 300.0
+
+
+def elastic_phase() -> dict[str, dict[str, int]]:
+    """Main path 18 (module docstring, phase 24). Returns the launch counts
+    of this process during the drill: none, as its ranks are child
+    processes training an MLP, which runs no kernel of the port."""
+    import tempfile
+
+    from tpudml_torch.elastic.drill import run_drill
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()  # ---- main path 18 (elastic_drill) starts here
+        rep = run_drill(tmp, world=1, kill_rank=0, device="cuda",
+                        timeout_s=ELASTIC_TIMEOUT_S)
+        launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    check(rep["ok"] and rep["bit_exact"] and rep["reforms"] == 1,
+          f"the restart drill failed: {rep}")
+    check(rep["resume_step"] == 10 and rep["steps_lost"] == 3 and rep["fresh_port"],
+          f"the drill resumed from step {rep['resume_step']}: {rep}")
+    print(f"[elastic] restart drill at world 1 (one NCCL rank; ForwardMLP under "
+          f"DataParallel, SGD momentum, {rep['steps']} steps, sharded checkpoints every 5): "
+          f"rank {rep['killed_rank_observed']} killed at step {rep['kill_step']}, re-formed "
+          f"on a fresh port ({rep['coordinator_ports'][0]} -> {rep['coordinator_ports'][1]}) "
+          f"after {rep['backoff_s']:.3f} s of backoff, resumed from step {rep['resume_step']} "
+          f"({rep['steps_lost']} steps lost); restart latency (the failed round's end to the "
+          f"resume) {rep['restart_latency_s']:.3f} s; final parameter CRC "
+          f"{rep['params_crc']} bitwise the uninterrupted run's: {rep['bit_exact']}; wall "
+          f"{rep['drill_wall_s']:.2f} s against {rep['clean_wall_s']:.2f} s uninterrupted "
+          f"(+{rep['overhead_vs_clean_frac'] * 100:.1f}%)")
+    print(f"[elastic] {time.perf_counter() - t0:.1f} s")
+    return {"elastic_drill": launches}
+
+
 def _dir_bytes(path) -> int:
     return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
 
@@ -6277,6 +6494,10 @@ def main() -> int:
     paths.update(tp_serve_phase(gen))
     torch.cuda.empty_cache()
     paths.update(cp_phase())
+    torch.cuda.empty_cache()
+    paths.update(plan_phase())
+    torch.cuda.empty_cache()
+    paths.update(elastic_phase())
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -1902,3 +1902,65 @@ def test_tp_serving_world1_equals_the_dense_engine(cuda_device, tmp_path, kind):
             with torch.inference_mode():
                 top2 = model(seq[None])[0, -1].topk(2).values
             assert (top2[0] - top2[1]).item() < gap_bound
+
+
+# The planner's verification step at world 1 on the card (a small width:
+# V=2048, d=128, H=2, L=2, T=256, 4 rows).
+PLAN_SMALL = dict(vocab_size=2048, embed_dim=128, num_heads=2, num_layers=2, seq_len=256,
+                  per_chip_batch=4)
+
+
+@pytest.mark.cuda
+def test_plan_verifies_a_fused_dp_candidate_at_world1(cuda_device, tmp_path):
+    """``verify_candidate`` of ``dp[data=1]`` with the fused head on a
+    one-rank NCCL group: no finding, launches kernels 1–3 once a layer and
+    11–13 once, and the engine's step equals the single-card fused step
+    (``train.make_lm_fused_train_step``) on the same model and rows
+    bitwise."""
+    from tpudml_torch.core import DistributedConfig, process_group
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import make_optimizer
+    from tpudml_torch.parallel.dp import _use_flash
+    from tpudml_torch.plan import ModelSpec, build_candidate, verify_candidate
+    from tpudml_torch.plan.emit import _batch, _model
+    from tpudml_torch.plan.space import Candidate
+    from tpudml_torch.train import TrainState, make_lm_fused_train_step
+
+    spec = ModelSpec(**PLAN_SMALL)
+    cand = Candidate(engine="dp", mesh=(("data", 1),), zero1=False, zero1_overlap=False,
+                     accum_steps=1, fused_xent=True, sentinel=False, obs=False)
+    reset_launch_counts()
+    v = verify_candidate(spec, cand, device="cuda")
+    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    assert v["ok"] and v["findings"] == [], v
+    assert v["predicted"]["comm_wire_bytes"] == 0.0  # one rank moves nothing
+    assert v["predicted"]["peak_hbm_bytes"] > 0
+    assert launches == {"flash_forward_lse": 2, "flash_dq": 2, "flash_dkdv": 2,
+                        "xent_fwd_save": 1, "xent_dx_s": 1, "xent_dw_s": 1}
+    x, y = _batch(spec, 1)
+    with process_group(DistributedConfig(coordinator_address=f"file://{tmp_path}/store"),
+                       device="cuda"):
+        eng, ts, step, _ = build_candidate(spec, cand, "cuda")
+        ts, m = step(ts, x, y)
+        got = (m["loss"].item(), {n: p.detach().clone() for n, p in eng.model.named_parameters()})
+    single = _model(spec, cuda_device)
+    _use_flash(single)  # what DataParallel(flash_attn=True) does to the model
+    opt = make_optimizer("adamw", 3e-4)
+    ts1, m1 = make_lm_fused_train_step(single, opt)(TrainState.create(single, opt), x, y)
+    assert got[0] == m1["loss"].item()
+    for n, p in single.named_parameters():
+        assert torch.equal(got[1][n], p), n
+
+
+@pytest.mark.cuda
+def test_elastic_restart_drill_at_world1_on_the_card(cuda_device, tmp_path):
+    """``run_drill`` with one NCCL rank, killed at step 13: it re-forms on a
+    fresh port, resumes from step 10, and ends bitwise equal (parameter
+    CRC) to the uninterrupted run."""
+    from tpudml_torch.elastic.drill import run_drill
+
+    report = run_drill(str(tmp_path), world=1, kill_rank=0, device="cuda", timeout_s=300.0)
+    assert report["ok"], report
+    assert report["bit_exact"] and report["reforms"] == 1
+    assert report["resume_step"] == 10 and report["steps_lost"] == 3
+    assert report["fresh_port"] and report["trace_pids"] == [0]

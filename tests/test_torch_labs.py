@@ -352,15 +352,23 @@ def test_task3_cli_end_to_end(tmp_path, division):
 @pytest.mark.parametrize("flag,item", [(["--zero1"], "item 7"), (["--plan", "p.json"], "item 10"),
                                        (["--zero1", "--obs", "--ckpt_dir", "ck"], "item 7")])
 def test_lab_clis_keep_unported_flags_raising(tmp_path, flag, item):
-    """``--plan`` (item 10) raises in both entries; ``--zero1`` (item 7,
-    ported since) runs: task2 shards its optimizer state (one epoch here),
-    task1 takes no engine and ignores it, as JAX's task1 does."""
-    flag = [str(tmp_path / f) if f == "ck" else f for f in flag]
+    """``--plan`` (item 10, ported since) and ``--zero1`` (item 7, ported
+    since) run in both entries: ``--plan`` fills ``zero1`` and
+    ``accum_steps`` from a planner's plan, and task2 shards its optimizer
+    state (one epoch here); task1 takes no engine and ignores ``--zero1``,
+    as JAX's task1 does."""
+    from tpudml_torch.core import build_parser, config_from_args
+    from tpudml_torch.plan import flagship_lm, make_plan, plan_to_json
+
+    if item == "item 10":
+        plan = make_plan(flagship_lm(), 1, verify=False)
+        plan["engine_config"].update(zero1=True, accum_steps=2)
+        (tmp_path / "p.json").write_text(plan_to_json(plan))
+    flag = [str(tmp_path / f) if f in ("ck", "p.json") else f for f in flag]
+    if item == "item 10":
+        cfg = config_from_args(build_parser().parse_args(flag))
+        assert cfg.zero1 and cfg.accum_steps == 2
     for module in (task1, task2):
-        if item == "item 10":
-            with pytest.raises(NotImplementedError, match=item):
-                _run(module, tmp_path, *flag)
-            continue
         m = _run(module, tmp_path, *flag, "--epochs", "1", "--log_every", "0")
         assert m["test_accuracy"] >= 0.0 and m["steps"] > 0
 

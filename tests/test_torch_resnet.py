@@ -559,19 +559,27 @@ def test_config_from_args_matches_jax(argv, monkeypatch):
     (["--plan", "p.json", "--obs"], "item 10"), (["--zero1", "--profile"], "item 7"),
     (["--plan", "p.json", "--ckpt_dir", "ck"], "item 10"), (["--plan", "p.json"], "item 10"),
 ])
-def test_unported_flags_parse_and_raise(flag, item):
-    """``--plan`` still raises, also beside the host flags (``--sentinel``,
-    ``--obs``, ``--profile``, ``--ckpt_dir``), which parse and are ported;
-    ``--zero1`` (item 7, ported since) parses into ``cfg.zero1`` beside
-    them."""
+def test_unported_flags_parse_and_raise(flag, item, tmp_path):
+    """``--plan`` (item 10, ported since) parses beside the host flags
+    (``--sentinel``, ``--obs``, ``--profile``, ``--ckpt_dir``) and fills the
+    knobs left at their defaults from the plan's engine_config (the
+    explicit ``--obs`` stays); ``--zero1`` (item 7, ported since) parses
+    into ``cfg.zero1`` beside them."""
+    from tpudml_torch.plan import flagship_lm, make_plan, plan_to_json
+
+    if item == "item 10":
+        plan = make_plan(flagship_lm(), 1, verify=False)
+        plan["engine_config"].update(zero1=True, accum_steps=2, sentinel=True)
+        (tmp_path / "p.json").write_text(plan_to_json(plan))
+        flag = [str(tmp_path / f) if f == "p.json" else f for f in flag]
     args = build_parser().parse_args(flag)
+    cfg = config_from_args(args)
     if item == "item 7":
-        cfg = config_from_args(args)
         assert cfg.zero1 and cfg.sentinel == ("--sentinel" in flag)
         assert cfg.profile == ("--profile" in flag)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        config_from_args(args)
+    assert cfg.zero1 and cfg.accum_steps == 2 and cfg.sentinel
+    assert cfg.obs == ("--obs" in flag) and cfg.ckpt_dir == ("ck" if "ck" in flag else None)
 
 
 def test_task_common_world_and_checkpointing(tmp_path):

@@ -105,6 +105,20 @@ def test_tp_serving_and_cp_modules_are_among_the_checked(module):
     assert REPO / (module.replace(".", "/") + ".py") in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "tpudml_torch.plan", "tpudml_torch.plan.space", "tpudml_torch.plan.score",
+    "tpudml_torch.plan.prune", "tpudml_torch.plan.emit", "tpudml_torch.plan.__main__",
+    "tpudml_torch.elastic", "tpudml_torch.elastic.controller", "tpudml_torch.elastic.replan",
+    "tpudml_torch.elastic.drill", "tpudml_torch.elastic.__main__", "tpudml_torch.obs.drift"])
+def test_control_plane_modules_are_among_the_checked(module):
+    """The planner, the elastic controller and the drift monitor's pure
+    half are among the modules the jax-blocked import and the AST scan
+    cover."""
+    assert module in list(_modules())
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert (path if path.exists() else path.with_suffix("") / "__init__.py") in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_tpudml_import(path):
     tree = ast.parse(path.read_text())

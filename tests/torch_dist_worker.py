@@ -39,7 +39,10 @@ checkpoint and resume; task4 ``--schedule gpipe | 1f1b``), ``serve_tp``
 ``cp`` (ring and Ulysses attention on the shards of ``<job>/cases.pt``'s
 global q, k, v, the ``ContextParallel`` engine from JAX's parameters) and
 ``cp_cli`` (task5 ``--parallel cp`` from JAX's parameters, dropout masks
-JAX's).
+JAX's), ``plan`` (the planner's verification step of the base candidates,
+a verified plan, a winner whose gradient all-reduce is removed on
+purpose, and every survivor and capability-pruned candidate built) and
+``plan_cli`` (task2 ``--plan`` from JAX's parameters).
 """
 
 from __future__ import annotations
@@ -1557,6 +1560,122 @@ def suite_cp_cli(job: Path, rank: int, world: int) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- plan
+
+
+def _no_allreduce(build):
+    """A test double of ``plan.emit.build_candidate``: the first candidate
+    it builds gets a DataParallel whose gradient all-reduce is removed (each
+    rank keeps its own gradient), every later one is built as it is."""
+    state = {"first": None}
+
+    def broken(spec, cand, device=None):
+        eng, ts, step, batch = build(spec, cand, device)
+        if state["first"] in (None, cand.key()):
+            state["first"] = cand.key()
+            eng.aggregator = lambda grads, group: grads
+            step = eng.make_train_step()
+        return eng, ts, step, batch
+
+    return broken
+
+
+def suite_plan(job: Path, rank: int, world: int) -> dict:
+    """At this world on the flagship spec: the verification step of the
+    base dp, zero1, fsdp and tp candidates; a verified plan; a dp plan whose
+    winner loses its gradient all-reduce (demoted, the next survivor wins);
+    every survivor built, and every capability-pruned candidate built or
+    refused with the table's message."""
+    from tpudml_torch.capabilities import TABLE, CompositionError
+    from tpudml_torch.plan import emit
+    from tpudml_torch.plan.space import Candidate, enumerate_candidates, flagship_lm
+    from tpudml_torch.plan.prune import prune
+
+    import time
+
+    spec = flagship_lm()
+    out = {"verify": {}, "engine_bytes": {}, "t": [time.perf_counter()]}
+    for engine in ("dp", "zero1", "fsdp", "tp"):
+        cand = Candidate(engine=engine, mesh=((("model" if engine == "tp" else "data"),
+                                              world),),
+                         zero1=engine == "zero1", zero1_overlap=False, accum_steps=1,
+                         fused_xent=False, sentinel=False, obs=False)
+        out["verify"][engine] = emit.verify_candidate(spec, cand, device="cpu")
+        if engine in ("fsdp", "tp"):  # the engine's own count of its step's bytes
+            eng, ts, step, (x, y) = emit.build_candidate(spec, cand, "cpu")
+            step(ts, x, y)
+            out["engine_bytes"][engine] = eng.step_wire_bytes()
+    out["t"].append(time.perf_counter())
+    if world == 4:  # a pipeline of two blocks a stage on {data: 2, stage: 2}
+        from tpudml_torch.plan.space import ModelSpec
+
+        deep = ModelSpec(**dict(spec.to_dict(), num_layers=4))
+        cand = Candidate(engine="pp_dp", mesh=(("data", 2), ("stage", 2)), zero1=False,
+                         zero1_overlap=False, accum_steps=1, fused_xent=False, sentinel=False,
+                         obs=False)
+        out["verify"]["pp_dp"] = emit.verify_candidate(deep, cand, device="cpu")
+    log: list = []
+    out["plan"] = emit.make_plan(spec, world, device="cpu", verify_log=log)
+    out["log"] = log
+    real = emit.build_candidate
+    emit.build_candidate = _no_allreduce(real)
+    try:
+        out["broken"] = emit.make_plan(spec, world, engines=["dp"], device="cpu")
+    finally:
+        emit.build_candidate = real
+    out["t"].append(time.perf_counter())
+    survivors, dropped = prune(spec, enumerate_candidates(world))
+    for cand in survivors:
+        real(spec, cand, "cpu")
+    out["built"] = len(survivors)
+    out["pruned"] = []
+    for rec in dropped:
+        if not rec.rule.startswith("capability:"):
+            continue
+        try:
+            real(spec, rec.candidate, "cpu")
+            got = None
+        except CompositionError as e:
+            got = str(e)
+        key = rec.rule.split(":", 1)[1]
+        out["pruned"].append((rec.candidate.key(), key, got, TABLE[key].message))
+    out["t"].append(time.perf_counter())
+    return out
+
+
+def suite_plan_cli(job: Path, rank: int, world: int) -> dict:
+    """task2 at this world on ``<job>/plan.json`` (a plan the JAX planner
+    emitted): with ``--plan`` alone, with the plan's knobs given as flags
+    instead, and with ``--plan`` beside an explicit ``--accum_steps 4``;
+    each run's metrics and the knobs its DataParallel was built with."""
+    from tpudml_torch.parallel import dp as dp_module
+    from tpudml_torch.tasks import task2
+
+    built = []
+    real = dp_module.DataParallel.__init__
+
+    def record(self, *args, **kwargs):
+        built.append({k: kwargs[k] for k in ("zero1", "accum_steps", "aggregation",
+                                             "sentinel")})
+        real(self, *args, **kwargs)
+
+    base = ["--device", "cpu", "--dataset", "synthetic", "--epochs", "1", "--batch_size",
+            "16", "--log_every", "0", "--log_dir", str(job / f"logs{rank}")]
+    runs = {"plan": ["--plan", str(job / "plan.json")],
+            "flags": ["--zero1", "--accum_steps", "2"],
+            "plan_accum4": ["--plan", str(job / "plan.json"), "--accum_steps", "4"]}
+    dp_module.DataParallel.__init__ = record
+    try:
+        out = {}
+        for name, flags in runs.items():
+            m = task2.main(base + flags)
+            out[name] = {"engine": built[-1], "loss": m["loss"],
+                         "test_accuracy": m["test_accuracy"], "world": m["world"]}
+    finally:
+        dp_module.DataParallel.__init__ = real
+    return out
+
+
 SUITES = {"dp": suite_dp, "resnet": suite_resnet, "comm": suite_comm,
           "task5": suite_task5, "ep": suite_ep, "labs": suite_labs, "obs": suite_obs,
           "sentinel": suite_sentinel, "gspmd": suite_gspmd, "gspmd2d": suite_gspmd2d,
@@ -1564,7 +1683,8 @@ SUITES = {"dp": suite_dp, "resnet": suite_resnet, "comm": suite_comm,
           "zero1": suite_zero1, "sharded": suite_sharded, "fsdp": suite_fsdp,
           "sharded_xent": suite_sharded_xent, "overlap": suite_overlap,
           "mp_cli": suite_mp_cli, "pp": suite_pp, "pp_cli": suite_pp_cli,
-          "serve_tp": suite_serve_tp, "cp": suite_cp, "cp_cli": suite_cp_cli}
+          "serve_tp": suite_serve_tp, "cp": suite_cp, "cp_cli": suite_cp_cli,
+          "plan": suite_plan, "plan_cli": suite_plan_cli}
 
 
 def main() -> None:

@@ -1,12 +1,17 @@
-"""The port's copy of the engine-composition rejections that its engines
-raise (the rows of ``tpudml/capabilities.py`` that ``DataParallel``,
-``GSPMDParallel``, the pipelines, ``ZeRO1``, ``tp_overlap_matmul``, task5
-``--parallel ep`` and ``pp``, the serving engine and ``TPServing`` check, with the JAX wording; the
-planner's full table is ROADMAP.md queue 1 item 10).
+"""The port's engine-composition capability table (the port of
+``tpudml/capabilities.py``): one source of truth for what does NOT
+compose.
 
-Guard sites call :func:`reject` with an entry's key instead of writing
-the message; each entry keeps its ``when`` predicate over a flat
-candidate dict, as in the JAX table. Stdlib only.
+Guard sites (``DataParallel``, ``GSPMDParallel``, the pipelines,
+``ZeRO1``, ``tp_overlap_matmul``, task5 ``--parallel ep`` and ``pp``, the
+serving engine and ``TPServing``) call :func:`reject` with an entry's key
+instead of writing the message, and the planner (``tpudml_torch.plan``)
+prunes its candidates with each entry's ``when`` predicate over a flat
+candidate dict, through :func:`candidate_rejection`. The rows, their
+messages, their predicates and their order are JAX's: the first row that
+fires names the rejection, so the order is part of the planner's output.
+JAX's rows of modules the port does not have yet (the serving fleet's and
+``mpmd/``'s) are left out at their places. Stdlib only.
 """
 
 from __future__ import annotations
@@ -73,7 +78,55 @@ _ENTRIES = (
         ),
         when=lambda c: _g(c, "engine") in _GSPMD_FAMILY
         and bool(_g(c, "fused_xent"))
-        and _g(c, "schedule", "gpipe") == "gpipe",
+        and (_g(c, "accum_steps", 1) != 1 or bool(_g(c, "custom_loss"))),
+    ),
+    Capability(
+        key="zero1_overlap_needs_zero1",
+        owner="tpudml_torch.parallel.dp",
+        message="zero1_overlap requires zero1=True",
+        when=lambda c: bool(_g(c, "zero1_overlap")) and not _g(c, "zero1"),
+    ),
+    Capability(
+        key="zero1_replaces_aggregation",
+        owner="tpudml_torch.parallel.dp",
+        message=(
+            "zero1=True replaces gradient aggregation with its own "
+            "reduce-scatter; leave aggregation='allreduce' (the default)"
+        ),
+        when=lambda c: bool(_g(c, "zero1"))
+        and _g(c, "aggregation", "allreduce") != "allreduce",
+    ),
+    Capability(
+        key="zero1_overlap_needs_accum",
+        owner="tpudml_torch.parallel.dp",
+        message=(
+            "zero1_overlap needs accum_steps >= 2: the overlap hides "
+            "the param all_gather behind the micro-batch scan"
+        ),
+        when=lambda c: bool(_g(c, "zero1_overlap"))
+        and bool(_g(c, "zero1"))
+        and _g(c, "accum_steps", 1) < 2,
+    ),
+    Capability(
+        key="zero1_overlap_measure_comm",
+        owner="tpudml_torch.parallel.dp",
+        message=(
+            "measure_comm is unsupported with zero1_overlap (the "
+            "split bracketing assumes the gather-at-end step layout); "
+            "use overlap_report() for exposed/hidden attribution"
+        ),
+        when=lambda c: bool(_g(c, "zero1_overlap"))
+        and bool(_g(c, "zero1"))
+        and bool(_g(c, "measure_comm")),
+    ),
+    Capability(
+        key="zero1_optimizer_needs_zero1",
+        owner="tpudml_torch.parallel.dp",
+        message=(
+            "a ZeRO1-wrapped optimizer needs zero1=True (the "
+            "engine must shard the optimizer state it creates)"
+        ),
+        when=None,  # constructor invariant: the planner never pre-wraps
     ),
     Capability(
         key="pp_zero1_needs_batch_axis",
@@ -125,54 +178,6 @@ _ENTRIES = (
         when=lambda c: _g(c, "engine") == "pp_dp"
         and bool(_g(c, "zero1"))
         and bool(_g(c, "grad_clip")),
-    ),
-    Capability(
-        key="zero1_overlap_needs_zero1",
-        owner="tpudml_torch.parallel.dp",
-        message="zero1_overlap requires zero1=True",
-        when=lambda c: bool(_g(c, "zero1_overlap")) and not _g(c, "zero1"),
-    ),
-    Capability(
-        key="zero1_replaces_aggregation",
-        owner="tpudml_torch.parallel.dp",
-        message=(
-            "zero1=True replaces gradient aggregation with its own "
-            "reduce-scatter; leave aggregation='allreduce' (the default)"
-        ),
-        when=lambda c: bool(_g(c, "zero1"))
-        and _g(c, "aggregation", "allreduce") != "allreduce",
-    ),
-    Capability(
-        key="zero1_overlap_needs_accum",
-        owner="tpudml_torch.parallel.dp",
-        message=(
-            "zero1_overlap needs accum_steps >= 2: the overlap hides "
-            "the param all_gather behind the micro-batch scan"
-        ),
-        when=lambda c: bool(_g(c, "zero1_overlap"))
-        and bool(_g(c, "zero1"))
-        and _g(c, "accum_steps", 1) < 2,
-    ),
-    Capability(
-        key="zero1_overlap_measure_comm",
-        owner="tpudml_torch.parallel.dp",
-        message=(
-            "measure_comm is unsupported with zero1_overlap (the "
-            "split bracketing assumes the gather-at-end step layout); "
-            "use overlap_report() for exposed/hidden attribution"
-        ),
-        when=lambda c: bool(_g(c, "zero1_overlap"))
-        and bool(_g(c, "zero1"))
-        and bool(_g(c, "measure_comm")),
-    ),
-    Capability(
-        key="zero1_optimizer_needs_zero1",
-        owner="tpudml_torch.parallel.dp",
-        message=(
-            "a ZeRO1-wrapped optimizer needs zero1=True (the "
-            "engine must shard the optimizer state it creates)"
-        ),
-        when=None,  # constructor invariant: the planner never pre-wraps
     ),
     Capability(
         key="ep_dropout",
@@ -246,6 +251,7 @@ _ENTRIES = (
         when=lambda c: bool(_g(c, "serve_tp"))
         and _g(c, "serve_weight_quant") is not None,
     ),
+    # JAX's serve_fleet_spec (tpudml.serve.fleet.router) comes with the serving fleet.
     Capability(
         key="serve_tp_dense_only",
         owner="tpudml_torch.serve.tp",
@@ -258,7 +264,8 @@ _ENTRIES = (
             _g(c, "serve_cache_layout", "dense") != "dense"
             or _g(c, "serve_spec_k", 0) > 0
         ),
-    ),
+    ),    # JAX's mpmd_moe_aux_loss, mpmd_fused_xent_head and mpmd_serve
+    # (tpudml.mpmd.spec) come with mpmd/.
 )
 
 TABLE: dict[str, Capability] = {e.key: e for e in _ENTRIES}
@@ -272,3 +279,13 @@ def reject(key: str, exc: type = CompositionError):
     a site raise a subclass of :class:`CompositionError`.
     """
     raise exc(TABLE[key].message)
+
+
+def candidate_rejection(candidate: dict) -> Optional[str]:
+    """First table key whose predicate rejects ``candidate`` (insertion
+    order — deterministic), or None when every statically-decidable
+    composition rule admits it."""
+    for key, cap in TABLE.items():
+        if cap.when is not None and cap.when(candidate):
+            return key
+    return None

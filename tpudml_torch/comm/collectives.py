@@ -18,6 +18,9 @@ names, shapes and dtypes, in the same order.
 
 from __future__ import annotations
 
+import inspect
+from contextlib import contextmanager
+from dataclasses import dataclass
 from typing import Callable
 
 import torch
@@ -476,3 +479,75 @@ def aggregation_wire_bytes(name: str, grads: Tree, world: int) -> float:
     ``name`` strategy."""
     get_aggregator(name)
     return _AGGREGATOR_WIRE[name.lower()](_leaves(grads)[1], world)
+
+
+# ------------------------------------------------------------- wire meter
+
+# The torch.distributed entry points the port's collectives go through:
+# name -> (the ring model's kind, the argument whose bytes are the payload).
+_METERED = {
+    "all_reduce": ("psum", "tensor"),
+    "broadcast": ("pbroadcast", "tensor"),
+    "all_gather_into_tensor": ("all_gather", "input_tensor"),
+    "all_gather": ("all_gather", "tensor"),
+    "reduce_scatter_tensor": ("psum_scatter", "input"),
+    "all_to_all_single": ("all_to_all", "input"),
+    "all_to_all": ("all_to_all", "input_tensor_list"),
+}
+
+
+@dataclass
+class WireMeter:
+    """What :func:`wire_meter` counted: the ring-model wire bytes this
+    process moved (``collective_wire_bytes`` of each call's payload over
+    its group)."""
+
+    wire_bytes: float = 0.0
+
+
+_ACTIVE: list = []
+
+
+@contextmanager
+def wire_meter():
+    """Count the wire bytes of every collective issued in the body, at the
+    ``torch.distributed`` call itself, so that the engines' own calls (the
+    weight gathers, the pipelines' tick exchanges, the fused head's sums)
+    count as well as this module's. Each call adds the ring model's bytes
+    (``comm.timing.collective_wire_bytes``) for its payload over its
+    group's size; a ``batch_isend_irecv`` adds the bytes it sends. The
+    plan's verification step reads it. Not reentrant."""
+    if _ACTIVE:
+        raise RuntimeError("wire_meter is already counting")
+    meter = WireMeter()
+    real = {name: getattr(dist, name) for name in (*_METERED, "batch_isend_irecv")}
+
+    def metered(name):
+        kind, arg = _METERED[name]
+        fn, sig = real[name], inspect.signature(real[name])
+
+        def call(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs).arguments
+            payload = bound[arg]
+            nbytes = (_nbytes(payload) if isinstance(payload, list)
+                      else float(payload.numel() * payload.element_size()))
+            meter.wire_bytes += collective_wire_bytes(kind, nbytes, _world(bound.get("group")))
+            return fn(*args, **kwargs)
+
+        return call
+
+    def batch_isend_irecv(p2p_op_list):
+        sent = [op.tensor for op in p2p_op_list if op.op.__name__ == "isend"]
+        meter.wire_bytes += _nbytes(sent)  # a sent buffer crosses the wire once
+        return real["batch_isend_irecv"](p2p_op_list)
+
+    _ACTIVE.append(meter)
+    try:
+        for name in _METERED:
+            setattr(dist, name, metered(name))
+        dist.batch_isend_irecv = batch_isend_irecv
+        yield meter
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+        _ACTIVE.pop()

@@ -10,9 +10,8 @@ as the JAX package. The ``coordinator_address`` is the rendezvous of
 counterpart: the process group replaces the mesh (one process a device,
 its ranks the replicas), so ``TrainConfig`` has no ``mesh`` field.
 
-Flags of features not ported yet (``--plan``) parse, and
-:func:`config_from_args` raises ``NotImplementedError`` naming their
-ROADMAP item when one is set (``UNPORTED``).
+``--plan plan.json`` (``python -m tpudml_torch.plan``) fills the knobs the
+command line left at their defaults from the plan's ``engine_config``.
 """
 
 from __future__ import annotations
@@ -23,9 +22,8 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
-# Flags of unported features: set, they raise naming the item.
-UNPORTED = {"plan": "10 (plan/)"}
+# The TrainConfig knobs a plan's engine_config fills (--plan).
+PLAN_KNOBS = ("zero1", "accum_steps", "sentinel", "obs", "aggregation")
 
 
 @dataclass
@@ -155,18 +153,16 @@ def build_parser(defaults: TrainConfig | None = None,
     p.add_argument("--master_port", type=str, default=None)
     p.add_argument("--mode", type=str, default=None, help="alias of --division (task4 parity)")
     p.add_argument("--plan", type=str, default=None, metavar="PLAN_JSON",
-                   help="a planner-emitted plan.json (not ported)")
+                   help="apply a planner-emitted plan.json (python -m "
+                        "tpudml_torch.plan): its engine_config fills every knob "
+                        "left at its default (explicit flags win)")
     for name in extra:
         p.add_argument(name)
     return p
 
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
-    """Materialize a TrainConfig from parsed CLI args + environment; a set
-    flag of an unported feature raises (``UNPORTED``)."""
-    for name, item in UNPORTED.items():
-        if getattr(args, name, None):
-            raise NotImplementedError(f"--{name} {NOT_PORTED.format(item)}")
+    """Materialize a TrainConfig from parsed CLI args + environment."""
     cfg = TrainConfig()
     for f in dataclasses.fields(TrainConfig):
         if f.name in ("dist", "data"):
@@ -189,6 +185,17 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         # task4 historical values: "division" -> partition, "sampling" -> sampling
         cfg.data.division = {"division": "partition", "sampling": "sampling"}.get(
             args.mode, args.mode)
+    # Planner output (python -m tpudml_torch.plan). Same precedence contract
+    # as the env knobs below: the plan's engine_config fills only the knobs
+    # the user left at their defaults, so explicit flags always win.
+    if getattr(args, "plan", None):
+        from tpudml_torch.plan.emit import load_plan
+
+        ec = load_plan(args.plan)["engine_config"]
+        defaults = TrainConfig()
+        for name in PLAN_KNOBS:
+            if name in ec and getattr(cfg, name) == getattr(defaults, name):
+                setattr(cfg, name, ec[name])
     # Fault-injection knobs exported by a launcher ride the environment so
     # the command line stays rank-agnostic; the CLI wins over them.
     if cfg.bottleneck_rank is None and os.environ.get("TPUDML_BOTTLENECK_RANK"):

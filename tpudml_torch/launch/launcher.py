@@ -37,9 +37,9 @@ def restart_backoff(spec: ClusterSpec, rng: random.Random, attempt: int) -> floa
     """Seeded exponential backoff delay before restart ``attempt`` (1-based):
     ``restart_backoff_s * factor**(attempt-1)`` plus uniform jitter drawn
     from ``rng`` — the one backoff schedule shared by :func:`launch`'s
-    whole-job restarts and (with the control planes, ROADMAP.md queue 1
-    item 10) the elastic controller's re-forms, deterministic per (spec,
-    seed) and equal to JAX's schedule."""
+    whole-job restarts and the elastic controller's re-forms
+    (``tpudml_torch.elastic``), deterministic per (spec, seed) and equal
+    to JAX's schedule."""
     if spec.restart_backoff_s <= 0:
         return 0.0
     delay = spec.restart_backoff_s * spec.restart_backoff_factor ** (attempt - 1)
@@ -152,8 +152,8 @@ def launch_once(
     sink=None,
 ) -> LaunchResult:
     """Single-attempt launch: the containment core without the restart
-    loop, the primitive multi-gang supervisors (elastic, MPMD; ROADMAP.md
-    queue 1 item 10) build rounds from."""
+    loop, the primitive multi-gang supervisors (``tpudml_torch.elastic``;
+    MPMD, ROADMAP.md queue 1 item 10) build rounds from."""
     return _launch_once(cmd, spec, sink)
 
 

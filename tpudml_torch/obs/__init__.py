@@ -1,9 +1,12 @@
-"""The observability layer of the port (``tpudml.obs`` without the drift
-monitor, ROADMAP.md queue 1 item 11):
+"""The observability layer of the port (``tpudml.obs``; the drift
+monitor's live regimes and ``python -m tpudml_torch.obs --check-drift``
+wait for the analyzers, ROADMAP.md queue 1 item 11):
 
 - :mod:`tpudml_torch.obs.tracer`    — structured spans → Perfetto ``trace.json``.
 - :mod:`tpudml_torch.obs.stepstats` — the DP step's :class:`StepStats`.
 - :mod:`tpudml_torch.obs.convert`   — serve event log → trace spans (pure).
+- :mod:`tpudml_torch.obs.drift`     — static-vs-measured drift records and
+  reports (pure: from measured pairs).
 """
 
 from tpudml_torch.obs.convert import serve_trace_events, write_serve_trace

@@ -8,17 +8,20 @@ resilience layer instead of asserting it.
 - **process faults** (:func:`rank_kill_hook`, :func:`straggler_hook`)
   kill or delay a rank from inside a training loop's hooks (the
   launcher's and the resume path's prey);
+- **elastic adversaries** (:func:`reform_straggler_hook`,
+  :func:`occupy_port`) stall a rank rejoining a re-formed job and squat
+  on a coordinator port (the elastic controller's prey);
 - **checkpoint vandals** (:func:`vandalize`, registry :data:`VANDALS`)
   corrupt a checkpoint directory the four ways checkpoints die: a
   truncated array file, a silent bit flip, a missing manifest and a
   partial ``step_`` dir (``verify=True`` / ``restore_latest_valid``'s
-  prey).
+  prey);
+- **plan vandals** (:func:`vandalize_plan`, registry
+  :data:`PLAN_VANDALS`) tear, garble or mis-version a ``plan.json``
+  (``Replanner.load_existing``'s prey).
 
 Every fault takes an explicit seed, the same as JAX's, and none reads
-the clock or ambient randomness, so an injected run repeats exactly. The
-elastic and planner adversaries (``occupy_port``,
-``reform_straggler_hook``, the plan vandals) come with the control
-planes (ROADMAP.md queue 1 item 10).
+the clock or ambient randomness, so an injected run repeats exactly.
 """
 
 from __future__ import annotations
@@ -130,6 +133,51 @@ def straggler_hook(
     return hook
 
 
+def reform_straggler_hook(
+    delay_s: float,
+    *,
+    round: int,
+    rank: int | None = None,
+):
+    """A straggler that fires only in elastic re-form round ``round``
+    (``TPUDML_ELASTIC_ROUND``, the controller's per-incarnation env):
+    the rank comes back after a failure but stalls before its first
+    step, delaying the whole re-formed gang — the slow-rejoiner
+    adversary. Fires once (the first hook call of that round)."""
+    fired = [False]
+
+    def hook(*, step, **_):
+        del step
+        if fired[0]:
+            return
+        if int(os.environ.get("TPUDML_ELASTIC_ROUND", "0")) != round:
+            return
+        if rank is not None and int(os.environ.get("TPUDML_PROCESS_ID", "0")) != rank:
+            return
+        fired[0] = True
+        time.sleep(delay_s)
+
+    return hook
+
+
+def occupy_port(port: int, host: str = "127.0.0.1"):
+    """Bind-and-listen a squatter socket on ``port`` — the
+    coordinator-port-collision adversary. Returns the open socket (close
+    it to release the port); raises ``OSError`` if the port is already
+    taken. The elastic controller must notice the pinned port is dead
+    and fall back to a fresh one instead of crash-looping."""
+    import socket
+
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    try:
+        s.bind((host, port))
+        s.listen(1)
+    except OSError:
+        s.close()
+        raise
+    return s
+
+
 # -------------------------------------------------------- checkpoint vandals
 
 
@@ -236,3 +284,54 @@ def vandalize(
             raise FileNotFoundError(f"no step_{step} under {directory}")
         target = by_step[step]
     return VANDALS[kind](target, seed)
+
+
+# ----------------------------------------------------------- plan vandals
+
+
+def plan_vandal_truncate(path: str, seed: int = 0) -> str:
+    """Cut the plan file in half mid-JSON (a write torn by a crash)."""
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.truncate(max(1, size // 2))
+    return path
+
+
+def plan_vandal_garbage(path: str, seed: int = 0) -> str:
+    """Replace the plan with non-JSON bytes."""
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        f.write(rng.integers(0, 256, size=64, dtype=np.uint8).tobytes())
+    return path
+
+
+def plan_vandal_bad_version(path: str, seed: int = 0) -> str:
+    """Stamp an unsupported schema version into otherwise-valid JSON —
+    the one corruption only ``load_plan``'s version gate catches."""
+    import json
+
+    with open(path) as f:
+        plan = json.load(f)
+    plan["version"] = 99
+    with open(path, "w") as f:
+        json.dump(plan, f, indent=2, sort_keys=True)
+        f.write("\n")
+    return path
+
+
+#: name -> vandal(plan_path, seed) -> touched path
+PLAN_VANDALS = {
+    "truncate": plan_vandal_truncate,
+    "garbage": plan_vandal_garbage,
+    "bad_version": plan_vandal_bad_version,
+}
+
+
+def vandalize_plan(path: str, kind: str, *, seed: int = 0) -> str:
+    """Corrupt a ``plan.json`` the three ways the re-plan path can lose
+    it between emit and relaunch. The consumer contract under attack:
+    ``Replanner.load_existing`` and the drill child must reject the file
+    loudly or fall back, never train under a half-parsed plan."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    return PLAN_VANDALS[kind](path, seed)

@@ -23,7 +23,9 @@ trace under ``<run_dir>/profile``, ``--ckpt_dir`` / ``--ckpt_every`` /
 ``--resume`` checkpoint and resume (under ``--zero1`` at world 1 only:
 each rank holds its chunk of the optimizer state), ``--zero1`` shards the
 optimizer state over the replicas (``DataParallel(zero1=True)``).
-``--plan`` raises, naming its ROADMAP item.
+``--plan plan.json`` fills the knobs left at their defaults (``--zero1``,
+``--accum_steps``, ``--sentinel``, ``--obs``, ``--aggregation``) from a
+plan of ``python -m tpudml_torch.plan``; explicit flags win.
 
 Run: ``python -m tpudml_torch.tasks.task2 [--aggregation allgather] [--measure_comm]
 [--bottleneck_rank 1] [--zero1] [--sentinel] [--obs] [--device cpu]``

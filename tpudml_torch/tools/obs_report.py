@@ -8,11 +8,14 @@ section:
   ``obs/*`` StepStats tags, comm and serve scalars);
 - ``trace.json``     — the Chrome trace-event export (per-category span
   count / total / p50 / p99);
-- ``obs/drift.json`` — a static-vs-measured drift report, read only if a
-  run left one (the port's drift monitor is ROADMAP.md queue 1 item 11).
+- ``obs/drift.json`` — a static-vs-measured drift report
+  (``tpudml_torch.obs.drift``), read if a run left one;
+- ``elastic.json``   — the elastic controller's reform/re-plan history
+  (``tpudml_torch.elastic``'s drills write it), plus the
+  ``elastic``-category instants in the exported traces.
 
-The elastic, fleet, MPMD and residual sections wait for the modules that
-write their files (items 10 and 11).
+The fleet, MPMD and residual sections wait for the modules that write
+their files (ROADMAP.md queue 1 items 10 and 11).
 
 Usage::
 
@@ -81,19 +84,97 @@ def trace_summary(path: Path) -> str | None:
 
 
 def drift_summary(path: Path) -> str | None:
-    """The verdict table of a drift report (``obs/drift.json``), in JAX's
-    ``format_drift_table`` layout."""
+    """The drift monitor's verdict table (``obs/drift.json``)."""
     if not path.is_file():
         return None
-    doc = json.loads(path.read_text())
-    lines = [f"{'entrypoint':<16} {'static MB':>10} {'measured MB':>12} {'rel err':>8}  status"]
-    for r in doc["records"]:
-        lines.append(f"{r['entrypoint']:<16} {r['static_wire_bytes'] / 1e6:>10.3f} "
-                     f"{r['measured_wire_bytes'] / 1e6:>12.3f} "
-                     f"{r['rel_err'] * 100:>7.2f}%  {r['status']}")
-    lines.append(f"worst {doc['worst_rel_err'] * 100:.2f}% vs threshold "
-                 f"{doc['threshold'] * 100:.0f}% — " + ("OK" if doc["ok"] else "DRIFT"))
-    return "\n".join(lines)
+    from tpudml_torch.obs.drift import format_drift_table
+
+    return format_drift_table(json.loads(path.read_text()))
+
+
+def elastic_summary(run_dir: Path) -> str | None:
+    """Reform/re-plan history from the elastic controller's artifacts:
+    ``elastic.json`` (ElasticResult: one row per round, one per re-plan
+    decision) plus any ``elastic``-category instants found in the
+    exported traces (``trace_controller.json`` / ``trace.json``)."""
+    path = run_dir / "elastic.json"
+    if not path.is_file():
+        return None
+    res = json.loads(path.read_text())
+    out = [
+        f"outcome: {res.get('stop_reason', '?')}  "
+        f"success={res.get('success')}  reforms={res.get('reforms')}  "
+        f"final_world={res.get('final_world')}  "
+        f"wall={res.get('total_elapsed_s', 0.0):.1f}s"
+    ]
+    rounds = res.get("records") or []
+    if rounds:
+        rows = [
+            [
+                r.get("round"),
+                r.get("world"),
+                r.get("coordinator_port"),
+                r.get("failed_rank") if r.get("failed_rank") is not None else "-",
+                "yes" if r.get("timed_out") else "no",
+                f"{r.get('backoff_s', 0.0):.3f}",
+                f"{r.get('elapsed_s', 0.0):.2f}",
+            ]
+            for r in rounds
+        ]
+        out.append(_table(
+            ["round", "world", "port", "failed_rank", "timed_out",
+             "backoff_s", "elapsed_s"],
+            rows,
+        ))
+    replans = res.get("replans") or []
+    if replans:
+        rows = []
+        for r in replans:
+            verdicts = ",".join(
+                rc.get("verdict", "?") for rc in r.get("receipts", ())
+            ) or "-"
+            rows.append([
+                r.get("round", "-"),
+                r.get("trigger"),
+                f"{r.get('old_world')}→{r.get('new_world')}",
+                r.get("old_key"),
+                r.get("new_key"),
+                "yes" if r.get("switched") else "no",
+                f"{r.get('latency_s', 0.0) * 1e3:.1f}",
+                verdicts,
+                (r.get("error") or "-"),
+            ])
+        out.append(_table(
+            ["round", "trigger", "world", "old plan", "new plan",
+             "switched", "plan_ms", "receipts", "error"],
+            rows,
+        ))
+    else:
+        out.append("(no re-plans recorded)")
+    # Controller-side instants, if a trace was exported alongside.
+    instants = []
+    for name in ("trace_controller.json", "trace.json"):
+        tpath = run_dir / name
+        if not tpath.is_file():
+            continue
+        try:
+            doc = json.loads(tpath.read_text())
+        except ValueError:
+            continue
+        instants += [
+            e for e in doc.get("traceEvents", [])
+            if e.get("ph") == "i" and e.get("cat") == "elastic"
+        ]
+    if instants:
+        rows = [
+            [
+                e.get("name"),
+                json.dumps(e.get("args", {}), sort_keys=True),
+            ]
+            for e in sorted(instants, key=lambda e: e.get("ts", 0))
+        ]
+        out.append(_table(["instant", "args"], rows))
+    return "\n\n".join(out)
 
 
 def report(run_dir: str | Path) -> str:
@@ -102,6 +183,7 @@ def report(run_dir: str | Path) -> str:
         ("metrics.jsonl", metrics_summary(run_dir / "metrics.jsonl")),
         ("trace.json", trace_summary(run_dir / "trace.json")),
         ("obs/drift.json", drift_summary(run_dir / "obs" / "drift.json")),
+        ("elastic.json (reform/re-plan)", elastic_summary(run_dir)),
     ]
     out = [f"== obs report: {run_dir} =="]
     found = False
