@@ -475,7 +475,23 @@ the CPU). Phases, each printing its own line(s):
    a ForwardMLP, which runs no kernel (``elastic_drill`` counts none).
    The shrink drill needs two NCCL ranks, two cards: it runs on the CPU
    in the tests.
-25. one JSON line of per-kernel numbers (launches summed over the main
+25. main path 19, the MPMD pipelines (``[mpmd]``): (a) two ``StageWorker``
+   threads on the card over a ``channel_pair`` (a bf16 trunk with 2
+   microbatches feeding an f32 head with 1, global batch 8, widths
+   8-16-4), 5 steps against ``reference_step_fn`` on the card (losses and
+   parameters within MPMD_TOL); (b) ``run_mpmd_drill`` with its four stage
+   processes on the one card (each stage group sums over gloo; boundaries
+   over TCP): stage 1 rank 1 killed at step 13, the survivors drain, the
+   re-plan fails open, the groups re-form [2, 2] -> [2, 1] in place on
+   fresh ports and resume from step 10, every survivor's parameter CRC
+   the uninterrupted reference's; the restart latency, the backoff and the
+   wall against an uninterrupted run printed; (c) one timed configuration,
+   the same split at feature 1024, hidden 4096x3, classes 1024, global
+   batch 256, two stage threads sharing the card: ms a step, frames and
+   ``p2p_wire_bytes`` a step, the busy share. The stage programs are plain
+   products, as JAX's are outside any Pallas kernel, so the path launches
+   no kernel of the port (``mpmd`` counts none).
+26. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -4261,11 +4277,11 @@ HOST_SERVE = ["--vocab", "32768", "--embed_dim", "512", "--num_heads", "8", "--n
 # environment asks for it), and it writes its launch counts at the end.
 DRILL_CHILD = """
 import json, os, sys
-import torch
-torch.backends.cuda.matmul.allow_tf32 = False
+from tpudml_torch.device import no_tf32
 from tpudml_torch.ops import KERNELS
 from tpudml_torch.resilience import rank_kill_hook
 from tpudml_torch.tasks import task5_longcontext as task5
+no_tf32("cuda")
 hooks = []
 if os.environ.get("DRILL_KILL_AT"):
     hooks.append(rank_kill_hook(int(os.environ["DRILL_KILL_AT"]),
@@ -5908,6 +5924,171 @@ def elastic_phase() -> dict[str, dict[str, int]]:
     return {"elastic_drill": launches}
 
 
+# ---------------------------------------------- the MPMD pipelines (phase 25)
+
+MPMD_TIMEOUT_S = 300.0
+# (a): tests/test_mpmd_pipeline.py's spec and widths: a bf16 trunk with 2
+# microbatches feeding an f32 head with 1, global batch 8, 5 steps.
+MPMD_KW = dict(feature_dim=8, hidden=(16,), classes=4, seed=0, lr=0.1, momentum=0.9)
+MPMD_STEPS = 5
+MPMD_TOL = dict(rtol=1e-5, atol=1e-6)
+# (c): the same split at feature 1024, hidden 4096,4096,4096, classes 1024,
+# global batch 256; ms a step the median of MPMD_TIMED steps after
+# MPMD_WARMUP.
+MPMD_TIMED_KW = dict(feature_dim=1024, hidden=(4096, 4096, 4096), classes=1024, seed=0,
+                     lr=0.01, momentum=0.9)
+MPMD_TIMED_BATCH = 256
+MPMD_WARMUP, MPMD_TIMED = 3, 10
+
+
+def _mpmd_spec(global_batch: int):
+    from tpudml_torch.mpmd import PipelineSpec, StageSpec
+
+    return PipelineSpec(stages=(StageSpec("trunk", microbatches=2, dtype="bfloat16"),
+                                StageSpec("head", microbatches=1, dtype="float32")),
+                        global_batch=global_batch)
+
+
+def _mpmd_pair(spec, kw: dict, batch_for):
+    """Two stage workers on the card over one ``channel_pair``."""
+    from tpudml_torch.comm.p2p import channel_pair
+    from tpudml_torch.mpmd import runtime as rt
+
+    edge = "s0r0->s1r0"
+    a, b = channel_pair(edge, timeout_s=120.0)
+    trunk = rt.StageWorker(spec, 0, 0, program=rt.StageProgram(spec, 0, device="cuda", **kw),
+                           batch_for=batch_for, down_channels={edge: a})
+    up = rt.stage_layer_dims(kw["feature_dim"], kw["hidden"], kw["classes"], 2)[0][-1][1]
+    head = rt.StageWorker(spec, 1, 0, program=rt.StageProgram(spec, 1, device="cuda", **kw),
+                          batch_for=batch_for, up_features=up, up_channels={edge: b})
+    return trunk, head, (a, b)
+
+
+def _mpmd_steps(trunk, head, steps) -> list[float]:
+    """Run ``steps`` on both stage threads at once; the head's losses."""
+    import torch
+
+    from tpudml_torch.mpmd import runtime as rt
+
+    out = rt.run_stage_threads({"trunk": trunk, "head": head}, steps)["head"]
+    torch.cuda.synchronize()
+    return out
+
+
+def mpmd_phase() -> dict[str, dict[str, int]]:
+    """Main path 19 (module docstring, phase 25). Returns its launch counts:
+    none, as the stage programs are plain products (JAX computes them
+    outside any Pallas kernel) and the drill's stages are child
+    processes."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudml_torch.comm.p2p import p2p_wire_bytes
+    from tpudml_torch.mpmd import runtime as rt
+    from tpudml_torch.mpmd.drill import run_mpmd_drill
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.tools.profile_serve import _kernel_breakdown
+
+    t0 = time.perf_counter()
+    reset_launch_counts()  # ---- main path 19 (mpmd) starts here
+    # (a) Heterogeneous 1F1B, two stage threads on the card, against the
+    # single-program reference on the card.
+    spec = _mpmd_spec(8)
+    batch_for = rt.make_batch_fn(8, MPMD_KW["feature_dim"], MPMD_KW["classes"], 0)
+    trunk, head, chans = _mpmd_pair(spec, MPMD_KW, batch_for)
+    losses = _mpmd_steps(trunk, head, range(MPMD_STEPS))
+    for ch in chans:
+        ch.close()
+    params, mom, step_fn = rt.reference_step_fn(spec, device="cuda", **MPMD_KW)
+    ref = []
+    for k in range(MPMD_STEPS):
+        x, y = batch_for(k)
+        params, mom, loss, _ = step_fn(params, mom, x, y)
+        ref.append(float(loss))
+    lgap = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(losses, ref))
+    pgap = 0.0
+    for want, worker in ((params[0], trunk), (params[1], head)):
+        for wl, gl in zip(want, worker.program.params):
+            for key in ("w", "b"):
+                check(gl[key].is_cuda, "a stage's parameter left the card")
+                got, exp = gl[key].double(), wl[key].double()
+                check(bool(((got - exp).abs() <= MPMD_TOL["atol"]
+                            + MPMD_TOL["rtol"] * exp.abs()).all()),
+                      f"[mpmd] stage parameter {key} differs from the reference")
+                pgap = max(pgap, float(((got - exp).abs() / exp.abs().clamp_min(1e-30)).max()))
+    check(np.allclose(losses, ref, **MPMD_TOL), f"[mpmd] losses {losses} != reference {ref}")
+    print(f"[mpmd] (a) heterogeneous 1F1B on the card (trunk bf16, 2 microbatches -> head f32, "
+          f"1; global batch 8; widths 8-16-4; two stage threads over a socketpair), "
+          f"{MPMD_STEPS} steps against reference_step_fn on the card: losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)}; max rel |loss diff| {lgap:.3e}, every "
+          f"parameter within rtol 1e-5 / atol 1e-6 (max rel {pgap:.3e}); the trunk's wire "
+          f"carried {trunk.program.dtype}")
+
+    # (b) The re-mesh drill, its four stage processes on the one card.
+    with tempfile.TemporaryDirectory() as tmp:
+        rep = run_mpmd_drill(tmp, device="cuda", timeout_s=MPMD_TIMEOUT_S)
+    check(rep["ok"] and rep["bit_exact"] and rep["in_place"], f"the MPMD drill failed: {rep}")
+    check(rep["final_stage_worlds"] == [2, 1] and rep["resume_step"] == 10
+          and rep["steps_lost"] == 3 and rep["fresh_ports"]
+          and rep["replan_error"] is None and rep["replan_receipts"]
+          and rep["clean_wall_s"] is not None,
+          f"the MPMD drill re-formed otherwise: {rep}")
+    print(f"[mpmd] (b) re-mesh drill, four stage processes on one H100 (stage groups sum over "
+          f"gloo; boundaries over TCP): stage {rep['victim']['stage']} rank "
+          f"{rep['victim']['rank']} killed at step {rep['kill_step']}; drains "
+          f"{rep['drains']}; re-plan fail-open ({len(rep['replan_receipts'])} receipts, "
+          f"error {rep['replan_error']}); [2, 2] -> {rep['final_stage_worlds']} in place on "
+          f"fresh ports {rep['coordinator_ports']}; resumed from step {rep['resume_step']} "
+          f"({rep['steps_lost']} steps lost); survivors' CRCs {rep['params_crc']} bitwise the "
+          f"uninterrupted reference's: {rep['bit_exact']}; backoff {rep['backoff_s']:.3f} s, "
+          f"restart latency (the failed round's end to the last resume) "
+          f"{rep['restart_latency_s']:.3f} s, re-mesh MTTR (the kill to the last resume) "
+          f"{rep['remesh_mttr_s']:.3f} s; wall {rep['drill_wall_s']:.2f} s against "
+          f"{rep['clean_wall_s']:.2f} s uninterrupted "
+          f"(+{rep['overhead_vs_clean_frac'] * 100:.1f}%)")
+
+    # (c) One timed configuration.
+    spec = _mpmd_spec(MPMD_TIMED_BATCH)
+    make = rt.make_batch_fn(MPMD_TIMED_BATCH, MPMD_TIMED_KW["feature_dim"],
+                            MPMD_TIMED_KW["classes"], 0)
+    n = MPMD_WARMUP + MPMD_TIMED + 2 * (PROFILE_TRIES + 1)
+    batches = {k: make(k) for k in range(n)}  # set-up: made in bulk before timing
+    trunk, head, (a, b) = _mpmd_pair(spec, MPMD_TIMED_KW, batches.__getitem__)
+    _mpmd_steps(trunk, head, range(MPMD_WARMUP))
+    f0, w0 = a.frames + b.frames, a.bytes_sent + b.bytes_sent
+    walls = []
+    for k in range(MPMD_WARMUP, MPMD_WARMUP + MPMD_TIMED):
+        t1 = time.perf_counter()
+        _mpmd_steps(trunk, head, [k])
+        walls.append((time.perf_counter() - t1) * 1e3)
+    frames = (a.frames + b.frames - f0) / MPMD_TIMED / 2  # each frame counted at both ends
+    sent = (a.bytes_sent + b.bytes_sent - w0) / MPMD_TIMED
+    ms = statistics.median(walls)
+    nxt = iter(range(MPMD_WARMUP + MPMD_TIMED, n))
+    for _ in range(PROFILE_TRIES):
+        prof = _kernel_breakdown(lambda: _mpmd_steps(trunk, head, [next(nxt)]), 2)
+        if prof["kernels_per_call"] > 0:
+            break
+    check(prof["kernels_per_call"] > 0, "the profiler saw no device activity in the MPMD step")
+    for ch in (a, b):
+        ch.close()
+    launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    print(f"[mpmd] (c) one card, two stage threads, no cross-card byte: trunk bf16 (1024 -> "
+          f"4096 -> 4096, 2 microbatches of 128 rows) -> head f32 (4096 -> 4096 -> 1024, 1 "
+          f"microbatch), global batch {MPMD_TIMED_BATCH}: {ms:.3f} ms a step (median of "
+          f"{MPMD_TIMED} after {MPMD_WARMUP}; min {min(walls):.3f}, max {max(walls):.3f}); "
+          f"{frames:.0f} frames a step, {sent:,.0f} payload bytes, p2p_wire_bytes "
+          f"{p2p_wire_bytes(int(sent)):,.0f} a step (host memory through a socketpair); "
+          f"{prof['kernels_per_call']:.0f} device kernels summing "
+          f"{prof['kernel_ms_per_call']:.3f} ms: busy {prof['kernel_ms_per_call'] / ms:.3f} "
+          f"(torch.profiler over 2 steps)")
+    print(f"[mpmd] {time.perf_counter() - t0:.1f} s")
+    return {"mpmd": launches}
+
+
 def _dir_bytes(path) -> int:
     return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
 
@@ -6426,10 +6607,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False); "
               "this script runs only on the card", file=sys.stderr)
         return 1
+    from tpudml_torch.device import no_tf32
     from tpudml_torch.ops import KERNELS
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32("cuda")
     smi = nvidia_smi()
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s); "
@@ -6498,6 +6679,8 @@ def main() -> int:
     paths.update(plan_phase())
     torch.cuda.empty_cache()
     paths.update(elastic_phase())
+    torch.cuda.empty_cache()
+    paths.update(mpmd_phase())
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -65,3 +65,35 @@ def test_gspmd_fused_xent_row_fires_on_accumulation_and_custom_loss():
         "gspmd_fused_xent_accum"
     assert candidate_rejection(dict(base, accum_steps=1)) is None
     assert candidate_rejection(dict(base, accum_steps=1, schedule="gpipe")) is None
+
+
+MPMD_ROWS = ("mpmd_moe_aux_loss", "mpmd_fused_xent_head", "mpmd_serve")
+
+
+def test_mpmd_rows_stand_at_jax_s_places():
+    """The three ``mpmd_*`` rows are back, after ``serve_tp_dense_only``
+    and in JAX's order, owned by the port's ``mpmd.spec``."""
+    keys, jkeys = list(TABLE), list(JAX_TABLE)
+    assert keys[-3:] == list(MPMD_ROWS) == jkeys[-3:]
+    assert keys[-4] == jkeys[-4] == "serve_tp_dense_only"
+    assert all(TABLE[k].owner == "tpudml_torch.mpmd.spec" for k in MPMD_ROWS)
+
+
+@pytest.mark.parametrize("key,stage,serve", [
+    ("mpmd_moe_aux_loss", {"moe_experts": 4}, False),
+    ("mpmd_fused_xent_head", {"fused_xent": True}, False),
+    ("mpmd_serve", {}, True),
+])
+def test_mpmd_predicates_and_guard_sites_fire_as_jax_s(key, stage, serve):
+    """A stage's planner candidate (``StageSpec.candidate()``, with
+    ``serve``) is rejected by the row JAX's table names, and building the
+    ``PipelineSpec`` raises that row's message from its ``reject`` site."""
+    from tpudml_torch.capabilities import CompositionError
+    from tpudml_torch.mpmd.spec import PipelineSpec, StageSpec
+
+    cand = dict(StageSpec("a", **stage).candidate(), serve=serve)
+    assert candidate_rejection(cand) == jax_rejection(cand) == key
+    with pytest.raises(CompositionError) as ei:
+        PipelineSpec(stages=(StageSpec("a", **stage), StageSpec("b")), global_batch=8,
+                     serve=serve)
+    assert str(ei.value) == TABLE[key].message

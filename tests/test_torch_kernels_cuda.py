@@ -49,6 +49,12 @@ of 0 would move a gradient by its share).
 The flagship step through ``DataParallel`` on a one-rank NCCL group
 equals the single-card step bitwise where that step repeats itself
 bitwise (else the flagship's bf16 loss tolerance and AdamW's ±lr a step).
+A lab entry run in a process of its own (task1) computes LeNet's f32
+convolutions within 1e-5 of f64 (TF32 would miss it about 100 times).
+The heterogeneous MPMD pipeline (two stage threads on the card) equals
+its single-program reference at rtol 1e-5 / atol 1e-6; the re-mesh drill
+with four stage processes on the card is bitwise its uninterrupted
+reference.
 Past the old grid-y edges (8,388,480 rows of kernels 10–12, and kernel 13
 with 129 row ranges there; B·H = 65535 of the flash kernels) the
 tolerances are those above, the plain versions taken in row or batch
@@ -1964,3 +1970,116 @@ def test_elastic_restart_drill_at_world1_on_the_card(cuda_device, tmp_path):
     assert report["bit_exact"] and report["reforms"] == 1
     assert report["resume_step"] == 10 and report["steps_lost"] == 3
     assert report["fresh_port"] and report["trace_pids"] == [0]
+
+
+# An entry point run alone (not under chip_smoke.py's global flags) computes
+# its f32 convolutions in f32: every convolution's first forward, recorded
+# in the entry's own process, against the same convolution in f64.
+TF32_CONV_REL = 1e-5  # chip_smoke.py's: TF32 keeps 10 bits and misses it ~100x
+
+_CONV_PROBE = r"""
+import json, sys, tempfile
+import torch
+import torch.nn.functional as F
+
+real = F.conv2d
+calls = {}
+
+def record(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
+    out = real(x, w, b, stride, padding, dilation, groups)
+    key = tuple(w.shape)
+    if key not in calls and x.dtype == torch.float32 and x.is_cuda:
+        calls[key] = [t.detach().clone() if t is not None else None for t in (x, w, b, out)] \
+            + [stride, padding, dilation, groups]
+    return out
+
+F.conv2d = record
+from tpudml_torch.tasks import task1
+with tempfile.TemporaryDirectory() as tmp:
+    task1.main(["--device", "cuda", "--dataset", "synthetic", "--epochs", "1",
+                "--log_every", "0", "--log_dir", tmp])
+errs = {}
+with torch.no_grad():
+    for key, (x, w, b, out, stride, padding, dilation, groups) in calls.items():
+        want = real(x.double(), w.double(), None if b is None else b.double(), stride,
+                    padding, dilation, groups)
+        errs[str(key)] = float((out.double() - want).abs().max() / want.abs().max())
+print(json.dumps({"errs": errs, "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                  "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}))
+"""
+
+
+@pytest.mark.cuda
+def test_lab_entry_alone_computes_its_convolutions_in_f32(cuda_device, tmp_path):
+    """task1 in a process of its own (PyTorch's default allows TF32 in
+    cuDNN): LeNet's two convolutions, as the entry ran them, within
+    TF32_CONV_REL of f64 on the same inputs, and TF32 off afterwards."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", _CONV_PROBE], cwd=repo, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    print(rep)
+    assert len(rep["errs"]) == 2, rep
+    assert not rep["cudnn_allow_tf32"] and not rep["matmul_allow_tf32"]
+    for key, err in rep["errs"].items():
+        assert err <= TF32_CONV_REL, (key, err)
+
+
+@pytest.mark.cuda
+def test_hetero_mpmd_pipeline_on_the_card_matches_its_reference(cuda_device):
+    """Two ``StageWorker`` threads on the card over ``channel_pair`` (a
+    bf16 trunk with 2 microbatches feeding an f32 head with 1, global
+    batch 8, JAX's test widths), 5 steps, against ``reference_step_fn`` on
+    the card: losses and parameters at rtol 1e-5 / atol 1e-6."""
+    import numpy as np
+
+    from tpudml_torch.comm.p2p import channel_pair
+    from tpudml_torch.mpmd import PipelineSpec, StageSpec
+    from tpudml_torch.mpmd import runtime as rt
+
+    spec = PipelineSpec(stages=(StageSpec("trunk", microbatches=2, dtype="bfloat16"),
+                                StageSpec("head", microbatches=1, dtype="float32")),
+                        global_batch=8)
+    kw = dict(feature_dim=8, hidden=(16,), classes=4, seed=0, lr=0.1, momentum=0.9,
+              device="cuda")
+    batch_for = rt.make_batch_fn(8, 8, 4, 0)
+    a, b = channel_pair("s0r0->s1r0", timeout_s=60.0)
+    trunk = rt.StageWorker(spec, 0, 0, program=rt.StageProgram(spec, 0, **kw),
+                           batch_for=batch_for, down_channels={"s0r0->s1r0": a})
+    head = rt.StageWorker(spec, 1, 0, program=rt.StageProgram(spec, 1, **kw),
+                          batch_for=batch_for, up_features=16,
+                          up_channels={"s0r0->s1r0": b})
+    losses = rt.run_stage_threads({"t": trunk, "h": head}, range(5), timeout_s=120)
+    a.close(), b.close()
+    params, mom, step_fn = rt.reference_step_fn(spec, **kw)
+    ref = []
+    for k in range(5):
+        x, y = batch_for(k)
+        params, mom, loss, _ = step_fn(params, mom, x, y)
+        ref.append(float(loss))
+    np.testing.assert_allclose(losses["h"], ref, rtol=1e-5, atol=1e-6)
+    for want, worker in ((params[0], trunk), (params[1], head)):
+        for wl, gl in zip(want, worker.program.params):
+            for key in ("w", "b"):
+                assert gl[key].is_cuda
+                torch.testing.assert_close(gl[key], wl[key], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_mpmd_remesh_drill_with_four_stage_processes_on_the_card(cuda_device, tmp_path):
+    """The [2, 2] drill with its four stage processes on the one card (each
+    stage group sums over gloo): stage 1 rank 1 killed at step 13, the
+    groups re-form [2, 1] in place on fresh ports, resume from step 10,
+    and every survivor's CRC equals the uninterrupted reference's."""
+    from tpudml_torch.mpmd.drill import run_mpmd_drill
+
+    rep = run_mpmd_drill(str(tmp_path), device="cuda", timeout_s=300.0)
+    assert rep["ok"], rep
+    assert rep["bit_exact"] and rep["in_place"] and rep["final_stage_worlds"] == [2, 1]
+    assert rep["resume_step"] == 10 and rep["steps_lost"] == 3 and rep["fresh_ports"]

@@ -119,6 +119,20 @@ def test_control_plane_modules_are_among_the_checked(module):
     assert (path if path.exists() else path.with_suffix("") / "__init__.py") in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "tpudml_torch.comm.p2p", "tpudml_torch.analysis", "tpudml_torch.analysis.findings",
+    "tpudml_torch.analysis.protocol", "tpudml_torch.mpmd", "tpudml_torch.mpmd.spec",
+    "tpudml_torch.mpmd.groups", "tpudml_torch.mpmd.fixture", "tpudml_torch.mpmd.runtime",
+    "tpudml_torch.mpmd.drill", "tpudml_torch.mpmd.__main__"])
+def test_mpmd_modules_are_among_the_checked(module):
+    """The MPMD slice's modules (the p2p wire, the stage groups, the
+    protocol checker) are among the modules the jax-blocked import and the
+    AST scan cover."""
+    assert module in list(_modules())
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert (path if path.exists() else path.with_suffix("") / "__init__.py") in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_tpudml_import(path):
     tree = ast.parse(path.read_text())

@@ -23,7 +23,9 @@ clean run, a NaN step, a poisoned micro-batch under accumulation),
 ``gspmd`` and ``gspmd2d`` (``GSPMDParallel`` on LeNet's stages and the
 tiny LM), ``task4`` (the task4 entry), ``zero1``
 (``DataParallel(zero1=...)``, its sharded checkpoints, task2 ``--zero1``)
-``sharded`` (the sharded store on a GSPMD and an EP state, this
+``task2_zero1_ckpt`` (task2 ``--zero1 --ckpt_dir`` resumed from a JAX
+checkpoint, and resumed again from its own), ``sharded`` (the sharded
+store on a GSPMD and an EP state, this
 package's and JAX's files; task5 ``--parallel ep --ckpt_dir`` and
 ``--resume``), ``fsdp`` (FSDP on ForwardMLP, under the block-then-mean
 gradient rule too, and FSDP×TP on the tiny LM), ``sharded_xent`` (the
@@ -789,6 +791,28 @@ def suite_zero1(job: Path, rank: int, world: int) -> dict:
     out["task2"] = task2.main(["--device", "cpu", "--dataset", "synthetic", "--epochs", "1",
                                "--batch_size", "16", "--log_every", "0", "--zero1",
                                "--log_dir", str(job / f"logs{rank}")])
+    return out
+
+
+def suite_task2_zero1_ckpt(job: Path, rank: int, world: int) -> dict:
+    """World 2: task2 --zero1 --ckpt_dir resumed from JAX's step-4
+    checkpoint of the same run (``<job>/port_ckpt``), saving every 2 steps
+    to the epoch's end; then a second run resumed from the first run's
+    step-6 checkpoint (``<job>/resume_ckpt``)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from tpudml_torch.tasks import task2
+
+    base = ["--device", "cpu", "--dataset", "synthetic", "--epochs", "1", "--batch_size",
+            "256", "--log_every", "0", "--zero1", "--ckpt_every", "2", "--resume",
+            "--log_dir", str(job / f"logs{rank}")]
+    out = {"first": task2.main(base + ["--ckpt_dir", str(job / "port_ckpt")])}
+    if rank == 0:
+        shutil.copytree(job / "port_ckpt" / "step_6", job / "resume_ckpt" / "step_6")
+    dist.barrier()
+    out["resumed"] = task2.main(base + ["--ckpt_dir", str(job / "resume_ckpt")])
     return out
 
 
@@ -1680,7 +1704,8 @@ SUITES = {"dp": suite_dp, "resnet": suite_resnet, "comm": suite_comm,
           "task5": suite_task5, "ep": suite_ep, "labs": suite_labs, "obs": suite_obs,
           "sentinel": suite_sentinel, "gspmd": suite_gspmd, "gspmd2d": suite_gspmd2d,
           "task4": suite_task4,
-          "zero1": suite_zero1, "sharded": suite_sharded, "fsdp": suite_fsdp,
+          "zero1": suite_zero1, "task2_zero1_ckpt": suite_task2_zero1_ckpt,
+          "sharded": suite_sharded, "fsdp": suite_fsdp,
           "sharded_xent": suite_sharded_xent, "overlap": suite_overlap,
           "mp_cli": suite_mp_cli, "pp": suite_pp, "pp_cli": suite_pp_cli,
           "serve_tp": suite_serve_tp, "cp": suite_cp, "cp_cli": suite_cp_cli,

@@ -4,14 +4,14 @@ compose.
 
 Guard sites (``DataParallel``, ``GSPMDParallel``, the pipelines,
 ``ZeRO1``, ``tp_overlap_matmul``, task5 ``--parallel ep`` and ``pp``, the
-serving engine and ``TPServing``) call :func:`reject` with an entry's key
-instead of writing the message, and the planner (``tpudml_torch.plan``)
-prunes its candidates with each entry's ``when`` predicate over a flat
-candidate dict, through :func:`candidate_rejection`. The rows, their
+serving engine, ``TPServing`` and the MPMD ``PipelineSpec``) call
+:func:`reject` with an entry's key instead of writing the message, and
+the planner (``tpudml_torch.plan``) prunes its candidates with each
+entry's ``when`` predicate over a flat candidate dict, through :func:`candidate_rejection`. The rows, their
 messages, their predicates and their order are JAX's: the first row that
 fires names the rejection, so the order is part of the planner's output.
-JAX's rows of modules the port does not have yet (the serving fleet's and
-``mpmd/``'s) are left out at their places. Stdlib only.
+JAX's row of the module the port does not have yet (the serving fleet's
+``serve_fleet_spec``) is left out at its place. Stdlib only.
 """
 
 from __future__ import annotations
@@ -264,8 +264,40 @@ _ENTRIES = (
             _g(c, "serve_cache_layout", "dense") != "dense"
             or _g(c, "serve_spec_k", 0) > 0
         ),
-    ),    # JAX's mpmd_moe_aux_loss, mpmd_fused_xent_head and mpmd_serve
-    # (tpudml.mpmd.spec) come with mpmd/.
+    ),
+    Capability(
+        key="mpmd_moe_aux_loss",
+        owner="tpudml_torch.mpmd.spec",
+        message=(
+            "MPMD stages do not compose with moe_experts: the router "
+            "aux loss is a global mean over all tokens, and an MPMD "
+            "trunk stage has no channel to fold its aux term into the "
+            "head stage's loss"
+        ),
+        when=lambda c: bool(_g(c, "mpmd")) and bool(_g(c, "moe_experts")),
+    ),
+    Capability(
+        key="mpmd_fused_xent_head",
+        owner="tpudml_torch.mpmd.spec",
+        message=(
+            "MPMD head stages do not compose with fused_xent: the fused "
+            "head recomputes logits inside one jitted loss+grad program, "
+            "but the MPMD head must expose the activation cotangent as a "
+            "host array for the backward wire transfer"
+        ),
+        when=lambda c: bool(_g(c, "mpmd")) and bool(_g(c, "fused_xent")),
+    ),
+    Capability(
+        key="mpmd_serve",
+        owner="tpudml_torch.mpmd.spec",
+        message=(
+            "MPMD stage groups do not compose with the serving tier: "
+            "ServingEngine slot state lives in one process's jitted "
+            "decode step and cannot span multi-controller stage worlds; "
+            "serve from a single-program replica (FleetRouter)"
+        ),
+        when=lambda c: bool(_g(c, "mpmd")) and bool(_g(c, "serve")),
+    ),
 )
 
 TABLE: dict[str, Capability] = {e.key: e for e in _ENTRIES}

@@ -5,7 +5,8 @@ a machine without one raises: nothing falls back to the CPU quietly. The
 CPU is taken only when the caller names it, as the tests do: with
 ``device="cpu"``, or for the task CLIs' default with ``TPUDML_DEVICE=cpu``
 in the environment (``tpudml_torch.launch`` exports it for
-``platform="cpu"``, where it also hides the card).
+``platform="cpu"``, where it also hides the card). On the card the entry
+points compute f32 in f32: :func:`no_tf32`.
 """
 
 from __future__ import annotations
@@ -31,3 +32,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             f"is False; pass device='cpu' to run the plain versions on the CPU"
         )
     return dev
+
+
+def no_tf32(device: str | torch.device) -> None:
+    """Turn TF32 off for cuBLAS's f32 products and cuDNN's f32 convolutions
+    when ``device`` is the card (PyTorch allows it in cuDNN by default):
+    the port's f32 is f32, as JAX's CPU reference computes it. The lab
+    entries, the north star, the drills' children, ``chip_smoke.py`` and
+    the profiling tools call it before they build a model. A no-op on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

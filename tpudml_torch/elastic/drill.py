@@ -114,7 +114,7 @@ def child_main(argv: list[str] | None = None) -> int:
         save_sharded_checkpoint,
     )
     from tpudml_torch.core import DistributedConfig, distributed_init
-    from tpudml_torch.device import resolve_device
+    from tpudml_torch.device import no_tf32, resolve_device
     from tpudml_torch.models.mlp import ForwardMLP
     from tpudml_torch.obs.tracer import Tracer, set_tracer, sync_device
     from tpudml_torch.optim import Sgd
@@ -143,6 +143,7 @@ def child_main(argv: list[str] | None = None) -> int:
         )
 
     device = resolve_device(args.device)
+    no_tf32(device)
     distributed_init(DistributedConfig.from_env(), device=device)
     if not dist.is_initialized():
         raise SystemExit("the drill child runs in a launched job (TPUDML_COORDINATOR unset)")

@@ -42,6 +42,7 @@ to bound, so it has no counterpart here.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable
 
@@ -51,7 +52,8 @@ from torch import nn
 
 from tpudml_torch.capabilities import reject
 from tpudml_torch.comm.collectives import (
-    aggregation_wire_bytes, broadcast_from, get_aggregator, pmax_tree, pmean_tree,
+    aggregation_wire_bytes, all_gather_tree, broadcast_from, get_aggregator, pmax_tree,
+    pmean_tree,
 )
 from tpudml_torch.comm.timing import (
     CommStats, collective_wire_bytes, synchronize, timed_call,
@@ -68,6 +70,14 @@ from tpudml_torch.train import (
 )
 
 NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
+
+
+def _reorder(flat: torch.Tensor, shape: tuple, perm: tuple) -> torch.Tensor:
+    """A flat-padded leaf of ``shape``'s elements re-raveled in ``perm``'s
+    order, the padding kept."""
+    n = math.prod(shape)
+    body = flat[:n].reshape(shape).permute(*perm).reshape(-1)
+    return torch.cat([body, flat[n:]])
 
 
 def _use_flash(model: nn.Module) -> None:
@@ -284,6 +294,74 @@ class DataParallel:
         if len(shape) == 2:
             return Window((shape[0], self.world * c), [[0, shape[0]], [r * c, (r + 1) * c]])
         return Window((self.world * c,), [[r * c, (r + 1) * c]])
+
+    def _conv_kernels(self) -> dict[str, tuple]:
+        """The 4-D ``kernel`` parameters (OIHW here, HWIO in JAX): their
+        ZeRO-1 flat layout ravels another element order than JAX's."""
+        return {n: tuple(p.shape) for n, p in params_of(self.model).items()
+                if p.dim() == 4 and n.split(".")[-1] == "kernel"}
+
+    def full_state(self, ts: TrainState) -> TrainState:
+        """JAX's global view of ``ts`` for the base store (call on every rank:
+        it gathers): under ZeRO-1 each optimizer tensor of a parameter
+        all-gathered into JAX's flat-padded ``[N·c]`` layout (``[S, N·c]``
+        stacked; a conv kernel's raveled in JAX's HWIO order), the rest as
+        it is, the model shared; rank 0 writes it as JAX's store writes its
+        gathered global arrays. Without ZeRO-1, ``ts`` itself."""
+        if not self.zero1:
+            return ts
+        if self.zero1_overlap:
+            raise ValueError("a zero1_overlap state carries parameter chunks: gather_params "
+                             "first, and checkpoint a zero1=True engine's state")
+        convs = self._conv_kernels()
+
+        def whole(state):
+            if isinstance(state, dict):
+                if state and set(state) <= self._param_names:
+                    flat = {n: t for n, t in state.items() if t.dim() == 1}
+                    rows = {n: t for n, t in state.items() if t.dim() == 2}
+                    out = {}
+                    for part, axis in ((flat, 0), (rows, 1)):
+                        if part:
+                            out.update(all_gather_tree(part, self.group, axis=axis,
+                                                       tiled=True))
+                    for n, shape in convs.items():
+                        if n in out:
+                            out[n] = _reorder(out[n], shape, (2, 3, 1, 0))
+                    return {n: out[n] for n in state}
+                return {k: whole(v) for k, v in state.items()}
+            return state
+
+        return TrainState(model=ts.model, opt_state=whole(ts.opt_state), step=ts.step)
+
+    @torch.no_grad()
+    def load_full_state(self, ts: TrainState, full: TrainState) -> TrainState:
+        """Write a :meth:`full_state` view (as restored) back into ``ts`` in
+        place: this rank's chunk of each gathered optimizer tensor, the
+        Python ints (Adam's clock) and the step as ints. The parameters
+        live in the shared model, restored already."""
+        if full is ts:
+            return ts
+        convs = self._conv_kernels()
+
+        def load(state, saved):
+            for k, v in state.items():
+                if isinstance(v, torch.Tensor):
+                    src = saved[k]
+                    if k in convs:
+                        h, w_, i, o = (convs[k][j] for j in (2, 3, 1, 0))
+                        src = _reorder(src, (h, w_, i, o), (3, 2, 0, 1))
+                    c = v.shape[-1]
+                    v.copy_(src[..., self.rank * c:(self.rank + 1) * c])
+                elif isinstance(v, int) and not isinstance(v, bool):
+                    state[k] = int(saved[k])
+                elif isinstance(v, dict):
+                    load(v, saved[k])
+
+        if isinstance(ts.opt_state, dict):
+            load(ts.opt_state, full.opt_state)
+        ts.step = int(full.step)
+        return ts
 
     def broadcast_params(self, ts: TrainState, root: int = 0) -> TrainState:
         """Copy rank ``root``'s parameters into every replica (one

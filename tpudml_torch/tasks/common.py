@@ -41,23 +41,50 @@ def select_devices(cfg: TrainConfig, group=None) -> int:
     return world
 
 
-def setup_checkpointing(cfg: TrainConfig, ts):
+def setup_checkpointing(cfg: TrainConfig, ts, engine=None):
     """(train_state, hooks, manager) per the config's checkpoint fields.
 
     With ``--ckpt_dir``: ``--resume`` restores the LATEST VALID checkpoint
     into ``ts`` (in place; the CRCs verified, corrupt or partial
     ``step_*`` dirs walked past, every rank reading the same files), and
     ``--ckpt_every N`` installs a rolling-save ``train_loop`` hook. The
-    caller does the final save with :func:`final_checkpoint`."""
+    caller does the final save with :func:`final_checkpoint`. An
+    ``engine`` whose ranks hold blocks of the state (``DataParallel``
+    under ZeRO-1) saves and restores through its ``full_state``
+    (:class:`FullStateManager`)."""
     if not cfg.ckpt_dir:
         return ts, [], None
     from tpudml_torch.checkpoint import CheckpointHook, CheckpointManager
 
     mgr = CheckpointManager(cfg.ckpt_dir)
+    if engine is not None:
+        mgr = FullStateManager(mgr, engine)
     if cfg.resume:
         ts = mgr.restore_latest(ts)
     hooks = [CheckpointHook(mgr, every_n_steps=cfg.ckpt_every)] if cfg.ckpt_every else []
     return ts, hooks, mgr
+
+
+class FullStateManager:
+    """A checkpoint manager for an engine whose ranks hold blocks of the
+    state: every save writes the engine's ``full_state(ts)`` (gathered on
+    every rank, JAX's global leaves, rank 0 writing) and a restore fills
+    that view and cuts it back with ``load_full_state``, so the files are
+    the ones JAX's store writes for the same run."""
+
+    def __init__(self, manager, engine):
+        self.manager = manager
+        self.engine = engine
+
+    def save(self, ts, step: int, metadata: dict | None = None) -> str:
+        return self.manager.save(self.engine.full_state(ts), step, metadata=metadata)
+
+    def latest_step(self) -> int | None:
+        return self.manager.latest_step()
+
+    def restore_latest(self, ts):
+        view = self.engine.full_state(ts)
+        return self.engine.load_full_state(ts, self.manager.restore_latest(view))
 
 
 def final_checkpoint(mgr, ts) -> None:

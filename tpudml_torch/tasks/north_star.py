@@ -30,7 +30,7 @@ import torch
 
 from tpudml_torch.core import TrainConfig, build_parser, config_from_args, process_index
 from tpudml_torch.data import DataLoader, ShardedDataLoader, make_sampler
-from tpudml_torch.device import resolve_device
+from tpudml_torch.device import no_tf32, resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import ResNet18, ResNet34, ResNet50
 from tpudml_torch.optim import make_optimizer
@@ -59,8 +59,7 @@ def run(cfg: TrainConfig, compute_dtype: torch.dtype = torch.bfloat16,
     if model_name not in MODELS:
         raise ValueError(f"unknown model {model_name!r}; options: {sorted(MODELS)}")
     device = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32(device)
     with init_distributed(cfg, device) as group:
         world = select_devices(cfg, group)
         lead = process_index(group) == 0

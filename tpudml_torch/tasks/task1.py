@@ -28,7 +28,7 @@ import torch
 from tpudml_torch.core import TrainConfig, build_parser, config_from_args
 from tpudml_torch.core.prng import seed_key
 from tpudml_torch.data import DataLoader, make_sampler
-from tpudml_torch.device import resolve_device
+from tpudml_torch.device import no_tf32, resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.metrics.profiler import trace
 from tpudml_torch.models import LeNet
@@ -50,6 +50,7 @@ def reference_defaults() -> TrainConfig:
 
 def run(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
     device = resolve_device(device)
+    no_tf32(device)
     train_set, test_set = load_splits(cfg)
     sampler = make_sampler(cfg.data.division if cfg.data.shuffle else "sequential",
                            len(train_set), 1, 0, shuffle=cfg.data.shuffle, seed=cfg.data.seed)

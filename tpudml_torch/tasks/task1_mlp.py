@@ -18,7 +18,7 @@ import torch
 from tpudml_torch.api import LossMonitor, Model
 from tpudml_torch.core import TrainConfig, build_parser, config_from_args
 from tpudml_torch.data import DataLoader
-from tpudml_torch.device import resolve_device
+from tpudml_torch.device import no_tf32, resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import ForwardMLP
 from tpudml_torch.optim import make_optimizer
@@ -36,6 +36,7 @@ def reference_defaults() -> TrainConfig:
 
 def run(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
     device = resolve_device(device)
+    no_tf32(device)
     train_set, test_set = load_splits(cfg)
     train_loader = DataLoader(train_set, cfg.data.batch_size)
     test_loader = DataLoader(test_set, cfg.data.batch_size, drop_remainder=False)

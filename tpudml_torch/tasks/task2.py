@@ -20,9 +20,10 @@ naming the poisoned leaf), ``--obs`` records the flight recorder (the
 engine's step and comm spans, checkpoint and sentinel events) into
 ``<run_dir>/trace.json``, ``--profile`` writes a ``torch.profiler``
 trace under ``<run_dir>/profile``, ``--ckpt_dir`` / ``--ckpt_every`` /
-``--resume`` checkpoint and resume (under ``--zero1`` at world 1 only:
-each rank holds its chunk of the optimizer state), ``--zero1`` shards the
-optimizer state over the replicas (``DataParallel(zero1=True)``).
+``--resume`` checkpoint and resume (under ``--zero1`` the ranks' chunks
+of the optimizer state gathered into JAX's global leaves, as JAX's store
+writes them), ``--zero1`` shards the optimizer state over the replicas
+(``DataParallel(zero1=True)``).
 ``--plan plan.json`` fills the knobs left at their defaults (``--zero1``,
 ``--accum_steps``, ``--sentinel``, ``--obs``, ``--aggregation``) from a
 plan of ``python -m tpudml_torch.plan``; explicit flags win.
@@ -38,7 +39,7 @@ import torch
 from tpudml_torch.core import TrainConfig, build_parser, config_from_args, process_index
 from tpudml_torch.core.prng import seed_key
 from tpudml_torch.data import DataLoader, ShardedDataLoader, make_sampler
-from tpudml_torch.device import resolve_device
+from tpudml_torch.device import no_tf32, resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.metrics.profiler import trace
 from tpudml_torch.models import LeNet
@@ -65,6 +66,7 @@ def reference_defaults() -> TrainConfig:
 
 def run(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
     device = resolve_device(device)
+    no_tf32(device)
     with init_distributed(cfg, device) as group:
         world = select_devices(cfg, group)
         lead = process_index(group) == 0
@@ -85,10 +87,6 @@ def run(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
         # and comm spans and, as the ambient tracer, the checkpoint and
         # sentinel events; exported as <run_dir>/trace.json.
         tracer = Tracer() if cfg.obs else None
-        if cfg.zero1 and cfg.ckpt_dir and world > 1:
-            raise ValueError("--ckpt_dir with --zero1 runs at world 1 only: past it each rank "
-                             "holds a chunk of the optimizer state, which the rank-0 store "
-                             "does not gather (tpudml_torch.checkpoint.sharded saves it)")
         dp = DataParallel(model, optimizer, group, aggregation=cfg.aggregation,
                           zero1=cfg.zero1, sentinel=cfg.sentinel, obs=tracer or False,
                           measure_comm=cfg.measure_comm or cfg.bottleneck_rank is not None,
@@ -99,7 +97,10 @@ def run(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
         writer = (MetricsWriter(cfg.log_dir, run_name=f"task2-{cfg.aggregation}-w{world}")
                   if lead else None)
         with use_tracer(tracer):
-            ts, hooks, ckpt_mgr = setup_checkpointing(cfg, dp.create_state())
+            # Under ZeRO-1 each rank holds a chunk of the optimizer state:
+            # the checkpoints gather it into JAX's global leaves.
+            ts, hooks, ckpt_mgr = setup_checkpointing(cfg, dp.create_state(),
+                                                      engine=dp if cfg.zero1 else None)
             if dp.sentinel is not None:
                 # Escalate past the consecutive-skip budget, naming the
                 # poisoned leaf and micro-batch.

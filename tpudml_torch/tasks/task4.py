@@ -42,7 +42,7 @@ import torch
 from tpudml_torch.core import TrainConfig, build_parser, config_from_args, process_index
 from tpudml_torch.core.prng import seed_key
 from tpudml_torch.data import DataLoader, make_sampler
-from tpudml_torch.device import resolve_device
+from tpudml_torch.device import no_tf32, resolve_device
 from tpudml_torch.metrics import MetricsWriter
 from tpudml_torch.models import lenet_stages
 from tpudml_torch.optim import make_optimizer
@@ -66,6 +66,7 @@ def reference_defaults() -> TrainConfig:
 def run(cfg: TrainConfig, schedule: str = "gspmd", microbatches: int = 4,
         device: str | torch.device = "cuda") -> dict:
     device = resolve_device(device)
+    no_tf32(device)
     if schedule in ("gpipe", "1f1b"):
         return run_gpipe(cfg, device, microbatches, schedule)
     with init_distributed(cfg, device) as group:

@@ -12,10 +12,15 @@ section:
   (``tpudml_torch.obs.drift``), read if a run left one;
 - ``elastic.json``   — the elastic controller's reform/re-plan history
   (``tpudml_torch.elastic``'s drills write it), plus the
-  ``elastic``-category instants in the exported traces.
+  ``elastic``-category instants in the exported traces;
+- ``obs/mpmd.json``  — the MPMD re-mesh drill's verdict (bit-exactness
+  against the uninterrupted reference, the re-mesh MTTR), the pre-launch
+  protocol gate's verdict (``protocol_report.json``), and per-edge
+  transfer bytes from the merged per-stage trace (one pid track a stage
+  group).
 
-The fleet, MPMD and residual sections wait for the modules that write
-their files (ROADMAP.md queue 1 items 10 and 11).
+The fleet and residual sections wait for the modules that write their
+files (ROADMAP.md queue 1 items 10 and 11).
 
 Usage::
 
@@ -177,6 +182,120 @@ def elastic_summary(run_dir: Path) -> str | None:
     return "\n\n".join(out)
 
 
+def protocol_verdict(run_dir: Path) -> str | None:
+    """One-line verdict of the MPMDController's pre-launch protocol
+    gate (``protocol_report.json``, written per checked round), so the
+    static evidence sits next to the dynamic drill verdict for the same
+    spec."""
+    for p in (run_dir / "protocol_report.json",
+              run_dir / "run" / "protocol_report.json",
+              run_dir / "obs" / "protocol_report.json"):
+        if not p.is_file():
+            continue
+        try:
+            doc = json.loads(p.read_text())
+        except ValueError:
+            return None
+        checks = doc.get("checks") or []
+        line = (f"protocol gate: {len(checks)} spec check(s)  "
+                f"ok={doc.get('ok')}")
+        bad = [c for c in checks if not c.get("ok")]
+        if bad:
+            c = bad[0]
+            rules = sorted({
+                f.get("rule") for f in c.get("findings", ())
+                if f.get("severity") == "error"
+            })
+            line += (f"  — REJECTED at round {c.get('round')} "
+                     f"({', '.join(rules)}); launch refused")
+        else:
+            line += "  (every round's spec P300-P303 clean pre-launch)"
+        return line
+    return None
+
+
+def mpmd_summary(run_dir: Path) -> str | None:
+    """MPMD section: the re-mesh drill's verdict (``obs/mpmd.json``,
+    written by ``python -m tpudml_torch.mpmd --drill``), the pre-launch
+    protocol gate's verdict when a ``protocol_report.json`` is present,
+    plus per-edge boundary transfer aggregates read out of the merged
+    per-stage trace (one pid per stage group, ``cat="comm"`` spans with
+    edge-labeled bytes)."""
+    verdict = protocol_verdict(run_dir)
+    path = run_dir / "obs" / "mpmd.json"
+    if not path.is_file():
+        path = run_dir / "mpmd.json"
+    if not path.is_file():
+        # A rejected launch leaves the gate receipts but no drill
+        # verdict — still worth a section.
+        return verdict
+    doc = json.loads(path.read_text())
+    out = []
+    victim = doc.get("victim") or {}
+    out.append(
+        f"drill: ok={doc.get('ok')}  mode={doc.get('mode', '?')}  "
+        f"bit_exact={doc.get('bit_exact')}  "
+        f"in_place={doc.get('in_place')}  "
+        f"stop_reason={doc.get('stop_reason', '?')}"
+    )
+    if verdict:
+        out.append(verdict)
+    out.append(
+        f"re-mesh: victim=stage {victim.get('stage', '?')} rank "
+        f"{victim.get('rank', '?')} (rc {victim.get('rc', '?')})  "
+        f"final stage worlds={doc.get('final_stage_worlds')}  "
+        f"resume_step={doc.get('resume_step')}  "
+        f"steps_lost={doc.get('steps_lost')}  "
+        f"fresh_ports={doc.get('fresh_ports')}"
+    )
+    mttr = doc.get("remesh_mttr_s")
+    naive = doc.get("naive") or {}
+    line = "mttr: re-mesh-in-place "
+    line += f"{mttr:.2f}s" if mttr is not None else "-"
+    if naive.get("restart_mttr_s") is not None:
+        line += (
+            f"  whole-world-restart {naive['restart_mttr_s']:.2f}s  "
+            f"(re-mesh wins: {doc.get('remesh_beats_naive')})"
+        )
+    out.append(line)
+    sps = doc.get("steps_per_s") or {}
+    crcs = doc.get("params_crc") or {}
+    if sps:
+        rows = [
+            [k, f"{sps[k]:.2f}", crcs.get(k, "-")]
+            for k in sorted(sps)
+        ]
+        out.append(_table(["stage rank", "steps/s", "params_crc"], rows))
+    # Per-edge transfer bytes from the merged trace: sum the cat="comm"
+    # p2p spans' byte args per (pid, edge) — one row per stage track.
+    tpath = run_dir / "obs" / "trace.json"
+    if tpath.is_file():
+        try:
+            tdoc = json.loads(tpath.read_text())
+        except ValueError:
+            tdoc = {}
+        edges: dict[tuple, list] = {}
+        for e in tdoc.get("traceEvents", []):
+            if e.get("cat") != "comm" or e.get("ph") != "X":
+                continue
+            args = e.get("args") or {}
+            if "edge" not in args:
+                continue
+            key = (e.get("pid"), args["edge"], e.get("name"))
+            agg = edges.setdefault(key, [0, 0])
+            agg[0] += 1
+            agg[1] += int(args.get("bytes", 0))
+        if edges:
+            rows = [
+                [pid, edge, name, n, nbytes]
+                for (pid, edge, name), (n, nbytes) in sorted(edges.items())
+            ]
+            out.append(_table(
+                ["stage pid", "edge", "span", "frames", "bytes"], rows
+            ))
+    return "\n\n".join(out)
+
+
 def report(run_dir: str | Path) -> str:
     run_dir = Path(run_dir)
     sections = [
@@ -184,6 +303,7 @@ def report(run_dir: str | Path) -> str:
         ("trace.json", trace_summary(run_dir / "trace.json")),
         ("obs/drift.json", drift_summary(run_dir / "obs" / "drift.json")),
         ("elastic.json (reform/re-plan)", elastic_summary(run_dir)),
+        ("mpmd.json (MPMD re-mesh)", mpmd_summary(run_dir)),
     ]
     out = [f"== obs report: {run_dir} =="]
     found = False

@@ -36,6 +36,8 @@ import time
 
 import torch
 
+from tpudml_torch.device import no_tf32
+
 MODEL = dict(vocab_size=32768, embed_dim=512, num_heads=8, num_kv_heads=2,
              num_layers=6, max_len=1024, rope=True)
 
@@ -105,7 +107,7 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: no CUDA device; this measures the card")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    no_tf32("cuda")
     from tpudml_torch.models import TransformerLM
     from tpudml_torch.ops import build_kernels
     from tpudml_torch.serve import ServeConfig, ServingEngine

@@ -107,6 +107,7 @@ import tempfile
 import numpy as np
 import torch
 
+from tpudml_torch.device import no_tf32
 from tpudml_torch.tools.profile_serve import _measure
 
 MODEL = dict(vocab_size=32768, embed_dim=512, num_heads=4, num_layers=6,
@@ -196,8 +197,7 @@ def main(argv=None) -> dict:
     iters = args.iters or (3 if args.long else 10)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device; this measures the card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32("cuda")
     if args.resnet:
         return _emit(profile_resnet(args.batch, iters), ["resnet"], args.out)
     from tpudml_torch.data import synthetic_lm

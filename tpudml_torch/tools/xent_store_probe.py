@@ -29,6 +29,7 @@ from pathlib import Path
 
 import torch
 
+from tpudml_torch.device import no_tf32
 from tpudml_torch.ops.cuda_lib import BUILD_DIR, NVCC_FLAGS, PKG_DIR, find_nvcc
 
 STORE = re.compile(r"static_cast<long long>\(row\) \* V")
@@ -99,7 +100,7 @@ def main(argv=None) -> int:
     libs = {key: _load(*job) for key, job in started.items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    torch.backends.cuda.matmul.allow_tf32 = False
+    no_tf32("cuda")
     names = list(roots)
     for n, d, v, dtype in SHAPES:
         g = torch.Generator(device="cuda").manual_seed(0)
