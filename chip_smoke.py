@@ -491,7 +491,37 @@ the CPU). Phases, each printing its own line(s):
    ``p2p_wire_bytes`` a step, the busy share. The stage programs are plain
    products, as JAX's are outside any Pallas kernel, so the path launches
    no kernel of the port (``mpmd`` counts none).
-26. one JSON line of per-kernel numbers (launches summed over the main
+26. main path 20, the serving fleet (``[fleet]``): (a) ``FleetRouter`` with
+   3 replicas of main path 1's model and engine (virtual clock 0.01 s a
+   step, deadline 2 s, a line of 6), 48 requests at 120 req/s (twice the
+   fleet's capacity, as ``bench.py:1394-1395`` sets it; prompts 64-512,
+   16-64 new tokens), four runs, each after an uncounted warm-up on its
+   own zeroed counts: ``fleet_no_kill`` (dense, unfused), ``fleet_kill``
+   (replica 1 killed at step 12, re-formed 6 steps later),
+   ``fleet_paged_kill`` (pages of 128, prefix sharing, the same kill) and
+   ``fleet_mixed_kill`` (f32, f32 and int8 replicas with the fused head,
+   priced by a loose SLO, the same kill). Every request ends in exactly
+   one terminal state and a finished one holds its budget; the drains are
+   the victim's tenants at the kill; a second ``fleet_kill`` run's event
+   log is byte-identical; the finished streams equal ``fleet_no_kill``'s
+   (or, on the int8 replica, a single int8 engine's at INT8_TIE_GAP) and
+   every token its replica's full forward's, apart from near-ties; the
+   mixed run's first 8 admits go to the int8 replica. Kernel 1 launches
+   exactly what the admitted prompts (continuations too) need, from the
+   event log; kernel 4 once a decode step of each fused f32 replica with
+   tenants, 5 once a decode step of the int8 replica; nothing else. The
+   virtual-clock tokens/s, TTFT and TPOT are printed as such, beside the
+   wall. (b) the KV handoff at pages of 128 with prefix sharing, f32 and
+   int8 caches (``fleet_handoff``, ``fleet_handoff_int8``): a 385-token
+   prompt's prefill (36 launches of kernel 1) handed off as 3 pages; the
+   adopting engine's prefill launches kernel 1 no time against a local
+   prefill's 36, its stream bitwise the local one's; a truncated handoff
+   adopts no page and gives the same stream. (c) ``run_fleet_drill`` at
+   world 2 with its two replica processes on the one card, rank 1
+   SIGKILLed: ok, the token CRCs the in-process reference's, at least one
+   re-form; restart latency, recovery and wall printed (``fleet_drill``
+   counts this process's reference, kernel 1 only).
+27. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -6089,6 +6119,329 @@ def mpmd_phase() -> dict[str, dict[str, int]]:
     return {"mpmd": launches}
 
 
+# ------------------------------------------- the serving fleet (phase 26)
+
+FLEET_REPLICAS = 3
+# 2x the fleet's capacity, as bench.py:1394-1395 sets it: 3 replicas x 8
+# slots / 0.01 s a step / ~40 tokens a request = 60 requests/s.
+FLEET_WORKLOAD = dict(n=48, qps=120.0, seed=17, prompt_len=(64, 512), new_tokens=(16, 64))
+FLEET_ENGINE = dict(SERVE_CFG, step_time_s=0.01, deadline_s=2.0)
+FLEET_KILL = (12, 1)  # (fleet step, replica)
+FLEET_REFORM = 6  # fleet steps from the kill to the re-form
+FLEET_PAGE = 128
+FLEET_SLO_S = 1.0  # loose: the cost models price, never defer (tests/test_fleet.py:315)
+FLEET_INT8_SLOTS = SERVE_CFG["slots"]  # the mixed run's first admits fill the int8 replica
+HANDOFF_PROMPT = 385  # 3 pages of 128 end before the first decode write at 384
+HANDOFF_NEW = 32
+FLEET_DRILL_TIMEOUT_S = 300.0
+
+
+def _fleet_log(report, requests, victim: int | None):
+    """Each request's residencies from the fleet's event log, and the
+    victim's tenants at its kill. A request admitted at step a and drained
+    at step d produced d - a tokens there (every live replica with tenants
+    decodes once a fleet step, one token a slot); its last residency
+    produced the rest. Returns ({rid: [(replica, prompt length at the
+    admit, tokens), ...]}, tenants)."""
+    base = {r.rid: len(r.prompt) for r in requests}
+    segs = {rid: [] for rid in base}
+    live, tenants = {}, None
+
+    def done(rid):
+        return sum(n for _, _, n in segs[rid] if n is not None)
+
+    for kind, rid, rep, _, step in report.events:
+        if kind == "admit":
+            live[rid] = (rep, base[rid] + done(rid), step)
+        elif kind in ("evict", "expire") and rep >= 0:
+            r, plen, _ = live.pop(rid)
+            segs[rid].append((r, plen, None))
+        elif kind == "kill" and rep == victim:
+            tenants = sum(1 for r, _, _ in live.values() if r == victim)
+        elif kind == "drain":
+            r, plen, a = live.pop(rid)
+            segs[rid].append((r, plen, step - a))
+    for rid, seg in segs.items():
+        rest = len(report.requests[rid].tokens) - done(rid)
+        segs[rid] = [(r, plen, rest if n is None else n) for r, plen, n in seg]
+    return segs, tenants
+
+
+def _fleet_segment_check(models: dict, requests, report, segs, label: str) -> int:
+    """Hold every token of every finished request against the argmax of a
+    full forward (plain attention) on the weights of the replica that
+    produced it; a mismatch must be a near-tie (TIE_GAP). Returns the
+    mismatches."""
+    import torch
+
+    mism = 0
+    with torch.inference_mode():
+        for req in requests:
+            st = report.requests[req.rid]
+            if st.finished is None:
+                continue
+            base = len(req.prompt)
+            seq = torch.tensor(list(req.prompt) + st.tokens[:-1], device="cuda")
+            for rep, plen, n in segs[req.rid]:
+                start = plen - base
+                logits = models[rep](seq[None])[0, plen - 1:plen - 1 + n]
+                pick, gap = torch.argmax(logits, dim=-1).tolist(), _top2_gap(logits)
+                for i, (a, r) in enumerate(zip(st.tokens[start:start + n], pick)):
+                    if a != r:
+                        mism += 1
+                        print(f"[fleet] {label}: request {req.rid} token {start + i} (replica "
+                              f"{rep}): {a} vs full-forward {r}, top-2 gap {gap[i].item():.3e}")
+                        check(gap[i].item() < TIE_GAP,
+                              f"{label}: a token disagrees with its replica's full forward "
+                              f"off a near-tie")
+    return mism
+
+
+def _fleet_line(path: str, rep, wall_s: float, launches: dict) -> None:
+    lat = rep.latency_summary()
+    used = {k: v for k, v in launches.items() if v}
+    busy = [r["busy_slot_steps"] for r in rep.per_replica]
+    print(f"[fleet] {path}: {rep.finished} finished, {rep.rejected} rejected, {rep.expired} "
+          f"expired of {len(rep.requests)}; {rep.generated_tokens} tokens in {rep.steps} fleet "
+          f"steps; virtual clock (step_time_s {FLEET_ENGINE['step_time_s']}): "
+          f"{rep.tokens_per_sec:.1f} tok/s (virtual), TTFT p50/p99 "
+          f"{lat['ttft_p50_s']:.3f}/{lat['ttft_p99_s']:.3f} s (virtual), TPOT p50/p99 "
+          f"{lat['per_token_p50_s']:.3f}/{lat['per_token_p99_s']:.3f} s (virtual); wall "
+          f"{wall_s:.3f} s, {wall_s * 1e3 / max(rep.steps, 1):.2f} ms a fleet step (wall); "
+          f"kills {rep.kills}, drains {rep.drains}, readmits "
+          f"{sum(st.readmits for st in rep.requests.values())}; busy slot-steps a replica "
+          f"{busy}, decode steps {[r['decode_steps'] for r in rep.per_replica]}; launches {used}")
+
+
+def _fleet_handoff(model, kind: str, tmp) -> dict[str, int]:
+    """(b) at ``kind``: a 385-token prompt's prefill handed off as 3 pages
+    and adopted by a decode engine, against a local-prefill engine and a
+    truncated handoff. Returns the launches of its four counted windows,
+    summed."""
+    import numpy as np
+
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.resilience import vandalize
+    from tpudml_torch.serve import Request, ServeConfig, ServingEngine
+    from tpudml_torch.serve.fleet import adopt_handoff, write_handoff
+
+    cfg = ServeConfig(**SERVE_CFG, cache_kind=kind, cache_layout="paged", page_size=FLEET_PAGE,
+                      prefix_sharing=True, step_time_s=FLEET_ENGINE["step_time_s"])
+    prompt = np.random.default_rng(23).integers(0, SERVE_MODEL["vocab_size"],
+                                                HANDOFF_PROMPT).astype(np.int32)
+    req = [Request(rid=0, prompt=prompt, max_new_tokens=HANDOFF_NEW)]
+    ServingEngine(model, cfg, device="cuda").run(  # warm-up, not counted
+        [Request(rid=0, prompt=prompt[::-1].copy(), max_new_tokens=2)])
+    counts = {}
+
+    def counted(tag, fn):
+        reset_launch_counts()  # ---- each window starts here
+        out = fn()
+        counts[tag] = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+        return out
+
+    chunk, layers = SERVE_CFG["prefill_chunk"], SERVE_MODEL["num_layers"]
+    need = expected_flash_calls(req, chunk, layers)
+    t0 = time.perf_counter()
+    info = counted("write", lambda: write_handoff(model, cfg, prompt, tmp / kind, device="cuda"))
+    t_write = time.perf_counter() - t0
+    eng = ServingEngine(model, cfg, device="cuda")
+    t0 = time.perf_counter()
+    pages = adopt_handoff(eng, tmp / kind)
+    t_adopt = time.perf_counter() - t0
+    adopted = counted("adopted", lambda: eng.run(req)).requests[0]
+    local = counted("local", lambda: ServingEngine(model, cfg, device="cuda").run(req)).requests[0]
+    vandalize(str(tmp / kind), "truncate")
+    eng = ServingEngine(model, cfg, device="cuda")
+    fallback_pages = adopt_handoff(eng, tmp / kind)
+    fallback = counted("truncated", lambda: eng.run(req)).requests[0]
+    check(info["n_pages"] == pages == 3 and info["covered_tokens"] == 3 * FLEET_PAGE,
+          f"handoff {kind}: {info} written, {pages} adopted, 3 pages expected")
+    check(adopted.shared_pages == 3 and local.shared_pages == 0 and fallback_pages == 0
+          and fallback.shared_pages == 0, f"handoff {kind}: shared pages {adopted.shared_pages}"
+          f" / {local.shared_pages} / {fallback.shared_pages}, fallback adopted {fallback_pages}")
+    flash = {tag: c["flash_forward_lse"] for tag, c in counts.items()}
+    check(flash == {"write": need, "adopted": 0, "local": need, "truncated": need} == {
+        "write": 36, "adopted": 0, "local": 36, "truncated": 36},
+        f"handoff {kind}: kernel 1 launched {flash}, the prefill needs {need}")
+    check(all(v == 0 for c in counts.values() for n, v in c.items() if n != "flash_forward_lse"),
+          f"handoff {kind}: a kernel other than 1 launched: {counts}")
+    check(adopted.tokens == local.tokens == fallback.tokens,
+          f"handoff {kind}: the adopted or truncated stream differs from local prefill's")
+    print(f"[fleet] (b) handoff, {kind} cache, page {FLEET_PAGE}, prefix sharing: a "
+          f"{HANDOFF_PROMPT}-token prompt handed off as {info['n_pages']} pages "
+          f"({info['covered_tokens']} tokens; written in {t_write * 1e3:.1f} ms wall, adopted in "
+          f"{t_adopt * 1e3:.1f} ms wall); kernel 1 launches write / adopted decode / local "
+          f"prefill / truncated fallback {flash['write']} / {flash['adopted']} / "
+          f"{flash['local']} / {flash['truncated']}; the {HANDOFF_NEW}-token streams bitwise "
+          f"equal; the truncated handoff adopted {fallback_pages} pages")
+    return {n: sum(c[n] for c in counts.values()) for n in counts["write"]}
+
+
+def fleet_phase() -> dict[str, dict[str, int]]:
+    """Main path 20 (module docstring, phase 26): (a) the router at full
+    serving width, four runs, each its launches its own path; (b) the KV
+    handoff, f32 and int8; (c) the spawned drill at world 2 on one card."""
+    import tempfile
+
+    import torch
+
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.serve import ServeConfig, ServingEngine, SLOConfig, poisson_workload
+    from tpudml_torch.serve.fleet import FleetConfig, FleetRouter, run_fleet_drill
+    from tpudml_torch.serve.fleet import drill as fleet_drill
+
+    t_phase = time.perf_counter()
+    model = TransformerLM(**SERVE_MODEL, device="cuda", generator=torch.Generator().manual_seed(0))
+    w = FLEET_WORKLOAD
+    requests, _ = poisson_workload(w["n"], w["qps"], w["seed"],
+                                   vocab_size=SERVE_MODEL["vocab_size"],
+                                   prompt_len=w["prompt_len"], new_tokens=w["new_tokens"])
+    chunk, layers = SERVE_CFG["prefill_chunk"], SERVE_MODEL["num_layers"]
+    dense = ServeConfig(**FLEET_ENGINE)
+    paged = ServeConfig(**FLEET_ENGINE, cache_layout="paged", page_size=FLEET_PAGE,
+                        prefix_sharing=True)
+    slo = SLOConfig(tpot_budget_s=FLEET_SLO_S)
+    f32 = ServeConfig(**FLEET_ENGINE, slo=slo, fused_head=True)
+    i8 = ServeConfig(**FLEET_ENGINE, slo=slo, fused_head=True, weight_quant="int8")
+    common = dict(replicas=FLEET_REPLICAS, max_queue=2 * FLEET_REPLICAS)
+    kill = dict(common, reform_after_steps=FLEET_REFORM)
+    runs = {  # path: (FleetConfig, kills)
+        "fleet_no_kill": (FleetConfig(engine=dense, **common), []),
+        "fleet_kill": (FleetConfig(engine=dense, **kill), [FLEET_KILL]),
+        "fleet_paged_kill": (FleetConfig(engine=paged, **kill), [FLEET_KILL]),
+        "fleet_mixed_kill": (FleetConfig(engine=f32, replica_engines=(f32, f32, i8), **kill),
+                             [FLEET_KILL]),
+    }
+    paths, reports, routers = {}, {}, {}
+    for path, (cfg, kills) in runs.items():
+        FleetRouter(model, cfg, device="cuda").run(requests[:2])  # warm-up, not counted
+        router = FleetRouter(model, cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset_launch_counts()  # ---- this path starts here
+        rep = router.run(requests, kills=kills)
+        torch.cuda.synchronize()
+        paths[path] = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+        wall = time.perf_counter() - t0
+        reports[path], routers[path] = rep, router
+        _fleet_line(path, rep, wall, paths[path])
+
+        victim = kills[0][1] if kills else None
+        segs, tenants = _fleet_log(rep, requests, victim)
+        for st in rep.requests.values():
+            states = sum(x is not None for x in (st.finished, st.rejected, st.expired))
+            check(states == 1, f"{path}: request {st.rid} ends in {states} terminal states")
+            check(st.finished is None or len(st.tokens) == st.max_new_tokens,
+                  f"{path}: request {st.rid} finished with {len(st.tokens)} of "
+                  f"{st.max_new_tokens} tokens")
+        if kills:
+            check(rep.kills == 1 and rep.drains == tenants and tenants > 0,
+                  f"{path}: {rep.drains} drains, the victim held {tenants} tenants at the kill")
+            check(rep.per_replica[victim]["reformed_at"] == FLEET_KILL[0] + FLEET_REFORM,
+                  f"{path}: replica {victim} re-formed at {rep.per_replica[victim]}")
+        need = sum(layers * c * (c + 1) // 2 for seg in segs.values()
+                   for c in (-(-(plen - 1) // chunk) for _, plen, _ in seg))
+        got = paths[path]
+        check(got["flash_forward_lse"] == need, f"{path}: {got['flash_forward_lse']} launches "
+              f"of kernel 1, the admitted prompts (continuations too) need {need}")
+        steps = [r["decode_steps"] for r in rep.per_replica]
+        fused = {"fused_decode_head": 0, "fused_decode_head_int8": 0}
+        if path == "fleet_mixed_kill":
+            fused = {"fused_decode_head": steps[0] + steps[1],
+                     "fused_decode_head_int8": steps[2]}
+        check({n: got[n] for n in fused} == fused,
+              f"{path}: decode heads launched {[got[n] for n in fused]}, the replicas' decode "
+              f"steps {steps} need {fused}")
+        others = {n: v for n, v in got.items()
+                  if v and n not in fused and n != "flash_forward_lse"}
+        check(not others, f"{path}: kernels off the fleet's path launched: {others}")
+
+    no_kill = reports["fleet_no_kill"]
+    mism = teacher_forced_check(model, requests,
+                                {rid: st.tokens for rid, st in no_kill.requests.items()},
+                                "fleet_no_kill")
+
+    def finished(rep):
+        return {rid for rid, st in rep.requests.items() if st.finished is not None}
+
+    def streams(rep):
+        return {rid: st.tokens for rid, st in rep.requests.items()}
+
+    for path in ("fleet_kill", "fleet_paged_kill"):
+        both = [r for r in requests if r.rid in finished(no_kill) & finished(reports[path])]
+        compare_streams(model, both, streams(no_kill), streams(reports[path]),
+                        f"{path} vs fleet_no_kill")
+    pools = [r.get("pool", {}) for r in reports["fleet_paged_kill"].per_replica]
+    check(all(p.get("prefix_hits") == 0 for p in pools),
+          f"fleet_paged_kill: prefix hits {pools} (random prompts share no 128-token page)")
+
+    rep = reports["fleet_mixed_kill"]
+    admits = [e[2] for e in rep.events if e[0] == "admit"]
+    check(admits[:FLEET_INT8_SLOTS] == [2] * FLEET_INT8_SLOTS,
+          f"fleet_mixed_kill: the first admits went to replicas {admits[:FLEET_INT8_SLOTS]}, "
+          f"the int8 replica (2) prices cheapest")
+    eng_models = {r.idx: r.eng.model for r in routers["fleet_mixed_kill"].replicas}
+    segs, _ = _fleet_log(rep, requests, FLEET_KILL[1])
+    mism += _fleet_segment_check(eng_models, requests, rep, segs, "fleet_mixed_kill")
+    only = {rid: {r for r, _, _ in seg} for rid, seg in segs.items()}
+    f32_only = [r for r in requests if r.rid in finished(rep) & finished(no_kill)
+                and only[r.rid] <= {0, 1}]
+    compare_streams(model, f32_only, streams(no_kill), streams(rep),
+                    "fleet_mixed_kill f32 replicas vs fleet_no_kill")
+    i8_only = [r for r in requests if r.rid in finished(rep) and only[r.rid] == {2}]
+    i8_eng = ServingEngine(model, ServeConfig(**SERVE_CFG, fused_head=True, weight_quant="int8"),
+                           device="cuda")
+    single = i8_eng.run(i8_only)
+    compare_streams(i8_eng.model, i8_only, streams(single), streams(rep),
+                    "fleet_mixed_kill int8 replica vs a single int8 engine", INT8_TIE_GAP)
+
+    again = FleetRouter(model, runs["fleet_kill"][0], device="cuda").run(
+        requests, kills=runs["fleet_kill"][1])
+    check(again.canonical_events() == reports["fleet_kill"].canonical_events(),
+          "fleet_kill: a second run's event log differs")
+    print(f"[fleet] (a) {FLEET_REPLICAS} replicas of the serving model, {w['n']} requests at "
+          f"{w['qps']} req/s (2x capacity), replica {FLEET_KILL[1]} killed at step "
+          f"{FLEET_KILL[0]} and re-formed {FLEET_REFORM} steps later: every request in one "
+          f"terminal state, drains = the victim's tenants, kernel 1 = the admitted prompts' "
+          f"chunks, 4 / 5 = the fused replicas' decode steps; fleet_kill's event log "
+          f"byte-identical on a second run (CRC {again.events_crc32():08x}); streams against "
+          f"fleet_no_kill and the replicas' full forwards ({mism} near-tie mismatches); "
+          f"{len(i8_only)} int8-only streams against a single int8 engine (gap < "
+          f"{INT8_TIE_GAP}); the mixed run's first {FLEET_INT8_SLOTS} admits on the int8 replica")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for kind, path in (("f32", "fleet_handoff"), ("int8", "fleet_handoff_int8")):
+            paths[path] = _fleet_handoff(model, kind, tmp)
+        reset_launch_counts()  # ---- fleet_drill starts here
+        drill = run_fleet_drill(tmp / "drill", world=2, kill_rank=1, device="cuda",
+                                timeout_s=FLEET_DRILL_TIMEOUT_S)
+        paths["fleet_drill"] = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    check(drill["ok"] and drill["crc_ok"] and drill["reforms"] >= 1,
+          f"the fleet drill failed: {drill}")
+    ref_reqs = fleet_drill._workload(10, 0)
+    need = expected_flash_calls(ref_reqs, fleet_drill.SERVE_KW["prefill_chunk"],
+                                fleet_drill.MODEL_KW["num_layers"])
+    got = {n: v for n, v in paths["fleet_drill"].items() if v}
+    check(got == {"flash_forward_lse": need},
+          f"fleet_drill: this process launched {got}; its reference's prefill needs {need}")
+    crcs = ", ".join(f"rank {r} {v.get('tokens_crc', 0):08x}"
+                     for r, v in drill["ranks"].items())
+    print(f"[fleet] (c) drill: {drill['world']} replica processes on one card under the "
+          f"elastic controller, rank 1 SIGKILLed mid-serve and re-formed ({drill['reforms']} "
+          f"re-form, {drill['stop_reason']}); token CRCs equal the uninterrupted in-process "
+          f"reference's: {drill['crc_ok']} "
+          f"({crcs}); "
+          f"restart latency (the failed round's end to the re-formed round's spawn) "
+          f"{drill['restart_latency_s']:.3f} s, recovery (to the re-formed round's end) "
+          f"{drill['recovery_s']:.3f} s, wall {drill['wall_s']:.2f} s; the reference launched "
+          f"kernel 1 {need} times")
+    print(f"[fleet] {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def _dir_bytes(path) -> int:
     return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
 
@@ -6681,6 +7034,8 @@ def main() -> int:
     paths.update(elastic_phase())
     torch.cuda.empty_cache()
     paths.update(mpmd_phase())
+    torch.cuda.empty_cache()
+    paths.update(fleet_phase())
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -48,11 +48,10 @@ def test_keys_messages_and_order_are_jax():
 
 
 def test_rows_the_port_lacks_fire_on_no_planner_candidate():
-    missing = [k for k in JAX_TABLE if k not in TABLE]
-    assert missing  # the serving fleet's and mpmd/'s rows come with their slices
-    for world in WORLDS:
-        for rec in _records(world):
-            assert not _firing({k: JAX_TABLE[k] for k in missing}, rec), rec["key"]
+    """Since the serving fleet's ``serve_fleet_spec`` came back, the port
+    lacks no row of JAX's table: both tables hold the same rows in the same
+    order."""
+    assert list(TABLE) == list(JAX_TABLE)
 
 
 def test_gspmd_fused_xent_row_fires_on_accumulation_and_custom_loss():
@@ -97,3 +96,43 @@ def test_mpmd_predicates_and_guard_sites_fire_as_jax_s(key, stage, serve):
         PipelineSpec(stages=(StageSpec("a", **stage), StageSpec("b")), global_batch=8,
                      serve=serve)
     assert str(ei.value) == TABLE[key].message
+
+
+SERVE_RECORDS = [
+    {"serve_fleet": fleet, "serve_spec_k": k, "serve_tp": tp, "serve_cache_layout": layout,
+     "serve_fused_head": fused, "serve_weight_quant": wq}
+    for fleet in (False, True) for k in (0, 2) for tp in (False, True)
+    for layout in ("dense", "paged") for fused in (False, True) for wq in (None, "int8")
+]
+
+
+def test_serve_fleet_spec_stands_at_jax_s_place_and_fires_as_jax_s():
+    """The fleet's row sits between ``serve_tp_weight_quant`` and
+    ``serve_tp_dense_only`` as in JAX, owned by the port's router; over
+    every serving record the firing rows and the first rejection are
+    JAX's, and the fleet's row fires exactly on fleet x spec_k > 0."""
+    keys, jkeys = list(TABLE), list(JAX_TABLE)
+    i = keys.index("serve_fleet_spec")
+    assert i == jkeys.index("serve_fleet_spec")
+    assert keys[i - 1] == "serve_tp_weight_quant" and keys[i + 1] == "serve_tp_dense_only"
+    assert TABLE["serve_fleet_spec"].owner == "tpudml_torch.serve.fleet.router"
+    for rec in SERVE_RECORDS:
+        assert _firing(TABLE, rec) == _firing(JAX_TABLE, rec), rec
+        assert candidate_rejection(rec) == jax_rejection(rec), rec
+        fires = "serve_fleet_spec" in _firing(TABLE, rec)
+        assert fires == (rec["serve_fleet"] and rec["serve_spec_k"] > 0), rec
+
+
+def test_fleet_config_raises_jax_s_spec_message():
+    """``FleetConfig(engine=ServeConfig(spec_k>0))`` raises the row's message
+    as ``ServeCompositionError``, from the template and from a replica's
+    config alike."""
+    from tpudml_torch.serve import ServeCompositionError, ServeConfig
+    from tpudml_torch.serve.fleet import FleetConfig
+
+    spec = ServeConfig(slots=2, max_len=64, prefill_chunk=8, step_time_s=0.01, spec_k=2)
+    plain = ServeConfig(slots=2, max_len=64, prefill_chunk=8, step_time_s=0.01)
+    for kw in ({"engine": spec}, {"engine": plain, "replica_engines": (plain, spec)}):
+        with pytest.raises(ServeCompositionError) as ei:
+            FleetConfig(replicas=2, **kw)
+        assert str(ei.value) == JAX_TABLE["serve_fleet_spec"].message

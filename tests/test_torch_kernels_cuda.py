@@ -55,6 +55,12 @@ The heterogeneous MPMD pipeline (two stage threads on the card) equals
 its single-program reference at rtol 1e-5 / atol 1e-6; the re-mesh drill
 with four stage processes on the card is bitwise its uninterrupted
 reference.
+The serving fleet at a small width: a killed replica's continuations give
+the single engine's streams, apart from a near-tie of the plain logits
+(top-2 gap under 1e-5), with kernel 1 launched exactly as the admitted
+prompts need; an adopted KV handoff (f32 and int8 caches) skips kernel 1
+on its pages and serves the local prefill's stream bitwise; the drill's
+two replica processes share the card and match their reference's CRCs.
 Past the old grid-y edges (8,388,480 rows of kernels 10–12, and kernel 13
 with 129 row ranges there; B·H = 65535 of the flash kernels) the
 tolerances are those above, the plain versions taken in row or batch
@@ -2083,3 +2089,111 @@ def test_mpmd_remesh_drill_with_four_stage_processes_on_the_card(cuda_device, tm
     assert rep["ok"], rep
     assert rep["bit_exact"] and rep["in_place"] and rep["final_stage_worlds"] == [2, 1]
     assert rep["resume_step"] == 10 and rep["steps_lost"] == 3 and rep["fresh_ports"]
+
+
+# The serving fleet on the card at a small width (V=1024, d=128, H=8, kv 2,
+# L=2, RoPE; 4 slots, max_len 256, chunks of 32).
+FLEET_SMALL = dict(vocab_size=1024, embed_dim=128, num_heads=8, num_kv_heads=2, num_layers=2,
+                   max_len=256, rope=True)
+
+
+def _small_lm(device):
+    from tpudml_torch.models import TransformerLM
+
+    return TransformerLM(**FLEET_SMALL, device=device, generator=torch.Generator().manual_seed(0))
+
+
+def _near_tie(model, prompt, a, b, bound=1e-5):
+    """Two greedy streams agree, or part where the plain logits' top-2 gap
+    is under ``bound``."""
+    if a == b:
+        return True
+    i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+    seq = torch.tensor(list(prompt) + a[:i], device=model.device)
+    with torch.inference_mode():
+        top2 = model(seq[None])[0, -1].topk(2).values
+    return (top2[0] - top2[1]).item() < bound
+
+
+@pytest.mark.cuda
+def test_fleet_router_kill_arm_on_the_card_matches_its_single_engine(cuda_device):
+    """Two dense replicas, replica 1 killed at step 4 and re-formed: every
+    finished stream is the single engine's on the same requests (apart from
+    a near-tie of the plain logits: a continuation re-prefills through
+    kernel 1 what the uninterrupted run wrote a decode step at a time), the
+    drains are the victim's tenants, and kernel 1 launches exactly what the
+    admitted prompts (continuations too) need, no other kernel."""
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.serve import ServeConfig, ServingEngine, poisson_workload
+    from tpudml_torch.serve.fleet import FleetConfig, FleetRouter
+
+    model = _small_lm(cuda_device)
+    requests, _ = poisson_workload(10, 300.0, 3, vocab_size=1024, prompt_len=(16, 100),
+                                   new_tokens=(4, 12))
+    ecfg = ServeConfig(slots=4, max_len=256, prefill_chunk=32, step_time_s=0.01)
+    single = ServingEngine(model, ecfg, device="cuda").run(requests)
+    router = FleetRouter(model, FleetConfig(engine=ecfg, replicas=2, reform_after_steps=3),
+                         device="cuda")
+    reset_launch_counts()
+    rep = router.run(requests, kills=[(4, 1)])
+    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    assert rep.kills == 1 and rep.drains >= 1 and rep.finished == len(requests)
+    base = {r.rid: len(r.prompt) for r in requests}
+    done = {rid: 0 for rid in base}
+    live, need = {}, 0
+    for kind, rid, _, _, step in rep.events:
+        if kind == "admit":
+            c = -(-(base[rid] + done[rid] - 1) // 32)
+            need += 2 * c * (c + 1) // 2
+            live[rid] = step
+        elif kind == "drain":
+            done[rid] += step - live.pop(rid)
+    assert launches == {"flash_forward_lse": need}
+    for req in requests:
+        assert _near_tie(model, req.prompt, rep.requests[req.rid].tokens,
+                         single.requests[req.rid].tokens), req.rid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_handoff_skips_kernel_1_on_the_adopted_prefix(cuda_device, tmp_path, kind):
+    """A 97-token prompt hands off 3 pages of 32; the adopting engine's
+    prefill launches kernel 1 no time where a local prefill launches it
+    2·(1+2+3) times, and its stream is bitwise the local one's."""
+    import numpy as np
+
+    from tpudml_torch.ops import FLASH_FORWARD, reset_launch_counts
+    from tpudml_torch.serve import Request, ServeConfig, ServingEngine
+    from tpudml_torch.serve.fleet import adopt_handoff, write_handoff
+
+    model = _small_lm(cuda_device)
+    cfg = ServeConfig(slots=4, max_len=256, prefill_chunk=32, cache_kind=kind,
+                      cache_layout="paged", page_size=32, prefix_sharing=True)
+    prompt = np.random.default_rng(5).integers(0, 1024, 97).astype(np.int32)
+    req = [Request(rid=0, prompt=prompt, max_new_tokens=12)]
+    reset_launch_counts()
+    assert write_handoff(model, cfg, prompt, tmp_path, device="cuda")["n_pages"] == 3
+    assert FLASH_FORWARD.launches == 12
+    eng = ServingEngine(model, cfg, device="cuda")
+    assert adopt_handoff(eng, tmp_path) == 3
+    reset_launch_counts()
+    adopted = eng.run(req).requests[0]
+    assert FLASH_FORWARD.launches == 0 and adopted.shared_pages == 3
+    reset_launch_counts()
+    local = ServingEngine(model, cfg, device="cuda").run(req).requests[0]
+    assert FLASH_FORWARD.launches == 12
+    assert adopted.tokens == local.tokens
+
+
+@pytest.mark.cuda
+def test_fleet_drill_at_world_2_on_one_card(cuda_device, tmp_path):
+    """Two replica processes share the card under the elastic controller;
+    rank 1 SIGKILLs itself mid-serve, the round re-forms, and both ranks'
+    token CRCs equal the uninterrupted in-process reference's."""
+    from tpudml_torch.serve.fleet import run_fleet_drill
+
+    rep = run_fleet_drill(tmp_path, world=2, requests=8, kill_rank=1, device="cuda",
+                          timeout_s=240.0)
+    assert rep["ok"], rep
+    assert rep["reforms"] >= 1 and rep["crc_ok"]
+    assert all(r["match"] for r in rep["ranks"].values())

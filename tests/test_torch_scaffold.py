@@ -133,6 +133,19 @@ def test_mpmd_modules_are_among_the_checked(module):
     assert (path if path.exists() else path.with_suffix("") / "__init__.py") in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "tpudml_torch.serve.fleet", "tpudml_torch.serve.fleet.router",
+    "tpudml_torch.serve.fleet.disagg", "tpudml_torch.serve.fleet.drill",
+    "tpudml_torch.serve.fleet.__main__", "tpudml_torch.serve.fleet.quant"])
+def test_fleet_modules_are_among_the_checked(module):
+    """The serving fleet's modules (the router, the KV handoff, the drill
+    and its CLI) are among the modules the jax-blocked import and the AST
+    scan cover."""
+    assert module in list(_modules())
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert (path if path.exists() else path.with_suffix("") / "__init__.py") in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_tpudml_import(path):
     tree = ast.parse(path.read_text())

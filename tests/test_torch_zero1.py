@@ -37,6 +37,7 @@ jnp = jax.numpy
 import torch_dist_worker  # noqa: E402
 from tpudml import resilience as jres  # noqa: E402
 from tpudml.checkpoint import restore_sharded_checkpoint as jax_restore_sharded  # noqa: E402
+from tpudml.checkpoint import save_sharded_checkpoint as jax_save_sharded  # noqa: E402
 from tpudml.core.config import MeshConfig  # noqa: E402
 from tpudml.core.dist import make_mesh  # noqa: E402
 from tpudml.core.prng import seed_key  # noqa: E402
@@ -96,6 +97,9 @@ def runs(tmp_path_factory):
                          sentinel=True)[0],
     }
     _, jdp, jts = _jax(JaxAdam(lr=1e-3), [], zero1=True)
+    _, _, jts1 = _jax(JaxAdam(lr=1e-3), b[:1], zero1=True)
+    jax_save_sharded(job / "jax_zero1", jts1, step=1)
+    want["order"] = {"ts": jts1, "opt": _np(jts1.opt_state)}
     params, _ = JaxLeNet().init(seed_key(0))
     torch.save({"lenet": sequential_params_from_tpudml(_np(params)), "x": x, "y": y,
                 "xbad": xbad}, job / "cases.pt")
@@ -172,6 +176,29 @@ def test_zero1_state_through_the_sharded_store(runs):
     for n, t in m.items():
         want = torch.cat([ranks[0]["ckpt"]["m"][n], ranks[1]["ckpt"]["m"][n]])
         assert torch.equal(t.reshape(-1), want), n
+
+
+@pytest.mark.parametrize("moment", ["m", "v"])
+def test_zero1_conv_moments_are_jax_s_through_the_sharded_store(runs, moment):
+    """One Adam step of ZeRO-1 LeNet at world 2, its state through the
+    sharded store both ways: JAX restores the port's file to its own run's
+    moments (a conv kernel's raveled in JAX's HWIO order, not the port's
+    OIHW), and the port restores JAX's file into chunks equal to its own."""
+    want, ranks, job, _ = runs
+    restored = jax_restore_sharded(job / "zero1_order" / "step_1", want["order"]["ts"])
+    got = sequential_params_from_tpudml(_np(restored.opt_state[moment]))
+    ref = sequential_params_from_tpudml(want["order"]["opt"][moment])
+    convs = {n for n, p in LeNet(device="cpu").named_parameters() if p.dim() == 4}
+    assert convs and convs <= set(ref)
+    _close(got, ref)
+    for n in ref:  # v is ~1e-9 here, under GRAD_TOL's atol: also hold each leaf to its scale
+        _close({n: got[n]}, {n: ref[n]}, rtol=1e-4, atol=1e-4 * float(ref[n].abs().max()))
+    for rank in ranks:
+        own = rank["order"]["own"][moment]
+        _close(rank["order"]["from_jax"][moment], own)
+        for n, t in own.items():
+            _close({n: rank["order"]["from_jax"][moment][n]}, {n: t}, rtol=1e-4,
+                   atol=1e-4 * float(t.abs().max()))
 
 
 def test_task2_zero1_at_world_2(runs):

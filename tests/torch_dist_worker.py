@@ -749,8 +749,8 @@ def _zero1_run(case, opt, batches, **engine):
 def suite_zero1(job: Path, rank: int, world: int) -> dict:
     """World 2: DataParallel(zero1=...) on LeNet (Adam, SGD momentum, with
     accumulation, a clip, the overlap variant, the split step, the
-    sentinel on a NaN step), the sharded store of a ZeRO-1 state, and task2
-    --zero1."""
+    sentinel on a NaN step), the sharded store of a ZeRO-1 state (the
+    port's file, and JAX's restored), and task2 --zero1."""
     import torch
 
     from tpudml_torch.checkpoint import restore_sharded_checkpoint, save_sharded_checkpoint
@@ -788,6 +788,17 @@ def suite_zero1(job: Path, rank: int, world: int) -> dict:
                    and all(torch.equal(p, run["params"][n]) for n, p in model.named_parameters())
                    and all(torch.equal(t, ts.opt_state["v"][n])
                            for n, t in ts2.opt_state["v"].items())}
+    # One Adam step's state through the store both ways (JAX's file is
+    # <job>/jax_zero1): ZeRO-1 ravels the conv kernels' moments as JAX does.
+    _, dp1, ts1 = _zero1_run(case, Adam(lr=1e-3), b[:1], zero1=True)
+    save_sharded_checkpoint(job / "zero1_order", ts1, 1, placement=dp1.placement)
+    dp3 = DataParallel(LeNet(device="cpu", generator=torch.Generator().manual_seed(9)),
+                       Adam(lr=1e-3), stacked_batches=False, zero1=True)
+    ts3 = dp3.create_state()
+    restore_sharded_checkpoint(job / "jax_zero1" / "step_1", ts3, placement=dp3.placement)
+    out["order"] = {
+        who: {k: {n: t.clone() for n, t in st.opt_state[k].items()} for k in ("m", "v")}
+        for who, st in (("own", ts1), ("from_jax", ts3))}
     out["task2"] = task2.main(["--device", "cpu", "--dataset", "synthetic", "--epochs", "1",
                                "--batch_size", "16", "--log_every", "0", "--zero1",
                                "--log_dir", str(job / f"logs{rank}")])

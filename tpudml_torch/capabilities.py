@@ -4,14 +4,14 @@ compose.
 
 Guard sites (``DataParallel``, ``GSPMDParallel``, the pipelines,
 ``ZeRO1``, ``tp_overlap_matmul``, task5 ``--parallel ep`` and ``pp``, the
-serving engine, ``TPServing`` and the MPMD ``PipelineSpec``) call
+serving engine, ``TPServing``, the fleet's ``FleetConfig`` and the MPMD
+``PipelineSpec``) call
 :func:`reject` with an entry's key instead of writing the message, and
 the planner (``tpudml_torch.plan``) prunes its candidates with each
 entry's ``when`` predicate over a flat candidate dict, through :func:`candidate_rejection`. The rows, their
 messages, their predicates and their order are JAX's: the first row that
 fires names the rejection, so the order is part of the planner's output.
-JAX's row of the module the port does not have yet (the serving fleet's
-``serve_fleet_spec``) is left out at its place. Stdlib only.
+Every row of JAX's table is here. Stdlib only.
 """
 
 from __future__ import annotations
@@ -251,7 +251,17 @@ _ENTRIES = (
         when=lambda c: bool(_g(c, "serve_tp"))
         and _g(c, "serve_weight_quant") is not None,
     ),
-    # JAX's serve_fleet_spec (tpudml.serve.fleet.router) comes with the serving fleet.
+    Capability(
+        key="serve_fleet_spec",
+        owner="tpudml_torch.serve.fleet.router",
+        message=(
+            "fleet replicas do not compose with spec_k>0 yet: the "
+            "router's drain/re-admit continuation assumes one committed "
+            "token per slot per step; run spec single-engine"
+        ),
+        when=lambda c: bool(_g(c, "serve_fleet"))
+        and _g(c, "serve_spec_k", 0) > 0,
+    ),
     Capability(
         key="serve_tp_dense_only",
         owner="tpudml_torch.serve.tp",

@@ -152,8 +152,8 @@ def launch_once(
     sink=None,
 ) -> LaunchResult:
     """Single-attempt launch: the containment core without the restart
-    loop, the primitive multi-gang supervisors (``tpudml_torch.elastic``;
-    MPMD, ROADMAP.md queue 1 item 10) build rounds from."""
+    loop, the primitive multi-gang supervisors (``tpudml_torch.elastic``,
+    ``tpudml_torch.mpmd``) build rounds from."""
     return _launch_once(cmd, spec, sink)
 
 

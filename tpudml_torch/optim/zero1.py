@@ -12,6 +12,9 @@ and its state's memory drop by N.
 
 Layout, per leaf as in JAX: each parameter is raveled and zero-padded to
 a multiple of ``world`` (``[N·c]``), and rank r holds chunk r (``[c]``).
+A 4-D conv ``kernel`` (OIHW here) is raveled in JAX's HWIO order, so a
+rank's chunk holds the elements JAX's rank r holds and a sharded
+checkpoint's windows are JAX's.
 A leaf the ``stacked`` predicate marks (by parameter name: the
 pipelines' stage-stacked ``stages`` leaves) keeps its leading dim:
 ``[S, N·c]``, chunked along the columns. The zero padding is exact for
@@ -51,9 +54,15 @@ def _chain_has_clip(opt: Optimizer) -> bool:
     return False
 
 
-def _flat_pad(x: torch.Tensor, world: int) -> torch.Tensor:
-    """Ravel + zero-pad to a multiple of ``world`` (a scalar becomes [1])."""
-    flat = x.reshape(-1)
+def _is_conv(name: str, shape) -> bool:
+    """A conv kernel: 4-D and named ``kernel`` (OIHW here, HWIO in JAX)."""
+    return len(shape) == 4 and str(name).split(".")[-1] == "kernel"
+
+
+def _flat_pad(x: torch.Tensor, world: int, name: str = "") -> torch.Tensor:
+    """Ravel (a conv kernel in JAX's HWIO order) + zero-pad to a multiple
+    of ``world`` (a scalar becomes [1])."""
+    flat = (x.permute(2, 3, 1, 0) if _is_conv(name, x.shape) else x).reshape(-1)
     n = flat.shape[0]
     pad = world * -(-n // world) - n
     return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
@@ -109,8 +118,8 @@ class ZeRO1(Optimizer):
     def flatten_params(self, params: dict) -> dict:
         """The FULL flat-padded layout of every leaf: ``[N·c]``, or ``[S,
         N·c]`` for a stacked one (the global shape of the moments)."""
-        return {n: _rows_pad(p, self.world) if self._is_stacked(n) else _flat_pad(p, self.world)
-                for n, p in params.items()}
+        return {n: _rows_pad(p, self.world) if self._is_stacked(n)
+                else _flat_pad(p, self.world, n) for n, p in params.items()}
 
     def init_spec(self, param_specs: dict) -> dict:
         """The chunks' specs by name: ``(axis,)``, or ``(stage spec, axis)``
@@ -134,7 +143,8 @@ class ZeRO1(Optimizer):
         """Reduce-scatter-MEAN every leaf over the data group: this rank
         keeps its chunk of the mean gradient (one collective a dtype for
         the flat leaves, one for the stacked)."""
-        flat = {n: _flat_pad(g, self.world) for n, g in grads.items() if not self._is_stacked(n)}
+        flat = {n: _flat_pad(g, self.world, n) for n, g in grads.items()
+                if not self._is_stacked(n)}
         rows = {n: _rows_pad(g, self.world) for n, g in grads.items() if self._is_stacked(n)}
         out = {}
         for tree, axis in ((flat, 0), (rows, 1)):
@@ -142,6 +152,16 @@ class ZeRO1(Optimizer):
                 out.update({n: c / self.world for n, c in
                             psum_scatter_tree(tree, self.group, axis=axis).items()})
         return {n: out[n] for n in grads}
+
+    @staticmethod
+    def unflatten(name: str, flat: torch.Tensor, shape: tuple) -> torch.Tensor:
+        """A full flat-padded leaf back to ``shape``: the padding sliced
+        off, a conv kernel's HWIO ravel turned back to OIHW."""
+        body = flat[:math.prod(shape)]
+        if _is_conv(name, shape):
+            o, i, h, w = shape
+            return body.reshape(h, w, i, o).permute(3, 2, 0, 1)
+        return body.reshape(shape)
 
     def gather_params(self, chunks: dict, template: dict) -> dict:
         """All-gather the chunks back to full leaves shaped like
@@ -157,7 +177,7 @@ class ZeRO1(Optimizer):
                 if stacked:
                     out[n] = full[:, :math.prod(shape[1:])].reshape(shape)
                 else:
-                    out[n] = full[:math.prod(shape)].reshape(shape)
+                    out[n] = self.unflatten(n, full, shape)
         return {n: out[n] for n in chunks}
 
     # -- the Optimizer contract ------------------------------------------

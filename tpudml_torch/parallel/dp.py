@@ -42,7 +42,6 @@ to bound, so it has no counterpart here.
 
 from __future__ import annotations
 
-import math
 import time
 from typing import Callable
 
@@ -68,17 +67,6 @@ from tpudml_torch.resilience.sentinel import attach_sentinel, find_sentinel
 from tpudml_torch.train import (
     TrainState, accumulate_grads, make_lm_fused_loss_fn, make_loss_fn, params_of, to_device,
 )
-
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item {})"
-
-
-def _reorder(flat: torch.Tensor, shape: tuple, perm: tuple) -> torch.Tensor:
-    """A flat-padded leaf of ``shape``'s elements re-raveled in ``perm``'s
-    order, the padding kept."""
-    n = math.prod(shape)
-    body = flat[:n].reshape(shape).permute(*perm).reshape(-1)
-    return torch.cat([body, flat[n:]])
-
 
 def _use_flash(model: nn.Module) -> None:
     """Swap a dense causal trunk onto the flash kernels, in place."""
@@ -295,17 +283,11 @@ class DataParallel:
             return Window((shape[0], self.world * c), [[0, shape[0]], [r * c, (r + 1) * c]])
         return Window((self.world * c,), [[r * c, (r + 1) * c]])
 
-    def _conv_kernels(self) -> dict[str, tuple]:
-        """The 4-D ``kernel`` parameters (OIHW here, HWIO in JAX): their
-        ZeRO-1 flat layout ravels another element order than JAX's."""
-        return {n: tuple(p.shape) for n, p in params_of(self.model).items()
-                if p.dim() == 4 and n.split(".")[-1] == "kernel"}
-
     def full_state(self, ts: TrainState) -> TrainState:
         """JAX's global view of ``ts`` for the base store (call on every rank:
         it gathers): under ZeRO-1 each optimizer tensor of a parameter
         all-gathered into JAX's flat-padded ``[N·c]`` layout (``[S, N·c]``
-        stacked; a conv kernel's raveled in JAX's HWIO order), the rest as
+        stacked; ZeRO-1 ravels a conv kernel in JAX's HWIO order), the rest as
         it is, the model shared; rank 0 writes it as JAX's store writes its
         gathered global arrays. Without ZeRO-1, ``ts`` itself."""
         if not self.zero1:
@@ -313,7 +295,6 @@ class DataParallel:
         if self.zero1_overlap:
             raise ValueError("a zero1_overlap state carries parameter chunks: gather_params "
                              "first, and checkpoint a zero1=True engine's state")
-        convs = self._conv_kernels()
 
         def whole(state):
             if isinstance(state, dict):
@@ -325,9 +306,6 @@ class DataParallel:
                         if part:
                             out.update(all_gather_tree(part, self.group, axis=axis,
                                                        tiled=True))
-                    for n, shape in convs.items():
-                        if n in out:
-                            out[n] = _reorder(out[n], shape, (2, 3, 1, 0))
                     return {n: out[n] for n in state}
                 return {k: whole(v) for k, v in state.items()}
             return state
@@ -342,17 +320,12 @@ class DataParallel:
         live in the shared model, restored already."""
         if full is ts:
             return ts
-        convs = self._conv_kernels()
 
         def load(state, saved):
             for k, v in state.items():
                 if isinstance(v, torch.Tensor):
-                    src = saved[k]
-                    if k in convs:
-                        h, w_, i, o = (convs[k][j] for j in (2, 3, 1, 0))
-                        src = _reorder(src, (h, w_, i, o), (3, 2, 0, 1))
                     c = v.shape[-1]
-                    v.copy_(src[..., self.rank * c:(self.rank + 1) * c])
+                    v.copy_(saved[k][..., self.rank * c:(self.rank + 1) * c])
                 elif isinstance(v, int) and not isinstance(v, bool):
                     state[k] = int(saved[k])
                 elif isinstance(v, dict):
@@ -506,7 +479,7 @@ class DataParallel:
                         work, full = pending.pop(n)
                         work.wait()
                         p = params[n]
-                        p.copy_(full[:p.numel()].view(p.shape))
+                        p.copy_(self.optimizer.unflatten(n, full, tuple(p.shape)))
 
         land([n for n in params if n not in late])
         record = fired is None

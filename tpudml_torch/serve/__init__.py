@@ -8,8 +8,8 @@ sharing), ``spec`` (speculative decoding with exact greedy acceptance),
 ``engine`` (one decode step + chunked prefill + slot scheduler composing
 all of the above), ``tp`` (the tensor-parallel decode and prefill steps
 on one rank's shard), ``load`` (seeded Poisson request streams),
-``fleet.quant`` (int8 weights). The fleet router is still to port
-(ROADMAP.md queue 1 item 10).
+``fleet`` (the router over N engine replicas, the disaggregated KV
+handoff, the spawned drill, int8 weights).
 """
 
 from tpudml_torch.serve.cache import KVCache, cache_bytes, init_cache

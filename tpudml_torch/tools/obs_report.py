@@ -13,14 +13,18 @@ section:
 - ``elastic.json``   — the elastic controller's reform/re-plan history
   (``tpudml_torch.elastic``'s drills write it), plus the
   ``elastic``-category instants in the exported traces;
+- ``fleet.json``     — the serving fleet's run summary (the drill's
+  verdict rows with per-rank token CRCs and the merged per-replica trace
+  path, or a deterministic router run's membership and latency
+  aggregates, ``FleetReport.to_dict()``);
 - ``obs/mpmd.json``  — the MPMD re-mesh drill's verdict (bit-exactness
   against the uninterrupted reference, the re-mesh MTTR), the pre-launch
   protocol gate's verdict (``protocol_report.json``), and per-edge
   transfer bytes from the merged per-stage trace (one pid track a stage
   group).
 
-The fleet and residual sections wait for the modules that write their
-files (ROADMAP.md queue 1 items 10 and 11).
+The residuals section waits for the module that writes its file
+(ROADMAP.md queue 1 item 11).
 
 Usage::
 
@@ -296,6 +300,92 @@ def mpmd_summary(run_dir: Path) -> str | None:
     return "\n\n".join(out)
 
 
+def fleet_summary(run_dir: Path) -> str | None:
+    """Serving-fleet section: ``fleet.json`` left by either fleet form —
+    the spawned drill (``python -m tpudml_torch.serve.fleet --drill``: per-rank
+    verdict rows + the merged per-replica trace) or a deterministic
+    router run that dumped ``FleetReport.to_dict()``."""
+    path = run_dir / "fleet.json"
+    if not path.is_file():
+        return None
+    doc = json.loads(path.read_text())
+    out = []
+    if "ranks" in doc:  # drill report (fleet/drill.py)
+        out.append(
+            f"drill: ok={doc.get('ok')}  world={doc.get('world')}  "
+            f"reforms={doc.get('reforms')}  "
+            f"stop_reason={doc.get('stop_reason', '?')}  "
+            f"crc_ok={doc.get('crc_ok')}"
+        )
+        rows = []
+        for rank in sorted(doc.get("ranks", {}), key=int):
+            r = doc["ranks"][rank]
+            if "error" in r:
+                rows.append([rank, "-", "-", "-", "-", r["error"]])
+                continue
+            rows.append([
+                rank,
+                r.get("requests"),
+                r.get("generated_tokens"),
+                f"{r.get('tokens_crc', 0):08x}",
+                "yes" if r.get("match") else "NO",
+                "-",
+            ])
+        out.append(_table(
+            ["rank", "requests", "tokens", "crc", "match", "error"], rows
+        ))
+        if doc.get("merged_trace"):
+            out.append(f"merged fleet trace: {doc['merged_trace']}")
+    else:  # FleetReport.to_dict()
+        lat = doc.get("latency", {})
+        out.append(
+            f"router: replicas={doc.get('replicas')}  "
+            f"steps={doc.get('steps')}  "
+            f"tok/s={doc.get('tokens_per_sec', 0.0):.1f}  "
+            f"finished={doc.get('finished')}  "
+            f"rejected={doc.get('rejected')}  expired={doc.get('expired')}"
+        )
+        out.append(
+            f"membership: kills={doc.get('kills')}  "
+            f"drains={doc.get('drains')}  readmits={doc.get('readmits')}  "
+            f"peak_queue={doc.get('peak_queue_depth')}  "
+            f"events_crc32={doc.get('events_crc32', 0):08x}"
+        )
+        if lat:
+            out.append(
+                f"latency: ttft p50/p99 = {lat.get('ttft_p50_s', 0.0):.4f}/"
+                f"{lat.get('ttft_p99_s', 0.0):.4f}s  tpot p50/p99 = "
+                f"{lat.get('per_token_p50_s', 0.0):.4f}/"
+                f"{lat.get('per_token_p99_s', 0.0):.4f}s"
+            )
+        per_rep = doc.get("per_replica") or []
+        if per_rep:
+            rows = []
+            for r in per_rep:
+                busy = r.get("busy_slot_steps", 0)
+                denom = max(r.get("decode_steps", 0) * r.get("slots", 1), 1)
+                rows.append([
+                    r.get("replica"),
+                    r.get("decode_steps"),
+                    f"{busy / denom:.2f}",
+                    r.get("killed_at") if r.get("killed_at") is not None else "-",
+                    r.get("reformed_at") if r.get("reformed_at") is not None else "-",
+                ])
+            out.append(_table(
+                ["replica", "decode_steps", "occupancy", "killed_at",
+                 "reformed_at"],
+                rows,
+            ))
+        replans = doc.get("replans") or []
+        for r in replans:
+            out.append(
+                f"replan @ step {r.get('step')}: {r.get('why', '?')} → "
+                + (r.get("error") or json.dumps(
+                    r.get("decision", {}), sort_keys=True))
+            )
+    return "\n\n".join(out)
+
+
 def report(run_dir: str | Path) -> str:
     run_dir = Path(run_dir)
     sections = [
@@ -303,6 +393,7 @@ def report(run_dir: str | Path) -> str:
         ("trace.json", trace_summary(run_dir / "trace.json")),
         ("obs/drift.json", drift_summary(run_dir / "obs" / "drift.json")),
         ("elastic.json (reform/re-plan)", elastic_summary(run_dir)),
+        ("fleet.json (serving fleet)", fleet_summary(run_dir)),
         ("mpmd.json (MPMD re-mesh)", mpmd_summary(run_dir)),
     ]
     out = [f"== obs report: {run_dir} =="]
