@@ -521,7 +521,27 @@ the CPU). Phases, each printing its own line(s):
    SIGKILLed: ok, the token CRCs the in-process reference's, at least one
    re-form; restart latency, recovery and wall printed (``fleet_drill``
    counts this process's reference, kernel 1 only).
-27. one JSON line of per-kernel numbers (launches summed over the main
+27. main path 21, the analyzers on the card (``[analysis]``): (a) ``python
+   -m tpudml_torch.analysis --strict`` in a child process on the card:
+   exit 0, ``0 finding(s)``, no stale allowlist entry; then every one of
+   the 16 entrypoints captured here on the card and on the CPU, each rule
+   set the same on both. (b) One captured step of the bf16 flagship at
+   full width (TRAIN_MODEL, flash, fused add+LN, the fused head saving its
+   scores, AdamW): the capture names each launch, FLAGSHIP_PER_STEP's and
+   no other, equal to the launch counters' deltas, the backward's among
+   them (run on autograd's device thread); its rules are the CPU
+   ``lm_bf16`` entrypoint's; J111 fires, and is silent on the same step
+   with the grad sentinel. (c) The dense decode step at SERVE_MODEL width
+   and SERVE_CFG's 8 slots, unfused and fused: kernel 4 once in the fused
+   step's trace, J119 on the unfused step only, J110 on neither. (d) One
+   step of the bf16 ragged MoE (MOE_MODEL, E = 4): kernel 16's bf16 twin
+   twice a layer in the trace. Each capture prints its wall beside the
+   same step uncaptured (the capture's overhead). (e) What the markers cost
+   the uncaptured steps: a marked call's and a launch report's host time
+   with no capture running (timeit, best of ANALYSIS_MARKER_REPEATS), times
+   the regions and launches each step of (b) and (c) makes: under 1% of
+   the step.
+28. one JSON line of per-kernel numbers (launches summed over the main
    paths, and by path), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -4458,8 +4478,9 @@ def _host_model():
                          generator=torch.Generator().manual_seed(1))
 
 
-def _timed_steps(ts, step, batches) -> float:
-    """ms/step over the batches after the first."""
+def _timed_steps(ts, step, batches) -> tuple:
+    """(the state after the batches, ms/step over the batches after the
+    first)."""
     import torch
 
     for i, b in enumerate(batches):
@@ -4468,7 +4489,7 @@ def _timed_steps(ts, step, batches) -> float:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+    return ts, (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
 
 
 def _opt_tensors(state) -> list:
@@ -4562,7 +4583,7 @@ def host_sentinel(tmp: Path) -> dict[str, int]:
                     ("without (again)", {}), ("with (again)", {"sentinel": True})):
         m2 = _host_model()
         eng = DataParallel(m2, Adam(lr=TRAIN_LR), stacked_batches=False, **kw)
-        ms[tag] = _timed_steps(eng.create_state(), eng.make_train_step(), timed)
+        ms[tag] = _timed_steps(eng.create_state(), eng.make_train_step(), timed)[1]
         del m2, eng
     print(f"[host_infra] ms/step (steady state, {HOST_TIMED_STEPS - 1} steps after one "
           f"warm-up): " + ", ".join(f"{k} sentinel {v:.2f}" for k, v in ms.items()))
@@ -4671,7 +4692,7 @@ def host_obs(tmp: Path) -> dict[str, int]:
                     ("on (again)", {"obs": True})):
         m2 = _host_model()
         eng = DataParallel(m2, Adam(lr=TRAIN_LR), stacked_batches=False, **kw)
-        ms[tag] = _timed_steps(eng.create_state(), eng.make_train_step(), timed)
+        ms[tag] = _timed_steps(eng.create_state(), eng.make_train_step(), timed)[1]
         del m2, eng
     cost = {}
     for tag, tr in (("on", Tracer()), ("off", Tracer(enabled=False))):
@@ -4746,6 +4767,7 @@ def host_infra_phase() -> dict[str, dict[str, int]]:
         torch.cuda.empty_cache()
         paths["host_serve"] = host_serve(tmp)
     check(not torch.distributed.is_initialized(), "the host_infra group outlived its phase")
+    torch.cuda.synchronize()
     print(f"[host_infra] phase {time.perf_counter() - t0:.1f} s")
     return paths
 
@@ -4958,6 +4980,7 @@ def gspmd_phase() -> dict[str, dict[str, int]]:
             del mm, mp, ts, params
             torch.cuda.empty_cache()
     check(not torch.distributed.is_initialized(), "the GSPMD group outlived its phase")
+    torch.cuda.synchronize()
     print(f"[gspmd] {time.perf_counter() - t0:.1f} s")
     return paths
 
@@ -5174,6 +5197,7 @@ def fsdp_tp_phase(gen) -> dict[str, dict[str, int]]:
                       f"d={XENT_SHAPE[1]} V={XENT_SHAPE[2]}, "
                       f"{_vocab_shard_check(gen, dtype, shards, save_s)}")
                 torch.cuda.empty_cache()
+    torch.cuda.synchronize()
     print(f"[fsdp_tp] {time.perf_counter() - t0:.1f} s")
     return paths
 
@@ -6592,6 +6616,201 @@ def zero1_phase() -> dict[str, dict[str, int]]:
     return paths
 
 
+# ------------------------------------------------------------ phase 27
+
+
+ANALYSIS_TIMEOUT_S = 300.0
+ANALYSIS_TIMED_STEPS = 3  # uncaptured: the first is the warm-up, ms over the rest
+ANALYSIS_DECODE_POS = 100  # each slot's position in the decode captures
+ANALYSIS_MOE_EXPERTS = 4
+ANALYSIS_MARKER_CALLS = 200_000  # calls a timeit run in (e)
+ANALYSIS_MARKER_REPEATS = 5
+ANALYSIS_MARKER_SHARE = 0.01  # (e): most of a step the markers may cost
+
+
+def _captured(name, step, args, donation: bool = True, **kw):
+    """(capture, findings, launch counter deltas) of one captured step."""
+    from tpudml_torch.analysis import analyze_capture, capture
+    from tpudml_torch.ops import KERNELS
+
+    before = {k.name: k.launches for k in KERNELS}
+    cap = capture(step, args, name=name, **kw)
+    deltas = {k.name: k.launches - before[k.name] for k in KERNELS if k.launches > before[k.name]}
+    check(cap.error is None, f"the {name} capture raised {cap.error!r}")
+    findings = analyze_capture(cap, name, expects_donation=donation)
+    return cap, findings, deltas
+
+
+def _rules(findings) -> list:
+    return sorted({f.rule for f in findings})
+
+
+def analysis_phase() -> dict[str, dict[str, int]]:
+    """Main path 21 (module docstring, phase 27). Returns the launch counts
+    of the captured steps."""
+    import os
+    import threading
+    import timeit
+
+    import torch
+
+    from tpudml_torch import markers
+    from tpudml_torch.analysis import ENTRYPOINTS, analyze_entrypoints
+    from tpudml_torch.analysis.entrypoints import entrypoint_group
+    from tpudml_torch.data import synthetic_lm
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS, reset_launch_counts
+    from tpudml_torch.optim import AdamW
+    from tpudml_torch.resilience import attach_sentinel
+    from tpudml_torch.serve import ServeConfig, ServingEngine
+    from tpudml_torch.train import TrainState, make_lm_fused_train_step, make_train_step
+
+    t_phase = time.perf_counter()
+    # (a) the strict CLI in a child on the card, then every entrypoint on both devices
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "TPUDML_DEVICE"}
+    proc = subprocess.run([sys.executable, "-m", "tpudml_torch.analysis", "--strict"],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=ANALYSIS_TIMEOUT_S, env=env)
+    lines = proc.stdout.strip().splitlines()
+    print(f"[analysis] (a) python -m tpudml_torch.analysis --strict on the card: rc "
+          f"{proc.returncode}, {lines[-1] if lines else proc.stderr[-300:]!r}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(proc.returncode == 0, f"the strict CLI failed on the card: {proc.stdout[-2000:]}"
+                                f"{proc.stderr[-2000:]}")
+    check(lines and lines[-1].startswith("0 finding(s)"), "the strict CLI found something")
+    check("stale allowlist" not in proc.stdout, "the strict CLI names a stale allowlist entry")
+    t0 = time.perf_counter()
+    by_device = {}
+    for dev in ("cuda", "cpu"):
+        with entrypoint_group(dev):
+            found = analyze_entrypoints(device=dev)
+        by_device[dev] = {n: sorted({f.rule for f in found if f.entrypoint == n})
+                          for n in ENTRYPOINTS}
+        check(all(f.file and f.line > 0 for f in found), f"a {dev} finding has no file:line")
+    same = by_device["cuda"] == by_device["cpu"]
+    print(f"[analysis] (a) the 16 entrypoints captured on the card and on the CPU "
+          f"({time.perf_counter() - t0:.1f} s): rule sets "
+          f"{'equal' if same else 'DIFFER'}: {by_device['cuda']}")
+    check(same, f"card and CPU findings differ: {by_device}")
+
+    t, v = TRAIN_MODEL["max_len"], TRAIN_MODEL["vocab_size"]
+    batch = torch.from_numpy(synthetic_lm(TRAIN_BATCH, t, v, seed=1)).long().cuda()
+    tokens, labels = batch[:, :-1], batch[:, 1:]
+    main_thread = threading.get_ident()
+    marks = {}  # tag -> (regions, launches, uncaptured ms) of one step, for (e)
+    reset_launch_counts()  # ---- main path 21 starts here
+    # (b) the bf16 flagship, plain and with the sentinel
+    for sentinel in (False, True):
+        t0 = time.perf_counter()
+        m = TransformerLM(**TRAIN_MODEL, impl="flash", fused_ln=True,
+                          compute_dtype=torch.bfloat16, device="cuda",
+                          generator=torch.Generator().manual_seed(3))
+        opt = AdamW(lr=FLAGSHIP_LR)
+        if sentinel:
+            opt = attach_sentinel(opt, ())
+        step = make_lm_fused_train_step(m, opt, save_scores=True)
+        ts, ms = _timed_steps(TrainState.create(m, opt), step, [batch] * ANALYSIS_TIMED_STEPS)
+        tag = "flagship_sentinel" if sentinel else "flagship"
+        cap, findings, deltas = _captured(tag, step, (ts, tokens, labels))
+        off_thread = sum(1 for e in cap.events if e.kind == "launch" and e.thread != main_thread)
+        off_ops = sum(1 for e in cap.events if e.kind == "op" and e.thread != main_thread)
+        print(f"[analysis] (b) {tag}: captured step {cap.wall_s * 1e3:.1f} ms vs "
+              f"{ms:.2f} ms uncaptured (x{cap.wall_s * 1e3 / ms:.1f}); {len(cap.events)} "
+              f"events, {len(cap.regions)} regions; launches {dict(cap.launches)} "
+              f"({off_thread} launches and {off_ops} ops on autograd's device thread); rules "
+              f"{_rules(findings)}; {time.perf_counter() - t0:.1f} s")
+        marks[tag] = (len(cap.regions), sum(cap.launches.values()), ms)
+        check(dict(cap.launches) == FLAGSHIP_PER_STEP,
+              f"the {tag} trace names {dict(cap.launches)}, not {FLAGSHIP_PER_STEP}")
+        check(dict(cap.launches) == deltas, f"the {tag} trace disagrees with the counters")
+        check(off_thread >= 12 + 6 + 6 and off_ops > 0,
+              f"the {tag} backward's launches and ops are not in the trace")
+        check(("J111" in _rules(findings)) != sentinel,
+              f"J111 {'fired under' if sentinel else 'missed'} the sentinel")
+        if not sentinel:
+            check(_rules(findings) == by_device["cpu"]["lm_bf16"],
+                  f"flagship rules {_rules(findings)} != the CPU lm_bf16's "
+                  f"{by_device['cpu']['lm_bf16']}")
+        del m, opt, step, ts, cap
+        torch.cuda.empty_cache()
+
+    # (c) the dense decode step, unfused and fused
+    model = TransformerLM(**SERVE_MODEL, device="cuda", generator=torch.Generator().manual_seed(0))
+    slots = SERVE_CFG["slots"]
+    tok = torch.zeros(slots, dtype=torch.long, device="cuda")
+    pos = torch.full((slots,), ANALYSIS_DECODE_POS, dtype=torch.long, device="cuda")
+    for fused in (False, True):
+        eng = ServingEngine(model, ServeConfig(**SERVE_CFG, fused_head=fused), device="cuda")
+        args = (eng.caches, tok, pos)
+        eng._decode(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._decode(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        tag = "decode_fused" if fused else "decode"
+        cap, findings, deltas = _captured(tag, eng._decode, args, donation=False,
+                                          modules=(model,))
+        print(f"[analysis] (c) {tag}: captured step {cap.wall_s * 1e3:.1f} ms vs {ms:.2f} ms "
+              f"uncaptured; launches {dict(cap.launches)}; rules {_rules(findings)}")
+        marks[tag] = (len(cap.regions), sum(cap.launches.values()), ms)
+        check(dict(cap.launches) == ({"fused_decode_head": 1} if fused else {}),
+              f"the {tag} trace names {dict(cap.launches)}")
+        check(dict(cap.launches) == deltas, f"the {tag} trace disagrees with the counters")
+        check(("J119" in _rules(findings)) != fused, f"J119 on {tag}: {_rules(findings)}")
+        check("J110" not in _rules(findings), f"J110 fired on {tag}")
+        del eng
+    del model
+    torch.cuda.empty_cache()
+
+    # (d) the bf16 ragged MoE
+    t0 = time.perf_counter()
+    m = TransformerLM(**MOE_MODEL, moe_experts=ANALYSIS_MOE_EXPERTS, moe_dispatch="ragged",
+                      compute_dtype=torch.bfloat16, device="cuda",
+                      generator=torch.Generator().manual_seed(6))
+    opt = AdamW(lr=MOE_LR)
+    step = make_train_step(m, opt)
+    ts, ms = _timed_steps(TrainState.create(m, opt), step, [batch] * ANALYSIS_TIMED_STEPS)
+    cap, findings, deltas = _captured("moe_ragged_bf16", step, (ts, tokens, labels))
+    need = dict(MOE_PER_STEP, grouped_dw_bf16=2 * TRAIN_MODEL["num_layers"])
+    print(f"[analysis] (d) ragged MoE E={ANALYSIS_MOE_EXPERTS} bf16: captured step "
+          f"{cap.wall_s * 1e3:.1f} ms vs {ms:.2f} ms uncaptured; launches {dict(cap.launches)}; "
+          f"rules {_rules(findings)}; {time.perf_counter() - t0:.1f} s")
+    check(dict(cap.launches) == need, f"the MoE trace names {dict(cap.launches)}, not {need}")
+    check(dict(cap.launches) == deltas, "the MoE trace disagrees with the counters")
+    launches = {k.name: k.launches for k in KERNELS}  # ---- and ends here
+    del m, opt, step, ts, cap
+    torch.cuda.empty_cache()
+
+    # (e) what the markers cost the uncaptured steps of (b) and (c)
+    check(markers._capture is None, "a capture outlived its step")
+
+    def bare(x):
+        return x
+
+    def best_us(fn, arg) -> float:
+        runs = timeit.repeat("fn(arg)", globals={"fn": fn, "arg": arg},
+                             number=ANALYSIS_MARKER_CALLS, repeat=ANALYSIS_MARKER_REPEATS)
+        return min(runs) / ANALYSIS_MARKER_CALLS * 1e6
+
+    us_bare = best_us(bare, batch)
+    us_marked = best_us(markers.marked("probe")(bare), batch) - us_bare
+    us_launch = best_us(markers.on_launch, KERNELS[0])
+    costs = []
+    for tag, (regions, n_launch, ms) in marks.items():
+        us = regions * us_marked + n_launch * us_launch
+        costs.append(f"{tag} {regions} regions and {n_launch} launches, {us:.1f} us of "
+                     f"{ms:.2f} ms ({us / (10 * ms):.4f}%)")
+        check(us * 1e-3 <= ANALYSIS_MARKER_SHARE * ms,
+              f"the markers cost the {tag} step {us:.1f} us of {ms:.2f} ms")
+    print(f"[analysis] (e) with no capture: a marked call {us_marked:.4f} us over a bare "
+          f"call ({us_bare:.4f} us), a launch report {us_launch:.4f} us; a step: "
+          f"{'; '.join(costs)}")
+    print(f"[analysis] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"analysis": launches}
+
+
 def ptxas_usage(log: str) -> dict[str, dict]:
     """{mangled entry function: {registers, spill, stack}} from a ``-Xptxas
     -v`` build log (spill: bytes stored plus bytes loaded; stack: the
@@ -7036,6 +7255,8 @@ def main() -> int:
     paths.update(mpmd_phase())
     torch.cuda.empty_cache()
     paths.update(fleet_phase())
+    torch.cuda.empty_cache()
+    paths.update(analysis_phase())
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())
@@ -7053,5 +7274,9 @@ def main() -> int:
 if __name__ == "__main__":
     t0 = time.perf_counter()
     rc = main()
+    if rc == 0:
+        import torch
+
+        torch.cuda.synchronize()
     print(f"[done] {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

@@ -2197,3 +2197,84 @@ def test_fleet_drill_at_world_2_on_one_card(cuda_device, tmp_path):
     assert rep["ok"], rep
     assert rep["reforms"] >= 1 and rep["crc_ok"]
     assert all(r["match"] for r in rep["ranks"].values())
+
+
+# The analyzers on the card (the graph pass's capture at world 1 on NCCL).
+
+# Launches of one flagship step at L=2 (flash bf16 fwd, dQ, dK/dV a layer;
+# add+LN 2L junctions a direction; the fused head saving its scores).
+ANALYSIS_SMALL = dict(vocab_size=1024, embed_dim=128, num_heads=4, num_layers=2, max_len=256,
+                      rope=True)
+ANALYSIS_PER_STEP = {"flash_forward_lse_bf16": 2, "flash_dq_bf16": 2, "flash_dkdv_bf16": 2,
+                     "add_layernorm_fwd_bf16": 4, "add_layernorm_bwd_bf16": 4,
+                     "xent_fwd_save": 1, "xent_dx_s": 1, "xent_dw_s": 1}
+
+
+@pytest.mark.cuda
+def test_strict_analysis_cli_on_the_card(cuda_device):
+    """``python -m tpudml_torch.analysis --strict`` with the card as the
+    device: exit 0, no finding outside the allowlist, no stale entry."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    env = {k: v for k, v in os.environ.items() if k != "TPUDML_DEVICE"}
+    proc = subprocess.run([sys.executable, "-m", "tpudml_torch.analysis", "--strict"],
+                          cwd=Path(__file__).resolve().parent.parent, capture_output=True,
+                          text=True, timeout=600, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "\n0 finding(s)" in proc.stdout
+    assert "stale allowlist" not in proc.stdout
+
+
+@pytest.mark.cuda
+def test_flagship_capture_names_every_launch_on_the_card(cuda_device):
+    """One captured bf16 flagship step names each kernel launch, its
+    backward's (on autograd's device thread) among them, exactly as the
+    launch counters count them."""
+    import threading
+
+    from tpudml_torch.analysis import analyze_capture, capture
+    from tpudml_torch.models import TransformerLM
+    from tpudml_torch.ops import KERNELS
+    from tpudml_torch.optim import AdamW
+    from tpudml_torch.train import TrainState, make_lm_fused_train_step
+
+    m = TransformerLM(**ANALYSIS_SMALL, impl="flash", fused_ln=True, compute_dtype=torch.bfloat16,
+                      device="cuda", generator=torch.Generator().manual_seed(3))
+    opt = AdamW(lr=3e-4)
+    step = make_lm_fused_train_step(m, opt, save_scores=True)
+    rows = torch.randint(0, 1024, (2, 257), generator=torch.Generator().manual_seed(1)).cuda()
+    ts, _ = step(TrainState.create(m, opt), rows[:, :-1], rows[:, 1:])
+    before = {k.name: k.launches for k in KERNELS}
+    cap = capture(step, (ts, rows[:, :-1], rows[:, 1:]), name="flagship")
+    deltas = {k.name: k.launches - before[k.name] for k in KERNELS if k.launches > before[k.name]}
+    assert cap.error is None
+    assert dict(cap.launches) == ANALYSIS_PER_STEP == deltas
+    main = threading.get_ident()
+    backward = {e.name for e in cap.events if e.kind == "launch" and e.thread != main}
+    assert any(e.kind == "op" and e.thread != main for e in cap.events)
+    assert {"flash_dq_bf16", "flash_dkdv_bf16", "add_layernorm_bwd_bf16", "xent_dx_s",
+            "xent_dw_s"} <= backward
+    rules = {f.rule for f in analyze_capture(cap, "flagship", expects_donation=True)}
+    assert rules == {"J104", "J111"}
+
+
+def _entrypoint_names():
+    from tpudml_torch.analysis import ENTRYPOINTS
+
+    return list(ENTRYPOINTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _entrypoint_names())
+def test_entrypoint_findings_are_the_same_on_card_and_cpu(cuda_device, name):
+    """Each registry entry at world 1: the same rules, at the same files,
+    on the card (NCCL) as on the CPU (gloo)."""
+    from tpudml_torch.analysis import analyze_entrypoint
+
+    def rules(device):
+        return sorted({(f.rule, f.file) for f in analyze_entrypoint(name, device=device)})
+
+    assert rules("cuda") == rules("cpu")

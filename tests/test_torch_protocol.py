@@ -12,8 +12,8 @@
 - every single-slot shrink of the drill's and the 3-stage spec stays
   P300/P301-clean; the committed fixture streams validate against the
   schedule model and tampered streams fire P300;
-- ``traced_collective_events`` raises ``NotImplementedError`` (ROADMAP
-  queue 1 item 11);
+- ``traced_collective_events`` gives JAX's (op, axes, shape) tuples from
+  one captured step, and they drive P302;
 - the controller refuses a rejected spec with receipts (no round spawned)
   and launches a clean one with its receipt, and the obs report prints
   the gate's verdict.
@@ -135,9 +135,35 @@ def test_stage_collectives_drive_p302_as_jax_s():
     assert [f.rule for f in got] == ["P302"]
 
 
-def test_traced_collective_events_waits_for_the_graph_pass():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        proto.traced_collective_events(lambda x: x, (1,))
+def test_traced_collective_events_drive_p302():
+    """``traced_collective_events`` reads a stage's (op, axes, shape)
+    collectives off one captured step, under JAX's names: the tuples the
+    JAX-fed case above uses. The same tuples on every rank of a group stay
+    silent; a rank whose step differs fires P302 once."""
+    import torch
+    import torch.distributed as dist
+
+    from tpudml_torch.core import process_group
+
+    def stage(width):
+        def fn(x):
+            dist.all_reduce(x)
+            return x
+
+        return proto.traced_collective_events(fn, (torch.ones(2, width),))
+
+    with process_group(device="cpu"):
+        sig_a, sig_b = stage(4), stage(8)
+    assert sig_a == (("psum", ("data",), (2, 4)),)
+    assert sig_b == (("psum", ("data",), (2, 8)),)
+    spec = proto.protocol_surface()["mpmd_drill"]
+    silent = proto.check_schedules(
+        spec, proto.build_schedules(spec, stage_collectives={0: sig_a, 1: sig_a}))
+    assert silent == [], silent
+    mixed = proto.build_schedules(
+        spec, stage_collectives={(0, 0): sig_a, (0, 1): sig_b, 1: sig_a})
+    fired = [f for f in proto.check_schedules(spec, mixed) if f.rule == "P302"]
+    assert len(fired) == 1, fired
 
 
 @pytest.mark.parametrize("surface_name", ["mpmd_drill", "mpmd_3stage"])

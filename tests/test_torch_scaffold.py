@@ -146,6 +146,27 @@ def test_fleet_modules_are_among_the_checked(module):
     assert (path if path.exists() else path.with_suffix("") / "__init__.py") in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "tpudml_torch.markers", "tpudml_torch.analysis.capture", "tpudml_torch.analysis.graph_pass",
+    "tpudml_torch.analysis.entrypoints", "tpudml_torch.analysis.ast_pass",
+    "tpudml_torch.analysis.allowlist", "tpudml_torch.analysis.capabilities",
+    "tpudml_torch.analysis.__main__"])
+def test_analyzer_modules_are_among_the_checked(module):
+    """The graph pass, the source lint, their CLI and the marker regions
+    are among the modules the jax-blocked import and the AST scan cover."""
+    assert module in list(_modules())
+    assert REPO / (module.replace(".", "/") + ".py") in SOURCES
+
+
+def test_markers_module_imports_nothing_of_the_package():
+    """The engines mark their code through ``tpudml_torch.markers``: it
+    must not import ``tpudml_torch.analysis`` (which imports the engines)."""
+    tree = ast.parse((PKG / "markers.py").read_text())
+    imported = [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)] + [
+        a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    assert not [m for m in imported if m.startswith("tpudml")], imported
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_tpudml_import(path):
     tree = ast.parse(path.read_text())

@@ -22,9 +22,9 @@ mirroring ``StageWorker.run_step``:
    :class:`~tpudml_torch.mpmd.runtime.GroupReducer` issues one
    all-reduce, so the default model uses one symbolic
    ``("allreduce_sum", "data")`` event; pass ``stage_collectives``
-   (JAX takes them from the traced jaxpr; in the port
-   :func:`traced_collective_events` waits for the graph pass) to check
-   a stage's real collective sequence instead.
+   (:func:`traced_collective_events`: JAX takes them from the traced
+   jaxpr, the port from one captured step) to check a stage's real
+   collective sequence instead.
 
 :func:`check_schedules` then verifies the composed system:
 
@@ -46,8 +46,8 @@ mirroring ``StageWorker.run_step``:
   no preceding drain vote: a membership event during the step would
   park the group in gloo instead of draining at the barrier.
 
-(P304, the port-discipline lint, is source-level and lives in JAX's AST
-pass; the port's comes with it, ROADMAP.md queue 1 item 11.)
+(P304, the port-discipline lint, is source-level and lives in the AST
+pass, ``analysis/ast_pass.py``.)
 
 Findings carry ``entrypoint="protocol:<name>"`` and no file, as JAX's
 do. The whole pass needs no device and runs in milliseconds,
@@ -210,13 +210,25 @@ def build_schedules(spec: PipelineSpec, *, stage_collectives=None) -> dict:
 
 
 def traced_collective_events(fn, args) -> tuple:
-    """``fn(*args)``'s ordered ``(op, axis, shape)`` collective sequence,
-    for a stage's entry in ``build_schedules(stage_collectives=...)``.
-    JAX reads it off the traced jaxpr; the port's graph pass is not
-    written yet."""
-    raise NotImplementedError(
-        "traced_collective_events traces the stage through analysis/'s graph pass, "
-        "which is not ported yet (ROADMAP.md queue 1 item 11)")
+    """``fn(*args)``'s ordered ``(op, axes, shape)`` collective sequence,
+    under JAX's primitive names (``psum``, ``all_gather``, ``psum_scatter``,
+    ``all_to_all``, ``ppermute``), for a stage's entry in
+    ``build_schedules(stage_collectives=...)``: P302 then compares the
+    group's real programs instead of the symbolic reducer. JAX reads it
+    off the traced jaxpr; the port runs ``fn(*args)`` once under the graph
+    pass's capture (:mod:`tpudml_torch.analysis.capture`), the default
+    process group standing for the stage group's ``data`` axis. A step
+    that raises raises here."""
+    import torch.distributed as dist
+
+    from tpudml_torch.analysis.capture import capture
+    from tpudml_torch.analysis.graph_pass import collective_shape_signature
+
+    axes = {"data": None} if dist.is_initialized() else {}
+    cap = capture(fn, args, name="traced", axes=axes)
+    if cap.error is not None:
+        raise cap.error
+    return collective_shape_signature(cap)
 
 
 # ---------------------------------------------------------- the checks

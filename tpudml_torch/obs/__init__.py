@@ -1,6 +1,6 @@
 """The observability layer of the port (``tpudml.obs``; the drift
 monitor's live regimes and ``python -m tpudml_torch.obs --check-drift``
-wait for the analyzers, ROADMAP.md queue 1 item 11):
+wait for the analyzers' dataflow pass, ROADMAP.md queue 1 item 11):
 
 - :mod:`tpudml_torch.obs.tracer`    — structured spans → Perfetto ``trace.json``.
 - :mod:`tpudml_torch.obs.stepstats` — the DP step's :class:`StepStats`.

@@ -25,17 +25,17 @@ DRIFT_REPORT_VERSION = 1
 DEFAULT_THRESHOLD = 0.10
 DRIFT_REPORT_PATH = os.path.join("obs", "drift.json")
 
-_NOT_PORTED = ("traces the step through analysis/, which is not ported yet "
-               "(ROADMAP.md queue 1 item 11)")
+_NOT_PORTED = ("needs the step's static wire bytes from analysis/dataflow.py, which is "
+               "not ported yet (ROADMAP.md queue 1 item 11)")
 
 
 def measure_regime(name: str) -> dict:
-    """A live regime's drift record: the static side needs the analyzers."""
+    """A live regime's drift record: the static side needs the dataflow pass."""
     raise NotImplementedError(f"measure_regime {_NOT_PORTED}")
 
 
 def drift_records(names: list[str] | None = None) -> list[dict]:
-    """Every live regime's drift record: the static side needs the analyzers."""
+    """Every live regime's drift record: the static side needs the dataflow pass."""
     raise NotImplementedError(f"drift_records {_NOT_PORTED}")
 
 

@@ -46,6 +46,7 @@ import math
 
 import torch
 
+from tpudml_torch.markers import kernel_op
 from tpudml_torch.ops.cuda_lib import (
     F, I, LL, P, STORAGE_DTYPES, CudaLibrary, Kernel, check_cuda_operand, ptr,
     storage_twin,
@@ -156,6 +157,7 @@ def flash_forward_lse_reference(q, k, v, *, causal: bool = False,
     return out.to(q.dtype), lse
 
 
+@kernel_op
 def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = False, k_shift: int = 0):
     """Flash forward that also returns the row log-sum-exp.
@@ -258,6 +260,7 @@ def _bwd_args(q, k, v, do, lse, delta, causal, k_shift, scale):
              I(k_shift), F(scale)))
 
 
+@kernel_op
 def flash_dq(q, k, v, do, lse, delta, *, causal: bool = False,
              k_shift: int = 0) -> torch.Tensor:
     """dq [B,T,H,D] of :func:`flash_block_grads`: the dQ kernel for CUDA
@@ -274,6 +277,7 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     return dq
 
 
+@kernel_op
 def flash_dkdv(q, k, v, do, lse, delta, *, causal: bool = False,
                k_shift: int = 0):
     """(dk, dv) [B,T,H,D] of :func:`flash_block_grads`: the dK/dV kernel

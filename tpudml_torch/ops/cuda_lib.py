@@ -11,7 +11,8 @@ A :class:`Kernel` is one entry point of a library as the wrappers see it: it
 launches the C function on PyTorch's current stream, raises on a non-zero
 ``cudaError_t``, and counts its launches in ``launches`` (a plain integer
 that a run resets and reads to show that its main path went through the
-kernel).
+kernel). While the graph pass captures a step, each launch is also
+recorded by name in the capture (``tpudml_torch.markers.on_launch``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from tpudml_torch import markers
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -150,6 +153,8 @@ class Kernel:
             stream = torch.cuda.current_stream().cuda_stream
         self.library.call(self.fn, *args, P(stream))
         self.launches += 1
+        if markers._capture is not None:
+            markers.on_launch(self)
 
 
 def build_all(libraries) -> float:

@@ -27,9 +27,15 @@ from typing import NamedTuple
 
 import torch
 
+from tpudml_torch.markers import kernel_op, marked
 from tpudml_torch.ops.cuda_lib import (
     I, P, CudaLibrary, Kernel, check_cuda_operand, ptr,
 )
+
+# The fused tails run as regions under JAX's jit names
+# (tpudml/ops/decode_head.py:208, :223), which J110 and J119 skip.
+FUSED_HEAD_MARKER = "_fused_decode_head"
+FUSED_HEAD_INT8_MARKER = "_fused_decode_head_int8"
 
 _ROWS = [I, I, I, P, P]  # B, d, V, out buffer, arrival counter (then the stream)
 _LIB = CudaLibrary("decode_head.cu", {
@@ -143,6 +149,8 @@ def _check_rows(x, b, d, v):
         raise ValueError(f"x feature dim {x.shape[1]} != weight rows {d}")
 
 
+@marked(FUSED_HEAD_MARKER)
+@kernel_op
 def fused_decode_head(x: torch.Tensor, w: torch.Tensor,
                       bias: torch.Tensor | None = None):
     """Greedy pick + step statistics of ``x @ w [+ bias]`` (module
@@ -157,6 +165,8 @@ def fused_decode_head(x: torch.Tensor, w: torch.Tensor,
     return _launch(DECODE_HEAD, xn, (w,), b, v)
 
 
+@marked(FUSED_HEAD_INT8_MARKER)
+@kernel_op
 def fused_decode_head_int8(x: torch.Tensor, wq: torch.Tensor,
                            scale: torch.Tensor,
                            bias: torch.Tensor | None = None):

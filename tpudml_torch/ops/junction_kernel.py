@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from tpudml_torch.markers import marked
 from tpudml_torch.ops.attention_kernel import flash_attention
 from tpudml_torch.ops.layernorm_kernel import fused_add_layernorm
 
@@ -30,6 +31,11 @@ def _projection(a, wo, bo, r):
     return torch.matmul(a.reshape(b, t, h * dh), wo).to(r.dtype) + bo.to(r.dtype)
 
 
+# The junction runs as one region under JAX's jit name (tpudml/ops/junction_kernel.py:53).
+ATTN_JUNCTION_MARKER = "_attn_junction"
+
+
+@marked(ATTN_JUNCTION_MARKER)
 def fused_attn_junction(q, k, v, r, wo, bo, scale, bias, *, causal: bool = True,
                         eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
     """The attention junction as one unit (module docstring). ``q``/``k``/

@@ -54,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpudml_torch.markers import kernel_op
 from tpudml_torch.ops.cuda_lib import (
     F, I, P, CudaLibrary, Kernel, check_cuda_operand, ptr, storage_twin,
 )
@@ -234,6 +235,7 @@ def _check_width(d: int) -> None:
         raise ValueError(f"LayerNorm kernel width must be >= 1, got {d}")
 
 
+@kernel_op
 def add_layernorm_forward(x: torch.Tensor, r: torch.Tensor,
                           scale: torch.Tensor, bias: torch.Tensor,
                           eps: float = 1e-5):
@@ -282,6 +284,7 @@ def _backward_launch(kernel: Kernel, s, scale, dy, ds, mean, rstd):
     return dx, dgamma, dbeta
 
 
+@kernel_op
 def add_layernorm_backward(s: torch.Tensor, scale: torch.Tensor,
                            dy: torch.Tensor, ds: torch.Tensor | None,
                            mean: torch.Tensor, rstd: torch.Tensor):
@@ -294,6 +297,7 @@ def add_layernorm_backward(s: torch.Tensor, scale: torch.Tensor,
     return _backward_launch(kernel, s, scale, dy, ds, mean, rstd)
 
 
+@kernel_op
 def layernorm_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                       eps: float = 1e-5):
     """(y, mean, rstd) for rows x [N, d]: the plain-LN forward kernel for
@@ -315,6 +319,7 @@ def layernorm_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y, mean, rstd
 
 
+@kernel_op
 def layernorm_backward(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                        mean: torch.Tensor, rstd: torch.Tensor):
     """(dx, dγ, dβ) for rows [N, d] of the plain LayerNorm: its backward

@@ -36,6 +36,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from tpudml_torch.markers import kernel_op
 from tpudml_torch.ops.cuda_lib import (
     I, P, STORAGE_DTYPES, CudaLibrary, Kernel, check_cuda_operand, ptr, storage_twin,
 )
@@ -166,6 +167,7 @@ def grouped_dw_reference(x, g, group_sizes):
     return dw
 
 
+@kernel_op
 def grouped_dw(x, g, group_sizes):
     """Per-group ``x[slab]ᵀ @ g[slab]`` over contiguous row slabs.
 

@@ -64,10 +64,17 @@ import ctypes
 import torch
 import torch.distributed as dist
 
+from tpudml_torch.markers import kernel_op, marked
 from tpudml_torch.ops.cuda_lib import (
     F, I, P, STORAGE_DTYPES, CudaLibrary, Kernel, check_cuda_operand, ptr,
 )
 from tpudml_torch.ops.tiling import round_up
+
+# The unsharded and the vocab-sharded head run as regions under JAX's jit
+# names (tpudml/ops/xent_kernel.py:545, :719), which the graph pass's J107
+# keys on.
+FUSED_XENT_MARKER = "_fused_xent_unsharded"
+SHARDED_XENT_MARKER = "_fused_xent_sharded"
 
 _LIB = CudaLibrary("xent.cu", {
     "xent_fwd": [P] * 7 + [I] * 4 + [P],
@@ -355,6 +362,7 @@ def _forward_launch(kernel: Kernel, x, w, b, labels, s=None):
     return lse, picked
 
 
+@kernel_op
 def xent_forward(x, w, b, labels):
     """(lse [N], picked [N]) f32 of s = x·W + b for x [N, d], w [d, V],
     b [V] (one dtype: f32 or bf16) and int32 labels [N]: kernel 10 for
@@ -365,6 +373,7 @@ def xent_forward(x, w, b, labels):
     return _forward_launch(XENT_FORWARD, x, w, b, labels)
 
 
+@kernel_op
 def xent_forward_save(x, w, b, labels):
     """As :func:`xent_forward`, also returning the f32 scores s [N, V]
     (kernel 11 on the card)."""
@@ -394,6 +403,7 @@ def _check_backward_operands(s, operand, labels, lse, rows: bool) -> None:
         raise ValueError("s, operand, labels, lse must be on one device")
 
 
+@kernel_op
 def xent_dx(s, w, labels, lse, inv_n: float):
     """dx [N, d] = dlog·Wᵀ in w's dtype from the saved f32 scores s [N, V]
     (contiguous, unpadded): kernel 12 for CUDA tensors,
@@ -410,6 +420,7 @@ def xent_dx(s, w, labels, lse, inv_n: float):
     return dx
 
 
+@kernel_op
 def xent_dw(s, x, labels, lse, inv_n: float):
     """(dw [d, V] = xᵀ·dlog in x's dtype, db [V] f32) from the saved f32
     scores: kernel 13 for CUDA tensors, :func:`xent_dw_reference` for CPU
@@ -438,6 +449,7 @@ def _check_lean_operands(x, w, b, labels, lse) -> None:
                          f"labels {tuple(labels.shape)} on {x.device}")
 
 
+@kernel_op
 def xent_dx_lean(x, w, b, labels, lse, inv_n: float):
     """dx [N, d] in x's dtype, recomputing the scores from x [N, d], w
     [d, V], b [V] (one dtype) and int32 labels [N] with the forward's lse
@@ -454,6 +466,7 @@ def xent_dx_lean(x, w, b, labels, lse, inv_n: float):
     return dx
 
 
+@kernel_op
 def xent_dw_lean(x, w, b, labels, lse, inv_n: float):
     """(dw [d, V] in w's dtype, db [V] f32) from the same operands as
     :func:`xent_dx_lean`: kernel 15 for CUDA tensors,
@@ -531,6 +544,7 @@ class _LinearXentLean(torch.autograd.Function):
         return (*_scale_cotangents(g, dx, dw, db, ctx.dtypes), None)
 
 
+@marked(FUSED_XENT_MARKER)
 def linear_cross_entropy(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                          bias: torch.Tensor | None = None, *,
                          block_n: int = 256, block_v: int = 2048,
@@ -683,6 +697,7 @@ def sharded_xent_reference(x, w, b, labels, group, reduce_dx: bool = True):
     return (lse - picked).mean()
 
 
+@marked(SHARDED_XENT_MARKER)
 def sharded_linear_cross_entropy(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                                  bias: torch.Tensor | None = None, *, group,
                                  block_n: int = 256, block_v: int = 2048,

@@ -22,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 from tpudml_torch.capabilities import reject
+from tpudml_torch.markers import marked
 
 # 4 hides 3/4 of the reduce behind compute while each chunk's product
 # stays large at the flagship's row counts (JAX's planner prices it).
@@ -55,6 +56,12 @@ class _OverlapMatmul(torch.autograd.Function):
         return dx, dw, None, None
 
 
+# The chunked matmul runs as one region under JAX's jit name
+# (tpudml/parallel/overlap.py:59), J119's overlap-claim check.
+TP_OVERLAP_MARKER = "_tp_overlap_matmul"
+
+
+@marked(TP_OVERLAP_MARKER)
 def tp_overlap_matmul(x: torch.Tensor, w: torch.Tensor, *, group=None,
                       chunks: int = OVERLAP_CHUNKS) -> torch.Tensor:
     """``all_reduce(x @ w)`` over ``group`` in ``chunks`` row chunks, each

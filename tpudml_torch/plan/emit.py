@@ -375,11 +375,12 @@ def _finding(rule: str, entrypoint: str, message: str) -> dict:
 
 def plan_drift_findings(plan: dict) -> list:
     """Rule J118 (the code drifted from the plan's ``predicted`` block):
-    JAX re-traces the winner through the analyzers, which are not ported
-    yet."""
+    JAX re-traces the winner for its static wire bytes and peak HBM, from
+    the analyzers' dataflow and cost walks, which are not ported yet."""
     raise NotImplementedError(
-        "plan_drift_findings (rule J118) traces the winner through analysis/, which "
-        "is not ported yet (ROADMAP.md queue 1 item 11)")
+        "plan_drift_findings (rule J118) needs the winner's static wire bytes and peak "
+        "HBM from analysis/dataflow.py and cost.py, which are not ported yet (ROADMAP.md "
+        "queue 1 item 11)")
 
 
 def make_plan(

@@ -14,6 +14,7 @@ handoff, the spawned drill, int8 weights).
 
 from tpudml_torch.serve.cache import KVCache, cache_bytes, init_cache
 from tpudml_torch.serve.engine import (
+    SERVE_DECODE_MARKER,
     RequestStats,
     ServeCompositionError,
     ServeConfig,
@@ -25,18 +26,21 @@ from tpudml_torch.serve.engine import (
     make_paged_decode_step,
 )
 from tpudml_torch.serve.load import Request, poisson_workload
-from tpudml_torch.serve.paged import PagedKVCache, PagePool, init_pool, pool_bytes
+from tpudml_torch.serve.paged import PAGED_DECODE_MARKER, PagedKVCache, PagePool, init_pool, pool_bytes
 from tpudml_torch.serve.sched import DecodeCostModel, SLOConfig
-from tpudml_torch.serve.spec import draft_from_trunk, make_spec_decode_step
+from tpudml_torch.serve.spec import SPEC_DECODE_MARKER, draft_from_trunk, make_spec_decode_step
 
 __all__ = [
     "DecodeCostModel",
     "KVCache",
+    "PAGED_DECODE_MARKER",
     "PagePool",
     "PagedKVCache",
     "Request",
     "RequestStats",
+    "SERVE_DECODE_MARKER",
     "SLOConfig",
+    "SPEC_DECODE_MARKER",
     "ServeCompositionError",
     "ServeConfig",
     "ServeReport",

@@ -57,10 +57,11 @@ import torch
 
 from tpudml_torch.capabilities import CompositionError, reject
 from tpudml_torch.device import resolve_device
+from tpudml_torch.markers import marked
 from tpudml_torch.ops.decode_head import fused_decode_head, fused_decode_head_int8
 from tpudml_torch.serve.cache import KINDS
 from tpudml_torch.serve.load import Request
-from tpudml_torch.serve.paged import PagePool
+from tpudml_torch.serve.paged import PAGED_DECODE_MARKER, PagePool
 from tpudml_torch.serve.sched import DecodeCostModel, SLOConfig
 from tpudml_torch.serve.spec import draft_from_trunk, make_spec_decode_step
 
@@ -72,10 +73,16 @@ class ServeCompositionError(CompositionError):
     answer path."""
 
 
+# Every decode step runs as a region under JAX's jit name
+# (tpudml/serve/engine.py:72): J110 and J119 read the body of that region.
+SERVE_DECODE_MARKER = "_serve_decode_step"
+
+
 def make_decode_step(model):
     """The decode step: (caches, tokens [B], pos [B]) -> (next greedy
     tokens [B] int32, logits [B, V]); the caches update in place."""
 
+    @marked(SERVE_DECODE_MARKER)
     @torch.inference_mode()
     def step(caches, tokens, pos):
         logits, _ = model.apply_decode(caches, tokens, pos)
@@ -97,6 +104,7 @@ def make_fused_decode_step(model, head_q=None, head_scale=None):
     what JAX's fused step computes (its kernel takes the bf16 features
     with the f32 head at ``preferred_element_type=f32``)."""
 
+    @marked(SERVE_DECODE_MARKER)
     @torch.inference_mode()
     def step(caches, tokens, pos):
         h, _ = model.apply_decode_features(caches, tokens, pos)
@@ -116,6 +124,7 @@ def make_cacheless_decode_step(model):
     forward over the whole history and keep the last row's greedy pick,
     tokens [B, T] -> next tokens [B] int32. The cache's A/B baseline."""
 
+    @marked(SERVE_DECODE_MARKER)
     @torch.inference_mode()
     def step(tokens):
         return torch.argmax(model(tokens)[:, -1, :], dim=-1).to(torch.int32)
@@ -129,6 +138,7 @@ def make_paged_decode_step(model):
     logits [B, V]); the pools update in place. Page alloc/free between
     steps only rewrites the table."""
 
+    @marked(PAGED_DECODE_MARKER)
     @torch.inference_mode()
     def step(caches, table, tokens, pos):
         logits, _ = model.apply_decode_paged(caches, table, tokens[:, None], pos)

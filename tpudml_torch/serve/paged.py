@@ -44,6 +44,10 @@ import torch
 
 from tpudml_torch.serve.cache import _STORE_DTYPE, KINDS, _dequant, _encode
 
+# The paged decode step runs as a region under JAX's jit name
+# (tpudml/serve/paged.py:58), J117's key.
+PAGED_DECODE_MARKER = "_serve_paged_decode_step"
+
 #: Page 0 is never allocated: it is the scatter sink for inactive slots'
 #: don't-care writes (their table rows are all zeros).
 GARBAGE_PAGE = 0

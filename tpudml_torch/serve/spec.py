@@ -27,6 +27,8 @@ import copy
 
 import torch
 
+from tpudml_torch.markers import marked
+
 
 def draft_from_trunk(model, num_layers: int):
     """(draft_model, draft_params): a ``TransformerLM`` view of the
@@ -59,6 +61,12 @@ def _verify(window, logits, spec_k: int):
     return emitted, accepted + 1
 
 
+# Spec steps run as a region under JAX's jit name (tpudml/serve/spec.py:42),
+# not SERVE_DECODE_MARKER: the verify window's [B, H, K+1, L] softmax is
+# J117's business, not J110's single-token contract.
+SPEC_DECODE_MARKER = "_serve_spec_decode_step"
+
+
 def make_spec_decode_step(model, draft_model, spec_k: int, *, paged: bool = False):
     """The spec-decode step. Dense signature ``(caches, dcaches, tokens [B],
     pos [B])``; paged inserts ``table`` [B, max_pages] after ``dcaches``
@@ -82,6 +90,7 @@ def make_spec_decode_step(model, draft_model, spec_k: int, *, paged: bool = Fals
         draft_model.apply_decode_features(dcaches, t, pos + spec_k)
         return torch.stack(window, dim=1)  # [B, K+1]
 
+    @marked(SPEC_DECODE_MARKER)
     @torch.inference_mode()
     def step(caches, dcaches, *rest):
         tokens, pos = rest[-2:]

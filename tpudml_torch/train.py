@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from tpudml_torch.core.prng import Key
+from tpudml_torch.markers import marked
 from tpudml_torch.nn.losses import accuracy, softmax_cross_entropy
 from tpudml_torch.nn.moe import MoELayer
 from tpudml_torch.ops.xent_kernel import linear_cross_entropy
@@ -264,6 +265,13 @@ def local_grads(loss_fn: Callable, model: nn.Module, tokens: torch.Tensor,
     return dict(zip(params, grads)), metrics
 
 
+# The finiteness check runs as a region under the name of the primitive
+# JAX's check lowers to: ``torch.isfinite`` decomposes into elementwise
+# aten ops, so J111 recognises the sentinel by this region.
+FINITE_CHECK_MARKER = "is_finite"
+
+
+@marked(FINITE_CHECK_MARKER)
 def nonfinite_leaves(tensors: list) -> torch.Tensor:
     """Bool tensor [len(tensors)]: which tensors hold a non-finite element,
     with no host read and in two multi-tensor launches whatever their
